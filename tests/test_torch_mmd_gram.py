@@ -1,0 +1,216 @@
+"""The plain versions of the port's MMD-Gram kernels, and its kernel autograd
+Function, against ``vgan_tpu.ops.pallas.mmd_gram`` run in Pallas interpret
+mode on the CPU, in float32 (the tolerances of test_pallas_gram.py).
+
+On the CPU each kernel wrapper returns its plain version; the CUDA kernels
+themselves are held to those plain versions on the card by chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import vgan_tpu.ops.pallas.mmd_gram as JG
+from vgan_tpu.ops import mmd as JM
+from vgan_tpu_torch.ops.cuda import mmd_gram as TG
+
+RTOL, GRAD_RTOL = 2e-4, 2e-3
+MULTS = JM.bandwidth_multipliers()
+
+
+def _pair(n1, n2, d, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n1, d)).astype(np.float32)
+    y = (rng.normal(size=(n2, d)) * (rng.random(d) < 0.6) + 0.2).astype(np.float32)
+    return x, y
+
+
+def _both(n1, n2, d, seed=0):
+    """JAX padded operands and the port's unpadded ones, from one draw."""
+    x, y = _pair(n1, n2, d, seed)
+    z_pad, norms_pad, _, _, m, tile_d = JG._pad_z(jnp.asarray(x), jnp.asarray(y))
+    bw = float(JM.candidate_bandwidth(jnp.asarray(np.concatenate([x, y]))))
+    z = torch.from_numpy(np.concatenate([x, y]))
+    return dict(
+        z_pad=z_pad, norms_pad=norms_pad, m=m, tile_d=tile_d,
+        bw_j=jnp.asarray(bw, jnp.float32), z=z, norms=torch.sum(z * z, dim=1),
+        bw_t=torch.tensor(bw, dtype=torch.float32), x=x, y=y,
+    )
+
+
+SHAPES = [(33, 17, 40), (20, 28, 600), (40, 30, 2100)]
+
+
+@pytest.mark.parametrize("n1,n2,d", SHAPES)
+def test_gram_quadrant_sums_plain_vs_pallas(n1, n2, d):
+    a = _both(n1, n2, d)
+    M = a["z_pad"].shape[0]
+    want = JG._gram_quadrant_sums(
+        a["z_pad"], a["norms_pad"], a["bw_j"], n1, a["m"], MULTS, a["tile_d"],
+        tile_m=JG._fwd_tile(M, a["tile_d"], 4), interpret=True)
+    got = TG.gram_quadrant_sums(a["z"], a["norms"], a["bw_t"], n1, MULTS)
+    assert got.shape == (1, 4)
+    np.testing.assert_allclose(got.numpy()[0, :3], np.asarray(want)[0, :3], rtol=RTOL)
+
+
+@pytest.mark.parametrize("n1,n2,d", SHAPES)
+def test_gram_quadrant_sums_stash_plain_vs_pallas(n1, n2, d):
+    a = _both(n1, n2, d)
+    M, m = a["z_pad"].shape[0], a["m"]
+    sums_j, kp_j = JG._gram_quadrant_sums_stash(
+        a["z_pad"], a["norms_pad"], a["bw_j"], n1, m, MULTS, a["tile_d"],
+        tile_m=JG._fwd_tile(M, a["tile_d"], 4), interpret=True)
+    sums_t, kp_t = TG.gram_quadrant_sums_stash(a["z"], a["norms"], a["bw_t"], n1, MULTS)
+    np.testing.assert_allclose(sums_t.numpy()[0, :3], np.asarray(sums_j)[0, :3], rtol=RTOL)
+    assert kp_t.shape == (m, m)
+    np.testing.assert_allclose(kp_t.numpy(), np.asarray(kp_j)[:m, :m], rtol=RTOL, atol=1e-9)
+
+
+@pytest.mark.parametrize("n1,n2,d", [(33, 17, 40), (20, 28, 600)])
+def test_gram_backward_flash_plain_vs_pallas(n1, n2, d):
+    a = _both(n1, n2, d)
+    m = a["m"]
+    sz_j, rs_j = JG._gram_backward_flash(
+        a["z_pad"], a["norms_pad"], a["bw_j"], n1, n2, m, MULTS, interpret=True)
+    sz_t, rs_t = TG.gram_backward_flash(a["z"], a["norms"], a["bw_t"], n1, n2, MULTS)
+    assert sz_t.shape == (m, d) and rs_t.shape == (m, 1)
+    scale = float(np.max(np.abs(np.asarray(sz_j))))
+    np.testing.assert_allclose(sz_t.numpy(), np.asarray(sz_j)[:m, :d], rtol=GRAD_RTOL,
+                               atol=1e-5 * scale)
+    np.testing.assert_allclose(rs_t.numpy(), np.asarray(rs_j)[:m], rtol=GRAD_RTOL,
+                               atol=1e-5 * float(np.max(np.abs(np.asarray(rs_j)))))
+
+
+def test_kprime_panel_plain_vs_pallas():
+    """A row panel of the first 256 padded rows against all columns."""
+    n1, n2, d = 150, 110, 2100  # M = 512, two row panels of 256
+    a = _both(n1, n2, d)
+    m = a["m"]
+    want = JG._kprime_panel(
+        a["z_pad"][:256], a["z_pad"], a["norms_pad"][:256], a["norms_pad"], a["bw_j"],
+        MULTS, a["tile_d"], tile_m=256, interpret=True)
+    got = TG.kprime_panel(a["z"][:256], a["z"], a["norms"][:256], a["norms"], a["bw_t"], MULTS)
+    assert got.shape == (256, m)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, :m], rtol=RTOL, atol=1e-9)
+
+
+def _core_value_and_grads_jax(x, y, bw):
+    def f(a, b):
+        return JG.mmd2_biased_pallas(a, b, bandwidth=bw)[0]
+
+    v = f(jnp.asarray(x), jnp.asarray(y))
+    gx, gy = jax.grad(f, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(y))
+    return float(v), np.asarray(gx), np.asarray(gy)
+
+
+def _core_value_and_grads_torch(x, y, bw):
+    xt = torch.from_numpy(x).requires_grad_()
+    yt = torch.from_numpy(y).requires_grad_()
+    v, _ = TG.mmd2_biased_cuda(xt, yt, bandwidth=bw)
+    gx, gy = torch.autograd.grad(v, (xt, yt))
+    return float(v.detach()), gx.numpy(), gy.numpy()
+
+
+@pytest.mark.parametrize("regime,n1,n2,d", [
+    ("flash", 33, 17, 40),
+    ("flash", 20, 28, 600),
+    ("stash", 40, 30, 2100),
+    ("panel", 40, 30, 2100),
+])
+def test_mmd2_core_vs_pallas(monkeypatch, regime, n1, n2, d):
+    if regime == "panel":
+        monkeypatch.setattr(JG, "_KP_STASH_BYTES", 0)
+        monkeypatch.setattr(TG, "_KP_STASH_BYTES", 0)
+    assert TG.regime(n1 + n2, d) == regime
+    x, y = _pair(n1, n2, d, seed=1)
+    bw = float(d)
+    vj, gxj, gyj = _core_value_and_grads_jax(x, y, jnp.asarray(bw, jnp.float32))
+    TG.reset_launch_counts()
+    vt, gxt, gyt = _core_value_and_grads_torch(x, y, bw)
+    assert sum(TG.launch_counts().values()) == 0, "no kernel launches on CPU tensors"
+    np.testing.assert_allclose(vt, vj, rtol=RTOL)
+    np.testing.assert_allclose(gxt, gxj, rtol=GRAD_RTOL, atol=1e-7)
+    np.testing.assert_allclose(gyt, gyj, rtol=GRAD_RTOL, atol=1e-7)
+
+
+def test_panel_backward_several_panels(monkeypatch):
+    """A panel budget small enough that the rank-1 backward streams three
+    panels; the gradient still matches the dense torch autograd."""
+    from vgan_tpu_torch.ops import mmd as TM
+
+    n1, n2, d = 100, 80, 2100
+    monkeypatch.setattr(TG, "_KP_STASH_BYTES", 0)
+    monkeypatch.setattr(TG, "PANEL_BYTES", 180 * 4 * 64)
+    assert TG._panel_rows(180) == 64
+    x, y = _pair(n1, n2, d, seed=2)
+    bw = torch.tensor(float(d))
+    yt = torch.from_numpy(y).requires_grad_()
+    (g_core,) = torch.autograd.grad(TG.mmd2_cuda_core(torch.from_numpy(x), yt, bw, MULTS), yt)
+    yd = torch.from_numpy(y).requires_grad_()
+    (g_dense,) = torch.autograd.grad(TM.mmd2_biased(torch.from_numpy(x), yd, bandwidth=bw)[0], yd)
+    np.testing.assert_allclose(g_core.numpy(), g_dense.numpy(), rtol=GRAD_RTOL, atol=1e-8)
+
+
+def test_core_cotangent_dtype_and_no_bandwidth_grad():
+    """float64 inputs are computed in float32 and their cotangents cast back."""
+    x, y = _pair(12, 9, 30)
+    xt = torch.from_numpy(x.astype(np.float64)).requires_grad_()
+    bw = torch.tensor(30.0, requires_grad=True)
+    v = TG.mmd2_cuda_core(xt, torch.from_numpy(y.astype(np.float64)), bw, MULTS)
+    assert v.dtype == torch.float32
+    gx, gbw = torch.autograd.grad(v, (xt, bw), allow_unused=True)
+    assert gx.dtype == torch.float64 and gbw is None
+
+
+@pytest.mark.parametrize("stash_bytes", [7 << 30, 0])
+def test_regime_agrees_with_jax(monkeypatch, stash_bytes):
+    monkeypatch.setattr(JG, "_KP_STASH_BYTES", stash_bytes)
+    monkeypatch.setattr(TG, "_KP_STASH_BYTES", stash_bytes)
+    for m in (10, 256, 257, 1000, 5000, 41000, 44000):
+        for d in (10, 128, 511, 512, 513, 2048, 2049, 2560, 10240):
+            M, D, _ = JG._pad_layout(m, d)
+            if JG._stash_kprime(M, D):
+                want = "stash"
+            else:
+                want = "flash" if D <= JG.FLASH_D_MAX else "panel"
+            assert TG._pad_layout(m, d) == (M, D, JG._pad_layout(m, d)[2])
+            assert TG.regime(m, d) == want, (m, d)
+
+
+def test_wrapper_checks_reject_bad_operands():
+    z = torch.zeros(4, 3)
+    with pytest.raises(TypeError):
+        TG._check("z", z.double(), (4, 3), z.device)
+    with pytest.raises(ValueError):
+        TG._check("z", z, (3, 4), z.device)
+    with pytest.raises(ValueError):
+        TG._check("z", z.T, (3, 4), z.device)
+
+
+def test_cuda_supported_rule():
+    big_d = torch.zeros(3, 512)
+    assert not TG.cuda_supported(big_d, big_d), "CPU tensors never take the kernels"
+
+
+def test_ladder_struct():
+    lad = TG._ladder(MULTS)
+    assert (lad.n, lad.use_pow, lad.base) == (5, 1, 4.0)
+    assert list(lad.pw)[:5] == [16, 8, 4, 2, 1]
+    odd = TG._ladder((0.3, 1.0, 2.7))
+    assert odd.use_pow == 0 and abs(odd.mult[2] - 2.7) < 1e-6
+    with pytest.raises(ValueError):
+        TG._ladder(tuple(float(i + 1) for i in range(9)))
+
+
+def test_flash_splits_cover_the_card():
+    """The flash backward's column splits: enough blocks for two per SM, at
+    most one split per column tile, and the partial sums within budget."""
+    assert TG.flash_splits(1000, 1024, 132) == 16
+    assert TG.flash_splits(8192, 1024, 132) == 3
+    assert TG.flash_splits(40, 600, 132) == 1
+    for m, d in ((16384, 2048), (3000, 2048), (700, 100)):
+        s = TG.flash_splits(m, d, 132)
+        assert 1 <= s <= -(-m // TG.KERNEL_TILE)
+        assert s == 1 or s * 4 * m * (d + 1) <= TG.FLASH_SPLIT_BYTES

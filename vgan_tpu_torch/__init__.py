@@ -1,0 +1,30 @@
+"""vgan_tpu_torch: the PyTorch / CUDA port of ``vgan_tpu`` for NVIDIA Hopper.
+
+Adversarial subspace generation for outlier detection (V-GAN), with the
+same estimator API as ``vgan_tpu``. The multi-bandwidth RBF MMD of every
+training step runs through hand-written CUDA kernels
+(``vgan_tpu_torch.ops.cuda``), built with ``nvcc`` at first use. Entry
+points run on ``cuda`` unless given ``device="cpu"``.
+
+This package imports neither JAX nor ``vgan_tpu``; ``vgan_tpu`` stays the
+reference it is tested against.
+"""
+
+__version__ = "0.1.0"
+
+__all__ = ["VGAN", "VGAN_no_kl", "TrainConfig", "resolve_device", "__version__"]
+
+from vgan_tpu_torch._device import resolve_device
+
+
+def __getattr__(name):
+    # Lazy: importing the ops alone does not pull in the estimator stack.
+    if name in ("VGAN", "VGAN_no_kl"):
+        from vgan_tpu_torch.api import vgan as _vgan
+
+        return getattr(_vgan, name)
+    if name == "TrainConfig":
+        from vgan_tpu_torch.train.steps import TrainConfig
+
+        return TrainConfig
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

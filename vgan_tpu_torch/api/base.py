@@ -1,0 +1,157 @@
+"""Shared estimator plumbing: history artifacts, snapshots, persistence.
+
+Counterpart of ``vgan_tpu.api.base``, in the reference's artifact layout:
+``<dir>/train_history/generator_loss_<run>.csv``, ``<dir>/params.csv``
+(upsert keyed by run number), ``<dir>/train_history.pdf``, and
+``<dir>/models/generator_<run>.pt``: the generator's ``state_dict`` as the
+reference saves it (keys ``main.{i}.{weight, bias}``), so the reference's
+own loader reads it too. Two reference bugs stay fixed, as in the JAX
+package: the generator is not written to ``detector_<run>.pt``, and the
+models directory is created when missing.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from collections import defaultdict
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+class EstimatorBase:
+    """Common history / snapshot / persistence behaviour."""
+
+    def __init__(self, path_to_directory=None):
+        self.train_history = defaultdict(list)
+        self.path_to_directory = path_to_directory
+        self.generator_optimizer = None
+        self.seed: Optional[int] = None
+
+    def get_params(self) -> dict:
+        """Hyperparameter dict, same keys as the reference."""
+        return {
+            "batch size": self.batch_size,
+            "epochs": self.epochs,
+            "lr_g": self._lr_g,
+            "momentum": self.momentum,
+            "weight decay": self.weight_decay,
+            "batch_size": self.batch_size,
+            "seed": self.seed,
+            "generator optimizer": self.generator_optimizer,
+        }
+
+    def model_snapshot(self, path_to_directory=None, run_number=0, show=False):
+        """Write the per-epoch loss CSV, upsert ``params.csv`` by run
+        number, and render the loss-curve PDF."""
+        import pandas as pd
+
+        if path_to_directory is None:
+            path_to_directory = self.path_to_directory
+        path_to_directory = Path(path_to_directory)
+        path_to_directory.mkdir(parents=True, exist_ok=True)
+        (path_to_directory / "train_history").mkdir(exist_ok=True)
+
+        pd.DataFrame(self.train_history["generator_loss"]).to_csv(
+            path_to_directory / "train_history" / f"generator_loss_{run_number}.csv",
+            header=False,
+            index=False,
+        )
+        params_path = path_to_directory / "params.csv"
+        if not params_path.is_file():
+            pd.DataFrame(self.get_params(), [run_number]).to_csv(params_path)
+        else:
+            params = pd.read_csv(params_path, index_col=0)
+            params_new = pd.DataFrame(self.get_params(), [run_number])
+            params = params.reindex(params.index.union(params_new.index))
+            params.update(params_new)
+            params.to_csv(params_path)
+        self._plot_loss(path_to_directory, show=show)
+
+    def _plot_loss(self, path_to_directory, show=False):
+        """Loss-curve PDF in the reference's styling."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plt.style.use("ggplot")
+        generator_y = self.train_history["generator_loss"]
+        x = np.linspace(1, len(generator_y), len(generator_y))
+        fig, ax = plt.subplots()
+        ax.plot(x, generator_y, color="cornflowerblue", label="Generator loss", linewidth=2)
+        if self.train_history.get("detector_loss"):
+            ax.plot(x, self.train_history["detector_loss"], color="black",
+                    label="Detector loss", linewidth=2)
+        plt.xlabel("Epoch")
+        plt.ylabel("Loss")
+        ax.legend(loc="upper right")
+        plt.savefig(Path(path_to_directory) / "train_history.pdf", format="pdf", dpi=1200)
+        plt.close(fig)
+        if show:
+            # reference message, quoted verbatim
+            print("The show option has been depricated due to lack of utility")
+
+    def _log_metrics_jsonl(self, wall_seconds: float) -> None:
+        """JSONL metrics beside the CSV artifacts, when a directory is set."""
+        if self.path_to_directory is None:
+            return
+        from vgan_tpu_torch.utils.metrics import MetricsLogger
+
+        path = Path(self.path_to_directory) / "metrics.jsonl"
+        with MetricsLogger(path) as ml:
+            ml.log(
+                "fit",
+                estimator=type(self).__name__,
+                wall_seconds=wall_seconds,
+                epochs=len(self.train_history["generator_loss"]),
+                params={k: str(v) for k, v in self.get_params().items()},
+            )
+            keys = [k for k, v in self.train_history.items() if v]
+            for i in range(len(self.train_history["generator_loss"])):
+                ml.log("epoch", epoch=i, **{k: self.train_history[k][i] for k in keys})
+
+    def _save_generator(self, models_dir: Path, run_number: int, module) -> Path:
+        models_dir.mkdir(parents=True, exist_ok=True)
+        path = models_dir / f"generator_{run_number}.pt"
+        state = {k: v.detach().cpu() for k, v in module.state_dict().items()}
+        torch.save(state, path)
+        return path
+
+    @staticmethod
+    def _count_runs(models_dir: Path) -> int:
+        """Next free run number: one past the highest generator index."""
+        if not models_dir.exists():
+            return 0
+        best = -1
+        for name in os.listdir(models_dir):
+            m = re.match(r"generator_(\d+)\.(msgpack|pt)$", name)
+            if m:
+                best = max(best, int(m.group(1)))
+        return best + 1
+
+    @staticmethod
+    def _load_state_dict(path) -> dict:
+        """A generator ``state_dict`` from a reference-layout ``.pt`` file."""
+        path = Path(path)
+        if path.suffix != ".pt":
+            raise NotImplementedError(
+                f"{path.name}: only torch .pt generator files load here; "
+                ".msgpack (Flax) loading is not ported, see ROADMAP.md Queue 1"
+            )
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        layers = sorted({int(k.split(".")[1]) for k in state if k.startswith("main.")})
+        if len(layers) != 4:
+            raise ValueError(
+                "state_dict does not look like a reference generator (expected "
+                "4 'main.<i>.weight/bias' Linear layers; found layer indices "
+                f"{layers}) - wrong checkpoint file?"
+            )
+        return {
+            f"main.{i}.{part}": state[f"main.{j}.{part}"]
+            for i, j in enumerate(layers)
+            for part in ("weight", "bias")
+        }

@@ -1,0 +1,39 @@
+"""Carry state over from the JAX package's layout, as numpy arrays.
+
+A Flax ``GeneratorBig`` holds ``{"params": {"Dense_i": {"kernel": (in, out),
+"bias": (out,)}}}``; the port's generator (and the reference's saved
+``generator_*.pt``) holds ``main.{i}.weight`` (out, in) and ``main.{i}.bias``.
+The same mapping carries the Adadelta state (``square_avg``, ``acc_delta``),
+so a test can start both implementations from one state. Only numpy crosses
+this boundary: the port never imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from vgan_tpu_torch.train.adadelta import AdadeltaState
+
+
+def generator_state_dict_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax generator params (nested dict of numpy arrays, with or without
+    the outer ``"params"`` level) -> ``main.{i}.{weight, bias}`` tensors."""
+    tree = params_np.get("params", params_np)
+    layers = sorted(tree, key=lambda k: int(k.split("_")[1]))
+    out = {}
+    for i, name in enumerate(layers):
+        kernel = np.asarray(tree[name]["kernel"])
+        out[f"main.{i}.weight"] = torch.from_numpy(np.array(kernel.T, order="C"))
+        out[f"main.{i}.bias"] = torch.from_numpy(np.array(tree[name]["bias"]))
+    return out
+
+
+def adadelta_state_from_jax(square_avg_np, acc_delta_np, device=None) -> AdadeltaState:
+    """The JAX ``AdadeltaState`` leaves (params-shaped trees) -> the port's."""
+    def conv(tree):
+        return {k: v.to(device) for k, v in generator_state_dict_from_jax(tree).items()}
+
+    return AdadeltaState(conv(square_avg_np), conv(acc_delta_np))

@@ -1,0 +1,460 @@
+"""Hand-written CUDA kernels for the multi-bandwidth RBF MMD, and their VJP.
+
+Counterpart of ``vgan_tpu.ops.pallas.mmd_gram``. Four kernels
+(``csrc/mmd_gram.cu``), each behind a wrapper with a launch counter and a
+plain PyTorch version beside it:
+
+- :func:`gram_quadrant_sums` (forward quadrant sums XX, XY, YY);
+- :func:`gram_quadrant_sums_stash` (the same plus the (m, m) K'(d2));
+- :func:`gram_backward_flash` (``S @ z`` and ``rowsum(S)`` with S the
+  coefficient-weighted K', no m^2 buffer);
+- :func:`kprime_panel` (an (R, C) K'(d2) row panel).
+
+A wrapper given CPU tensors returns its plain version; given CUDA tensors it
+launches its kernel or raises. The wrappers take the unpadded (m, d) rows:
+the kernels mask their own ragged edges, which is equivalent to the JAX
+functions' zero padding (padded rows are masked out of every sum there, and
+padded columns add zero to every distance).
+
+:class:`_MMD2Core` mirrors ``_mmd2_core`` / ``_mmd2_fwd`` / ``_mmd2_bwd``:
+the regime (flash, stash or panel) is the same function of (m, d) as in the
+JAX package, through the padded layout of ``_pad_layout``. The backward is
+rank-1: with ``q_i = 1/n1`` on x rows and ``-1/n2`` on y rows,
+``S = (q q^T) .* K'`` and ``dz = 4 g (rowsum(S) z - S @ z)``. No gradient
+flows to the bandwidth.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from vgan_tpu_torch.ops import mmd as _mmd
+
+# The JAX package's tiling constants, kept because they decide the regime
+# (the CUDA kernels use their own 64 x 64 tiles).
+TILE_M = 256
+TILE_D = 512
+FLASH_D_MAX = 2048
+# Each streamed K' panel of the panel backward holds at most this many bytes.
+PANEL_BYTES = 1 << 28
+# Stash the (m, m) K' in the forward when it fits in this many bytes; set it
+# to 0 to force the bounded-memory panel backward.
+_KP_STASH_BYTES = 7 << 30
+MAX_MULTS = 8
+# The CUDA kernels' row and column tile (BM = BN in csrc/mmd_gram.cu); also
+# the row granularity of the panel backward's panels.
+KERNEL_TILE = 64
+# The flash backward splits its columns over this many blocks per SM at
+# least, within FLASH_SPLIT_BYTES of partial sums.
+FLASH_BLOCKS_PER_SM = 2
+FLASH_SPLIT_BYTES = 1 << 28
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(a: int, b: int) -> int:
+    return _cdiv(a, b) * b
+
+
+def _pad_layout(m: int, d: int) -> Tuple[int, int, int]:
+    """Padded (M, D, tile_d) of the JAX package's kernels."""
+    M = _round_up(m, TILE_M)
+    if d <= TILE_D:
+        D = max(128, _round_up(d, 128))
+        return M, D, D
+    D = _round_up(d, TILE_D)
+    return M, D, TILE_D
+
+
+def _stash_kprime(M: int, D: int) -> bool:
+    """Stash K' from the forward (only where the panel backward would
+    otherwise recompute it)?"""
+    return D > FLASH_D_MAX and M * M * 4 <= _KP_STASH_BYTES
+
+
+def regime(m: int, d: int) -> str:
+    """'stash', 'flash' or 'panel': the backward a training step takes."""
+    M, D, _ = _pad_layout(m, d)
+    if _stash_kprime(M, D):
+        return "stash"
+    return "flash" if D <= FLASH_D_MAX else "panel"
+
+
+def cuda_supported(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Should ``impl='auto'`` take the kernels? CUDA tensors with a feature
+    axis of at least a d-chunk, or enough samples that the dense Gram is
+    traffic-bound (the JAX package's ``pallas_supported`` rule)."""
+    if not (x.is_cuda and y.is_cuda) or x.ndim != 2 or y.ndim != 2:
+        return False
+    return x.shape[1] >= TILE_D or x.shape[0] + y.shape[0] >= 4096
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the arithmetic of the Pallas kernels, on whole tensors)
+# ---------------------------------------------------------------------------
+
+
+def _sq_dists(zr, zc, nr, nc):
+    """d2 = (-2 zr . zc + |zr|^2) + |zc|^2, clamped at 0, as the kernels."""
+    return torch.clamp_min(-2.0 * (zr @ zc.T) + nr[:, None] + nc[None, :], 0.0)
+
+
+def _kernel_deriv(d2, bw, mults):
+    """K'(d2) = -sum_k exp(-d2/(bw mk)) / (bw mk)."""
+    ladder = _mmd.ladder_exponents(mults)
+    kprime = torch.zeros_like(d2)
+    if ladder is not None:
+        base, ints = ladder
+        t = torch.exp(-d2 / (bw * base))
+        for mk, pw in zip(mults, _mmd.integer_powers(t, ints)):
+            kprime = kprime - pw / (bw * mk)
+        return kprime
+    for mk in mults:
+        kprime = kprime - torch.exp(-d2 / (bw * mk)) / (bw * mk)
+    return kprime
+
+
+def _quadrant_sums(k, n1):
+    zero = torch.zeros((), dtype=k.dtype, device=k.device)
+    return torch.stack(
+        [k[:n1, :n1].sum(), k[:n1, n1:].sum(), k[n1:, n1:].sum(), zero]
+    ).reshape(1, 4)
+
+
+def gram_quadrant_sums_reference(z, norms, bw, n1, mults):
+    d2 = _sq_dists(z, z, norms, norms)
+    return _quadrant_sums(_mmd.multi_rbf_gram(d2, bw, mults), n1)
+
+
+def gram_quadrant_sums_stash_reference(z, norms, bw, n1, mults):
+    d2 = _sq_dists(z, z, norms, norms)
+    sums = _quadrant_sums(_mmd.multi_rbf_gram(d2, bw, mults), n1)
+    return sums, _kernel_deriv(d2, bw, mults)
+
+
+def _coefficients(n1: int, n2: int):
+    return 1.0 / (n1 * n1), 1.0 / (n2 * n2), -1.0 / (n1 * n2)
+
+
+def gram_backward_flash_reference(z, norms, bw, n1, n2, mults):
+    m = z.shape[0]
+    cxx, cyy, cxy = _coefficients(n1, n2)
+    coeff = torch.full((m, m), cxy, dtype=z.dtype, device=z.device)
+    coeff[:n1, :n1] = cxx
+    coeff[n1:, n1:] = cyy
+    s = coeff * _kernel_deriv(_sq_dists(z, z, norms, norms), bw, mults)
+    return s @ z, torch.sum(s, dim=1, keepdim=True)
+
+
+def kprime_panel_reference(z_rows, z_cols, n_rows, n_cols, bw, mults):
+    return _kernel_deriv(_sq_dists(z_rows, z_cols, n_rows, n_cols), bw, mults)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+class _Ladder(ctypes.Structure):
+    _fields_ = [
+        ("n", ctypes.c_int),
+        ("use_pow", ctypes.c_int),
+        ("base", ctypes.c_float),
+        ("mult", ctypes.c_float * MAX_MULTS),
+        ("pw", ctypes.c_int * MAX_MULTS),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def _ladder(mults: Tuple[float, ...]) -> _Ladder:
+    if not 1 <= len(mults) <= MAX_MULTS:
+        raise ValueError(f"the kernels take 1..{MAX_MULTS} bandwidths, got {len(mults)}")
+    lad = _Ladder()
+    lad.n = len(mults)
+    structure = _mmd.ladder_exponents(mults)
+    lad.use_pow = int(structure is not None)
+    if structure is not None:
+        lad.base = structure[0]
+        for i, p in enumerate(structure[1]):
+            lad.pw[i] = p
+    for i, mk in enumerate(mults):
+        lad.mult[i] = mk
+    return lad
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "vgan_gram_num_blocks": [_I],
+    "vgan_gram_quadrant_sums": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "vgan_gram_quadrant_sums_stash": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "vgan_gram_backward_flash": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _I, _P, _P, _P, _P],
+    "vgan_kprime_panel": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    from vgan_tpu_torch.ops.cuda import _build
+
+    lib = _build.load("mmd_gram")
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, shape, device) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def _launch(fn_name: str, device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(_lib(), fn_name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")
+
+
+def _check_gram_inputs(z, norms, bw):
+    m, d = z.shape
+    _check("z", z, (m, d), z.device)
+    _check("norms", norms, (m,), z.device)
+    _check("bw", bw.reshape(1), (1,), z.device)
+    return m, d
+
+
+def _launch_quadrant_sums(z, norms, bw, n1: int, mults, stash: bool):
+    """Launch the forward kernel; ``(sums (1, 4), kp (m, m) or None)``."""
+    m, d = _check_gram_inputs(z, norms, bw)
+    partials = torch.empty(3 * _lib().vgan_gram_num_blocks(m), dtype=torch.float32,
+                           device=z.device)
+    sums = torch.empty(4, dtype=torch.float32, device=z.device)
+    args = [_ptr(z), _ptr(norms), _ptr(bw.reshape(1)), m, d, n1,
+            ctypes.byref(_ladder(tuple(mults))), _ptr(partials), _ptr(sums)]
+    kp = None
+    if stash:
+        kp = torch.empty((m, m), dtype=torch.float32, device=z.device)
+        _launch("vgan_gram_quadrant_sums_stash", z.device, *args, _ptr(kp))
+    else:
+        _launch("vgan_gram_quadrant_sums", z.device, *args)
+    return sums.reshape(1, 4), kp
+
+
+def gram_quadrant_sums(z, norms, bw, n1: int, mults) -> torch.Tensor:
+    """Quadrant sums ``(1, 4)`` = [XX, XY, YY, 0] of ``K(d2(z, z))``."""
+    if not z.is_cuda:
+        return gram_quadrant_sums_reference(z, norms, bw, n1, mults)
+    sums, _ = _launch_quadrant_sums(z, norms, bw, n1, mults, stash=False)
+    gram_quadrant_sums.launches += 1
+    return sums
+
+
+def gram_quadrant_sums_stash(z, norms, bw, n1: int, mults):
+    """``(sums (1, 4), kp (m, m))``: the quadrant sums and K'(d2) in one launch."""
+    if not z.is_cuda:
+        return gram_quadrant_sums_stash_reference(z, norms, bw, n1, mults)
+    sums, kp = _launch_quadrant_sums(z, norms, bw, n1, mults, stash=True)
+    gram_quadrant_sums_stash.launches += 1
+    return sums, kp
+
+
+def flash_splits(m: int, d: int, sms: int) -> int:
+    """Column splits of the flash backward: enough (row block, split) blocks
+    to give each of ``sms`` SMs ``FLASH_BLOCKS_PER_SM``, at most one split
+    per column tile, and at most ``FLASH_SPLIT_BYTES`` of partial sums."""
+    tiles = _cdiv(m, KERNEL_TILE)
+    want = _cdiv(FLASH_BLOCKS_PER_SM * sms, tiles)
+    fit = FLASH_SPLIT_BYTES // (4 * m * (d + 1))
+    return max(1, min(want, tiles, fit))
+
+
+def gram_backward_flash(z, norms, bw, n1: int, n2: int, mults):
+    """``(sz (m, d), rs (m, 1))`` = ``(S @ z, rowsum(S))``, S = coeff .* K'."""
+    if not z.is_cuda:
+        return gram_backward_flash_reference(z, norms, bw, n1, n2, mults)
+    m, d = _check_gram_inputs(z, norms, bw)
+    if n1 + n2 != m:
+        raise ValueError(f"n1 + n2 = {n1 + n2} != m = {m}")
+    sz = torch.empty((m, d), dtype=torch.float32, device=z.device)
+    rs = torch.empty((m, 1), dtype=torch.float32, device=z.device)
+    nsplit = flash_splits(m, d, torch.cuda.get_device_properties(z.device).multi_processor_count)
+    scratch = torch.empty(nsplit * m * (d + 1) if nsplit > 1 else 1, dtype=torch.float32,
+                          device=z.device)
+    cxx, cyy, cxy = _coefficients(n1, n2)
+    _launch("vgan_gram_backward_flash", z.device, _ptr(z), _ptr(norms),
+            _ptr(bw.reshape(1)), m, d, n1, cxx, cyy, cxy,
+            ctypes.byref(_ladder(tuple(mults))), nsplit, _ptr(scratch), _ptr(sz), _ptr(rs))
+    gram_backward_flash.launches += 1
+    return sz, rs
+
+
+def kprime_panel(z_rows, z_cols, n_rows, n_cols, bw, mults) -> torch.Tensor:
+    """(R, C) panel of K'(d2) between ``z_rows`` (R, d) and ``z_cols`` (C, d)."""
+    if not z_rows.is_cuda:
+        return kprime_panel_reference(z_rows, z_cols, n_rows, n_cols, bw, mults)
+    R, d = z_rows.shape
+    C = z_cols.shape[0]
+    dev = z_rows.device
+    _check("z_rows", z_rows, (R, d), dev)
+    _check("z_cols", z_cols, (C, d), dev)
+    _check("n_rows", n_rows, (R,), dev)
+    _check("n_cols", n_cols, (C,), dev)
+    _check("bw", bw.reshape(1), (1,), dev)
+    kp = torch.empty((R, C), dtype=torch.float32, device=dev)
+    _launch("vgan_kprime_panel", dev, _ptr(z_rows), _ptr(z_cols), _ptr(n_rows),
+            _ptr(n_cols), _ptr(bw.reshape(1)), R, C, d,
+            ctypes.byref(_ladder(tuple(mults))), _ptr(kp))
+    kprime_panel.launches += 1
+    return kp
+
+
+KERNELS = (gram_quadrant_sums, gram_quadrant_sums_stash, gram_backward_flash, kprime_panel)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# autograd Function and public entry points
+# ---------------------------------------------------------------------------
+
+
+def _q_vector(m: int, n1: int, device) -> torch.Tensor:
+    """Rank-1 quadrant weights: C_sym = q q^T."""
+    q = torch.full((m,), -1.0 / (m - n1), dtype=torch.float32, device=device)
+    q[:n1] = 1.0 / n1
+    return q
+
+
+def _panel_rows(m: int) -> int:
+    """Largest KERNEL_TILE-multiple panel height R with R m 4 <= PANEL_BYTES."""
+    max_rows = (PANEL_BYTES // (m * 4)) // KERNEL_TILE * KERNEL_TILE
+    return max(KERNEL_TILE, min(m, max_rows))
+
+
+def gram_backward_panel(z, norms, bw, n1: int, mults) -> torch.Tensor:
+    """Unscaled cotangent ``rowsum(S) z - S @ z`` through bounded (R, m) K'
+    panels: ``rowsum(S) = q .* (K' @ q)``, ``S @ z = q .* (K' @ (q .* z))``."""
+    m = z.shape[0]
+    R = _panel_rows(m)
+    q = _q_vector(m, n1, z.device)
+    qz = q[:, None] * z
+    out = torch.empty_like(z)
+    for off in range(0, m, R):
+        rows = slice(off, off + R)
+        kp = kprime_panel(z[rows], z, norms[rows], norms, bw, mults)
+        a = kp @ q
+        u = kp @ qz
+        out[rows] = q[rows, None] * (a[:, None] * z[rows] - u)
+    return out
+
+
+def _mmd2_from_sums(sums, n1: int, n2: int):
+    return (
+        sums[0, 0] / (n1 * n1)
+        - 2.0 * sums[0, 1] / (n1 * n2)
+        + sums[0, 2] / (n2 * n2)
+    )
+
+
+class _MMD2Core(torch.autograd.Function):
+    """Biased MMD^2 through the kernels, with the JAX package's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, x, y, bw, mults, want_grad):
+        n1, n2 = x.shape[0], y.shape[0]
+        z = torch.cat([x, y], dim=0).to(torch.float32).contiguous()
+        norms = torch.sum(z * z, dim=1)
+        bw = bw.detach().to(torch.float32).reshape(())
+        M, D, _ = _pad_layout(n1 + n2, x.shape[1])
+        kp = None
+        if want_grad and _stash_kprime(M, D):
+            sums, kp = gram_quadrant_sums_stash(z, norms, bw, n1, mults)
+        else:
+            sums = gram_quadrant_sums(z, norms, bw, n1, mults)
+        ctx.mults, ctx.n1, ctx.n2 = mults, n1, n2
+        ctx.dtypes = (x.dtype, y.dtype)
+        ctx.save_for_backward(z, norms, bw, kp)
+        return _mmd2_from_sums(sums, n1, n2)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, norms, bw, kp = ctx.saved_tensors
+        mults, n1, n2 = ctx.mults, ctx.n1, ctx.n2
+        m = n1 + n2
+        M, D, _ = _pad_layout(m, z.shape[1])
+        g = g.to(torch.float32)
+        if kp is not None:
+            q = _q_vector(m, n1, z.device)
+            if M <= D:
+                # scale kp's columns; a is a rowsum, u reads z directly
+                kp_q = kp * q[None, :]
+                a = torch.sum(kp_q, dim=1, keepdim=True)
+                u = kp_q @ z
+            else:
+                # read kp once against the stacked rhs [q | q .* z]
+                rhs = torch.cat([q[:, None], q[:, None] * z], dim=1)
+                au = kp @ rhs
+                a, u = au[:, :1], au[:, 1:]
+            dz = 4.0 * g * (q[:, None] * (a * z - u))
+        elif D <= FLASH_D_MAX:
+            sz, rs = gram_backward_flash(z, norms, bw, n1, n2, mults)
+            dz = 4.0 * g * (rs * z - sz)
+        else:
+            dz = 4.0 * g * gram_backward_panel(z, norms, bw, n1, mults)
+        dx = dz[:n1].to(ctx.dtypes[0])
+        dy = dz[n1:].to(ctx.dtypes[1])
+        return dx, dy, None, None, None
+
+
+def mmd2_cuda_core(x, y, bw, mults) -> torch.Tensor:
+    """Biased MMD^2 through the kernels, given a resolved bandwidth. The
+    stash kernel runs only when a gradient will be taken (inside the
+    Function's forward, grad mode is always off, so it is decided here)."""
+    want_grad = torch.is_grad_enabled() and (x.requires_grad or y.requires_grad)
+    return _MMD2Core.apply(x, y, bw, tuple(mults), want_grad)
+
+
+def mmd2_biased_cuda(x, y, bandwidth=None, mults=_mmd.bandwidth_multipliers()):
+    """Kernel counterpart of :func:`vgan_tpu_torch.ops.mmd.mmd2_biased`."""
+    if bandwidth is None:
+        bandwidth = _mmd.candidate_bandwidth(torch.cat([x, y], dim=0))
+    bw = torch.as_tensor(bandwidth, dtype=torch.float32, device=x.device)
+    return mmd2_cuda_core(x, y, bw, mults), bw
+
+
+def mmd2_biased_stateful_cuda(x, y, bw_value, bw_is_set,
+                              mults=_mmd.bandwidth_multipliers()):
+    """Kernel counterpart of ``mmd2_biased_stateful``."""
+    candidate = _mmd.candidate_bandwidth(torch.cat([x, y], dim=0))
+    bw = torch.where(bw_is_set, bw_value, candidate).to(torch.float32)
+    return mmd2_cuda_core(x, y, bw, mults), bw
