@@ -5,20 +5,33 @@
 
 Phases (each asserts; any failure exits non-zero):
 
-1. card identity: name and power limit, TF32 off, build the CUDA kernels;
+1. card identity: name and power limit, TF32 off, build the CUDA kernels
+   (one ``nvcc`` per source, started together);
 2. every kernel against its plain PyTorch version on the card, twice for
    identical bits, then the kernel autograd Function against the dense
-   torch MMD in all three backward regimes (stash, flash, panel);
-3. the main path at full width: ``VGAN_no_kl`` fit at the stress
+   torch MMD in all three backward regimes (stash, flash, panel); the GoF
+   kernel (K5) against its float64 plain version at the GoF path's own
+   shape (17000 pooled rows, d=10240, 1002 indicator rows) and a ragged one;
+3. the no-kl main path at full width: ``VGAN_no_kl`` fit at the stress
    configuration (n=2000, d=10240, batch 500, 2 epochs), then
    generate_subspaces, approx_subspace_dist and check_if_myopic;
+3b. the kl main path at full width: ``VGAN`` fit at the kl stress
+   configuration (the same shape, 2 epochs: one detector and one generator
+   epoch), the same fit on the dense torch path and with the reference
+   quirks off, the detector's MMD and its gradient on the fitted model's
+   own encodings through the kernels against the dense torch MMD,
+   generate_subspaces and approx_subspace_dist, then
+   check_if_myopic past the dense caps (count 8500 in float64, 5000 in
+   float32, from 10000 rows) through K5, the float64 route held to a
+   blockwise float64 oracle on the card and the float32 route to it;
 4. the other regimes through ``fit`` (d=1024 flash; d=10240 with the K'
-   stash off, panel), and the d=10 notebook configuration, which runs no
-   kernel. Every kernel fit's losses are held against the same fit on the
-   dense torch path;
+   stash off, panel), and the d=10 notebook configuration of both
+   estimators, which runs no kernel. Every kernel fit's losses are held
+   against the same fit on the dense torch path;
 5. CUDA-event times of each kernel and its plain version, bounds, the
-   stress fit's steps/s, and a profiler breakdown of one stress epoch by
-   device kernel with the device's busy share.
+   stress fits' steps/s, and a profiler breakdown of one no-kl stress epoch
+   and of one kl detector and one kl generator epoch by device kernel, with
+   the device's busy share.
 
 Prints a JSON line of the kernels, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -33,6 +46,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -42,11 +56,18 @@ import torch
 # HBM3 bandwidth, the denominators of the bounds below.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# Operations per Gram entry beside the distance product (d2 assembly, one
+# Operations per Gram pair beside the distance product (d2 assembly, one
 # exp, the integer-power ladder and its sums), counted into the bounds.
 OPS_PER_ENTRY = 20
 
-STRESS = dict(n=2000, d=10240, batch=500)  # bench.py's "no-kl stress" shape
+STRESS = dict(n=2000, d=10240, batch=500)  # bench.py's "no-kl stress" and "kl stress" shape
+# check_if_myopic on the kl path: counts past both dense caps (pooled rows
+# 17000 > 16384 on the float64 route, 10000 > 8192 on the float32 route),
+# sampled from this many rows of the stress width
+GOF_ROWS, GOF_COUNT_F64, GOF_COUNT_F32 = 10000, 8500, 5000
+GOF_PERMUTATIONS = 1000  # check_if_myopic's default
+GOF_ALPHAS = (0.01, 1.0)
+ORACLE_PERMUTATIONS = 64
 
 # Tolerances, each with its reason:
 # quadrant sums: same f32 inputs, sums of m^2 positive terms; the kernel and
@@ -62,6 +83,20 @@ GRAD_FRAC = 1e-4
 # the fit's per-epoch losses on the kernel path vs the dense torch path:
 # eight Adadelta steps compound f32 rounding differences of ~1e-6.
 RTOL_FIT_LOSS = 1e-3
+# K5's C planes against the plain version in float64 on the same f32
+# values: the kernel's Kahan-compensated f32 accumulation keeps about one
+# ulp of |C|, far below this fraction of max|C| per alpha.
+C_FRAC = 1e-5
+# the float64 GoF route against a blockwise float64 oracle on the same
+# permutations: the statistic is a difference of Gram means of order one,
+# and the route's per-entry f32 kernel values move it by far less than
+# this; the p-value may move by the ties this shift can flip, at most two
+# permutations' worth.
+ORACLE_STAT_ATOL = 1e-6
+ORACLE_P_ATOL = 2.0 / ORACLE_PERMUTATIONS
+# the float32 route's statistic against the float64 route's: its final sums
+# of O(m^2) entries are f32, and the statistic is their near-cancellation.
+F32_STAT_RTOL = 5e-2
 
 
 def check(cond, msg: str) -> None:
@@ -186,44 +221,129 @@ def phase_kernels(device, gram_shapes, flash_shapes, log):
     return errs
 
 
-def phase_core(device, stash_shape, flash_shape, log):
-    """The autograd Function against the dense torch MMD, three regimes."""
+def core_against_dense(x, y, bw, want: str, label: str, log):
+    """The autograd Function (``mmd2_cuda_core``) against the dense torch
+    MMD on the same inputs and bandwidth: the value within ``RTOL_SUMS`` of
+    the quadrant means' scale, the gradients within ``GRAD_FRAC`` of their
+    largest entry, and only the kernels of regime ``want`` launched."""
     from vgan_tpu_torch.ops import mmd as M
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     mults = M.bandwidth_multipliers()
+    n1, n2, d = x.shape[0], y.shape[0], x.shape[1]
+    check(G.regime(n1 + n2, d) == want, f"{label}: ({n1}+{n2}, d={d}) is not in the {want} regime")
+    G.reset_launch_counts()
+    xk, yk = x.clone().requires_grad_(), y.clone().requires_grad_()
+    v_k = G.mmd2_cuda_core(xk, yk, bw, mults)
+    gx_k, gy_k = torch.autograd.grad(v_k, (xk, yk))
+    counts = G.launch_counts()
+    xp, yp = x.clone().requires_grad_(), y.clone().requires_grad_()
+    v_p, _ = M.mmd2_biased(xp, yp, bandwidth=bw, mults=mults)
+    gx_p, gy_p = torch.autograd.grad(v_p, (xp, yp))
+    # MMD^2 is a difference of the quadrant means: hold the value to their
+    # scale, not to the (possibly cancelling) difference
+    z = torch.cat([x, y])
+    s = G.gram_quadrant_sums_reference(z, torch.sum(z * z, 1), bw, n1, mults)
+    scale = float(s[0, 0] / n1**2 + 2 * s[0, 1] / (n1 * n2) + s[0, 2] / n2**2)
+    v_k, v_p = float(v_k.detach()), float(v_p.detach())
+    check(abs(v_k - v_p) <= RTOL_SUMS * scale, f"{label} value: {v_k} vs {v_p} (scale {scale})")
+    ex = assert_frac(f"{label} grad x", gx_k, gx_p, GRAD_FRAC) / float(torch.max(torch.abs(gx_p)))
+    ey = assert_frac(f"{label} grad y", gy_k, gy_p, GRAD_FRAC) / float(torch.max(torch.abs(gy_p)))
+    expected = {"stash": {"gram_quadrant_sums_stash"},
+                "flash": {"gram_quadrant_sums", "gram_backward_flash"},
+                "panel": {"gram_quadrant_sums", "kprime_panel"}}[want]
+    check({k for k, v in counts.items() if v} == expected,
+          f"{label} launched {counts}, expected {sorted(expected)}")
+    log(f"  {label} ({n1}+{n2}, d={d}): value {v_k:.9e} vs dense {v_p:.9e} "
+        f"(|d| {abs(v_k - v_p) / scale:.2e} of the scale {scale:.4e}); largest grad error "
+        f"{max(ex, ey):.2e} of max|grad|")
+
+
+def phase_core(device, stash_shape, flash_shape, log):
+    """The autograd Function against the dense torch MMD, three regimes."""
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
+
     saved = G._KP_STASH_BYTES
     try:
         for want, shape in (("stash", stash_shape), ("flash", flash_shape), ("panel", stash_shape)):
             if want == "panel":
                 G._KP_STASH_BYTES = 0
-            n1, n2, d = shape
-            check(G.regime(n1 + n2, d) == want, f"shape {shape} is not in the {want} regime")
-            x, y, _, _, bw = gram_inputs(n1, n2, d, seed=13, device=device)
-            G.reset_launch_counts()
-            xk, yk = x.clone().requires_grad_(), y.clone().requires_grad_()
-            v_k = G.mmd2_cuda_core(xk, yk, bw, mults)
-            gx_k, gy_k = torch.autograd.grad(v_k, (xk, yk))
-            counts = G.launch_counts()
-            xp, yp = x.clone().requires_grad_(), y.clone().requires_grad_()
-            v_p, _ = M.mmd2_biased(xp, yp, bandwidth=bw, mults=mults)
-            gx_p, gy_p = torch.autograd.grad(v_p, (xp, yp))
-            # MMD^2 is a difference of the quadrant means: hold the value to
-            # their scale, not to the (possibly cancelling) difference
-            s = G.gram_quadrant_sums_reference(torch.cat([x, y]), torch.sum(torch.cat([x, y]) ** 2, 1), bw, n1, mults)
-            scale = float(s[0, 0] / n1**2 + 2 * s[0, 1] / (n1 * n2) + s[0, 2] / n2**2)
-            v_k, v_p = float(v_k.detach()), float(v_p.detach())
-            check(abs(v_k - v_p) <= RTOL_SUMS * scale, f"core value {want}: {v_k} vs {v_p}")
-            assert_frac(f"core grad x {want}", gx_k, gx_p, GRAD_FRAC)
-            assert_frac(f"core grad y {want}", gy_k, gy_p, GRAD_FRAC)
-            expected = {"stash": {"gram_quadrant_sums_stash"},
-                        "flash": {"gram_quadrant_sums", "gram_backward_flash"},
-                        "panel": {"gram_quadrant_sums", "kprime_panel"}}[want]
-            check({k for k, v in counts.items() if v} == expected,
-                  f"core {want} launched {counts}, expected {sorted(expected)}")
-            log(f"  core {want} {shape}: value {v_k:.6e} vs {v_p:.6e}, grads ok")
+            x, y, _, _, bw = gram_inputs(*shape, seed=13, device=device)
+            core_against_dense(x, y, bw, want, f"core {want}", log)
     finally:
         G._KP_STASH_BYTES = saved
+
+
+def kl_encodings_against_dense(model, X, batch: int, device, log):
+    """One detector step's MMD on the kl model's own encodings,
+    ``enc(x)`` and ``enc(U x)`` of a batch, at the frozen training bandwidth,
+    through the kernels and the dense torch MMD. The fit's detector loss
+    cannot show this: at d=10240 its reconstruction terms (about 1.8e10)
+    swamp the MMD term in f32."""
+    rng = np.random.default_rng(8)
+    xb = torch.from_numpy(X[rng.choice(len(X), size=batch, replace=False)]).to(device)
+    noise = torch.from_numpy(rng.standard_normal((batch, model.generator.latent_size),
+                                                 dtype=np.float32)).to(device)
+    with torch.no_grad():
+        u = model.generator(noise)
+        enc_x, enc_ux = model.detector.encoder(xb), model.detector.encoder(u * xb)
+    bw = torch.tensor(model.bandwidth, dtype=torch.float32, device=device)
+    core_against_dense(enc_x, enc_ux, bw, "flash", "kl detector MMD on the model's encodings", log)
+
+
+def gof_samples(X, count: int, seed: int):
+    """Two samples as check_if_myopic builds them: ``count`` rows of the
+    column-L2-normalized data and their masked copies with the dropped
+    features mean-imputed (the masks drawn at random here)."""
+    rng = np.random.default_rng(seed)
+    xn = X / np.linalg.norm(X.astype(np.float64), axis=0)
+    x = xn[rng.choice(len(X), size=count, replace=False)].astype(np.float32)
+    keep = rng.random(x.shape) < 0.5
+    return x, (keep * x + x.mean(axis=0) * ~keep).astype(np.float32)
+
+
+def indicator_rows(n1: int, n2: int, n_perms: int, seed: int, ones_row: bool = True):
+    """(1 + n_perms [+ 1], n1 + n2) float32: the observed split, random
+    permutations of it, and the all-ones row of the pooled total."""
+    rng = np.random.default_rng(seed)
+    base = np.concatenate([np.ones(n1), np.zeros(n2)])
+    rows = [base] + [rng.permutation(base) for _ in range(n_perms)]
+    if ones_row:
+        rows.append(np.ones(n1 + n2))
+    return np.stack(rows).astype(np.float32)
+
+
+def gof_kernel_inputs(x, y, n_perms, seed, device):
+    z = torch.from_numpy(np.concatenate([x, y])).to(device).contiguous()
+    a = torch.from_numpy(indicator_rows(len(x), len(y), n_perms, seed)).to(device)
+    return z, torch.sum(z * z, dim=1), a
+
+
+def phase_gof_kernel(device, shapes, log):
+    """K5 against its plain version run in float64 on the same f32 values,
+    per alpha within ``C_FRAC`` of max|C|, then a re-run for identical bits.
+    ``shapes``: (rows of the data, n1, n2, d, permutations, alphas). Returns
+    the max abs error at each (n1, n2, d)."""
+    from vgan_tpu_torch.ops.cuda import gof_gram as GG
+
+    errs = {}
+    for n_rows, n1, n2, d, n_perms, alphas in shapes:
+        X = np.random.default_rng(31).standard_normal((n_rows, d), dtype=np.float32)
+        x, _ = gof_samples(X, n1, seed=32)
+        _, y = gof_samples(X, n2, seed=33)
+        z, norms, a = gof_kernel_inputs(x, y, n_perms, 34, device)
+        alphas = [float(np.float32(al)) for al in alphas]
+        tag = f"({n1}+{n2}, d={d}, P={a.shape[0]}, alphas {alphas})"
+        c = GG.a_times_k(z, norms, a, alphas)
+        ref = GG.a_times_k_reference(z.double(), norms.double(), a.double(), alphas)
+        err = 0.0
+        for q, al in enumerate(alphas):
+            err = max(err, assert_frac(f"a_times_k alpha={al} {tag}", c[q].double(), ref[q], C_FRAC))
+        del c, ref
+        repeat_identical("a_times_k", lambda: GG.a_times_k(z, norms, a, alphas))
+        errs[n1, n2, d] = err
+        log(f"  K5 {tag}: max abs err {err:.3e}, identical bits on a re-run: ok")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -231,11 +351,14 @@ def phase_core(device, stash_shape, flash_shape, log):
 # ---------------------------------------------------------------------------
 
 
-def fit_counts(X, device, **kw):
+def fit_counts(X, device, cls=None, **kw):
+    """A fit with the kernel counts set to 0 just before it and read just
+    after; the losses are the generator history, preceded by the detector
+    history for the kl estimator (NaN before the first epoch of a kind)."""
     from vgan_tpu_torch import VGAN_no_kl
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
-    model = VGAN_no_kl(verbose=False, device=device, **kw)
+    model = (cls or VGAN_no_kl)(verbose=False, device=device, **kw)
     sync()
     G.reset_launch_counts()
     t0 = time.perf_counter()
@@ -243,8 +366,14 @@ def fit_counts(X, device, **kw):
     sync()
     seconds = time.perf_counter() - t0
     counts = G.launch_counts()
-    losses = np.asarray(model.train_history["generator_loss"])
-    check(np.all(np.isfinite(losses)), f"non-finite loss history {losses}")
+    kinds = [k for k in ("detector_loss", "generator_loss") if k in model.train_history]
+    for kind in kinds:
+        h = np.asarray(model.train_history[kind])
+        # a kl history is NaN before the first epoch of its kind, and only there
+        lead = int(np.argmax(~np.isnan(h))) if len(kinds) == 2 else 0
+        check(np.all(np.isnan(h[:lead])) and np.all(np.isfinite(h[lead:])),
+              f"{kind} history {h.tolist()} is not finite from its first epoch on")
+    losses = np.concatenate([np.asarray(model.train_history[k]) for k in kinds])
     return model, counts, losses, seconds
 
 
@@ -255,9 +384,12 @@ def fit_against_dense(X, device, label, log, **kw):
     log(f"  {label}: losses {losses.tolist()} in {seconds:.3f} s, launches {counts}")
     _, plain_counts, plain_losses, _ = fit_counts(X, device, mmd_impl="torch", **kw)
     check(sum(plain_counts.values()) == 0, f"mmd_impl='torch' launched {plain_counts}")
-    check(np.allclose(losses, plain_losses, rtol=RTOL_FIT_LOSS, atol=0.0),
+    check(np.allclose(losses, plain_losses, rtol=RTOL_FIT_LOSS, atol=0.0, equal_nan=True),
           f"{label}: kernel-path losses {losses} vs dense-path {plain_losses}")
-    log(f"  {label}: dense torch path losses {plain_losses.tolist()} agree within {RTOL_FIT_LOSS}")
+    seen = np.isfinite(plain_losses)
+    gap = float(np.max(np.abs(losses[seen] - plain_losses[seen]) / np.abs(plain_losses[seen])))
+    log(f"  {label}: dense torch path losses {plain_losses.tolist()} agree within "
+        f"{RTOL_FIT_LOSS} (largest relative gap {gap:.3e})")
     return model, counts, losses
 
 
@@ -272,17 +404,114 @@ def phase_main_path(device, n, d, batch, log):
           f"expected {steps}")
     check(sum(counts.values()) == steps, f"stress fit launched other kernels: {counts}")
 
-    masks = model.generate_subspaces(batch)
-    check(masks.shape == (batch, d) and masks.dtype == np.bool_, f"masks {masks.shape} {masks.dtype}")
-    check(np.array_equal(masks, model.generate_subspaces(batch)), "generate_subspaces not deterministic")
+    sample_workflow(model, batch, d, log)
+    p = model.check_if_myopic(X, count=batch, rng=np.random.default_rng(3)).to_numpy().ravel()
+    check(np.all((p >= 0.0) & (p <= 1.0)), f"p-values out of [0, 1]: {p}")
+    log(f"  GoF p-values {p.tolist()}")
+    return counts["gram_quadrant_sums_stash"], float(losses[-1])
+
+
+def sample_workflow(model, nsubs, d, log):
+    masks = model.generate_subspaces(nsubs)
+    check(masks.shape == (nsubs, d) and masks.dtype == np.bool_, f"masks {masks.shape} {masks.dtype}")
+    check(np.array_equal(masks, model.generate_subspaces(nsubs)), "generate_subspaces not deterministic")
     model.approx_subspace_dist()
     check(abs(float(np.sum(model.proba)) - 1.0) < 1e-9, "subspace probabilities do not sum to 1")
-    gof = model.check_if_myopic(X, count=batch)
-    p = gof.to_numpy().ravel()
-    check(np.all((p >= 0.0) & (p <= 1.0)), f"p-values out of [0, 1]: {p}")
-    log(f"  {len(model.subspaces)} unique masks, top probability {float(np.max(model.proba)):.4f}, "
-        f"GoF p-values {p.tolist()}")
-    return counts["gram_quadrant_sums_stash"], float(losses[-1])
+    log(f"  {len(model.subspaces)} unique masks, top probability {float(np.max(model.proba)):.4f}")
+
+
+def gof_oracle(x, y, alpha: float, a_rows, device, block: int = 2048):
+    """Blockwise float64 statistics of the indicator rows on the card (the
+    method of examples/gof_precise_check.py): C = A @ K in row blocks of K,
+    the diagonal zeroed, never m^2 resident. ``(observed, p_value)``."""
+    n1, n2 = len(x), len(y)
+    z = torch.from_numpy(np.concatenate([x, y]).astype(np.float64)).to(device)
+    zn = torch.sum(z * z, dim=1)
+    A = torch.from_numpy(a_rows).to(device, torch.float64)
+    B = 1.0 - A
+    s_xx = torch.zeros(A.shape[0], dtype=torch.float64, device=device)
+    s_xy = torch.zeros_like(s_xx)
+    total = torch.zeros((), dtype=torch.float64, device=device)
+    for r0 in range(0, n1 + n2, block):
+        r1 = min(r0 + block, n1 + n2)
+        d2 = torch.clamp_min(zn[r0:r1, None] + zn[None, :] - 2.0 * (z[r0:r1] @ z.T), 0.0)
+        k = torch.exp(-alpha * d2)
+        k[torch.arange(r1 - r0), torch.arange(r0, r1)] = 0.0
+        ck = A[:, r0:r1] @ k
+        s_xx += torch.sum(ck * A, dim=1)
+        s_xy += torch.sum(ck * B, dim=1)
+        total += torch.sum(k)
+    s_yy = total - s_xx - 2.0 * s_xy
+    stats = s_xx / (n1 * (n1 - 1)) + s_yy / (n2 * (n2 - 1)) - 2.0 * s_xy / (n1 * n2)
+    stats = stats.cpu().numpy()
+    return float(stats[0]), float(np.mean(stats[1:] >= stats[0]))
+
+
+def phase_kl_main_path(device, n, d, batch, log):
+    """The kl stress fit -> sample -> GoF workflow. Returns the launches of
+    K1 and K3 in the kl fit and of K5 in check_if_myopic."""
+    from vgan_tpu_torch import VGAN
+    from vgan_tpu_torch.ops.cuda import gof_gram as GG
+    from vgan_tpu_torch.ops.mmd_test import (
+        mmd_permutation_test_sweep,
+        mmd_permutation_test_sweep_precise,
+    )
+
+    X = np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)
+    steps = n // batch  # per epoch: phases [detector, generator]
+    model, counts, _ = fit_against_dense(X, device, "kl stress fit", log, cls=VGAN,
+                                         epochs=2, batch_size=batch)
+    want = {"gram_quadrant_sums": 2 * steps, "gram_quadrant_sums_stash": 0,
+            "gram_backward_flash": steps, "kprime_panel": 0}
+    check(counts == want, f"kl stress fit launches {counts}, expected {want}")
+    launches = {k: counts[k] for k in ("gram_quadrant_sums", "gram_backward_flash")}
+    kl_encodings_against_dense(model, X, batch, device, log)
+    _, counts_q, losses_q, _ = fit_counts(X, device, cls=VGAN, epochs=2, batch_size=batch,
+                                          replicate_reference_quirks=False)
+    want_q = dict(want, gram_backward_flash=2 * steps)
+    check(counts_q == want_q, f"kl fit with the quirks off launched {counts_q}, expected {want_q}")
+    log(f"  kl fit, quirks off (the generator trains): losses {losses_q.tolist()}, launches {counts_q}")
+    sample_workflow(model, batch, d, log)
+
+    Xg = np.random.default_rng(5).standard_normal((GOF_ROWS, d), dtype=np.float32)
+    pvals, k5 = {}, 0
+    for count, precision in ((GOF_COUNT_F64, "float64"), (GOF_COUNT_F32, "float32")):
+        sync()
+        GG.reset_launch_counts()
+        t0 = time.perf_counter()
+        gof = model.check_if_myopic(Xg, count=count, precision=precision,
+                                    rng=np.random.default_rng(6))
+        sync()
+        seconds = time.perf_counter() - t0
+        n_k5 = GG.launch_counts()["a_times_k"]
+        check(n_k5 > 0, f"check_if_myopic(count={count}, {precision}) did not launch K5")
+        k5 += n_k5
+        p = gof.to_numpy().ravel()
+        check(np.all((p >= 0.0) & (p <= 1.0)), f"p-values out of [0, 1]: {p}")
+        pvals[precision] = p.tolist()
+        log(f"  check_if_myopic count={count} {precision} ({2 * count} pooled rows): "
+            f"p-values {p.tolist()} (columns {list(gof.columns)}; recommended alpha = the "
+            f"frozen training bandwidth {model.bandwidth:.6e}) in {seconds:.2f} s, K5 launches {n_k5}")
+
+    # alpha=0.01 on the float64 route's own samples and 64 shared permutations
+    x, y = model._gof_samples(Xg, GOF_COUNT_F64, np.random.default_rng(6))
+    perms = indicator_rows(len(x), len(y), ORACLE_PERMUTATIONS, seed=9, ones_row=False)
+    s64, p64 = mmd_permutation_test_sweep_precise(x, y, [0.01], permutations=perms[1:],
+                                                  device=device)
+    s_or, p_or = gof_oracle(x, y, 0.01, perms, device)
+    check(abs(float(s64[0]) - s_or) < ORACLE_STAT_ATOL and abs(float(p64[0]) - p_or) <= ORACLE_P_ATOL,
+          f"float64 route stat {float(s64[0])!r} p {float(p64[0])} vs oracle {s_or!r} p {p_or}")
+    s32, _ = mmd_permutation_test_sweep(torch.from_numpy(x), torch.from_numpy(y), [0.01],
+                                        permutations=torch.from_numpy(perms[1:]), device=device)
+    s32 = float(s32[0])
+    check(abs(s32 - float(s64[0])) <= F32_STAT_RTOL * abs(float(s64[0])),
+          f"float32 route stat {s32!r} vs float64 route {float(s64[0])!r}")
+    log(f"  alpha=0.01, {len(x)}+{len(y)} rows, {ORACLE_PERMUTATIONS} permutations: float64 route "
+        f"stat {float(s64[0]):.9e} p {float(p64[0]):.4f}; oracle stat {s_or:.9e} p {p_or:.4f} "
+        f"(|d stat| {abs(float(s64[0]) - s_or):.2e}); float32 route stat {s32:.9e} "
+        f"(rel {abs(s32 - float(s64[0])) / abs(float(s64[0])):.2e})")
+    launches["a_times_k"] = k5
+    return launches
 
 
 def phase_other_regimes(device, n, d_flash, d_panel, batch, log):
@@ -326,6 +555,21 @@ def phase_other_regimes(device, n, d_flash, d_panel, batch, log):
     log(f"  notebook config d=10: final loss {losses[-1]:.6f} (reference band about 2.5-5), "
         f"{len(model.subspaces)} unique masks (band < 20), top probability "
         f"{float(np.max(model.proba)):.4f}")
+
+    # the kl estimator there: its generator never trains (the reference's
+    # detach), so it keeps the init's two complementary masks near 0.5 / 0.5
+    from vgan_tpu_torch import VGAN
+
+    model, counts, losses, _ = fit_counts(Xn, device, cls=VGAN, epochs=15)
+    check(sum(counts.values()) == 0, f"the d=10 kl notebook fit launched kernels: {counts}")
+    model.approx_subspace_dist()
+    check(len(model.subspaces) == 2 and np.all(model.subspaces.sum(axis=0) == 1)
+          and np.all(np.abs(model.proba - 0.5) < 0.1),
+          f"kl notebook masks {model.subspaces.astype(int).tolist()} with probabilities "
+          f"{model.proba.tolist()}, expected two complementary masks near 0.5 / 0.5")
+    log(f"  kl notebook config d=10: two complementary masks {model.subspaces.astype(int).tolist()}, "
+        f"probabilities {model.proba.tolist()}, final detector loss "
+        f"{model.train_history['detector_loss'][-1]:.6f}")
     return launches
 
 
@@ -356,57 +600,104 @@ def bound(ops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_times(device, stress_shape, flash_shape, errs, launches, log):
+def sym_pairs(m: int) -> int:
+    """Off-diagonal entries of a symmetric m x m Gram, each counted once:
+    the distances the function needs, whatever a kernel recomputes."""
+    return m * (m - 1) // 2
+
+
+def gram_ops(m: int, d: int, backward: bool = False) -> float:
+    """The distance product and the bandwidth ladder over each unordered
+    pair once, plus for K3 the product S @ z (2 m^2 d: S is symmetric, but
+    a symmetric times a general matrix still takes every product)."""
+    pairs = sym_pairs(m)
+    return 2 * pairs * d + OPS_PER_ENTRY * pairs + (2 * m * m * d if backward else 0)
+
+
+def gof_ops(m: int, d: int, P: int, n_alphas: int) -> float:
+    """The distances over each unordered pair once, the A @ K products, and
+    per pair and alpha the scaling, exp and mask."""
+    return 2 * sym_pairs(m) * d + 2 * m * m * P * n_alphas + 4 * sym_pairs(m) * n_alphas
+
+
+def phase_times(device, shapes, errs, launches, log):
+    """One row per kernel at the shape its main path gives it, with the
+    times at its other shapes under ``at_other_shapes``."""
     from vgan_tpu_torch.ops import mmd as M
+    from vgan_tpu_torch.ops.cuda import gof_gram as GG
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     mults = M.bandwidth_multipliers()
-    src = "vgan_tpu_torch/ops/cuda/csrc/mmd_gram.cu"
+
+    def timed(name, label, fn, plain, ops, nbytes, iters=20, warmup=3):
+        t = {"shape": label, "ms": cuda_ms(fn, iters, warmup),
+             "plain_ms": cuda_ms(plain, iters, warmup)}
+        t["bound_ms"], t["bound_by"] = bound(ops, nbytes)
+        log(f"  {name} {label}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms by {t['bound_by']})")
+        return t
+
+    def gram(name, shape, seed):
+        n1, n2, d = shape
+        _, _, z, norms, bw = gram_inputs(n1, n2, d, seed=seed, device=device)
+        m = n1 + n2
+        label = f"m={m} d={d}"
+        if name == "gram_quadrant_sums":
+            return timed(name, label, lambda: G.gram_quadrant_sums(z, norms, bw, n1, mults),
+                         lambda: G.gram_quadrant_sums_reference(z, norms, bw, n1, mults),
+                         gram_ops(m, d), 4 * (m * d + m + 1 + 4))
+        if name == "gram_backward_flash":
+            return timed(name, label, lambda: G.gram_backward_flash(z, norms, bw, n1, n2, mults),
+                         lambda: G.gram_backward_flash_reference(z, norms, bw, n1, n2, mults),
+                         gram_ops(m, d, backward=True), 4 * (2 * m * d + 2 * m + 1))
+        if name == "gram_quadrant_sums_stash":
+            return timed(name, label, lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults),
+                         lambda: G.gram_quadrant_sums_stash_reference(z, norms, bw, n1, mults),
+                         gram_ops(m, d), 4 * (m * d + m + 1 + 4 + m * m))
+        return timed(name, label, lambda: G.kprime_panel(z, z, norms, norms, bw, mults),
+                     lambda: G.kprime_panel_reference(z, z, norms, norms, bw, mults),
+                     gram_ops(m, d), 4 * (2 * m * d + 2 * m + 1 + m * m))
+
+    def gof(shape):
+        n_rows, n1, n2, d, n_perms, alphas = shape
+        X = np.random.default_rng(35).standard_normal((n_rows, d), dtype=np.float32)
+        x, _ = gof_samples(X, n1, seed=36)
+        _, y = gof_samples(X, n2, seed=37)
+        z, norms, a = gof_kernel_inputs(x, y, n_perms, 38, device)
+        m, P, k = n1 + n2, a.shape[0], len(alphas)
+        return timed("a_times_k", f"m={m} d={d} P={P} alphas={k}",
+                     lambda: GG.a_times_k(z, norms, a, alphas),
+                     lambda: GG.a_times_k_reference(z, norms, a, alphas),
+                     gof_ops(m, d, P, k), 4 * (m * d + m + P * m + k + k * P * m),
+                     iters=3, warmup=1)
+
+    gram_src = "vgan_tpu_torch/ops/cuda/csrc/mmd_gram.cu"
     pallas = "vgan_tpu/ops/pallas/mmd_gram.py"
     rows = []
-
-    def entry(name, replaces, shape, fn, plain, ops, nbytes, tol):
-        ms = cuda_ms(fn)
-        plain_ms = cuda_ms(plain)
-        b_ms, b_by = bound(ops, nbytes)
-        n1, n2, d = shape
-        rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "shape": f"m={n1 + n2} d={d}", "launches": launches[name],
-            "max_abs_err": errs[name, shape], "tol": tol, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        })
-        log(f"  {name} m={n1 + n2} d={d}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms by {b_by})")
-
-    n1, n2, d = flash_shape
-    _, _, z, norms, bw = gram_inputs(n1, n2, d, seed=21, device=device)
-    m = n1 + n2
-    entry("gram_quadrant_sums", f"{pallas}:207 _fwd_kernel", flash_shape,
-          lambda: G.gram_quadrant_sums(z, norms, bw, n1, mults),
-          lambda: G.gram_quadrant_sums_reference(z, norms, bw, n1, mults),
-          2 * m * m * d + OPS_PER_ENTRY * m * m, 4 * (m * d + m + 1 + 4), f"rtol {RTOL_SUMS}")
-    entry("gram_backward_flash", f"{pallas}:469 _flash_bwd_kernel", flash_shape,
-          lambda: G.gram_backward_flash(z, norms, bw, n1, n2, mults),
-          lambda: G.gram_backward_flash_reference(z, norms, bw, n1, n2, mults),
-          4 * m * m * d + OPS_PER_ENTRY * m * m, 4 * (2 * m * d + 2 * m + 1),
-          f"{GRAD_FRAC} of max|ref|")
-
-    n1, n2, d = stress_shape
-    _, _, z, norms, bw = gram_inputs(n1, n2, d, seed=22, device=device)
-    m = n1 + n2
-    entry("gram_quadrant_sums_stash", f"{pallas}:269 _fwd_stash_kernel", stress_shape,
-          lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults),
-          lambda: G.gram_quadrant_sums_stash_reference(z, norms, bw, n1, mults),
-          2 * m * m * d + OPS_PER_ENTRY * m * m, 4 * (m * d + m + 1 + 4 + m * m),
-          f"sums rtol {RTOL_SUMS}; kp rtol {RTOL_KP} atol {ATOL_KP}")
-    entry("kprime_panel", f"{pallas}:606 _kprime_panel_kernel", stress_shape,
-          lambda: G.kprime_panel(z, z, norms, norms, bw, mults),
-          lambda: G.kprime_panel_reference(z, z, norms, norms, bw, mults),
-          2 * m * m * d + OPS_PER_ENTRY * m * m, 4 * (2 * m * d + 2 * m + 1 + m * m),
-          f"rtol {RTOL_KP} atol {ATOL_KP}")
-    order = ["gram_quadrant_sums", "gram_quadrant_sums_stash", "gram_backward_flash", "kprime_panel"]
-    return sorted(rows, key=lambda r: order.index(r["name"]))
+    for name, replaces, main, others, tol in (
+        ("gram_quadrant_sums", f"{pallas}:207 _fwd_kernel", shapes["kl"], [shapes["flash"]],
+         f"rtol {RTOL_SUMS}"),
+        ("gram_quadrant_sums_stash", f"{pallas}:269 _fwd_stash_kernel", shapes["stress"], [],
+         f"sums rtol {RTOL_SUMS}; kp rtol {RTOL_KP} atol {ATOL_KP}"),
+        ("gram_backward_flash", f"{pallas}:469 _flash_bwd_kernel", shapes["kl"], [shapes["flash"]],
+         f"{GRAD_FRAC} of max|ref|"),
+        ("kprime_panel", f"{pallas}:606 _kprime_panel_kernel", shapes["stress"], [],
+         f"rtol {RTOL_KP} atol {ATOL_KP}"),
+    ):
+        row = {"name": name, "route": "cuda", "source": gram_src, "replaces": replaces,
+               **gram(name, main, seed=21), "launches": launches[name],
+               "max_abs_err": errs[name, main], "tol": tol, "library_ms": None,
+               "at_other_shapes": [gram(name, o, seed=22) for o in others]}
+        rows.append(row)
+    main, *others = shapes["gof"]
+    rows.append({
+        "name": "a_times_k", "route": "cuda", "source": "vgan_tpu_torch/ops/cuda/csrc/gof_gram.cu",
+        "replaces": "vgan_tpu/ops/pallas/gof_gram.py:59 _ak_kernel", **gof(main),
+        "launches": launches["a_times_k"], "max_abs_err": errs["a_times_k", main[1:4]],
+        "tol": f"{C_FRAC} of max|C| per alpha (float64 plain version)", "library_ms": None,
+        "at_other_shapes": [gof(o) for o in others],
+    })
+    return rows
 
 
 def fit_steps_per_s(device, n, d, batch, epochs: int = 2) -> float:
@@ -424,27 +715,63 @@ def fit_steps_per_s(device, n, d, batch, epochs: int = 2) -> float:
     return epochs * (n // batch) / dt
 
 
-def profile_stress_epoch(device, n, d, batch, log, top: int = 12) -> None:
-    """Device time by kernel over one stress epoch (after a warm-up epoch),
-    and the device's busy share of that epoch's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from vgan_tpu_torch.train.steps import TrainConfig, init_no_kl_state, no_kl_epoch
+def kl_fit_steps_per_s(device, n, d, batch) -> float:
+    """The kl stress fit over one cycle of AlternationSchedule(1, 5): one
+    detector epoch, then five generator epochs (the detached generator's
+    loss evaluations)."""
+    from vgan_tpu_torch.train.steps import (
+        AlternationSchedule,
+        TrainConfig,
+        init_kl_state,
+        kl_train_epochs,
+    )
 
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)).to(device)
     config = TrainConfig(ndims=d, batch_size=batch)
-    state, _ = no_kl_epoch(init_no_kl_state(config, 777, device), x, config)
+    phases = AlternationSchedule(1, 5).phase_array(6)
+    state = init_kl_state(config, 777, device)
+    sync()
+    t0 = time.perf_counter()
+    _, det, gen = kl_train_epochs(state, x, phases, config)
+    sync()
+    dt = time.perf_counter() - t0
+    check(bool(torch.all(torch.isfinite(det)) and torch.all(torch.isfinite(gen[1:]))),
+          "non-finite losses in the timed kl fit")
+    return len(phases) * (n // batch) / dt
+
+
+def profile_stress_epoch(device, n, d, batch, log, kl: bool = False, top: int = 12) -> None:
+    """Device time by kernel over one stress epoch (kl: one detector and one
+    generator epoch) after a warm-up, and the device's busy share of that
+    wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vgan_tpu_torch.train import steps as S
+
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)).to(device)
+    config = S.TrainConfig(ndims=d, batch_size=batch)
+    if kl:
+        def run(state):
+            state, _ = S.kl_detector_epoch(state, x, config)
+            return S.kl_generator_epoch(state, x, config)[0]
+
+        state, steps, label = S.init_kl_state(config, 777, device), 2 * (n // batch), "kl stress"
+    else:
+        def run(state):
+            return S.no_kl_epoch(state, x, config)[0]
+
+        state, steps, label = S.init_no_kl_state(config, 777, device), n // batch, "stress"
+    state = run(state)
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        no_kl_epoch(state, x, config)
+        run(state)
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    steps = n // batch
-    log(f"  profiled stress epoch: {steps} steps, wall {wall_us / 1e3:.3f} ms "
+    log(f"  profiled {label} epoch{'s' if kl else ''}: {steps} steps, wall {wall_us / 1e3:.3f} ms "
         f"({wall_us / 1e3 / steps:.3f} ms/step), device busy {busy_us / 1e3:.3f} ms "
         f"({100 * busy_us / wall_us:.1f}% of wall; the profiler's own cost included)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
@@ -458,6 +785,7 @@ def main() -> int:
         return 1
     import vgan_tpu_torch
     from vgan_tpu_torch.ops.cuda import _build
+    from vgan_tpu_torch.ops.cuda import gof_gram as GG
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     here = Path(__file__).resolve().parent
@@ -475,33 +803,51 @@ def main() -> int:
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on")
     check(torch.get_float32_matmul_precision() == "highest", "float32 matmul precision is not 'highest'")
     t0 = time.perf_counter()
-    G._lib()
-    log(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_info["mmd_gram"]["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log("  ptxas: " + line.strip())
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        for build in [pool.submit(G._lib), pool.submit(GG._lib)]:
+            build.result()
+    log(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s ("
+        + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in _build.build_info.items()) + ")")
+    for name, info in _build.build_info.items():
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas {name}: " + line.strip())
 
     n, d, batch = STRESS["n"], STRESS["d"], STRESS["batch"]
     d_flash = 1024
     stress_shape = (batch, batch, d)   # the stress and panel fits' Gram
     flash_shape = (batch, batch, d_flash)  # the flash fit's Gram
+    kl_shape = (batch, batch, d // 16)  # the kl fit's Gram: encodings of width L = d // 16
+    gof_f64 = (GOF_ROWS, GOF_COUNT_F64, GOF_COUNT_F64, d, GOF_PERMUTATIONS, GOF_ALPHAS)
+    gof_f32 = (GOF_ROWS, GOF_COUNT_F32, GOF_COUNT_F32, d, GOF_PERMUTATIONS, GOF_ALPHAS)
     log("phase 2: kernels against their plain versions")
-    errs = phase_kernels(device, [stress_shape, flash_shape, (333, 517, 2500)],
-                         [flash_shape, (4096, 4096, 1024), (333, 517, 2000)], log)
+    errs = phase_kernels(device, [stress_shape, flash_shape, kl_shape, (333, 517, 2500)],
+                         [kl_shape, flash_shape, (4096, 4096, 1024), (333, 517, 2000)], log)
     phase_core(device, stress_shape, (333, 517, 2000), log)
+    gof_errs = phase_gof_kernel(device, [gof_f64, (2000, 333, 517, 2500, 35, (0.01, 1.0, 7.5))], log)
+    errs.update({("a_times_k", shape): e for shape, e in gof_errs.items()})
 
-    log("phase 3: main path at full width")
+    log("phase 3: no-kl main path at full width")
     k2_launches, _ = phase_main_path(device, n, d, batch, log)
 
-    log("phase 4: the other regimes through fit")
+    log("phase 3b: kl main path at full width")
+    kl_launches = phase_kl_main_path(device, n, d, batch, log)
+
+    log("phase 4: the other regimes through fit, the notebook configurations")
     launches = phase_other_regimes(device, n, d_flash, d, batch, log)
     launches["gram_quadrant_sums_stash"] = k2_launches
+    launches.update(kl_launches)
 
     log("phase 5: times")
-    rows = phase_times(device, stress_shape, flash_shape, errs, launches, log)
+    rows = phase_times(device, {"kl": kl_shape, "flash": flash_shape, "stress": stress_shape,
+                                "gof": [gof_f64, gof_f32]}, errs, launches, log)
     sps = fit_steps_per_s(device, n, d, batch)
     log(f"  stress fit (n={n}, d={d}, batch {batch}): {sps:.2f} steps/s")
+    kl_sps = kl_fit_steps_per_s(device, n, d, batch)
+    log(f"  kl stress fit (n={n}, d={d}, batch {batch}, one detector and five generator "
+        f"epochs): {kl_sps:.2f} steps/s")
     profile_stress_epoch(device, n, d, batch, log)
+    profile_stress_epoch(device, n, d, batch, log, kl=True)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -14,12 +14,15 @@ import pytest
 import torch
 
 import vgan_tpu.ops.mmd_test as JT
+import vgan_tpu.ops.pallas.gof_gram as JG
+from vgan_tpu import VGAN as JVGAN
 from vgan_tpu import VGAN_no_kl as JVGAN_no_kl
 from vgan_tpu.ops.activations import binarize_mask as j_binarize_mask
 from vgan_tpu.train import steps as JS
 from vgan_tpu_torch import VGAN, VGAN_no_kl, resolve_device
 from vgan_tpu_torch.interop import generator_state_dict_from_jax
 from vgan_tpu_torch.ops import mmd_test as TT
+from vgan_tpu_torch.ops.cuda import gof_gram as TG
 
 REPO = Path(__file__).resolve().parents[1]
 N, D, BS, EPOCHS = 200, 12, 50, 3
@@ -196,17 +199,61 @@ def test_device_sweep_statistics_match_jax():
     np.testing.assert_allclose(p_dev.numpy(), p_host)
 
 
+def _jax_tiled_single(x, y, alphas, perms):
+    """JAX's streaming single test with injected permutations: its per-alpha
+    statistics summed (its public function draws its own)."""
+    z_pad, norms, a_rows, n1, n2, m, tile_d = JG._pooled_pad_rows(x, y, None, 0, perms)
+    stats = np.asarray(JG._stats_for_rows(
+        a_rows, z_pad, norms, jnp.asarray(alphas, jnp.float32), n1, n2, m, tile_d,
+        interpret=True)).sum(axis=0)
+    return stats[0], np.mean(stats[1:] >= stats[0])
+
+
 @pytest.mark.parametrize("call", ["sweep", "single", "precise"])
-def test_gof_past_dense_caps_raises(call):
-    n_half = (TT.DENSE_PRECISE_MAX_M if call == "precise" else TT.DENSE_GOF_MAX_M) // 2
-    x = np.zeros((n_half + 1, 1), np.float32)
-    y = np.zeros((n_half, 1), np.float32)
-    fn = {"sweep": TT.mmd_permutation_test_sweep, "single": TT.mmd_permutation_test,
-          "precise": TT.mmd_permutation_test_sweep_precise}[call]
-    with pytest.raises(NotImplementedError, match="gof_gram"):
-        fn(x, y, [0.1])
+def test_gof_past_dense_caps_raises(call, monkeypatch):
+    """Past the dense caps (lowered here) each route takes the streaming
+    test and agrees with JAX's route on the same injected permutations; with
+    no device named it raises without a card instead of running on the
+    CPU."""
     assert TT.DENSE_GOF_MAX_M == JT.DENSE_GOF_MAX_M
     assert TT.DENSE_PRECISE_MAX_M == JT.DENSE_PRECISE_MAX_M
+    cap = "DENSE_PRECISE_MAX_M" if call == "precise" else "DENSE_GOF_MAX_M"
+    monkeypatch.setattr(TT, cap, 64)
+    monkeypatch.setattr(JT, cap, 64)
+    rng = np.random.default_rng(11)
+    n1, n2 = 40, 33
+    x = (rng.normal(size=(n1, 6)) * 0.4).astype(np.float32)
+    y = (rng.normal(size=(n2, 6)) * 0.4 + 0.2).astype(np.float32)
+    base = np.r_[np.ones(n1), np.zeros(n2)]
+    perms = np.stack([rng.permutation(base) for _ in range(25)])
+    alphas = [0.05, 0.7]
+    taken = []
+    for name in ("mmd_permutation_test_tiled_sweep", "mmd_permutation_test_tiled"):
+        fn = getattr(TG, name)
+        monkeypatch.setattr(TG, name, lambda *a, _fn=fn, _n=name, **k: taken.append(_n) or _fn(*a, **k))
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        {"sweep": TT.mmd_permutation_test_sweep, "single": TT.mmd_permutation_test,
+         "precise": TT.mmd_permutation_test_sweep_precise}[call](x, y, alphas, permutations=perms)
+
+    if call == "sweep":
+        st, pt = TT.mmd_permutation_test_sweep(x, y, alphas, permutations=perms, device="cpu")
+        sj, pj = JG.mmd_permutation_test_tiled_sweep(
+            x, y, alphas, jax.random.PRNGKey(0), permutations=perms, interpret=True)
+        st, pt, sj, pj = st.numpy(), pt.numpy(), np.asarray(sj), np.asarray(pj)
+    elif call == "single":
+        st, pt = TT.mmd_permutation_test(x, y, alphas, permutations=perms, device="cpu")
+        sj, pj = _jax_tiled_single(x, y, alphas, perms)
+        st, pt = st.numpy(), pt.numpy()
+    else:
+        st, pt = TT.mmd_permutation_test_sweep_precise(x, y, alphas, permutations=perms,
+                                                       device="cpu")
+        sj, pj = JT.mmd_permutation_test_sweep_precise(x, y, alphas, permutations=perms)
+    want = "mmd_permutation_test_tiled" if call == "single" else "mmd_permutation_test_tiled_sweep"
+    assert taken[-1] == want
+    np.testing.assert_allclose(st, sj, rtol=1e-4)
+    np.testing.assert_array_equal(pt, pj)
 
 
 def test_no_card_raises(monkeypatch):
@@ -217,6 +264,8 @@ def test_no_card_raises(monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        VGAN()
     model = VGAN_no_kl(device="cpu")
     with pytest.raises(RuntimeError):
         model.get_the_networks(D, 1, device="cuda")
@@ -231,27 +280,80 @@ def test_no_card_raises(monkeypatch):
                                               for p in ("weight", "bias")]
 
 
-@pytest.mark.parametrize("kwargs", [
+_LEFT_OUT = [
     dict(mesh=object()), dict(shard_features=True), dict(fit_impl="fused"),
     dict(checkpoint_dir="ck"), dict(checkpoint_every=5),
     dict(gram_matmul_dtype="bfloat16"), dict(model_matmul_dtype="bfloat16"),
     dict(opt_state_dtype="bfloat16"),
-])
-def test_left_out_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VGAN_no_kl(device="cpu", **kwargs)
+]
 
 
-def test_left_out_entry_points_raise(tmp_path):
+@pytest.mark.parametrize("cls,kwargs", [(VGAN_no_kl, kw) for kw in _LEFT_OUT]
+                         + [(VGAN, kw) for kw in _LEFT_OUT if "fit_impl" not in kw])
+def test_left_out_options_raise(cls, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VGAN()
-    model = VGAN_no_kl(device="cpu")
+        cls(device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("cls", [VGAN_no_kl, VGAN])
+def test_left_out_entry_points_raise(cls, tmp_path):
+    model = cls(device="cpu")
     for call in (lambda: model.save_checkpoint(tmp_path),
                  lambda: model.restore_checkpoint(tmp_path),
                  lambda: model.continue_fit(np.zeros((4, 2)), 1),
                  lambda: model.load_models(tmp_path / "generator_0.msgpack", ndims=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+
+
+def test_vgan_defaults_and_seed_quirk_match_jax():
+    ours = inspect.signature(VGAN.__init__).parameters
+    theirs = inspect.signature(JVGAN.__init__).parameters
+    assert set(ours) - set(theirs) == {"device"}
+    for name, p in theirs.items():
+        assert ours[name].default == p.default, name
+    for kw in (dict(seed=5), dict(seed=5, replicate_reference_quirks=False),
+               dict(replicate_reference_quirks=False, replicate_generator_detach=True)):
+        tm, jm = VGAN(device="cpu", **kw), JVGAN(**kw)
+        assert tm.seed == jm.seed and tm.get_params() == jm.get_params()
+        assert tm.replicate_generator_detach == jm.replicate_generator_detach
+        assert tm._make_config(D, BS).replicate_encoder_freeze == \
+            jm._make_config(D, BS).replicate_encoder_freeze
+    assert VGAN(device="cpu", seed=5).seed == 777
+
+
+def test_vgan_fit_history_and_artifacts(tmp_path):
+    """The kl workflow on the CPU: histories with NaN before the first epoch
+    of each kind and the last-seen loss carried, generator and detector
+    ``.pt`` files in the reference layout, runs numbered on."""
+    model = VGAN(batch_size=BS, epochs=3, iternum_g=1, verbose=False, device="cpu",
+                 path_to_directory=tmp_path)
+    model.fit(_data())
+    det, gen = model.train_history["detector_loss"], model.train_history["generator_loss"]
+    # AlternationSchedule(1, 1): detector, generator, detector
+    assert np.isnan(gen[0]) and np.isfinite(gen[1:]).all() and gen[2] == gen[1]
+    assert np.isfinite(det).all() and det[1] == det[0] != det[2]
+    assert model.generator_optimizer == model.detector_optimizer == "Adadelta"
+    assert model.bandwidth == float(model.train_state.bw_value) > 0
+    assert not bool(model.train_state.encoder_active)
+    gen_m, det_m = model.get_the_networks(D, 1)
+    sd = torch.load(tmp_path / "models" / "detector_0.pt", weights_only=True)
+    assert list(sd) == list(det_m.state_dict()) == list(model.detector.state_dict())
+    assert all(torch.equal(sd[k], v) for k, v in model.detector.state_dict().items())
+    gsd = torch.load(tmp_path / "models" / "generator_0.pt", weights_only=True)
+    assert list(gsd) == list(gen_m.state_dict())
+    for rel in ("train_history/generator_loss_0.csv", "params.csv", "train_history.pdf",
+                "metrics.jsonl"):
+        assert (tmp_path / rel).is_file(), rel
+    VGAN(batch_size=BS, epochs=1, verbose=False, device="cpu",
+         path_to_directory=tmp_path).fit(_data())
+    assert (tmp_path / "models" / "detector_1.pt").is_file()
+    # masks from the saved generator, through the JAX estimator's loader
+    jm = JVGAN(verbose=False)
+    jm.load_models(tmp_path / "models" / "generator_0.pt", ndims=D)
+    z = np.random.default_rng(3).normal(size=(32, model._latent_size)).astype(np.float32)
+    want = np.asarray(jm._sample_jit(jm.generator_params, jnp.asarray(z)))
+    np.testing.assert_array_equal(model._masks_from_noise(torch.from_numpy(z)), want)
 
 
 def test_fit_rejects_bad_input():

@@ -1,8 +1,9 @@
 """vgan_tpu_torch: the PyTorch / CUDA port of ``vgan_tpu`` for NVIDIA Hopper.
 
 Adversarial subspace generation for outlier detection (V-GAN), with the
-same estimator API as ``vgan_tpu``. The multi-bandwidth RBF MMD of every
-training step runs through hand-written CUDA kernels
+same estimator API as ``vgan_tpu`` (``VGAN`` and ``VGAN_no_kl``). The
+multi-bandwidth RBF MMD of every training step, and the GoF test's Gram past
+the dense caps, run through hand-written CUDA kernels
 (``vgan_tpu_torch.ops.cuda``), built with ``nvcc`` at first use. Entry
 points run on ``cuda`` unless given ``device="cpu"``.
 

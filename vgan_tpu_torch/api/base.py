@@ -5,9 +5,10 @@ Counterpart of ``vgan_tpu.api.base``, in the reference's artifact layout:
 (upsert keyed by run number), ``<dir>/train_history.pdf``, and
 ``<dir>/models/generator_<run>.pt``: the generator's ``state_dict`` as the
 reference saves it (keys ``main.{i}.{weight, bias}``), so the reference's
-own loader reads it too. Two reference bugs stay fixed, as in the JAX
-package: the generator is not written to ``detector_<run>.pt``, and the
-models directory is created when missing.
+own loader reads it too; the kl estimator adds ``detector_<run>.pt`` (keys
+``{encoder, decoder}.main.{i}.{weight, bias}``). Two reference bugs stay
+fixed, as in the JAX package: ``detector_<run>.pt`` holds the detector, not
+the generator, and the models directory is created when missing.
 """
 
 from __future__ import annotations
@@ -114,16 +115,26 @@ class EstimatorBase:
             for i in range(len(self.train_history["generator_loss"])):
                 ml.log("epoch", epoch=i, **{k: self.train_history[k][i] for k in keys})
 
-    def _save_generator(self, models_dir: Path, run_number: int, module) -> Path:
+    @staticmethod
+    def _save_module(models_dir: Path, name: str, run_number: int, module) -> Path:
         models_dir.mkdir(parents=True, exist_ok=True)
-        path = models_dir / f"generator_{run_number}.pt"
+        path = models_dir / f"{name}_{run_number}.pt"
         state = {k: v.detach().cpu() for k, v in module.state_dict().items()}
         torch.save(state, path)
         return path
 
+    def _save_generator(self, models_dir: Path, run_number: int, module) -> Path:
+        return self._save_module(models_dir, "generator", run_number, module)
+
+    def _save_detector(self, models_dir: Path, run_number: int, module) -> Path:
+        return self._save_module(models_dir, "detector", run_number, module)
+
     @staticmethod
     def _count_runs(models_dir: Path) -> int:
-        """Next free run number: one past the highest generator index."""
+        """Next free run number: one past the highest generator index. (The
+        reference divides the file count by the files saved per run, which
+        overwrites runs when other files share the directory; the index scan
+        replaces it, as in the JAX package.)"""
         if not models_dir.exists():
             return 0
         best = -1

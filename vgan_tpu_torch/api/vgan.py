@@ -1,4 +1,4 @@
-"""The ``VGAN_no_kl`` estimator (counterpart of ``vgan_tpu.api.vgan``).
+"""The ``VGAN`` and ``VGAN_no_kl`` estimators (counterpart of ``vgan_tpu.api.vgan``).
 
 Same constructor names and defaults, same workflow: ``fit`` ->
 ``generate_subspaces`` -> ``approx_subspace_dist`` -> ``check_if_myopic``,
@@ -6,8 +6,13 @@ plus ``model_snapshot``, ``load_models``, ``get_params``,
 ``get_the_networks`` and ``train_history``. It runs on ``cuda`` unless
 given ``device="cpu"``.
 
-Reference quirks kept, as in the JAX package:
+Reference quirks kept, as in the JAX package (``replicate_reference_quirks``):
 
+- ``VGAN.__init__`` hard-codes ``seed = 777`` whatever the argument;
+- the reference's kl generator never trains (torch ``Variable`` detaches);
+  ``replicate_generator_detach`` (default: the quirks flag) keeps that;
+- the encoder stops learning after the first generator epoch (see
+  :mod:`vgan_tpu_torch.train.steps`);
 - ``generate_subspaces`` re-seeds from ``self.seed`` on every call, so its
   output is deterministic per (seed, nsubs);
 - ``approx_subspace_dist(add_leftover_features=True)`` appends the
@@ -39,8 +44,11 @@ from vgan_tpu_torch.ops.mmd_test import (
     mmd_permutation_test_sweep_precise,
 )
 from vgan_tpu_torch.train.steps import (
+    AlternationSchedule,
     TrainConfig,
+    init_kl_state,
     init_no_kl_state,
+    kl_train_epochs,
     no_kl_train_epochs,
 )
 
@@ -105,26 +113,17 @@ class _VGANCommon(EstimatorBase):
         Column-L2-normalizes the data, samples ``count`` rows, projects each
         through a sampled mask with mean imputation of the dropped
         features, then runs the permutation test at each bandwidth plus the
-        recommended one, each passed as a kernel alpha. 'float64' runs the
-        host-side double path (valid near the null); 'float32' the device
-        sweep (screening only).
+        recommended one, each passed as a kernel alpha. 'float64' is the
+        precise path (valid near the null): host float64 up to 16384 pooled
+        rows, past that the streaming-Gram kernel on this estimator's device
+        with a float64 reduction. 'float32' is the device sweep (screening
+        only), through the kernel past 8192 pooled rows.
         """
         import pandas as pd
 
-        if count > x_data.shape[0]:
-            raise ValueError(
-                "Selected 'count' is greater than the number of samples in the dataset"
-            )
         if precision not in ("float64", "float32"):
             raise ValueError(f"precision must be 'float64' or 'float32', got {precision!r}")
-        rng = rng or np.random.default_rng()
-        x_norm = _column_l2_normalize(np.asarray(x_data, dtype=np.float64))
-        idx = rng.choice(x_norm.shape[0], size=count, replace=False)
-        x_sample = x_norm[idx].astype(np.float32)
-
-        u = self.generate_subspaces(count)
-        col_mean = x_sample.mean(axis=0)
-        ux_sample = u * x_sample + col_mean * (~u)
+        x_sample, ux_sample = self._gof_samples(x_data, count, rng)
 
         if getattr(self, "bandwidth", None) is None:
             pooled = torch.from_numpy(np.concatenate([x_sample, ux_sample]))
@@ -140,6 +139,7 @@ class _VGANCommon(EstimatorBase):
             _, pvals = mmd_permutation_test_sweep_precise(
                 x_sample, ux_sample, alphas=alphas,
                 rng=np.random.default_rng(seed), n_permutations=n_permutations,
+                device=self.device,
             )
         else:
             g = torch.Generator(device=self.device).manual_seed(int(seed))
@@ -152,6 +152,22 @@ class _VGANCommon(EstimatorBase):
         results = [float(p) for p in np.asarray(pvals)]
         columns = bandwidth + ["recommended bandwidth"]
         return pd.DataFrame([results], columns=columns, index=["p-val"])
+
+    def _gof_samples(self, x_data, count: int, rng: Optional[np.random.Generator]):
+        """The two samples of :meth:`check_if_myopic`: ``count`` rows of the
+        column-L2-normalized data (drawn with ``rng``, unseeded when None, as
+        the reference) and their masked copies with mean imputation."""
+        if count > x_data.shape[0]:
+            raise ValueError(
+                "Selected 'count' is greater than the number of samples in the dataset"
+            )
+        rng = rng or np.random.default_rng()
+        x_norm = _column_l2_normalize(np.asarray(x_data, dtype=np.float64))
+        idx = rng.choice(x_norm.shape[0], size=count, replace=False)
+        x_sample = x_norm[idx].astype(np.float32)
+        u = self.generate_subspaces(count)
+        col_mean = x_sample.mean(axis=0)
+        return x_sample, u * x_sample + col_mean * (~u)
 
     # -- persistence --------------------------------------------------------
 
@@ -206,23 +222,173 @@ class _VGANCommon(EstimatorBase):
         self._latent_size = config.latent_size
         return X, config
 
-    def _persist_artifacts(self):
+    def _persist_artifacts(self, save_detector: bool):
         if self.path_to_directory is None:
             return
         path = Path(self.path_to_directory)
         models_dir = path / "models"
         run_number = self._count_runs(models_dir)
         self._save_generator(models_dir, run_number, self.generator)
+        if save_detector:
+            self._save_detector(models_dir, run_number, self.detector)
         self.model_snapshot(path, run_number, show=False)
 
 
-class VGAN(_VGANCommon):
-    """The kernel-learning estimator; not ported yet."""
+def _reject_left_out(mesh, shard_features, checkpoint_dir, checkpoint_every, **dtypes) -> None:
+    if mesh is not None or shard_features:
+        raise _not_ported("mesh / shard_features (multi-device fit, parallel/)")
+    if checkpoint_dir is not None or checkpoint_every is not None:
+        raise _not_ported("checkpoint_dir / checkpoint_every (utils/checkpoint.py)")
+    for name, value in dtypes.items():
+        if value is not None:
+            raise _not_ported(f"{name}={value!r} (bf16 options)")
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported(
-            "VGAN (kl variant: models/detector.py, the kl half of train/steps.py)"
+
+class VGAN(_VGANCommon):
+    """Subspace generation with kernel learning: a generator trained
+    adversarially against an encoder/decoder detector. The detector
+    maximizes the multi-bandwidth RBF MMD between the encodings of a batch
+    and of its masked copy, minus reconstruction penalties; the generator
+    minimizes that MMD."""
+
+    def __init__(
+        self,
+        batch_size: int = 500,
+        temperature: float = 0,
+        epochs: int = 2000,
+        lr_G: float = 0.007,
+        lr_D: float = 0.007,
+        iternum_d: int = 1,
+        iternum_g: int = 5,
+        momentum: float = 0.99,
+        seed: int = 777,
+        weight_decay: float = 0.04,
+        path_to_directory=None,
+        *,
+        mmd_impl: str = "auto",
+        replicate_reference_quirks: bool = True,
+        replicate_generator_detach: Optional[bool] = None,
+        generator_grad: str = "reference",
+        gumbel_tau: float = 1.0,
+        latent_size: Optional[int] = None,
+        elm: bool = False,
+        verbose: bool = True,
+        mesh=None,
+        shard_features: bool = False,
+        gram_matmul_dtype=None,
+        model_matmul_dtype=None,
+        opt_state_dtype=None,
+        checkpoint_dir=None,
+        checkpoint_every: int = None,
+        device=None,
+    ):
+        super().__init__(path_to_directory)
+        _reject_left_out(mesh, shard_features, checkpoint_dir, checkpoint_every,
+                         gram_matmul_dtype=gram_matmul_dtype,
+                         model_matmul_dtype=model_matmul_dtype,
+                         opt_state_dtype=opt_state_dtype)
+        self.device = resolve_device(device)
+        self.storage = dict(
+            batch_size=batch_size, temperature=temperature, epochs=epochs,
+            lr_G=lr_G, lr_D=lr_D, iternum_d=iternum_d, iternum_g=iternum_g,
+            momentum=momentum, seed=seed, weight_decay=weight_decay,
+            path_to_directory=path_to_directory,
         )
+        self._kl = True
+        self.mesh = None
+        self.shard_features = False
+        self.checkpoint_dir = None
+        self.checkpoint_every = None
+        self.gram_matmul_dtype = None
+        self.model_matmul_dtype = None
+        self.opt_state_dtype = None
+        self.batch_size = batch_size
+        self.temperature = temperature
+        self.epochs = epochs
+        self.lr_G = lr_G
+        self.lr_D = lr_D
+        self.iternum_d = iternum_d
+        self.iternum_g = iternum_g
+        self.momentum = momentum  # stored, never applied (reference parity)
+        self.weight_decay = weight_decay
+        self.mmd_impl = mmd_impl
+        self.replicate_reference_quirks = replicate_reference_quirks
+        self.replicate_generator_detach = (
+            replicate_reference_quirks
+            if replicate_generator_detach is None
+            else replicate_generator_detach
+        )
+        self.elm = elm  # the reference's private __elm flag
+        self.generator_grad = generator_grad
+        self.gumbel_tau = gumbel_tau
+        self.latent_size = latent_size
+        self.verbose = verbose
+        self.bandwidth = None
+        # reference quirk: the seed is hard-coded to 777
+        self.seed = 777 if replicate_reference_quirks else seed
+
+    @property
+    def _lr_g(self):
+        return self.lr_G
+
+    def _make_config(self, ndims: int, batch_size: int) -> TrainConfig:
+        return TrainConfig(
+            ndims=ndims,
+            batch_size=batch_size,
+            lr_g=self.lr_G,
+            lr_d=self.lr_D,
+            weight_decay=self.weight_decay,
+            temperature=self.temperature,
+            iternum_d=self.iternum_d,
+            iternum_g=self.iternum_g,
+            freeze_bandwidth=True,
+            replicate_encoder_freeze=self.replicate_reference_quirks,
+            replicate_generator_detach=self.replicate_generator_detach,
+            elm=self.elm,
+            mmd_impl=self.mmd_impl,
+            generator_grad=self.generator_grad,
+            gumbel_tau=self.gumbel_tau,
+            latent_override=self.latent_size,
+        )
+
+    def get_the_networks(self, ndims: int, latent_size: int, device: str = None):
+        """``(generator, detector)`` modules, on ``device`` (default: the
+        estimator's)."""
+        dev = resolve_device(device) if device is not None else self.device
+        config = self._make_config(ndims, self.batch_size)
+        return config.generator_module(kl=True).to(dev), config.detector_module().to(dev)
+
+    def fit(self, X):
+        """Train generator and detector adversarially on X, in the phases of
+        ``AlternationSchedule(iternum_d, iternum_g)``. The loss histories
+        stay on the device and are fetched once, at the end; each epoch
+        records the most recent loss of each kind (NaN before the first)."""
+        t_start = time.time()
+        X, config = self._prepare_fit_config(X)
+        x_dev = torch.as_tensor(np.ascontiguousarray(X, dtype=np.float32), device=self.device)
+        self._schedule = AlternationSchedule(self.iternum_d, self.iternum_g)
+        state = init_kl_state(config, self.seed, self.device)
+        state, det_hist, gen_hist = kl_train_epochs(
+            state, x_dev, self._schedule.phase_array(self.epochs), config
+        )
+        det_hist = det_hist.cpu().numpy().astype(np.float64)
+        gen_hist = gen_hist.cpu().numpy().astype(np.float64)
+        for epoch in range(self.epochs):
+            if self.verbose:
+                print(f"\rEpoch {epoch} of {self.epochs}")
+                print(f"Average loss in the epoch Generator: {gen_hist[epoch]}")
+                print(f"Average loss in the epoch Detector: {det_hist[epoch]}")
+            self.train_history["generator_loss"].append(float(gen_hist[epoch]))
+            self.train_history["detector_loss"].append(float(det_hist[epoch]))
+        self.generator_optimizer = "Adadelta"
+        self.detector_optimizer = "Adadelta"
+        self.generator = state.generator
+        self.detector = state.detector
+        self.train_state = state
+        self.bandwidth = float(state.bw_value) if bool(state.bw_is_set) else None
+        self._log_metrics_jsonl(time.time() - t_start)
+        self._persist_artifacts(save_detector=True)
+        return self
 
 
 class VGAN_no_kl(_VGANCommon):
@@ -256,17 +422,12 @@ class VGAN_no_kl(_VGANCommon):
         device=None,
     ):
         super().__init__(path_to_directory)
-        if mesh is not None or shard_features:
-            raise _not_ported("mesh / shard_features (multi-device fit, parallel/)")
+        _reject_left_out(mesh, shard_features, checkpoint_dir, checkpoint_every,
+                         gram_matmul_dtype=gram_matmul_dtype,
+                         model_matmul_dtype=model_matmul_dtype,
+                         opt_state_dtype=opt_state_dtype)
         if fit_impl != "scan":
             raise _not_ported(f"fit_impl={fit_impl!r} (the fused whole-fit kernel, K8)")
-        if checkpoint_dir is not None or checkpoint_every is not None:
-            raise _not_ported("checkpoint_dir / checkpoint_every (utils/checkpoint.py)")
-        for name, value in (("gram_matmul_dtype", gram_matmul_dtype),
-                            ("model_matmul_dtype", model_matmul_dtype),
-                            ("opt_state_dtype", opt_state_dtype)):
-            if value is not None:
-                raise _not_ported(f"{name}={value!r} (bf16 options)")
         self.device = resolve_device(device)
         self.storage = dict(
             batch_size=batch_size, epochs=epochs, lr=lr, momentum=momentum,
@@ -335,5 +496,5 @@ class VGAN_no_kl(_VGANCommon):
         self.train_state = state
         self.bandwidth = float(state.bw_value) if bool(state.bw_is_set) else None
         self._log_metrics_jsonl(time.time() - t_start)
-        self._persist_artifacts()
+        self._persist_artifacts(save_detector=False)
         return self

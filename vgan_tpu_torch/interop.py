@@ -3,9 +3,11 @@
 A Flax ``GeneratorBig`` holds ``{"params": {"Dense_i": {"kernel": (in, out),
 "bias": (out,)}}}``; the port's generator (and the reference's saved
 ``generator_*.pt``) holds ``main.{i}.weight`` (out, in) and ``main.{i}.bias``.
-The same mapping carries the Adadelta state (``square_avg``, ``acc_delta``),
-so a test can start both implementations from one state. Only numpy crosses
-this boundary: the port never imports JAX.
+A Flax ``Detector`` holds the same per-layer trees under ``"encoder"`` and
+``"decoder"``; the port's holds ``{encoder, decoder}.main.{i}.{weight,
+bias}``. The same mappings carry the Adadelta state (``square_avg``,
+``acc_delta``), so a test can start both implementations from one state.
+Only numpy crosses this boundary: the port never imports JAX.
 """
 
 from __future__ import annotations
@@ -31,9 +33,29 @@ def generator_state_dict_from_jax(params_np: Mapping[str, Any]) -> Dict[str, tor
     return out
 
 
+def detector_state_dict_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax detector params ``{"params": {"encoder": {"Dense_i": ...},
+    "decoder": {...}}}`` -> ``{encoder, decoder}.main.{i}.{weight, bias}``."""
+    tree = params_np.get("params", params_np)
+    return {
+        f"{part}.{k}": v
+        for part in ("encoder", "decoder")
+        for k, v in generator_state_dict_from_jax(tree[part]).items()
+    }
+
+
+def state_dict_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A generator's or a detector's Flax params -> the port's state dict."""
+    tree = params_np.get("params", params_np)
+    if "encoder" in tree:
+        return detector_state_dict_from_jax(tree)
+    return generator_state_dict_from_jax(tree)
+
+
 def adadelta_state_from_jax(square_avg_np, acc_delta_np, device=None) -> AdadeltaState:
-    """The JAX ``AdadeltaState`` leaves (params-shaped trees) -> the port's."""
+    """The JAX ``AdadeltaState`` leaves (params-shaped trees of a generator
+    or a detector) -> the port's."""
     def conv(tree):
-        return {k: v.to(device) for k, v in generator_state_dict_from_jax(tree).items()}
+        return {k: v.to(device) for k, v in state_dict_from_jax(tree).items()}
 
     return AdadeltaState(conv(square_avg_np), conv(acc_delta_np))

@@ -39,7 +39,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict = {}  # name -> the lock held while that source builds and loads
 _libs: dict = {}
 # name -> {"seconds": build seconds (0.0 when cached), "log": nvcc output}
 build_info: dict = {}
@@ -59,8 +60,11 @@ def _nvcc() -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu`` as a shared library."""
+    """Build (if needed) and load ``csrc/<name>.cu`` as a shared library.
+    Different sources may build at the same time from different threads."""
     with _lock:
+        name_lock = _locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

@@ -227,10 +227,13 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
-def _launch(fn_name: str, device, *args) -> None:
+def _launch(fn_name: str, device, *args, lib=None) -> None:
+    """Call ``fn_name`` of ``lib`` (default: this module's library) on the
+    current stream of ``device``; raise on a launch error."""
+    lib = lib if lib is not None else _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(_lib(), fn_name)(*args, stream)
+        rc = getattr(lib, fn_name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")
 

@@ -11,8 +11,9 @@ products against 0/1 indicator rows. Permutations come from a seeded
 ``torch.Generator`` (or are injected with ``permutations=``).
 
 Past ``DENSE_GOF_MAX_M`` pooled samples (``DENSE_PRECISE_MAX_M`` on the
-float64 path) the JAX package streams the Gram through its ``gof_gram``
-kernel; that kernel is not ported yet, so those routes raise.
+float64 path) the tests stream the Gram through the K5 kernel instead of
+materializing it (``vgan_tpu_torch.ops.cuda.gof_gram``), with the same
+statistic and permutation semantics.
 """
 
 from __future__ import annotations
@@ -27,12 +28,6 @@ from vgan_tpu_torch.ops.mmd import pairwise_sq_dists
 
 DENSE_GOF_MAX_M = 8192
 DENSE_PRECISE_MAX_M = 16384
-
-_GOF_KERNEL_TODO = (
-    "the streaming-Gram permutation test (the gof_gram kernel, "
-    "vgan_tpu/ops/pallas/gof_gram.py:_ak_kernel) is not ported yet; see "
-    "ROADMAP.md Queue 2, item 5"
-)
 
 
 def alpha_gram(z: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
@@ -74,8 +69,6 @@ def _pooled(x, y, device):
     """Stack the samples on ``device`` (:func:`resolve_device`: the card by
     default). Tensors given with ``device=None`` stay where they are."""
     n1, n2 = len(x), len(y)
-    if n1 + n2 > DENSE_GOF_MAX_M:
-        raise NotImplementedError(f"{n1 + n2} pooled samples > {DENSE_GOF_MAX_M}: {_GOF_KERNEL_TODO}")
     if device is not None or not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)):
         device = resolve_device(device)
     x = torch.as_tensor(x, device=device)
@@ -95,7 +88,15 @@ def mmd_permutation_test_sweep(
     """Single-alpha tests for each alpha, sharing the distances and the
     permutation set. Returns ``(statistics, p_values)``, each (len(alphas),).
     Working precision is the inputs' (float32 on the estimator path:
-    screening only, see :func:`mmd_permutation_test_sweep_precise`)."""
+    screening only, see :func:`mmd_permutation_test_sweep_precise`). Past
+    ``DENSE_GOF_MAX_M`` pooled samples the K5 kernel computes the test in
+    float32."""
+    if len(x) + len(y) > DENSE_GOF_MAX_M:
+        from vgan_tpu_torch.ops.cuda import gof_gram
+
+        return gof_gram.mmd_permutation_test_tiled_sweep(
+            x, y, alphas, generator=generator, n_permutations=n_permutations,
+            permutations=permutations, device=device)
     z, n1, n2 = _pooled(x, y, device)
     d2 = pairwise_sq_dists(z)
     base = torch.cat([torch.ones(n1, dtype=z.dtype), torch.zeros(n2, dtype=z.dtype)]).to(z.device)
@@ -121,7 +122,14 @@ def mmd_permutation_test(
     permutations: Optional[torch.Tensor] = None,
     device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One test on the summed-alpha kernel; ``(statistic, p_value)``."""
+    """One test on the summed-alpha kernel; ``(statistic, p_value)``. Past
+    ``DENSE_GOF_MAX_M`` pooled samples through the K5 kernel."""
+    if len(x) + len(y) > DENSE_GOF_MAX_M:
+        from vgan_tpu_torch.ops.cuda import gof_gram
+
+        return gof_gram.mmd_permutation_test_tiled(
+            x, y, alphas, generator=generator, n_permutations=n_permutations,
+            permutations=permutations, device=device)
     z, n1, n2 = _pooled(x, y, device)
     k = alpha_gram(z, torch.tensor([float(a) for a in alphas], dtype=z.dtype, device=z.device))
     base = torch.cat([torch.ones(n1, dtype=z.dtype), torch.zeros(n2, dtype=z.dtype)]).to(z.device)
@@ -158,31 +166,39 @@ def mmd_permutation_test_sweep_precise(
     rng=None,
     n_permutations: int = 1000,
     permutations=None,
+    device=None,
 ):
-    """float64 host-side sweep, the precise path for null-regime p-values.
+    """float64 sweep, the precise path for null-regime p-values.
 
     Under the null the statistic (~1e-7) sits below the rounding noise of an
     f32 accumulation of the O(m^2) Gram sums, so kernels and sums are
-    computed in float64 numpy. ``rng`` is a ``numpy.random.Generator``;
+    computed in float64 numpy. Past ``DENSE_PRECISE_MAX_M`` pooled samples
+    the K5 kernel computes Kahan-compensated float32 C planes on ``device``
+    (:func:`resolve_device`: the card unless told otherwise) and the
+    quadratic forms are reduced in float64 on the host. ``rng`` is a
+    ``numpy.random.Generator`` that draws the permutations on both routes;
     ``permutations`` an optional pre-drawn (P, m) 0/1 matrix (rows sum to
     n1). Returns numpy ``(statistics, p_values)``.
     """
     x = np.asarray(x, dtype=np.float64)
     y = np.asarray(y, dtype=np.float64)
     n1, n2 = x.shape[0], y.shape[0]
-    m = n1 + n2
-    if m > DENSE_PRECISE_MAX_M:
-        raise NotImplementedError(f"{m} pooled samples > {DENSE_PRECISE_MAX_M}: {_GOF_KERNEL_TODO}")
-    z = np.concatenate([x, y], axis=0)
-    zn = np.sum(z * z, axis=1)
-    d2 = np.maximum(zn[:, None] + zn[None, :] - 2.0 * (z @ z.T), 0.0)
-
     if permutations is None:
         rng = rng if rng is not None else np.random.default_rng(0)
         base = np.concatenate([np.ones(n1), np.zeros(n2)])
         permutations = np.stack(
             [rng.permutation(base) for _ in range(n_permutations)]
         )
+    if n1 + n2 > DENSE_PRECISE_MAX_M:
+        from vgan_tpu_torch.ops.cuda import gof_gram
+
+        stats, pvals = gof_gram.mmd_permutation_test_tiled_sweep(
+            x.astype(np.float32), y.astype(np.float32), alphas, precision="float64",
+            permutations=permutations, device=resolve_device(device))
+        return stats.numpy(), pvals.numpy()
+    z = np.concatenate([x, y], axis=0)
+    zn = np.sum(z * z, axis=1)
+    d2 = np.maximum(zn[:, None] + zn[None, :] - 2.0 * (z @ z.T), 0.0)
     base_row = np.concatenate([np.ones((1, n1)), np.zeros((1, n2))], axis=1)
 
     stats, pvals = [], []

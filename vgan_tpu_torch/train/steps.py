@@ -1,8 +1,12 @@
-"""No-kl training steps (counterpart of ``vgan_tpu/train/steps.py``, no-kl half).
+"""Training steps and the alternation schedule (counterpart of
+``vgan_tpu/train/steps.py``).
 
-An epoch is: shuffle, drop-last batching, per-batch latent noise, then one
-Adadelta step per batch on ``MMD(batch, U * batch) + 10 * coverage(U)`` with
-``U = generator(noise)``. The bandwidth is frozen after the first batch:
+A no-kl epoch is: shuffle, drop-last batching, per-batch latent noise, then
+one Adadelta step per batch on ``MMD(batch, U * batch) + 10 * coverage(U)``
+with ``U = generator(noise)``. The kl variant alternates detector and
+generator epochs (:class:`AlternationSchedule`) on the MMD between the
+encodings of a batch and of its masked copy. The bandwidth is frozen after
+the first batch:
 ``(bw_value, bw_is_set)`` are device tensors threaded through the state, so
 no step reads anything back to the host. Per-epoch losses stay on the device
 until the caller fetches them.
@@ -13,8 +17,18 @@ without it both come from the state's seeded ``torch.Generator``. The
 state's generator module and optimizer state are updated in place (the JAX
 package's states are immutable).
 
-The kl variant, its detector and alternation schedule are not ported yet
-(ROADMAP.md Queue 1).
+Reference dynamics of the kl variant, each kept as in the JAX package:
+
+- encoder freeze leak: a generator epoch freezes the whole detector, and the
+  next detector epoch re-enables only the decoder, so the encoder stops
+  learning after the first generator epoch (``encoder_active``, a device
+  bool; ``replicate_encoder_freeze=False`` opts out; ``elm`` freezes the
+  encoder from the start);
+- frozen parameters take no Adadelta step, no weight decay and no state
+  advance (the ``active`` flags of :class:`Adadelta`);
+- the reference's kl generator never trains (torch ``Variable`` detaches):
+  with ``replicate_generator_detach`` a generator epoch evaluates its loss
+  under ``torch.no_grad()`` and updates nothing.
 """
 
 from __future__ import annotations
@@ -22,8 +36,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from vgan_tpu_torch.models.detector import Detector
 from vgan_tpu_torch.models.generator import GeneratorBig, latent_size_for
 from vgan_tpu_torch.models.initializers import REFERENCE_NORMAL, TORCH_DEFAULT
 from vgan_tpu_torch.ops import mmd as mmd_ops
@@ -106,6 +122,18 @@ class TrainConfig:
             generator=generator,
         )
 
+    def detector_module(
+        self, generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32
+    ) -> Detector:
+        """Detector module (on the CPU), kl init."""
+        return Detector(
+            latent_size=self.latent_size,
+            in_features=self.ndims,
+            init_scheme=self.init_scheme_kl,
+            dtype=dtype,
+            generator=generator,
+        )
+
     def adadelta(self, lr: float) -> Adadelta:
         return Adadelta(lr, weight_decay=self.weight_decay, state_dtype=self.opt_state_dtype)
 
@@ -155,7 +183,7 @@ def init_no_kl_state(
     )
 
 
-def _epoch_inputs(state: NoKLTrainState, x: torch.Tensor, config: TrainConfig, rng):
+def _epoch_inputs(state, x: torch.Tensor, config: TrainConfig, rng):
     n = x.shape[0]
     if rng is None:
         perm = torch.randperm(n, generator=state.rng, device=x.device)
@@ -172,6 +200,20 @@ def _epoch_inputs(state: NoKLTrainState, x: torch.Tensor, config: TrainConfig, r
     return batches, noise, True
 
 
+def _use_gumbel(config: TrainConfig, injected: bool) -> bool:
+    use_gumbel = config.generator_grad == "gumbel_st"
+    if use_gumbel and injected:
+        raise ValueError(
+            "generator_grad='gumbel_st' cannot be combined with external "
+            "noise injection (the lockstep paths use the reference estimator)"
+        )
+    return use_gumbel
+
+
+def _gumbel_noise(state, config: TrainConfig, x: torch.Tensor) -> torch.Tensor:
+    return sample_gumbel((config.batch_size, config.ndims), state.rng, x.dtype, x.device)
+
+
 def no_kl_epoch(
     state: NoKLTrainState, x: torch.Tensor, config: TrainConfig, rng=None
 ) -> Tuple[NoKLTrainState, torch.Tensor]:
@@ -181,22 +223,13 @@ def no_kl_epoch(
     gen = state.generator
     opt = config.adadelta(config.lr_g)
     batches, noise, injected = _epoch_inputs(state, x, config, rng)
-    use_gumbel = config.generator_grad == "gumbel_st"
-    if use_gumbel and injected:
-        raise ValueError(
-            "generator_grad='gumbel_st' cannot be combined with external "
-            "noise injection (the lockstep paths use the reference estimator)"
-        )
+    use_gumbel = _use_gumbel(config, injected)
     params = dict(gen.named_parameters())
     bw_value, bw_is_set = state.bw_value, state.bw_is_set
     losses = []
     for b in range(batches.shape[0]):
         batch, z = batches[b], noise[b]
-        gumbel = None
-        if use_gumbel:
-            gumbel = sample_gumbel(
-                (config.batch_size, config.ndims), state.rng, x.dtype, x.device
-            )
+        gumbel = _gumbel_noise(state, config, x) if use_gumbel else None
         with torch.enable_grad():
             u = gen(z, gumbel)
             loss, bw_used = mmd_ops.mmd_loss_constrained_stateful(
@@ -236,3 +269,234 @@ def no_kl_fit_program(
     """The whole no-kl fit: init from ``seed``, then ``epochs`` epochs."""
     state = init_no_kl_state(config, seed, x.device, x.dtype)
     return no_kl_train_epochs(state, x, config, epochs)
+
+
+# ---------------------------------------------------------------------------
+# kl variant: adversarial generator vs encoder/decoder detector
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KLTrainState:
+    generator: GeneratorBig
+    detector: Detector
+    gen_opt: AdadeltaState
+    det_opt: AdadeltaState
+    bw_value: torch.Tensor
+    bw_is_set: torch.Tensor
+    encoder_active: torch.Tensor
+    rng: torch.Generator
+
+
+def init_kl_state(
+    config: TrainConfig, seed: int, device, dtype: torch.dtype = torch.float32
+) -> KLTrainState:
+    """Generator and detector (kl init, N(0, 0.1) weights and zero biases),
+    zero Adadelta states, unset bandwidth, encoder active unless ``elm``.
+    Weights are drawn on the CPU from ``seed`` (generator first), the
+    training stream is a device generator seeded from the same CPU stream."""
+    init_rng = torch.Generator().manual_seed(int(seed))
+    gen = config.generator_module(kl=True, train=True, generator=init_rng, dtype=dtype).to(device)
+    det = config.detector_module(generator=init_rng, dtype=dtype).to(device)
+    train_seed = int(torch.randint(0, 2**62, (1,), generator=init_rng))
+    return KLTrainState(
+        generator=gen,
+        detector=det,
+        gen_opt=config.adadelta(config.lr_g).init(dict(gen.named_parameters())),
+        det_opt=config.adadelta(config.lr_d).init(dict(det.named_parameters())),
+        bw_value=torch.zeros((), dtype=dtype, device=device),
+        bw_is_set=torch.zeros((), dtype=torch.bool, device=device),
+        encoder_active=torch.tensor(not config.elm, device=device),
+        rng=torch.Generator(device=device).manual_seed(train_seed),
+    )
+
+
+def _l2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The reference's ``__distance(..., 'L2')``: mean squared difference."""
+    return torch.mean((x - y) ** 2)
+
+
+def _detector_active_mask(det_params, encoder_active):
+    """Per-parameter step flags: the decoder always steps; the encoder only
+    while ``encoder_active`` (a device bool: no host sync)."""
+    return {
+        name: (encoder_active if name.startswith("encoder.") else True)
+        for name in det_params
+    }
+
+
+def _kl_loss(det: Detector, batch, u, config: TrainConfig, bw_value, bw_is_set,
+             with_reconstruction: bool):
+    """``MMD(enc x, enc Ux) + temperature * coverage(U)`` and, for the
+    detector, ``-(that - 0.1 L2(x, dec x) - 0.1 L2(Ux, dec Ux))``. Without
+    the reconstruction terms only the encoder runs."""
+    ux = u * batch
+    if with_reconstruction:
+        (enc_x, dec_x), (enc_ux, dec_ux) = det(batch), det(ux)
+    else:
+        enc_x, enc_ux = det.encoder(batch), det.encoder(ux)
+    mmd, bw = mmd_ops.mmd_loss_constrained_stateful(
+        enc_x,
+        enc_ux,
+        u,
+        weight=config.temperature,
+        bw_value=bw_value,
+        bw_is_set=bw_is_set,
+        impl=config.mmd_impl,
+        matmul_dtype=config.gram_matmul_dtype,
+    )
+    if not with_reconstruction:
+        return mmd, bw
+    return -(mmd - 0.1 * _l2(batch, dec_x) - 0.1 * _l2(ux, dec_ux)), bw
+
+
+def kl_detector_epoch(
+    state: KLTrainState, x: torch.Tensor, config: TrainConfig, rng=None
+) -> Tuple[KLTrainState, torch.Tensor]:
+    """One detector epoch: per batch, ``U = G(z)`` detached, then one
+    Adadelta step of the detector on ``-(MMD(enc x, enc Ux) - 0.1 L2(x,
+    dec x) - 0.1 L2(Ux, dec Ux))``; the encoder steps only while active.
+    Returns ``(state, mean epoch loss)``; ``rng`` as in :func:`no_kl_epoch`."""
+    gen, det = state.generator, state.detector
+    opt = config.adadelta(config.lr_d)
+    batches, noise, injected = _epoch_inputs(state, x, config, rng)
+    use_gumbel = _use_gumbel(config, injected)
+    encoder_active = state.encoder_active
+    if not config.replicate_encoder_freeze:
+        encoder_active = torch.ones_like(encoder_active)
+    if config.elm:
+        # the reference's __elm freezes the encoder whatever the quirk flag
+        encoder_active = torch.zeros_like(encoder_active)
+    params = dict(det.named_parameters())
+    active = _detector_active_mask(params, encoder_active)
+    bw_value, bw_is_set = state.bw_value, state.bw_is_set
+    losses = []
+    for b in range(batches.shape[0]):
+        batch, z = batches[b], noise[b]
+        gumbel = _gumbel_noise(state, config, x) if use_gumbel else None
+        with torch.no_grad():
+            u = gen(z, gumbel)
+        with torch.enable_grad():
+            loss, bw_used = _kl_loss(det, batch, u, config, bw_value, bw_is_set, True)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        opt.step(params, grads, state.det_opt, active=active)
+        bw_value = bw_used.detach()
+        if config.freeze_bandwidth:
+            bw_is_set = torch.ones_like(bw_is_set)
+        losses.append(loss.detach())
+    state = dataclasses.replace(state, bw_value=bw_value, bw_is_set=bw_is_set)
+    return state, torch.mean(torch.stack(losses))
+
+
+def kl_generator_epoch(
+    state: KLTrainState, x: torch.Tensor, config: TrainConfig, rng=None
+) -> Tuple[KLTrainState, torch.Tensor]:
+    """One generator epoch on ``MMD(enc x, enc Ux) + temperature *
+    coverage(U)`` with the detector frozen. Under
+    ``replicate_generator_detach`` the loss is only evaluated, under
+    ``torch.no_grad()`` (the bandwidth state still advances); otherwise the
+    generator takes one Adadelta step per batch. Afterwards the encoder is
+    inactive (the reference's freeze leak)."""
+    gen, det = state.generator, state.detector
+    opt = config.adadelta(config.lr_g)
+    batches, noise, injected = _epoch_inputs(state, x, config, rng)
+    use_gumbel = _use_gumbel(config, injected)
+    params = dict(gen.named_parameters())
+    bw_value, bw_is_set = state.bw_value, state.bw_is_set
+    losses = []
+    for b in range(batches.shape[0]):
+        batch, z = batches[b], noise[b]
+        gumbel = _gumbel_noise(state, config, x) if use_gumbel else None
+        if config.replicate_generator_detach:
+            with torch.no_grad():
+                loss, bw_used = _kl_loss(det, batch, gen(z, gumbel), config,
+                                         bw_value, bw_is_set, False)
+        else:
+            with torch.enable_grad():
+                loss, bw_used = _kl_loss(det, batch, gen(z, gumbel), config,
+                                         bw_value, bw_is_set, False)
+                grads = torch.autograd.grad(loss, list(params.values()))
+            opt.step(params, grads, state.gen_opt)
+        bw_value = bw_used.detach()
+        if config.freeze_bandwidth:
+            bw_is_set = torch.ones_like(bw_is_set)
+        losses.append(loss.detach())
+    state = dataclasses.replace(
+        state, bw_value=bw_value, bw_is_set=bw_is_set,
+        encoder_active=torch.zeros_like(state.encoder_active),
+    )
+    return state, torch.mean(torch.stack(losses))
+
+
+PHASE_DETECTOR, PHASE_GENERATOR, PHASE_IDLE = 0, 1, 2
+
+
+def kl_train_epochs(
+    state: KLTrainState, x: torch.Tensor, phases, config: TrainConfig
+) -> Tuple[KLTrainState, torch.Tensor, torch.Tensor]:
+    """Run the epochs ``phases`` names (host ints: 0 detector, 1 generator,
+    2 idle, from :class:`AlternationSchedule`). Returns ``(state,
+    detector_history, generator_history)``, float32 device tensors of shape
+    (epochs,): each epoch records the most recent loss of each kind, NaN
+    before the first epoch of that kind."""
+    nan = torch.full((), float("nan"), dtype=torch.float32, device=x.device)
+    last_det, last_gen = nan, nan
+    det_hist, gen_hist = [], []
+    for phase in np.asarray(phases).tolist():
+        if phase == PHASE_DETECTOR:
+            state, loss = kl_detector_epoch(state, x, config)
+            last_det = loss.to(torch.float32)
+        elif phase == PHASE_GENERATOR:
+            state, loss = kl_generator_epoch(state, x, config)
+            last_gen = loss.to(torch.float32)
+        elif phase != PHASE_IDLE:
+            raise ValueError(f"unknown phase code {phase}")
+        det_hist.append(last_det)
+        gen_hist.append(last_gen)
+    if not det_hist:
+        empty = torch.zeros((0,), dtype=torch.float32, device=x.device)
+        return state, empty, empty
+    return state, torch.stack(det_hist), torch.stack(gen_hist)
+
+
+def kl_fit_program(
+    x: torch.Tensor, seed: int, phases, config: TrainConfig
+) -> Tuple[KLTrainState, torch.Tensor, torch.Tensor]:
+    """The whole kl fit: init from ``seed``, then the phased epochs."""
+    state = init_kl_state(config, seed, x.device, x.dtype)
+    return kl_train_epochs(state, x, phases, config)
+
+
+class AlternationSchedule:
+    """The reference's epoch-phase counters: detector epochs while
+    ``iternum_d`` allows, then generator epochs while ``iternum_g`` allows;
+    finishing the generator run resets the detector counter. The defaults
+    (1, 5) give one detector epoch, then five generator epochs."""
+
+    DETECTOR = "detector"
+    GENERATOR = "generator"
+    IDLE = "idle"
+
+    def __init__(self, iternum_d: int, iternum_g: int):
+        self.iternum_d = iternum_d
+        self.iternum_g = iternum_g
+        self._d = 1
+        self._g = 1
+
+    def next_phase(self) -> str:
+        if self._d <= self.iternum_d:
+            self._d += 1
+            self._g = 1
+            return self.DETECTOR
+        if self._g <= self.iternum_g:
+            self._g += 1
+            if self._g > self.iternum_g:
+                self._d = 1
+            return self.GENERATOR
+        return self.IDLE
+
+    def phase_array(self, epochs: int) -> np.ndarray:
+        """Phase codes for the next ``epochs`` epochs."""
+        codes = {self.DETECTOR: PHASE_DETECTOR, self.GENERATOR: PHASE_GENERATOR,
+                 self.IDLE: PHASE_IDLE}
+        return np.asarray([codes[self.next_phase()] for _ in range(epochs)], dtype=np.int32)
