@@ -12,6 +12,10 @@ Phases (each asserts; any failure exits non-zero):
    torch MMD in all three backward regimes (stash, flash, panel); the GoF
    kernel (K5) against its float64 plain version at the GoF path's own
    shape (17000 pooled rows, d=10240, 1002 indicator rows) and a ragged one;
+   the KNN-score kernels (K6 resident, K7 streaming) against their plain
+   version at both ensembles' shapes, both modes, with ``exclude_self`` at
+   the ``predict`` batches, at ragged shapes and on tie-heavy integer rows
+   (equal to the bit for 'kth');
 3. the no-kl main path at full width: ``VGAN_no_kl`` fit at the stress
    configuration (n=2000, d=10240, batch 500, 2 epochs), then
    generate_subspaces, approx_subspace_dist and check_if_myopic;
@@ -24,14 +28,22 @@ Phases (each asserts; any failure exits non-zero):
    check_if_myopic past the dense caps (count 8500 in float64, 5000 in
    float32, from 10000 rows) through K5, the float64 route held to a
    blockwise float64 oracle on the card and the float32 route to it;
+3c. the subspace ensemble at full width, ``knn`` and ``knn_mean``:
+   ``SubspaceEnsemble.from_model`` on the phase-3 stress model (500 sampled
+   masks, 2000 x 10240 train rows, 500 test rows with 25 planted outliers),
+   which runs K7 only, and the JAX package's bench ensemble (1024 masks,
+   1000 x 500 rows, d=100, 25 planted outliers), which runs K6 only:
+   decision_function, predict, decision_scores_ and labels_ through the
+   public API, held to the same ensemble on the generic torch path, with the
+   outliers' ROC AUC (asserted on the bench ensemble);
 4. the other regimes through ``fit`` (d=1024 flash; d=10240 with the K'
    stash off, panel), and the d=10 notebook configuration of both
    estimators, which runs no kernel. Every kernel fit's losses are held
    against the same fit on the dense torch path;
 5. CUDA-event times of each kernel and its plain version, bounds, the
-   stress fits' steps/s, and a profiler breakdown of one no-kl stress epoch
-   and of one kl detector and one kl generator epoch by device kernel, with
-   the device's busy share.
+   stress fits' steps/s, both ensembles' API-level subspace-scorings/s, and
+   a profiler breakdown of one no-kl stress epoch and of one kl detector and
+   one kl generator epoch by device kernel, with the device's busy share.
 
 Prints a JSON line of the kernels, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -97,6 +109,32 @@ ORACLE_P_ATOL = 2.0 / ORACLE_PERMUTATIONS
 # the float32 route's statistic against the float64 route's: its final sums
 # of O(m^2) entries are f32, and the statistic is their near-cancellation.
 F32_STAT_RTOL = 5e-2
+# K6 / K7 squared 'kth' scores against the plain version, as a fraction of
+# max(an + bn), the scale at which the expansion (an + bn) - 2 cross
+# cancels: the two sum the masked norms and the cross product in other
+# orders, a few ulp of that scale at d <= 3000. At d = 10240 the sums have
+# ten times the terms (typical rounding sqrt(d) 2^-24, about 6e-6 of the
+# scale), so the bound there is ten times wider. A 'mean' score averages the
+# sqrt of the k smallest d2, each within the same eps (order statistics move
+# no more than their inputs), and |sqrt(a) - sqrt(b)| <= min(sqrt(eps),
+# eps / sqrt(b)), with b at least the nearest neighbour's d2 b1: so 'mean' is
+# held to min(sqrt(eps), eps / sqrt(b1)) per score, b1 from the plain version
+# at k = 1 (a duplicated row has b1 = 0). On small-integer rows every d2 is exact:
+# 'kth' must be equal to the bit, 'mean' (k square roots summed in another
+# order) within KNN_MEAN_RTOL_EXACT.
+KNN_D2_FRAC, KNN_D2_FRAC_WIDE, KNN_WIDE_D = 1e-5, 1e-4, 4096
+KNN_MEAN_RTOL_EXACT = 1e-6
+# the ensembles' decision_function on the kernel path against the generic
+# torch path: per-subspace scores agree to the bounds above, and the
+# z-score divides each subspace's error by that subspace's spread over the
+# test rows; held to this fraction of the largest aggregated score.
+ENSEMBLE_FRAC = 1e-4
+# the bench ensemble's 25 planted outliers (rows scaled by 3 at d=100, masks
+# of about 30 features) are far from the Gaussian rows in every subspace
+BENCH_AUC_MIN = 0.95
+N_OUTLIERS = 25
+BENCH_ENSEMBLE = dict(n_train=1000, n_test=500, d=100, n_masks=1024, k=10)  # bench.py:414-419
+STRESS_ENSEMBLE = dict(subspace_count=500, n_test=500, k=10)
 
 
 def check(cond, msg: str) -> None:
@@ -346,6 +384,78 @@ def phase_gof_kernel(device, shapes, log):
     return errs
 
 
+def knn_inputs(nt, ntr, d, nm, seed, device, integer=False, exclude_self=False):
+    """Test rows, train rows and 0/1 masks (about 30% of the features, one
+    all-zero mask). With ``exclude_self`` and nt > ntr the test rows start
+    with the train rows, as ``predict``'s combined batch does."""
+    rng = np.random.default_rng(seed)
+
+    def rows(n):
+        if integer:  # small integers: exact distances, heavy ties
+            return rng.integers(-2, 3, size=(n, d)).astype(np.float32)
+        return rng.standard_normal((n, d), dtype=np.float32)
+
+    xtr = rows(ntr)
+    xte = np.concatenate([xtr, rows(nt - ntr)]) if exclude_self and nt > ntr else rows(nt)
+    masks = rng.random((nm, d)) < 0.3
+    masks[~masks.any(axis=1), 0] = True
+    masks[1] = False
+    as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device, torch.float32)
+    return as_dev(xte), as_dev(xtr), as_dev(masks)
+
+
+def phase_knn_kernels(device, shapes, log):
+    """K6 / K7 against their plain version (``KNN_*`` tolerances), the
+    regime's kernel launched, the all-zero mask scored 0, and a re-run for
+    identical bits. ``shapes``: (label, nt, ntr, d, n_masks, k,
+    exclude_self, integer). Returns the largest |score error| per
+    (kernel, (nt, ntr, d))."""
+    from vgan_tpu_torch.ops.cuda import knn_score as KS
+
+    errs = {}
+    for label, nt, ntr, d, nm, k, excl, integer in shapes:
+        xte, xtr, masks = knn_inputs(nt, ntr, d, nm, 41, device, integer, excl)
+        name = "knn_scores_resident" if KS._resident_supported(ntr, d) else "knn_scores_stream"
+        scale = float(torch.max((xte * xte) @ masks.T) + torch.max((xtr * xtr) @ masks.T))
+        frac = KNN_D2_FRAC_WIDE if d > KNN_WIDE_D else KNN_D2_FRAC
+        tag = f"{label} ({nt} x {ntr}, d={d}, {nm} masks, k={k}, exclude_self={excl})"
+        for mode in ("kth", "mean"):
+            KS.reset_launch_counts()
+            got = KS.knn_scores_all_masks(xte, xtr, masks, k, mode, excl)
+            sync()
+            check(KS.launch_counts()[name] == 1, f"{tag}: launched {KS.launch_counts()}, not {name}")
+            ref = KS.knn_scores_all_masks_reference(xte, xtr, masks, k, mode, excl)
+            err = max_abs(got, ref)
+            if integer and mode == "kth":
+                check(torch.equal(got, ref), f"{tag} kth: not equal to the plain version "
+                                             f"on exact distances (max abs err {err:.3e})")
+                what = "equal to the bit"
+            elif integer:
+                assert_close(f"{tag} mean", got, ref, KNN_MEAN_RTOL_EXACT)
+                what = f"rtol {KNN_MEAN_RTOL_EXACT}"
+            elif mode == "kth":
+                e2 = float(torch.max(torch.abs(got.double() ** 2 - ref.double() ** 2)))
+                check(e2 <= frac * scale, f"{tag} kth: |d s^2| {e2:.3e} > {frac} x {scale:.4e}")
+                what = f"|d s^2| {e2 / scale:.2e} of max(an + bn) {scale:.4e} (limit {frac})"
+            else:
+                eps = frac * scale
+                s1 = KS.knn_scores_all_masks_reference(xte, xtr, masks, 1, "kth", excl)
+                lim = torch.clamp(eps / s1, max=eps ** 0.5)
+                check(bool(torch.all(torch.abs(got - ref) <= lim)),
+                      f"{tag} mean: |d s| above min(sqrt(eps), eps / s1), eps {eps:.3e}")
+                what = (f"within min(sqrt(eps), eps / s1) per score, eps = {frac} x "
+                        f"{scale:.4e} (largest |d s| / limit {float(torch.max(torch.abs(got - ref) / lim)):.2e})")
+            check(bool(torch.all(got[1] == 0.0)), f"{tag} {mode}: the all-zero mask scored nonzero")
+            repeat_identical(f"{tag} {mode}",
+                             lambda: KS.knn_scores_all_masks(xte, xtr, masks, k, mode, excl))
+            key = (name, (nt, ntr, d))
+            errs[key] = max(errs.get(key, 0.0), err)
+            log(f"  {'K6' if name == 'knn_scores_resident' else 'K7'} {tag} {mode}: "
+                f"max abs err {err:.3e}, {what}; identical bits on a re-run: ok")
+        del xte, xtr, masks
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: fits through the public estimator
 # ---------------------------------------------------------------------------
@@ -394,10 +504,11 @@ def fit_against_dense(X, device, label, log, **kw):
 
 
 def phase_main_path(device, n, d, batch, log):
-    """The stress fit -> sample -> GoF workflow; returns the K2 launches."""
+    """The stress fit -> sample -> GoF workflow; returns the K2 launches,
+    the fitted model and its training rows."""
     X = np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)
     steps = 2 * (n // batch)
-    model, counts, losses = fit_against_dense(X, device, "stress fit", log,
+    model, counts, _ = fit_against_dense(X, device, "stress fit", log,
                                               epochs=2, batch_size=batch)
     check(counts["gram_quadrant_sums_stash"] == steps,
           f"stress fit launched the stash kernel {counts['gram_quadrant_sums_stash']} times, "
@@ -408,7 +519,7 @@ def phase_main_path(device, n, d, batch, log):
     p = model.check_if_myopic(X, count=batch, rng=np.random.default_rng(3)).to_numpy().ravel()
     check(np.all((p >= 0.0) & (p <= 1.0)), f"p-values out of [0, 1]: {p}")
     log(f"  GoF p-values {p.tolist()}")
-    return counts["gram_quadrant_sums_stash"], float(losses[-1])
+    return counts["gram_quadrant_sums_stash"], model, X
 
 
 def sample_workflow(model, nsubs, d, log):
@@ -512,6 +623,103 @@ def phase_kl_main_path(device, n, d, batch, log):
         f"(rel {abs(s32 - float(s64[0])) / abs(float(s64[0])):.2e})")
     launches["a_times_k"] = k5
     return launches
+
+
+def roc_auc(scores, is_outlier) -> float:
+    """Mann-Whitney ROC AUC of the outliers against the rest (ties half)."""
+    pos, neg = scores[is_outlier][:, None], scores[~is_outlier][None, :]
+    return float(np.mean((pos > neg) + 0.5 * (pos == neg)))
+
+
+def outlier_rows(rng, n: int, d: int):
+    """``n`` Gaussian rows, the first ``N_OUTLIERS`` scaled by 3."""
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    x[:N_OUTLIERS] *= 3.0
+    is_outlier = np.zeros(n, bool)
+    is_outlier[:N_OUTLIERS] = True
+    return x, is_outlier
+
+
+def drive_ensemble(ens, Xt, is_outlier, kernel: str, label: str, log) -> float:
+    """decision_function, predict, decision_scores_ and labels_ through the
+    public API, with the KNN kernel counts set to 0 just before and read just
+    after: ``kernel`` once per call, the other never. Then the same
+    decision_function on the generic torch path (no kernel). Returns the
+    outliers' ROC AUC."""
+    from vgan_tpu_torch.ops.cuda import knn_score as KS
+
+    sync()
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    scores = ens.decision_function(Xt)
+    t_dec = time.perf_counter() - t0
+    labels = ens.predict(Xt)
+    train_scores = ens.decision_scores_
+    train_labels = ens.labels_
+    sync()
+    counts = KS.launch_counts()
+    want = {"knn_scores_resident": 0, "knn_scores_stream": 0, kernel: 3}
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    n_tr = ens._x_train.shape[0]
+    check(scores.shape == (len(Xt),) and np.all(np.isfinite(scores)), f"{label}: scores not finite")
+    check(train_scores.shape == (n_tr,) and np.all(np.isfinite(train_scores)),
+          f"{label}: decision_scores_ not finite")
+    check(set(np.unique(labels)) <= {0, 1}, f"{label}: predict labels {np.unique(labels)}")
+    check(np.array_equal(train_labels, (train_scores > ens.threshold_).astype(np.int64))
+          and ens.threshold_ == float(np.quantile(train_scores, 1.0 - ens.contamination)),
+          f"{label}: labels_ != decision_scores_ > threshold_ at the (1 - contamination) quantile")
+    generic = ens._native_scores(ens._as_device(Xt), False, reduce=True).cpu().numpy()
+    check(sum(KS.launch_counts().values()) == 3, f"{label}: the generic path launched a kernel")
+    err = float(np.max(np.abs(scores - generic)))
+    lim = ENSEMBLE_FRAC * float(np.max(np.abs(generic)))
+    check(err <= lim, f"{label}: kernel path vs generic torch path max abs err {err:.3e} > {lim:.3e}")
+    auc = roc_auc(scores, is_outlier)
+    log(f"  {label}: {len(ens.subspaces)} masks, launches {counts}; decision_function "
+        f"{t_dec:.3f} s (first call), vs the generic torch path max abs err {err:.3e} "
+        f"(limit {lim:.3e}); {int(labels.sum())} of {len(Xt)} test rows and "
+        f"{int(train_labels.sum())} of {n_tr} train rows labelled outliers, threshold_ "
+        f"{ens.threshold_:.6f}; ROC AUC of the {N_OUTLIERS} planted outliers {auc:.4f}")
+    return auc
+
+
+def phase_ensembles(device, model, X, log):
+    """The subspace ensemble through the public API: from the phase-3 stress
+    model (K7) and at the bench configuration (K6), both bases. Returns the
+    launches of each kernel and the ensembles with their test rows, for
+    phase 5."""
+    from vgan_tpu_torch import SubspaceEnsemble
+
+    launches = {"knn_scores_resident": 0, "knn_scores_stream": 0}
+    runs = {}
+    k = STRESS_ENSEMBLE["k"]
+    Xt, is_out = outlier_rows(np.random.default_rng(21), STRESS_ENSEMBLE["n_test"], X.shape[1])
+    for base in ("knn", "knn_mean"):
+        ens = SubspaceEnsemble.from_model(model, STRESS_ENSEMBLE["subspace_count"], base=base,
+                                          k=k).fit(X)
+        check(ens.device.type == "cuda", f"the ensemble runs on {ens.device}")
+        auc = drive_ensemble(ens, Xt, is_out, "knn_scores_stream",
+                             f"stress ensemble {base} ({len(X)} x {X.shape[1]} train, "
+                             f"{len(Xt)} test, k={k})", log)
+        log("    (AUC not asserted: the masks come from a 2-epoch fit)")
+        launches["knn_scores_stream"] += 3
+        runs["stress", base] = (ens, Xt)
+
+    cfg = BENCH_ENSEMBLE
+    rng = np.random.default_rng(22)
+    xtr = rng.standard_normal((cfg["n_train"], cfg["d"]), dtype=np.float32)
+    xte, is_out = outlier_rows(rng, cfg["n_test"], cfg["d"])
+    subs = rng.uniform(size=(cfg["n_masks"], cfg["d"])) < 0.3
+    subs[~subs.any(axis=1), 0] = True
+    for base in ("knn", "knn_mean"):
+        ens = SubspaceEnsemble(subs, np.full(cfg["n_masks"], 1.0 / cfg["n_masks"]), base=base,
+                               k=cfg["k"]).fit(xtr)
+        auc = drive_ensemble(ens, xte, is_out, "knn_scores_resident",
+                             f"bench ensemble {base} ({cfg['n_train']} x {cfg['d']} train, "
+                             f"{cfg['n_test']} test, k={cfg['k']})", log)
+        check(auc >= BENCH_AUC_MIN, f"bench ensemble {base}: ROC AUC {auc:.4f} < {BENCH_AUC_MIN}")
+        launches["knn_scores_resident"] += 3
+        runs["bench", base] = (ens, xte)
+    return launches, runs
 
 
 def phase_other_regimes(device, n, d_flash, d_panel, batch, log):
@@ -700,6 +908,64 @@ def phase_times(device, shapes, errs, launches, log):
     return rows
 
 
+def knn_ops(nm: int, nt: int, ntr: int, d: int) -> float:
+    """The masked products (2 d per pair and mask), the masked norms of the
+    test and train rows per mask, and one compare per (mask, row, train)
+    entry."""
+    return 2 * nm * nt * ntr * d + 2 * nm * (nt + ntr) * d + nm * nt * ntr
+
+
+def knn_times(runs, errs, launches, log):
+    """K6 and K7 at the shapes the ensembles' decision_function gives them,
+    on those ensembles' own device tensors (mode 'kth')."""
+    from vgan_tpu_torch.ops.cuda import knn_score as KS
+
+    rows = []
+    for name, key, replaces, iters in (
+        ("knn_scores_resident", ("bench", "knn"), "92 _knn_kernel", 20),
+        ("knn_scores_stream", ("stress", "knn"), "157 _knn_stream_kernel", 3),
+    ):
+        ens, Xt = runs[key]
+        x, xtr = ens._as_device(Xt), ens._x_train
+        masks, _ = ens._device_pool()
+        nm, (nt, d), ntr, k = masks.shape[0], x.shape, xtr.shape[0], ens.k
+        t = {"shape": f"{nm} masks, {nt} x {ntr}, d={d}, k={k}",
+             "ms": cuda_ms(lambda: KS.knn_scores_all_masks(x, xtr, masks, k), iters, 1),
+             "plain_ms": cuda_ms(lambda: KS.knn_scores_all_masks_reference(x, xtr, masks, k),
+                                 iters, 1)}
+        t["bound_ms"], t["bound_by"] = bound(knn_ops(nm, nt, ntr, d),
+                                             4 * (nm * d + nt * d + ntr * d + nm * nt))
+        log(f"  {name} {t['shape']}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms by {t['bound_by']})")
+        rows.append({
+            "name": name, "route": "cuda", "source": "vgan_tpu_torch/ops/cuda/csrc/knn_score.cu",
+            "replaces": f"vgan_tpu/ops/pallas/knn_score.py:{replaces}",
+            **t, "launches": launches[name], "max_abs_err": errs[name, (nt, ntr, d)],
+            "tol": f"kth |d s^2| <= eps = {KNN_D2_FRAC} (d <= {KNN_WIDE_D}) or {KNN_D2_FRAC_WIDE} "
+                   "of max(an + bn); mean |d s| <= min(sqrt(eps), eps / s1); integer rows: kth "
+                   "equal",
+            "library_ms": None,
+        })
+    return rows
+
+
+def ensemble_rates(runs, log) -> None:
+    """API-level decision_function wall time (host clock; the call ends in
+    the host fetch of the scores), as subspace-scorings/s."""
+    for (config, base), (ens, Xt) in runs.items():
+        iters = 3 if config == "stress" else 10
+        ens.decision_function(Xt)
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            ens.decision_function(Xt)
+            times.append(time.perf_counter() - t0)
+        sec = statistics.median(times)
+        log(f"  {config} ensemble {base} decision_function ({len(ens.subspaces)} masks, "
+            f"{len(Xt)} test rows): {sec * 1e3:.3f} ms, {len(ens.subspaces) / sec:.1f} "
+            f"subspace-scorings/s (median of {iters})")
+
+
 def fit_steps_per_s(device, n, d, batch, epochs: int = 2) -> float:
     from vgan_tpu_torch.train.steps import TrainConfig, init_no_kl_state, no_kl_train_epochs
 
@@ -786,6 +1052,7 @@ def main() -> int:
     import vgan_tpu_torch
     from vgan_tpu_torch.ops.cuda import _build
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
+    from vgan_tpu_torch.ops.cuda import knn_score as KS
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     here = Path(__file__).resolve().parent
@@ -803,8 +1070,8 @@ def main() -> int:
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on")
     check(torch.get_float32_matmul_precision() == "highest", "float32 matmul precision is not 'highest'")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        for build in [pool.submit(G._lib), pool.submit(GG._lib)]:
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
+        for build in [pool.submit(G._lib), pool.submit(GG._lib), pool.submit(KS._lib)]:
             build.result()
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s ("
         + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in _build.build_info.items()) + ")")
@@ -826,12 +1093,29 @@ def main() -> int:
     phase_core(device, stress_shape, (333, 517, 2000), log)
     gof_errs = phase_gof_kernel(device, [gof_f64, (2000, 333, 517, 2500, 35, (0.01, 1.0, 7.5))], log)
     errs.update({("a_times_k", shape): e for shape, e in gof_errs.items()})
+    bench, se = BENCH_ENSEMBLE, STRESS_ENSEMBLE
+    nt_b, ntr_b, d_b, nm_b, k_b = (bench["n_test"], bench["n_train"], bench["d"],
+                                   bench["n_masks"], bench["k"])
+    errs.update(phase_knn_kernels(device, [
+        # (label, nt, ntr, d, masks, k, exclude_self, integer rows)
+        ("bench ensemble", nt_b, ntr_b, d_b, nm_b, k_b, False, False),
+        ("bench predict", ntr_b + nt_b, ntr_b, d_b, nm_b, k_b, True, False),
+        ("stress ensemble", se["n_test"], n, d, se["subspace_count"], se["k"], False, False),
+        ("stress predict", n + se["n_test"], n, d, se["subspace_count"], se["k"], True, False),
+        ("ragged", 333, 517, 100, 37, 64, True, False),
+        ("ragged", 333, 5170, 2500, 13, 10, False, False),
+        ("integer ties", 300, 260, 20, 11, 5, True, True),
+        ("integer ties", 200, 3000, 3000, 9, 7, True, True),
+    ], log))
 
     log("phase 3: no-kl main path at full width")
-    k2_launches, _ = phase_main_path(device, n, d, batch, log)
+    k2_launches, stress_model, X_stress = phase_main_path(device, n, d, batch, log)
 
     log("phase 3b: kl main path at full width")
     kl_launches = phase_kl_main_path(device, n, d, batch, log)
+
+    log("phase 3c: the subspace ensemble at full width (knn, knn_mean)")
+    knn_launches, ensembles = phase_ensembles(device, stress_model, X_stress, log)
 
     log("phase 4: the other regimes through fit, the notebook configurations")
     launches = phase_other_regimes(device, n, d_flash, d, batch, log)
@@ -841,6 +1125,8 @@ def main() -> int:
     log("phase 5: times")
     rows = phase_times(device, {"kl": kl_shape, "flash": flash_shape, "stress": stress_shape,
                                 "gof": [gof_f64, gof_f32]}, errs, launches, log)
+    rows += knn_times(ensembles, errs, knn_launches, log)
+    ensemble_rates(ensembles, log)
     sps = fit_steps_per_s(device, n, d, batch)
     log(f"  stress fit (n={n}, d={d}, batch {batch}): {sps:.2f} steps/s")
     kl_sps = kl_fit_steps_per_s(device, n, d, batch)

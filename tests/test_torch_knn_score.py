@@ -1,0 +1,190 @@
+"""The plain version of the port's K6 / K7 kernels (``knn_scores_all_masks``
+on CPU tensors) against ``vgan_tpu.ops.pallas.knn_score`` run in Pallas
+interpret mode on the CPU, in both of the JAX package's regimes, and the
+regime rule against the JAX package's.
+
+On the CPU ``knn_scores_all_masks`` returns its plain version; the CUDA
+kernels themselves are held to that plain version on the card by
+chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import vgan_tpu.ops.pallas.knn_score as JK
+from vgan_tpu_torch.ops.cuda import knn_score as TK
+
+# Gaussian data: the distance expansion an + bn - 2 cross cancels to about
+# max(an + bn); two summation orders differ by a few ulp of that scale, so
+# squared 'kth' scores are held to eps, this fraction of it. A 'mean' score
+# averages the sqrt of the k smallest d2, each within eps (order statistics
+# move no more than their inputs), and |sqrt(a) - sqrt(b)| <= min(sqrt(eps),
+# eps / sqrt(b)) with b at least the nearest neighbour's d2 b1: so 'mean' is
+# held to min(sqrt(eps), eps / sqrt(b1)) per score (b1 = 0 for a duplicated
+# row).
+D2_FRAC = 1e-5
+# Integer-valued data: every d2 is exact in f32, so 'kth' is equal to the
+# bit; 'mean' sums k square roots in another order.
+MEAN_RTOL_EXACT = 1e-6
+
+
+def _data(nt, ntr, d, nm, seed, integer=False):
+    rng = np.random.default_rng(seed)
+    if integer:  # small integers: heavy ties, exact distances
+        xte = rng.integers(-2, 3, size=(nt, d)).astype(np.float32)
+        xtr = rng.integers(-2, 3, size=(ntr, d)).astype(np.float32)
+    else:
+        xte = rng.normal(size=(nt, d)).astype(np.float32)
+        xtr = rng.normal(size=(ntr, d)).astype(np.float32)
+    n_dup = min(nt, ntr) // 4
+    xte[:n_dup] = xtr[:n_dup]  # duplicated rows: zero distances
+    masks = rng.random((nm, d)) < 0.5
+    masks[~masks.any(axis=1), 0] = True
+    masks[2] = False  # an all-zero mask: d2 == 0 everywhere, score 0
+    return xte, xtr, masks
+
+
+def _jax(xte, xtr, masks, k, mode, exclude_self):
+    return np.asarray(JK.knn_scores_all_masks(xte, xtr, masks, k, interpret=True, mode=mode,
+                                              exclude_self=exclude_self))
+
+
+def _port(xte, xtr, masks, k, mode, exclude_self):
+    TK.reset_launch_counts()
+    got = TK.knn_scores_all_masks(torch.from_numpy(xte), torch.from_numpy(xtr), masks, k,
+                                  mode=mode, exclude_self=exclude_self)
+    assert TK.launch_counts() == {"knn_scores_resident": 0, "knn_scores_stream": 0}
+    assert got.shape == (len(masks), len(xte)) and got.dtype == torch.float32
+    return got.numpy()
+
+
+def _assert_close(got, want, xte, xtr, masks, mode, exclude_self):
+    m = masks.astype(np.float64)
+    scale = float(((xte.astype(np.float64) ** 2) @ m.T).max()
+                  + ((xtr.astype(np.float64) ** 2) @ m.T).max())
+    eps = D2_FRAC * scale
+    if mode == "kth":
+        err = np.abs(got.astype(np.float64) ** 2 - want.astype(np.float64) ** 2).max()
+        assert err <= eps, (err, scale)
+    else:
+        s1 = TK.knn_scores_all_masks_reference(torch.from_numpy(xte), torch.from_numpy(xtr),
+                                               torch.from_numpy(masks.astype(np.float32)), 1,
+                                               "kth", exclude_self).numpy().astype(np.float64)
+        with np.errstate(divide="ignore"):
+            lim = np.minimum(np.sqrt(eps), eps / s1)
+        assert np.all(np.abs(got.astype(np.float64) - want) <= lim), (eps, scale)
+    np.testing.assert_array_equal(got[2], 0.0)
+
+
+@pytest.mark.parametrize("mode", ["kth", "mean"])
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_plain_vs_pallas_resident(mode, exclude_self):
+    """Ragged shapes: nt not a multiple of 256, ntr not of 128, n_masks not
+    of 8; an all-zero mask."""
+    xte, xtr, masks = _data(300, 260, 20, 11, seed=0)
+    assert JK._resident_supported(260, 20) and TK._resident_supported(260, 20)
+    got = _port(xte, xtr, masks, 5, mode, exclude_self)
+    want = _jax(xte, xtr, masks, 5, mode, exclude_self)
+    _assert_close(got, want, xte, xtr, masks, mode, exclude_self)
+
+
+@pytest.mark.parametrize("mode", ["kth", "mean"])
+def test_plain_vs_pallas_integer_ties(mode):
+    xte, xtr, masks = _data(130, 200, 7, 9, seed=1, integer=True)
+    got = _port(xte, xtr, masks, 9, mode, True)
+    want = _jax(xte, xtr, masks, 9, mode, True)
+    if mode == "kth":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=MEAN_RTOL_EXACT)
+
+
+@pytest.fixture
+def streaming_regime(monkeypatch):
+    """Lower ``MAX_NTR_D`` on both sides so 300 train rows stream in two
+    256-row blocks, clear the JAX program cache (``MAX_NTR_D`` is read when
+    ``_knn_scores_call`` traces, so a cached resident program would come
+    back), and count the JAX streaming kernel's calls."""
+    monkeypatch.setattr(JK, "MAX_NTR_D", 128 * 128 * 2)
+    monkeypatch.setattr(TK, "MAX_NTR_D", 128 * 128 * 2)
+    JK._knn_scores_call.clear_cache()
+    calls = []
+    stream_call = JK._knn_stream_call
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return stream_call(*args, **kwargs)
+
+    monkeypatch.setattr(JK, "_knn_stream_call", counted)
+    yield calls
+    JK._knn_scores_call.clear_cache()
+
+
+def _stream_data(integer, seed):
+    xte, xtr, masks = _data(40, 300, 6, 5, seed=seed, integer=integer)
+    xtr[256:286] = xtr[226:256]  # duplicates on both sides of the block boundary
+    return xte, xtr, masks
+
+
+@pytest.mark.parametrize("mode", ["kth", "mean"])
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_plain_vs_pallas_streaming(streaming_regime, mode, exclude_self):
+    xte, xtr, masks = _stream_data(False, seed=2)
+    assert not JK._resident_supported(300, 6) and not TK._resident_supported(300, 6)
+    assert JK._stream_trb(128) == TK._stream_trb(128) == 256
+    got = _port(xte, xtr, masks, 5, mode, exclude_self)
+    want = _jax(xte, xtr, masks, 5, mode, exclude_self)
+    assert streaming_regime, "the JAX side did not run its streaming kernel"
+    _assert_close(got, want, xte, xtr, masks, mode, exclude_self)
+
+
+@pytest.mark.parametrize("mode", ["kth", "mean"])
+def test_plain_vs_pallas_streaming_integer_ties(streaming_regime, mode):
+    xte, xtr, masks = _stream_data(True, seed=3)
+    got = _port(xte, xtr, masks, 12, mode, False)
+    want = _jax(xte, xtr, masks, 12, mode, False)
+    assert streaming_regime, "the JAX side did not run its streaming kernel"
+    if mode == "kth":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=MEAN_RTOL_EXACT)
+
+
+GRID = [
+    (500, 2000, 10240, 10),   # the stress ensemble: streaming
+    (2500, 2000, 10240, 10),  # its predict batch
+    (500, 1000, 100, 10),     # the bench ensemble: resident
+    (500, 1000, 100, 64),
+    (500, 1000, 100, 65),     # k past MAX_K
+    (10, 5, 3, 6),            # k past n_train
+    (100, 8192, 128, 10), (100, 8193, 128, 10), (100, 8192, 129, 10),
+    (100, 128, 8192, 10), (100, 129, 8192, 10),
+    (100, 50000, 300, 10), (100, 3000, 15000, 10), (100, 3000, 16000, 10),
+    (100, 3000, 30000, 10),
+]
+
+
+@pytest.mark.parametrize("max_ntr_d", [None, 128 * 128 * 2])
+def test_regime_rule_matches_jax(monkeypatch, max_ntr_d):
+    if max_ntr_d is not None:
+        monkeypatch.setattr(JK, "MAX_NTR_D", max_ntr_d)
+        monkeypatch.setattr(TK, "MAX_NTR_D", max_ntr_d)
+    for nt, ntr, d, k in GRID:
+        assert TK._resident_supported(ntr, d) == JK._resident_supported(ntr, d), (ntr, d)
+        assert TK._stream_trb(d) == JK._stream_trb(d), d
+        assert TK._stream_fits(d) == JK._stream_fits(d), d
+        assert TK.knn_kernel_supported(nt, ntr, d, k) == JK.knn_kernel_supported(nt, ntr, d, k)
+    assert TK.knn_kernel_supported(500, 2000, 10240, 10)
+    assert not TK._resident_supported(2000, 10240)
+    assert TK._resident_supported(1000, 100) == (max_ntr_d is None)
+    assert not TK.knn_kernel_supported(500, 1000, 100, 65)
+
+
+def test_rejects_unsupported_calls():
+    x = torch.zeros((6, 3))
+    masks = np.ones((2, 3), bool)
+    for k, kw in ((65, {}), (7, {}), (6, {"exclude_self": True}), (0, {}),
+                  (2, {"mode": "median"})):
+        with pytest.raises(ValueError):
+            TK.knn_scores_all_masks(x, x, masks, k, **kw)

@@ -1,11 +1,12 @@
 """vgan_tpu_torch: the PyTorch / CUDA port of ``vgan_tpu`` for NVIDIA Hopper.
 
 Adversarial subspace generation for outlier detection (V-GAN), with the
-same estimator API as ``vgan_tpu`` (``VGAN`` and ``VGAN_no_kl``). The
-multi-bandwidth RBF MMD of every training step, and the GoF test's Gram past
-the dense caps, run through hand-written CUDA kernels
-(``vgan_tpu_torch.ops.cuda``), built with ``nvcc`` at first use. Entry
-points run on ``cuda`` unless given ``device="cpu"``.
+same estimator API as ``vgan_tpu`` (``VGAN`` and ``VGAN_no_kl``) and its
+subspace ensemble (``SubspaceEnsemble``, the ``knn`` / ``knn_mean`` bases).
+The multi-bandwidth RBF MMD of every training step, the GoF test's Gram past
+the dense caps and the ensemble's masked KNN scores run through hand-written
+CUDA kernels (``vgan_tpu_torch.ops.cuda``), built with ``nvcc`` at first
+use. Entry points run on ``cuda`` unless given ``device="cpu"``.
 
 This package imports neither JAX nor ``vgan_tpu``; ``vgan_tpu`` stays the
 reference it is tested against.
@@ -13,7 +14,8 @@ reference it is tested against.
 
 __version__ = "0.1.0"
 
-__all__ = ["VGAN", "VGAN_no_kl", "TrainConfig", "resolve_device", "__version__"]
+__all__ = ["VGAN", "VGAN_no_kl", "SubspaceEnsemble", "TrainConfig", "resolve_device",
+           "__version__"]
 
 from vgan_tpu_torch._device import resolve_device
 
@@ -24,6 +26,10 @@ def __getattr__(name):
         from vgan_tpu_torch.api import vgan as _vgan
 
         return getattr(_vgan, name)
+    if name == "SubspaceEnsemble":
+        from vgan_tpu_torch.ensemble.od import SubspaceEnsemble
+
+        return SubspaceEnsemble
     if name == "TrainConfig":
         from vgan_tpu_torch.train.steps import TrainConfig
 
