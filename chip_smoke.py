@@ -15,7 +15,11 @@ Phases (each asserts; any failure exits non-zero):
    the KNN-score kernels (K6 resident, K7 streaming) against their plain
    version at both ensembles' shapes, both modes, with ``exclude_self`` at
    the ``predict`` batches, at ragged shapes and on tie-heavy integer rows
-   (equal to the bit for 'kth');
+   (equal to the bit for 'kth'); the fused whole-fit kernel (K8) against its
+   plain version with injected noise at the notebook shape, the gate's
+   widest corner and two ragged shapes (each state leaf's change over the
+   fit held, at a learning rate that moves it), its Philox noise's distribution,
+   and its rng-mode fit against the fit fed that noise, to the bit;
 3. the no-kl main path at full width: ``VGAN_no_kl`` fit at the stress
    configuration (n=2000, d=10240, batch 500, 2 epochs), then
    generate_subspaces, approx_subspace_dist and check_if_myopic;
@@ -36,11 +40,18 @@ Phases (each asserts; any failure exits non-zero):
    decision_function, predict, decision_scores_ and labels_ through the
    public API, held to the same ensemble on the generic torch path, with the
    outliers' ROC AUC (asserted on the bench ensemble);
+3d. the fused whole-fit path: ``VGAN_no_kl(fit_impl='fused')`` at the
+   notebook configuration (d=10, n=2000, lr 0.001, 15 epochs) in one K8
+   launch, in the loss and mask bands, then ``continue_fit`` on the scan
+   path and a checkpoint restored into a fresh estimator on the card;
 4. the other regimes through ``fit`` (d=1024 flash; d=10240 with the K'
    stash off, panel), and the d=10 notebook configuration of both
    estimators, which runs no kernel. Every kernel fit's losses are held
    against the same fit on the dense torch path;
-5. CUDA-event times of each kernel and its plain version, bounds, the
+5. CUDA-event times of each kernel and its plain version, bounds (K8: a
+   2000-epoch fused fit at the notebook shape, its plain version over the
+   first 20 epochs, the scan path's steps/s there, and the corner's time
+   per step), the
    stress fits' steps/s, both ensembles' API-level subspace-scorings/s, and
    a profiler breakdown of one no-kl stress epoch and of one kl detector and
    one kl generator epoch by device kernel, with the device's busy share.
@@ -56,6 +67,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -132,6 +144,22 @@ ENSEMBLE_FRAC = 1e-4
 # the bench ensemble's 25 planted outliers (rows scaled by 3 at d=100, masks
 # of about 30 features) are far from the Gaussian rows in every subspace
 BENCH_AUC_MIN = 0.95
+# K8 against its plain version: the same f32 steps with other summation
+# orders (block partials, FMA contraction); a dozen Adadelta steps compound
+# them, so each state leaf's change over the fit is held to a fraction of
+# its largest change. At this learning rate a step moves a parameter by up
+# to about lr * 3e-3, so a dozen steps move each params leaf by about 4e-3,
+# and the limit, a thousandth of that, stays about 60x the f32 spacing of a
+# leaf near 0.5. (At the fit's lr 0.001 the whole change would be smaller
+# than such a limit on the values themselves.)
+FUSED_LOSS_RTOL, FUSED_BW_RTOL, FUSED_LEAF_FRAC = 1e-4, 1e-5, 1e-3
+FUSED_CHECK_LR = 0.1
+# the fused fit at the notebook configuration (the verify skill's bands)
+NOTEBOOK_FIT = dict(epochs=15, lr=0.001)
+FUSED_TIMED_EPOCHS = 2000  # the reference's default epochs
+FUSED_PLAIN_EPOCHS = 20  # the plain version's eager steps, timed over the fit's first epochs
+SCAN_TIMED_EPOCHS = 50
+FUSED_CORNER = dict(n=8192, d=128, bs=1000, epochs=20)  # K8's time per step at the gate's corner
 N_OUTLIERS = 25
 BENCH_ENSEMBLE = dict(n_train=1000, n_test=500, d=100, n_masks=1024, k=10)  # bench.py:414-419
 STRESS_ENSEMBLE = dict(subspace_count=500, n_test=500, k=10)
@@ -404,6 +432,115 @@ def knn_inputs(nt, ntr, d, nm, seed, device, integer=False, exclude_self=False):
     return as_dev(xte), as_dev(xtr), as_dev(masks)
 
 
+def notebook_data(n: int = 2000):
+    """The reference notebook's data: d=10 with a (non-PSD) covariance of 500
+    between features 0, 8 and 9."""
+    rng = np.random.default_rng(0)
+    cov = np.eye(10)
+    for i, j in [(0, 8), (0, 9), (8, 9)]:
+        cov[i, j] = cov[j, i] = 500
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return rng.multivariate_normal([0] * 10, cov, n)
+
+
+def fused_inputs(X, bs: int, epochs: int, seed: int, device, lr: float = 0.001):
+    """K8's packed inputs for a fit of ``X`` from a seeded initial generator:
+    the host schedule from seeded numpy draws, the packed state, and the
+    keyword arguments shared by the kernel and its plain version."""
+    from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
+    from vgan_tpu_torch.train.steps import TrainConfig, init_no_kl_state
+
+    n, d = X.shape
+    config = TrainConfig(ndims=d, batch_size=bs, lr_g=lr)
+    state = init_no_kl_state(config, seed, device)
+    rng = np.random.default_rng(seed)
+    x3, starts, _, _ = FN.schedule(torch.from_numpy(np.asarray(X, np.float32)).to(device), bs,
+                                   epochs, rng.permutation(n), rng.integers(0, n, size=epochs),
+                                   None, None)
+    latent = config.latent_size
+    packed = [t.contiguous() for t in (
+        *FN.pack_params(dict(state.generator.state_dict()), latent, d, device),
+        *FN.pack_params(state.opt_state.square_avg, latent, d, device),
+        *FN.pack_params(state.opt_state.acc_delta, latent, d, device))]
+    kw = dict(d=d, bs=bs, latent=latent, lr=config.lr_g, weight_decay=config.weight_decay,
+              penalty_weight=config.penalty_weight)
+    return x3, torch.from_numpy(starts.astype(np.int32)).to(device), packed, kw
+
+
+def phase_fused_kernel(device, shapes, log):
+    """K8 against its plain version with injected noise, offsets and
+    permutation (``FUSED_*`` tolerances), twice for identical bits; the
+    Philox fill's distribution; the rng-mode fit against the fit fed that
+    fill, to the bit. ``shapes``: (label, n, d, bs, epochs). Returns the
+    largest error (losses, bandwidth and every state leaf, absolute) per
+    (n, d, bs)."""
+    from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
+
+    errs = {}
+    for label, n, d, bs, epochs in shapes:
+        X = notebook_data(n) if d == 10 else np.random.default_rng(n + d).standard_normal(
+            (n, d), dtype=np.float32)
+        x3, starts, packed, kw = fused_inputs(X, bs, epochs, seed=7, device=device,
+                                              lr=FUSED_CHECK_LR)
+        bsp = FN._round_up(bs, 64)
+        T = int(starts.shape[0])
+        noise = torch.from_numpy(np.random.default_rng(8).standard_normal(
+            (T, bsp, FN.LP), dtype=np.float32)).to(device)
+        run = lambda: FN.fused_no_kl_fit_cuda(x3, starts, *packed, noise, 0, n=n, **kw)
+        got = run()
+        want = FN.fused_no_kl_fit_reference(x3, starts.cpu().numpy(), *packed, noise, **kw)
+        sync()
+        tag = f"{label} (n={n}, d={d}, bs={bs}, {epochs} epochs, {T} steps)"
+        err = assert_close(f"K8 losses {tag}", got[7], want[7], FUSED_LOSS_RTOL)
+        err = max(err, assert_close(f"K8 bandwidth {tag}", got[6], want[6], FUSED_BW_RTOL))
+        # each leaf's change from its initial value (the Adadelta state starts at 0)
+        worst = 0.0
+        for i, pair in enumerate(("params", "square_avg", "acc_delta")):
+            leaves_0, leaves_k, leaves_p = (FN.unpack_params(*s[2 * i:2 * i + 2], kw["latent"], d)
+                                            for s in (packed, got, want))
+            for name in leaves_p:
+                change = leaves_p[name] - leaves_0[name]
+                e = assert_frac(f"K8 {pair} {name} change {tag}", leaves_k[name] - leaves_0[name],
+                                change, FUSED_LEAF_FRAC)
+                err = max(err, e)
+                worst = max(worst, e / max(float(torch.max(torch.abs(change))), 1e-30))
+        repeat_identical(f"K8 {tag}", run)
+        errs[n, d, bs] = err
+        log(f"  K8 {tag}: losses {got[7][:2].tolist()}... vs plain {want[7][:2].tolist()}..., "
+            f"bw {float(got[6][0]):.6e}; largest abs err {err:.3e}; largest leaf-change error "
+            f"{worst:.3e} of that leaf's largest change (limit {FUSED_LEAF_FRAC}); identical bits "
+            f"on a re-run: ok")
+
+    # the Philox fill: distribution, distinct steps, and the rng-mode fit fed it
+    steps, rows, lanes = 8, 1024, 128
+    z = FN.philox_normal(12345, steps, rows, lanes, device).reshape(-1).double()
+    mean, var = float(z.mean()), float(z.var())
+    zs, _ = torch.sort(z)
+    cdf = torch.special.ndtr(zs)
+    i = torch.arange(1, zs.numel() + 1, device=zs.device, dtype=torch.float64) / zs.numel()
+    ks = float(torch.max(torch.maximum(i - cdf, cdf - (i - 1.0 / zs.numel()))))
+    check(abs(mean) < 5e-3 and abs(var - 1.0) < 1e-2 and ks < 5e-3,
+          f"Philox normals: mean {mean}, var {var}, KS {ks}")
+    fill = FN.philox_normal(12345, 2, 64, 128, device)
+    check(not torch.equal(fill[0], fill[1]), "Philox: two steps gave the same draws")
+    log(f"  Philox fill, {z.numel()} normals: mean {mean:.3e}, var {var:.6f}, KS distance to "
+        f"N(0, 1) {ks:.3e}; distinct steps differ: ok")
+    label, n, d, bs, epochs = shapes[0]
+    X = notebook_data(n)
+    x3, starts, packed, kw = fused_inputs(X, bs, epochs, seed=9, device=device)
+    T = int(starts.shape[0])
+    rng_mode = FN.fused_no_kl_fit_cuda(x3, starts, *packed, None, 4242, n=n, **kw)
+    fed = FN.fused_no_kl_fit_cuda(x3, starts, *packed,
+                                  FN.philox_normal(4242, T, FN._round_up(bs, 64), FN.LP, device),
+                                  4242, n=n, **kw)
+    sync()
+    for a, b in zip(rng_mode, fed):
+        check(torch.equal(a, b), "K8 in rng mode differs from K8 fed the Philox fill")
+    log(f"  K8 rng mode equals K8 fed the Philox fill to the bit ({label}, {T} steps): ok")
+    return errs
+
+
 def phase_knn_kernels(device, shapes, log):
     """K6 / K7 against their plain version (``KNN_*`` tolerances), the
     regime's kernel launched, the all-zero mask scored 0, and a re-run for
@@ -625,6 +762,52 @@ def phase_kl_main_path(device, n, d, batch, log):
     return launches
 
 
+def phase_fused_main_path(device, log):
+    """``VGAN_no_kl(fit_impl='fused')`` at the notebook configuration with
+    the K8 count set to 0 just before the fit and read just after: one
+    launch, the loss and mask bands; then ``continue_fit`` on the scan path
+    and a checkpoint restored into a fresh estimator on the card. Returns
+    the K8 launches of the fit."""
+    from vgan_tpu_torch import VGAN_no_kl
+    from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
+
+    X = notebook_data()
+    model = VGAN_no_kl(verbose=False, device=device, fit_impl="fused", **NOTEBOOK_FIT)
+    sync()
+    FN.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(X)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = FN.launch_counts()["fused_no_kl_fit_cuda"]
+    check(launches == 1, f"the fused fit launched K8 {launches} times, expected 1")
+    h = np.asarray(model.train_history["generator_loss"])
+    check(len(h) == NOTEBOOK_FIT["epochs"] and np.all(np.isfinite(h)), f"fused history {h}")
+    check(2.5 <= h[-1] <= 5.0, f"fused fit final loss {h[-1]} outside the 2.5-5 band")
+    model.approx_subspace_dist()
+    check(len(model.subspaces) < 20, f"fused fit gave {len(model.subspaces)} unique masks")
+    log(f"  fused fit d=10, {NOTEBOOK_FIT['epochs']} epochs: final loss {h[-1]:.6f} (band "
+        f"2.5-5), {len(model.subspaces)} unique masks (band < 20), top probability "
+        f"{float(np.max(model.proba)):.4f}, bandwidth {model.bandwidth:.6e}, {launches} K8 "
+        f"launch in {seconds:.3f} s (first call: includes the schedule and packing)")
+    bw = model.bandwidth
+    model.continue_fit(X, 2)
+    h = model.train_history["generator_loss"]
+    check(len(h) == NOTEBOOK_FIT["epochs"] + 2 and np.isfinite(h[-1]) and model.bandwidth == bw,
+          f"continue_fit after the fused fit: history {h[-3:]}, bandwidth {model.bandwidth}")
+    check(FN.launch_counts()["fused_no_kl_fit_cuda"] == 1, "continue_fit launched K8")
+    with tempfile.TemporaryDirectory() as ckpt:
+        model.save_checkpoint(ckpt)
+        restored = VGAN_no_kl(verbose=False, device=device, **NOTEBOOK_FIT).restore_checkpoint(ckpt)
+    check(restored.train_state.bw_value.device == model.train_state.bw_value.device,
+          "the restored state is not on the estimator's device")
+    check(np.array_equal(restored.generate_subspaces(500), model.generate_subspaces(500)),
+          "restored checkpoint samples other masks")
+    log(f"  continue_fit 2 epochs on the scan path: losses {h[-2:]}, bandwidth kept; "
+        f"save_checkpoint -> restore_checkpoint on the card: equal generate_subspaces(500)")
+    return launches
+
+
 def roc_auc(scores, is_outlier) -> float:
     """Mann-Whitney ROC AUC of the outliers against the rest (ties half)."""
     pos, neg = scores[is_outlier][:, None], scores[~is_outlier][None, :]
@@ -750,14 +933,8 @@ def phase_other_regimes(device, n, d_flash, d_panel, batch, log):
     launches["kprime_panel"] = counts["kprime_panel"]
 
     # the reference notebook's configuration (d=10): dense torch path, no kernel
-    rng = np.random.default_rng(0)
-    cov = np.eye(10)
-    for i, j in [(0, 8), (0, 9), (8, 9)]:
-        cov[i, j] = cov[j, i] = 500
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        Xn = rng.multivariate_normal([0] * 10, cov, 2000)
-    model, counts, losses, _ = fit_counts(Xn, device, epochs=15, lr=0.001)
+    Xn = notebook_data()
+    model, counts, losses, _ = fit_counts(Xn, device, **NOTEBOOK_FIT)
     check(sum(counts.values()) == 0, f"the d=10 notebook fit launched kernels: {counts}")
     model.approx_subspace_dist()
     log(f"  notebook config d=10: final loss {losses[-1]:.6f} (reference band about 2.5-5), "
@@ -949,6 +1126,97 @@ def knn_times(runs, errs, launches, log):
     return rows
 
 
+def fused_ops_bytes(n: int, d: int, bs: int, latent: int, steps: int):
+    """Per fit, per step over the m = 2 bs valid rows: the distances and the
+    ladder over each unordered pair once and K' [q | q * zc] (``gram_ops``
+    with the backward product, plus 2 m^2 for K' q), the generator's
+    forward, dh and dW GEMMs, and about 10 operations per parameter for
+    Adadelta; bytes: the
+    dataset read once, the state (parameters and two Adadelta averages) read
+    and written once, one loss per step."""
+    widths = [latent, 2 * latent, 4 * latent, 8 * latent, d]
+    macs = sum(a * b for a, b in zip(widths, widths[1:]))
+    n_params = macs + sum(widths[1:])
+    m = 2 * bs
+    per_step = gram_ops(m, d, backward=True) + 2 * m * m + 6 * bs * macs + 10 * n_params
+    return steps * per_step, 4 * (n * d + 6 * n_params + steps)
+
+
+def fused_times(device, errs, launches, log):
+    """K8's row: a fused fit at the notebook shape over the reference's
+    default 2000 epochs (one launch, in-kernel noise) against its plain
+    version on the same inputs (fed the same Philox normals), the scan
+    path's steps/s at that shape, and K8's time per step at the gate's
+    widest corner."""
+    from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
+    from vgan_tpu_torch.train.steps import TrainConfig, init_no_kl_state, no_kl_train_epochs
+
+    X = notebook_data()
+    n, d, bs = X.shape[0], X.shape[1], 500
+    x3, starts, packed, kw = fused_inputs(X, bs, FUSED_TIMED_EPOCHS, seed=11, device=device)
+    T = int(starts.shape[0])
+    t = {"shape": f"n={n} d={d} bs={bs}, {FUSED_TIMED_EPOCHS} epochs = {T} steps",
+         "ms": cuda_ms(lambda: FN.fused_no_kl_fit_cuda(x3, starts, *packed, None, 99, n=n, **kw),
+                       iters=3, warmup=1)}
+    # the plain version's eager steps over the fit's first epochs, fed the
+    # kernel's own Philox normals
+    Tp = FUSED_PLAIN_EPOCHS * (n // bs)
+    plain_noise = FN.philox_normal(99, Tp, bs, kw["latent"], device)
+    starts_host = starts[:Tp].cpu().numpy()
+    t["plain_ms"] = cuda_ms(lambda: FN.fused_no_kl_fit_reference(x3, starts_host, *packed,
+                                                                 plain_noise, **kw),
+                            iters=1, warmup=0)
+    t["plain_steps"], t["plain_us_per_step"] = Tp, t["plain_ms"] * 1e3 / Tp
+    t["bound_ms"], t["bound_by"] = bound(*fused_ops_bytes(n, d, bs, kw["latent"], T))
+    barriers = FN.barriers_per_step(device)
+    log(f"  fused_no_kl_fit_cuda {t['shape']}: {t['ms']:.4f} ms per fit, "
+        f"{t['ms'] * 1e3 / T:.3f} us/step, {T / t['ms'] * 1e3:.1f} steps/s (plain "
+        f"{t['plain_ms']:.4f} ms for its first {Tp} steps, {t['plain_us_per_step']:.3f} us/step; "
+        f"bound {t['bound_ms']:.4f} ms by {t['bound_by']}, {t['bound_ms'] * 1e3 / T:.3f} us/step; "
+        f"{barriers} grid barriers a step, one more at step 0)")
+
+    config = TrainConfig(ndims=d, batch_size=bs, lr_g=NOTEBOOK_FIT["lr"])
+    x = torch.from_numpy(X.astype(np.float32)).to(device)
+    state = init_no_kl_state(config, 777, device)
+    no_kl_train_epochs(state, x, config, 1)
+    sync()
+    t0 = time.perf_counter()
+    _, losses = no_kl_train_epochs(state, x, config, SCAN_TIMED_EPOCHS)
+    sync()
+    scan_sps = SCAN_TIMED_EPOCHS * (n // bs) / (time.perf_counter() - t0)
+    check(bool(torch.all(torch.isfinite(losses))), "non-finite losses in the timed scan fit")
+    log(f"  scan path at the same shape ({SCAN_TIMED_EPOCHS} epochs, host clock): "
+        f"{scan_sps:.1f} steps/s; the fused fit {T / t['ms'] * 1e3 / scan_sps:.1f}x that")
+
+    nc, dc, bsc, ec = (FUSED_CORNER[k] for k in ("n", "d", "bs", "epochs"))
+    Xc = np.random.default_rng(13).standard_normal((nc, dc), dtype=np.float32)
+    x3c, startsc, packedc, kwc = fused_inputs(Xc, bsc, ec, seed=12, device=device)
+    Tc = int(startsc.shape[0])
+    ms_c = cuda_ms(lambda: FN.fused_no_kl_fit_cuda(x3c, startsc, *packedc, None, 98, n=nc, **kwc),
+                   iters=3, warmup=1)
+    noise_c, startsc_host = FN.philox_normal(98, Tc, bsc, kwc["latent"], device), startsc.cpu().numpy()
+    plain_c = cuda_ms(lambda: FN.fused_no_kl_fit_reference(x3c, startsc_host, *packedc, noise_c,
+                                                           **kwc), iters=1, warmup=0)
+    bound_c, by_c = bound(*fused_ops_bytes(nc, dc, bsc, kwc["latent"], Tc))
+    log(f"  fused_no_kl_fit_cuda corner n={nc} d={dc} bs={bsc}, {ec} epochs = {Tc} steps: "
+        f"{ms_c:.4f} ms, {ms_c * 1e3 / Tc:.3f} us/step (plain {plain_c:.4f} ms, bound "
+        f"{bound_c * 1e3 / Tc:.3f} us/step by {by_c})")
+    return {
+        "name": "fused_no_kl_fit_cuda", "route": "cuda",
+        "source": "vgan_tpu_torch/ops/cuda/csrc/fused_no_kl.cu",
+        "replaces": "vgan_tpu/ops/pallas/fused_no_kl.py:102 _kernel_body", **t,
+        "us_per_step": t["ms"] * 1e3 / T, "steps_per_s": T / t["ms"] * 1e3,
+        "scan_steps_per_s": scan_sps, "barriers_per_step": barriers,
+        "launches": launches, "max_abs_err": errs["fused_no_kl_fit_cuda", (n, d, bs)],
+        "tol": f"losses rtol {FUSED_LOSS_RTOL}, bw rtol {FUSED_BW_RTOL}, each state leaf's "
+               f"change {FUSED_LEAF_FRAC} of its largest change (lr {FUSED_CHECK_LR})",
+        "library_ms": None,
+        "at_other_shapes": [{"shape": f"n={nc} d={dc} bs={bsc}, {Tc} steps", "ms": ms_c,
+                             "us_per_step": ms_c * 1e3 / Tc, "plain_ms": plain_c, "bound_ms": bound_c,
+                             "bound_by": by_c}],
+    }
+
+
 def ensemble_rates(runs, log) -> None:
     """API-level decision_function wall time (host clock; the call ends in
     the host fetch of the scores), as subspace-scorings/s."""
@@ -1051,6 +1319,7 @@ def main() -> int:
         return 1
     import vgan_tpu_torch
     from vgan_tpu_torch.ops.cuda import _build
+    from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
     from vgan_tpu_torch.ops.cuda import knn_score as KS
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
@@ -1070,8 +1339,8 @@ def main() -> int:
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on")
     check(torch.get_float32_matmul_precision() == "highest", "float32 matmul precision is not 'highest'")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
-        for build in [pool.submit(G._lib), pool.submit(GG._lib), pool.submit(KS._lib)]:
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, started together
+        for build in [pool.submit(lib) for lib in (G._lib, GG._lib, KS._lib, FN._lib)]:
             build.result()
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s ("
         + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in _build.build_info.items()) + ")")
@@ -1107,6 +1376,15 @@ def main() -> int:
         ("integer ties", 300, 260, 20, 11, 5, True, True),
         ("integer ties", 200, 3000, 3000, 9, 7, True, True),
     ], log))
+    errs.update({("fused_no_kl_fit_cuda", shape): e for shape, e in phase_fused_kernel(device, [
+        # (label, n, d, bs, epochs): the notebook shape, the gate's widest
+        # corner (2 round_up(bs, 64) = 2048 Gram rows), n < BSP, bs not a
+        # multiple of 64
+        ("notebook", 2000, 10, 500, 3),
+        ("corner", 8192, 128, 1000, 2),
+        ("n < BSP", 50, 16, 50, 2),
+        ("ragged bs", 300, 12, 100, 2),
+    ], log).items()})
 
     log("phase 3: no-kl main path at full width")
     k2_launches, stress_model, X_stress = phase_main_path(device, n, d, batch, log)
@@ -1117,6 +1395,9 @@ def main() -> int:
     log("phase 3c: the subspace ensemble at full width (knn, knn_mean)")
     knn_launches, ensembles = phase_ensembles(device, stress_model, X_stress, log)
 
+    log("phase 3d: the fused whole-fit path (fit_impl='fused'), notebook configuration")
+    k8_launches = phase_fused_main_path(device, log)
+
     log("phase 4: the other regimes through fit, the notebook configurations")
     launches = phase_other_regimes(device, n, d_flash, d, batch, log)
     launches["gram_quadrant_sums_stash"] = k2_launches
@@ -1126,6 +1407,7 @@ def main() -> int:
     rows = phase_times(device, {"kl": kl_shape, "flash": flash_shape, "stress": stress_shape,
                                 "gof": [gof_f64, gof_f32]}, errs, launches, log)
     rows += knn_times(ensembles, errs, knn_launches, log)
+    rows.append(fused_times(device, errs, k8_launches, log))
     ensemble_rates(ensembles, log)
     sps = fit_steps_per_s(device, n, d, batch)
     log(f"  stress fit (n={n}, d={d}, batch {batch}): {sps:.2f} steps/s")

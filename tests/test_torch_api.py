@@ -281,15 +281,14 @@ def test_no_card_raises(monkeypatch):
 
 
 _LEFT_OUT = [
-    dict(mesh=object()), dict(shard_features=True), dict(fit_impl="fused"),
-    dict(checkpoint_dir="ck"), dict(checkpoint_every=5),
+    dict(mesh=object()), dict(shard_features=True),
     dict(gram_matmul_dtype="bfloat16"), dict(model_matmul_dtype="bfloat16"),
     dict(opt_state_dtype="bfloat16"),
 ]
 
 
 @pytest.mark.parametrize("cls,kwargs", [(VGAN_no_kl, kw) for kw in _LEFT_OUT]
-                         + [(VGAN, kw) for kw in _LEFT_OUT if "fit_impl" not in kw])
+                         + [(VGAN, kw) for kw in _LEFT_OUT])
 def test_left_out_options_raise(cls, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cls(device="cpu", **kwargs)
@@ -298,12 +297,11 @@ def test_left_out_options_raise(cls, kwargs):
 @pytest.mark.parametrize("cls", [VGAN_no_kl, VGAN])
 def test_left_out_entry_points_raise(cls, tmp_path):
     model = cls(device="cpu")
-    for call in (lambda: model.save_checkpoint(tmp_path),
-                 lambda: model.restore_checkpoint(tmp_path),
-                 lambda: model.continue_fit(np.zeros((4, 2)), 1),
-                 lambda: model.load_models(tmp_path / "generator_0.msgpack", ndims=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.load_models(tmp_path / "generator_0.msgpack", ndims=4)
+    # the checkpoint knobs are ported: accepted and kept
+    kept = cls(device="cpu", checkpoint_dir="ck", checkpoint_every=5)
+    assert (kept.checkpoint_dir, kept.checkpoint_every) == ("ck", 5)
 
 
 def test_vgan_defaults_and_seed_quirk_match_jax():
@@ -374,6 +372,7 @@ def test_port_imports_neither_jax_nor_vgan_tpu():
         "import vgan_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(vgan_tpu_torch.__path__, 'vgan_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "assert {'vgan_tpu_torch.ops.cuda.fused_no_kl', 'vgan_tpu_torch.utils.checkpoint'} <= set(names)\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'vgan_tpu'))\n"
         "assert not bad, bad\n"
@@ -382,4 +381,4 @@ def test_port_imports_neither_jax_nor_vgan_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 15
+    assert int(out.stdout.strip().splitlines()[-1]) >= 17

@@ -3,7 +3,10 @@
 Same constructor names and defaults, same workflow: ``fit`` ->
 ``generate_subspaces`` -> ``approx_subspace_dist`` -> ``check_if_myopic``,
 plus ``model_snapshot``, ``load_models``, ``get_params``,
-``get_the_networks`` and ``train_history``. It runs on ``cuda`` unless
+``get_the_networks``, ``train_history``, full-train-state checkpoints
+(``save_checkpoint``, ``restore_checkpoint``, ``continue_fit``,
+``checkpoint_dir`` / ``checkpoint_every``) and, for ``VGAN_no_kl``, the
+fused whole-fit path (``fit_impl='fused'``). It runs on ``cuda`` unless
 given ``device="cpu"``.
 
 Reference quirks kept, as in the JAX package (``replicate_reference_quirks``):
@@ -188,13 +191,97 @@ class _VGANCommon(EstimatorBase):
         )
 
     def save_checkpoint(self, path):
-        raise _not_ported("save_checkpoint (utils/checkpoint.py)")
+        """Persist the full train state (parameters, optimizer state,
+        bandwidth, RNG state, schedule counters) for exact resume on the
+        same device type. The live state's frozen bandwidth is stored:
+        ``self.bandwidth`` may be stale (a previous fit's, or
+        ``check_if_myopic``'s)."""
+        from vgan_tpu_torch.train.steps import train_state_to_payload
+        from vgan_tpu_torch.utils.checkpoint import save_train_state
+
+        state = getattr(self, "train_state", None)
+        if state is None:
+            raise RuntimeError("save_checkpoint needs a fitted train state: call fit first")
+        bandwidth = float(state.bw_value) if bool(state.bw_is_set) else self.bandwidth
+        schedule = getattr(self, "_schedule", None)
+        meta = {
+            "class": type(self).__name__,
+            "ndims": self._ndims,
+            "batch_size": self.batch_size,
+            "train_history": {k: list(v) for k, v in self.train_history.items()},
+            "bandwidth": bandwidth,
+            "schedule": schedule.get_state() if schedule is not None else None,
+        }
+        save_train_state(path, train_state_to_payload(state), meta)
 
     def restore_checkpoint(self, path):
-        raise _not_ported("restore_checkpoint (utils/checkpoint.py)")
+        """Restore a checkpoint written by :meth:`save_checkpoint` onto this
+        estimator's device. Raises ``ValueError`` for another class's
+        checkpoint."""
+        from vgan_tpu_torch.train.steps import train_state_from_payload
+        from vgan_tpu_torch.utils.checkpoint import load_meta, restore_train_state
+
+        meta = load_meta(path)
+        if meta is None:
+            raise FileNotFoundError(f"no checkpoint metadata at {path}")
+        if meta["class"] != type(self).__name__:
+            raise ValueError(f"checkpoint is for {meta['class']}, not {type(self).__name__}")
+        self._ndims = meta["ndims"]
+        self.batch_size = meta["batch_size"]
+        self._config = self._make_config(self._ndims, self.batch_size)
+        self._latent_size = self._config.latent_size
+        self.train_state = train_state_from_payload(restore_train_state(path), self._config,
+                                                    self.device)
+        self.train_history.clear()
+        for k, v in meta["train_history"].items():
+            self.train_history[k].extend(v)
+        self.bandwidth = meta["bandwidth"]
+        self.generator = self.train_state.generator
+        if self._kl:
+            self._schedule = AlternationSchedule(self.iternum_d, self.iternum_g)
+            if meta.get("schedule"):
+                self._schedule.set_state(meta["schedule"])
+            self.detector = self.train_state.detector
+        self.generator_optimizer = "Adadelta"
+        return self
 
     def continue_fit(self, X, epochs: int):
-        raise _not_ported("continue_fit (resume from a checkpointed train state)")
+        """Run ``epochs`` more training epochs from the current state (after
+        ``fit`` or ``restore_checkpoint``), on the scan path."""
+        X = np.asarray(X)
+        if X.shape[0] < self._config.batch_size:
+            raise ValueError(
+                f"continue_fit dataset has {X.shape[0]} rows but the "
+                f"checkpointed batch_size is {self._config.batch_size}; "
+                "drop-last batching would train zero batches"
+            )
+        x_dev = torch.as_tensor(np.ascontiguousarray(X, dtype=np.float32), device=self.device)
+        if self._kl:
+            state, det_hist, gen_hist = kl_train_epochs(
+                self.train_state, x_dev, self._schedule.phase_array(epochs), self._config)
+            det_hist = det_hist.cpu().numpy().astype(np.float64)
+            gen_hist = gen_hist.cpu().numpy().astype(np.float64)
+            # continue the last-seen-loss semantics across the resume point
+            prev_d = self.train_history["detector_loss"]
+            prev_g = self.train_history["generator_loss"]
+            if prev_d:
+                det_hist[np.isnan(det_hist)] = prev_d[-1]
+            if prev_g:
+                gen_hist[np.isnan(gen_hist)] = prev_g[-1]
+            prev_d.extend(float(v) for v in det_hist)
+            prev_g.extend(float(v) for v in gen_hist)
+            self.detector = state.detector
+        else:
+            state, losses = no_kl_train_epochs(self.train_state, x_dev, self._config, epochs)
+            self.train_history["generator_loss"].extend(
+                float(v) for v in losses.cpu().numpy().astype(np.float64))
+        self._finalize_fit(state)
+        return self
+
+    def _finalize_fit(self, state) -> None:
+        self.generator = state.generator
+        self.train_state = state
+        self.bandwidth = float(state.bw_value) if bool(state.bw_is_set) else None
 
     # -- fit helpers --------------------------------------------------------
 
@@ -234,11 +321,9 @@ class _VGANCommon(EstimatorBase):
         self.model_snapshot(path, run_number, show=False)
 
 
-def _reject_left_out(mesh, shard_features, checkpoint_dir, checkpoint_every, **dtypes) -> None:
+def _reject_left_out(mesh, shard_features, **dtypes) -> None:
     if mesh is not None or shard_features:
         raise _not_ported("mesh / shard_features (multi-device fit, parallel/)")
-    if checkpoint_dir is not None or checkpoint_every is not None:
-        raise _not_ported("checkpoint_dir / checkpoint_every (utils/checkpoint.py)")
     for name, value in dtypes.items():
         if value is not None:
             raise _not_ported(f"{name}={value!r} (bf16 options)")
@@ -283,7 +368,7 @@ class VGAN(_VGANCommon):
         device=None,
     ):
         super().__init__(path_to_directory)
-        _reject_left_out(mesh, shard_features, checkpoint_dir, checkpoint_every,
+        _reject_left_out(mesh, shard_features,
                          gram_matmul_dtype=gram_matmul_dtype,
                          model_matmul_dtype=model_matmul_dtype,
                          opt_state_dtype=opt_state_dtype)
@@ -297,8 +382,8 @@ class VGAN(_VGANCommon):
         self._kl = True
         self.mesh = None
         self.shard_features = False
-        self.checkpoint_dir = None
-        self.checkpoint_every = None
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
         self.gram_matmul_dtype = None
         self.model_matmul_dtype = None
         self.opt_state_dtype = None
@@ -361,31 +446,43 @@ class VGAN(_VGANCommon):
     def fit(self, X):
         """Train generator and detector adversarially on X, in the phases of
         ``AlternationSchedule(iternum_d, iternum_g)``. The loss histories
-        stay on the device and are fetched once, at the end; each epoch
-        records the most recent loss of each kind (NaN before the first)."""
+        stay on the device and are fetched once per chunk (one chunk, or
+        ``checkpoint_every`` epochs each, with a checkpoint after each when
+        ``checkpoint_dir`` is set); each epoch records the most recent loss
+        of each kind (NaN before the first)."""
         t_start = time.time()
         X, config = self._prepare_fit_config(X)
         x_dev = torch.as_tensor(np.ascontiguousarray(X, dtype=np.float32), device=self.device)
         self._schedule = AlternationSchedule(self.iternum_d, self.iternum_g)
         state = init_kl_state(config, self.seed, self.device)
-        state, det_hist, gen_hist = kl_train_epochs(
-            state, x_dev, self._schedule.phase_array(self.epochs), config
-        )
-        det_hist = det_hist.cpu().numpy().astype(np.float64)
-        gen_hist = gen_hist.cpu().numpy().astype(np.float64)
-        for epoch in range(self.epochs):
-            if self.verbose:
-                print(f"\rEpoch {epoch} of {self.epochs}")
-                print(f"Average loss in the epoch Generator: {gen_hist[epoch]}")
-                print(f"Average loss in the epoch Detector: {det_hist[epoch]}")
-            self.train_history["generator_loss"].append(float(gen_hist[epoch]))
-            self.train_history["detector_loss"].append(float(det_hist[epoch]))
+        done = 0
+        last_d, last_g = float("nan"), float("nan")
+        while done < self.epochs:
+            chunk = min(self.checkpoint_every or self.epochs, self.epochs - done)
+            state, det_hist, gen_hist = kl_train_epochs(
+                state, x_dev, self._schedule.phase_array(chunk), config
+            )
+            det_hist = det_hist.cpu().numpy().astype(np.float64)
+            gen_hist = gen_hist.cpu().numpy().astype(np.float64)
+            # carry the last-seen-loss semantics across chunk boundaries
+            det_hist[np.isnan(det_hist)] = last_d
+            gen_hist[np.isnan(gen_hist)] = last_g
+            for i in range(chunk):
+                if self.verbose:
+                    print(f"\rEpoch {done + i} of {self.epochs}")
+                    print(f"Average loss in the epoch Generator: {gen_hist[i]}")
+                    print(f"Average loss in the epoch Detector: {det_hist[i]}")
+                self.train_history["generator_loss"].append(float(gen_hist[i]))
+                self.train_history["detector_loss"].append(float(det_hist[i]))
+            last_d, last_g = det_hist[-1], gen_hist[-1]
+            done += chunk
+            if self.checkpoint_dir is not None:
+                self.train_state = state
+                self.save_checkpoint(self.checkpoint_dir)
         self.generator_optimizer = "Adadelta"
         self.detector_optimizer = "Adadelta"
-        self.generator = state.generator
         self.detector = state.detector
-        self.train_state = state
-        self.bandwidth = float(state.bw_value) if bool(state.bw_is_set) else None
+        self._finalize_fit(state)
         self._log_metrics_jsonl(time.time() - t_start)
         self._persist_artifacts(save_detector=True)
         return self
@@ -422,12 +519,10 @@ class VGAN_no_kl(_VGANCommon):
         device=None,
     ):
         super().__init__(path_to_directory)
-        _reject_left_out(mesh, shard_features, checkpoint_dir, checkpoint_every,
+        _reject_left_out(mesh, shard_features,
                          gram_matmul_dtype=gram_matmul_dtype,
                          model_matmul_dtype=model_matmul_dtype,
                          opt_state_dtype=opt_state_dtype)
-        if fit_impl != "scan":
-            raise _not_ported(f"fit_impl={fit_impl!r} (the fused whole-fit kernel, K8)")
         self.device = resolve_device(device)
         self.storage = dict(
             batch_size=batch_size, epochs=epochs, lr=lr, momentum=momentum,
@@ -441,8 +536,8 @@ class VGAN_no_kl(_VGANCommon):
         self.model_matmul_dtype = None
         self.opt_state_dtype = None
         self.fit_impl = fit_impl
-        self.checkpoint_dir = None
-        self.checkpoint_every = None
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
         self.batch_size = batch_size
         self.epochs = epochs
         self.lr = lr
@@ -477,24 +572,74 @@ class VGAN_no_kl(_VGANCommon):
         dev = resolve_device(device) if device is not None else self.device
         return self._make_config(ndims, self.batch_size).generator_module(kl=False).to(dev)
 
-    def fit(self, X):
-        """Train the generator on X. The loss history stays on the device
-        and is fetched once, at the end."""
-        t_start = time.time()
-        X, config = self._prepare_fit_config(X)
-        x_dev = torch.as_tensor(np.ascontiguousarray(X, dtype=np.float32), device=self.device)
-        state = init_no_kl_state(config, self.seed, self.device)
-        state, losses = no_kl_train_epochs(state, x_dev, config, self.epochs)
-        losses = losses.cpu().numpy().astype(np.float64)
-        for epoch, loss in enumerate(losses):
+    def _record_losses(self, losses: np.ndarray, first_epoch: int) -> None:
+        for i, loss in enumerate(losses):
             if self.verbose:
-                print(f"\rEpoch {epoch} of {self.epochs}")
+                print(f"\rEpoch {first_epoch + i} of {self.epochs}")
                 print(f"Average loss in the epoch: {loss}")
             self.train_history["generator_loss"].append(float(loss))
+
+    def _fit_fused(self, X, state, config, t_start):
+        """The whole fit in one launch of the fused kernel (``fit_impl=
+        'fused'``, ``ops/cuda/fused_no_kl.py``); on the CPU its plain
+        version. Same per-step math as the scan path, other random streams
+        (in-kernel noise, rotational batching). Single device, fresh fits;
+        ``ValueError`` for ``checkpoint_every``, ``generator_grad`` other
+        than 'reference' and shapes outside ``fused_supported``."""
+        from vgan_tpu_torch.ops.cuda.fused_no_kl import fused_no_kl_fit, fused_supported
+
+        if self.checkpoint_every is not None:
+            raise ValueError(
+                "fit_impl='fused' runs the whole fit as one kernel launch; periodic "
+                "checkpointing needs the scan path (fit_impl='scan')")
+        if self.generator_grad != "reference":
+            raise ValueError(
+                "fit_impl='fused' implements the reference gradient estimator only; use "
+                "fit_impl='scan' for generator_grad='st'/'gumbel_st'")
+        n, ndims = X.shape
+        if not fused_supported(n, ndims, self.batch_size, config.latent_size):
+            raise ValueError("fused fit unsupported for this shape; use fit_impl='scan'")
+        x_dev = torch.as_tensor(np.ascontiguousarray(X, dtype=np.float32), device=self.device)
+        params, (sq, acc), (bw, bw_set), losses, _, _ = fused_no_kl_fit(
+            x_dev, state.generator, state.opt_state, config, self.epochs, self.seed)
+        self._record_losses(losses.double().mean(dim=1).cpu().numpy(), 0)
+        with torch.no_grad():
+            for name, p in state.generator.named_parameters():
+                p.copy_(params[name])
+                state.opt_state.square_avg[name].copy_(sq[name])
+                state.opt_state.acc_delta[name].copy_(acc[name])
+        state.bw_value = bw.detach().to(torch.float32)
+        state.bw_is_set = bw_set.detach()
         self.generator_optimizer = "Adadelta"
-        self.generator = state.generator
-        self.train_state = state
-        self.bandwidth = float(state.bw_value) if bool(state.bw_is_set) else None
+        self._finalize_fit(state)
+        self._log_metrics_jsonl(time.time() - t_start)
+        if self.checkpoint_dir is not None:
+            self.save_checkpoint(self.checkpoint_dir)
+        self._persist_artifacts(save_detector=False)
+        return self
+
+    def fit(self, X):
+        """Train the generator on X. The loss history stays on the device
+        and is fetched once per chunk (one chunk, or ``checkpoint_every``
+        epochs each, with a checkpoint after each when ``checkpoint_dir`` is
+        set). ``fit_impl='fused'`` runs the whole fit in one kernel launch."""
+        t_start = time.time()
+        X, config = self._prepare_fit_config(X)
+        state = init_no_kl_state(config, self.seed, self.device)
+        if self.fit_impl == "fused":
+            return self._fit_fused(X, state, config, t_start)
+        x_dev = torch.as_tensor(np.ascontiguousarray(X, dtype=np.float32), device=self.device)
+        done = 0
+        while done < self.epochs:
+            chunk = min(self.checkpoint_every or self.epochs, self.epochs - done)
+            state, losses = no_kl_train_epochs(state, x_dev, config, chunk)
+            self._record_losses(losses.cpu().numpy().astype(np.float64), done)
+            done += chunk
+            if self.checkpoint_dir is not None:
+                self.train_state = state
+                self.save_checkpoint(self.checkpoint_dir)
+        self.generator_optimizer = "Adadelta"
+        self._finalize_fit(state)
         self._log_metrics_jsonl(time.time() - t_start)
         self._persist_artifacts(save_detector=False)
         return self

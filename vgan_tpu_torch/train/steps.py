@@ -17,6 +17,11 @@ without it both come from the state's seeded ``torch.Generator``. The
 state's generator module and optimizer state are updated in place (the JAX
 package's states are immutable).
 
+:func:`train_state_to_payload` and :func:`train_state_from_payload` carry
+either state through a checkpoint (``vgan_tpu_torch.utils.checkpoint``),
+RNG state included, so a resumed fit continues bit for bit on the same
+device.
+
 Reference dynamics of the kl variant, each kept as in the JAX package:
 
 - encoder freeze leak: a generator epoch freezes the whole detector, and the
@@ -500,3 +505,80 @@ class AlternationSchedule:
         codes = {self.DETECTOR: PHASE_DETECTOR, self.GENERATOR: PHASE_GENERATOR,
                  self.IDLE: PHASE_IDLE}
         return np.asarray([codes[self.next_phase()] for _ in range(epochs)], dtype=np.int32)
+
+    def get_state(self) -> dict:
+        """Counter snapshot for checkpoint metadata."""
+        return {"d": self._d, "g": self._g}
+
+    def set_state(self, state: dict) -> None:
+        self._d = state["d"]
+        self._g = state["g"]
+
+
+# ---------------------------------------------------------------------------
+# train-state (de)serialisation for checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _cpu(tree: dict) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in tree.items()}
+
+
+def _load_(dst: dict, src: dict) -> None:
+    for k, v in dst.items():
+        v.copy_(src[k])
+
+
+def train_state_to_payload(state) -> dict:
+    """A ``NoKLTrainState`` or ``KLTrainState`` as CPU tensors and dicts
+    (``torch.save``-able with ``weights_only`` loading): module state dicts,
+    Adadelta dicts, the bandwidth, its flag, the encoder flag and the
+    training generator's RNG state."""
+    payload = {
+        "device_type": state.bw_value.device.type,
+        "bw_value": state.bw_value.detach().cpu(),
+        "bw_is_set": state.bw_is_set.detach().cpu(),
+        "rng": state.rng.get_state(),
+        "generator": _cpu(state.generator.state_dict()),
+    }
+    if isinstance(state, KLTrainState):
+        payload.update(
+            kind="kl",
+            detector=_cpu(state.detector.state_dict()),
+            gen_opt=[_cpu(state.gen_opt.square_avg), _cpu(state.gen_opt.acc_delta)],
+            det_opt=[_cpu(state.det_opt.square_avg), _cpu(state.det_opt.acc_delta)],
+            encoder_active=state.encoder_active.detach().cpu(),
+        )
+    else:
+        payload.update(kind="no_kl",
+                       opt=[_cpu(state.opt_state.square_avg), _cpu(state.opt_state.acc_delta)])
+    return payload
+
+
+def train_state_from_payload(payload: dict, config: TrainConfig, device):
+    """Rebuild a train state on ``device`` from :func:`train_state_to_payload`'s
+    output. The RNG state only fits a generator of the device type it was
+    saved from; another device type raises ``ValueError``."""
+    device = torch.device(device)
+    if payload["device_type"] != device.type:
+        raise ValueError(
+            f"checkpoint was written on a {payload['device_type']} device; its random "
+            f"stream cannot resume on {device.type} (restore on the same device type)"
+        )
+    kl = payload["kind"] == "kl"
+    state = (init_kl_state if kl else init_no_kl_state)(config, 0, device)
+    state.generator.load_state_dict(payload["generator"])
+    state.rng.set_state(payload["rng"])
+    state.bw_value = payload["bw_value"].to(device)
+    state.bw_is_set = payload["bw_is_set"].to(device)
+    if kl:
+        state.detector.load_state_dict(payload["detector"])
+        for opt, (sq, acc) in ((state.gen_opt, payload["gen_opt"]),
+                               (state.det_opt, payload["det_opt"])):
+            _load_(opt.square_avg, sq)
+            _load_(opt.acc_delta, acc)
+        state.encoder_active = payload["encoder_active"].to(device)
+    else:
+        _load_(state.opt_state.square_avg, payload["opt"][0])
+        _load_(state.opt_state.acc_delta, payload["opt"][1])
+    return state
