@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (vgan_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-csrc DIR]
 
 Phases (each asserts; any failure exits non-zero):
 
@@ -11,11 +11,14 @@ Phases (each asserts; any failure exits non-zero):
    identical bits, then the kernel autograd Function against the dense
    torch MMD in all three backward regimes (stash, flash, panel); the GoF
    kernel (K5) against its float64 plain version at the GoF path's own
-   shape (17000 pooled rows, d=10240, 1002 indicator rows) and a ragged one;
-   the KNN-score kernels (K6 resident, K7 streaming) against their plain
-   version at both ensembles' shapes, both modes, with ``exclude_self`` at
-   the ``predict`` batches, at ragged shapes and on tie-heavy integer rows
-   (equal to the bit for 'kth'); the fused whole-fit kernel (K8) against its
+   shape (17000 pooled rows, d=10240, 1002 indicator rows) and a ragged one
+   in its full-Gram regime, and in its panel regime (forced by lowering
+   ``GRAM_BUFFER_BYTES``) at a ragged shape with nine alphas and at the
+   stress width; the KNN-score kernels (K6 resident, K7 streaming) against
+   their plain version at both ensembles' shapes, both modes, with
+   ``exclude_self`` at the ``predict`` batches, at ragged shapes and on
+   tie-heavy integer rows (equal to the bit for 'kth'), each with an
+   all-zero, a one-column and an all-column mask; the fused whole-fit kernel (K8) against its
    plain version with injected noise at the notebook shape, the gate's
    widest corner and two ragged shapes (each state leaf's change over the
    fit held, at a learning rate that moves it), its Philox noise's distribution,
@@ -55,6 +58,9 @@ Phases (each asserts; any failure exits non-zero):
    stress fits' steps/s, both ensembles' API-level subspace-scorings/s, and
    a profiler breakdown of one no-kl stress epoch and of one kl detector and
    one kl generator epoch by device kernel, with the device's busy share.
+   With ``--parent-csrc DIR`` (an earlier commit's ``knn_score.cu`` and
+   ``gof_gram.cu``), it also builds those and times them against this
+   tree's K5, K6 and K7 on the same inputs, in turns.
 
 Prints a JSON line of the kernels, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -388,34 +394,51 @@ def gof_kernel_inputs(x, y, n_perms, seed, device):
 def phase_gof_kernel(device, shapes, log):
     """K5 against its plain version run in float64 on the same f32 values,
     per alpha within ``C_FRAC`` of max|C|, then a re-run for identical bits.
-    ``shapes``: (rows of the data, n1, n2, d, permutations, alphas). Returns
-    the max abs error at each (n1, n2, d)."""
+    ``shapes``: (rows of the data, n1, n2, d, permutations, alphas, panel
+    rows): with panel rows set, ``GRAM_BUFFER_BYTES`` is lowered so that
+    pass 1 forms d2 in panels of that many rows, else the full Gram must
+    fit. Returns the max abs error at each (n1, n2, d) of the full-Gram
+    regime."""
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
 
     errs = {}
-    for n_rows, n1, n2, d, n_perms, alphas in shapes:
+    saved = GG.GRAM_BUFFER_BYTES
+    for n_rows, n1, n2, d, n_perms, alphas, panel_rows in shapes:
         X = np.random.default_rng(31).standard_normal((n_rows, d), dtype=np.float32)
         x, _ = gof_samples(X, n1, seed=32)
         _, y = gof_samples(X, n2, seed=33)
         z, norms, a = gof_kernel_inputs(x, y, n_perms, 34, device)
         alphas = [float(np.float32(al)) for al in alphas]
-        tag = f"({n1}+{n2}, d={d}, P={a.shape[0]}, alphas {alphas})"
-        c = GG.a_times_k(z, norms, a, alphas)
-        ref = GG.a_times_k_reference(z.double(), norms.double(), a.double(), alphas)
-        err = 0.0
-        for q, al in enumerate(alphas):
-            err = max(err, assert_frac(f"a_times_k alpha={al} {tag}", c[q].double(), ref[q], C_FRAC))
-        del c, ref
-        repeat_identical("a_times_k", lambda: GG.a_times_k(z, norms, a, alphas))
-        errs[n1, n2, d] = err
+        m = n1 + n2
+        try:
+            if panel_rows:
+                GG.GRAM_BUFFER_BYTES = 4 * panel_rows * -(-m // GG.KERNEL_TILE) * GG.KERNEL_TILE
+            plan = GG.panels(m)
+            want = "panels" if panel_rows else "full"
+            check(GG.regime(m) == want, f"K5 at m={m}: regime {GG.regime(m)}, expected {want}")
+            tag = (f"({n1}+{n2}, d={d}, P={a.shape[0]}, {len(alphas)} alphas {alphas}; {want}: "
+                   f"{len(plan)} panel{'s' if len(plan) > 1 else ''} of d2)")
+            c = GG.a_times_k(z, norms, a, alphas)
+            ref = GG.a_times_k_reference(z.double(), norms.double(), a.double(), alphas)
+            err = 0.0
+            for q, al in enumerate(alphas):
+                err = max(err, assert_frac(f"a_times_k alpha={al} {tag}", c[q].double(), ref[q],
+                                           C_FRAC))
+            del c, ref
+            repeat_identical("a_times_k", lambda: GG.a_times_k(z, norms, a, alphas))
+        finally:
+            GG.GRAM_BUFFER_BYTES = saved
+        if not panel_rows:
+            errs[n1, n2, d] = err
         log(f"  K5 {tag}: max abs err {err:.3e}, identical bits on a re-run: ok")
     return errs
 
 
 def knn_inputs(nt, ntr, d, nm, seed, device, integer=False, exclude_self=False):
-    """Test rows, train rows and 0/1 masks (about 30% of the features, one
-    all-zero mask). With ``exclude_self`` and nt > ntr the test rows start
-    with the train rows, as ``predict``'s combined batch does."""
+    """Test rows, train rows and 0/1 masks (about 30% of the features; mask
+    1 all-zero, mask 2 one column, mask 3 every column). With
+    ``exclude_self`` and nt > ntr the test rows start with the train rows,
+    as ``predict``'s combined batch does."""
     rng = np.random.default_rng(seed)
 
     def rows(n):
@@ -428,6 +451,8 @@ def knn_inputs(nt, ntr, d, nm, seed, device, integer=False, exclude_self=False):
     masks = rng.random((nm, d)) < 0.3
     masks[~masks.any(axis=1), 0] = True
     masks[1] = False
+    masks[2] = np.arange(d) == d // 2
+    masks[3] = True
     as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device, torch.float32)
     return as_dev(xte), as_dev(xtr), as_dev(masks)
 
@@ -553,7 +578,9 @@ def phase_knn_kernels(device, shapes, log):
     for label, nt, ntr, d, nm, k, excl, integer in shapes:
         xte, xtr, masks = knn_inputs(nt, ntr, d, nm, 41, device, integer, excl)
         name = "knn_scores_resident" if KS._resident_supported(ntr, d) else "knn_scores_stream"
-        scale = float(torch.max((xte * xte) @ masks.T) + torch.max((xtr * xtr) @ masks.T))
+        # each mask's own max(an + bn), (nm, 1)
+        scale = (torch.amax((xte * xte) @ masks.T, dim=0)
+                 + torch.amax((xtr * xtr) @ masks.T, dim=0))[:, None]
         frac = KNN_D2_FRAC_WIDE if d > KNN_WIDE_D else KNN_D2_FRAC
         tag = f"{label} ({nt} x {ntr}, d={d}, {nm} masks, k={k}, exclude_self={excl})"
         for mode in ("kth", "mean"):
@@ -571,18 +598,23 @@ def phase_knn_kernels(device, shapes, log):
                 assert_close(f"{tag} mean", got, ref, KNN_MEAN_RTOL_EXACT)
                 what = f"rtol {KNN_MEAN_RTOL_EXACT}"
             elif mode == "kth":
-                e2 = float(torch.max(torch.abs(got.double() ** 2 - ref.double() ** 2)))
-                check(e2 <= frac * scale, f"{tag} kth: |d s^2| {e2:.3e} > {frac} x {scale:.4e}")
-                what = f"|d s^2| {e2 / scale:.2e} of max(an + bn) {scale:.4e} (limit {frac})"
+                e2 = torch.abs(got.double() ** 2 - ref.double() ** 2)
+                check(bool(torch.all(e2 <= frac * scale)),
+                      f"{tag} kth: |d s^2| above {frac} x its mask's max(an + bn)")
+                worst = float(torch.max(e2 / torch.clamp_min(scale, 1e-30)))
+                what = f"|d s^2| at most {worst:.2e} of its mask's max(an + bn) (limit {frac})"
             else:
                 eps = frac * scale
                 s1 = KS.knn_scores_all_masks_reference(xte, xtr, masks, 1, "kth", excl)
-                lim = torch.clamp(eps / s1, max=eps ** 0.5)
-                check(bool(torch.all(torch.abs(got - ref) <= lim)),
-                      f"{tag} mean: |d s| above min(sqrt(eps), eps / s1), eps {eps:.3e}")
-                what = (f"within min(sqrt(eps), eps / s1) per score, eps = {frac} x "
-                        f"{scale:.4e} (largest |d s| / limit {float(torch.max(torch.abs(got - ref) / lim)):.2e})")
+                lim = torch.where(s1 > 0, torch.minimum(eps.sqrt(), eps / s1), eps.sqrt())
+                d_s = torch.abs(got - ref)
+                check(bool(torch.all(d_s <= lim)),
+                      f"{tag} mean: |d s| above min(sqrt(eps), eps / s1)")
+                worst = float(torch.max(torch.where(lim > 0, d_s / lim, d_s)))
+                what = (f"within min(sqrt(eps), eps / s1) per score, eps = {frac} x its mask's "
+                        f"max(an + bn) (largest |d s| / limit {worst:.2e})")
             check(bool(torch.all(got[1] == 0.0)), f"{tag} {mode}: the all-zero mask scored nonzero")
+            check(bool(torch.all(torch.isfinite(got))), f"{tag} {mode}: non-finite scores")
             repeat_identical(f"{tag} {mode}",
                              lambda: KS.knn_scores_all_masks(xte, xtr, masks, k, mode, excl))
             key = (name, (nt, ntr, d))
@@ -979,8 +1011,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(ops: float, nbytes: float):
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
+def bound(ops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    """The larger of the operations at the rate of the kernel's datapath
+    (``peak``, op/s; every kernel of the port runs IEEE f32 on the CUDA
+    cores) and the bytes at the HBM rate, in ms, and which of the two."""
+    t_ops = ops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1044,17 +1079,31 @@ def phase_times(device, shapes, errs, launches, log):
                      gram_ops(m, d), 4 * (2 * m * d + 2 * m + 1 + m * m))
 
     def gof(shape):
-        n_rows, n1, n2, d, n_perms, alphas = shape
+        n_rows, n1, n2, d, n_perms, alphas, _ = shape
         X = np.random.default_rng(35).standard_normal((n_rows, d), dtype=np.float32)
         x, _ = gof_samples(X, n1, seed=36)
         _, y = gof_samples(X, n2, seed=37)
         z, norms, a = gof_kernel_inputs(x, y, n_perms, 38, device)
         m, P, k = n1 + n2, a.shape[0], len(alphas)
-        return timed("a_times_k", f"m={m} d={d} P={P} alphas={k}",
-                     lambda: GG.a_times_k(z, norms, a, alphas),
-                     lambda: GG.a_times_k_reference(z, norms, a, alphas),
-                     gof_ops(m, d, P, k), 4 * (m * d + m + P * m + k + k * P * m),
-                     iters=3, warmup=1)
+        t = timed("a_times_k", f"m={m} d={d} P={P} alphas={k}",
+                  lambda: GG.a_times_k(z, norms, a, alphas),
+                  lambda: GG.a_times_k_reference(z, norms, a, alphas),
+                  gof_ops(m, d, P, k), 4 * (m * d + m + P * m + k + k * P * m),
+                  iters=3, warmup=1)
+        # pass 1 alone (the symmetric d2 of the full-Gram regime): the split
+        # of the time between the distances and the A @ K pass
+        check(GG.regime(m) == "full", f"K5 at m={m} is not in the full-Gram regime")
+        z_t = G._column_major(z, GG.KERNEL_TILE)
+        M = z_t.shape[1]
+        norms_p = torch.zeros(M, dtype=torch.float32, device=device)
+        norms_p[:m] = norms
+        d2 = torch.empty((M, M), dtype=torch.float32, device=device)
+        t["pass1_ms"] = cuda_ms(lambda: G._launch(
+            "vgan_gof_gram_d2", device, z_t.data_ptr(), norms_p.data_ptr(), M, d, 1, 0,
+            M // GG.KERNEL_TILE, d2.data_ptr(), lib=GG._lib()), 3, 1)
+        log(f"  a_times_k {t['shape']}: pass 1 (d2, each pair once) alone {t['pass1_ms']:.4f} ms, "
+            f"{2 * sym_pairs(m) * d / t['pass1_ms'] / 1e9:.1f} TFLOP/s of distances")
+        return t
 
     gram_src = "vgan_tpu_torch/ops/cuda/csrc/mmd_gram.cu"
     pallas = "vgan_tpu/ops/pallas/mmd_gram.py"
@@ -1085,11 +1134,11 @@ def phase_times(device, shapes, errs, launches, log):
     return rows
 
 
-def knn_ops(nm: int, nt: int, ntr: int, d: int) -> float:
-    """The masked products (2 d per pair and mask), the masked norms of the
-    test and train rows per mask, and one compare per (mask, row, train)
-    entry."""
-    return 2 * nm * nt * ntr * d + 2 * nm * (nt + ntr) * d + nm * nt * ntr
+def knn_ops(n_selected: int, nm: int, nt: int, ntr: int) -> float:
+    """Over each mask's selected columns (``n_selected`` of them in all):
+    the cross products (2 per pair and column) and the masked norms of the
+    test and train rows; and one compare per (mask, row, train) entry."""
+    return 2 * nt * ntr * n_selected + 2 * (nt + ntr) * n_selected + nm * nt * ntr
 
 
 def knn_times(runs, errs, launches, log):
@@ -1110,8 +1159,10 @@ def knn_times(runs, errs, launches, log):
              "ms": cuda_ms(lambda: KS.knn_scores_all_masks(x, xtr, masks, k), iters, 1),
              "plain_ms": cuda_ms(lambda: KS.knn_scores_all_masks_reference(x, xtr, masks, k),
                                  iters, 1)}
-        t["bound_ms"], t["bound_by"] = bound(knn_ops(nm, nt, ntr, d),
+        n_sel = int(masks.sum())
+        t["bound_ms"], t["bound_by"] = bound(knn_ops(n_sel, nm, nt, ntr),
                                              4 * (nm * d + nt * d + ntr * d + nm * nt))
+        t["selected_columns"] = n_sel
         log(f"  {name} {t['shape']}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.4f} ms by {t['bound_by']})")
         rows.append({
@@ -1124,6 +1175,100 @@ def knn_times(runs, errs, launches, log):
             "library_ms": None,
         })
     return rows
+
+
+def build_parent(src_dir: Path, log) -> dict:
+    """The parent commit's ``knn_score.cu`` and ``gof_gram.cu`` from
+    ``src_dir`` (``git show <parent>:vgan_tpu_torch/ops/cuda/csrc/<name>.cu``),
+    built with the package's flags into ``build/parent_kernels/`` (one
+    ``nvcc`` each, started together) and bound with their own C interfaces."""
+    import ctypes
+
+    from vgan_tpu_torch.ops.cuda import _build
+    from vgan_tpu_torch.ops.cuda import gof_gram as GG
+
+    out_dir = Path(__file__).resolve().parent / "build" / "parent_kernels"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def build(name):
+        lib = out_dir / f"lib{name}_parent.so"
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src_dir / f"{name}.cu")],
+                       check=True, capture_output=True, text=True, timeout=900)
+        return ctypes.CDLL(str(lib))
+
+    with ThreadPoolExecutor(2) as pool:
+        knn, gof = pool.map(build, ("knn_score", "gof_gram"))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for fn in (knn.vgan_knn_resident, knn.vgan_knn_stream):
+        fn.argtypes, fn.restype = [P, P, P, I, I, I, I, I, I, I, P, P, P, P], I
+    gof.vgan_gof_a_times_k.argtypes = [P, P, P, I, I, I, ctypes.POINTER(GG._Alphas), P, P, P]
+    gof.vgan_gof_a_times_k.restype = I
+    log(f"  parent kernels built from {src_dir}")
+    return {"knn": knn, "gof": gof}
+
+
+def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
+    """The parent's K5 (at both GoF shapes), K6 and K7 (at the ensembles'
+    decision_function shapes) against this tree's, on the same inputs, in
+    turns: parent, this tree, this tree, parent. Returns, per (kernel,
+    shape), the four times and the largest difference of the outputs."""
+    import ctypes
+
+    from vgan_tpu_torch.ops.cuda import gof_gram as GG
+    from vgan_tpu_torch.ops.cuda import knn_score as KS
+
+    def stream():
+        return torch.cuda.current_stream(device).cuda_stream
+
+    def parent_ak(z, norms, a, alphas):
+        table = GG._alpha_table(alphas)
+        m, d = z.shape
+        c = torch.empty((len(alphas), a.shape[0], m), dtype=torch.float32, device=device)
+        comp = torch.empty_like(c)
+        rc = libs["gof"].vgan_gof_a_times_k(z.data_ptr(), norms.data_ptr(), a.data_ptr(), m, d,
+                                            a.shape[0], ctypes.byref(table), c.data_ptr(),
+                                            comp.data_ptr(), stream())
+        check(rc == 0, f"parent a_times_k: CUDA error {rc}")
+        return c
+
+    def parent_knn(fn, x, xtr, masks, k):
+        nm, (nt, d), ntr = masks.shape[0], x.shape, xtr.shape[0]
+        an = torch.empty((nm, nt), dtype=torch.float32, device=device)
+        bn = torch.empty((nm, ntr), dtype=torch.float32, device=device)
+        out = torch.empty((nm, nt), dtype=torch.float32, device=device)
+        rc = fn(masks.data_ptr(), x.data_ptr(), xtr.data_ptr(), nm, nt, ntr, d, k, 0, 0,
+                an.data_ptr(), bn.data_ptr(), out.data_ptr(), stream())
+        check(rc == 0, f"parent knn: CUDA error {rc}")
+        return out
+
+    cases = []
+    for shape in gof_shapes:
+        n_rows, n1, n2, d, n_perms, alphas, _ = shape
+        X = np.random.default_rng(35).standard_normal((n_rows, d), dtype=np.float32)
+        x, _ = gof_samples(X, n1, seed=36)
+        _, y = gof_samples(X, n2, seed=37)
+        z, norms, a = gof_kernel_inputs(x, y, n_perms, 38, device)
+        cases.append((f"a_times_k m={n1 + n2} d={d} P={a.shape[0]} alphas={len(alphas)}", 3,
+                      lambda z=z, n=norms, a=a, al=alphas: parent_ak(z, n, a, al),
+                      lambda z=z, n=norms, a=a, al=alphas: GG.a_times_k(z, n, a, al)))
+    for name, key, iters in (("knn_scores_resident", ("bench", "knn"), 20),
+                             ("knn_scores_stream", ("stress", "knn"), 3)):
+        ens, Xt = runs[key]
+        x, xtr = ens._as_device(Xt), ens._x_train
+        masks, _ = ens._device_pool()
+        fn = libs["knn"].vgan_knn_resident if name == "knn_scores_resident" else libs["knn"].vgan_knn_stream
+        cases.append((f"{name} {masks.shape[0]} masks, {x.shape[0]} x {xtr.shape[0]}, d={x.shape[1]}, "
+                      f"k={ens.k}", iters,
+                      lambda fn=fn, x=x, xtr=xtr, m=masks, k=ens.k: parent_knn(fn, x, xtr, m, k),
+                      lambda x=x, xtr=xtr, m=masks, k=ens.k: KS.knn_scores_all_masks(x, xtr, m, k)))
+    results = {}
+    for label, iters, old, new in cases:
+        t = [cuda_ms(f, iters, 1) for f in (old, new, new, old)]
+        diff = max_abs(old(), new())
+        results[label] = {"parent_ms": [t[0], t[3]], "ms": [t[1], t[2]], "max_abs_diff": diff}
+        log(f"  {label}: parent {t[0]:.4f}, {t[3]:.4f} ms; this tree {t[1]:.4f}, {t[2]:.4f} ms "
+            f"({(t[0] + t[3]) / (t[1] + t[2]):.2f}x); outputs differ by at most {diff:.3e}")
+    return results
 
 
 def fused_ops_bytes(n: int, d: int, bs: int, latent: int, steps: int):
@@ -1168,12 +1313,20 @@ def fused_times(device, errs, launches, log):
                             iters=1, warmup=0)
     t["plain_steps"], t["plain_us_per_step"] = Tp, t["plain_ms"] * 1e3 / Tp
     t["bound_ms"], t["bound_by"] = bound(*fused_ops_bytes(n, d, bs, kw["latent"], T))
+    # the fit whose launch the main path counts: phase 3d's notebook fit
+    e_main = NOTEBOOK_FIT["epochs"]
+    x3m, startsm, packedm, kwm = fused_inputs(X, bs, e_main, seed=11, device=device)
+    Tm = int(startsm.shape[0])
+    ms_main = cuda_ms(lambda: FN.fused_no_kl_fit_cuda(x3m, startsm, *packedm, None, 99, n=n, **kwm))
+    bound_main, _ = bound(*fused_ops_bytes(n, d, bs, kwm["latent"], Tm))
     barriers = FN.barriers_per_step(device)
     log(f"  fused_no_kl_fit_cuda {t['shape']}: {t['ms']:.4f} ms per fit, "
         f"{t['ms'] * 1e3 / T:.3f} us/step, {T / t['ms'] * 1e3:.1f} steps/s (plain "
         f"{t['plain_ms']:.4f} ms for its first {Tp} steps, {t['plain_us_per_step']:.3f} us/step; "
         f"bound {t['bound_ms']:.4f} ms by {t['bound_by']}, {t['bound_ms'] * 1e3 / T:.3f} us/step; "
         f"{barriers} grid barriers a step, one more at step 0)")
+    log(f"  fused_no_kl_fit_cuda main-path fit n={n} d={d} bs={bs}, {e_main} epochs = {Tm} steps: "
+        f"{ms_main:.4f} ms (bound {bound_main:.4f} ms)")
 
     config = TrainConfig(ndims=d, batch_size=bs, lr_g=NOTEBOOK_FIT["lr"])
     x = torch.from_numpy(X.astype(np.float32)).to(device)
@@ -1206,6 +1359,7 @@ def fused_times(device, errs, launches, log):
         "source": "vgan_tpu_torch/ops/cuda/csrc/fused_no_kl.cu",
         "replaces": "vgan_tpu/ops/pallas/fused_no_kl.py:102 _kernel_body", **t,
         "us_per_step": t["ms"] * 1e3 / T, "steps_per_s": T / t["ms"] * 1e3,
+        "main_path_fit": {"epochs": e_main, "steps": Tm, "ms": ms_main, "bound_ms": bound_main},
         "scan_steps_per_s": scan_sps, "barriers_per_step": barriers,
         "launches": launches, "max_abs_err": errs["fused_no_kl_fit_cuda", (n, d, bs)],
         "tol": f"losses rtol {FUSED_LOSS_RTOL}, bw rtol {FUSED_BW_RTOL}, each state leaf's "
@@ -1313,7 +1467,14 @@ def profile_stress_epoch(device, n, d, batch, log, kl: bool = False, top: int = 
             f"  x{e.count:<4d} {e.key[:90]}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent-csrc", type=Path, default=None,
+                        help="a directory holding an earlier commit's knn_score.cu and "
+                             "gof_gram.cu: phase 5 also builds and times them beside this tree's")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1339,9 +1500,12 @@ def main() -> int:
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on")
     check(torch.get_float32_matmul_precision() == "highest", "float32 matmul precision is not 'highest'")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, started together
-        for build in [pool.submit(lib) for lib in (G._lib, GG._lib, KS._lib, FN._lib)]:
+    with ThreadPoolExecutor(5) as pool:  # one nvcc per source, started together
+        builds = [pool.submit(lib) for lib in (G._lib, GG._lib, KS._lib, FN._lib)]
+        parent = pool.submit(build_parent, args.parent_csrc, log) if args.parent_csrc else None
+        for build in builds:
             build.result()
+        parent_libs = parent.result() if parent else None
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s ("
         + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in _build.build_info.items()) + ")")
     for name, info in _build.build_info.items():
@@ -1354,13 +1518,22 @@ def main() -> int:
     stress_shape = (batch, batch, d)   # the stress and panel fits' Gram
     flash_shape = (batch, batch, d_flash)  # the flash fit's Gram
     kl_shape = (batch, batch, d // 16)  # the kl fit's Gram: encodings of width L = d // 16
-    gof_f64 = (GOF_ROWS, GOF_COUNT_F64, GOF_COUNT_F64, d, GOF_PERMUTATIONS, GOF_ALPHAS)
-    gof_f32 = (GOF_ROWS, GOF_COUNT_F32, GOF_COUNT_F32, d, GOF_PERMUTATIONS, GOF_ALPHAS)
+    gof_f64 = (GOF_ROWS, GOF_COUNT_F64, GOF_COUNT_F64, d, GOF_PERMUTATIONS, GOF_ALPHAS, 0)
+    gof_f32 = (GOF_ROWS, GOF_COUNT_F32, GOF_COUNT_F32, d, GOF_PERMUTATIONS, GOF_ALPHAS, 0)
     log("phase 2: kernels against their plain versions")
     errs = phase_kernels(device, [stress_shape, flash_shape, kl_shape, (333, 517, 2500)],
                          [kl_shape, flash_shape, (4096, 4096, 1024), (333, 517, 2000)], log)
     phase_core(device, stress_shape, (333, 517, 2000), log)
-    gof_errs = phase_gof_kernel(device, [gof_f64, (2000, 333, 517, 2500, 35, (0.01, 1.0, 7.5))], log)
+    gof_errs = phase_gof_kernel(device, [
+        # (rows of the data, n1, n2, d, permutations, alphas, panel rows or 0)
+        gof_f64,
+        (2000, 333, 517, 2500, 35, (0.01, 1.0, 7.5), 0),
+        # the panel regime at a ragged shape, four panels; nine alphas: two
+        # launches of pass 2 on each panel's d2
+        (2000, 333, 517, 2500, 35, (0.01, 0.03, 0.1, 0.3, 0.5, 1.0, 2.0, 5.0, 7.5), 256),
+        # the panel regime at the float32 route's width, four panels
+        (GOF_ROWS, 1300, 1300, d, 100, GOF_ALPHAS, 768),
+    ], log)
     errs.update({("a_times_k", shape): e for shape, e in gof_errs.items()})
     bench, se = BENCH_ENSEMBLE, STRESS_ENSEMBLE
     nt_b, ntr_b, d_b, nm_b, k_b = (bench["n_test"], bench["n_train"], bench["d"],
@@ -1407,6 +1580,13 @@ def main() -> int:
     rows = phase_times(device, {"kl": kl_shape, "flash": flash_shape, "stress": stress_shape,
                                 "gof": [gof_f64, gof_f32]}, errs, launches, log)
     rows += knn_times(ensembles, errs, knn_launches, log)
+    if parent_libs:
+        log("  against the parent commit's K5, K6 and K7 (same inputs, in turns)")
+        compared = parent_comparison(parent_libs, device, ensembles, [gof_f64, gof_f32], log)
+        for row in rows:
+            mine = {k: v for k, v in compared.items() if k.split(" ")[0] == row["name"]}
+            if mine:
+                row["parent_comparison"] = mine
     rows.append(fused_times(device, errs, k8_launches, log))
     ensemble_rates(ensembles, log)
     sps = fit_steps_per_s(device, n, d, batch)
@@ -1418,6 +1598,8 @@ def main() -> int:
     profile_stress_epoch(device, n, d, batch, log, kl=True)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
+    for row in rows:
+        row["bound_peak_tflops"] = PEAK_F32_FLOPS / 1e12  # the datapath of every kernel row
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

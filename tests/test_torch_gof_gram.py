@@ -126,3 +126,44 @@ def test_tiled_rejects_mesh_and_bad_precision():
         TG.mmd_permutation_test_tiled_sweep(x, y, [0.1], mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         TG.mmd_permutation_test_tiled(x, y, [0.1], precision="float16", device="cpu")
+
+
+@pytest.mark.parametrize("m, budget_rows", [(850, 256), (300, 128), (129, 1), (1000, 1024),
+                                            (1000, 896)])
+def test_panels_cover_each_row_once(monkeypatch, m, budget_rows):
+    """Pass 1's row panels: whole kernel tiles, each row in exactly one, and
+    one panel (the full-Gram regime) exactly where the padded (M, M) buffer
+    fits the budget."""
+    tile = TG.KERNEL_TILE
+    M = -(-m // tile) * tile
+    monkeypatch.setattr(TG, "GRAM_BUFFER_BYTES", 4 * M * budget_rows)
+    plan = TG.panels(m)
+    covered = np.zeros(m, int)
+    for row0, rows in plan:
+        assert row0 % tile == 0 and rows >= 1
+        covered[row0:row0 + rows] += 1
+    np.testing.assert_array_equal(covered, 1)
+    assert all(rows % tile == 0 for _, rows in plan[:-1])
+    full = M * M * 4 <= TG.GRAM_BUFFER_BYTES
+    assert (len(plan) == 1) == full and TG.regime(m) == ("full" if full else "panels")
+
+
+def test_plain_by_panels_equals_reference(monkeypatch):
+    """C summed panel by panel (the rows of d2 that a panel holds, the
+    diagonal zeroed by global index) equals the plain version, in float64."""
+    m, d, P = 300, 9, 11
+    monkeypatch.setattr(TG, "GRAM_BUFFER_BYTES", 4 * 384 * 128)
+    plan = TG.panels(m)
+    assert len(plan) == 3 and TG.regime(m) == "panels"
+    z, a = _rows(m, d, P, seed=8)
+    z, a = torch.from_numpy(z).double(), torch.from_numpy(a).double()
+    norms = torch.sum(z * z, dim=1)
+    c = torch.zeros((len(ALPHAS), P, m), dtype=torch.float64)
+    for row0, rows in plan:
+        r = slice(row0, row0 + rows)
+        d2 = torch.clamp_min(-2.0 * (z[r] @ z.T) + norms[r, None] + norms[None, :], 0.0)
+        off_diag = torch.arange(row0, row0 + rows)[:, None] != torch.arange(m)[None, :]
+        for q, al in enumerate(ALPHAS):
+            c[q] += a[:, r] @ torch.where(off_diag, torch.exp(-al * d2), 0.0)
+    want = TG.a_times_k_reference(z, norms, a, ALPHAS)
+    np.testing.assert_allclose(c.numpy(), want.numpy(), rtol=1e-12)

@@ -188,3 +188,55 @@ def test_rejects_unsupported_calls():
                   (2, {"mode": "median"})):
         with pytest.raises(ValueError):
             TK.knn_scores_all_masks(x, x, masks, k, **kw)
+
+
+def _mask_rows(kind: str, d: int) -> np.ndarray:
+    rng = np.random.default_rng(7)
+    if kind == "all-zero":
+        return np.zeros((3, d), bool)
+    if kind == "full":
+        return np.ones((3, d), bool)
+    if kind == "single":
+        return np.eye(d, dtype=bool)[[0, 17, d - 1]]
+    return rng.random((9, d)) < rng.random((9, 1))  # ragged: counts from 0 to d
+
+
+@pytest.mark.parametrize("kind", ["all-zero", "full", "single", "ragged"])
+def test_selected_columns_match_nonzero(kind):
+    """The kernel's column lists: each mask's selected columns first, in
+    ascending order, with their count; the rest of the row is the other
+    columns (a permutation), which the kernel never reads."""
+    d = 37
+    masks = _mask_rows(kind, d)
+    cols, counts = TK.selected_columns(torch.from_numpy(masks.astype(np.float32)))
+    assert cols.dtype == counts.dtype == torch.int32
+    assert cols.shape == masks.shape and counts.shape == (len(masks),) and cols.is_contiguous()
+    for row, c, n in zip(masks, cols.numpy(), counts.numpy()):
+        sel = np.nonzero(row)[0]
+        assert n == len(sel)
+        np.testing.assert_array_equal(c[:n], sel)
+        np.testing.assert_array_equal(np.sort(c), np.arange(d))
+
+
+@pytest.mark.parametrize("mode", ["kth", "mean"])
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_plain_scores_on_gathered_columns(mode, exclude_self):
+    """The premise of the kernel's compaction: scoring a mask's gathered
+    columns with an all-ones mask gives the masked scores (float64), for
+    ragged, single-column, full and all-zero masks."""
+    rng = np.random.default_rng(9)
+    d = 23
+    xte = torch.from_numpy(rng.normal(size=(60, d)))
+    xtr = torch.from_numpy(rng.normal(size=(50, d)))
+    masks = np.concatenate([_mask_rows("ragged", d), _mask_rows("single", d)[:1],
+                            _mask_rows("full", d)[:1], _mask_rows("all-zero", d)[:1]])
+    mt = torch.from_numpy(masks.astype(np.float64))
+    want = TK.knn_scores_all_masks_reference(xte, xtr, mt, 4, mode, exclude_self)
+    cols, counts = TK.selected_columns(mt)
+    for i in range(len(masks)):
+        sel = cols[i, :counts[i]].long()
+        got = TK.knn_scores_all_masks_reference(
+            xte[:, sel], xtr[:, sel], torch.ones((1, len(sel)), dtype=torch.float64), 4, mode,
+            exclude_self)
+        np.testing.assert_allclose(got[0].numpy(), want[i].numpy(), rtol=1e-12)
+    np.testing.assert_array_equal(want[-1].numpy(), 0.0)

@@ -4,8 +4,10 @@ The sources under ``csrc/`` have a plain C interface. At first use they are
 compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
 the checkout (git-ignored), or, for an installed package, into
 ``$TORCH_EXTENSIONS_DIR/vgan_tpu_torch`` (default
-``~/.cache/vgan_tpu_torch/kernels``), under a name keyed by the source's
-hash, and loaded with :mod:`ctypes`. A build failure raises with the compiler's output.
+``~/.cache/vgan_tpu_torch/kernels``), under a name keyed by
+:func:`source_key` (the source, the ``csrc/*.cuh`` headers it includes and
+the flags), and loaded with :mod:`ctypes`. A build failure raises with the
+compiler's output.
 Nothing here runs at import time.
 """
 
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -59,6 +62,24 @@ def _nvcc() -> str:
     )
 
 
+def source_key(src: Path) -> str:
+    """Hash of ``src``, of every header of its directory that it includes
+    (``#include "x.cuh"``, recursively) and of ``NVCC_FLAGS``: an edit to any
+    of them builds a new library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    seen, todo = set(), [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text)
+        for inc in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', text, flags=re.M):
+            todo.append(path.parent / inc.decode())
+    return h.hexdigest()[:16]
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu`` as a shared library.
     Different sources may build at the same time from different threads."""
@@ -69,8 +90,7 @@ def load(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{name}_{digest}.so"
+        out = BUILD_DIR / f"lib{name}_{source_key(src)}.so"
         t0 = time.perf_counter()
         log = ""
         if not out.is_file():

@@ -4,11 +4,12 @@ kernel (counterpart of ``vgan_tpu.ops.pallas.gof_gram``).
 The permutation MMD test needs, for every indicator row ``a_p`` of the
 pooled samples, the quadratic forms of the per-alpha Grams
 ``K_a = exp(-alpha d2)``. :func:`a_times_k` computes ``C_a = A @ K_a`` for
-every alpha in one distance pass (``csrc/gof_gram.cu``), recomputing K tile
-by tile, with the diagonal zeroed (the unbiased statistic excludes
-self-pairs) and the accumulation over the reduction axis Kahan-compensated.
-No m x m buffer exists at any point. All statistics then come from C and A
-in O(P m):
+every alpha from one distance pass (``csrc/gof_gram.cu``): pass 1 writes
+d2, each unordered pair formed once, into an (m, m) buffer where it fits
+``GRAM_BUFFER_BYTES``, else row panel by row panel (:func:`panels`); pass 2
+forms K from d2 as it streams, with the diagonal zeroed (the unbiased
+statistic excludes self-pairs) and the accumulation over the reduction axis
+Kahan-compensated. All statistics then come from C and A in O(P m):
 
     s_xx(p) = sum_i A[p, i] C[p, i],   s_xy(p) = sum_i (1 - A[p, i]) C[p, i],
     s_yy(p) = 1^T K 1 - s_xx(p) - 2 s_xy(p).
@@ -31,16 +32,22 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from vgan_tpu_torch.ops.cuda.mmd_gram import _check, _launch, _ptr
+from vgan_tpu_torch.ops.cuda.mmd_gram import _check, _column_major, _launch, _ptr, _round_up
 from vgan_tpu_torch.ops.mmd_test import _indicators, _pooled
 
-# Alphas per kernel pass (the size of the kernel's alpha table); longer
-# sweeps run one pass per chunk, each re-streaming the distances.
+# Alphas per launch of pass 2 (the size of the kernel's alpha table); longer
+# sweeps launch it once per chunk, on the same d2.
 MAX_ALPHAS_PER_PASS = 8
 # Indicator rows per call of the kernel: the C planes of one block of rows,
-# n_alphas x rows x m float32, stay within this many bytes (the kernel's
-# Kahan compensation takes as much again).
+# n_alphas x rows x m float32, stay within this many bytes.
 ROW_BLOCK_BYTES = 1 << 30
+# The d2 buffer of pass 1 holds at most this many bytes: the whole (m, m)
+# where it fits (every pair formed once), else row panels of it (pairs
+# across panels formed twice). Read at call time; lower it to force panels.
+GRAM_BUFFER_BYTES = 4 << 30
+# The kernels' d2 tile (BG in csrc/gof_gram.cu), and their indicator-row
+# tile (BP): the operand copies are padded to whole tiles.
+KERNEL_TILE = 128
 
 
 # ---------------------------------------------------------------------------
@@ -70,8 +77,24 @@ class _Alphas(ctypes.Structure):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "vgan_gof_a_times_k": [_P, _P, _P, _I, _I, _I, ctypes.POINTER(_Alphas), _P, _P, _P],
+    "vgan_gof_gram_d2": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "vgan_gof_a_times_k": [_P, _I, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_Alphas), _I, _P, _P],
 }
+
+
+def panels(m: int) -> list:
+    """``[(row0, rows), ...]``: the row panels in which pass 1 forms d2, each
+    ``row0`` a multiple of ``KERNEL_TILE``. One panel ``(0, m)`` where the
+    whole padded (M, M) buffer fits ``GRAM_BUFFER_BYTES``: the full-Gram
+    regime, in which every unordered pair is formed once."""
+    M = _round_up(m, KERNEL_TILE)
+    rows = max(KERNEL_TILE, GRAM_BUFFER_BYTES // (4 * M) // KERNEL_TILE * KERNEL_TILE)
+    return [(r0, min(rows, m - r0)) for r0 in range(0, m, rows)]
+
+
+def regime(m: int) -> str:
+    """'full' (one symmetric d2 buffer) or 'panels'."""
+    return "full" if len(panels(m)) == 1 else "panels"
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,26 +109,44 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch_pass(z, norms, a, alphas) -> torch.Tensor:
-    m, d = z.shape
-    P = a.shape[0]
+def _alpha_table(alphas) -> _Alphas:
     table = _Alphas()
     table.n = len(alphas)
     for i, al in enumerate(alphas):
         table.a[i] = al
-    c = torch.empty((len(alphas), P, m), dtype=torch.float32, device=z.device)
-    comp = torch.empty_like(c)
-    _launch("vgan_gof_a_times_k", z.device, _ptr(z), _ptr(norms), _ptr(a), m, d, P,
-            ctypes.byref(table), _ptr(c), _ptr(comp), lib=_lib())
-    a_times_k.launches += 1
+    return table
+
+
+def _launch_passes(z, norms, a, alphas) -> torch.Tensor:
+    """Pass 1 per panel of :func:`panels`, then pass 2 per
+    ``MAX_ALPHAS_PER_PASS`` alphas on that panel's d2, each panel after the
+    first adding into C."""
+    m, d = z.shape
+    P, dev = a.shape[0], z.device
+    z_t = _column_major(z, KERNEL_TILE)
+    M = z_t.shape[1]
+    norms_p = torch.zeros(M, dtype=torch.float32, device=dev)
+    norms_p[:m] = norms
+    a_t = _column_major(a, KERNEL_TILE)  # (m, P padded): A[p, j] at a_t[j, p]
+    c = torch.empty((len(alphas), P, m), dtype=torch.float32, device=dev)
+    plan = panels(m)
+    d2 = torch.empty((_round_up(plan[0][1], KERNEL_TILE), M), dtype=torch.float32, device=dev)
+    tables = [(i, _alpha_table(alphas[i:i + MAX_ALPHAS_PER_PASS]))
+              for i in range(0, len(alphas), MAX_ALPHAS_PER_PASS)]
+    for n, (row0, rows) in enumerate(plan):
+        _launch("vgan_gof_gram_d2", dev, _ptr(z_t), _ptr(norms_p), M, d, int(len(plan) == 1),
+                row0 // KERNEL_TILE, -(-rows // KERNEL_TILE), _ptr(d2), lib=_lib())
+        for i, table in tables:
+            _launch("vgan_gof_a_times_k", dev, _ptr(a_t), a_t.shape[1], _ptr(d2), M, m, P, row0,
+                    rows, ctypes.byref(table), int(n > 0), _ptr(c[i:i + table.n]), lib=_lib())
     return c
 
 
 def a_times_k(z, norms, a, alphas: Sequence[float]) -> torch.Tensor:
     """``C_a = A @ K_a(z)`` for every alpha, (n_alphas, P, m) float32:
     ``z`` (m, d) the unpadded pooled rows, ``norms`` (m,) their squared
-    norms, ``a`` (P, m) the indicator rows. One launch per
-    ``MAX_ALPHAS_PER_PASS`` alphas."""
+    norms, ``a`` (P, m) the indicator rows. One d2 pass serves every
+    alpha."""
     alphas = [float(al) for al in alphas]
     if not z.is_cuda:
         return a_times_k_reference(z, norms, a, alphas)
@@ -115,9 +156,9 @@ def a_times_k(z, norms, a, alphas: Sequence[float]) -> torch.Tensor:
     _check("a", a, (a.shape[0], m), z.device)
     if not alphas:
         raise ValueError("a_times_k needs at least one alpha")
-    parts = [_launch_pass(z, norms, a, alphas[i:i + MAX_ALPHAS_PER_PASS])
-             for i in range(0, len(alphas), MAX_ALPHAS_PER_PASS)]
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+    c = _launch_passes(z, norms, a, alphas)
+    a_times_k.launches += 1
+    return c
 
 
 def reset_launch_counts() -> None:

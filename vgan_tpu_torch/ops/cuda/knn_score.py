@@ -6,7 +6,9 @@ For each mask m, test row i and train row j the masked squared distance is
 the expansion ``max((an + bn) - 2 (xte .* m) @ xtr^T, 0)``; the score of
 (m, i) is the k-th smallest distance of the row ('kth', pyod KNN 'largest')
 or the mean of the k smallest ('mean'), exact under ties. The (nt, ntr)
-distances never reach device memory (``csrc/knn_score.cu``).
+distances never reach device memory (``csrc/knn_score.cu``). The kernel
+walks only each mask's selected columns: the wrapper hands it the column
+lists (:func:`selected_columns`) and column-major copies of the rows.
 
 Which kernel runs is the JAX package's regime rule on the same constants:
 the resident kernel (K6, :func:`knn_scores_resident`) where
@@ -28,11 +30,11 @@ import functools
 
 import torch
 
-from vgan_tpu_torch.ops.cuda.mmd_gram import _check, _launch, _ptr
+from vgan_tpu_torch.ops.cuda.mmd_gram import _check, _column_major, _launch, _ptr
 
 # The JAX package's tiling and VMEM constants (vgan_tpu/ops/pallas/
-# knn_score.py), kept because they decide the regime; the CUDA kernels use
-# their own 64-row tiles.
+# knn_score.py), kept because they decide the regime; the CUDA kernel uses
+# its own 128-row tiles (KERNEL_TILE).
 TILE_NT = 256
 MASK_G = 8
 MAX_K = 64
@@ -45,6 +47,9 @@ _KPAD = 128
 REFERENCE_CHUNK_ELEMS = 1 << 27
 _BIG = 3.0e38
 _MODES = ("kth", "mean")
+# The kernel's test and train tiles (BT = BR in csrc/knn_score.cu): the
+# column-major copies are padded to whole tiles.
+KERNEL_TILE = 128
 
 
 def _round_up(a: int, b: int) -> int:
@@ -119,9 +124,19 @@ def knn_scores_all_masks_reference(x_test, x_train, masks, k: int, mode: str = "
 # ---------------------------------------------------------------------------
 
 
+def selected_columns(masks: torch.Tensor):
+    """``(cols, counts)``: int32 (n_masks, d) with each mask's selected
+    columns first, in ascending order (the rest follow and are never read),
+    and int32 (n_masks,) their counts. Built on the masks' device."""
+    selected = masks != 0
+    # a stable sort of the 0 (selected) / 1 keys keeps each group ascending
+    order = torch.sort((~selected).to(torch.int32), dim=1, stable=True).indices
+    return order.to(torch.int32).contiguous(), selected.sum(dim=1, dtype=torch.int32)
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    name: [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+    name: [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
     for name in ("vgan_knn_resident", "vgan_knn_stream")
 }
 
@@ -145,18 +160,19 @@ def _launch_scores(fn_name, x_test, x_train, masks, k, mode, exclude_self) -> to
     _check("x_test", x_test, (nt, d), dev)
     _check("x_train", x_train, (ntr, d), dev)
     _check("masks", masks, (nm, d), dev)
-    an = torch.empty((nm, nt), dtype=torch.float32, device=dev)
-    bn = torch.empty((nm, ntr), dtype=torch.float32, device=dev)
+    cols, counts = selected_columns(masks)
+    xte_t = _column_major(x_test, KERNEL_TILE)
+    xtr_t = _column_major(x_train, KERNEL_TILE)
     out = torch.empty((nm, nt), dtype=torch.float32, device=dev)
-    _launch(fn_name, dev, _ptr(masks), _ptr(x_test), _ptr(x_train), nm, nt, ntr, d, int(k),
-            int(mode == "mean"), int(bool(exclude_self)), _ptr(an), _ptr(bn), _ptr(out),
-            lib=_lib())
+    _launch(fn_name, dev, _ptr(xte_t), xte_t.shape[1], _ptr(xtr_t), xtr_t.shape[1], _ptr(cols),
+            _ptr(counts), nm, nt, ntr, d, int(k), int(mode == "mean"), int(bool(exclude_self)),
+            _ptr(out), lib=_lib())
     return out
 
 
 def knn_scores_resident(x_test, x_train, masks, k: int, mode: str = "kth",
                         exclude_self: bool = False) -> torch.Tensor:
-    """K6: four masks per block share each staged train tile."""
+    """K6: the JAX resident regime (the same kernel as K7 on Hopper)."""
     out = _launch_scores("vgan_knn_resident", x_test, x_train, masks, k, mode, exclude_self)
     knn_scores_resident.launches += 1
     return out
@@ -164,7 +180,8 @@ def knn_scores_resident(x_test, x_train, masks, k: int, mode: str = "kth",
 
 def knn_scores_stream(x_test, x_train, masks, k: int, mode: str = "kth",
                       exclude_self: bool = False) -> torch.Tensor:
-    """K7: one mask per block, the d-chunked distance tile."""
+    """K7: the JAX streaming regime; one mask x 128 test rows per block,
+    over the mask's selected columns."""
     out = _launch_scores("vgan_knn_stream", x_test, x_train, masks, k, mode, exclude_self)
     knn_scores_stream.launches += 1
     return out

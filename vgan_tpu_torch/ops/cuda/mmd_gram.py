@@ -227,6 +227,16 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+def _column_major(x: torch.Tensor, rows_multiple: int) -> torch.Tensor:
+    """(d, N) float32 copy of the (n, d) rows ``x``, column-major, zero-padded
+    to N = n rounded up to ``rows_multiple``: the operand layout of
+    ``csrc/dist_tile.cuh``, where a column is one contiguous run of rows."""
+    n, d = x.shape
+    out = torch.zeros((d, _round_up(n, rows_multiple)), dtype=torch.float32, device=x.device)
+    out[:, :n] = x.T
+    return out
+
+
 def _launch(fn_name: str, device, *args, lib=None) -> None:
     """Call ``fn_name`` of ``lib`` (default: this module's library) on the
     current stream of ``device``; raise on a launch error."""
