@@ -58,9 +58,11 @@ Phases (each asserts; any failure exits non-zero):
    stress fits' steps/s, both ensembles' API-level subspace-scorings/s, and
    a profiler breakdown of one no-kl stress epoch and of one kl detector and
    one kl generator epoch by device kernel, with the device's busy share.
-   With ``--parent-csrc DIR`` (an earlier commit's ``knn_score.cu`` and
-   ``gof_gram.cu``), it also builds those and times them against this
-   tree's K5, K6 and K7 on the same inputs, in turns.
+   K8's phase timer gives each phase's microseconds a step at both fused
+   shapes. With ``--parent-csrc DIR`` (an earlier commit's
+   ``vgan_tpu_torch/ops/cuda/csrc/``), it also builds that commit's kernels
+   and times its K2, K5, K6, K7 and K8 against this tree's on the same
+   inputs, in turns.
 
 Prints a JSON line of the kernels, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -69,6 +71,7 @@ CUDA device. Imports nothing of JAX or ``vgan_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -1011,6 +1014,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_split(fn, calls: int = 10) -> dict:
+    """Device microseconds a call of each kernel that ``fn`` launches, from
+    ``torch.profiler`` over ``calls`` calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1]:
+            e.self_device_time_total / calls
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
 def bound(ops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     """The larger of the operations at the rate of the kernel's datapath
     (``peak``, op/s; every kernel of the port runs IEEE f32 on the CUDA
@@ -1071,9 +1091,13 @@ def phase_times(device, shapes, errs, launches, log):
                          lambda: G.gram_backward_flash_reference(z, norms, bw, n1, n2, mults),
                          gram_ops(m, d, backward=True), 4 * (2 * m * d + 2 * m + 1))
         if name == "gram_quadrant_sums_stash":
-            return timed(name, label, lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults),
-                         lambda: G.gram_quadrant_sums_stash_reference(z, norms, bw, n1, mults),
-                         gram_ops(m, d), 4 * (m * d + m + 1 + 4 + m * m))
+            t = timed(name, label, lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults),
+                      lambda: G.gram_quadrant_sums_stash_reference(z, norms, bw, n1, mults),
+                      gram_ops(m, d), 4 * (m * d + m + 1 + 4 + m * m))
+            t["passes_us"] = device_split(lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults))
+            log(f"  {name} {label} by pass (profiler, device us a call): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in t["passes_us"].items()))
+            return t
         return timed(name, label, lambda: G.kprime_panel(z, z, norms, norms, bw, mults),
                      lambda: G.kprime_panel_reference(z, z, norms, norms, bw, mults),
                      gram_ops(m, d), 4 * (2 * m * d + 2 * m + 1 + m * m))
@@ -1177,15 +1201,21 @@ def knn_times(runs, errs, launches, log):
     return rows
 
 
+PARENT_SOURCES = ("knn_score", "gof_gram", "mmd_gram", "fused_no_kl")
+
+
 def build_parent(src_dir: Path, log) -> dict:
-    """The parent commit's ``knn_score.cu`` and ``gof_gram.cu`` from
-    ``src_dir`` (``git show <parent>:vgan_tpu_torch/ops/cuda/csrc/<name>.cu``),
-    built with the package's flags into ``build/parent_kernels/`` (one
-    ``nvcc`` each, started together) and bound with their own C interfaces."""
+    """The parent commit's kernel sources from ``src_dir`` (its
+    ``vgan_tpu_torch/ops/cuda/csrc/``: the four ``.cu`` files and the headers
+    they include), built with the package's flags into
+    ``build/parent_kernels/`` (one ``nvcc`` each, started together). K5-K7
+    (``gof_gram``, ``knn_score``) keep this tree's C interface and are bound
+    with its signatures; K2 and K8 are bound with the parent's own."""
     import ctypes
 
     from vgan_tpu_torch.ops.cuda import _build
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
+    from vgan_tpu_torch.ops.cuda import knn_score as KS
 
     out_dir = Path(__file__).resolve().parent / "build" / "parent_kernels"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1196,95 +1226,203 @@ def build_parent(src_dir: Path, log) -> dict:
                        check=True, capture_output=True, text=True, timeout=900)
         return ctypes.CDLL(str(lib))
 
-    with ThreadPoolExecutor(2) as pool:
-        knn, gof = pool.map(build, ("knn_score", "gof_gram"))
+    with ThreadPoolExecutor(len(PARENT_SOURCES)) as pool:
+        libs = dict(zip(PARENT_SOURCES, pool.map(build, PARENT_SOURCES)))
+    for name, module in (("gof_gram", GG), ("knn_score", KS)):
+        for fn, argtypes in module._SIGNATURES.items():
+            getattr(libs[name], fn).argtypes = argtypes
+            getattr(libs[name], fn).restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    for fn in (knn.vgan_knn_resident, knn.vgan_knn_stream):
-        fn.argtypes, fn.restype = [P, P, P, I, I, I, I, I, I, I, P, P, P, P], I
-    gof.vgan_gof_a_times_k.argtypes = [P, P, P, I, I, I, ctypes.POINTER(GG._Alphas), P, P, P]
-    gof.vgan_gof_a_times_k.restype = I
+    gram = libs["mmd_gram"]
+    gram.vgan_gram_num_blocks.argtypes, gram.vgan_gram_num_blocks.restype = [I], I
+    gram.vgan_gram_quadrant_sums_stash.argtypes = [P, P, P, I, I, I, P, P, P, P, P]
+    gram.vgan_gram_quadrant_sums_stash.restype = I
+    fused = libs["fused_no_kl"]
+    fused.vgan_fused_grid.argtypes, fused.vgan_fused_grid.restype = [P, P], I
+    fused.vgan_fused_workspace_floats.argtypes = [I, I]
+    fused.vgan_fused_workspace_floats.restype = I
+    fused.vgan_fused_no_kl.argtypes = [P] * 14 + [I, P]
+    fused.vgan_fused_no_kl.restype = I
     log(f"  parent kernels built from {src_dir}")
-    return {"knn": knn, "gof": gof}
+    return libs
+
+
+@contextlib.contextmanager
+def using_lib(module, lib):
+    """Run ``module``'s kernel wrappers on ``lib`` (same C interface) inside
+    the ``with`` block."""
+    saved = module._lib
+    module._lib = lambda: lib
+    try:
+        yield
+    finally:
+        module._lib = saved
 
 
 def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
-    """The parent's K5 (at both GoF shapes), K6 and K7 (at the ensembles'
-    decision_function shapes) against this tree's, on the same inputs, in
-    turns: parent, this tree, this tree, parent. Returns, per (kernel,
-    shape), the four times and the largest difference of the outputs."""
+    """The parent's K2 (at the no-kl stress fit's Gram), K8 (the 2000-epoch
+    notebook fit and the 20-epoch corner, rng mode), K5 (at both GoF shapes),
+    K6 and K7 (at the ensembles' decision_function shapes) against this
+    tree's, on the same inputs, in turns: parent, this tree, this tree,
+    parent. Each case makes its inputs when it runs and frees them after.
+    Returns, per (kernel, shape), the four times and the largest difference
+    of the outputs relative to the parent's largest entry."""
     import ctypes
 
+    from vgan_tpu_torch.ops import mmd as M
+    from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
     from vgan_tpu_torch.ops.cuda import knn_score as KS
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     def stream():
         return torch.cuda.current_stream(device).cuda_stream
 
-    def parent_ak(z, norms, a, alphas):
-        table = GG._alpha_table(alphas)
+    mults = M.bandwidth_multipliers()
+
+    def parent_stash(z, norms, bw, n1):
+        lib = libs["mmd_gram"]
         m, d = z.shape
-        c = torch.empty((len(alphas), a.shape[0], m), dtype=torch.float32, device=device)
-        comp = torch.empty_like(c)
-        rc = libs["gof"].vgan_gof_a_times_k(z.data_ptr(), norms.data_ptr(), a.data_ptr(), m, d,
-                                            a.shape[0], ctypes.byref(table), c.data_ptr(),
-                                            comp.data_ptr(), stream())
-        check(rc == 0, f"parent a_times_k: CUDA error {rc}")
-        return c
+        partials = torch.empty(3 * lib.vgan_gram_num_blocks(m), dtype=torch.float32, device=device)
+        sums = torch.empty(4, dtype=torch.float32, device=device)
+        kp = torch.empty((m, m), dtype=torch.float32, device=device)
+        rc = lib.vgan_gram_quadrant_sums_stash(
+            z.data_ptr(), norms.data_ptr(), bw.reshape(1).data_ptr(), m, d, n1,
+            ctypes.byref(G._ladder(tuple(mults))), partials.data_ptr(), sums.data_ptr(),
+            kp.data_ptr(), stream())
+        check(rc == 0, f"parent gram_quadrant_sums_stash: CUDA error {rc}")
+        return sums.reshape(1, 4), kp
 
-    def parent_knn(fn, x, xtr, masks, k):
-        nm, (nt, d), ntr = masks.shape[0], x.shape, xtr.shape[0]
-        an = torch.empty((nm, nt), dtype=torch.float32, device=device)
-        bn = torch.empty((nm, ntr), dtype=torch.float32, device=device)
-        out = torch.empty((nm, nt), dtype=torch.float32, device=device)
-        rc = fn(masks.data_ptr(), x.data_ptr(), xtr.data_ptr(), nm, nt, ntr, d, k, 0, 0,
-                an.data_ptr(), bn.data_ptr(), out.data_ptr(), stream())
-        check(rc == 0, f"parent knn: CUDA error {rc}")
-        return out
+    def parent_fused(x3, starts, packed, kw, seed):
+        lib = libs["fused_no_kl"]
+        grid, barriers = ctypes.c_int(0), ctypes.c_int(0)
+        check(lib.vgan_fused_grid(ctypes.byref(grid), ctypes.byref(barriers)) == 0,
+              "parent vgan_fused_grid failed")
+        T = int(starts.shape[0])
+        work = torch.empty(lib.vgan_fused_workspace_floats(kw["bs"], grid.value),
+                           dtype=torch.float32, device=device)
+        out = [t.clone() for t in packed]
+        losses = torch.empty(T, dtype=torch.float32, device=device)
+        bw = torch.zeros(2, dtype=torch.float32, device=device)
+        hyper = FN._hyper(kw["d"], kw["bs"], kw["latent"], T, seed, kw["lr"], kw["weight_decay"],
+                          kw["penalty_weight"])
+        rc = lib.vgan_fused_no_kl(x3.data_ptr(), starts.data_ptr(), None,
+                                  *[t.data_ptr() for t in out], losses.data_ptr(), bw.data_ptr(),
+                                  work.data_ptr(), ctypes.byref(hyper),
+                                  ctypes.byref(FN._ladder_struct()), grid.value, stream())
+        check(rc == 0, f"parent fused_no_kl: CUDA error {rc}")
+        return losses
 
-    cases = []
+    def stash_case():
+        n1, d = STRESS["batch"], STRESS["d"]
+        _, _, z, norms, bw = gram_inputs(n1, n1, d, seed=21, device=device)
+        return (lambda: parent_stash(z, norms, bw, n1),
+                lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults))
+
+    def fused_case(Xf, bs, epochs, seed, kseed):
+        def make():
+            x3, starts, packed, kw = fused_inputs(Xf, bs, epochs, seed=seed, device=device)
+            return (lambda: parent_fused(x3, starts, packed, kw, kseed),
+                    lambda: FN.fused_no_kl_fit_cuda(x3, starts, *packed, None, kseed, n=len(Xf),
+                                                    **kw)[7])
+        return make
+
+    def gof_case(shape):
+        def make():
+            n_rows, n1, n2, d, n_perms, alphas, _ = shape
+            X = np.random.default_rng(35).standard_normal((n_rows, d), dtype=np.float32)
+            x, _ = gof_samples(X, n1, seed=36)
+            _, y = gof_samples(X, n2, seed=37)
+            z, norms, a = gof_kernel_inputs(x, y, n_perms, 38, device)
+
+            def old():
+                with using_lib(GG, libs["gof_gram"]):
+                    return GG.a_times_k(z, norms, a, alphas)
+
+            return old, lambda: GG.a_times_k(z, norms, a, alphas)
+        return make
+
+    def knn_case(key):
+        def make():
+            ens, Xt = runs[key]
+            x, xtr = ens._as_device(Xt), ens._x_train
+            masks, _ = ens._device_pool()
+
+            def old():
+                with using_lib(KS, libs["knn_score"]):
+                    return KS.knn_scores_all_masks(x, xtr, masks, ens.k)
+
+            return old, lambda: KS.knn_scores_all_masks(x, xtr, masks, ens.k)
+        return make
+
+    Xc = np.random.default_rng(13).standard_normal((FUSED_CORNER["n"], FUSED_CORNER["d"]),
+                                                   dtype=np.float32)
+    cases = [
+        (f"gram_quadrant_sums_stash m={2 * STRESS['batch']} d={STRESS['d']}", 20, stash_case),
+        (f"fused_no_kl_fit_cuda n=2000 d=10 bs=500, {FUSED_TIMED_EPOCHS} epochs", 3,
+         fused_case(notebook_data(), 500, FUSED_TIMED_EPOCHS, 11, 99)),
+        (f"fused_no_kl_fit_cuda n={FUSED_CORNER['n']} d={FUSED_CORNER['d']} "
+         f"bs={FUSED_CORNER['bs']}, {FUSED_CORNER['epochs']} epochs", 3,
+         fused_case(Xc, FUSED_CORNER["bs"], FUSED_CORNER["epochs"], 12, 98)),
+    ]
     for shape in gof_shapes:
-        n_rows, n1, n2, d, n_perms, alphas, _ = shape
-        X = np.random.default_rng(35).standard_normal((n_rows, d), dtype=np.float32)
-        x, _ = gof_samples(X, n1, seed=36)
-        _, y = gof_samples(X, n2, seed=37)
-        z, norms, a = gof_kernel_inputs(x, y, n_perms, 38, device)
-        cases.append((f"a_times_k m={n1 + n2} d={d} P={a.shape[0]} alphas={len(alphas)}", 3,
-                      lambda z=z, n=norms, a=a, al=alphas: parent_ak(z, n, a, al),
-                      lambda z=z, n=norms, a=a, al=alphas: GG.a_times_k(z, n, a, al)))
+        cases.append((f"a_times_k m={shape[1] + shape[2]} d={shape[3]} P={shape[4] + 2} "
+                      f"alphas={len(shape[5])}", 3, gof_case(shape)))
     for name, key, iters in (("knn_scores_resident", ("bench", "knn"), 20),
                              ("knn_scores_stream", ("stress", "knn"), 3)):
         ens, Xt = runs[key]
-        x, xtr = ens._as_device(Xt), ens._x_train
-        masks, _ = ens._device_pool()
-        fn = libs["knn"].vgan_knn_resident if name == "knn_scores_resident" else libs["knn"].vgan_knn_stream
-        cases.append((f"{name} {masks.shape[0]} masks, {x.shape[0]} x {xtr.shape[0]}, d={x.shape[1]}, "
-                      f"k={ens.k}", iters,
-                      lambda fn=fn, x=x, xtr=xtr, m=masks, k=ens.k: parent_knn(fn, x, xtr, m, k),
-                      lambda x=x, xtr=xtr, m=masks, k=ens.k: KS.knn_scores_all_masks(x, xtr, m, k)))
+        cases.append((f"{name} {len(ens.subspaces)} masks, {len(Xt)} x {ens._x_train.shape[0]}, "
+                      f"d={Xt.shape[1]}, k={ens.k}", iters, knn_case(key)))
     results = {}
-    for label, iters, old, new in cases:
+    for label, iters, make in cases:
+        torch.cuda.empty_cache()
+        old, new = make()
         t = [cuda_ms(f, iters, 1) for f in (old, new, new, old)]
-        diff = max_abs(old(), new())
-        results[label] = {"parent_ms": [t[0], t[3]], "ms": [t[1], t[2]], "max_abs_diff": diff}
+        a, b = old(), new()
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        diff = max(max_abs(u, v) / max(float(torch.max(torch.abs(u))), 1e-30) for u, v in zip(a, b))
+        results[label] = {"parent_ms": [t[0], t[3]], "ms": [t[1], t[2]], "max_rel_diff": diff}
         log(f"  {label}: parent {t[0]:.4f}, {t[3]:.4f} ms; this tree {t[1]:.4f}, {t[2]:.4f} ms "
-            f"({(t[0] + t[3]) / (t[1] + t[2]):.2f}x); outputs differ by at most {diff:.3e}")
+            f"({(t[0] + t[3]) / (t[1] + t[2]):.2f}x); outputs differ by at most {diff:.3e} of the "
+            f"parent's largest")
+        del old, new, a, b
+    log(f"  device memory: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB at most")
     return results
 
 
 def fused_ops_bytes(n: int, d: int, bs: int, latent: int, steps: int):
     """Per fit, per step over the m = 2 bs valid rows: the distances and the
-    ladder over each unordered pair once and K' [q | q * zc] (``gram_ops``
-    with the backward product, plus 2 m^2 for K' q), the generator's
-    forward, dh and dW GEMMs, and about 10 operations per parameter for
-    Adadelta; bytes: the
-    dataset read once, the state (parameters and two Adadelta averages) read
-    and written once, one loss per step."""
+    ladder over each unordered pair once (``gram_ops``), K' [q | q * zc]
+    over the bs masked rows, the only ones the backward reads (2 bs m (d +
+    1)), the generator's forward, dh and dW GEMMs, and about 10 operations
+    per parameter for Adadelta; bytes: the dataset read once, the state
+    (parameters and two Adadelta averages) read and written once, one loss
+    per step."""
     widths = [latent, 2 * latent, 4 * latent, 8 * latent, d]
     macs = sum(a * b for a, b in zip(widths, widths[1:]))
     n_params = macs + sum(widths[1:])
     m = 2 * bs
-    per_step = gram_ops(m, d, backward=True) + 2 * m * m + 6 * bs * macs + 10 * n_params
+    per_step = gram_ops(m, d) + 2 * bs * m * (d + 1) + 6 * bs * macs + 10 * n_params
     return steps * per_step, 4 * (n * d + 6 * n_params + steps)
+
+
+def fused_phases(x3, starts, packed, kw, n: int, seed: int, label: str, log) -> dict:
+    """K8's phase timer over one fit on these inputs (rng mode): each
+    phase's microseconds per step (the step-0 bandwidth phase: per fit)."""
+    from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
+
+    T = int(starts.shape[0])
+    ns = torch.zeros(len(FN.PHASES), dtype=torch.int64, device=x3.device)
+    FN.fused_no_kl_fit_cuda(x3, starts, *packed, None, seed, n=n, phase_ns=ns, **kw)
+    sync()
+    us = {name: v / 1e3 / (1 if name == "bandwidth" else T)
+          for name, v in zip(FN.PHASES, ns.cpu().tolist())}
+    log(f"  K8 phases, {label}, {T} steps: " + ", ".join(
+        f"{k} {v:.3f} us{' per fit' if k == 'bandwidth' else '/step'}" for k, v in us.items())
+        + f"; sum {sum(v for k, v in us.items() if k != 'bandwidth'):.3f} us/step")
+    return us
 
 
 def fused_times(device, errs, launches, log):
@@ -1327,6 +1465,7 @@ def fused_times(device, errs, launches, log):
         f"{barriers} grid barriers a step, one more at step 0)")
     log(f"  fused_no_kl_fit_cuda main-path fit n={n} d={d} bs={bs}, {e_main} epochs = {Tm} steps: "
         f"{ms_main:.4f} ms (bound {bound_main:.4f} ms)")
+    t["phase_us"] = fused_phases(x3, starts, packed, kw, n, 99, t["shape"], log)
 
     config = TrainConfig(ndims=d, batch_size=bs, lr_g=NOTEBOOK_FIT["lr"])
     x = torch.from_numpy(X.astype(np.float32)).to(device)
@@ -1354,6 +1493,7 @@ def fused_times(device, errs, launches, log):
     log(f"  fused_no_kl_fit_cuda corner n={nc} d={dc} bs={bsc}, {ec} epochs = {Tc} steps: "
         f"{ms_c:.4f} ms, {ms_c * 1e3 / Tc:.3f} us/step (plain {plain_c:.4f} ms, bound "
         f"{bound_c * 1e3 / Tc:.3f} us/step by {by_c})")
+    phases_c = fused_phases(x3c, startsc, packedc, kwc, nc, 98, f"corner n={nc} d={dc} bs={bsc}", log)
     return {
         "name": "fused_no_kl_fit_cuda", "route": "cuda",
         "source": "vgan_tpu_torch/ops/cuda/csrc/fused_no_kl.cu",
@@ -1367,7 +1507,7 @@ def fused_times(device, errs, launches, log):
         "library_ms": None,
         "at_other_shapes": [{"shape": f"n={nc} d={dc} bs={bsc}, {Tc} steps", "ms": ms_c,
                              "us_per_step": ms_c * 1e3 / Tc, "plain_ms": plain_c, "bound_ms": bound_c,
-                             "bound_by": by_c}],
+                             "bound_by": by_c, "phase_us": phases_c}],
     }
 
 
@@ -1467,13 +1607,46 @@ def profile_stress_epoch(device, n, d, batch, log, kl: bool = False, top: int = 
             f"  x{e.count:<4d} {e.key[:90]}")
 
 
+def sass_sizes() -> dict:
+    """SASS instructions of each kernel of the loaded libraries
+    (``cuobjdump`` beside ``nvcc``): a kernel far past the instruction cache
+    stalls on instruction fetch."""
+    import re
+
+    from vgan_tpu_torch.ops.cuda import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sizes = {}
+    for lib in sorted(Path(cdll._name) for cdll in _build._libs.values()):
+        out = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                             timeout=300, check=True).stdout
+        for body in re.split(r"\n\s*Function : ", out)[1:]:
+            mangled = body.split("\n", 1)[0].strip()
+            sizes[f"{lib.stem.rsplit('_', 1)[0][3:]}.{kernel_name(mangled)}"] = len(
+                re.findall(r"/\*[0-9a-f]{4,}\*/", body))
+    return sizes
+
+
+def kernel_name(mangled: str) -> str:
+    """The innermost name of a mangled ``_ZN<len><name>...`` symbol."""
+    i, name = mangled.find("_ZN") + 3, mangled
+    while 3 <= i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    return name
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent-csrc", type=Path, default=None,
-                        help="a directory holding an earlier commit's knn_score.cu and "
-                             "gof_gram.cu: phase 5 also builds and times them beside this tree's")
+                        help="an earlier commit's vgan_tpu_torch/ops/cuda/csrc/ (mmd_gram.cu, "
+                             "gof_gram.cu, knn_score.cu, fused_no_kl.cu and their headers): "
+                             "phase 5 also builds K2, K5, K6, K7 and K8 from it and times them "
+                             "beside this tree's")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1512,6 +1685,8 @@ def main(argv=None) -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: " + line.strip())
+    for name, count in sass_sizes().items():
+        log(f"  sass {name}: {count} instructions")
 
     n, d, batch = STRESS["n"], STRESS["d"], STRESS["batch"]
     d_flash = 1024
@@ -1580,14 +1755,14 @@ def main(argv=None) -> int:
     rows = phase_times(device, {"kl": kl_shape, "flash": flash_shape, "stress": stress_shape,
                                 "gof": [gof_f64, gof_f32]}, errs, launches, log)
     rows += knn_times(ensembles, errs, knn_launches, log)
+    rows.append(fused_times(device, errs, k8_launches, log))
     if parent_libs:
-        log("  against the parent commit's K5, K6 and K7 (same inputs, in turns)")
+        log("  against the parent commit's K2, K5, K6, K7 and K8 (same inputs, in turns)")
         compared = parent_comparison(parent_libs, device, ensembles, [gof_f64, gof_f32], log)
         for row in rows:
             mine = {k: v for k, v in compared.items() if k.split(" ")[0] == row["name"]}
             if mine:
                 row["parent_comparison"] = mine
-    rows.append(fused_times(device, errs, k8_launches, log))
     ensemble_rates(ensembles, log)
     sps = fit_steps_per_s(device, n, d, batch)
     log(f"  stress fit (n={n}, d={d}, batch {batch}): {sps:.2f} steps/s")

@@ -44,9 +44,9 @@ def test_ctypes_signatures_match_the_c_declarations(module):
             assert _matches(param, argtype), (name, param, argtype)
 
 
-@pytest.mark.parametrize("module", ["gof_gram", "knn_score"])
+@pytest.mark.parametrize("module", ["gof_gram", "knn_score", "mmd_gram"])
 def test_build_key_follows_the_included_header(tmp_path, monkeypatch, module):
-    """The two sources that include ``dist_tile.cuh`` build anew when a byte
+    """The sources that include ``dist_tile.cuh`` build anew when a byte
     of that header, of the source or of the flags changes, and not
     otherwise."""
     for f in _build.CSRC.iterdir():
@@ -74,7 +74,8 @@ def test_build_key_follows_the_included_header(tmp_path, monkeypatch, module):
 def test_build_key_ignores_headers_not_included(tmp_path):
     for f in _build.CSRC.iterdir():
         shutil.copy(f, tmp_path / f.name)
-    src = tmp_path / "mmd_gram.cu"
+    src = tmp_path / "fused_no_kl.cu"
+    assert "dist_tile.cuh" not in src.read_text()
     key = _build.source_key(src)
     (tmp_path / "dist_tile.cuh").write_text("// another header\n")
     assert _build.source_key(src) == key

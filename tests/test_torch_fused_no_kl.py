@@ -199,6 +199,31 @@ def test_schedule_matches_jax_layout(n, d, bs):
     assert starts.tolist() == [(int(offsets[e]) + i * bs) % n for e in range(2) for i in range(nb)]
 
 
+def test_phase_timer_refused_on_a_cpu_tensor():
+    """K8's phase timer is read on the card: ``phase_ns`` on the CPU is
+    refused before anything is built or launched, as is the kernel itself
+    on CPU tensors."""
+    n, d, bs, epochs = 128, 16, 64, 1
+    x, _, offsets = _inputs(n, d, bs, epochs, seed=10)
+    x3, starts, _, _ = TF.schedule(torch.from_numpy(x), bs, epochs, np.arange(n), offsets, None,
+                                   None)
+    config = TS.TrainConfig(ndims=d, batch_size=bs)
+    state = TS.init_no_kl_state(config, 0, "cpu")
+    packed = [*TF.pack_params(dict(state.generator.state_dict()), config.latent_size, d),
+              *TF.pack_params(state.opt_state.square_avg, config.latent_size, d),
+              *TF.pack_params(state.opt_state.acc_delta, config.latent_size, d)]
+    kw = dict(n=n, d=d, bs=bs, latent=config.latent_size, lr=config.lr_g,
+              weight_decay=config.weight_decay, penalty_weight=config.penalty_weight)
+    starts_t = torch.from_numpy(starts.astype(np.int32))
+    TF.reset_launch_counts()
+    with pytest.raises(ValueError, match="phase_ns"):
+        TF.fused_no_kl_fit_cuda(x3, starts_t, *packed, None, 0,
+                                phase_ns=torch.zeros(len(TF.PHASES), dtype=torch.int64), **kw)
+    with pytest.raises(ValueError, match="on the card"):
+        TF.fused_no_kl_fit_cuda(x3, starts_t, *packed, None, 0, **kw)
+    assert TF.launch_counts() == {"fused_no_kl_fit_cuda": 0}
+
+
 def test_zero_epochs_is_a_no_op():
     n, d, bs = 128, 16, 64
     config = TS.TrainConfig(ndims=d, batch_size=bs)

@@ -214,3 +214,50 @@ def test_flash_splits_cover_the_card():
         s = TG.flash_splits(m, d, 132)
         assert 1 <= s <= -(-m // TG.KERNEL_TILE)
         assert s == 1 or s * 4 * m * (d + 1) <= TG.FLASH_SPLIT_BYTES
+
+
+def test_stash_slices_cover_d_and_fill_the_card():
+    """K2's d split: slices of a multiple of the 16-column chunk that cover d
+    exactly (the last one ragged), and at the stress shape (m = 1000, 36
+    tile pairs) tile pairs x slices fill the 132 SMs in one wave of at most
+    two blocks an SM."""
+    assert TG.stash_slices(1000, 10240, 132) == (1472, 7)
+    for m, d in ((1000, 10240), (850, 2500), (233, 2100), (1000, 640), (40, 40), (5000, 10240)):
+        slice_, count = TG.stash_slices(m, d, 132)
+        assert slice_ % TG.STASH_BK == 0 and slice_ > 0
+        assert (count - 1) * slice_ < d <= count * slice_, (m, d)
+        tiles = -(-m // TG.STASH_TILE)
+        pairs = tiles * (tiles + 1) // 2
+        assert count == 1 or pairs * count <= TG.STASH_BLOCKS_PER_SM * 132, (m, d)
+    pairs = 8 * 9 // 2
+    _, count = TG.stash_slices(1000, 10240, 132)
+    assert 132 <= pairs * count <= 2 * 132
+    # ragged: m = 850 (7 tiles, 28 pairs), d = 2500 (157 chunks): 9 slices of 288
+    assert TG.stash_slices(850, 2500, 132) == (288, 9)
+    # narrow d: no more slices than 16-column chunks
+    assert TG.stash_slices(40, 40, 132) == (16, 3)
+    scratch = TG.stash_scratch_floats(1000, 10240, 1472)
+    assert scratch == 10240 * 1024 + 7 * 36 * 128 * 128 + 12 * 36
+
+
+def test_stash_pair_once_sums_float64_vs_pallas():
+    """The stash plain version's pair-once quadrant sums (the diagonal once,
+    the upper triangle doubled in XX and YY, XY once), in float64, against
+    ``_fwd_stash_kernel`` in interpret mode at a ragged m (not a multiple of
+    128) with n1 != n2; and they equal the full-Gram sums of K1's plain
+    version."""
+    n1, n2, d = 150, 83, 600
+    a = _both(n1, n2, d)
+    M, m = a["z_pad"].shape[0], a["m"]
+    assert m % TG.STASH_TILE and n1 != n2
+    sums_j, _ = JG._gram_quadrant_sums_stash(
+        a["z_pad"], a["norms_pad"], a["bw_j"], n1, m, MULTS, a["tile_d"],
+        tile_m=JG._fwd_tile(M, a["tile_d"], 4), interpret=True)
+    z64 = a["z"].double()
+    n64 = torch.sum(z64 * z64, dim=1)
+    bw64 = a["bw_t"].double()
+    sums_t, kp_t = TG.gram_quadrant_sums_stash(z64, n64, bw64, n1, MULTS)
+    assert sums_t.dtype == torch.float64 and kp_t.shape == (m, m)
+    np.testing.assert_allclose(sums_t.numpy()[0, :3], np.asarray(sums_j)[0, :3], rtol=1e-5)
+    full = TG.gram_quadrant_sums_reference(z64, n64, bw64, n1, MULTS)
+    np.testing.assert_allclose(sums_t.numpy(), full.numpy(), rtol=1e-12)

@@ -2,28 +2,42 @@
 //
 //   fused_kernel  <- vgan_tpu/ops/pallas/fused_no_kl.py:_kernel_body
 //
-// One persistent cooperative launch runs every train step of the fit in
-// order. Parameters, Adadelta state and every intermediate live in device
-// memory (all of it a few MB, so L2-resident); grid-wide barriers
-// (cooperative_groups::this_grid().sync()) separate the phases of a step:
+// One persistent cooperative launch (one block of 512 threads per SM) runs
+// every train step of the fit in order. Parameters, Adadelta state and every
+// intermediate live in device memory (all of it a few MB, so L2-resident);
+// grid-wide barriers (cooperative_groups::this_grid().sync()) separate the
+// phases of a step:
 //
-//   A  rows: per batch row (one warp a row) the noise (in-kernel Philox or an
-//      injected buffer), the 4 linear layers, the masked upper softmax, the
-//      row of zc = [batch; u * batch] and its squared norms; per block the
-//      column max of u (and, at step 0, the column sums of zc);
+//   A  rows: W and b (as G left them) into shared memory; per batch row (one
+//      warp a row) the noise (in-kernel Philox or an injected buffer), the 4
+//      linear layers, the masked upper softmax, the row of zc = [batch;
+//      u * batch] and its squared norms; per block the column max of u (and,
+//      at step 0, the column sums of zc);
 //   -- barrier (at step 0 one more: the centred closed-form bandwidth needs
 //      the mean first, then the sum of squares; it is then frozen) --
-//   B  the column max reduced in block order; per block the tie counts of
-//      its rows; the Gram strip pass: each block owns 8-row tiles of zc and
-//      walks 32-column tiles, recomputing d2 and the bandwidth ladder (one
-//      exp, then squarings) per entry, and accumulates K'q, K'(q .* zc)
-//      and its MMD partial. The (m, m) Gram is never stored;
+//   B  the Gram pass over units spread across every warp of the grid, one a
+//      warp (consecutive units on different SMs): a masked row against the
+//      x columns, the same row against the masked columns (K'q and
+//      K'(q .* zc) of the masked rows, the only rows phase E reads, in two
+//      parts that E adds, and the MMD of the XY block and the YY triangle),
+//      and an x row against the x columns at or after it (the XX triangle,
+//      K only): the MMD takes each unordered pair once. The block streams
+//      the columns of zc and their norms through a ring in shared memory
+//      (16-byte cp.async through L2; at the notebook shape all of zc, 2 bs
+//      x d floats, is one stage, else two stages of columns); a lane takes
+//      two columns, recomputes d2 in float4 steps and the bandwidth ladder
+//      (one exp, then squarings, in a rolled loop over a table in shared
+//      memory: unrolled per term it outgrew the instruction cache), and
+//      adds K'(q .* zc) into its own sums when d <= 16, else through a
+//      warp buffer with a lane a feature. Then the column max of u (its
+//      partials were put in flight at the start of B) and per block the tie
+//      counts of its rows. The (m, m) Gram is never stored;
 //   -- barrier --
-//   E  the MMD and the tie counts reduced in block order, the loss; per row
+//   E  the MMD (block 0) and the tie counts reduced, the loss; per row
 //      the rank-1 backward dzc = 4/bs^2 q .* (K'q .* zc - K'(q .* zc)), the
 //      coverage gradient split evenly among ties, the upper-softmax
-//      backward and the whole dh chain through layers 3 -> 1 (row-wise, so
-//      every dh is taken from W before its update);
+//      backward and the whole dh chain through layers 3 -> 1 (row-wise, from
+//      the shared copy of W, so every dh is taken from W before its update);
 //   -- barrier --
 //   G  one warp per parameter entry sums hs^T dh over the batch rows and
 //      takes the torch-parity Adadelta step (L2 weight decay in the
@@ -33,13 +47,14 @@
 // so four barriers a step. Rows are compact: x rows [0, bs), masked rows
 // [bs, 2 bs); the Pallas kernel's pad rows contribute exact zeros there.
 //
-// What bounds it on an H100: per step two Gram products over 2 bs rows at
-// width d, about 20 operations per Gram entry for the ladder, and the tiny
-// generator GEMMs: about 1 us of non-tensor f32 work at the notebook shape
-// (bs 500, d 10). This design is bound instead by its barriers and by
-// latency: a step is four grid-wide syncs and a handful of dependent L2
-// round trips per phase. Fusing phases, keeping W in shared memory and
-// splitting the Gram more finely are left to later work.
+// What bounds it on an H100: per step the distances of the 2 bs rows'
+// unordered pairs and K'[q | q .* zc] over the bs masked rows at width d,
+// about 20 operations per Gram entry for the ladder, and the tiny generator
+// GEMMs: under 1 us of non-tensor f32 work at the notebook shape (bs 500,
+// d 10). The design is bound instead by latency: a step is four grid-wide
+// syncs, each phase a few dependent L2 round trips, and the Gram pass long
+// dependent chains a warp. A phase timer (PhaseTimer, off unless asked for)
+// measures each phase's share.
 //
 // Numerics: IEEE f32 (expf, logf, cosf, sqrtf; the file must not be built
 // with --use_fast_math), d2 the clamped expansion max(|a|^2 + |b|^2 - 2 ab, 0)
@@ -48,7 +63,9 @@
 // __fmul_rn / __fadd_rn so no FMA contraction can differ between the two.
 //
 // Determinism: no atomics; every cross-block sum is a per-block partial
-// reduced in block order after a barrier, so re-runs give identical bits.
+// reduced after a barrier in a fixed order (lanes_reduce, scalar_reduce:
+// fixed segments over the threads, then combined in segment order), so
+// re-runs give identical bits.
 //
 // Plain C interface: each entry returns the launch's error code; pointers
 // and the stream come from the caller (ctypes).
@@ -64,13 +81,20 @@ namespace {
 constexpr int LP = 128;   // padded latent lanes of the noise buffer
 constexpr int DP = 128;   // padded lanes of x3, zc and every activation row
 constexpr int WP = 128;   // padded widths of W and b
-constexpr int NT = 256;   // threads per block
+constexpr int NT = 512;   // threads per block
 constexpr int NW = NT / 32;
-constexpr int TR = NW;    // Gram rows per tile: one warp a row
-constexpr int TC = 32;    // Gram columns per staged tile: one lane a column
-constexpr int ZS = DP + 1;  // shared row stride of the column tile (no bank conflicts)
+// dynamic shared memory: the Gram pass's column ring (one stage holding all of
+// zc and its norms, or two stages of columns), then the live part of W for
+// phases A and E, layer l as in_l rows of stride out_l | 1 (odd: a warp's
+// lanes reading one column each hit distinct banks), at most the widest
+// generator's (latent 16, d 128)
+constexpr int RING_FLOATS = 20480;
+constexpr int W_FLOATS = 16 * 33 + 32 * 65 + 64 * 129 + 128 * 129;
+constexpr int SMEM_BYTES = (RING_FLOATS + W_FLOATS) * 4;
 constexpr int MAX_LADDER = 8;
+constexpr int PRE = 8;  // column-max partials a thread puts in flight at the start of B
 constexpr int BARRIERS_PER_STEP = 4;
+constexpr int PHASES = 5;  // A, the step-0 bandwidth, B, E, G: see the phase timer
 
 }  // namespace
 
@@ -112,15 +136,19 @@ struct Params {
     float* u;     // (bsp, DP) upper softmax
     float* zc;    // (2 bsp, DP) compact [batch; u * batch]
     float* norms; // (2 bsp,)
-    float* kpq;   // (2 bsp,)
-    float* kpqz;  // (2 bsp, DP)
+    float* kpq;   // (2, bsp) K'q of the masked rows over the x, then the masked columns
+    float* kpqz;  // (2, bsp, DP) K'(q .* zc) of the masked rows, likewise
     float* p_colmax;  // (grid, DP)
     float* p_cnt;     // (grid, DP)
     float* p_colsum;  // (grid, DP)
     float* p_scalar;  // (grid, 2): MMD partial, centred sum of squares
+    unsigned long long* timer;  // (PHASES,) nanoseconds per phase over the fit, or null
     VganFusedHyper h;
     VganFusedLadder lad;
     int bsp;
+    int sd;            // floats a column of zc takes in the ring: 4 x an odd number >= d / 4
+    int chunk;         // columns of zc a ring stage holds, a multiple of 32
+    int stage_floats;  // chunk (sd + 1)
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -184,27 +212,174 @@ __device__ __forceinline__ float block_scalar_reduce(float v, float* scal) {
     return t;
 }
 
+// out[k] = the S segments seg[s d + k] combined in segment order for k < d,
+// 0 for d <= k < DP (MAX: their max, from 0).
+template <bool MAX>
+__device__ __forceinline__ void lanes_combine(int S, int d, float* seg, float* out) {
+    __syncthreads();
+    if (threadIdx.x < DP) {
+        float v = 0.f;
+        if (threadIdx.x < d) {
+#pragma unroll 8
+            for (int q = 0; q < S; ++q) {
+                const float x = seg[q * d + threadIdx.x];
+                v = MAX ? fmaxf(v, x) : v + x;
+            }
+        }
+        out[threadIdx.x] = v;
+    }
+    __syncthreads();
+}
+
+// out[k] = the sum (MAX: the max, from 0) over g < G of part[g DP + k] for
+// k < d, 0 for d <= k < DP, in every block. Thread t takes lane t % d of
+// segment t / d (g = segment, segment + S, ...; S = NT / d segments), then
+// the segments are combined in segment order: a fixed order, so re-runs give
+// identical bits.
+template <bool MAX>
+__device__ __forceinline__ void lanes_reduce(const float* part, int G, int d, float* seg,
+                                             float* out) {
+    const int S = NT / d, k = threadIdx.x % d, s = threadIdx.x / d;
+    if (s < S) {
+        float v = 0.f;
+#pragma unroll 4
+        for (int g = s; g < G; g += S) {
+            const float x = part[(size_t)g * DP + k];
+            v = MAX ? fmaxf(v, x) : v + x;
+        }
+        seg[s * d + k] = v;
+    }
+    lanes_combine<MAX>(S, d, seg, out);
+}
+
+// The sum over g < G of part[g stride] in a fixed order (thread t takes
+// g = t, t + NT, ..., then warps and blocks in order), in every thread.
+__device__ __forceinline__ float scalar_reduce(const float* part, int stride, int G, float* scal) {
+    float v = 0.f;
+    for (int g = threadIdx.x; g < G; g += NT) v += part[(size_t)g * stride];
+    v = block_scalar_reduce(warp_sum(v), scal);
+    if (threadIdx.x == 0) scal[0] = v;
+    __syncthreads();
+    v = scal[0];
+    __syncthreads();
+    return v;
+}
+
+// 16 bytes from global (through L2 only: the data was written by other SMs
+// inside the launch) to shared memory; zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src),
+                 "r"(valid ? 16 : 0));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy columns [ch chunk, (ch + 1) chunk) of zc (their first d floats
+// rounded up to 4, the lanes past d being zero) and their norms into a ring
+// stage, and commit.
+__device__ __forceinline__ void stage_columns(const float* zc, const float* norms, int m, int d,
+                                              int chunk, int sd, int ch, float* stage) {
+    const int q4 = (d + 3) / 4, c0 = ch * chunk;
+    for (int idx = threadIdx.x; idx < chunk * q4; idx += NT) {
+        const int cl = idx / q4, q = idx - cl * q4, c = c0 + cl;
+        cp_async16(stage + cl * sd + 4 * q, zc + (size_t)(c < m ? c : 0) * DP + 4 * q, c < m);
+    }
+    float* ns = stage + chunk * sd;
+    for (int q = threadIdx.x; q < chunk / 4; q += NT) {
+        const int c = c0 + 4 * q;
+        cp_async16(ns + 4 * q, norms + (c < m ? c : 0), c < m);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+
+// The phase timer: thread 0 of block 0 reads the global nanosecond clock
+// right after each grid barrier and adds the time since the previous one to
+// its phase, so a phase's time is that of its slowest block plus the
+// barrier. Off (no clock read) when p.timer is null.
+struct PhaseTimer {
+    bool on;
+    unsigned long long last, ns[PHASES];
+    __device__ explicit PhaseTimer(bool on_) : on(on_), last(on_ ? globaltimer() : 0ull) {
+#pragma unroll
+        for (int q = 0; q < PHASES; ++q) ns[q] = 0ull;
+    }
+    __device__ __forceinline__ void lap(int q) {
+        if (!on) return;
+        const unsigned long long now = globaltimer();
+        ns[q] += now - last;
+        last = now;
+    }
+};
+
 __global__ void __launch_bounds__(NT, 1) fused_kernel(Params p) {
     cg::grid_group grid = cg::this_grid();
-    __shared__ float rowbuf[NW][2][WP];
-    __shared__ float Zr[TR][DP];
-    __shared__ float Zc[TC][ZS];
-    __shared__ float Ks[TR][TC];
-    __shared__ float nc_s[TC], qc_s[TC];
+    extern __shared__ __align__(16) float ring[];  // RING_FLOATS, then W_FLOATS of W
+    float* const Ws = ring + RING_FLOATS;
+    __shared__ float bsm[4][WP];
+    __shared__ __align__(16) float rowbuf[NW][2][WP];
+    __shared__ float kbuf[NW][64];
+    __shared__ float coef_s[MAX_LADDER];
+    __shared__ int sq_s[MAX_LADDER];
     __shared__ float red[NW][DP];
+    __shared__ float seg[NT];
     __shared__ float colv[DP], cntv[DP], meanv[DP];
     __shared__ float scal[NW];
 
     const int G = gridDim.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int bs = p.h.bs, d = p.h.d, L = p.h.latent, bsp = p.bsp, m = 2 * bs;
     const int wd[5] = {L, 2 * L, 4 * L, 8 * L, d};
+    int woff[4], wstr[4];  // layer l of W at Ws + woff[l], row stride wstr[l]
+    for (int l = 0, off = 0; l < 4; ++l) {
+        woff[l] = off;
+        wstr[l] = wd[l + 1] | 1;
+        off += wd[l] * wstr[l];
+    }
     const int row0 = blockIdx.x * NW + warp, row_step = G * NW;
+    // the Gram pass: W warps in the grid, this warp's place among them with
+    // consecutive places on different SMs, the column chunks of the ring and
+    // the float4s of a column; its K'(q .* zc) step gives lane l the feature
+    // l % dl (and those 32 on) of the columns l / dl, + P, + 2 P, ...
+    const int W = G * NW, gw = warp * G + blockIdx.x;
+    const int nch = (m + p.chunk - 1) / p.chunk, nq = (d + 3) / 4;
+    const int dl = d < 32 ? d : 32, P = 32 / dl, k0 = lane % dl, cp = lane / dl;
     const float rho = 0.9f, omr = (float)(1.0 - 0.9), eps = 1e-6f;
+    const int nlad = p.lad.n;
+    // thread t < nlad: the squarings that take the ladder's running power
+    // from term t - 1's to term t's (one exp at the base, then squarings)
+    int squarings = 0;
+    for (int li = 0, prev = 1; li < nlad && li <= tid; ++li)
+        for (squarings = 0; prev < p.lad.power[li]; prev *= 2) ++squarings;
     float bw = 0.f;
+    PhaseTimer timer(p.timer != nullptr && blockIdx.x == 0 && tid == 0);
 
     for (int t = 0; t < p.h.total_steps; ++t) {
         // ---------------- A: rows ----------------
+        // this warp's first batch row put in flight, then W and b as G left
+        // them into shared memory for A and E
         const int start = p.starts[t];
+        float xpre[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            xpre[j] = row0 < bs ? p.x3[(size_t)(start + row0) * DP + lane + 32 * j] : 0.f;
+        for (int l = 0; l < 4; ++l) {
+            const int out = wd[l + 1];
+            for (int e = tid; e < wd[l] * out; e += NT) {
+                const int kk = e / out, k = e - kk * out;
+                Ws[woff[l] + kk * wstr[l] + k] = p.w[((size_t)l * WP + kk) * WP + k];
+            }
+            if (tid < out) bsm[l][tid] = p.b[l * WP + tid];
+        }
+        __syncthreads();
         float cmax[4] = {0.f, 0.f, 0.f, 0.f}, csum[4] = {0.f, 0.f, 0.f, 0.f};
         for (int i = row0; i < bs; i += row_step) {
             float* hin = rowbuf[warp][0];
@@ -223,14 +398,15 @@ __global__ void __launch_bounds__(NT, 1) fused_kernel(Params p) {
             __syncwarp();
             for (int l = 0; l < 4; ++l) {
                 const int in = wd[l], out = wd[l + 1];
-                const float* W = p.w + (size_t)l * WP * WP;
+                const float* W = Ws + woff[l];
+                const int ws = wstr[l];
 #pragma unroll
                 for (int j = 0; j < 4; ++j) {
                     const int k = lane + 32 * j;
                     if (k < out) {
                         float acc = 0.f;
-                        for (int kk = 0; kk < in; ++kk) acc = fmaf(hin[kk], W[kk * WP + k], acc);
-                        const float v = acc + p.b[l * WP + k];
+                        for (int kk = 0; kk < in; ++kk) acc = fmaf(hin[kk], W[kk * ws + k], acc);
+                        const float v = acc + bsm[l][k];
                         hout[k] = v;
                         if (l < 3) p.hsT[((size_t)(l + 1) * DP + k) * bsp + i] = v;
                     }
@@ -264,7 +440,7 @@ __global__ void __launch_bounds__(NT, 1) fused_kernel(Params p) {
                 const int k = lane + 32 * j;
                 const float sv = ev[j] / es;
                 const float uv = k < d ? (sv >= p.h.thresh ? 1.f : sv) : 0.f;
-                const float xv = xrow[k];
+                const float xv = i == row0 ? xpre[j] : xrow[k];
                 const float yv2 = uv * xv;
                 p.s[(size_t)i * DP + k] = sv;
                 p.u[(size_t)i * DP + k] = uv;
@@ -292,14 +468,12 @@ __global__ void __launch_bounds__(NT, 1) fused_kernel(Params p) {
             block_vec_reduce(red, p.p_colsum + (size_t)blockIdx.x * DP, false);
         }
         grid.sync();
+        timer.lap(0);
 
         // ------- step 0: the centred closed-form bandwidth, frozen -------
         if (t == 0) {
-            if (tid < DP) {
-                float c = 0.f;
-                for (int g = 0; g < G; ++g) c += p.p_colsum[(size_t)g * DP + tid];
-                meanv[tid] = c / (float)m;
-            }
+            lanes_reduce<false>(p.p_colsum, G, d, seg, meanv);
+            if (tid < d) meanv[tid] = meanv[tid] / (float)m;
             __syncthreads();
             float ss = 0.f;
             for (int i = row0; i < bs; i += row_step) {
@@ -315,8 +489,8 @@ __global__ void __launch_bounds__(NT, 1) fused_kernel(Params p) {
             const float part = block_scalar_reduce(warp_sum(ss), scal);
             if (tid == 0) p.p_scalar[blockIdx.x * 2 + 1] = part;
             grid.sync();
-            float tot = 0.f;
-            for (int g = 0; g < G; ++g) tot += p.p_scalar[g * 2 + 1];
+            timer.lap(1);
+            const float tot = scalar_reduce(p.p_scalar + 1, 2, G, scal);
             bw = (p.h.bw_m2 * tot) / p.h.bw_den;
             if (blockIdx.x == 0 && tid == 0) {
                 p.bw[0] = bw;
@@ -324,93 +498,185 @@ __global__ void __launch_bounds__(NT, 1) fused_kernel(Params p) {
             }
         }
 
-        // ---------------- B: column max, ties, Gram strips ----------------
-        if (tid < DP) {
-            float c = 0.f;
-            for (int g = 0; g < G; ++g) c = fmaxf(c, p.p_colmax[(size_t)g * DP + tid]);
-            colv[tid] = c;
-        }
-        __syncthreads();
-        {
-            float cnt[4] = {0.f, 0.f, 0.f, 0.f};
-            for (int i = row0; i < bs; i += row_step) {
+        // ---------------- B: column max, ties, Gram pass ----------------
+        // The column max and the tie counts are not needed before E: the
+        // first ring stage and this thread's first PRE column-max partials
+        // are put in flight here, and both are finished after the Gram pass.
+        stage_columns(p.zc, p.norms, m, d, p.chunk, p.sd, 0, ring);
+        const int Sc = NT / d, kc = tid % d, sc = tid / d;
+        float upre[4];  // u of this warp's first row, for its tie counts
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    const int k = lane + 32 * j;
-                    if (k < d && p.u[(size_t)i * DP + k] == colv[k]) cnt[j] += 1.f;
-                }
-            }
+        for (int j = 0; j < 4; ++j) upre[j] = row0 < bs ? p.u[(size_t)row0 * DP + lane + 32 * j] : 0.f;
+        float pre[PRE];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) red[warp][lane + 32 * j] = cnt[j];
-            block_vec_reduce(red, p.p_cnt + (size_t)blockIdx.x * DP, false);
+        for (int q = 0; q < PRE; ++q) {
+            const int g = sc + Sc * q;
+            pre[q] = sc < Sc && g < G ? p.p_colmax[(size_t)g * DP + kc] : 0.f;
         }
         const float denom0 = bw * p.lad.base;
-        float coef[MAX_LADDER];
-#pragma unroll
-        for (int li = 0; li < MAX_LADDER; ++li)
-            coef[li] = li < p.lad.n ? -1.f / (bw * p.lad.mult[li]) : 0.f;
+        // the ladder as a table in shared memory, walked by a rolled loop:
+        // unrolled per term and column it took thousands of instructions
+        // and the Gram loop no longer fit the instruction cache
+        if (tid < nlad) {
+            coef_s[tid] = -1.f / (bw * p.lad.mult[tid]);
+            sq_s[tid] = squarings;
+        }
+        __syncthreads();
         float macc = 0.f;
-        for (int tile = blockIdx.x; tile * TR < m; tile += G) {
-            const int r = tile * TR + warp;
-            const bool live = r < m;
-            const float nr = live ? p.norms[r] : 0.f;
-            const float qr = r < bs ? 1.f : -1.f;
+        // Units, each a row of zc against a range of columns, u = kind bs + i:
+        // kind 0: masked row bs + i against the x columns (its K'[q | q zc]
+        // there and the MMD of the XY block, as -2 K: XY and YX); kind 1: the
+        // same row against the masked columns (K' and the MMD of the YY
+        // triangle); kind 2: x row i against the x columns at or after it
+        // (the XX triangle, K only). So the MMD takes each unordered pair once,
+        // off-diagonal pairs of the triangles twice and the diagonal once.
+        // Warp gw takes unit u0 + gw in each round of W units, so every SM
+        // holds a share of each kind.
+        // With d <= 16 (small) a lane adds K'q times its two columns' values
+        // (read again from the ring) into its own 16 sums, reduced over the
+        // warp when the unit ends; otherwise K'(q .* zc) goes through kbuf
+        // with a lane a feature (32 / d lanes a feature when d < 32).
+        const bool small = nq <= 4;
+        for (int u0 = 0; u0 < 3 * bs; u0 += W) {
+            if (u0 > 0) stage_columns(p.zc, p.norms, m, d, p.chunk, p.sd, 0, ring);
+            const int u = u0 + gw, kind = u / bs, i = u - kind * bs;
+            const bool live = u < 3 * bs, masked = kind < 2;
+            const int r = masked ? bs + i : i;
+            const float nrow = live ? p.norms[r] : 0.f;
+            float kq = 0.f, kz[16];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int k = lane + 32 * j;
-                Zr[warp][k] = (live && k < d) ? p.zc[(size_t)r * DP + k] : 0.f;
+            for (int q = 0; q < 16; ++q) kz[q] = 0.f;
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+                const int k = lane + 32 * jj;
+                rowbuf[warp][0][k] = live ? p.zc[(size_t)r * DP + k] : 0.f;
             }
-            float kz[4] = {0.f, 0.f, 0.f, 0.f}, kq = 0.f;
-            for (int c0 = 0; c0 < m; c0 += TC) {
-                __syncthreads();
-                for (int idx = tid; idx < TC * d; idx += NT) {
-                    const int cc = idx / d, k = idx - cc * d;
-                    Zc[cc][k] = c0 + cc < m ? p.zc[(size_t)(c0 + cc) * DP + k] : 0.f;
+            __syncwarp();
+            const float4* zr = reinterpret_cast<const float4*>(rowbuf[warp][0]);
+            for (int ch = 0; ch < nch; ++ch) {
+                if (ch + 1 < nch) {
+                    stage_columns(p.zc, p.norms, m, d, p.chunk, p.sd, ch + 1,
+                                  ring + ((ch + 1) & 1) * p.stage_floats);
+                    cp_async_wait<1>();
+                } else {
+                    cp_async_wait<0>();
                 }
-                if (tid < TC) {
-                    nc_s[tid] = c0 + tid < m ? p.norms[c0 + tid] : 0.f;
-                    qc_s[tid] = c0 + tid < bs ? 1.f : -1.f;
-                }
                 __syncthreads();
-                if (!live) continue;
-                const int ncol = min(TC, m - c0);
-                float kps = 0.f;
-                if (lane < ncol) {
-                    float dot = 0.f;
-                    for (int k = 0; k < d; ++k) dot = fmaf(Zr[warp][k], Zc[lane][k], dot);
-                    const float d2 = fmaxf(nr + nc_s[lane] - 2.f * dot, 0.f);
-                    const float qc = qc_s[lane];
-                    float cur = expf(-d2 / denom0);
-                    int prev = 1;
-                    for (int li = 0; li < p.lad.n; ++li) {
-                        while (prev < p.lad.power[li]) {
-                            cur = cur * cur;
-                            prev *= 2;
+                const float* zs = ring + (ch & 1) * p.stage_floats;  // (chunk, sd) columns
+                const float* ns = zs + p.chunk * p.sd;                 // their norms
+                const int c0 = ch * p.chunk;
+                const int lo = max(c0, kind == 0 ? 0 : (kind == 1 ? bs : i));
+                const int hi = live ? min(c0 + p.chunk, kind == 1 ? m : bs) : lo;
+                // two columns a lane: cb + lane and cb + 32 + lane
+                for (int cb = lo; cb < hi; cb += 64) {
+                    float kps[2] = {0.f, 0.f}, dot[2] = {0.f, 0.f};
+                    const float4* zcol[2];
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+                        zcol[h] = reinterpret_cast<const float4*>(
+                            zs + (min(cb + 32 * h + lane, hi - 1) - c0) * p.sd);
+                    for (int q4 = 0; q4 < nq; ++q4) {
+                        const float4 a = zr[q4];
+#pragma unroll
+                        for (int h = 0; h < 2; ++h) {
+                            const float4 b = zcol[h][q4];
+                            dot[h] = fmaf(a.x, b.x, dot[h]);
+                            dot[h] = fmaf(a.y, b.y, dot[h]);
+                            dot[h] = fmaf(a.z, b.z, dot[h]);
+                            dot[h] = fmaf(a.w, b.w, dot[h]);
                         }
-                        macc += cur * qr * qc;
-                        kps += cur * coef[li];
                     }
-                    kq = fmaf(kps, qc, kq);
-                }
-                Ks[warp][lane] = kps;
-                __syncwarp();
-                for (int cc = 0; cc < ncol; ++cc) {
-                    const float kv = Ks[warp][cc], qv = qc_s[cc];
+                    // both columns in one rolled ladder loop (a lane past hi
+                    // works on column hi - 1 and adds nothing), so their chains
+                    // interleave
+                    float cur[2], kk[2] = {0.f, 0.f};
 #pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-                        const int k = lane + 32 * j;
-                        if (k < d) kz[j] = fmaf(kv, qv * Zc[cc][k], kz[j]);
+                    for (int h = 0; h < 2; ++h) {
+                        const int cc = min(cb + 32 * h + lane, hi - 1);
+                        const float d2 = fmaxf(nrow + ns[cc - c0] - 2.f * dot[h], 0.f);
+                        cur[h] = expf(-d2 / denom0);
                     }
+#pragma unroll 1
+                    for (int li = 0; li < nlad; ++li) {
+                        const float cf = coef_s[li];
+                        for (int q = sq_s[li]; q > 0; --q) {
+                            cur[0] = cur[0] * cur[0];
+                            cur[1] = cur[1] * cur[1];
+                        }
+#pragma unroll
+                        for (int h = 0; h < 2; ++h) {
+                            kk[h] += cur[h];
+                            kps[h] += cur[h] * cf;
+                        }
+                    }
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const int c = cb + 32 * h + lane;
+                        const float w = c >= hi ? 0.f
+                                        : kind == 0 ? -2.f : (c > r ? 2.f : (c == r ? 1.f : 0.f));
+                        macc = fmaf(w, kk[h], macc);
+                        if (c >= hi) kps[h] = 0.f;
+                    }
+                    if (!masked) continue;
+                    if (small) {
+#pragma unroll
+                        for (int h = 0; h < 2; ++h) {
+                            const float kpq = kps[h] * (kind == 0 ? 1.f : -1.f);  // q of the column
+                            kq += kpq;
+#pragma unroll
+                            for (int q4 = 0; q4 < 4; ++q4) {
+                                if (q4 < nq) {
+                                    const float4 b = zcol[h][q4];
+                                    kz[4 * q4 + 0] = fmaf(kpq, b.x, kz[4 * q4 + 0]);
+                                    kz[4 * q4 + 1] = fmaf(kpq, b.y, kz[4 * q4 + 1]);
+                                    kz[4 * q4 + 2] = fmaf(kpq, b.z, kz[4 * q4 + 2]);
+                                    kz[4 * q4 + 3] = fmaf(kpq, b.w, kz[4 * q4 + 3]);
+                                }
+                            }
+                        }
+                        continue;
+                    }
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const float kpq = kps[h] * (kind == 0 ? 1.f : -1.f);  // q of the column
+                        kq += kpq;
+                        kbuf[warp][32 * h + lane] = kpq;
+                    }
+                    __syncwarp();
+                    const int ncol = cp < P ? min(64, hi - cb) : 0;
+                    for (int cc = cp; cc < ncol; cc += P) {
+                        const float kv = kbuf[warp][cc];
+                        const float* zrow = zs + (cb + cc - c0) * p.sd;
+#pragma unroll
+                        for (int jj = 0; jj < 4; ++jj) {
+                            const int k = k0 + 32 * jj;
+                            if (32 * jj < d && k < d) kz[jj] = fmaf(kv, zrow[k], kz[jj]);
+                        }
+                    }
+                    __syncwarp();
                 }
-                __syncwarp();
+                __syncthreads();  // the next stage's copy refills this buffer
             }
-            if (live) {
-                kq = warp_sum(kq);
-                if (lane == 0) p.kpq[r] = kq;
+            if (live && masked) {
+                // kind 0 (x columns) into the first half of kpq / kpqz, kind 1 the second
+                const size_t row = kind == 0 ? i : bsp + i;
+                const float v = warp_sum(kq);
+                if (lane == 0) p.kpq[row] = v;
+                if (small) {
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    const int k = lane + 32 * j;
-                    if (k < d) p.kpqz[(size_t)r * DP + k] = kz[j];
+                    for (int q = 0; q < 16; ++q) {
+                        const float z = warp_sum(kz[q]);
+                        if (lane == 0 && q < d) p.kpqz[row * DP + q] = z;
+                    }
+                } else {
+#pragma unroll
+                    for (int jj = 0; jj < 4; ++jj) {
+                        // the P column phases of a feature, added in phase order
+                        float z = kz[jj];
+                        for (int c2 = 1; c2 < P; ++c2) z += __shfl_sync(0xffffffffu, kz[jj], lane + c2 * dl);
+                        const int k = k0 + 32 * jj;
+                        if (cp == 0 && k < d) p.kpqz[row * DP + k] = z;
+                    }
                 }
             }
         }
@@ -418,27 +684,48 @@ __global__ void __launch_bounds__(NT, 1) fused_kernel(Params p) {
             const float part = block_scalar_reduce(warp_sum(macc), scal);
             if (tid == 0) p.p_scalar[blockIdx.x * 2] = part;
         }
+        if (sc < Sc) {  // the column max: max is exact, so any order gives the same bits
+            float v = 0.f;
+#pragma unroll
+            for (int q = 0; q < PRE; ++q) v = fmaxf(v, pre[q]);
+            for (int g = sc + Sc * PRE; g < G; g += Sc) v = fmaxf(v, p.p_colmax[(size_t)g * DP + kc]);
+            seg[sc * d + kc] = v;
+        }
+        lanes_combine<true>(Sc, d, seg, colv);
+        {
+            float cnt[4] = {0.f, 0.f, 0.f, 0.f};
+            for (int i = row0; i < bs; i += row_step) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const int k = lane + 32 * j;
+                    const float uv = i == row0 ? upre[j] : p.u[(size_t)i * DP + k];
+                    if (k < d && uv == colv[k]) cnt[j] += 1.f;
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) red[warp][lane + 32 * j] = cnt[j];
+            block_vec_reduce(red, p.p_cnt + (size_t)blockIdx.x * DP, false);
+        }
         grid.sync();
+        timer.lap(2);
 
         // ---------------- E: loss, row-wise backward ----------------
-        if (tid < DP) {
-            float c = 0.f;
-            for (int g = 0; g < G; ++g) c += p.p_cnt[(size_t)g * DP + tid];
-            cntv[tid] = fmaxf(c, 1.f);
-        }
-        if (blockIdx.x == 0 && tid == 0) {
-            float mmd = 0.f;
-            for (int g = 0; g < G; ++g) mmd += p.p_scalar[g * 2];
-            float pen = 0.f;
-            for (int k = 0; k < d; ++k) pen += 1.f - colv[k];
-            pen = pen / (float)d;
-            p.loss[t] = mmd * p.h.inv + p.h.penalty_weight * pen;
+        lanes_reduce<false>(p.p_cnt, G, d, seg, cntv);
+        if (tid < DP) cntv[tid] = fmaxf(cntv[tid], 1.f);
+        if (blockIdx.x == 0) {
+            const float mmd = scalar_reduce(p.p_scalar, 2, G, scal);
+            if (tid == 0) {
+                float pen = 0.f;
+                for (int k = 0; k < d; ++k) pen += 1.f - colv[k];
+                pen = pen / (float)d;
+                p.loss[t] = mmd * p.h.inv + p.h.penalty_weight * pen;
+            }
         }
         __syncthreads();
         for (int i = row0; i < bs; i += row_step) {
             float* g_out = rowbuf[warp][0];
             float* g_in = rowbuf[warp][1];
-            const float kq = p.kpq[bs + i];
+            const float kq = p.kpq[i] + p.kpq[bsp + i];
             const float cq = -p.h.four_inv;  // 4/bs^2 times q = -1 on masked rows
             float dsv[4], sv[4], part = 0.f;
 #pragma unroll
@@ -449,7 +736,7 @@ __global__ void __launch_bounds__(NT, 1) fused_kernel(Params p) {
                 if (k < d) {
                     const size_t o = (size_t)i * DP + k;
                     const float zy = p.zc[(size_t)(bs + i) * DP + k];
-                    const float dzc = cq * (kq * zy - p.kpqz[(size_t)(bs + i) * DP + k]);
+                    const float dzc = cq * (kq * zy - (p.kpqz[o] + p.kpqz[(size_t)bsp * DP + o]));
                     float du = dzc * p.zc[o];
                     const float uv = p.u[o];
                     const float eq = uv == colv[k] ? 1.f : 0.f;
@@ -471,13 +758,14 @@ __global__ void __launch_bounds__(NT, 1) fused_kernel(Params p) {
             for (int l = 3; l >= 1; --l) {
                 // dh of layer l - 1's output = dh_l @ W_l^T, from W before its update
                 const int in = wd[l], out = wd[l + 1];
-                const float* W = p.w + (size_t)l * WP * WP;
+                const float* W = Ws + woff[l];
+                const int ws = wstr[l];
 #pragma unroll
                 for (int j = 0; j < 4; ++j) {
                     const int jj = lane + 32 * j;
                     if (jj < in) {
                         float acc = 0.f;
-                        for (int k = 0; k < out; ++k) acc = fmaf(g_out[k], W[jj * WP + k], acc);
+                        for (int k = 0; k < out; ++k) acc = fmaf(g_out[k], W[jj * ws + k], acc);
                         g_in[jj] = acc;
                         p.gT[((size_t)(l - 1) * DP + jj) * bsp + i] = acc;
                     }
@@ -489,6 +777,7 @@ __global__ void __launch_bounds__(NT, 1) fused_kernel(Params p) {
             }
         }
         grid.sync();
+        timer.lap(3);
 
         // ---------------- G: weight gradients and Adadelta ----------------
         {
@@ -505,28 +794,35 @@ __global__ void __launch_bounds__(NT, 1) fused_kernel(Params p) {
                 const int jout = is_bias ? rest - wd[l] * wd[l + 1] : rest % wd[l + 1];
                 const float* hcol = p.hsT + ((size_t)l * DP + kin) * bsp;
                 const float* gcol = p.gT + ((size_t)l * DP + jout) * bsp;
+                const size_t o = is_bias ? (size_t)l * WP + jout : ((size_t)l * WP + kin) * WP + jout;
+                float* pp = is_bias ? p.b : p.w;
+                float* sq = is_bias ? p.sqb : p.sqw;
+                float* ac = is_bias ? p.accb : p.accw;
+                float pv = 0.f, sqv = 0.f, acv = 0.f;  // in flight during the sum
+                if (lane == 0) {
+                    pv = pp[o];
+                    sqv = sq[o];
+                    acv = ac[o];
+                }
                 float acc = 0.f;
                 for (int i = lane; i < bs; i += 32)
                     acc = is_bias ? acc + gcol[i] : fmaf(hcol[i], gcol[i], acc);
                 acc = warp_sum(acc);
                 if (lane == 0) {
-                    const size_t o = is_bias ? (size_t)l * WP + jout
-                                             : ((size_t)l * WP + kin) * WP + jout;
-                    float* pp = is_bias ? p.b : p.w;
-                    float* sq = is_bias ? p.sqb : p.sqw;
-                    float* ac = is_bias ? p.accb : p.accw;
-                    const float pv = pp[o];
                     const float gg = acc + p.h.weight_decay * pv;
-                    const float nsq = rho * sq[o] + (omr * gg) * gg;
-                    const float delta = gg * sqrtf(ac[o] + eps) / sqrtf(nsq + eps);
-                    ac[o] = rho * ac[o] + (omr * delta) * delta;
+                    const float nsq = rho * sqv + (omr * gg) * gg;
+                    const float delta = gg * sqrtf(acv + eps) / sqrtf(nsq + eps);
+                    ac[o] = rho * acv + (omr * delta) * delta;
                     sq[o] = nsq;
                     pp[o] = pv - p.h.lr * delta;
                 }
             }
         }
         grid.sync();
+        timer.lap(4);
     }
+    if (timer.on)
+        for (int q = 0; q < PHASES; ++q) p.timer[q] = timer.ns[q];
 }
 
 __global__ void philox_fill_kernel(float* __restrict__ out, unsigned seed, int steps, int rows,
@@ -544,8 +840,22 @@ __global__ void philox_fill_kernel(float* __restrict__ out, unsigned seed, int s
 
 size_t workspace_floats(int bs, int grid) {
     const size_t bsp = (size_t)((bs + 63) / 64 * 64);
-    return 8 * DP * bsp + 2 * bsp * DP + 2 * bsp * DP + 2 * bsp * 2 + 2 * bsp * DP +
+    return 8 * DP * bsp + 2 * bsp * DP + 2 * bsp * DP + 2 * bsp + 2 * bsp + 2 * bsp * DP +
            3 * (size_t)grid * DP + 2 * (size_t)grid;
+}
+
+// The ring's layout for width d and m Gram columns: a column takes sd = 4 x
+// an odd number >= d / 4 floats (so that lanes reading consecutive columns'
+// float4s hit distinct banks), a stage chunk columns (a multiple of 32: all
+// of zc in one stage when it fits the ring, else half the ring) and their
+// norms.
+void ring_layout(int d, int m, Params& p) {
+    int q = (d + 3) / 4;
+    if (q % 2 == 0) ++q;
+    p.sd = 4 * q;
+    const int whole = (m + 31) / 32 * 32;
+    p.chunk = whole * (p.sd + 1) <= RING_FLOATS ? whole : (RING_FLOATS / 2) / (p.sd + 1) / 32 * 32;
+    p.stage_floats = p.chunk * (p.sd + 1);
 }
 
 }  // namespace
@@ -562,7 +872,9 @@ int vgan_fused_grid(int* grid, int* barriers) {
     if (!coop) return static_cast<int>(cudaErrorNotSupported);
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_kernel, NT, 0);
+    e = cudaFuncSetAttribute(fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_kernel, NT, SMEM_BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
     *grid = sms;
@@ -575,11 +887,12 @@ int vgan_fused_workspace_floats(int bs, int grid) {
 }
 
 // w, b, sqw, sqb, accw, accb hold the initial state and are updated in place;
-// work: vgan_fused_workspace_floats(bs, grid) floats of scratch.
+// work: vgan_fused_workspace_floats(bs, grid) floats of scratch; timer: null,
+// or PHASES counters that receive each phase's nanoseconds over the fit.
 int vgan_fused_no_kl(const float* x3, const int* starts, const float* noise, float* w, float* b,
                      float* sqw, float* sqb, float* accw, float* accb, float* loss, float* bw,
                      float* work, const VganFusedHyper* hyper, const VganFusedLadder* lad,
-                     int grid, void* stream) {
+                     int grid, unsigned long long* timer, void* stream) {
     if (hyper->bs < 2 || hyper->d < 1 || hyper->d > DP || hyper->latent < 1 ||
         8 * hyper->latent > WP || hyper->total_steps < 1 || lad->n < 1 ||
         lad->n > MAX_LADDER || grid < 1)
@@ -611,12 +924,16 @@ int vgan_fused_no_kl(const float* x3, const int* starts, const float* noise, flo
     p.p_cnt = cur; cur += (size_t)grid * DP;
     p.p_colsum = cur; cur += (size_t)grid * DP;
     p.p_scalar = cur;
+    p.timer = timer;
     p.h = *hyper;
     p.lad = *lad;
+    ring_layout(hyper->d, 2 * hyper->bs, p);
     void* args[] = {&p};
-    cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fused_kernel), dim3(grid),
-                                                dim3(NT), args, 0,
-                                                static_cast<cudaStream_t>(stream));
+    cudaError_t e =
+        cudaFuncSetAttribute(fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fused_kernel), dim3(grid), dim3(NT),
+                                    args, SMEM_BYTES, static_cast<cudaStream_t>(stream));
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
 }

@@ -4,32 +4,56 @@
 // vgan_tpu/ops/pallas/mmd_gram.py:
 //
 //   fwd_kernel           <- _fwd_kernel           quadrant sums XX, XY, YY
-//   fwd_stash_kernel     <- _fwd_stash_kernel     quadrant sums + K'(d2) (m, m)
+//   fwd_stash (K2)       <- _fwd_stash_kernel     quadrant sums + K'(d2) (m, m):
+//                           transpose_pad_kernel, stash_dot_kernel,
+//                           stash_epilogue_kernel
 //   flash_bwd_kernel     <- _flash_bwd_kernel     S @ z and rowsum(S), no m^2 buffer
 //                           (+ sum_splits, the fixed-order sum of its partials)
 //   kprime_panel_kernel  <- _kprime_panel_kernel  (R, C) K'(d2) panel
 //
-// All four share one tile body: a 64 x 64 block of squared distances
-// d2 = |zi|^2 + |zj|^2 - 2 zi . zj, accumulated over 16-wide d-chunks staged
-// in shared memory (each of 256 threads owns a 4 x 4 register micro-tile and
-// accumulates with fmaf, never TF32), then clamped at 0 and pushed through the
-// bandwidth ladder: one expf plus integer powers for a geometric ladder
-// (ops.mmd.ladder_exponents), one expf per bandwidth otherwise.
+// fwd_kernel, flash_bwd_kernel and kprime_panel_kernel share one tile body,
+// gram_tile: a 64 x 64 block of squared distances d2 = |zi|^2 + |zj|^2 -
+// 2 zi . zj, accumulated over 16-wide d-chunks staged in shared memory (each
+// of 256 threads owns a 4 x 4 register micro-tile and accumulates with fmaf,
+// never TF32), then clamped at 0 and pushed through the bandwidth ladder: one
+// expf plus integer powers for a geometric ladder (ops.mmd.ladder_exponents),
+// one expf per bandwidth otherwise.
 //
 // What bounds them on an H100: the distance product. At the stress shape
-// (m = 1000 rows, d = 10240) fwd_kernel / fwd_stash_kernel do 2 m^2 d =
-// 2.05e10 flops on 41 MB of input, so they sit far above the f32 ridge point:
-// bound by the non-tensor f32 rate (67 TFLOP/s). flash_bwd_kernel does twice
-// that (the d2 tile, then S @ z) and kprime_panel_kernel the same as the
-// forward. This simple design keeps every operand in f32 registers and shared
-// memory and reaches a fraction of that rate; wgmma, TMA pipelines and bf16
-// operands are left to later work.
+// (m = 1000 rows, d = 10240) the forward needs the m (m - 1) / 2 unordered
+// pairs' dot products, 1.02e10 flops on 41 MB of input: bound by the
+// non-tensor f32 rate (67 TFLOP/s). gram_tile forms every ordered pair (twice
+// the work) and stages its chunks through registers, so it reaches a fraction
+// of that rate; the flash backward does twice the forward's work (the d2
+// tile, then S @ z).
+//
+// K2 (the stash forward, every step of a wide no-kl fit) is built instead on
+// dist_tile.cuh's pipelined 128 x 128 tile (8 x 8 outputs a thread, 16-column
+// chunks double-buffered with cp.async), in three passes:
+//
+// - transpose_pad_kernel copies z into the column-major, zero-padded layout
+//   that tile reads (d x M, M = m rounded up to 128);
+// - stash_dot_kernel: block (b, s) forms the dot products of tile pair b
+//   (row tile J <= column tile I, the upper triangle) over d slice s, and
+//   writes its partial tile to scratch. Every unordered pair is formed once
+//   (the diagonal tiles in full). At m = 1000 there are only 36 tile pairs,
+//   so the summed d axis is split into slices (multiples of the 16-column
+//   chunk) until pairs x slices fill the card (the wrapper's stash_slices:
+//   7 slices, 252 blocks, two an SM);
+// - stash_epilogue_kernel: per quarter of a tile pair (four blocks a pair),
+//   the slices' partials added in slice order, d2 = max(-2 dot + (|zi|^2 + |zj|^2), 0) (symmetric in i and
+//   j), the ladder, K' written to (r, c) and to (c, r), so the stash is
+//   exactly symmetric, and the block's (XX, XY, YY) partial: an off-diagonal
+//   tile pair stands for both orientations, so its XX and YY entries count
+//   twice and its XY entries (row < n1 <= col) once; a diagonal tile counts
+//   each entry once, as gram_tile's masks do.
 //
 // Determinism: thread blocks run in no fixed order, so no float atomics are
 // used anywhere. The forward kernels write one (XX, XY, YY) partial per block
-// and finalize_sums reduces the partials in a fixed order; the flash backward
-// gives each block sole ownership of its rows of one partial sz / rs and
-// sum_splits adds the partials in split order. Re-runs give identical bits.
+// and finalize_sums reduces the partials in a fixed order; the stash forward
+// adds its d slices in slice order; the flash backward gives each block sole
+// ownership of its rows of one partial sz / rs and sum_splits adds the
+// partials in split order. Re-runs give identical bits.
 //
 // The flash backward layout: the Pallas kernel holds a full-D (tile_i x D)
 // sz accumulator in VMEM, which does not fit Hopper's 227 KB of shared memory
@@ -54,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "dist_tile.cuh"
+
 namespace {
 
 constexpr int BM = 64;   // rows of a tile
@@ -62,6 +88,10 @@ constexpr int BK = 16;   // d-chunk of the distance product
 constexpr int FD = 64;   // d-chunk of the flash backward's S @ z
 constexpr int NT = 256;  // threads per block: 16 x 16, 4 x 4 outputs each
 constexpr int MAX_MULTS = 8;
+constexpr int ST = 8;          // K2: 8 x 8 outputs a thread
+constexpr int SB = 16 * ST;    // K2: a 128 x 128 tile pair
+constexpr int SB2 = SB * SB;   // K2: floats of one partial dot tile
+constexpr int TT = 32;         // transpose tile
 
 }  // namespace
 
@@ -225,13 +255,160 @@ fwd_kernel(const float* __restrict__ z, const float* __restrict__ norms,
     gram_tile<true, false>(z, z, norms, norms, bw, m, m, d, n1, m, L, partials, nullptr);
 }
 
-// Replaces mmd_gram.py:_fwd_stash_kernel.
-__global__ void __launch_bounds__(NT)
-fwd_stash_kernel(const float* __restrict__ z, const float* __restrict__ norms,
-                 const float* __restrict__ bw, int m, int d, int n1, VganLadder L,
-                 float* __restrict__ partials, float* __restrict__ kp) {
-    gram_tile<true, true>(z, z, norms, norms, bw, m, m, d, n1, m, L, partials, kp);
+// K2, pass 0: z_t[k * ld + r] = z[r * d + k] for r < m, 0 for m <= r < ld;
+// 32 x 32 tiles through shared memory, so both sides are coalesced.
+__global__ void transpose_pad_kernel(const float* __restrict__ z, int m, int d, int ld,
+                                     float* __restrict__ z_t) {
+    __shared__ float t[TT][TT + 1];
+    const int r0 = blockIdx.x * TT, k0 = blockIdx.y * TT;
+    for (int j = threadIdx.y; j < TT; j += blockDim.y) {
+        const int r = r0 + j, k = k0 + threadIdx.x;
+        t[j][threadIdx.x] = r < m && k < d ? z[(size_t)r * d + k] : 0.f;
+    }
+    __syncthreads();
+    for (int j = threadIdx.y; j < TT; j += blockDim.y) {
+        const int k = k0 + j, r = r0 + threadIdx.x;
+        if (k < d) z_t[(size_t)k * ld + r] = t[threadIdx.x][j];
+    }
 }
+
+// The b-th tile pair (J, I), J <= I, of the upper triangle of tiles x tiles.
+__device__ __forceinline__ void tile_pair(int b, int tiles, int& J, int& I) {
+    J = 0;
+    while (b >= tiles - J) b -= tiles - J++;
+    I = J + b;
+}
+
+// K2, pass 1: block (b, s) forms tile pair b's dot products over the d
+// columns [s slice, s slice + slice) of z_t (d, ld) and writes them to its
+// own partial tile of dots, entry (r, c) of thread t at (r ST + c) NT + t.
+__global__ void __launch_bounds__(NT, 2)  // two blocks an SM: at most 128 registers
+stash_dot_kernel(const float* __restrict__ z_t, int ld, int d, int slice, int tiles,
+                 float* __restrict__ dots) {
+    extern __shared__ __align__(16) float smem[];
+    int J, I;
+    tile_pair(blockIdx.x, tiles, J, I);
+    const float* base = z_t + (size_t)blockIdx.y * slice * ld;
+    float acc[ST][ST];
+#pragma unroll
+    for (int r = 0; r < ST; ++r)
+#pragma unroll
+        for (int c = 0; c < ST; ++c) acc[r][c] = 0.f;
+    dist_tile::NoHook hook;
+    dist_tile::product<ST, ST>(dist_tile::Operand{base, ld, J * SB, nullptr},
+                               dist_tile::Operand{base, ld, I * SB, nullptr},
+                               min(slice, d - (int)blockIdx.y * slice), smem, acc, hook);
+    float* out = dots + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * SB2 + threadIdx.x;
+#pragma unroll
+    for (int r = 0; r < ST; ++r)
+#pragma unroll
+        for (int c = 0; c < ST; ++c) out[(r * ST + c) * NT] = acc[r][c];
+}
+
+// Four consecutive entries to p[0..4): the ones at or past n are left out;
+// one 16-byte store when vec (p 16-byte aligned) and all four are in.
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float e, int n,
+                                      bool vec) {
+    if (vec && n >= 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(a, b, c, e);
+        return;
+    }
+    if (n > 0) p[0] = a;
+    if (n > 1) p[1] = b;
+    if (n > 2) p[2] = c;
+    if (n > 3) p[3] = e;
+}
+
+// ladder_eval<true, true> behind a call: its integer powers unroll into
+// thousands of instructions, so K2's epilogue keeps one copy of them
+// (instruction-cache footprint) rather than one per entry.
+__device__ __noinline__ void ladder_k_kp(float d2, float bw, const VganLadder& L, float& k,
+                                         float& kp) {
+    ladder_eval<true, true>(d2, bw, L, k, kp);
+}
+
+// K2, pass 2: block (b, q) takes a quarter of tile pair b, the rows 4 (q / 2)
+// .. + 4 and columns 4 (q % 2) .. + 4 of each thread's 8 x 8: it sums their
+// nslices partial dots in slice order (the loads of one slice all in
+// flight), forms d2, K and K', writes K' to (r, c) and (c, r) of kp (m, m)
+// and the quarter's (XX, XY, YY) partial (see the header).
+__global__ void __launch_bounds__(NT)
+stash_epilogue_kernel(const float* __restrict__ dots, int nslices, int tiles,
+                      const float* __restrict__ norms, const float* __restrict__ bw_ptr, int m,
+                      int n1, VganLadder L, float* __restrict__ partials,
+                      float* __restrict__ kp) {
+    constexpr int Q = ST / 2;  // a quarter's rows (and columns) of a thread
+    __shared__ float red[NT / 32];
+    const int b = blockIdx.x, r0 = Q * (blockIdx.y >> 1), c0 = Q * (blockIdx.y & 1);
+    int J, I;
+    tile_pair(b, tiles, J, I);
+    const bool diag = I == J, vec = (m & 3) == 0;
+    const size_t stride = (size_t)gridDim.x * SB2;  // from one slice's tile to the next
+    const float* src = dots + (size_t)b * SB2 + threadIdx.x;
+    float dot[Q][Q];
+#pragma unroll
+    for (int i = 0; i < Q; ++i)
+#pragma unroll
+        for (int j = 0; j < Q; ++j) dot[i][j] = src[((r0 + i) * ST + c0 + j) * NT];
+    for (int s = 1; s < nslices; ++s)
+#pragma unroll
+        for (int i = 0; i < Q; ++i)
+#pragma unroll
+            for (int j = 0; j < Q; ++j) dot[i][j] += src[s * stride + ((r0 + i) * ST + c0 + j) * NT];
+    const float bw = *bw_ptr;
+    int rows[Q], cols[Q];
+    float nr[Q], nc[Q];
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+        rows[i] = J * SB + dist_tile::tile_row(r0 + i);  // runs of four: r0 is 0 or 4
+        cols[i] = I * SB + dist_tile::tile_col(c0 + i);
+        nr[i] = rows[i] < m ? norms[rows[i]] : 0.f;
+        nc[i] = cols[i] < m ? norms[cols[i]] : 0.f;
+    }
+    float kv[Q][Q];
+    float sxx = 0.f, sxy = 0.f, syy = 0.f;
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+#pragma unroll
+        for (int j = 0; j < Q; ++j) {
+            const float d2 = fmaxf(fmaf(-2.f, dot[i][j], nr[i] + nc[j]), 0.f);
+            float k, kpv;
+            ladder_k_kp(d2, bw, L, k, kpv);
+            kv[i][j] = kpv;
+            if (rows[i] < m && cols[j] < m) {
+                const bool rx = rows[i] < n1, cx = cols[j] < n1;
+                const float w = diag ? 1.f : 2.f;
+                if (rx && cx) sxx += w * k;
+                else if (!rx && !cx) syy += w * k;
+                else if (rx) sxy += k;
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < Q; ++i)  // (r, c)
+        if (rows[i] < m)
+            store4(kp + (size_t)rows[i] * m + cols[0], kv[i][0], kv[i][1], kv[i][2], kv[i][3],
+                   m - cols[0], vec);
+    if (!diag) {
+#pragma unroll
+        for (int j = 0; j < Q; ++j)  // (c, r)
+            if (cols[j] < m)
+                store4(kp + (size_t)cols[j] * m + rows[0], kv[0][j], kv[1][j], kv[2][j], kv[3][j],
+                       m - rows[0], vec);
+    }
+    sxx = block_sum(sxx, red);
+    sxy = block_sum(sxy, red);
+    syy = block_sum(syy, red);
+    if (threadIdx.x == 0) {
+        const int part = b * 4 + blockIdx.y;
+        partials[3 * part + 0] = sxx;
+        partials[3 * part + 1] = sxy;
+        partials[3 * part + 2] = syy;
+    }
+}
+
+constexpr size_t STASH_DOT_SMEM = sizeof(float) * dist_tile::smem_floats<ST, ST>();
+static_assert(STASH_DOT_SMEM <= 48 * 1024, "launched without raising the dynamic shared memory limit");
 
 // Replaces mmd_gram.py:_kprime_panel_kernel.
 __global__ void __launch_bounds__(NT)
@@ -392,13 +569,28 @@ int vgan_gram_quadrant_sums(const float* z, const float* norms, const float* bw,
     return static_cast<int>(cudaGetLastError());
 }
 
+// K2. slice: the d columns of one slice, a positive multiple of 16.
+// scratch, in this order: z_t (d x M floats, M = m rounded up to 128), the
+// partial dot tiles (cdiv(d, slice) x P x 128^2, P = T (T + 1) / 2 tile pairs
+// of T = M / 128 tiles) and the sums' partials (3 x 4 P: four blocks a pair).
 int vgan_gram_quadrant_sums_stash(const float* z, const float* norms, const float* bw,
-                                  int m, int d, int n1, const VganLadder* ladder,
-                                  float* partials, float* sums, float* kp, void* stream) {
+                                  int m, int d, int n1, const VganLadder* ladder, int slice,
+                                  float* scratch, float* sums, float* kp, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    dim3 grid(cdiv(m, BN), cdiv(m, BM));
-    fwd_stash_kernel<<<grid, NT, 0, s>>>(z, norms, bw, m, d, n1, *ladder, partials, kp);
-    finalize_sums<<<1, NT, 0, s>>>(partials, grid.x * grid.y, sums);
+    if (m < 1 || d < 1 || slice < 1 || slice % dist_tile::BK)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int tiles = cdiv(m, SB), ld = tiles * SB, pairs = tiles * (tiles + 1) / 2;
+    const int nslices = cdiv(d, slice);
+    if (nslices > 65535 || cdiv(d, TT) > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    float* z_t = scratch;
+    float* dots = z_t + (size_t)d * ld;
+    float* partials = dots + (size_t)nslices * pairs * SB2;
+    transpose_pad_kernel<<<dim3(ld / TT, cdiv(d, TT)), dim3(TT, 8), 0, s>>>(z, m, d, ld, z_t);
+    stash_dot_kernel<<<dim3(pairs, nslices), NT, STASH_DOT_SMEM, s>>>(z_t, ld, d, slice, tiles,
+                                                                      dots);
+    stash_epilogue_kernel<<<dim3(pairs, 4), NT, 0, s>>>(dots, nslices, tiles, norms, bw, m, n1,
+                                                        *ladder, partials, kp);
+    finalize_sums<<<1, NT, 0, s>>>(partials, 4 * pairs, sums);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -47,6 +47,10 @@ MAX_MP = 2048       # Gram row cap
 MAX_N_VMEM = 16384  # dataset rows resident on chip
 RHO, EPS = 0.9, 1e-6
 _MAX_LADDER = 8
+# K8's phases, in the order of its phase timer (csrc/fused_no_kl.cu PHASES):
+# the rows (A), the step-0 bandwidth, the column max, ties and Gram pass (B),
+# the loss and row backward (E), the weight gradients and Adadelta (G).
+PHASES = ("rows", "bandwidth", "gram", "backward", "update")
 
 
 def _round_up(a: int, b: int) -> int:
@@ -203,14 +207,15 @@ def fused_no_kl_fit_reference(x3, starts, w, b, sqw, sqb, accw, accb, noise, *, 
                 prev *= 2
             mmd_acc = mmd_acc + torch.sum(cur * q * q.T)
             kps = kps + cur * (-1.0 / (bw * mk))
-        kpq = kps @ q
-        kpqz = kps @ (q * zc)
+        # K'[q | q .* zc] over the masked rows only: the backward reads no other
+        kpq = kps[bsp:] @ q
+        kpqz = kps[bsp:] @ (q * zc)
         colmax = torch.amax(u, dim=0, keepdim=True)
         penalty = torch.sum(torch.where(lane[None, :] < d, 1.0 - colmax, 0.0)) / d
         losses.append(mmd_acc * inv + penalty_weight * penalty)
 
-        dzc = 4.0 * inv * q * (kpq * zc - kpqz)
-        du = dzc[bsp:] * batch
+        dzc = 4.0 * inv * q[bsp:] * (kpq * zc[bsp:] - kpqz)
+        du = dzc * batch
         eq = ((u == colmax) & (lane[None, :] < d)).to(dt) * rowmask
         cnt = torch.clamp_min(torch.sum(eq, dim=0, keepdim=True), 1.0)
         du = du - (penalty_weight / d) * eq / cnt
@@ -264,7 +269,7 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
     "vgan_fused_grid": [_P, _P],
     "vgan_fused_workspace_floats": [_I, _I],
-    "vgan_fused_no_kl": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "vgan_fused_no_kl": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
     "vgan_philox_normal": [_P, _U, _I, _I, _I, _P],
 }
 
@@ -308,17 +313,37 @@ def _hyper(d, bs, latent, total_steps, seed, lr, weight_decay, penalty_weight) -
     )
 
 
+def _ladder_struct() -> _Ladder:
+    """The default bandwidth ladder as K8 takes it."""
+    base, lad = ladder(_mmd.bandwidth_multipliers())
+    out = _Ladder(n=len(lad), base=base)
+    for i, (power, mk) in enumerate(lad):
+        out.power[i], out.mult[i] = power, mk
+    return out
+
+
 def fused_no_kl_fit_cuda(x3, starts, w, b, sqw, sqb, accw, accb, noise, seed: int, *, n: int,
                          d: int, bs: int, latent: int, lr: float, weight_decay: float,
-                         penalty_weight: float):
+                         penalty_weight: float, phase_ns: Optional[torch.Tensor] = None):
     """K8: every step of the fit in one cooperative launch. Same arguments
     and returns as :func:`fused_no_kl_fit_reference`, with ``starts`` an
     int32 device tensor, ``noise`` None (in-kernel Philox keyed by ``seed``)
     or a (T, BSP, LP) float32 device tensor, and the state packed in
-    float32 on the card."""
+    float32 on the card. ``phase_ns``, an int64 tensor of ``len(PHASES)``
+    on the card, turns on the kernel's phase timer: it receives the
+    nanoseconds of each phase over the fit (the fit's arithmetic is the
+    same either way)."""
     from vgan_tpu_torch.ops.cuda.mmd_gram import _check, _launch, _ptr
 
     dev = x3.device
+    if phase_ns is not None and (not phase_ns.is_cuda or phase_ns.device != dev
+                                 or phase_ns.dtype != torch.int64
+                                 or tuple(phase_ns.shape) != (len(PHASES),)):
+        raise ValueError(f"phase_ns: the phase timer takes an int64 tensor of shape "
+                         f"({len(PHASES)},) on the fit's card, got {phase_ns.dtype} "
+                         f"{tuple(phase_ns.shape)} on {phase_ns.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"fused_no_kl_fit_cuda runs on the card, got tensors on {dev}")
     bsp = _round_up(bs, 64)
     total_steps = int(starts.shape[0])
     _check("x3", x3, (n + bsp, DP), dev)
@@ -332,21 +357,17 @@ def fused_no_kl_fit_cuda(x3, starts, w, b, sqw, sqb, accw, accb, noise, seed: in
         _check("noise", noise, (total_steps, bsp, LP), dev)
     if not fused_supported(n, d, bs, latent):
         raise ValueError(f"fused path unsupported at n={n}, d={d}, bs={bs}, latent={latent}")
-    base, lad = ladder(_mmd.bandwidth_multipliers())
     lib = _lib()
     grid, _ = _grid(dev)
     work = torch.empty(lib.vgan_fused_workspace_floats(bs, grid), dtype=torch.float32, device=dev)
     out = [t.clone() for t in (w, b, sqw, sqb, accw, accb)]
     losses = torch.empty(total_steps, dtype=torch.float32, device=dev)
     bw = torch.zeros(2, dtype=torch.float32, device=dev)
-    lad_c = _Ladder(n=len(lad), base=base)
-    for i, (power, mk) in enumerate(lad):
-        lad_c.power[i], lad_c.mult[i] = power, mk
     hyper = _hyper(d, bs, latent, total_steps, seed, lr, weight_decay, penalty_weight)
     _launch("vgan_fused_no_kl", dev, _ptr(x3), _ptr(starts),
             _ptr(noise) if noise is not None else None, *[_ptr(t) for t in out],
-            _ptr(losses), _ptr(bw), _ptr(work), ctypes.byref(hyper), ctypes.byref(lad_c),
-            grid, lib=lib)
+            _ptr(losses), _ptr(bw), _ptr(work), ctypes.byref(hyper), ctypes.byref(_ladder_struct()),
+            grid, _ptr(phase_ns) if phase_ns is not None else None, lib=lib)
     fused_no_kl_fit_cuda.launches += 1
     return (*out, bw, losses)
 

@@ -35,7 +35,7 @@ import torch
 from vgan_tpu_torch.ops import mmd as _mmd
 
 # The JAX package's tiling constants, kept because they decide the regime
-# (the CUDA kernels use their own 64 x 64 tiles).
+# (the CUDA kernels use their own tiles).
 TILE_M = 256
 TILE_D = 512
 FLASH_D_MAX = 2048
@@ -45,13 +45,19 @@ PANEL_BYTES = 1 << 28
 # to 0 to force the bounded-memory panel backward.
 _KP_STASH_BYTES = 7 << 30
 MAX_MULTS = 8
-# The CUDA kernels' row and column tile (BM = BN in csrc/mmd_gram.cu); also
-# the row granularity of the panel backward's panels.
+# The row and column tile of gram_tile (BM = BN in csrc/mmd_gram.cu: K1, K3,
+# K4); also the row granularity of the panel backward's panels.
 KERNEL_TILE = 64
 # The flash backward splits its columns over this many blocks per SM at
 # least, within FLASH_SPLIT_BYTES of partial sums.
 FLASH_BLOCKS_PER_SM = 2
 FLASH_SPLIT_BYTES = 1 << 28
+# The stash forward (K2): its 128 x 128 tile pairs (SB in csrc/mmd_gram.cu)
+# and the d-chunk of dist_tile.cuh (BK), of which a d slice is a multiple;
+# it splits d until tile pairs x slices give each SM this many blocks.
+STASH_TILE = 128
+STASH_BK = 16
+STASH_BLOCKS_PER_SM = 2
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -132,9 +138,24 @@ def gram_quadrant_sums_reference(z, norms, bw, n1, mults):
     return _quadrant_sums(_mmd.multi_rbf_gram(d2, bw, mults), n1)
 
 
+def _pair_once_quadrant_sums(k, n1):
+    """[XX, XY, YY, 0] of a symmetric Gram from its diagonal and upper
+    triangle, as K2 sums: each off-diagonal pair counts twice in XX and YY
+    and once in XY (row < n1 <= col)."""
+    upper = torch.triu(k, diagonal=1)
+    diag = torch.diagonal(k)
+    zero = torch.zeros((), dtype=k.dtype, device=k.device)
+    return torch.stack([
+        diag[:n1].sum() + 2.0 * upper[:n1, :n1].sum(),
+        upper[:n1, n1:].sum(),
+        diag[n1:].sum() + 2.0 * upper[n1:, n1:].sum(),
+        zero,
+    ]).reshape(1, 4)
+
+
 def gram_quadrant_sums_stash_reference(z, norms, bw, n1, mults):
     d2 = _sq_dists(z, z, norms, norms)
-    sums = _quadrant_sums(_mmd.multi_rbf_gram(d2, bw, mults), n1)
+    sums = _pair_once_quadrant_sums(_mmd.multi_rbf_gram(d2, bw, mults), n1)
     return sums, _kernel_deriv(d2, bw, mults)
 
 
@@ -194,7 +215,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vgan_gram_num_blocks": [_I],
     "vgan_gram_quadrant_sums": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "vgan_gram_quadrant_sums_stash": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "vgan_gram_quadrant_sums_stash": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
     "vgan_gram_backward_flash": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _I, _P, _P, _P, _P],
     "vgan_kprime_panel": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
@@ -256,39 +277,57 @@ def _check_gram_inputs(z, norms, bw):
     return m, d
 
 
-def _launch_quadrant_sums(z, norms, bw, n1: int, mults, stash: bool):
-    """Launch the forward kernel; ``(sums (1, 4), kp (m, m) or None)``."""
-    m, d = _check_gram_inputs(z, norms, bw)
-    partials = torch.empty(3 * _lib().vgan_gram_num_blocks(m), dtype=torch.float32,
-                           device=z.device)
-    sums = torch.empty(4, dtype=torch.float32, device=z.device)
-    args = [_ptr(z), _ptr(norms), _ptr(bw.reshape(1)), m, d, n1,
-            ctypes.byref(_ladder(tuple(mults))), _ptr(partials), _ptr(sums)]
-    kp = None
-    if stash:
-        kp = torch.empty((m, m), dtype=torch.float32, device=z.device)
-        _launch("vgan_gram_quadrant_sums_stash", z.device, *args, _ptr(kp))
-    else:
-        _launch("vgan_gram_quadrant_sums", z.device, *args)
-    return sums.reshape(1, 4), kp
-
-
 def gram_quadrant_sums(z, norms, bw, n1: int, mults) -> torch.Tensor:
     """Quadrant sums ``(1, 4)`` = [XX, XY, YY, 0] of ``K(d2(z, z))``."""
     if not z.is_cuda:
         return gram_quadrant_sums_reference(z, norms, bw, n1, mults)
-    sums, _ = _launch_quadrant_sums(z, norms, bw, n1, mults, stash=False)
+    m, d = _check_gram_inputs(z, norms, bw)
+    partials = torch.empty(3 * _lib().vgan_gram_num_blocks(m), dtype=torch.float32,
+                           device=z.device)
+    sums = torch.empty(4, dtype=torch.float32, device=z.device)
+    _launch("vgan_gram_quadrant_sums", z.device, _ptr(z), _ptr(norms), _ptr(bw.reshape(1)), m,
+            d, n1, ctypes.byref(_ladder(tuple(mults))), _ptr(partials), _ptr(sums))
     gram_quadrant_sums.launches += 1
-    return sums
+    return sums.reshape(1, 4)
+
+
+def stash_slices(m: int, d: int, sms: int) -> Tuple[int, int]:
+    """``(slice, count)``: K2 splits the summed d axis into ``count`` slices
+    of ``slice`` columns (the last one ragged), ``slice`` a multiple of
+    ``STASH_BK``, so that its tile pairs times the slices give each of
+    ``sms`` SMs at most ``STASH_BLOCKS_PER_SM`` blocks in one wave."""
+    tiles = _cdiv(m, STASH_TILE)
+    pairs = tiles * (tiles + 1) // 2
+    chunks = _cdiv(d, STASH_BK)
+    want = max(1, min(STASH_BLOCKS_PER_SM * sms // pairs, chunks))
+    slice_ = _cdiv(chunks, want) * STASH_BK
+    return slice_, _cdiv(d, slice_)
+
+
+def stash_scratch_floats(m: int, d: int, slice_: int) -> int:
+    """K2's scratch: the column-major padded z, the partial dot tile of every
+    (tile pair, slice), and three sums per quarter of a tile pair."""
+    tiles = _cdiv(m, STASH_TILE)
+    pairs = tiles * (tiles + 1) // 2
+    return d * tiles * STASH_TILE + _cdiv(d, slice_) * pairs * STASH_TILE ** 2 + 12 * pairs
 
 
 def gram_quadrant_sums_stash(z, norms, bw, n1: int, mults):
-    """``(sums (1, 4), kp (m, m))``: the quadrant sums and K'(d2) in one launch."""
+    """``(sums (1, 4), kp (m, m))``: the quadrant sums and K'(d2) in one call
+    (K2: four launches on one stream, counted once)."""
     if not z.is_cuda:
         return gram_quadrant_sums_stash_reference(z, norms, bw, n1, mults)
-    sums, kp = _launch_quadrant_sums(z, norms, bw, n1, mults, stash=True)
+    m, d = _check_gram_inputs(z, norms, bw)
+    slice_, _ = stash_slices(m, d, torch.cuda.get_device_properties(z.device).multi_processor_count)
+    scratch = torch.empty(stash_scratch_floats(m, d, slice_), dtype=torch.float32,
+                          device=z.device)
+    sums = torch.empty(4, dtype=torch.float32, device=z.device)
+    kp = torch.empty((m, m), dtype=torch.float32, device=z.device)
+    _launch("vgan_gram_quadrant_sums_stash", z.device, _ptr(z), _ptr(norms),
+            _ptr(bw.reshape(1)), m, d, n1, ctypes.byref(_ladder(tuple(mults))), slice_,
+            _ptr(scratch), _ptr(sums), _ptr(kp))
     gram_quadrant_sums_stash.launches += 1
-    return sums, kp
+    return sums.reshape(1, 4), kp
 
 
 def flash_splits(m: int, d: int, sms: int) -> int:
