@@ -8,8 +8,13 @@ Phases (each asserts; any failure exits non-zero):
 1. card identity: name and power limit, TF32 off, build the CUDA kernels
    (one ``nvcc`` per source, started together);
 2. every kernel against its plain PyTorch version on the card, twice for
-   identical bits, then the kernel autograd Function against the dense
-   torch MMD in all three backward regimes (stash, flash, panel); the GoF
+   identical bits: K1 at the fits' Grams and at ragged shapes in both of its
+   modes (a: the epilogue in registers; b: d split over the card), K4 on
+   the square panel, a rectangular panel at a nonzero row offset (its
+   diagonal block exactly symmetric) and without an offset; then the
+   kernel autograd Function against the dense torch MMD in all three
+   backward regimes (stash, flash, panel, and the panel regime over four
+   panels); the GoF
    kernel (K5) against its float64 plain version at the GoF path's own
    shape (17000 pooled rows, d=10240, 1002 indicator rows) and a ragged one
    in its full-Gram regime, and in its panel regime (forced by lowering
@@ -51,7 +56,10 @@ Phases (each asserts; any failure exits non-zero):
    stash off, panel), and the d=10 notebook configuration of both
    estimators, which runs no kernel. Every kernel fit's losses are held
    against the same fit on the dense torch path;
-5. CUDA-event times of each kernel and its plain version, bounds (K8: a
+5. CUDA-event times of each kernel and its plain version, bounds (K1 also
+   at the panel fit's forward and at m=40960 in the flash regime, with its
+   peak memory beside z's bytes; K4 also on one real panel, m=45056,
+   R=1472; K8: a
    2000-epoch fused fit at the notebook shape, its plain version over the
    first 20 epochs, the scan path's steps/s there, and the corner's time
    per step), the
@@ -61,8 +69,8 @@ Phases (each asserts; any failure exits non-zero):
    K8's phase timer gives each phase's microseconds a step at both fused
    shapes. With ``--parent-csrc DIR`` (an earlier commit's
    ``vgan_tpu_torch/ops/cuda/csrc/``), it also builds that commit's kernels
-   and times its K2, K5, K6, K7 and K8 against this tree's on the same
-   inputs, in turns.
+   and times its K1, K2, K4, K5, K6, K7 and K8 against this tree's on the
+   same inputs, in turns.
 
 Prints a JSON line of the kernels, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -170,6 +178,14 @@ FUSED_PLAIN_EPOCHS = 20  # the plain version's eager steps, timed over the fit's
 SCAN_TIMED_EPOCHS = 50
 FUSED_CORNER = dict(n=8192, d=128, bs=1000, epochs=20)  # K8's time per step at the gate's corner
 N_OUTLIERS = 25
+# phase 5's large Gram shapes: K1 in the flash regime at m=40960 (mode (a)),
+# and K4 on one real panel of the panel regime (m=45056: (M, M) K' no longer
+# fits the 7 GiB stash; R = _panel_rows(m) = 1472)
+K1_LARGE = (20480, 20480, 1024)
+K4_REAL_PANEL = dict(n1=22528, n2=22528, d=10240, offset=0)
+# a plain version is timed only where its whole-Gram temporaries, about
+# this many (m, m) f32 arrays at its peak, fit in PLAIN_MAX_BYTES
+PLAIN_GRAM_ARRAYS, PLAIN_MAX_BYTES = 10, 24 << 30
 BENCH_ENSEMBLE = dict(n_train=1000, n_test=500, d=100, n_masks=1024, k=10)  # bench.py:414-419
 STRESS_ENSEMBLE = dict(subspace_count=500, n_test=500, k=10)
 
@@ -244,23 +260,50 @@ def repeat_identical(name, fn) -> None:
 # ---------------------------------------------------------------------------
 
 
+def check_panel(name, z, norms, bw, mults, r0, r1, offset, cols_t) -> float:
+    """K4 on rows r0:r1 of z against all of z, with ``offset`` (then r0 ==
+    offset, and the diagonal block must come out exactly symmetric) or
+    without (ordered tiles), held to the plain version; twice for
+    identical bits. Returns the max abs error."""
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
+
+    zr, nr = z[r0:r1], norms[r0:r1]
+
+    def run():
+        return G.kprime_panel(zr, z, nr, norms, bw, mults, offset=offset, cols_t=cols_t)
+
+    p_k = run()
+    p_p = G.kprime_panel_reference(zr, z, nr, norms, bw, mults)
+    err = assert_close(name, p_k, p_p, RTOL_KP, ATOL_KP)
+    if offset is not None:
+        block = p_k[:, offset:offset + (r1 - r0)]
+        check(torch.equal(block, block.T), f"{name}: K' of the diagonal block is not symmetric")
+    repeat_identical(name, run)
+    return err
+
+
 def phase_kernels(device, gram_shapes, flash_shapes, log):
     """Each kernel against its plain version; returns the max abs error of
-    each kernel at each shape, keyed ``(name, (n1, n2, d))``."""
+    each kernel at each shape, keyed ``(name, (n1, n2, d))``. ``gram_shapes``:
+    (n1, n2, d, K1's expected mode or None)."""
     from vgan_tpu_torch.ops import mmd as M
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     mults = M.bandwidth_multipliers()
+    sms = G._sms(device)
     errs = {}
-    for n1, n2, d in gram_shapes:
+    for n1, n2, d, want_mode in gram_shapes:
         shape = (n1, n2, d)
+        m = n1 + n2
         _, _, z, norms, bw = gram_inputs(n1, n2, d, seed=11, device=device)
         tag = f"({n1}+{n2}, d={d})"
 
+        mode = G.tile_schedule(G.tile_pairs(m), d, sms)[0]
+        check(want_mode in (None, mode), f"K1 {tag} takes mode ({mode}), expected ({want_mode})")
         s_k = G.gram_quadrant_sums(z, norms, bw, n1, mults)
         s_p = G.gram_quadrant_sums_reference(z, norms, bw, n1, mults)
         errs["gram_quadrant_sums", shape] = assert_close(
-            f"gram_quadrant_sums {tag}", s_k, s_p, RTOL_SUMS)
+            f"gram_quadrant_sums {tag} mode ({mode})", s_k, s_p, RTOL_SUMS)
         repeat_identical("gram_quadrant_sums", lambda: G.gram_quadrant_sums(z, norms, bw, n1, mults))
 
         (s_k, kp_k) = G.gram_quadrant_sums_stash(z, norms, bw, n1, mults)
@@ -271,16 +314,22 @@ def phase_kernels(device, gram_shapes, flash_shapes, log):
         repeat_identical("gram_quadrant_sums_stash",
                          lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults))
 
-        # the full square panel, then a ragged row panel against all columns
+        # K4: the square panel as the panel backward calls it at m <= R
+        # (offset 0), a rectangular panel at a nonzero offset (C = m ragged,
+        # columns on both sides of its diagonal block), both on one
+        # column-major copy of z; then as a plain call, without an offset or
+        # a copy (ordered tiles): the full square and a ragged row panel
+        cols_t = G.panel_operand(z)
+        modes = []
         errs["kprime_panel", shape] = 0.0
-        for r0, r1 in ((0, z.shape[0]), (37, min(z.shape[0], 37 + 300))):
-            zr, nr = z[r0:r1], norms[r0:r1]
-            p_k = G.kprime_panel(zr, z, nr, norms, bw, mults)
-            p_p = G.kprime_panel_reference(zr, z, nr, norms, bw, mults)
-            e = assert_close(f"kprime_panel rows {r0}:{r1} {tag}", p_k, p_p, RTOL_KP, ATOL_KP)
+        for r0, r1, offset in ((0, m, 0), (256, 576, 256), (0, m, None), (37, min(m, 337), None)):
+            blocks = G.panel_blocks(r1 - r0, m, offset)
+            modes.append(G.tile_schedule(blocks, d, sms)[0])
+            e = check_panel(f"kprime_panel rows {r0}:{r1} offset {offset} {tag} mode ({modes[-1]})",
+                            z, norms, bw, mults, r0, r1, offset,
+                            cols_t if offset is not None else None)
             errs["kprime_panel", shape] = max(errs["kprime_panel", shape], e)
-        repeat_identical("kprime_panel", lambda: G.kprime_panel(z, z, norms, norms, bw, mults))
-        log(f"  K1 K2 K4 {tag}: ok")
+        log(f"  K1 (mode {mode}) K2 K4 (modes {', '.join(modes)}) {tag}: ok")
 
     for n1, n2, d in flash_shapes:
         _, _, z, norms, bw = gram_inputs(n1, n2, d, seed=12, device=device)
@@ -335,18 +384,26 @@ def core_against_dense(x, y, bw, want: str, label: str, log):
 
 
 def phase_core(device, stash_shape, flash_shape, log):
-    """The autograd Function against the dense torch MMD, three regimes."""
+    """The autograd Function against the dense torch MMD, three regimes; the
+    panel regime also with its panel budget lowered to 320 rows, so that
+    the backward streams four panels (offsets 0, 320, 640, 960)."""
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
-    saved = G._KP_STASH_BYTES
+    saved = G._KP_STASH_BYTES, G.PANEL_BYTES
+    m = stash_shape[0] + stash_shape[1]
     try:
-        for want, shape in (("stash", stash_shape), ("flash", flash_shape), ("panel", stash_shape)):
+        for want, shape, panel_rows in (("stash", stash_shape, 0), ("flash", flash_shape, 0),
+                                        ("panel", stash_shape, 0), ("panel", stash_shape, 320)):
             if want == "panel":
                 G._KP_STASH_BYTES = 0
+            if panel_rows:
+                G.PANEL_BYTES = panel_rows * m * 4
+                check(G._panel_rows(m) == panel_rows, f"panel rows {G._panel_rows(m)}")
             x, y, _, _, bw = gram_inputs(*shape, seed=13, device=device)
-            core_against_dense(x, y, bw, want, f"core {want}", log)
+            label = f"core {want}" + (f", {panel_rows}-row panels" if panel_rows else "")
+            core_against_dense(x, y, bw, want, label, log)
     finally:
-        G._KP_STASH_BYTES = saved
+        G._KP_STASH_BYTES, G.PANEL_BYTES = saved
 
 
 def kl_encodings_against_dense(model, X, batch: int, device, log):
@@ -951,7 +1008,7 @@ def phase_other_regimes(device, n, d_flash, d_panel, batch, log):
     check(counts == {"gram_quadrant_sums": 2 * steps, "gram_quadrant_sums_stash": 0,
                      "gram_backward_flash": 2 * steps, "kprime_panel": 0},
           f"flash fit launches {counts}, expected {2 * steps} of K1 and K3")
-    launches["gram_quadrant_sums"] = counts["gram_quadrant_sums"]
+    launches["gram_quadrant_sums", "flash fit"] = counts["gram_quadrant_sums"]
     launches["gram_backward_flash"] = counts["gram_backward_flash"]
 
     saved = G._KP_STASH_BYTES
@@ -966,6 +1023,7 @@ def phase_other_regimes(device, n, d_flash, d_panel, batch, log):
           and counts["gram_quadrant_sums_stash"] == 0 and counts["gram_backward_flash"] == 0,
           f"panel fit launches {counts}, expected {steps} of K1 and >= {steps} of K4")
     launches["kprime_panel"] = counts["kprime_panel"]
+    launches["gram_quadrant_sums", "panel fit"] = counts["gram_quadrant_sums"]
 
     # the reference notebook's configuration (d=10): dense torch path, no kernel
     Xn = notebook_data()
@@ -1060,6 +1118,44 @@ def gof_ops(m: int, d: int, P: int, n_alphas: int) -> float:
     return 2 * sym_pairs(m) * d + 2 * m * m * P * n_alphas + 4 * sym_pairs(m) * n_alphas
 
 
+def panel_ops(R: int, C: int, d: int, offset) -> float:
+    """K4 over an (R, C) panel: 2 d per entry and the ladder, over the R C
+    entries less, with an offset, the R (R - 1) / 2 mirrored entries of its
+    diagonal block (each unordered pair there is formed once)."""
+    formed = R * C - (R * (R - 1) // 2 if offset is not None else 0)
+    return formed * (2 * d + OPS_PER_ENTRY)
+
+
+def large_gram_inputs(m: int, d: int, seed: int, device):
+    """z ~ N(0, 1) drawn on the card (at these sizes a host draw and copy
+    would take longer than the kernels), its norms and bandwidth."""
+    from vgan_tpu_torch.ops import mmd as M
+
+    z = torch.randn((m, d), generator=torch.Generator(device=device).manual_seed(seed),
+                    device=device)
+    return z, torch.sum(z * z, dim=1), M.candidate_bandwidth(z).to(torch.float32)
+
+
+def blockwise_quadrant_sums(z, norms, bw, n1: int, mults, block: int = 4096):
+    """K1's plain version evaluated in row blocks, each block's f32 Gram
+    summed in float64: the same entries where the whole (m, m) temporaries
+    would not fit."""
+    from vgan_tpu_torch.ops import mmd as M
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
+
+    m = z.shape[0]
+    sums = torch.zeros(4, dtype=torch.float64, device=z.device)
+    for r0 in range(0, m, block):
+        r1 = min(m, r0 + block)
+        k = M.multi_rbf_gram(G._sq_dists(z[r0:r1], z, norms[r0:r1], norms), bw, mults)
+        x = min(max(n1 - r0, 0), r1 - r0)  # rows of this block below n1
+        sums[0] += torch.sum(k[:x, :n1], dtype=torch.float64)
+        sums[1] += torch.sum(k[:x, n1:], dtype=torch.float64)
+        sums[2] += torch.sum(k[x:, n1:], dtype=torch.float64)
+        del k
+    return sums.to(torch.float32).reshape(1, 4)
+
+
 def phase_times(device, shapes, errs, launches, log):
     """One row per kernel at the shape its main path gives it, with the
     times at its other shapes under ``at_other_shapes``."""
@@ -1068,12 +1164,18 @@ def phase_times(device, shapes, errs, launches, log):
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     mults = M.bandwidth_multipliers()
+    sms = G._sms(device)
 
     def timed(name, label, fn, plain, ops, nbytes, iters=20, warmup=3):
+        """``plain`` None: its whole-Gram temporaries would not fit, untimed."""
         t = {"shape": label, "ms": cuda_ms(fn, iters, warmup),
-             "plain_ms": cuda_ms(plain, iters, warmup)}
+             "plain_ms": cuda_ms(plain, iters, warmup) if plain else None}
         t["bound_ms"], t["bound_by"] = bound(ops, nbytes)
-        log(f"  {name} {label}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
+        if plain is None:
+            t["plain_note"] = (f"not timed: its (m, m) temporaries (about {PLAIN_GRAM_ARRAYS} f32 "
+                               f"arrays) exceed {PLAIN_MAX_BYTES / 2**30:.0f} GiB")
+        plain_txt = f"plain {t['plain_ms']:.4f} ms" if plain else "plain not timed"
+        log(f"  {name} {label}: {t['ms']:.4f} ms ({plain_txt}, "
             f"bound {t['bound_ms']:.4f} ms by {t['bound_by']})")
         return t
 
@@ -1083,24 +1185,88 @@ def phase_times(device, shapes, errs, launches, log):
         m = n1 + n2
         label = f"m={m} d={d}"
         if name == "gram_quadrant_sums":
-            return timed(name, label, lambda: G.gram_quadrant_sums(z, norms, bw, n1, mults),
-                         lambda: G.gram_quadrant_sums_reference(z, norms, bw, n1, mults),
-                         gram_ops(m, d), 4 * (m * d + m + 1 + 4))
+            t = timed(name, label, lambda: G.gram_quadrant_sums(z, norms, bw, n1, mults),
+                      lambda: G.gram_quadrant_sums_reference(z, norms, bw, n1, mults),
+                      gram_ops(m, d), 4 * (m * d + m + 1 + 4))
+            t["mode"] = G.tile_schedule(G.tile_pairs(m), d, sms)[0]
+            return t
         if name == "gram_backward_flash":
             return timed(name, label, lambda: G.gram_backward_flash(z, norms, bw, n1, n2, mults),
                          lambda: G.gram_backward_flash_reference(z, norms, bw, n1, n2, mults),
                          gram_ops(m, d, backward=True), 4 * (2 * m * d + 2 * m + 1))
-        if name == "gram_quadrant_sums_stash":
-            t = timed(name, label, lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults),
-                      lambda: G.gram_quadrant_sums_stash_reference(z, norms, bw, n1, mults),
-                      gram_ops(m, d), 4 * (m * d + m + 1 + 4 + m * m))
-            t["passes_us"] = device_split(lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults))
-            log(f"  {name} {label} by pass (profiler, device us a call): " + ", ".join(
-                f"{k} {v:.2f}" for k, v in t["passes_us"].items()))
-            return t
-        return timed(name, label, lambda: G.kprime_panel(z, z, norms, norms, bw, mults),
-                     lambda: G.kprime_panel_reference(z, z, norms, norms, bw, mults),
-                     gram_ops(m, d), 4 * (2 * m * d + 2 * m + 1 + m * m))
+        t = timed(name, label, lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults),
+                  lambda: G.gram_quadrant_sums_stash_reference(z, norms, bw, n1, mults),
+                  gram_ops(m, d), 4 * (m * d + m + 1 + 4 + m * m))
+        t["passes_us"] = device_split(lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults))
+        log(f"  {name} {label} by pass (profiler, device us a call): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in t["passes_us"].items()))
+        return t
+
+    def k1_large(shape):
+        """K1 in mode (a) at large m: its peak memory beside z's bytes (it
+        must hold no more than z's column-major copy, one wave of tiles and
+        the partials), held to the plain version evaluated in row blocks."""
+        n1, n2, d = shape
+        m = n1 + n2
+        z, norms, bw = large_gram_inputs(m, d, 24, device)
+        mode = G.tile_schedule(G.tile_pairs(m), d, sms)[0]
+        check(mode == "a", f"K1 at m={m} d={d} takes mode ({mode}), expected (a)")
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        s_k = G.gram_quadrant_sums(z, norms, bw, n1, mults)
+        sync()
+        peak = torch.cuda.max_memory_allocated()
+        limit = 4 * (d * G._round_up(m, G.STASH_TILE) + G.STASH_BLOCKS_PER_SM * sms * G.STASH_TILE ** 2
+                     + 12 * G.tile_pairs(m) + 4)
+        check(peak - base <= limit, f"K1 at m={m} d={d} allocated {peak - base} bytes, more than "
+                                    f"z's copy, one wave of tiles and the partials ({limit})")
+        err = assert_close(f"gram_quadrant_sums m={m} d={d} mode (a)", s_k,
+                           blockwise_quadrant_sums(z, norms, bw, n1, mults), RTOL_SUMS)
+        repeat_identical("gram_quadrant_sums", lambda: G.gram_quadrant_sums(z, norms, bw, n1, mults))
+        fits = PLAIN_GRAM_ARRAYS * 4 * m * m <= PLAIN_MAX_BYTES
+        t = timed("gram_quadrant_sums", f"m={m} d={d}",
+                  lambda: G.gram_quadrant_sums(z, norms, bw, n1, mults),
+                  (lambda: G.gram_quadrant_sums_reference(z, norms, bw, n1, mults)) if fits else None,
+                  gram_ops(m, d), 4 * (m * d + m + 1 + 4), iters=3, warmup=1)
+        t.update(mode=mode, max_abs_err=err, max_memory_allocated=peak, call_bytes=peak - base,
+                 z_bytes=4 * m * d, tol=f"rtol {RTOL_SUMS} (plain version in row blocks)")
+        log(f"  gram_quadrant_sums m={m} d={d}: torch.cuda.max_memory_allocated {peak} bytes, "
+            f"{peak - base} of them this call's (z itself {4 * m * d} bytes); sums within "
+            f"{err:.3e} of the plain version in row blocks")
+        return t
+
+    def panel(n1, n2, d, R, offset, iters, seed, large):
+        """K4 on rows offset .. offset + R against all of z, as the panel
+        backward calls it (its column-major copy made once, timed apart).
+        ``large``: inputs drawn on the card, and held to the plain version
+        here (phase 2 holds the smaller shapes)."""
+        m = n1 + n2
+        if large:
+            z, norms, bw = large_gram_inputs(m, d, seed, device)
+        else:
+            _, _, z, norms, bw = gram_inputs(n1, n2, d, seed=seed, device=device)
+        cols_t = G.panel_operand(z)
+        zr, nr = z[offset:offset + R], norms[offset:offset + R]
+        mode = G.tile_schedule(G.panel_blocks(R, m, offset), d, sms)[0]
+
+        def fn():
+            return G.kprime_panel(zr, z, nr, norms, bw, mults, offset=offset, cols_t=cols_t)
+
+        def plain():
+            return G.kprime_panel_reference(zr, z, nr, norms, bw, mults)
+
+        label = f"R={R} C={m} d={d} offset {offset}"
+        t = timed("kprime_panel", label, fn, plain, panel_ops(R, m, d, offset),
+                  4 * (m * d + R + m + 1 + R * m), iters, 1 if iters < 20 else 3)
+        t["mode"] = mode
+        t["operand_ms"] = cuda_ms(lambda: G.panel_operand(z), iters, 1)
+        log(f"  kprime_panel {label}: mode ({mode}); the column-major copy of z (once per "
+            f"backward) {t['operand_ms']:.4f} ms")
+        if large:
+            t["max_abs_err"] = assert_close(f"kprime_panel {label}", fn(), plain(), RTOL_KP, ATOL_KP)
+            t["tol"] = f"rtol {RTOL_KP} atol {ATOL_KP}"
+        return t
 
     def gof(shape):
         n_rows, n1, n2, d, n_perms, alphas, _ = shape
@@ -1132,21 +1298,45 @@ def phase_times(device, shapes, errs, launches, log):
     gram_src = "vgan_tpu_torch/ops/cuda/csrc/mmd_gram.cu"
     pallas = "vgan_tpu/ops/pallas/mmd_gram.py"
     rows = []
-    for name, replaces, main, others, tol in (
-        ("gram_quadrant_sums", f"{pallas}:207 _fwd_kernel", shapes["kl"], [shapes["flash"]],
-         f"rtol {RTOL_SUMS}"),
-        ("gram_quadrant_sums_stash", f"{pallas}:269 _fwd_stash_kernel", shapes["stress"], [],
+    # K1: the kl fit's Gram (its main path), the flash fit's, the panel
+    # fit's forward (with that fit's launches) and the flash regime at large m
+    k1 = {"name": "gram_quadrant_sums", "route": "cuda", "source": gram_src,
+          "replaces": f"{pallas}:207 _fwd_kernel", **gram("gram_quadrant_sums", shapes["kl"], 21),
+          "launches": launches["gram_quadrant_sums"],
+          "max_abs_err": errs["gram_quadrant_sums", shapes["kl"]], "tol": f"rtol {RTOL_SUMS}",
+          "library_ms": None, "at_other_shapes": []}
+    for shape, fit in ((shapes["flash"], "flash fit"), (shapes["stress"], "panel fit")):
+        t = gram("gram_quadrant_sums", shape, 22)
+        t.update(launches=launches["gram_quadrant_sums", fit], launches_on=fit,
+                 max_abs_err=errs["gram_quadrant_sums", shape])
+        k1["at_other_shapes"].append(t)
+    torch.cuda.empty_cache()
+    k1["at_other_shapes"].append(k1_large(shapes["k1_large"]))
+    torch.cuda.empty_cache()
+    rows.append(k1)
+    for name, replaces, tol in (
+        ("gram_quadrant_sums_stash", f"{pallas}:269 _fwd_stash_kernel",
          f"sums rtol {RTOL_SUMS}; kp rtol {RTOL_KP} atol {ATOL_KP}"),
-        ("gram_backward_flash", f"{pallas}:469 _flash_bwd_kernel", shapes["kl"], [shapes["flash"]],
-         f"{GRAD_FRAC} of max|ref|"),
-        ("kprime_panel", f"{pallas}:606 _kprime_panel_kernel", shapes["stress"], [],
-         f"rtol {RTOL_KP} atol {ATOL_KP}"),
+        ("gram_backward_flash", f"{pallas}:469 _flash_bwd_kernel", f"{GRAD_FRAC} of max|ref|"),
     ):
-        row = {"name": name, "route": "cuda", "source": gram_src, "replaces": replaces,
-               **gram(name, main, seed=21), "launches": launches[name],
-               "max_abs_err": errs[name, main], "tol": tol, "library_ms": None,
-               "at_other_shapes": [gram(name, o, seed=22) for o in others]}
-        rows.append(row)
+        main, others = {"gram_quadrant_sums_stash": (shapes["stress"], []),
+                        "gram_backward_flash": (shapes["kl"], [shapes["flash"]])}[name]
+        rows.append({"name": name, "route": "cuda", "source": gram_src, "replaces": replaces,
+                     **gram(name, main, seed=21), "launches": launches[name],
+                     "max_abs_err": errs[name, main], "tol": tol, "library_ms": None,
+                     "at_other_shapes": [gram(name, o, seed=22) for o in others]})
+    # K4: the panel fit's square panel (its main path), then one real panel
+    n1, n2, d = shapes["stress"]
+    k4 = {"name": "kprime_panel", "route": "cuda", "source": gram_src,
+          "replaces": f"{pallas}:606 _kprime_panel_kernel",
+          **panel(n1, n2, d, n1 + n2, 0, 20, 21, False), "launches": launches["kprime_panel"],
+          "max_abs_err": errs["kprime_panel", shapes["stress"]],
+          "tol": f"rtol {RTOL_KP} atol {ATOL_KP}", "library_ms": None}
+    rp = shapes["k4_real_panel"]
+    k4["at_other_shapes"] = [panel(rp["n1"], rp["n2"], rp["d"], G._panel_rows(rp["n1"] + rp["n2"]),
+                                   rp["offset"], 3, 25, True)]
+    torch.cuda.empty_cache()
+    rows.append(k4)
     main, *others = shapes["gof"]
     rows.append({
         "name": "a_times_k", "route": "cuda", "source": "vgan_tpu_torch/ops/cuda/csrc/gof_gram.cu",
@@ -1208,14 +1398,16 @@ def build_parent(src_dir: Path, log) -> dict:
     """The parent commit's kernel sources from ``src_dir`` (its
     ``vgan_tpu_torch/ops/cuda/csrc/``: the four ``.cu`` files and the headers
     they include), built with the package's flags into
-    ``build/parent_kernels/`` (one ``nvcc`` each, started together). K5-K7
-    (``gof_gram``, ``knn_score``) keep this tree's C interface and are bound
-    with its signatures; K2 and K8 are bound with the parent's own."""
+    ``build/parent_kernels/`` (one ``nvcc`` each, started together). K2, K3
+    and K5-K8 keep this tree's C interface and are bound with its
+    signatures; K1 and K4 are bound with the parent's own."""
     import ctypes
 
     from vgan_tpu_torch.ops.cuda import _build
+    from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
     from vgan_tpu_torch.ops.cuda import knn_score as KS
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     out_dir = Path(__file__).resolve().parent / "build" / "parent_kernels"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1228,21 +1420,19 @@ def build_parent(src_dir: Path, log) -> dict:
 
     with ThreadPoolExecutor(len(PARENT_SOURCES)) as pool:
         libs = dict(zip(PARENT_SOURCES, pool.map(build, PARENT_SOURCES)))
-    for name, module in (("gof_gram", GG), ("knn_score", KS)):
-        for fn, argtypes in module._SIGNATURES.items():
-            getattr(libs[name], fn).argtypes = argtypes
-            getattr(libs[name], fn).restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    gram = libs["mmd_gram"]
-    gram.vgan_gram_num_blocks.argtypes, gram.vgan_gram_num_blocks.restype = [I], I
-    gram.vgan_gram_quadrant_sums_stash.argtypes = [P, P, P, I, I, I, P, P, P, P, P]
-    gram.vgan_gram_quadrant_sums_stash.restype = I
-    fused = libs["fused_no_kl"]
-    fused.vgan_fused_grid.argtypes, fused.vgan_fused_grid.restype = [P, P], I
-    fused.vgan_fused_workspace_floats.argtypes = [I, I]
-    fused.vgan_fused_workspace_floats.restype = I
-    fused.vgan_fused_no_kl.argtypes = [P] * 14 + [I, P]
-    fused.vgan_fused_no_kl.restype = I
+    parent_own = {"vgan_gram_num_blocks": [I],
+                  "vgan_gram_quadrant_sums": [P, P, P, I, I, I, P, P, P, P],
+                  "vgan_kprime_panel": [P, P, P, P, P, I, I, I, P, P, P]}
+    for name, module in (("gof_gram", GG), ("knn_score", KS), ("fused_no_kl", FN),
+                         ("mmd_gram", G)):
+        signatures = dict(module._SIGNATURES)
+        if name == "mmd_gram":
+            signatures.update(parent_own)
+        for fn, argtypes in signatures.items():
+            if hasattr(libs[name], fn):  # an entry added since is not the parent's
+                getattr(libs[name], fn).argtypes = argtypes
+                getattr(libs[name], fn).restype = ctypes.c_int
     log(f"  parent kernels built from {src_dir}")
     return libs
 
@@ -1259,72 +1449,136 @@ def using_lib(module, lib):
         module._lib = saved
 
 
-def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
-    """The parent's K2 (at the no-kl stress fit's Gram), K8 (the 2000-epoch
-    notebook fit and the 20-epoch corner, rng mode), K5 (at both GoF shapes),
-    K6 and K7 (at the ensembles' decision_function shapes) against this
-    tree's, on the same inputs, in turns: parent, this tree, this tree,
-    parent. Each case makes its inputs when it runs and frees them after.
-    Returns, per (kernel, shape), the four times and the largest difference
-    of the outputs relative to the parent's largest entry."""
+def parent_gram_kernels(lib, device):
+    """The parent commit's K1 and K4 through its own C entries, as drop-in
+    functions for ``mmd_gram.gram_quadrant_sums`` and ``kprime_panel`` (an
+    offset and a column-major copy are ignored: the parent forms every
+    ordered pair from the rows themselves)."""
     import ctypes
 
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
+
+    def stream():
+        return torch.cuda.current_stream(device).cuda_stream
+
+    def sums(z, norms, bw, n1, mults):
+        m, d = z.shape
+        partials = torch.empty(3 * lib.vgan_gram_num_blocks(m), dtype=torch.float32, device=device)
+        out = torch.empty(4, dtype=torch.float32, device=device)
+        rc = lib.vgan_gram_quadrant_sums(
+            z.data_ptr(), norms.data_ptr(), bw.reshape(1).data_ptr(), m, d, n1,
+            ctypes.byref(G._ladder(tuple(mults))), partials.data_ptr(), out.data_ptr(), stream())
+        check(rc == 0, f"parent gram_quadrant_sums: CUDA error {rc}")
+        return out.reshape(1, 4)
+
+    def panel(zr, zc, nr, nc, bw, mults, offset=None, cols_t=None):
+        kp = torch.empty((zr.shape[0], zc.shape[0]), dtype=torch.float32, device=device)
+        rc = lib.vgan_kprime_panel(
+            zr.data_ptr(), zc.data_ptr(), nr.data_ptr(), nc.data_ptr(), bw.reshape(1).data_ptr(),
+            zr.shape[0], zc.shape[0], zr.shape[1], ctypes.byref(G._ladder(tuple(mults))),
+            kp.data_ptr(), stream())
+        check(rc == 0, f"parent kprime_panel: CUDA error {rc}")
+        return kp
+
+    return sums, panel
+
+
+def panel_fit_rates(device, libs, log) -> dict:
+    """The panel fit's steps/s: the no-kl stress shape with the K' stash off
+    (K1 and K4 each step), host clock over 4 epochs; with the parent's
+    kernels (``libs``), in turns: parent, this tree, this tree, parent, the
+    parent's K1 and K4 swapped in for this tree's."""
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
+
+    n, d, batch = STRESS["n"], STRESS["d"], STRESS["batch"]
+    turns = ["parent", "this tree", "this tree", "parent"] if libs else ["this tree"]
+    saved = G._KP_STASH_BYTES, G.gram_quadrant_sums, G.kprime_panel, G.panel_operand
+    rates = {}
+    try:
+        G._KP_STASH_BYTES = 0
+        for who in turns:
+            if who == "parent":
+                G.gram_quadrant_sums, G.kprime_panel = parent_gram_kernels(libs["mmd_gram"], device)
+                G.panel_operand = lambda x: None
+            else:
+                G.gram_quadrant_sums, G.kprime_panel, G.panel_operand = saved[1:]
+            rates.setdefault(who, []).append(fit_steps_per_s(device, n, d, batch, epochs=4))
+    finally:
+        G._KP_STASH_BYTES, G.gram_quadrant_sums, G.kprime_panel, G.panel_operand = saved
+    log(f"  panel fit (n={n}, d={d}, batch {batch}, K' stash off): " + "; ".join(
+        f"{who} " + ", ".join(f"{r:.2f}" for r in v) for who, v in rates.items()) + " steps/s")
+    return rates
+
+
+def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
+    """The parent's K1 (at the kl, flash and panel fits' Grams and at
+    m=40960), K4 (the panel fit's square panel and one real panel), K2 (at
+    the no-kl stress fit's Gram), K8 (the 2000-epoch notebook fit and the
+    20-epoch corner, rng mode), K5 (at both GoF shapes), K6 and K7 (at the
+    ensembles' decision_function shapes) against this tree's, on the same
+    inputs, in turns: parent, this tree, this tree, parent. Each case makes
+    its inputs when it runs and frees them after. Returns, per (kernel,
+    shape), the four times and the largest difference of the outputs
+    relative to the parent's largest entry."""
     from vgan_tpu_torch.ops import mmd as M
     from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
     from vgan_tpu_torch.ops.cuda import knn_score as KS
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
-    def stream():
-        return torch.cuda.current_stream(device).cuda_stream
-
+    gram_lib = libs["mmd_gram"]
+    parent_sums, parent_panel = parent_gram_kernels(gram_lib, device)
     mults = M.bandwidth_multipliers()
 
-    def parent_stash(z, norms, bw, n1):
-        lib = libs["mmd_gram"]
-        m, d = z.shape
-        partials = torch.empty(3 * lib.vgan_gram_num_blocks(m), dtype=torch.float32, device=device)
-        sums = torch.empty(4, dtype=torch.float32, device=device)
-        kp = torch.empty((m, m), dtype=torch.float32, device=device)
-        rc = lib.vgan_gram_quadrant_sums_stash(
-            z.data_ptr(), norms.data_ptr(), bw.reshape(1).data_ptr(), m, d, n1,
-            ctypes.byref(G._ladder(tuple(mults))), partials.data_ptr(), sums.data_ptr(),
-            kp.data_ptr(), stream())
-        check(rc == 0, f"parent gram_quadrant_sums_stash: CUDA error {rc}")
-        return sums.reshape(1, 4), kp
+    def inputs(n1, n2, d, seed, large):
+        if large:
+            return large_gram_inputs(n1 + n2, d, seed, device)
+        return gram_inputs(n1, n2, d, seed, device)[2:]
 
-    def parent_fused(x3, starts, packed, kw, seed):
-        lib = libs["fused_no_kl"]
-        grid, barriers = ctypes.c_int(0), ctypes.c_int(0)
-        check(lib.vgan_fused_grid(ctypes.byref(grid), ctypes.byref(barriers)) == 0,
-              "parent vgan_fused_grid failed")
-        T = int(starts.shape[0])
-        work = torch.empty(lib.vgan_fused_workspace_floats(kw["bs"], grid.value),
-                           dtype=torch.float32, device=device)
-        out = [t.clone() for t in packed]
-        losses = torch.empty(T, dtype=torch.float32, device=device)
-        bw = torch.zeros(2, dtype=torch.float32, device=device)
-        hyper = FN._hyper(kw["d"], kw["bs"], kw["latent"], T, seed, kw["lr"], kw["weight_decay"],
-                          kw["penalty_weight"])
-        rc = lib.vgan_fused_no_kl(x3.data_ptr(), starts.data_ptr(), None,
-                                  *[t.data_ptr() for t in out], losses.data_ptr(), bw.data_ptr(),
-                                  work.data_ptr(), ctypes.byref(hyper),
-                                  ctypes.byref(FN._ladder_struct()), grid.value, stream())
-        check(rc == 0, f"parent fused_no_kl: CUDA error {rc}")
-        return losses
+    def sums_case(shape, large=False):
+        def make():
+            n1, n2, d = shape
+            z, norms, bw = inputs(n1, n2, d, 21, large)
+            return (lambda: parent_sums(z, norms, bw, n1, mults),
+                    lambda: G.gram_quadrant_sums(z, norms, bw, n1, mults))
+        return make
+
+    def panel_case(n1, n2, d, R, offset, large):
+        """At the small shape this tree's call makes z's column-major copy
+        itself, as the panel backward does once for its one panel at m <=
+        R; at the large one the copy is made once outside, as for a
+        backward's many panels."""
+        def make():
+            z, norms, bw = inputs(n1, n2, d, 25, large)
+            zr, nr = z[offset:offset + R], norms[offset:offset + R]
+            cols_t = G.panel_operand(z) if large else None
+            return (lambda: parent_panel(zr, z, nr, norms, bw, mults),
+                    lambda: G.kprime_panel(zr, z, nr, norms, bw, mults, offset=offset,
+                                           cols_t=cols_t))
+        return make
 
     def stash_case():
         n1, d = STRESS["batch"], STRESS["d"]
         _, _, z, norms, bw = gram_inputs(n1, n1, d, seed=21, device=device)
-        return (lambda: parent_stash(z, norms, bw, n1),
-                lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults))
+
+        def old():
+            with using_lib(G, gram_lib):
+                return G.gram_quadrant_sums_stash(z, norms, bw, n1, mults)
+
+        return old, lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults)
 
     def fused_case(Xf, bs, epochs, seed, kseed):
         def make():
             x3, starts, packed, kw = fused_inputs(Xf, bs, epochs, seed=seed, device=device)
-            return (lambda: parent_fused(x3, starts, packed, kw, kseed),
-                    lambda: FN.fused_no_kl_fit_cuda(x3, starts, *packed, None, kseed, n=len(Xf),
-                                                    **kw)[7])
+
+            def new():
+                return FN.fused_no_kl_fit_cuda(x3, starts, *packed, None, kseed, n=len(Xf), **kw)[7]
+
+            def old():
+                with using_lib(FN, libs["fused_no_kl"]):
+                    return new()
+
+            return old, new
         return make
 
     def gof_case(shape):
@@ -1355,16 +1609,28 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
             return old, lambda: KS.knn_scores_all_masks(x, xtr, masks, ens.k)
         return make
 
-    Xc = np.random.default_rng(13).standard_normal((FUSED_CORNER["n"], FUSED_CORNER["d"]),
-                                                   dtype=np.float32)
-    cases = [
-        (f"gram_quadrant_sums_stash m={2 * STRESS['batch']} d={STRESS['d']}", 20, stash_case),
+    b, d = STRESS["batch"], STRESS["d"]
+    rp = K4_REAL_PANEL
+    m_rp = rp["n1"] + rp["n2"]
+    R_rp = G._panel_rows(m_rp)
+    cases = [(f"gram_quadrant_sums m={2 * b} d={dk}", 20, sums_case((b, b, dk)))
+             for dk in (d // 16, 1024, d)]
+    cases += [
+        (f"gram_quadrant_sums m={sum(K1_LARGE[:2])} d={K1_LARGE[2]}", 3,
+         sums_case(K1_LARGE, large=True)),
+        (f"kprime_panel R={2 * b} C={2 * b} d={d} offset 0 (with the column-major copy)", 20,
+         panel_case(b, b, d, 2 * b, 0, False)),
+        (f"kprime_panel R={R_rp} C={m_rp} d={rp['d']} offset {rp['offset']}", 3,
+         panel_case(rp["n1"], rp["n2"], rp["d"], R_rp, rp["offset"], True)),
+        (f"gram_quadrant_sums_stash m={2 * b} d={d}", 20, stash_case),
         (f"fused_no_kl_fit_cuda n=2000 d=10 bs=500, {FUSED_TIMED_EPOCHS} epochs", 3,
          fused_case(notebook_data(), 500, FUSED_TIMED_EPOCHS, 11, 99)),
-        (f"fused_no_kl_fit_cuda n={FUSED_CORNER['n']} d={FUSED_CORNER['d']} "
-         f"bs={FUSED_CORNER['bs']}, {FUSED_CORNER['epochs']} epochs", 3,
-         fused_case(Xc, FUSED_CORNER["bs"], FUSED_CORNER["epochs"], 12, 98)),
     ]
+    Xc = np.random.default_rng(13).standard_normal((FUSED_CORNER["n"], FUSED_CORNER["d"]),
+                                                   dtype=np.float32)
+    cases.append((f"fused_no_kl_fit_cuda n={FUSED_CORNER['n']} d={FUSED_CORNER['d']} "
+                  f"bs={FUSED_CORNER['bs']}, {FUSED_CORNER['epochs']} epochs", 3,
+                  fused_case(Xc, FUSED_CORNER["bs"], FUSED_CORNER["epochs"], 12, 98)))
     for shape in gof_shapes:
         cases.append((f"a_times_k m={shape[1] + shape[2]} d={shape[3]} P={shape[4] + 2} "
                       f"alphas={len(shape[5])}", 3, gof_case(shape)))
@@ -1378,15 +1644,15 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
         torch.cuda.empty_cache()
         old, new = make()
         t = [cuda_ms(f, iters, 1) for f in (old, new, new, old)]
-        a, b = old(), new()
+        a, b_ = old(), new()
         a = a if isinstance(a, tuple) else (a,)
-        b = b if isinstance(b, tuple) else (b,)
-        diff = max(max_abs(u, v) / max(float(torch.max(torch.abs(u))), 1e-30) for u, v in zip(a, b))
+        b_ = b_ if isinstance(b_, tuple) else (b_,)
+        diff = max(max_abs(u, v) / max(float(torch.max(torch.abs(u))), 1e-30) for u, v in zip(a, b_))
         results[label] = {"parent_ms": [t[0], t[3]], "ms": [t[1], t[2]], "max_rel_diff": diff}
         log(f"  {label}: parent {t[0]:.4f}, {t[3]:.4f} ms; this tree {t[1]:.4f}, {t[2]:.4f} ms "
             f"({(t[0] + t[3]) / (t[1] + t[2]):.2f}x); outputs differ by at most {diff:.3e} of the "
             f"parent's largest")
-        del old, new, a, b
+        del old, new, a, b_
     log(f"  device memory: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB at most")
     return results
@@ -1628,13 +1894,21 @@ def sass_sizes() -> dict:
 
 
 def kernel_name(mangled: str) -> str:
-    """The innermost name of a mangled ``_ZN<len><name>...`` symbol."""
+    """The innermost name of a mangled ``_ZN<len><name>...`` symbol, with
+    its bool template arguments (``tile_kernel<1>``)."""
+    import re
+
     i, name = mangled.find("_ZN") + 3, mangled
     while 3 <= i < len(mangled) and mangled[i].isdigit():
         j = i
         while mangled[j].isdigit():
             j += 1
         name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    if 3 <= i < len(mangled) and mangled[i] == "I":  # template arguments, up to their "E"
+        rest = mangled[i:]
+        args = re.findall(r"Lb([01])E", rest[:rest.find("EE") + 2])
+        if args:
+            name += f"<{','.join(args)}>"
     return name
 
 
@@ -1645,7 +1919,7 @@ def main(argv=None) -> int:
     parser.add_argument("--parent-csrc", type=Path, default=None,
                         help="an earlier commit's vgan_tpu_torch/ops/cuda/csrc/ (mmd_gram.cu, "
                              "gof_gram.cu, knn_score.cu, fused_no_kl.cu and their headers): "
-                             "phase 5 also builds K2, K5, K6, K7 and K8 from it and times them "
+                             "phase 5 also builds K1, K2, K4, K5, K6, K7 and K8 from it and times them "
                              "beside this tree's")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1696,8 +1970,12 @@ def main(argv=None) -> int:
     gof_f64 = (GOF_ROWS, GOF_COUNT_F64, GOF_COUNT_F64, d, GOF_PERMUTATIONS, GOF_ALPHAS, 0)
     gof_f32 = (GOF_ROWS, GOF_COUNT_F32, GOF_COUNT_F32, d, GOF_PERMUTATIONS, GOF_ALPHAS, 0)
     log("phase 2: kernels against their plain versions")
-    errs = phase_kernels(device, [stress_shape, flash_shape, kl_shape, (333, 517, 2500)],
-                         [kl_shape, flash_shape, (4096, 4096, 1024), (333, 517, 2000)], log)
+    errs = phase_kernels(device, [
+        # (n1, n2, d, K1's mode): the fits' Grams, a ragged m in mode (b)
+        # (28 tile pairs) and one in mode (a) (153 tile pairs)
+        (*stress_shape, "b"), (*flash_shape, "b"), (*kl_shape, "b"), (333, 517, 2500, "b"),
+        (1100, 1013, 700, "a"),
+    ], [kl_shape, flash_shape, (4096, 4096, 1024), (333, 517, 2000)], log)
     phase_core(device, stress_shape, (333, 517, 2000), log)
     gof_errs = phase_gof_kernel(device, [
         # (rows of the data, n1, n2, d, permutations, alphas, panel rows or 0)
@@ -1753,16 +2031,19 @@ def main(argv=None) -> int:
 
     log("phase 5: times")
     rows = phase_times(device, {"kl": kl_shape, "flash": flash_shape, "stress": stress_shape,
+                                "k1_large": K1_LARGE, "k4_real_panel": K4_REAL_PANEL,
                                 "gof": [gof_f64, gof_f32]}, errs, launches, log)
     rows += knn_times(ensembles, errs, knn_launches, log)
     rows.append(fused_times(device, errs, k8_launches, log))
     if parent_libs:
-        log("  against the parent commit's K2, K5, K6, K7 and K8 (same inputs, in turns)")
+        log("  against the parent commit's K1, K2, K4, K5, K6, K7 and K8 (same inputs, in turns)")
         compared = parent_comparison(parent_libs, device, ensembles, [gof_f64, gof_f32], log)
         for row in rows:
             mine = {k: v for k, v in compared.items() if k.split(" ")[0] == row["name"]}
             if mine:
                 row["parent_comparison"] = mine
+    rates = panel_fit_rates(device, parent_libs, log)
+    next(row for row in rows if row["name"] == "kprime_panel")["panel_fit_steps_per_s"] = rates
     ensemble_rates(ensembles, log)
     sps = fit_steps_per_s(device, n, d, batch)
     log(f"  stress fit (n={n}, d={d}, batch {batch}): {sps:.2f} steps/s")

@@ -14,6 +14,7 @@ import torch
 
 import vgan_tpu.ops.pallas.mmd_gram as JG
 from vgan_tpu.ops import mmd as JM
+from vgan_tpu_torch.ops import mmd as TM
 from vgan_tpu_torch.ops.cuda import mmd_gram as TG
 
 RTOL, GRAD_RTOL = 2e-4, 2e-3
@@ -138,8 +139,6 @@ def test_mmd2_core_vs_pallas(monkeypatch, regime, n1, n2, d):
 def test_panel_backward_several_panels(monkeypatch):
     """A panel budget small enough that the rank-1 backward streams three
     panels; the gradient still matches the dense torch autograd."""
-    from vgan_tpu_torch.ops import mmd as TM
-
     n1, n2, d = 100, 80, 2100
     monkeypatch.setattr(TG, "_KP_STASH_BYTES", 0)
     monkeypatch.setattr(TG, "PANEL_BYTES", 180 * 4 * 64)
@@ -240,13 +239,57 @@ def test_stash_slices_cover_d_and_fill_the_card():
     assert scratch == 10240 * 1024 + 7 * 36 * 128 * 128 + 12 * 36
 
 
-def test_stash_pair_once_sums_float64_vs_pallas():
-    """The stash plain version's pair-once quadrant sums (the diagonal once,
-    the upper triangle doubled in XX and YY, XY once), in float64, against
-    ``_fwd_stash_kernel`` in interpret mode at a ragged m (not a multiple of
-    128) with n1 != n2; and they equal the full-Gram sums of K1's plain
-    version."""
-    n1, n2, d = 150, 83, 600
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _panel_tiles(R, C, offset=None):
+    """A model of K4's tiles of an (R, C) panel in block order, as
+    ``Panel::at`` in ``csrc/mmd_gram.cu`` enumerates them: ``(r0, c0, c1,
+    mirror)``, the panel rows [r0, r0 + 128) below R and columns [c0, c0 +
+    128) below c1. With ``offset`` (the panel's row r is column offset + r):
+    first the diagonal block's tile pairs J <= I, whose K' a pair J < I also
+    writes mirrored to (c - offset, offset + r), then row tile by row tile
+    the ordered tiles left and right of that block. Without, every tile is
+    ordered. ``_panel_tiles(m, m, 0)`` is K1 and K2's tile pairs."""
+    T = TG.STASH_TILE
+    rows = _cdiv(R, T)
+    if offset is None:
+        return [(J * T, k * T, C, False) for J in range(rows) for k in range(_cdiv(C, T))]
+    side = ([(k * T, offset) for k in range(_cdiv(offset, T))]
+            + [(offset + R + k * T, C) for k in range(_cdiv(C - offset - R, T))])
+    return ([(J * T, offset + I * T, offset + R, I != J) for J in range(rows) for I in range(J, rows)]
+            + [(J * T, c0, c1, False) for J in range(rows) for c0, c1 in side])
+
+
+def _tile_weighted_sums(k, n1):
+    """[XX, XY, YY, 0] of the symmetric Gram k as K1 and K2 sum it: over the
+    square panel's tiles (``_panel_tiles(m, m, 0)``), a mirrored tile pair
+    counts its XX and YY entries twice and its XY entries (row < n1 <= col)
+    once, a diagonal tile each entry once by the ordered masks."""
+    m = k.shape[0]
+    w = torch.zeros((3, m, m), dtype=k.dtype)
+    rows = torch.arange(m)[:, None] < n1
+    cols = torch.arange(m)[None, :] < n1
+    for r0, c0, c1, mirror in _panel_tiles(m, m, 0):
+        r, c = slice(r0, min(r0 + TG.STASH_TILE, m)), slice(c0, min(c0 + TG.STASH_TILE, c1))
+        rx, cx = rows[r, :], cols[:, c]
+        scale = 2.0 if mirror else 1.0
+        w[0, r, c] = scale * (rx & cx)
+        w[1, r, c] = (rx & ~cx).to(k.dtype)
+        w[2, r, c] = scale * (~rx & ~cx)
+    sums = torch.einsum("qij,ij->q", w, k)
+    return torch.cat([sums, torch.zeros(1, dtype=k.dtype)]).reshape(1, 4)
+
+
+@pytest.mark.parametrize("n1,n2,d", [(150, 83, 600), (100, 300, 40)])
+def test_stash_pair_once_sums_float64_vs_pallas(n1, n2, d):
+    """The pair-once quadrant sums, in float64: the stash plain version's
+    (the diagonal once, the upper triangle doubled in XX and YY, XY once)
+    against ``_fwd_stash_kernel`` in interpret mode at a ragged m (not a
+    multiple of 128) with n1 != n2; and the tile-level weights K1 and K2
+    apply over their tile pairs, which with it equal the full-Gram sums of
+    K1's plain version."""
     a = _both(n1, n2, d)
     M, m = a["z_pad"].shape[0], a["m"]
     assert m % TG.STASH_TILE and n1 != n2
@@ -261,3 +304,101 @@ def test_stash_pair_once_sums_float64_vs_pallas():
     np.testing.assert_allclose(sums_t.numpy()[0, :3], np.asarray(sums_j)[0, :3], rtol=1e-5)
     full = TG.gram_quadrant_sums_reference(z64, n64, bw64, n1, MULTS)
     np.testing.assert_allclose(sums_t.numpy(), full.numpy(), rtol=1e-12)
+    k = TM.multi_rbf_gram(TG._sq_dists(z64, z64, n64, n64), bw64, MULTS)
+    np.testing.assert_allclose(_tile_weighted_sums(k, n1).numpy(), full.numpy(), rtol=1e-12)
+
+
+# (m, d): the fits' Grams at m = 1000, ragged shapes, the flash regime at
+# m = 40960, the panel regime at m = 45056, and a tiny one
+SCHEDULE_SHAPES = [(1000, 640), (1000, 1024), (1000, 10240), (850, 2500), (2113, 700),
+                   (40960, 1024), (45056, 10240), (40, 40)]
+
+
+def _k1_blocks_and_scratch(m, d, slice_):
+    """K1's tile pairs, the column-major copy of z in its scratch, and the
+    rest of its scratch (partial tiles and sums)."""
+    copy = d * TG._round_up(m, TG.STASH_TILE)
+    return TG.tile_pairs(m), copy, TG.quadrant_sums_scratch_floats(m, d, slice_) - copy
+
+
+def _k4_blocks_and_scratch(m, d, slice_):
+    """The panel backward's first panel, the column-major copy of z that
+    every panel shares (one tile taller than K1's), and its partial tiles."""
+    blocks = TG.panel_blocks(TG._panel_rows(m), m, 0)
+    copy = d * (TG._round_up(m, TG.STASH_TILE) + TG.STASH_TILE)
+    return blocks, copy, TG.panel_scratch_floats(blocks, d, slice_)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+def test_tile_schedule_covers_d_fills_the_card_and_bounds_scratch(kernel):
+    """The mode / slice schedule of K1 and K4: slices of a multiple of the
+    16-column chunk that cover d exactly; tiles x slices within one wave of
+    two blocks an SM and, where d can be split that far, more than one block
+    an SM; beyond the column-major copy of z, at most one wave of partial
+    tiles (never m^2); and at m = 40960, d = 1024 mode (a) (one slice, no
+    partial tiles), the whole scratch at most d x M plus one wave of
+    tiles."""
+    sms = 132
+    wave = TG.STASH_BLOCKS_PER_SM * sms * TG.STASH_TILE ** 2
+    blocks_and_scratch = _k1_blocks_and_scratch if kernel == "K1" else _k4_blocks_and_scratch
+    for m, d in SCHEDULE_SHAPES:
+        blocks, _, _ = blocks_and_scratch(m, d, TG.STASH_BK)
+        mode, slice_, count = TG.tile_schedule(blocks, d, sms)
+        assert slice_ % TG.STASH_BK == 0 and slice_ > 0
+        assert (count - 1) * slice_ < d <= count * slice_, (m, d)
+        assert mode == ("a" if count == 1 else "b")
+        assert count == 1 or blocks * count <= TG.STASH_BLOCKS_PER_SM * sms, (m, d)
+        assert blocks * count > sms or count == -(-d // TG.STASH_BK), (m, d)
+        _, _, partial = blocks_and_scratch(m, d, slice_)
+        assert partial <= wave + 48 * blocks, (m, d)  # the tiles and the sums' partials
+    m, d = 40960, 1024
+    blocks, copy, _ = blocks_and_scratch(m, d, TG.STASH_BK)
+    mode, slice_, count = TG.tile_schedule(blocks, d, sms)
+    assert (mode, slice_, count) == ("a", 1024, 1)
+    _, copy, partial = blocks_and_scratch(m, d, slice_)
+    assert copy + partial <= d * m + wave
+    if kernel == "K1":
+        assert partial == 3 * 51360  # the sums of each tile pair, nothing else
+        # m = 1000: 36 tile pairs, d split as K2's (7 slices)
+        assert TG.tile_schedule(TG.tile_pairs(1000), 10240, sms) == ("b", 1472, 7)
+    else:
+        assert partial == 0
+        # the smoke's square panel at m = 1000 is K2's tile pairs
+        assert TG.panel_blocks(1000, 1000, 0) == TG.tile_pairs(1000)
+
+
+@pytest.mark.parametrize("R,C,offset", [
+    (1000, 1000, 0),      # the panel backward at m <= R: the whole square
+    (320, 850, 256),      # a middle panel: ordered tiles on both sides, ragged C
+    (40, 1000, 960),      # the last, short panel
+    (1472, 5000, 2944),   # several row tiles, a ragged diagonal block
+    (300, 1000, None),    # no offset: ordered tiles
+    (37, 130, None),
+])
+def test_panel_tiles_write_each_entry_once(R, C, offset):
+    """A model of K4's tile enumeration: every (r, c) of the (R, C) panel is
+    written by exactly one tile, either directly or as the mirror of the
+    entry (c - offset, offset + r) of a tile pair J < I of the diagonal
+    block; and the host's block count matches."""
+    T = TG.STASH_TILE
+    tiles = _panel_tiles(R, C, offset)
+    assert len(tiles) == TG.panel_blocks(R, C, offset)
+    hits = np.zeros((R, C), dtype=np.int32)
+    for r0, c0, c1, mirror in tiles:
+        r1, ce = min(r0 + T, R), min(c0 + T, c1)
+        assert r0 < R and c0 < c1 <= C and c0 % 4 == 0
+        hits[r0:r1, c0:ce] += 1
+        if mirror:
+            assert offset is not None and c0 - offset > r0  # strictly above the diagonal
+            hits[c0 - offset:ce - offset, offset + r0:offset + r1] += 1
+    assert np.all(hits == 1)
+
+
+
+def test_panel_operand_layout():
+    """K4's column-major operand: (d, n rounded up to 128, plus one tile),
+    column k the k-th feature of every row, the padding rows zero."""
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(150, 7)).astype(np.float32))
+    op = TG.panel_operand(x)
+    assert op.shape == (7, 256 + TG.STASH_TILE) and op.dtype == torch.float32
+    assert torch.equal(op[:, :150], x.T) and not torch.any(op[:, 150:])

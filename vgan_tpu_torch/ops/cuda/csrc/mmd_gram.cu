@@ -1,76 +1,80 @@
 // Multi-bandwidth RBF MMD Gram kernels for Hopper (sm_90a), IEEE f32.
 //
-// Four kernels, each replacing one Pallas TPU kernel of
+// Four functions, each replacing one Pallas TPU kernel of
 // vgan_tpu/ops/pallas/mmd_gram.py:
 //
-//   fwd_kernel           <- _fwd_kernel           quadrant sums XX, XY, YY
-//   fwd_stash (K2)       <- _fwd_stash_kernel     quadrant sums + K'(d2) (m, m):
-//                           transpose_pad_kernel, stash_dot_kernel,
-//                           stash_epilogue_kernel
-//   flash_bwd_kernel     <- _flash_bwd_kernel     S @ z and rowsum(S), no m^2 buffer
-//                           (+ sum_splits, the fixed-order sum of its partials)
-//   kprime_panel_kernel  <- _kprime_panel_kernel  (R, C) K'(d2) panel
-//
-// fwd_kernel, flash_bwd_kernel and kprime_panel_kernel share one tile body,
-// gram_tile: a 64 x 64 block of squared distances d2 = |zi|^2 + |zj|^2 -
-// 2 zi . zj, accumulated over 16-wide d-chunks staged in shared memory (each
-// of 256 threads owns a 4 x 4 register micro-tile and accumulates with fmaf,
-// never TF32), then clamped at 0 and pushed through the bandwidth ladder: one
-// expf plus integer powers for a geometric ladder (ops.mmd.ladder_exponents),
-// one expf per bandwidth otherwise.
+//   K1 vgan_gram_quadrant_sums        <- _fwd_kernel           quadrant sums XX, XY, YY
+//   K2 vgan_gram_quadrant_sums_stash  <- _fwd_stash_kernel     the sums + K'(d2) (m, m)
+//   K3 vgan_gram_backward_flash       <- _flash_bwd_kernel     S @ z and rowsum(S), no m^2 buffer
+//   K4 vgan_kprime_panel              <- _kprime_panel_kernel  an (R, C) K'(d2) panel
 //
 // What bounds them on an H100: the distance product. At the stress shape
 // (m = 1000 rows, d = 10240) the forward needs the m (m - 1) / 2 unordered
 // pairs' dot products, 1.02e10 flops on 41 MB of input: bound by the
-// non-tensor f32 rate (67 TFLOP/s). gram_tile forms every ordered pair (twice
-// the work) and stages its chunks through registers, so it reaches a fraction
-// of that rate; the flash backward does twice the forward's work (the d2
-// tile, then S @ z).
+// non-tensor f32 rate (67 TFLOP/s). Every entry then goes through the
+// bandwidth ladder: one expf plus integer powers for a geometric ladder
+// (ops.mmd.ladder_exponents), one expf per bandwidth otherwise.
 //
-// K2 (the stash forward, every step of a wide no-kl fit) is built instead on
-// dist_tile.cuh's pipelined 128 x 128 tile (8 x 8 outputs a thread, 16-column
-// chunks double-buffered with cp.async), in three passes:
+// K1, K2 and K4 run on dist_tile.cuh's pipelined 128 x 128 tile (8 x 8
+// outputs a thread, 16-column chunks of column-major operands
+// double-buffered with cp.async, fmaf in ascending column order, never
+// TF32). A Panel names the tiles a launch forms: an (R, C) block of the
+// Gram whose row r is row row0 + r of the row operand and whose column c is
+// column c of the column operand. When the rows are themselves columns
+// diag .. diag + R of the column operand, the diagonal block forms each
+// unordered pair once (tile pairs J <= I) and writes the K' of a pair J < I
+// to (r, c) and to (c, r), so it is exactly symmetric; the columns left and
+// right of it are ordered tiles. K1 and K2 take the whole symmetric square
+// (R = C = m, diag = 0): its 128-row tile pairs only. K4 takes the panel
+// backward's (R, m) row panels, or an ordered panel when the caller gives no
+// offset.
 //
-// - transpose_pad_kernel copies z into the column-major, zero-padded layout
-//   that tile reads (d x M, M = m rounded up to 128);
-// - stash_dot_kernel: block (b, s) forms the dot products of tile pair b
-//   (row tile J <= column tile I, the upper triangle) over d slice s, and
-//   writes its partial tile to scratch. Every unordered pair is formed once
-//   (the diagonal tiles in full). At m = 1000 there are only 36 tile pairs,
-//   so the summed d axis is split into slices (multiples of the 16-column
-//   chunk) until pairs x slices fill the card (the wrapper's stash_slices:
-//   7 slices, 252 blocks, two an SM);
-// - stash_epilogue_kernel: per quarter of a tile pair (four blocks a pair),
-//   the slices' partials added in slice order, d2 = max(-2 dot + (|zi|^2 + |zj|^2), 0) (symmetric in i and
-//   j), the ladder, K' written to (r, c) and to (c, r), so the stash is
-//   exactly symmetric, and the block's (XX, XY, YY) partial: an off-diagonal
-//   tile pair stands for both orientations, so its XX and YY entries count
-//   twice and its XY entries (row < n1 <= col) once; a diagonal tile counts
-//   each entry once, as gram_tile's masks do.
+// d2 = max(-2 dot + (|zi|^2 + |zj|^2), 0), symmetric in i and j, and the
+// ladder sits behind one non-inlined call (inlined, it would copy thousands
+// of instructions into every entry), its power-of-two powers read off one
+// squaring chain. A mirrored tile pair stands for both orientations in the
+// sums: its XX and YY entries count twice and its XY entries (row < n1 <=
+// col) once; a tile on the diagonal counts each entry once.
+//
+// Two modes, chosen by the caller (ops/cuda/mmd_gram.py tile_schedule):
+//
+// (a) when the tiles alone give more than half a wave (two blocks an SM),
+//     one block a tile over all of d (tile_kernel), its epilogue on its own
+//     accumulators in registers: no dot product goes to device memory;
+// (b) when they do not (36 tile pairs at m = 1000), the summed d axis is
+//     split into slices, multiples of the 16-column chunk, until tiles x
+//     slices fill one wave: dot_slices_kernel writes each (tile, slice)
+//     partial dot tile to scratch (at most one wave of them, so the scratch
+//     never grows with m^2 for K1 and K4), and slices_epilogue_kernel adds
+//     them in slice order, four blocks a tile (sixteen for K1, whose
+//     epilogue stores nothing and is latency-bound).
+//
+// K1 and K2 copy z into the column-major, zero-padded layout the tile reads
+// (transpose_pad_kernel, d x M, M = m rounded up to 128); K2 always takes
+// mode (b)'s passes, as its (m, m) stash does not fit in registers. K4's
+// operands come in that layout from the caller (vgan_transpose_pad), who
+// makes the column-major copy of z once for all the panels of a backward.
+//
+// K3 (flash_bwd_kernel) still runs on the earlier 64 x 64 tile, tile_dot,
+// with the ladder inlined: block (i, s) owns a 64-row block i of the output
+// and the column tiles s, s + nsplit, s + 2 nsplit, ... For each column tile
+// it builds the S tile (coefficient * K') in shared memory, then streams
+// 64-wide d-chunks of z[cols] through shared memory and does a
+// read-add-write of its own rows of its own partial sz (no other block
+// touches them, so no atomics). sum_splits then adds the nsplit partials in
+// split order. The column split exists because a row block alone gives only
+// m / 64 blocks (16 at m = 1000) for 132 SMs. (The Pallas kernel holds a
+// full-D sz accumulator in VMEM, which does not fit Hopper's 227 KB of
+// shared memory at D = 2048.)
 //
 // Determinism: thread blocks run in no fixed order, so no float atomics are
 // used anywhere. The forward kernels write one (XX, XY, YY) partial per block
-// and finalize_sums reduces the partials in a fixed order; the stash forward
-// adds its d slices in slice order; the flash backward gives each block sole
-// ownership of its rows of one partial sz / rs and sum_splits adds the
-// partials in split order. Re-runs give identical bits.
+// and finalize_sums reduces the partials in a fixed order; mode (b) adds its
+// d slices in slice order; the flash backward's partials are added in split
+// order. Re-runs give identical bits.
 //
-// The flash backward layout: the Pallas kernel holds a full-D (tile_i x D)
-// sz accumulator in VMEM, which does not fit Hopper's 227 KB of shared memory
-// at D = 2048. Here block (i, s) owns a 64-row block i of the output and the
-// column tiles s, s + nsplit, s + 2 nsplit, ... For each column tile it builds
-// the S tile (coefficient * K') in shared memory, then streams 64-wide
-// d-chunks of z[cols] through shared memory and does a read-add-write of its
-// own rows of its own partial sz (no other block touches them, so no
-// atomics). sum_splits then adds the nsplit partials in split order. The
-// column split exists because a row block alone gives only m / 64 blocks
-// (16 at m = 1000) for 132 SMs; the caller picks nsplit so the grid covers
-// the card. The alternative, a grid over (row block, d-chunk) that recomputes
-// S per chunk, multiplies the d2 work by d / 64.
-//
-// Ragged edges are masked in the kernels: rows >= R, columns >= C and
-// d-chunk entries >= d load as zero; the quadrant and validity masks match
-// _coeff_tile (XY is the single quadrant row < n1 <= col).
+// Ragged edges are masked in the kernels: rows >= R and columns >= C are not
+// stored or summed, and d-chunk entries >= d load as zero.
 //
 // Plain C interface: every entry returns cudaGetLastError() after its
 // launches; pointers and the stream come from the caller (ctypes).
@@ -82,15 +86,15 @@
 
 namespace {
 
-constexpr int BM = 64;   // rows of a tile
-constexpr int BN = 64;   // columns of a tile
-constexpr int BK = 16;   // d-chunk of the distance product
-constexpr int FD = 64;   // d-chunk of the flash backward's S @ z
-constexpr int NT = 256;  // threads per block: 16 x 16, 4 x 4 outputs each
+constexpr int BM = 64;   // K3: rows of a tile
+constexpr int BN = 64;   // K3: columns of a tile
+constexpr int BK = 16;   // K3: d-chunk of the distance product
+constexpr int FD = 64;   // K3: d-chunk of S @ z
+constexpr int NT = 256;  // threads per block (K3: 16 x 16, 4 x 4 outputs each)
 constexpr int MAX_MULTS = 8;
-constexpr int ST = 8;          // K2: 8 x 8 outputs a thread
-constexpr int SB = 16 * ST;    // K2: a 128 x 128 tile pair
-constexpr int SB2 = SB * SB;   // K2: floats of one partial dot tile
+constexpr int ST = 8;          // K1, K2, K4: 8 x 8 outputs a thread
+constexpr int SB = 16 * ST;    // K1, K2, K4: a 128 x 128 tile
+constexpr int SB2 = SB * SB;   // floats of one partial dot tile
 constexpr int TT = 32;         // transpose tile
 
 }  // namespace
@@ -193,70 +197,8 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
     return t;
 }
 
-// The shared tile body of the forward and panel kernels. SUMS: write this
-// block's (XX, XY, YY) partial. KP: write K'(d2) for the tile (no masking of
-// the quadrant, as the Pallas kernels; ragged rows / columns are not stored).
-template <bool SUMS, bool KP>
-__device__ __forceinline__ void gram_tile(const float* __restrict__ zr,
-                                          const float* __restrict__ zc,
-                                          const float* __restrict__ nr,
-                                          const float* __restrict__ nc,
-                                          const float* __restrict__ bw_ptr, int R, int C,
-                                          int d, int n1, int m, const VganLadder& L,
-                                          float* __restrict__ partials,
-                                          float* __restrict__ kp_out) {
-    __shared__ __align__(16) float As[BK][BM + 4];
-    __shared__ __align__(16) float Bs[BK][BN + 4];
-    __shared__ float red[NT / 32];
-    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-    const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-    float acc[4][4];
-    tile_dot(zr, zc, R, C, d, row0, col0, As, Bs, acc);
-    const float bw = *bw_ptr;
-    float sxx = 0.f, sxy = 0.f, syy = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = row0 + ty * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int c = col0 + tx * 4 + j;
-            if (r < R && c < C) {
-                const float d2 = fmaxf(-2.f * acc[i][j] + nr[r] + nc[c], 0.f);
-                float k, kp;
-                ladder_eval<SUMS, KP>(d2, bw, L, k, kp);
-                if (KP) kp_out[(size_t)r * C + c] = kp;
-                if (SUMS && r < m && c < m) {
-                    const bool rx = r < n1, cx = c < n1;
-                    if (rx && cx) sxx += k;
-                    else if (rx) sxy += k;
-                    else if (!cx) syy += k;
-                }
-            }
-        }
-    }
-    if (SUMS) {
-        const int b = blockIdx.y * gridDim.x + blockIdx.x;
-        sxx = block_sum(sxx, red);
-        sxy = block_sum(sxy, red);
-        syy = block_sum(syy, red);
-        if (tid == 0) {
-            partials[3 * b + 0] = sxx;
-            partials[3 * b + 1] = sxy;
-            partials[3 * b + 2] = syy;
-        }
-    }
-}
-
-// Replaces mmd_gram.py:_fwd_kernel.
-__global__ void __launch_bounds__(NT)
-fwd_kernel(const float* __restrict__ z, const float* __restrict__ norms,
-           const float* __restrict__ bw, int m, int d, int n1, VganLadder L,
-           float* __restrict__ partials) {
-    gram_tile<true, false>(z, z, norms, norms, bw, m, m, d, n1, m, L, partials, nullptr);
-}
-
-// K2, pass 0: z_t[k * ld + r] = z[r * d + k] for r < m, 0 for m <= r < ld;
-// 32 x 32 tiles through shared memory, so both sides are coalesced.
+// z_t[k * ld + r] = z[r * d + k] for r < m, 0 for m <= r < ld; 32 x 32
+// tiles through shared memory, so both sides are coalesced.
 __global__ void transpose_pad_kernel(const float* __restrict__ z, int m, int d, int ld,
                                      float* __restrict__ z_t) {
     __shared__ float t[TT][TT + 1];
@@ -279,30 +221,43 @@ __device__ __forceinline__ void tile_pair(int b, int tiles, int& J, int& I) {
     I = J + b;
 }
 
-// K2, pass 1: block (b, s) forms tile pair b's dot products over the d
-// columns [s slice, s slice + slice) of z_t (d, ld) and writes them to its
-// own partial tile of dots, entry (r, c) of thread t at (r ST + c) NT + t.
-__global__ void __launch_bounds__(NT, 2)  // two blocks an SM: at most 128 registers
-stash_dot_kernel(const float* __restrict__ z_t, int ld, int d, int slice, int tiles,
-                 float* __restrict__ dots) {
-    extern __shared__ __align__(16) float smem[];
-    int J, I;
-    tile_pair(blockIdx.x, tiles, J, I);
-    const float* base = z_t + (size_t)blockIdx.y * slice * ld;
-    float acc[ST][ST];
-#pragma unroll
-    for (int r = 0; r < ST; ++r)
-#pragma unroll
-        for (int c = 0; c < ST; ++c) acc[r][c] = 0.f;
-    dist_tile::NoHook hook;
-    dist_tile::product<ST, ST>(dist_tile::Operand{base, ld, J * SB, nullptr},
-                               dist_tile::Operand{base, ld, I * SB, nullptr},
-                               min(slice, d - (int)blockIdx.y * slice), smem, acc, hook);
-    float* out = dots + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * SB2 + threadIdx.x;
-#pragma unroll
-    for (int r = 0; r < ST; ++r)
-#pragma unroll
-        for (int c = 0; c < ST; ++c) out[(r * ST + c) * NT] = acc[r][c];
+// One 128 x 128 tile of a panel: its rows [r0, r0 + SB) below R, its
+// columns [c0, c0 + SB) below c1. mirror: the K' of entry (r, c) is also
+// written to (c - diag, diag + r).
+struct TileAt {
+    int r0, c0, c1;
+    bool mirror;
+};
+
+// The tiles of an (R, C) panel (see the header). With diag >= 0 the blocks
+// take the diagonal block's tile pairs first, then, row tile by row tile,
+// the `before` column tiles left of it and the `after` ones right of it;
+// with diag < 0, `before` counts every column tile. ops/cuda/mmd_gram.py
+// panel_blocks counts them on the host; tests/test_torch_mmd_gram.py
+// models the enumeration.
+struct Panel {
+    int R, C, diag, rows, pairs, before, after;
+
+    __host__ __device__ int tiles() const { return pairs + rows * (before + after); }
+
+    __device__ TileAt at(int b) const {
+        if (b < pairs) {
+            int J, I;
+            tile_pair(b, rows, J, I);
+            return {J * SB, diag + I * SB, diag + R, I != J};
+        }
+        b -= pairs;
+        const int per = before + after, J = b / per, k = b % per;
+        if (k < before) return {J * SB, k * SB, diag < 0 ? C : diag, false};
+        return {J * SB, diag + R + (k - before) * SB, C, false};
+    }
+};
+
+Panel make_panel(int R, int C, int diag) {
+    const int rows = dist_tile::cdiv(R, SB);
+    if (diag < 0) return {R, C, -1, rows, 0, dist_tile::cdiv(C, SB), 0};
+    return {R, C, diag, rows, rows * (rows + 1) / 2, dist_tile::cdiv(diag, SB),
+            dist_tile::cdiv(C - diag - R, SB)};
 }
 
 // Four consecutive entries to p[0..4): the ones at or past n are left out;
@@ -319,30 +274,190 @@ __device__ __forceinline__ void store4(float* p, float a, float b, float c, floa
     if (n > 3) p[3] = e;
 }
 
-// ladder_eval<true, true> behind a call: its integer powers unroll into
-// thousands of instructions, so K2's epilogue keeps one copy of them
-// (instruction-cache footprint) rather than one per entry.
-__device__ __noinline__ void ladder_k_kp(float d2, float bw, const VganLadder& L, float& k,
+// ladder_eval behind a call, so that each epilogue keeps one copy of the
+// ladder (instruction-cache footprint: inlined into every entry, its integer
+// powers unroll into tens of thousands of instructions). The power-of-two
+// exponents of a geometric ladder are read off one squaring chain t, t^2,
+// t^4, t^8, t^16: int_pow forms t^(2^j) by the same j squarings, so the
+// values are equal to the bit, with 4 products an entry instead of 10 and
+// no loop (K1 at m = 40960, d = 1024: 48.6 ms against 55.4). Other
+// exponents go through int_pow.
+template <bool WANT_K, bool WANT_KP>
+__device__ __noinline__ void ladder_call(float d2, float bw, const VganLadder& L, float& k,
                                          float& kp) {
-    ladder_eval<true, true>(d2, bw, L, k, kp);
+    if (!L.use_pow) {
+        ladder_eval<WANT_K, WANT_KP>(d2, bw, L, k, kp);
+        return;
+    }
+    k = 0.f;
+    kp = 0.f;
+    const float t = expf(-d2 / (bw * L.base));
+    const float t2 = t * t, t4 = t2 * t2, t8 = t4 * t4, t16 = t8 * t8;
+#pragma unroll
+    for (int q = 0; q < MAX_MULTS; ++q) {
+        if (q < L.n) {
+            const int i = L.pw[q];
+            const float p = i == 1    ? t
+                            : i == 2  ? t2
+                            : i == 4  ? t4
+                            : i == 8  ? t8
+                            : i == 16 ? t16
+                                      : int_pow(t, i);
+            if (WANT_K) k = k + p;
+            if (WANT_KP) kp = kp - p / (bw * L.mult[q]);
+        }
+    }
 }
 
-// K2, pass 2: block (b, q) takes a quarter of tile pair b, the rows 4 (q / 2)
-// .. + 4 and columns 4 (q % 2) .. + 4 of each thread's 8 x 8: it sums their
-// nslices partial dots in slice order (the loads of one slice all in
-// flight), forms d2, K and K', writes K' to (r, c) and (c, r) of kp (m, m)
-// and the quarter's (XX, XY, YY) partial (see the header).
-__global__ void __launch_bounds__(NT)
-stash_epilogue_kernel(const float* __restrict__ dots, int nslices, int tiles,
-                      const float* __restrict__ norms, const float* __restrict__ bw_ptr, int m,
-                      int n1, VganLadder L, float* __restrict__ partials,
-                      float* __restrict__ kp) {
-    constexpr int Q = ST / 2;  // a quarter's rows (and columns) of a thread
+// The epilogue of a thread's Q x Q entries of tile t: rows[i] and cols[j]
+// are their panel row and column (runs of four), v holds their dot
+// products and is overwritten with K'. SUMS: add their K to s = (XX, XY,
+// YY) with the pair-once weights of the header (the panel is the symmetric
+// square, so rows and columns index z). KP: write K' to kp (R, C), and
+// mirrored where t.mirror. The caller checks that every column start is a
+// multiple of 4, so vec only needs C to be one.
+template <int Q, bool SUMS, bool KP>
+__device__ __forceinline__ void epilogue(float (&v)[Q][Q], const int (&rows)[Q],
+                                         const int (&cols)[Q], const TileAt& t, const Panel& p,
+                                         const float* __restrict__ n_rows,
+                                         const float* __restrict__ n_cols, float bw, int n1,
+                                         const VganLadder& L, float (&s)[3],
+                                         float* __restrict__ kp) {
+    float nr[Q], nc[Q];
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+        nr[i] = rows[i] < p.R ? n_rows[rows[i]] : 0.f;
+        nc[i] = cols[i] < p.C ? n_cols[cols[i]] : 0.f;
+    }
+    const float w = t.mirror ? 2.f : 1.f;
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+#pragma unroll
+        for (int j = 0; j < Q; ++j) {
+            const float d2 = fmaxf(fmaf(-2.f, v[i][j], nr[i] + nc[j]), 0.f);
+            float k, kpv;
+            ladder_call<SUMS, KP>(d2, bw, L, k, kpv);
+            v[i][j] = kpv;
+            if (SUMS && rows[i] < p.R && cols[j] < t.c1) {
+                const bool rx = rows[i] < n1, cx = cols[j] < n1;
+                if (rx && cx) s[0] += w * k;
+                else if (!rx && !cx) s[2] += w * k;
+                else if (rx) s[1] += k;
+            }
+        }
+    }
+    if constexpr (KP) {
+        static_assert(Q % 4 == 0, "K' goes out in runs of four");
+        const bool vec = (p.C & 3) == 0;
+#pragma unroll
+        for (int i = 0; i < Q; ++i)  // (r, c)
+            if (rows[i] < p.R)
+#pragma unroll
+                for (int g = 0; g < Q; g += 4)
+                    store4(kp + (size_t)rows[i] * p.C + cols[g], v[i][g], v[i][g + 1],
+                           v[i][g + 2], v[i][g + 3], t.c1 - cols[g], vec);
+        if (t.mirror)
+#pragma unroll
+            for (int j = 0; j < Q; ++j)  // (c - diag, diag + r)
+                if (cols[j] < t.c1)
+#pragma unroll
+                    for (int g = 0; g < Q; g += 4)
+                        store4(kp + (size_t)(cols[j] - p.diag) * p.C + p.diag + rows[g], v[g][j],
+                               v[g + 1][j], v[g + 2][j], v[g + 3][j], p.R - rows[g], vec);
+    }
+}
+
+// The block's (XX, XY, YY) partial to partials[3 part ..].
+__device__ __forceinline__ void write_sums(const float (&s)[3], float* red, float* partials,
+                                           int part) {
+    const float sxx = block_sum(s[0], red), sxy = block_sum(s[1], red),
+                syy = block_sum(s[2], red);
+    if (threadIdx.x == 0) {
+        partials[3 * part + 0] = sxx;
+        partials[3 * part + 1] = sxy;
+        partials[3 * part + 2] = syy;
+    }
+}
+
+constexpr size_t TILE_SMEM = sizeof(float) * dist_tile::smem_floats<ST, ST>();
+static_assert(TILE_SMEM <= 48 * 1024, "launched without raising the dynamic shared memory limit");
+
+// Mode (a): block b forms tile b of the panel over all of d, a_t / b_t the
+// row and column operands (column-major, ld a multiple of 4, every row up to
+// a tile's start + 128 inside), then the epilogue in registers. SUMS (K1):
+// the block's (XX, XY, YY) partial; else (K4) K' to kp.
+template <bool SUMS>
+__global__ void __launch_bounds__(NT, 2)  // two blocks an SM: at most 128 registers
+tile_kernel(const Panel p, const float* __restrict__ a_t, int lda, int row0,
+            const float* __restrict__ b_t, int ldb, int d, const float* __restrict__ n_rows,
+            const float* __restrict__ n_cols, const float* __restrict__ bw_ptr, int n1,
+            VganLadder L, float* __restrict__ partials, float* __restrict__ kp) {
+    extern __shared__ __align__(16) float smem[];
     __shared__ float red[NT / 32];
-    const int b = blockIdx.x, r0 = Q * (blockIdx.y >> 1), c0 = Q * (blockIdx.y & 1);
-    int J, I;
-    tile_pair(b, tiles, J, I);
-    const bool diag = I == J, vec = (m & 3) == 0;
+    const TileAt t = p.at(blockIdx.x);
+    float acc[ST][ST];
+#pragma unroll
+    for (int r = 0; r < ST; ++r)
+#pragma unroll
+        for (int c = 0; c < ST; ++c) acc[r][c] = 0.f;
+    dist_tile::NoHook hook;
+    dist_tile::product<ST, ST>(dist_tile::Operand{a_t, lda, row0 + t.r0, nullptr},
+                               dist_tile::Operand{b_t, ldb, t.c0, nullptr}, d, smem, acc, hook);
+    int rows[ST], cols[ST];
+#pragma unroll
+    for (int i = 0; i < ST; ++i) {
+        rows[i] = t.r0 + dist_tile::tile_row(i);
+        cols[i] = t.c0 + dist_tile::tile_col(i);
+    }
+    float sums[3] = {0.f, 0.f, 0.f};
+    epilogue<ST, SUMS, !SUMS>(acc, rows, cols, t, p, n_rows, n_cols, *bw_ptr, n1, L, sums, kp);
+    if (SUMS) write_sums(sums, red, partials, blockIdx.x);
+}
+
+// Mode (b), pass 1: block (b, s) forms tile b's dot products over the d
+// columns [s slice, s slice + slice) and writes them to its own partial
+// tile of dots, entry (r, c) of thread t at (r ST + c) NT + t.
+__global__ void __launch_bounds__(NT, 2)
+dot_slices_kernel(const Panel p, const float* __restrict__ a_t, int lda, int row0,
+                  const float* __restrict__ b_t, int ldb, int d, int slice,
+                  float* __restrict__ dots) {
+    extern __shared__ __align__(16) float smem[];
+    const TileAt t = p.at(blockIdx.x);
+    const size_t k0 = (size_t)blockIdx.y * slice;
+    float acc[ST][ST];
+#pragma unroll
+    for (int r = 0; r < ST; ++r)
+#pragma unroll
+        for (int c = 0; c < ST; ++c) acc[r][c] = 0.f;
+    dist_tile::NoHook hook;
+    dist_tile::product<ST, ST>(dist_tile::Operand{a_t + k0 * lda, lda, row0 + t.r0, nullptr},
+                               dist_tile::Operand{b_t + k0 * ldb, ldb, t.c0, nullptr},
+                               min(slice, d - (int)k0), smem, acc, hook);
+    float* out = dots + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * SB2 + threadIdx.x;
+#pragma unroll
+    for (int r = 0; r < ST; ++r)
+#pragma unroll
+        for (int c = 0; c < ST; ++c) out[(r * ST + c) * NT] = acc[r][c];
+}
+
+// Mode (b), pass 2: PARTS blocks a tile (4, or 16 for K1, whose epilogue
+// stores nothing and is latency-bound at m = 1000: more warps in flight).
+// Block (b, q) takes the Q x Q entries (Q = 8 / sqrt(PARTS)) of each
+// thread's 8 x 8 at rows Q (q / (8 / Q)) and columns Q (q % (8 / Q)): it
+// sums their nslices partial dots in slice order (the loads of one slice
+// all in flight), then runs the epilogue. SUMS: the part's (XX, XY, YY)
+// partial, at PARTS b + q; KP: K' to kp.
+template <int PARTS, bool SUMS, bool KP>
+__global__ void __launch_bounds__(NT)
+slices_epilogue_kernel(const float* __restrict__ dots, int nslices, const Panel p,
+                       const float* __restrict__ n_rows, const float* __restrict__ n_cols,
+                       const float* __restrict__ bw_ptr, int n1, VganLadder L,
+                       float* __restrict__ partials, float* __restrict__ kp) {
+    constexpr int Q = PARTS == 4 ? ST / 2 : ST / 4;  // a part's rows (and columns) of a thread
+    static_assert(Q * Q * PARTS == ST * ST, "PARTS is 4 or 16");
+    __shared__ float red[NT / 32];
+    const int b = blockIdx.x, r0 = Q * (blockIdx.y / (ST / Q)), c0 = Q * (blockIdx.y % (ST / Q));
+    const TileAt t = p.at(b);
     const size_t stride = (size_t)gridDim.x * SB2;  // from one slice's tile to the next
     const float* src = dots + (size_t)b * SB2 + threadIdx.x;
     float dot[Q][Q];
@@ -355,71 +470,18 @@ stash_epilogue_kernel(const float* __restrict__ dots, int nslices, int tiles,
         for (int i = 0; i < Q; ++i)
 #pragma unroll
             for (int j = 0; j < Q; ++j) dot[i][j] += src[s * stride + ((r0 + i) * ST + c0 + j) * NT];
-    const float bw = *bw_ptr;
     int rows[Q], cols[Q];
-    float nr[Q], nc[Q];
 #pragma unroll
     for (int i = 0; i < Q; ++i) {
-        rows[i] = J * SB + dist_tile::tile_row(r0 + i);  // runs of four: r0 is 0 or 4
-        cols[i] = I * SB + dist_tile::tile_col(c0 + i);
-        nr[i] = rows[i] < m ? norms[rows[i]] : 0.f;
-        nc[i] = cols[i] < m ? norms[cols[i]] : 0.f;
+        rows[i] = t.r0 + dist_tile::tile_row(r0 + i);  // Q = 4: runs of four (r0 is 0 or 4)
+        cols[i] = t.c0 + dist_tile::tile_col(c0 + i);
     }
-    float kv[Q][Q];
-    float sxx = 0.f, sxy = 0.f, syy = 0.f;
-#pragma unroll
-    for (int i = 0; i < Q; ++i) {
-#pragma unroll
-        for (int j = 0; j < Q; ++j) {
-            const float d2 = fmaxf(fmaf(-2.f, dot[i][j], nr[i] + nc[j]), 0.f);
-            float k, kpv;
-            ladder_k_kp(d2, bw, L, k, kpv);
-            kv[i][j] = kpv;
-            if (rows[i] < m && cols[j] < m) {
-                const bool rx = rows[i] < n1, cx = cols[j] < n1;
-                const float w = diag ? 1.f : 2.f;
-                if (rx && cx) sxx += w * k;
-                else if (!rx && !cx) syy += w * k;
-                else if (rx) sxy += k;
-            }
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < Q; ++i)  // (r, c)
-        if (rows[i] < m)
-            store4(kp + (size_t)rows[i] * m + cols[0], kv[i][0], kv[i][1], kv[i][2], kv[i][3],
-                   m - cols[0], vec);
-    if (!diag) {
-#pragma unroll
-        for (int j = 0; j < Q; ++j)  // (c, r)
-            if (cols[j] < m)
-                store4(kp + (size_t)cols[j] * m + rows[0], kv[0][j], kv[1][j], kv[2][j], kv[3][j],
-                       m - rows[0], vec);
-    }
-    sxx = block_sum(sxx, red);
-    sxy = block_sum(sxy, red);
-    syy = block_sum(syy, red);
-    if (threadIdx.x == 0) {
-        const int part = b * 4 + blockIdx.y;
-        partials[3 * part + 0] = sxx;
-        partials[3 * part + 1] = sxy;
-        partials[3 * part + 2] = syy;
-    }
+    float sums[3] = {0.f, 0.f, 0.f};
+    epilogue<Q, SUMS, KP>(dot, rows, cols, t, p, n_rows, n_cols, *bw_ptr, n1, L, sums, kp);
+    if (SUMS) write_sums(sums, red, partials, b * PARTS + blockIdx.y);
 }
 
-constexpr size_t STASH_DOT_SMEM = sizeof(float) * dist_tile::smem_floats<ST, ST>();
-static_assert(STASH_DOT_SMEM <= 48 * 1024, "launched without raising the dynamic shared memory limit");
-
-// Replaces mmd_gram.py:_kprime_panel_kernel.
-__global__ void __launch_bounds__(NT)
-kprime_panel_kernel(const float* __restrict__ zr, const float* __restrict__ zc,
-                    const float* __restrict__ nr, const float* __restrict__ nc,
-                    const float* __restrict__ bw, int R, int C, int d, VganLadder L,
-                    float* __restrict__ kp) {
-    gram_tile<false, true>(zr, zc, nr, nc, bw, R, C, d, 0, 0, L, nullptr, kp);
-}
-
-// Second pass of the forward: the per-block partials summed in a fixed order.
+// The per-block partials summed in a fixed order.
 __global__ void __launch_bounds__(NT)
 finalize_sums(const float* __restrict__ partials, int nblocks, float* __restrict__ sums) {
     __shared__ float red[3][NT];
@@ -552,46 +614,64 @@ sum_splits(const float* __restrict__ parts, int nsplit, size_t n, float* __restr
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+inline int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
+
+// K1 (kp == nullptr) and K2 over the symmetric square of z (m, d). scratch,
+// in this order: z_t (d x M floats, M = m rounded up to 128); in mode (a)
+// (K1 with one slice) the sums' partials (3 x P, P = T (T + 1) / 2 tile pairs
+// of T = M / 128 tiles); in mode (b) the partial dot tiles (cdiv(d, slice) x
+// P x 128^2) and the sums' partials (3 x 4 P for K2, 3 x 16 P for K1: the
+// epilogue's blocks a tile pair).
+int quadrant_sums(const float* z, const float* norms, const float* bw, int m, int d, int n1,
+                  const VganLadder* ladder, int slice, float* scratch, float* sums, float* kp,
+                  cudaStream_t s) {
+    if (m < 1 || d < 1 || slice < 1 || slice % dist_tile::BK) return invalid();
+    const Panel p = make_panel(m, m, 0);
+    const int ld = p.rows * SB, blocks = p.tiles(), nslices = cdiv(d, slice);
+    if (nslices > 65535 || cdiv(d, TT) > 65535) return invalid();
+    float* z_t = scratch;
+    float* dots = z_t + (size_t)d * ld;
+    transpose_pad_kernel<<<dim3(ld / TT, cdiv(d, TT)), dim3(TT, 8), 0, s>>>(z, m, d, ld, z_t);
+    if (!kp && nslices == 1) {
+        tile_kernel<true><<<blocks, NT, TILE_SMEM, s>>>(p, z_t, ld, 0, z_t, ld, d, norms, norms, bw,
+                                                        n1, *ladder, dots, nullptr);
+        finalize_sums<<<1, NT, 0, s>>>(dots, blocks, sums);
+        return static_cast<int>(cudaGetLastError());
+    }
+    float* partials = dots + (size_t)nslices * blocks * SB2;
+    dot_slices_kernel<<<dim3(blocks, nslices), NT, TILE_SMEM, s>>>(p, z_t, ld, 0, z_t, ld, d, slice,
+                                                                   dots);
+    const int parts = kp ? 4 : 16;
+    if (kp)
+        slices_epilogue_kernel<4, true, true><<<dim3(blocks, parts), NT, 0, s>>>(
+            dots, nslices, p, norms, norms, bw, n1, *ladder, partials, kp);
+    else
+        slices_epilogue_kernel<16, true, false><<<dim3(blocks, parts), NT, 0, s>>>(
+            dots, nslices, p, norms, norms, bw, n1, *ladder, partials, nullptr);
+    finalize_sums<<<1, NT, 0, s>>>(partials, parts * blocks, sums);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Number of per-block partials the forward kernels write (3 floats each).
-int vgan_gram_num_blocks(int m) { return cdiv(m, BM) * cdiv(m, BN); }
-
-int vgan_gram_quadrant_sums(const float* z, const float* norms, const float* bw, int m,
-                            int d, int n1, const VganLadder* ladder, float* partials,
+// K1. slice: the d columns of one slice, a positive multiple of 16; one
+// slice is mode (a). scratch: see quadrant_sums.
+int vgan_gram_quadrant_sums(const float* z, const float* norms, const float* bw, int m, int d,
+                            int n1, const VganLadder* ladder, int slice, float* scratch,
                             float* sums, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    dim3 grid(cdiv(m, BN), cdiv(m, BM));
-    fwd_kernel<<<grid, NT, 0, s>>>(z, norms, bw, m, d, n1, *ladder, partials);
-    finalize_sums<<<1, NT, 0, s>>>(partials, grid.x * grid.y, sums);
-    return static_cast<int>(cudaGetLastError());
+    return quadrant_sums(z, norms, bw, m, d, n1, ladder, slice, scratch, sums, nullptr,
+                         static_cast<cudaStream_t>(stream));
 }
 
-// K2. slice: the d columns of one slice, a positive multiple of 16.
-// scratch, in this order: z_t (d x M floats, M = m rounded up to 128), the
-// partial dot tiles (cdiv(d, slice) x P x 128^2, P = T (T + 1) / 2 tile pairs
-// of T = M / 128 tiles) and the sums' partials (3 x 4 P: four blocks a pair).
+// K2: always mode (b)'s passes. scratch: see quadrant_sums.
 int vgan_gram_quadrant_sums_stash(const float* z, const float* norms, const float* bw,
                                   int m, int d, int n1, const VganLadder* ladder, int slice,
                                   float* scratch, float* sums, float* kp, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (m < 1 || d < 1 || slice < 1 || slice % dist_tile::BK)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const int tiles = cdiv(m, SB), ld = tiles * SB, pairs = tiles * (tiles + 1) / 2;
-    const int nslices = cdiv(d, slice);
-    if (nslices > 65535 || cdiv(d, TT) > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    float* z_t = scratch;
-    float* dots = z_t + (size_t)d * ld;
-    float* partials = dots + (size_t)nslices * pairs * SB2;
-    transpose_pad_kernel<<<dim3(ld / TT, cdiv(d, TT)), dim3(TT, 8), 0, s>>>(z, m, d, ld, z_t);
-    stash_dot_kernel<<<dim3(pairs, nslices), NT, STASH_DOT_SMEM, s>>>(z_t, ld, d, slice, tiles,
-                                                                      dots);
-    stash_epilogue_kernel<<<dim3(pairs, 4), NT, 0, s>>>(dots, nslices, tiles, norms, bw, m, n1,
-                                                        *ladder, partials, kp);
-    finalize_sums<<<1, NT, 0, s>>>(partials, 4 * pairs, sums);
-    return static_cast<int>(cudaGetLastError());
+    if (!kp) return invalid();
+    return quadrant_sums(z, norms, bw, m, d, n1, ladder, slice, scratch, sums, kp,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // nsplit column splits (1 <= nsplit <= cdiv(m, BN)). With nsplit > 1 the
@@ -620,13 +700,47 @@ int vgan_gram_backward_flash(const float* z, const float* norms, const float* bw
     return static_cast<int>(cudaGetLastError());
 }
 
-int vgan_kprime_panel(const float* z_rows, const float* z_cols, const float* n_rows,
-                      const float* n_cols, const float* bw, int R, int C, int d,
-                      const VganLadder* ladder, float* kp, void* stream) {
+// z (n, d) to z_t (d, ld) column-major, rows n .. ld zero (ld >= n, a
+// multiple of 32): K4's operands.
+int vgan_transpose_pad(const float* z, int n, int d, int ld, float* z_t, void* stream) {
+    if (n < 1 || d < 1 || ld < n || ld % TT || cdiv(d, TT) > 65535) return invalid();
+    transpose_pad_kernel<<<dim3(ld / TT, cdiv(d, TT)), dim3(TT, 8), 0,
+                           static_cast<cudaStream_t>(stream)>>>(z, n, d, ld, z_t);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K4: the (R, C) panel kp of K'(d2) between rows row0 .. row0 + R of rows_t
+// (d x ld_rows) and the C columns of cols_t (d x ld_cols), both column-major
+// with every row up to a tile's start + 128 inside. diag >= 0: rows_t is
+// cols_t, row0 == diag, and the diagonal block [diag, diag + R) is formed
+// pair-once; diag < 0: ordered tiles. Every column start must be a multiple
+// of 4: ld_rows, ld_cols, row0 and diag, and R when columns follow the
+// diagonal block. slice: as K1's, one slice is mode (a); in mode (b) scratch
+// holds the partial dot tiles (cdiv(d, slice) x tiles x 128^2 floats).
+int vgan_kprime_panel(const float* rows_t, int ld_rows, int row0, const float* cols_t,
+                      int ld_cols, const float* n_rows, const float* n_cols, const float* bw,
+                      int R, int C, int d, int diag, const VganLadder* ladder, int slice,
+                      float* scratch, float* kp, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    dim3 grid(cdiv(C, BN), cdiv(R, BM));
-    kprime_panel_kernel<<<grid, NT, 0, s>>>(z_rows, z_cols, n_rows, n_cols, bw, R, C, d,
-                                            *ladder, kp);
+    if (R < 1 || C < 1 || d < 1 || slice < 1 || slice % dist_tile::BK ||
+        ((ld_rows | ld_cols | row0) & 3))
+        return invalid();
+    if (diag >= 0 && ((diag & 3) || row0 != diag || rows_t != cols_t || diag + R > C ||
+                      (diag + R < C && (R & 3))))
+        return invalid();
+    const Panel p = make_panel(R, C, diag);
+    const int blocks = p.tiles(), nslices = cdiv(d, slice);
+    if (nslices > 65535) return invalid();
+    if (nslices == 1) {
+        tile_kernel<false><<<blocks, NT, TILE_SMEM, s>>>(p, rows_t, ld_rows, row0, cols_t, ld_cols,
+                                                         d, n_rows, n_cols, bw, 0, *ladder, nullptr,
+                                                         kp);
+        return static_cast<int>(cudaGetLastError());
+    }
+    dot_slices_kernel<<<dim3(blocks, nslices), NT, TILE_SMEM, s>>>(p, rows_t, ld_rows, row0, cols_t,
+                                                                   ld_cols, d, slice, scratch);
+    slices_epilogue_kernel<4, false, true><<<dim3(blocks, 4), NT, 0, s>>>(
+        scratch, nslices, p, n_rows, n_cols, bw, 0, *ladder, nullptr, kp);
     return static_cast<int>(cudaGetLastError());
 }
 

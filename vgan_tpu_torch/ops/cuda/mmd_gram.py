@@ -10,6 +10,11 @@ plain PyTorch version beside it:
   coefficient-weighted K', no m^2 buffer);
 - :func:`kprime_panel` (an (R, C) K'(d2) row panel).
 
+K1, K2 and K4 run on 128 x 128 tiles; :func:`tile_schedule` picks, from
+the number of tiles a launch forms (:func:`tile_pairs`,
+:func:`panel_blocks`), whether the summed d axis is split over the card
+(mode (b)) or each tile runs its epilogue in registers (mode (a)).
+
 A wrapper given CPU tensors returns its plain version; given CUDA tensors it
 launches its kernel or raises. The wrappers take the unpadded (m, d) rows:
 the kernels mask their own ragged edges, which is equivalent to the JAX
@@ -45,16 +50,16 @@ PANEL_BYTES = 1 << 28
 # to 0 to force the bounded-memory panel backward.
 _KP_STASH_BYTES = 7 << 30
 MAX_MULTS = 8
-# The row and column tile of gram_tile (BM = BN in csrc/mmd_gram.cu: K1, K3,
-# K4); also the row granularity of the panel backward's panels.
+# The row and column tile of K3 (BM = BN in csrc/mmd_gram.cu); also the row
+# granularity of the panel backward's panels.
 KERNEL_TILE = 64
 # The flash backward splits its columns over this many blocks per SM at
 # least, within FLASH_SPLIT_BYTES of partial sums.
 FLASH_BLOCKS_PER_SM = 2
 FLASH_SPLIT_BYTES = 1 << 28
-# The stash forward (K2): its 128 x 128 tile pairs (SB in csrc/mmd_gram.cu)
-# and the d-chunk of dist_tile.cuh (BK), of which a d slice is a multiple;
-# it splits d until tile pairs x slices give each SM this many blocks.
+# K1, K2 and K4: their 128 x 128 tiles (SB in csrc/mmd_gram.cu) and the
+# d-chunk of dist_tile.cuh (BK), of which a d slice is a multiple; d is split
+# until tiles x slices give each SM this many blocks.
 STASH_TILE = 128
 STASH_BK = 16
 STASH_BLOCKS_PER_SM = 2
@@ -213,11 +218,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "vgan_gram_num_blocks": [_I],
-    "vgan_gram_quadrant_sums": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "vgan_gram_quadrant_sums": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
     "vgan_gram_quadrant_sums_stash": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
     "vgan_gram_backward_flash": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _I, _P, _P, _P, _P],
-    "vgan_kprime_panel": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "vgan_transpose_pad": [_P, _I, _I, _I, _P, _P],
+    "vgan_kprime_panel": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
 }
 
 
@@ -258,6 +263,31 @@ def _column_major(x: torch.Tensor, rows_multiple: int) -> torch.Tensor:
     return out
 
 
+def _transposed(x: torch.Tensor, ld: int) -> torch.Tensor:
+    """(d, ld) column-major copy of the (n, d) float32 rows ``x``, rows n ..
+    ld zero: ``transpose_pad_kernel`` on the card, torch on the CPU."""
+    n, d = x.shape
+    if not x.is_cuda:
+        out = torch.zeros((d, ld), dtype=torch.float32)
+        out[:, :n] = x.T
+        return out
+    _check("x", x, (n, d), x.device)
+    out = torch.empty((d, ld), dtype=torch.float32, device=x.device)
+    _launch("vgan_transpose_pad", x.device, _ptr(x), n, d, ld, _ptr(out))
+    return out
+
+
+def panel_operand(x: torch.Tensor) -> torch.Tensor:
+    """K4's column-major operand of the (n, d) rows ``x``: one tile more than
+    n rounded up to 128, so that a tile may start at any row below n (a
+    panel's diagonal block starts at its row offset)."""
+    return _transposed(x, _round_up(x.shape[0], STASH_TILE) + STASH_TILE)
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch(fn_name: str, device, *args, lib=None) -> None:
     """Call ``fn_name`` of ``lib`` (default: this module's library) on the
     current stream of ``device``; raise on a launch error."""
@@ -277,39 +307,67 @@ def _check_gram_inputs(z, norms, bw):
     return m, d
 
 
+def tile_pairs(m: int) -> int:
+    """Tile pairs J <= I of the symmetric (m, m) square in 128 x 128 tiles:
+    the tiles K1 and K2 form."""
+    tiles = _cdiv(m, STASH_TILE)
+    return tiles * (tiles + 1) // 2
+
+
+def tile_schedule(blocks: int, d: int, sms: int) -> Tuple[str, int, int]:
+    """``(mode, slice, count)`` of a K1, K2 or K4 launch over ``blocks``
+    tiles: the summed d axis in ``count`` slices of ``slice`` columns (the
+    last one ragged), ``slice`` a multiple of ``STASH_BK``, so that blocks x
+    slices give each of ``sms`` SMs at most ``STASH_BLOCKS_PER_SM`` blocks
+    in one wave. Mode 'a' (one slice, once the tiles alone give more than
+    half a wave): each block runs its epilogue on its own accumulators.
+    Mode 'b': the partial dot tiles, at most one wave of them, go to
+    scratch and a second pass adds them in slice order."""
+    chunks = _cdiv(d, STASH_BK)
+    want = max(1, min(STASH_BLOCKS_PER_SM * sms // blocks, chunks))
+    slice_ = _cdiv(chunks, want) * STASH_BK
+    count = _cdiv(d, slice_)
+    return ("a" if count == 1 else "b"), slice_, count
+
+
+def stash_slices(m: int, d: int, sms: int) -> Tuple[int, int]:
+    """``(slice, count)`` of K1 and K2 over the tile pairs of m rows."""
+    return tile_schedule(tile_pairs(m), d, sms)[1:]
+
+
+def stash_scratch_floats(m: int, d: int, slice_: int) -> int:
+    """K2's scratch, always mode (b)'s: the column-major padded z, the
+    partial dot tile of every (tile pair, slice), and three sums per quarter
+    of a tile pair."""
+    pairs = tile_pairs(m)
+    return d * _round_up(m, STASH_TILE) + _cdiv(d, slice_) * pairs * STASH_TILE ** 2 + 12 * pairs
+
+
+def quadrant_sums_scratch_floats(m: int, d: int, slice_: int) -> int:
+    """K1's scratch: the column-major padded z, then in mode (a) (one slice)
+    three sums per tile pair; in mode (b) the partial dot tile of every
+    (tile pair, slice), at most one wave of them, and three sums per
+    sixteenth of a tile pair (its epilogue's blocks). Never m^2."""
+    pairs, count = tile_pairs(m), _cdiv(d, slice_)
+    zt = d * _round_up(m, STASH_TILE)
+    if count == 1:
+        return zt + 3 * pairs
+    return zt + count * pairs * STASH_TILE ** 2 + 48 * pairs
+
+
 def gram_quadrant_sums(z, norms, bw, n1: int, mults) -> torch.Tensor:
     """Quadrant sums ``(1, 4)`` = [XX, XY, YY, 0] of ``K(d2(z, z))``."""
     if not z.is_cuda:
         return gram_quadrant_sums_reference(z, norms, bw, n1, mults)
     m, d = _check_gram_inputs(z, norms, bw)
-    partials = torch.empty(3 * _lib().vgan_gram_num_blocks(m), dtype=torch.float32,
-                           device=z.device)
+    slice_, _ = stash_slices(m, d, _sms(z.device))
+    scratch = torch.empty(quadrant_sums_scratch_floats(m, d, slice_), dtype=torch.float32,
+                          device=z.device)
     sums = torch.empty(4, dtype=torch.float32, device=z.device)
     _launch("vgan_gram_quadrant_sums", z.device, _ptr(z), _ptr(norms), _ptr(bw.reshape(1)), m,
-            d, n1, ctypes.byref(_ladder(tuple(mults))), _ptr(partials), _ptr(sums))
+            d, n1, ctypes.byref(_ladder(tuple(mults))), slice_, _ptr(scratch), _ptr(sums))
     gram_quadrant_sums.launches += 1
     return sums.reshape(1, 4)
-
-
-def stash_slices(m: int, d: int, sms: int) -> Tuple[int, int]:
-    """``(slice, count)``: K2 splits the summed d axis into ``count`` slices
-    of ``slice`` columns (the last one ragged), ``slice`` a multiple of
-    ``STASH_BK``, so that its tile pairs times the slices give each of
-    ``sms`` SMs at most ``STASH_BLOCKS_PER_SM`` blocks in one wave."""
-    tiles = _cdiv(m, STASH_TILE)
-    pairs = tiles * (tiles + 1) // 2
-    chunks = _cdiv(d, STASH_BK)
-    want = max(1, min(STASH_BLOCKS_PER_SM * sms // pairs, chunks))
-    slice_ = _cdiv(chunks, want) * STASH_BK
-    return slice_, _cdiv(d, slice_)
-
-
-def stash_scratch_floats(m: int, d: int, slice_: int) -> int:
-    """K2's scratch: the column-major padded z, the partial dot tile of every
-    (tile pair, slice), and three sums per quarter of a tile pair."""
-    tiles = _cdiv(m, STASH_TILE)
-    pairs = tiles * (tiles + 1) // 2
-    return d * tiles * STASH_TILE + _cdiv(d, slice_) * pairs * STASH_TILE ** 2 + 12 * pairs
 
 
 def gram_quadrant_sums_stash(z, norms, bw, n1: int, mults):
@@ -318,7 +376,7 @@ def gram_quadrant_sums_stash(z, norms, bw, n1: int, mults):
     if not z.is_cuda:
         return gram_quadrant_sums_stash_reference(z, norms, bw, n1, mults)
     m, d = _check_gram_inputs(z, norms, bw)
-    slice_, _ = stash_slices(m, d, torch.cuda.get_device_properties(z.device).multi_processor_count)
+    slice_, _ = stash_slices(m, d, _sms(z.device))
     scratch = torch.empty(stash_scratch_floats(m, d, slice_), dtype=torch.float32,
                           device=z.device)
     sums = torch.empty(4, dtype=torch.float32, device=z.device)
@@ -349,7 +407,7 @@ def gram_backward_flash(z, norms, bw, n1: int, n2: int, mults):
         raise ValueError(f"n1 + n2 = {n1 + n2} != m = {m}")
     sz = torch.empty((m, d), dtype=torch.float32, device=z.device)
     rs = torch.empty((m, 1), dtype=torch.float32, device=z.device)
-    nsplit = flash_splits(m, d, torch.cuda.get_device_properties(z.device).multi_processor_count)
+    nsplit = flash_splits(m, d, _sms(z.device))
     scratch = torch.empty(nsplit * m * (d + 1) if nsplit > 1 else 1, dtype=torch.float32,
                           device=z.device)
     cxx, cyy, cxy = _coefficients(n1, n2)
@@ -360,8 +418,34 @@ def gram_backward_flash(z, norms, bw, n1: int, n2: int, mults):
     return sz, rs
 
 
-def kprime_panel(z_rows, z_cols, n_rows, n_cols, bw, mults) -> torch.Tensor:
-    """(R, C) panel of K'(d2) between ``z_rows`` (R, d) and ``z_cols`` (C, d)."""
+def panel_blocks(R: int, C: int, offset=None) -> int:
+    """The blocks (128 x 128 tiles) of a K4 launch over an (R, C) panel:
+    with ``offset``, the tile pairs of its diagonal block and the ordered
+    tiles left and right of it; without, every tile ordered."""
+    rows = _cdiv(R, STASH_TILE)
+    if offset is None:
+        return rows * _cdiv(C, STASH_TILE)
+    side = _cdiv(offset, STASH_TILE) + _cdiv(C - offset - R, STASH_TILE)
+    return rows * (rows + 1) // 2 + rows * side
+
+
+def panel_scratch_floats(blocks: int, d: int, slice_: int) -> int:
+    """K4's scratch: in mode (b) the partial dot tile of every (tile, slice),
+    at most one wave of them; none in mode (a)."""
+    count = _cdiv(d, slice_)
+    return count * blocks * STASH_TILE ** 2 if count > 1 else 0
+
+
+def kprime_panel(z_rows, z_cols, n_rows, n_cols, bw, mults, offset=None,
+                 cols_t=None) -> torch.Tensor:
+    """(R, C) panel of K'(d2) between ``z_rows`` (R, d) and ``z_cols`` (C, d).
+
+    With ``offset``, ``z_rows`` is the view ``z_cols[offset:offset + R]``:
+    the kernel forms each unordered pair of the diagonal block once and
+    writes its K' to both places. ``offset`` is a multiple of 4, and so is R
+    when columns follow the block. ``cols_t`` is ``panel_operand(z_cols)``,
+    made here when not given (the panel backward makes it once for all its
+    panels)."""
     if not z_rows.is_cuda:
         return kprime_panel_reference(z_rows, z_cols, n_rows, n_cols, bw, mults)
     R, d = z_rows.shape
@@ -372,10 +456,27 @@ def kprime_panel(z_rows, z_cols, n_rows, n_cols, bw, mults) -> torch.Tensor:
     _check("n_rows", n_rows, (R,), dev)
     _check("n_cols", n_cols, (C,), dev)
     _check("bw", bw.reshape(1), (1,), dev)
+    if cols_t is None:
+        cols_t = panel_operand(z_cols)
+    _check("cols_t", cols_t, (d, _round_up(C, STASH_TILE) + STASH_TILE), dev)
+    if offset is None:
+        rows_t, row0, diag = _transposed(z_rows, _round_up(R, STASH_TILE)), 0, -1
+    else:
+        if not (0 <= offset and offset + R <= C and offset % 4 == 0
+                and (offset + R == C or R % 4 == 0)):
+            raise ValueError(f"offset {offset} with R={R}, C={C}: expected a multiple of 4 with "
+                             "offset + R <= C, and R a multiple of 4 unless offset + R == C")
+        if z_rows.data_ptr() != z_cols[offset:].data_ptr():
+            raise ValueError("with an offset, z_rows must be the view z_cols[offset:offset + R]")
+        rows_t, row0, diag = cols_t, offset, offset
+    blocks = panel_blocks(R, C, offset)
+    _, slice_, _ = tile_schedule(blocks, d, _sms(dev))
+    scratch = torch.empty(max(1, panel_scratch_floats(blocks, d, slice_)), dtype=torch.float32,
+                          device=dev)
     kp = torch.empty((R, C), dtype=torch.float32, device=dev)
-    _launch("vgan_kprime_panel", dev, _ptr(z_rows), _ptr(z_cols), _ptr(n_rows),
-            _ptr(n_cols), _ptr(bw.reshape(1)), R, C, d,
-            ctypes.byref(_ladder(tuple(mults))), _ptr(kp))
+    _launch("vgan_kprime_panel", dev, _ptr(rows_t), rows_t.shape[1], row0, _ptr(cols_t),
+            cols_t.shape[1], _ptr(n_rows), _ptr(n_cols), _ptr(bw.reshape(1)), R, C, d, diag,
+            ctypes.byref(_ladder(tuple(mults))), slice_, _ptr(scratch), _ptr(kp))
     kprime_panel.launches += 1
     return kp
 
@@ -415,15 +516,18 @@ def _panel_rows(m: int) -> int:
 
 def gram_backward_panel(z, norms, bw, n1: int, mults) -> torch.Tensor:
     """Unscaled cotangent ``rowsum(S) z - S @ z`` through bounded (R, m) K'
-    panels: ``rowsum(S) = q .* (K' @ q)``, ``S @ z = q .* (K' @ (q .* z))``."""
+    panels: ``rowsum(S) = q .* (K' @ q)``, ``S @ z = q .* (K' @ (q .* z))``.
+    On the card, one column-major copy of z serves every panel, and each
+    panel's diagonal block is formed pair-once (its row offset)."""
     m = z.shape[0]
     R = _panel_rows(m)
     q = _q_vector(m, n1, z.device)
     qz = q[:, None] * z
+    z_t = panel_operand(z) if z.is_cuda else None
     out = torch.empty_like(z)
     for off in range(0, m, R):
         rows = slice(off, off + R)
-        kp = kprime_panel(z[rows], z, norms[rows], norms, bw, mults)
+        kp = kprime_panel(z[rows], z, norms[rows], norms, bw, mults, offset=off, cols_t=z_t)
         a = kp @ q
         u = kp @ qz
         out[rows] = q[rows, None] * (a[:, None] * z[rows] - u)
