@@ -56,10 +56,11 @@ Phases (each asserts; any failure exits non-zero):
    stash off, panel), and the d=10 notebook configuration of both
    estimators, which runs no kernel. Every kernel fit's losses are held
    against the same fit on the dense torch path;
-5. CUDA-event times of each kernel and its plain version, bounds (K1 also
-   at the panel fit's forward and at m=40960 in the flash regime, with its
-   peak memory beside z's bytes; K4 also on one real panel, m=45056,
-   R=1472; K8: a
+5. CUDA-event times of each kernel and its plain version, bounds (K1 and
+   K3 also at m=40960 in the flash regime, each with its peak memory beside
+   z's bytes and held to its plain version evaluated in row blocks; K1 also
+   at the panel fit's forward; K4 also on one real panel, m=45056, R=1472;
+   K8: a
    2000-epoch fused fit at the notebook shape, its plain version over the
    first 20 epochs, the scan path's steps/s there, and the corner's time
    per step), the
@@ -69,8 +70,10 @@ Phases (each asserts; any failure exits non-zero):
    K8's phase timer gives each phase's microseconds a step at both fused
    shapes. With ``--parent-csrc DIR`` (an earlier commit's
    ``vgan_tpu_torch/ops/cuda/csrc/``), it also builds that commit's kernels
-   and times its K1, K2, K4, K5, K6, K7 and K8 against this tree's on the
-   same inputs, in turns.
+   and times its eight kernels against this tree's on the same inputs, in
+   turns (K3 through the parent's own C entry, K6 and K7 also held to the
+   parent's scores bit for bit in both modes), and the kl stress and flash
+   fits' steps/s with the parent's K3 and with this tree's.
 
 Prints a JSON line of the kernels, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -80,6 +83,7 @@ CUDA device. Imports nothing of JAX or ``vgan_tpu``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import statistics
 import subprocess
@@ -121,6 +125,15 @@ RTOL_KP, ATOL_KP = 1e-5, 1e-7
 # gradients and S @ z: signed sums over m terms that partly cancel, so the
 # error is held against the largest entry, not entrywise.
 GRAD_FRAC = 1e-4
+# K3 at m=40960 (both halves drawn from one distribution) against its plain
+# version's f32 S summed in float64: rowsum(S) and S @ z cancel there, so an
+# error held to the largest entry measures the cancellation, not the kernel
+# (on an H100 the kernel, the earlier 64 x 64 design and a TF32 control all
+# read 4e-4 to 5e-4 of the largest entry). Each entry is held instead to this
+# fraction of the sum of its terms' magnitudes: there the two f32 kernels
+# read 3.8e-7 and 5.2e-7 and the TF32 control 1.2e-5, which the check must
+# refuse.
+TERM_FRAC = 2e-6
 # the fit's per-epoch losses on the kernel path vs the dense torch path:
 # eight Adadelta steps compound f32 rounding differences of ~1e-6.
 RTOL_FIT_LOSS = 1e-3
@@ -182,6 +195,9 @@ N_OUTLIERS = 25
 # and K4 on one real panel of the panel regime (m=45056: (M, M) K' no longer
 # fits the 7 GiB stash; R = _panel_rows(m) = 1472)
 K1_LARGE = (20480, 20480, 1024)
+# the flash fit's timed epochs (4 steps each) in flash_fit_rates: the fit is
+# host-bound, and over 4 epochs its steps/s spread almost 2x within each side
+FLASH_FIT_EPOCHS = 64
 K4_REAL_PANEL = dict(n1=22528, n2=22528, d=10240, offset=0)
 # a plain version is timed only where its whole-Gram temporaries, about
 # this many (m, m) f32 arrays at its peak, fit in PLAIN_MAX_BYTES
@@ -341,7 +357,8 @@ def phase_kernels(device, gram_shapes, flash_shapes, log):
         errs["gram_backward_flash", (n1, n2, d)] = max(e1, e2)
         repeat_identical("gram_backward_flash",
                          lambda: G.gram_backward_flash(z, norms, bw, n1, n2, mults))
-        log(f"  K3 {tag}: ok")
+        mode, _, nsplit = G.flash_schedule(n1 + n2, d, sms)
+        log(f"  K3 {tag} mode ({mode}), {nsplit} splits: ok")
     return errs
 
 
@@ -627,17 +644,31 @@ def phase_fused_kernel(device, shapes, log):
 
 
 def phase_knn_kernels(device, shapes, log):
-    """K6 / K7 against their plain version (``KNN_*`` tolerances), the
-    regime's kernel launched, the all-zero mask scored 0, and a re-run for
+    """K6 / K7 against their plain version (``KNN_*`` tolerances), their
+    operands' launch against its plain version (equal), the regime's kernel
+    launched, the all-zero mask scored 0, and a re-run for
     identical bits. ``shapes``: (label, nt, ntr, d, n_masks, k,
     exclude_self, integer). Returns the largest |score error| per
     (kernel, (nt, ntr, d))."""
     from vgan_tpu_torch.ops.cuda import knn_score as KS
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     errs = {}
     for label, nt, ntr, d, nm, k, excl, integer in shapes:
         xte, xtr, masks = knn_inputs(nt, ntr, d, nm, 41, device, integer, excl)
         name = "knn_scores_resident" if KS._resident_supported(ntr, d) else "knn_scores_stream"
+        # the operands' launch against its plain version: the copies equal,
+        # each mask's selected columns (the first count entries) equal
+        got = KS.kernel_operands(xte, xtr, masks)
+        want = (G._column_major(xte, KS.KERNEL_TILE), G._column_major(xtr, KS.KERNEL_TILE),
+                *KS.selected_columns(masks))
+        sync()
+        counts = want[3].tolist()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+              and torch.equal(got[3], want[3])
+              and all(torch.equal(got[2][i, :n], want[2][i, :n]) for i, n in enumerate(counts)),
+              f"{label}: the KNN kernels' operands differ from their plain version")
+        del got, want
         # each mask's own max(an + bn), (nm, 1)
         scale = (torch.amax((xte * xte) @ masks.T, dim=0)
                  + torch.amax((xtr * xtr) @ masks.T, dim=0))[:, None]
@@ -1089,6 +1120,21 @@ def device_split(fn, calls: int = 10) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
+def device_busy_us(fn) -> float:
+    """Device microseconds of every kernel one call of ``fn`` launches, from
+    ``torch.profiler``, after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
 def bound(ops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     """The larger of the operations at the rate of the kernel's datapath
     (``peak``, op/s; every kernel of the port runs IEEE f32 on the CUDA
@@ -1156,9 +1202,89 @@ def blockwise_quadrant_sums(z, norms, bw, n1: int, mults, block: int = 4096):
     return sums.to(torch.float32).reshape(1, 4)
 
 
-def phase_times(device, shapes, errs, launches, log):
+def flash_row_blocks(z, norms, bw, n1: int, n2: int, mults, block: int = 4096):
+    """K3's plain S in row blocks, where the whole (m, m) S would not fit:
+    yields (r0, r1, S[r0:r1]) in f32, the plain coefficients times K'(d2)."""
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
+
+    m = z.shape[0]
+    cxx, cyy, cxy = G._coefficients(n1, n2)
+    cols_x = torch.arange(m, device=z.device) < n1
+    for r0 in range(0, m, block):
+        r1 = min(m, r0 + block)
+        rows_x = torch.arange(r0, r1, device=z.device)[:, None] < n1
+        coeff = torch.where(rows_x & cols_x, cxx, torch.where(~rows_x & ~cols_x, cyy, cxy))
+        yield r0, r1, coeff.to(z.dtype) * G._kernel_deriv(
+            G._sq_dists(z[r0:r1], z, norms[r0:r1], norms), bw, mults)
+
+
+def blockwise_flash(z, norms, bw, n1: int, n2: int, mults):
+    """K3's plain version in row blocks: each block's f32 S multiplied and
+    summed in float64, with the magnitudes of the terms, |S| @ |z| and
+    rowsum(|S|). Returns (sz, rs, sz_scale, rs_scale), float64."""
+    m = z.shape[0]
+    z64 = z.double()
+    out = [torch.empty((m, z.shape[1]), dtype=torch.float64, device=z.device),
+           torch.empty((m, 1), dtype=torch.float64, device=z.device)]
+    out += [torch.empty_like(o) for o in out]
+    for r0, r1, s in flash_row_blocks(z, norms, bw, n1, n2, mults):
+        s = s.double()
+        out[0][r0:r1] = s @ z64
+        out[1][r0:r1] = torch.sum(s, dim=1, keepdim=True)
+        s.abs_()
+        out[2][r0:r1] = s @ z64.abs()
+        out[3][r0:r1] = torch.sum(s, dim=1, keepdim=True)
+        del s
+    return tuple(out)
+
+
+def blockwise_flash_tf32(z, norms, bw, n1: int, n2: int, mults):
+    """A lower-precision control for K3's check at large m: the plain
+    version in row blocks with TF32 matmuls (the d2 product and S @ z) and
+    f32 row sums. Returns (sz, rs), f32."""
+    m = z.shape[0]
+    sz = torch.empty((m, z.shape[1]), dtype=torch.float32, device=z.device)
+    rs = torch.empty((m, 1), dtype=torch.float32, device=z.device)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for r0, r1, s in flash_row_blocks(z, norms, bw, n1, n2, mults):
+            sz[r0:r1] = s @ z
+            rs[r0:r1] = torch.sum(s, dim=1, keepdim=True)
+            del s
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return sz, rs
+
+
+def flash_readings(z, norms, bw, n1: int, n2: int, mults, sources: dict, log) -> dict:
+    """How far each (sz, rs) of ``sources`` (name: a callable that gives
+    it) lies from K3's plain version in row blocks (``blockwise_flash``):
+    name: (the largest |error| over the largest |entry| of sz or rs, the
+    reading phase 2 holds to GRAD_FRAC; the largest |error| over the sum of
+    its terms' magnitudes, the reading held to TERM_FRAC; the largest
+    |error|)."""
+    want = blockwise_flash(z, norms, bw, n1, n2, mults)
+    readings = {}
+    for who, source in sources.items():
+        grad = term = top = 0.0
+        for g, w, scale in zip(source(), want[:2], want[2:]):
+            e = torch.abs(g.double() - w)
+            grad = max(grad, float(e.max()) / float(torch.max(torch.abs(w))))
+            term = max(term, float(torch.max(e / scale.clamp_min(1e-300))))
+            top = max(top, float(e.max()))
+            del e
+        readings[who] = (grad, term, top)
+        log(f"  gram_backward_flash m={z.shape[0]} d={z.shape[1]} {who} against the plain "
+            f"version in row blocks: |error| / largest |entry| {grad:.3e} (GRAD_FRAC "
+            f"{GRAD_FRAC}), |error| / sum of |terms| {term:.3e} (TERM_FRAC {TERM_FRAC})")
+    return readings
+
+
+def phase_times(device, shapes, errs, launches, log, parent_k3=None):
     """One row per kernel at the shape its main path gives it, with the
-    times at its other shapes under ``at_other_shapes``."""
+    times at its other shapes under ``at_other_shapes``. ``parent_k3``: the
+    parent's K3 (``parent_flash``), read beside this tree's at m=40960."""
     from vgan_tpu_torch.ops import mmd as M
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
@@ -1191,9 +1317,15 @@ def phase_times(device, shapes, errs, launches, log):
             t["mode"] = G.tile_schedule(G.tile_pairs(m), d, sms)[0]
             return t
         if name == "gram_backward_flash":
-            return timed(name, label, lambda: G.gram_backward_flash(z, norms, bw, n1, n2, mults),
-                         lambda: G.gram_backward_flash_reference(z, norms, bw, n1, n2, mults),
-                         gram_ops(m, d, backward=True), 4 * (2 * m * d + 2 * m + 1))
+            t = timed(name, label, lambda: G.gram_backward_flash(z, norms, bw, n1, n2, mults),
+                      lambda: G.gram_backward_flash_reference(z, norms, bw, n1, n2, mults),
+                      gram_ops(m, d, backward=True), 4 * (2 * m * d + 2 * m + 1))
+            t["mode"], _, t["nsplit"] = G.flash_schedule(m, d, sms)
+            t["passes_us"] = device_split(
+                lambda: G.gram_backward_flash(z, norms, bw, n1, n2, mults))
+            log(f"  {name} {label} by pass (profiler, device us a call): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in t["passes_us"].items()))
+            return t
         t = timed(name, label, lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults),
                   lambda: G.gram_quadrant_sums_stash_reference(z, norms, bw, n1, mults),
                   gram_ops(m, d), 4 * (m * d + m + 1 + 4 + m * m))
@@ -1234,6 +1366,59 @@ def phase_times(device, shapes, errs, launches, log):
         log(f"  gram_quadrant_sums m={m} d={d}: torch.cuda.max_memory_allocated {peak} bytes, "
             f"{peak - base} of them this call's (z itself {4 * m * d} bytes); sums within "
             f"{err:.3e} of the plain version in row blocks")
+        return t
+
+    def k3_large(shape):
+        """K3 in mode (a) at large m: the bytes it allocates beyond its
+        inputs (z's two copies, the outputs and the partials of its later
+        splits, nothing of m^2), held to the plain version evaluated in row
+        blocks, identical bits on a re-run."""
+        n1, n2, d = shape
+        m = n1 + n2
+        z, norms, bw = large_gram_inputs(m, d, 24, device)
+        mode, slice_, nsplit = G.flash_schedule(m, d, sms)
+        check(mode == "a", f"K3 at m={m} d={d} takes mode ({mode}), expected (a)")
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sz, rs = G.gram_backward_flash(z, norms, bw, n1, n2, mults)
+        sync()
+        peak = torch.cuda.max_memory_allocated()
+        scratch = 4 * G.flash_scratch_floats(m, d, slice_, nsplit)
+        limit = scratch + 4 * (m * d + m) + 4096
+        check(peak - base <= limit, f"K3 at m={m} d={d} allocated {peak - base} bytes, more than "
+                                    f"its scratch and outputs ({limit})")
+        sources = {"this tree": lambda: (sz, rs)}
+        if parent_k3 is not None:
+            sources["parent"] = lambda: parent_k3(z, norms, bw, n1, n2, mults)
+        sources["TF32 control"] = lambda: blockwise_flash_tf32(z, norms, bw, n1, n2, mults)
+        readings = flash_readings(z, norms, bw, n1, n2, mults, sources, log)
+        for who in ("this tree", "parent"):
+            if who in readings:
+                check(readings[who][1] <= TERM_FRAC,
+                      f"gram_backward_flash m={m} d={d} ({who}): an entry off the plain version "
+                      f"in row blocks by {readings[who][1]:.3e} of the sum of its terms' "
+                      f"magnitudes, more than {TERM_FRAC}")
+        check(readings["TF32 control"][1] > TERM_FRAC,
+              f"K3's check at m={m} d={d} passes the TF32 control "
+              f"({readings['TF32 control'][1]:.3e} <= {TERM_FRAC})")
+        err = readings["this tree"][2]
+        del sz, rs
+        repeat_identical("gram_backward_flash",
+                         lambda: G.gram_backward_flash(z, norms, bw, n1, n2, mults))
+        t = timed("gram_backward_flash", f"m={m} d={d}",
+                  lambda: G.gram_backward_flash(z, norms, bw, n1, n2, mults), None,
+                  gram_ops(m, d, backward=True), 4 * (2 * m * d + 2 * m + 1), iters=3, warmup=1)
+        t.update(mode=mode, nsplit=nsplit, max_abs_err=err, max_memory_allocated=peak,
+                 call_bytes=peak - base, scratch_bytes=scratch, z_bytes=4 * m * d,
+                 tol=f"{TERM_FRAC} of each entry's sum of |terms| (plain version in row blocks, "
+                     "float64 sums)",
+                 readings={who: {"grad_frac": r[0], "term_frac": r[1], "max_abs_err": r[2]}
+                           for who, r in readings.items()})
+        log(f"  gram_backward_flash m={m} d={d}: mode ({mode}), {nsplit} splits; "
+            f"torch.cuda.max_memory_allocated {peak} bytes, {peak - base} of them this call's "
+            f"(z itself {4 * m * d} bytes; scratch {scratch}: z column-major, [z | 1] row-major, "
+            f"{nsplit - 1} partials); within {err:.3e} of the plain version in row blocks")
         return t
 
     def panel(n1, n2, d, R, offset, iters, seed, large):
@@ -1325,6 +1510,10 @@ def phase_times(device, shapes, errs, launches, log):
                      **gram(name, main, seed=21), "launches": launches[name],
                      "max_abs_err": errs[name, main], "tol": tol, "library_ms": None,
                      "at_other_shapes": [gram(name, o, seed=22) for o in others]})
+        if name == "gram_backward_flash":
+            torch.cuda.empty_cache()
+            rows[-1]["at_other_shapes"].append(k3_large(shapes["k1_large"]))
+            torch.cuda.empty_cache()
     # K4: the panel fit's square panel (its main path), then one real panel
     n1, n2, d = shapes["stress"]
     k4 = {"name": "kprime_panel", "route": "cuda", "source": gram_src,
@@ -1398,11 +1587,9 @@ def build_parent(src_dir: Path, log) -> dict:
     """The parent commit's kernel sources from ``src_dir`` (its
     ``vgan_tpu_torch/ops/cuda/csrc/``: the four ``.cu`` files and the headers
     they include), built with the package's flags into
-    ``build/parent_kernels/`` (one ``nvcc`` each, started together). K2, K3
-    and K5-K8 keep this tree's C interface and are bound with its
-    signatures; K1 and K4 are bound with the parent's own."""
-    import ctypes
-
+    ``build/parent_kernels/`` (one ``nvcc`` each, started together) and bound
+    with this tree's signatures: every kernel but K3 keeps this tree's C
+    interface, and :func:`parent_flash` binds K3 with the parent's own."""
     from vgan_tpu_torch.ops.cuda import _build
     from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
@@ -1420,16 +1607,9 @@ def build_parent(src_dir: Path, log) -> dict:
 
     with ThreadPoolExecutor(len(PARENT_SOURCES)) as pool:
         libs = dict(zip(PARENT_SOURCES, pool.map(build, PARENT_SOURCES)))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    parent_own = {"vgan_gram_num_blocks": [I],
-                  "vgan_gram_quadrant_sums": [P, P, P, I, I, I, P, P, P, P],
-                  "vgan_kprime_panel": [P, P, P, P, P, I, I, I, P, P, P]}
     for name, module in (("gof_gram", GG), ("knn_score", KS), ("fused_no_kl", FN),
                          ("mmd_gram", G)):
-        signatures = dict(module._SIGNATURES)
-        if name == "mmd_gram":
-            signatures.update(parent_own)
-        for fn, argtypes in signatures.items():
+        for fn, argtypes in module._SIGNATURES.items():
             if hasattr(libs[name], fn):  # an entry added since is not the parent's
                 getattr(libs[name], fn).argtypes = argtypes
                 getattr(libs[name], fn).restype = ctypes.c_int
@@ -1449,77 +1629,129 @@ def using_lib(module, lib):
         module._lib = saved
 
 
-def parent_gram_kernels(lib, device):
-    """The parent commit's K1 and K4 through its own C entries, as drop-in
-    functions for ``mmd_gram.gram_quadrant_sums`` and ``kprime_panel`` (an
-    offset and a column-major copy are ignored: the parent forms every
-    ordered pair from the rows themselves)."""
-    import ctypes
-
+def parent_gram_kernels(lib):
+    """The parent commit's K1 and K4 (the C interface of this tree) as
+    drop-in functions for ``mmd_gram.gram_quadrant_sums`` and
+    ``kprime_panel``: this tree's wrappers on the parent's library."""
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
-    def stream():
-        return torch.cuda.current_stream(device).cuda_stream
+    sums_fn, panel_fn = G.gram_quadrant_sums, G.kprime_panel
 
-    def sums(z, norms, bw, n1, mults):
-        m, d = z.shape
-        partials = torch.empty(3 * lib.vgan_gram_num_blocks(m), dtype=torch.float32, device=device)
-        out = torch.empty(4, dtype=torch.float32, device=device)
-        rc = lib.vgan_gram_quadrant_sums(
-            z.data_ptr(), norms.data_ptr(), bw.reshape(1).data_ptr(), m, d, n1,
-            ctypes.byref(G._ladder(tuple(mults))), partials.data_ptr(), out.data_ptr(), stream())
-        check(rc == 0, f"parent gram_quadrant_sums: CUDA error {rc}")
-        return out.reshape(1, 4)
+    def sums(*args, **kw):
+        with using_lib(G, lib):
+            return sums_fn(*args, **kw)
 
-    def panel(zr, zc, nr, nc, bw, mults, offset=None, cols_t=None):
-        kp = torch.empty((zr.shape[0], zc.shape[0]), dtype=torch.float32, device=device)
-        rc = lib.vgan_kprime_panel(
-            zr.data_ptr(), zc.data_ptr(), nr.data_ptr(), nc.data_ptr(), bw.reshape(1).data_ptr(),
-            zr.shape[0], zc.shape[0], zr.shape[1], ctypes.byref(G._ladder(tuple(mults))),
-            kp.data_ptr(), stream())
-        check(rc == 0, f"parent kprime_panel: CUDA error {rc}")
-        return kp
+    def panel(*args, **kw):
+        with using_lib(G, lib):
+            return panel_fn(*args, **kw)
 
     return sums, panel
+
+
+def parent_flash(lib, device):
+    """The parent commit's K3 through its own C entry (the 64 x 64 tile design:
+    ``vgan_gram_backward_flash(..., ladder, nsplit, scratch, sz, rs,
+    stream)``, its column splits and partial sums sized as its wrapper sized
+    them), as a drop-in for ``mmd_gram.gram_backward_flash``."""
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.vgan_gram_backward_flash  # z, norms, bw, m, d, n1, cxx, cyy, cxy, ladder, nsplit,
+    fn.argtypes = [P, P, P, I, I, I, F, F, F, P, I, P, P, P, P]  # scratch, sz, rs, stream
+    fn.restype = ctypes.c_int
+    sms = G._sms(device)
+
+    def flash(z, norms, bw, n1, n2, mults):
+        m, d = z.shape
+        tiles = -(-m // 64)
+        nsplit = max(1, min(-(-2 * sms // tiles), tiles, (1 << 28) // (4 * m * (d + 1))))
+        scratch = torch.empty(nsplit * m * (d + 1) if nsplit > 1 else 1, dtype=torch.float32,
+                              device=device)
+        sz = torch.empty((m, d), dtype=torch.float32, device=device)
+        rs = torch.empty((m, 1), dtype=torch.float32, device=device)
+        cxx, cyy, cxy = G._coefficients(n1, n2)
+        rc = fn(z.data_ptr(), norms.data_ptr(), bw.reshape(1).data_ptr(), m, d, n1, cxx, cyy, cxy,
+                ctypes.byref(G._ladder(tuple(mults))), nsplit, scratch.data_ptr(), sz.data_ptr(),
+                rs.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+        check(rc == 0, f"parent gram_backward_flash: CUDA error {rc}")
+        return sz, rs
+
+    return flash
 
 
 def panel_fit_rates(device, libs, log) -> dict:
     """The panel fit's steps/s: the no-kl stress shape with the K' stash off
     (K1 and K4 each step), host clock over 4 epochs; with the parent's
     kernels (``libs``), in turns: parent, this tree, this tree, parent, the
-    parent's K1 and K4 swapped in for this tree's."""
+    parent's library (its K1 and K4) in its turns."""
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     n, d, batch = STRESS["n"], STRESS["d"], STRESS["batch"]
     turns = ["parent", "this tree", "this tree", "parent"] if libs else ["this tree"]
-    saved = G._KP_STASH_BYTES, G.gram_quadrant_sums, G.kprime_panel, G.panel_operand
+    saved = G._KP_STASH_BYTES
     rates = {}
     try:
         G._KP_STASH_BYTES = 0
         for who in turns:
-            if who == "parent":
-                G.gram_quadrant_sums, G.kprime_panel = parent_gram_kernels(libs["mmd_gram"], device)
-                G.panel_operand = lambda x: None
-            else:
-                G.gram_quadrant_sums, G.kprime_panel, G.panel_operand = saved[1:]
-            rates.setdefault(who, []).append(fit_steps_per_s(device, n, d, batch, epochs=4))
+            with using_lib(G, libs["mmd_gram"]) if who == "parent" else contextlib.nullcontext():
+                rates.setdefault(who, []).append(fit_steps_per_s(device, n, d, batch, epochs=4))
     finally:
-        G._KP_STASH_BYTES, G.gram_quadrant_sums, G.kprime_panel, G.panel_operand = saved
+        G._KP_STASH_BYTES = saved
     log(f"  panel fit (n={n}, d={d}, batch {batch}, K' stash off): " + "; ".join(
         f"{who} " + ", ".join(f"{r:.2f}" for r in v) for who, v in rates.items()) + " steps/s")
     return rates
 
 
+def flash_fit_rates(device, libs, log) -> dict:
+    """The steps/s of the two fits that run K3: the kl stress fit (one
+    AlternationSchedule(1, 5) cycle: K3 on the detector's m=1000, L=640
+    encodings) and the flash fit (n=2000, d=1024, batch 500,
+    FLASH_FIT_EPOCHS epochs: K1 and K3 each step), host clock, after a
+    warm-up of each; with the parent's kernels (``libs``), in turns:
+    parent, this tree, this tree, parent, twice, the parent's K3 through
+    its own C entry in its turns. Then the flash fit's device time a step
+    with each K3 (``torch.profiler``, 4 epochs): the fit is host-bound, so
+    K3's share of its steps shows there and not in its steps/s."""
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
+
+    n, d, batch = STRESS["n"], STRESS["d"], STRESS["batch"]
+    turns = ["parent", "this tree", "this tree", "parent"] * 2 if libs else ["this tree"]
+    k3 = G.gram_backward_flash
+    parent_k3 = parent_flash(libs["mmd_gram"], device) if libs else None
+    kl_fit_steps_per_s(device, n, d, batch)
+    fit_steps_per_s(device, n, 1024, batch)
+    rates = {"kl stress fit": {}, "flash fit": {}, "flash fit device us/step": {}}
+    try:
+        for who in turns:
+            G.gram_backward_flash = parent_k3 if who == "parent" else k3
+            rates["kl stress fit"].setdefault(who, []).append(kl_fit_steps_per_s(device, n, d, batch))
+            rates["flash fit"].setdefault(who, []).append(
+                fit_steps_per_s(device, n, 1024, batch, epochs=FLASH_FIT_EPOCHS))
+        for who in dict.fromkeys(turns):
+            G.gram_backward_flash = parent_k3 if who == "parent" else k3
+            rates["flash fit device us/step"][who] = [device_busy_us(
+                lambda: fit_steps_per_s(device, n, 1024, batch, epochs=4)) / (4 * (n // batch))]
+    finally:
+        G.gram_backward_flash = k3
+    for fit, by in rates.items():
+        log(f"  {fit} with K3 of: " + "; ".join(
+            f"{who} " + ", ".join(f"{r:.2f}" for r in v) for who, v in by.items())
+            + ("" if fit.endswith("us/step") else " steps/s"))
+    return rates
+
+
 def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
     """The parent's K1 (at the kl, flash and panel fits' Grams and at
-    m=40960), K4 (the panel fit's square panel and one real panel), K2 (at
-    the no-kl stress fit's Gram), K8 (the 2000-epoch notebook fit and the
+    m=40960), K3 (at the kl and flash fits' Grams and at m=40960, through
+    its own C entry), K4 (the panel fit's square panel and one real panel),
+    K2 (at the no-kl stress fit's Gram), K8 (the 2000-epoch notebook fit and the
     20-epoch corner, rng mode), K5 (at both GoF shapes), K6 and K7 (at the
     ensembles' decision_function shapes) against this tree's, on the same
     inputs, in turns: parent, this tree, this tree, parent. Each case makes
     its inputs when it runs and frees them after. Returns, per (kernel,
     shape), the four times and the largest difference of the outputs
-    relative to the parent's largest entry."""
+    relative to the parent's largest entry; for K6 and K7 also whether the
+    scores equal the parent's to the bit in each mode."""
     from vgan_tpu_torch.ops import mmd as M
     from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
@@ -1527,7 +1759,7 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     gram_lib = libs["mmd_gram"]
-    parent_sums, parent_panel = parent_gram_kernels(gram_lib, device)
+    parent_sums, parent_panel = parent_gram_kernels(gram_lib)
     mults = M.bandwidth_multipliers()
 
     def inputs(n1, n2, d, seed, large):
@@ -1544,17 +1776,28 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
         return make
 
     def panel_case(n1, n2, d, R, offset, large):
-        """At the small shape this tree's call makes z's column-major copy
-        itself, as the panel backward does once for its one panel at m <=
-        R; at the large one the copy is made once outside, as for a
-        backward's many panels."""
+        """At the small shape each call makes z's column-major copy itself,
+        as the panel backward does once for its one panel at m <= R; at the
+        large one the copy is made once outside, as for a backward's many
+        panels."""
         def make():
             z, norms, bw = inputs(n1, n2, d, 25, large)
             zr, nr = z[offset:offset + R], norms[offset:offset + R]
             cols_t = G.panel_operand(z) if large else None
-            return (lambda: parent_panel(zr, z, nr, norms, bw, mults),
+            return (lambda: parent_panel(zr, z, nr, norms, bw, mults, offset=offset,
+                                         cols_t=cols_t),
                     lambda: G.kprime_panel(zr, z, nr, norms, bw, mults, offset=offset,
                                            cols_t=cols_t))
+        return make
+
+    parent_k3 = parent_flash(gram_lib, device)
+
+    def flash_case(shape, large=False):
+        def make():
+            n1, n2, d = shape
+            z, norms, bw = inputs(n1, n2, d, 21, large)
+            return (lambda: parent_k3(z, norms, bw, n1, n2, mults),
+                    lambda: G.gram_backward_flash(z, norms, bw, n1, n2, mults))
         return make
 
     def stash_case():
@@ -1602,11 +1845,22 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
             x, xtr = ens._as_device(Xt), ens._x_train
             masks, _ = ens._device_pool()
 
-            def old():
-                with using_lib(KS, libs["knn_score"]):
-                    return KS.knn_scores_all_masks(x, xtr, masks, ens.k)
+            entry = ("vgan_knn_resident" if KS._resident_supported(xtr.shape[0], x.shape[1])
+                     else "vgan_knn_stream")
+            m32 = masks.to(torch.float32).contiguous()
 
-            return old, lambda: KS.knn_scores_all_masks(x, xtr, masks, ens.k)
+            def old(mode="kth"):  # the parent's entry (same C interface), this tree's operands
+                return KS._launch_scores(entry, x, xtr, m32, ens.k, mode, False,
+                                         lib=libs["knn_score"])
+
+            def new(mode="kth"):
+                return KS.knn_scores_all_masks(x, xtr, masks, ens.k, mode)
+
+            def equal_bits():
+                return {f"equal_bits_{mode}": torch.equal(old(mode), new(mode))
+                        for mode in ("kth", "mean")}
+
+            return old, new, equal_bits
         return make
 
     b, d = STRESS["batch"], STRESS["d"]
@@ -1615,7 +1869,11 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
     R_rp = G._panel_rows(m_rp)
     cases = [(f"gram_quadrant_sums m={2 * b} d={dk}", 20, sums_case((b, b, dk)))
              for dk in (d // 16, 1024, d)]
+    cases += [(f"gram_backward_flash m={2 * b} d={dk}", 20, flash_case((b, b, dk)))
+              for dk in (d // 16, 1024)]
     cases += [
+        (f"gram_backward_flash m={sum(K1_LARGE[:2])} d={K1_LARGE[2]}", 3,
+         flash_case(K1_LARGE, large=True)),
         (f"gram_quadrant_sums m={sum(K1_LARGE[:2])} d={K1_LARGE[2]}", 3,
          sums_case(K1_LARGE, large=True)),
         (f"kprime_panel R={2 * b} C={2 * b} d={d} offset 0 (with the column-major copy)", 20,
@@ -1642,16 +1900,20 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
     results = {}
     for label, iters, make in cases:
         torch.cuda.empty_cache()
-        old, new = make()
+        old, new, *extra = make()
         t = [cuda_ms(f, iters, 1) for f in (old, new, new, old)]
         a, b_ = old(), new()
         a = a if isinstance(a, tuple) else (a,)
         b_ = b_ if isinstance(b_, tuple) else (b_,)
         diff = max(max_abs(u, v) / max(float(torch.max(torch.abs(u))), 1e-30) for u, v in zip(a, b_))
         results[label] = {"parent_ms": [t[0], t[3]], "ms": [t[1], t[2]], "max_rel_diff": diff}
+        for more in extra:
+            results[label].update(more())
+        bits = "".join(f"; {k.replace('_', ' ')}: {v}" for k, v in results[label].items()
+                       if k.startswith("equal_bits"))
         log(f"  {label}: parent {t[0]:.4f}, {t[3]:.4f} ms; this tree {t[1]:.4f}, {t[2]:.4f} ms "
             f"({(t[0] + t[3]) / (t[1] + t[2]):.2f}x); outputs differ by at most {diff:.3e} of the "
-            f"parent's largest")
+            f"parent's largest{bits}")
         del old, new, a, b_
     log(f"  device memory: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB at most")
@@ -1919,8 +2181,8 @@ def main(argv=None) -> int:
     parser.add_argument("--parent-csrc", type=Path, default=None,
                         help="an earlier commit's vgan_tpu_torch/ops/cuda/csrc/ (mmd_gram.cu, "
                              "gof_gram.cu, knn_score.cu, fused_no_kl.cu and their headers): "
-                             "phase 5 also builds K1, K2, K4, K5, K6, K7 and K8 from it and times them "
-                             "beside this tree's")
+                             "phase 5 also builds the eight kernels from it and times them beside "
+                             "this tree's")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2032,11 +2294,12 @@ def main(argv=None) -> int:
     log("phase 5: times")
     rows = phase_times(device, {"kl": kl_shape, "flash": flash_shape, "stress": stress_shape,
                                 "k1_large": K1_LARGE, "k4_real_panel": K4_REAL_PANEL,
-                                "gof": [gof_f64, gof_f32]}, errs, launches, log)
+                                "gof": [gof_f64, gof_f32]}, errs, launches, log,
+                       parent_flash(parent_libs["mmd_gram"], device) if parent_libs else None)
     rows += knn_times(ensembles, errs, knn_launches, log)
     rows.append(fused_times(device, errs, k8_launches, log))
     if parent_libs:
-        log("  against the parent commit's K1, K2, K4, K5, K6, K7 and K8 (same inputs, in turns)")
+        log("  against the parent commit's K1-K8 (same inputs, in turns)")
         compared = parent_comparison(parent_libs, device, ensembles, [gof_f64, gof_f32], log)
         for row in rows:
             mine = {k: v for k, v in compared.items() if k.split(" ")[0] == row["name"]}
@@ -2044,6 +2307,8 @@ def main(argv=None) -> int:
                 row["parent_comparison"] = mine
     rates = panel_fit_rates(device, parent_libs, log)
     next(row for row in rows if row["name"] == "kprime_panel")["panel_fit_steps_per_s"] = rates
+    rates = flash_fit_rates(device, parent_libs, log)
+    next(row for row in rows if row["name"] == "gram_backward_flash")["fit_steps_per_s"] = rates
     ensemble_rates(ensembles, log)
     sps = fit_steps_per_s(device, n, d, batch)
     log(f"  stress fit (n={n}, d={d}, batch {batch}): {sps:.2f} steps/s")

@@ -218,6 +218,22 @@ def test_selected_columns_match_nonzero(kind):
         np.testing.assert_array_equal(np.sort(c), np.arange(d))
 
 
+def test_kernel_operands_plain_layout():
+    """The kernels' operands on the CPU (the plain version of their launch):
+    the rows column-major, zero-padded to whole 128-row tiles, and each
+    mask's selected columns first with their counts."""
+    rng = np.random.default_rng(5)
+    xte = torch.from_numpy(rng.normal(size=(130, 9)).astype(np.float32))
+    xtr = torch.from_numpy(rng.normal(size=(40, 9)).astype(np.float32))
+    masks = torch.from_numpy(_mask_rows("ragged", 9).astype(np.float32))
+    xte_t, xtr_t, cols, counts = TK.kernel_operands(xte, xtr, masks)
+    assert xte_t.shape == (9, 256) and xtr_t.shape == (9, 128)
+    assert torch.equal(xte_t[:, :130], xte.T) and not torch.any(xte_t[:, 130:])
+    assert torch.equal(xtr_t[:, :40], xtr.T) and not torch.any(xtr_t[:, 40:])
+    want_cols, want_counts = TK.selected_columns(masks)
+    assert torch.equal(cols, want_cols) and torch.equal(counts, want_counts)
+
+
 @pytest.mark.parametrize("mode", ["kth", "mean"])
 @pytest.mark.parametrize("exclude_self", [False, True])
 def test_plain_scores_on_gathered_columns(mode, exclude_self):
@@ -240,3 +256,108 @@ def test_plain_scores_on_gathered_columns(mode, exclude_self):
             exclude_self)
         np.testing.assert_allclose(got[0].numpy(), want[i].numpy(), rtol=1e-12)
     np.testing.assert_array_equal(want[-1].numpy(), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# K6's selection (csrc/knn_score.cu knn_resident_kernel), modelled on the CPU
+# ---------------------------------------------------------------------------
+
+_T = TK.KERNEL_TILE  # test rows of a block, train rows of a tile
+_BIG = np.float32(3.0e38)
+
+
+def _tile_index(q: np.ndarray, lane: np.ndarray) -> np.ndarray:
+    """dist_tile's tile_row / tile_col: the q-th row (column) of lane ty (tx)."""
+    return (q // 4) * 64 + lane * 4 + q % 4
+
+
+def _csrc_constant(name: str) -> int:
+    import re
+
+    from vgan_tpu_torch.ops.cuda import _build
+
+    src = (_build.CSRC / "knn_score.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _model_resident_selection(d2_tiles, k: int, cap: int) -> np.ndarray:
+    """The kernel's selection for one block, tile by tile: each thread
+    (tx, ty) holds rows tile_row(r, ty) x columns tile_col(c, tx) of a tile's
+    distances; candidates below the row's threshold (the k-th entry of both
+    of its lists; for k <= 16, while a list of the warp's rows is not full,
+    also just above the k-th smallest of the row's 16 lanes' minima on the
+    tile) go in rounds of at most ``cap`` per (half, row), in lane and then
+    column order, into list h (lanes 8 h .. 8 h + 7) of the row, each while
+    it is below that list's k-th entry. Returns the two lists merged."""
+    q = np.arange(8)
+    lists = np.full((2, _T, k), _BIG, dtype=np.float32)
+    cols = _tile_index(q[None, :], np.arange(16)[:, None])  # (tx, c)
+    for d2 in d2_tiles:
+        lane_vals = d2[:, cols]  # (row, tx, c): the 8 values of each lane
+        thr = np.minimum(lists[0, :, k - 1], lists[1, :, k - 1])
+        if k <= 16:
+            lmin = lane_vals.min(axis=2)
+            order = np.lexsort((np.arange(16)[None, :].repeat(_T, 0), lmin), axis=1)
+            u = np.nextafter(np.take_along_axis(lmin, order[:, k - 1:k], axis=1)[:, 0],
+                             np.float32(np.inf))
+            for r in range(8):  # a warp's two rows (ty = 2w, 2w + 1) of its r-th row
+                for w in range(8):
+                    rows = _tile_index(np.array([r, r]), np.array([2 * w, 2 * w + 1]))
+                    if (thr[rows] >= _BIG).any():
+                        thr[rows] = np.minimum(thr[rows], u[rows])
+        pend = (lane_vals < thr[:, None, None]) & (lane_vals < _BIG)
+        while pend.any():
+            for h in range(2):
+                lanes = slice(8 * h, 8 * h + 8)
+                for row in range(_T):
+                    idx = np.argwhere(pend[row, lanes])[:cap]  # lane order, then c
+                    for lane, c in idx:
+                        pend[row, 8 * h + lane, c] = False
+                        v = lane_vals[row, 8 * h + lane, c]
+                        if v < lists[h, row, k - 1]:
+                            lists[h, row] = np.sort(np.append(lists[h, row, :k - 1], v))
+            thr = np.minimum(thr, np.minimum(lists[0, :, k - 1], lists[1, :, k - 1]))
+            pend &= lane_vals < thr[:, None, None]
+    return np.sort(np.concatenate([lists[0], lists[1]], axis=1), axis=1)[:, :k]
+
+
+@pytest.mark.parametrize("k", [1, 5, 10, 16, 17, 64])
+@pytest.mark.parametrize("integer", [False, True])
+def test_resident_selection_model_keeps_the_k_smallest(k, integer):
+    """The register filter, the lane-minimum threshold, the capped rounds and the two lists keep each row's k smallest distances as
+    a multiset, ties included (small-integer rows), with exclude_self's
+    positional pair and a ragged last train tile masked to +3e38."""
+    rng = np.random.default_rng(k)
+    ntr = 300  # three tiles, the last one 44 rows
+    if integer:
+        d2 = rng.integers(0, 6, size=(_T, ntr)).astype(np.float32)
+    else:
+        d2 = rng.random((_T, ntr), dtype=np.float32)
+    d2[np.arange(_T), np.arange(_T)] = _BIG  # exclude_self
+    tiles = []
+    for j0 in range(0, ntr, _T):
+        tile = np.full((_T, _T), _BIG, dtype=np.float32)
+        tile[:, :min(_T, ntr - j0)] = d2[:, j0:j0 + _T]
+        tiles.append(tile)
+    got = _model_resident_selection(tiles, k, _csrc_constant("CAP"))
+    want = np.sort(d2, axis=1)[:, :k]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_resident_kernel_shared_memory_budget():
+    """K6's shared memory (the product pipeline, the norms, the candidate
+    buffers and counts, two k-lists per row): within a block's 227 KB for
+    every k up to MAX_K, two blocks an SM at the bench ensemble's k = 10,
+    and below the d2-tile kernel's (K7's) at every k."""
+    cap, tile = _csrc_constant("CAP"), TK.KERNEL_TILE
+    pipeline = 2 * 16 * (tile + tile)
+
+    def resident(k):
+        return 4 * (pipeline + 2 * tile + 2 * cap * tile + 2 * tile + 2 * k * tile)
+
+    def d2_tile(k):
+        return 4 * (pipeline + tile * (tile + 1) + 2 * tile + 2 * k * tile)
+
+    for k in range(1, TK.MAX_K + 1):
+        assert resident(k) <= 232448 and resident(k) < d2_tile(k), k
+    assert 2 * (resident(10) + 1024) <= 233472  # the SM's 228 KB, 1 KB reserved a block

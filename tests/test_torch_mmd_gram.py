@@ -69,7 +69,7 @@ def test_gram_quadrant_sums_stash_plain_vs_pallas(n1, n2, d):
     np.testing.assert_allclose(kp_t.numpy(), np.asarray(kp_j)[:m, :m], rtol=RTOL, atol=1e-9)
 
 
-@pytest.mark.parametrize("n1,n2,d", [(33, 17, 40), (20, 28, 600)])
+@pytest.mark.parametrize("n1,n2,d", [(33, 17, 40), (20, 28, 600), (70, 61, 40)])
 def test_gram_backward_flash_plain_vs_pallas(n1, n2, d):
     a = _both(n1, n2, d)
     m = a["m"]
@@ -203,16 +203,97 @@ def test_ladder_struct():
         TG._ladder(tuple(float(i + 1) for i in range(9)))
 
 
-def test_flash_splits_cover_the_card():
-    """The flash backward's column splits: enough blocks for two per SM, at
-    most one split per column tile, and the partial sums within budget."""
-    assert TG.flash_splits(1000, 1024, 132) == 16
-    assert TG.flash_splits(8192, 1024, 132) == 3
-    assert TG.flash_splits(40, 600, 132) == 1
-    for m, d in ((16384, 2048), (3000, 2048), (700, 100)):
-        s = TG.flash_splits(m, d, 132)
-        assert 1 <= s <= -(-m // TG.KERNEL_TILE)
-        assert s == 1 or s * 4 * m * (d + 1) <= TG.FLASH_SPLIT_BYTES
+def _flash_blocks(m, d, sms):
+    """A model of K3's blocks (csrc/mmd_gram.cu flash_tile_kernel, mode (a),
+    and flash_product_kernel, mode (b)) in launch order: ``(I, s, chunks,
+    Js)``, the row tile, the split, the 128-column chunks of ``[z | 1]`` the
+    block writes and the column tiles it adds, in its order."""
+    T = _cdiv(m, TG.STASH_TILE)
+    mode, _, nsplit = TG.flash_schedule(m, d, sms)
+    per = _cdiv(T, nsplit)
+    chunks = TG.flash_chunks(d)
+    blocks = []
+    for s in range(nsplit):
+        Js = list(range(s * per, min(T, (s + 1) * per)))
+        for I in range(T):
+            if mode == "a":
+                blocks.append((I, s, list(range(chunks)), Js))
+            else:
+                blocks += [(I, s, [c], Js) for c in range(chunks)]
+    return mode, nsplit, blocks
+
+
+FLASH_SHAPES = [(1000, 640), (1000, 1024), (8192, 1024), (40, 600), (16384, 2048), (3000, 2048),
+                (700, 100), (40960, 1024), (131, 40)]
+
+
+@pytest.mark.parametrize("m,d", FLASH_SHAPES)
+def test_flash_schedule_covers_the_square_and_fills_the_card(m, d):
+    """K3's schedule: every (row tile, column tile, output chunk) is added
+    by exactly one block, each block's column tiles in ascending order and
+    its split's partial at a fixed slot (split 0 straight to the output,
+    split s to partial s - 1, added in split order); the partials within
+    FLASH_SPLIT_BYTES; mode (b)'s dot pass within one wave; and at m = 1000
+    more blocks than SMs."""
+    sms = 132
+    mode, nsplit, blocks = _flash_blocks(m, d, sms)
+    T, chunks = _cdiv(m, TG.STASH_TILE), TG.flash_chunks(d)
+    seen = np.zeros((T, T, chunks), dtype=np.int32)
+    slots = {}
+    for I, s, cs, Js in blocks:
+        assert Js == sorted(Js) and Js
+        for c in cs:
+            seen[I, Js, c] += 1
+            assert slots.setdefault((I, c, s), s) == s
+    assert np.all(seen == 1)
+    M, D1 = T * TG.STASH_TILE, chunks * TG.STASH_TILE
+    assert (nsplit - 1) * 4 * M * D1 <= TG.FLASH_SPLIT_BYTES
+    mode_k1, slice_, count = TG.tile_schedule(TG.tile_pairs(m), d, sms)
+    assert TG.flash_schedule(m, d, sms) == (mode, slice_, nsplit) and mode == mode_k1
+    if mode == "b":
+        assert count > 1 and TG.tile_pairs(m) * count <= TG.STASH_BLOCKS_PER_SM * sms
+    if m == 1000:
+        assert mode == "b" and sms < len(blocks) <= TG.STASH_BLOCKS_PER_SM * sms
+    if (m, d) == (40960, 1024):
+        assert (mode, nsplit) == ("a", 2)  # a third split's partial would pass the budget
+
+
+@pytest.mark.parametrize("n1,n2,d", [(70, 61, 40), (150, 170, 300)])
+def test_flash_split_model_reproduces_s_times_z(n1, n2, d):
+    """K3's decomposition in float64: S in 128 x 128 tiles, each tile's
+    S @ [z | 1] (the ones column giving rowsum(S)), the column tiles of a
+    split added in order and the splits' sums added in split order give
+    the plain version's S @ z and rowsum(S). S is symmetric (here to
+    rounding; in the kernel to the bit), so mode (b) may form each tile
+    pair once and read tile (J, I) as tile (I, J) transposed."""
+    x, y = _pair(n1, n2, d, seed=4)
+    z = torch.from_numpy(np.concatenate([x, y])).double()
+    norms = torch.sum(z * z, dim=1)
+    bw = torch.tensor(float(d), dtype=torch.float64)
+    m, T = n1 + n2, _cdiv(n1 + n2, TG.STASH_TILE)
+    want_sz, want_rs = TG.gram_backward_flash_reference(z, norms, bw, n1, n2, MULTS)
+    cxx, cyy, cxy = TG._coefficients(n1, n2)
+    coeff = torch.full((m, m), cxy, dtype=torch.float64)
+    coeff[:n1, :n1], coeff[n1:, n1:] = cxx, cyy
+    S = coeff * TG._kernel_deriv(TG._sq_dists(z, z, norms, norms), bw, MULTS)
+    np.testing.assert_allclose(S.numpy(), S.T.numpy(), rtol=1e-12, atol=1e-20)
+    z_aug = torch.cat([z, torch.ones((m, 1), dtype=torch.float64)], dim=1)
+    for nsplit in range(1, T + 1):
+        per = _cdiv(T, nsplit)
+        if _cdiv(T, per) != nsplit:
+            continue
+        parts = []
+        for s in range(nsplit):
+            acc = torch.zeros((m, d + 1), dtype=torch.float64)
+            for J in range(s * per, min(T, (s + 1) * per)):
+                cols = slice(J * TG.STASH_TILE, (J + 1) * TG.STASH_TILE)
+                acc += S[:, cols] @ z_aug[cols]
+            parts.append(acc)
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part
+        np.testing.assert_allclose(out[:, :d].numpy(), want_sz.numpy(), rtol=1e-12, atol=1e-18)
+        np.testing.assert_allclose(out[:, d:].numpy(), want_rs.numpy(), rtol=1e-12, atol=1e-18)
 
 
 def test_stash_slices_cover_d_and_fill_the_card():

@@ -1,5 +1,6 @@
-// The pipelined SIMT product tile shared by gof_gram.cu (K5) and
-// knn_score.cu (K6, K7), for Hopper (sm_90a), IEEE f32.
+// The pipelined SIMT product tile shared by mmd_gram.cu (K1-K4),
+// gof_gram.cu (K5) and knn_score.cu (K6, K7), for Hopper (sm_90a), IEEE
+// f32, and the padded transpose that makes their column-major operands.
 //
 // One block of NT = 256 threads accumulates a (16 TM) x (16 TN) tile
 //
@@ -134,6 +135,23 @@ __device__ __forceinline__ void product(const Operand& a, const Operand& b, int 
         }
         hook.after(c, n, acc);
         __syncthreads();  // the next chunk's load refills this stage
+    }
+}
+
+// One 32 x 32 tile of a padded transpose, through shared memory t so that
+// both sides are coalesced (blocks of TT x 8 threads):
+// x_t[k * ld + r] = at(r, k) for r in [r0, r0 + TT) and k in [k0, k0 + TT),
+// k < d. at(r, k) gives the source's value, 0 past its rows or columns.
+constexpr int TT = 32;
+
+template <class At>
+__device__ __forceinline__ void transpose_tile(At at, int r0, int k0, int d, int ld,
+                                               float* __restrict__ x_t, float (*t)[TT + 1]) {
+    for (int j = threadIdx.y; j < TT; j += blockDim.y) t[j][threadIdx.x] = at(r0 + j, k0 + threadIdx.x);
+    __syncthreads();
+    for (int j = threadIdx.y; j < TT; j += blockDim.y) {
+        const int k = k0 + j, r = r0 + threadIdx.x;
+        if (k < d) x_t[(size_t)k * ld + r] = t[threadIdx.x][j];
     }
 }
 

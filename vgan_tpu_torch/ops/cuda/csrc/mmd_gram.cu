@@ -55,23 +55,43 @@
 // operands come in that layout from the caller (vgan_transpose_pad), who
 // makes the column-major copy of z once for all the panels of a backward.
 //
-// K3 (flash_bwd_kernel) still runs on the earlier 64 x 64 tile, tile_dot,
-// with the ladder inlined: block (i, s) owns a 64-row block i of the output
-// and the column tiles s, s + nsplit, s + 2 nsplit, ... For each column tile
-// it builds the S tile (coefficient * K') in shared memory, then streams
-// 64-wide d-chunks of z[cols] through shared memory and does a
-// read-add-write of its own rows of its own partial sz (no other block
-// touches them, so no atomics). sum_splits then adds the nsplit partials in
-// split order. The column split exists because a row block alone gives only
-// m / 64 blocks (16 at m = 1000) for 132 SMs. (The Pallas kernel holds a
-// full-D sz accumulator in VMEM, which does not fit Hopper's 227 KB of
-// shared memory at D = 2048.)
+// K3 (S @ z and rowsum(S), S = coeff .* K', for padded D <= 2048) is bound
+// by its two products, the d2 product and S @ z, at the f32 rate. It forms S
+// on the same pipelined tile and epilogue arithmetic as K1 (the ladder behind
+// ladder_call<false, true>) and multiplies it with 128-column chunks of
+// z_aug = [z | 1 | 0], 8 x 8 outputs a thread: column d of the product is
+// rowsum(S). flash_prep_kernel makes both operands from z in one pass (z_t
+// column-major for the d2 product, z_aug row-major). The column tiles go in
+// runs (splits); split 0 writes sz and rs, each later split its own partial
+// (all within FLASH_SPLIT_BYTES), which flash_finalize adds in split order.
+// The mode is K1's (mmd_gram.py flash_schedule):
+//
+// (a) flash_tile_kernel: block (row tile I, split) walks its split's column
+//     tiles J; for each it forms the ordered dot tile over all of d, turns
+//     it into S in shared memory (64 KB, transposed to the operand layout)
+//     and adds S_IJ @ z_aug's chunks, z_aug's rows double-buffered through
+//     cp.async, into its own rows of the output in J order (a read-add-write
+//     of 128 rows x (d + 1) a tile, about 1/64 byte a flop). Each d2 entry is
+//     formed twice (once per ordered tile), and nothing of size m^2 goes to
+//     device memory: at m = 40960 the scratch is z's two copies and one
+//     split's partial.
+// (b) when the tile pairs alone fall short of half a wave (at most one a
+//     SM: 132 on an H100, so at most 15 row tiles, m <= 1920):
+//     dot_slices_kernel forms each unordered tile pair's partial dot tiles
+//     over the d slices (pair-once, at most one wave of them),
+//     flash_s_kernel adds them in slice order and writes the S tile and,
+//     off the diagonal, its mirror (S is symmetric to the bit), and
+//     flash_product_kernel, block (row tile, split, 128-column chunk), adds
+//     S_IJ @ z_aug over the split's tiles in registers on one cp.async
+//     pipeline and writes its chunk once. Mode (b) keeps the whole padded S
+//     in device memory, tiles^2 x 64 KB: bounded by the mode's own limit of
+//     15 tiles to about 15 MB, beside the partial dot tiles' 17 MB.
 //
 // Determinism: thread blocks run in no fixed order, so no float atomics are
 // used anywhere. The forward kernels write one (XX, XY, YY) partial per block
 // and finalize_sums reduces the partials in a fixed order; mode (b) adds its
-// d slices in slice order; the flash backward's partials are added in split
-// order. Re-runs give identical bits.
+// d slices in slice order; the flash backward adds its column tiles in order
+// and its splits' partials in split order. Re-runs give identical bits.
 //
 // Ragged edges are masked in the kernels: rows >= R and columns >= C are not
 // stored or summed, and d-chunk entries >= d load as zero.
@@ -82,20 +102,18 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include <algorithm>
+
 #include "dist_tile.cuh"
 
 namespace {
 
-constexpr int BM = 64;   // K3: rows of a tile
-constexpr int BN = 64;   // K3: columns of a tile
-constexpr int BK = 16;   // K3: d-chunk of the distance product
-constexpr int FD = 64;   // K3: d-chunk of S @ z
-constexpr int NT = 256;  // threads per block (K3: 16 x 16, 4 x 4 outputs each)
+constexpr int NT = 256;  // threads per block, 16 x 16
 constexpr int MAX_MULTS = 8;
-constexpr int ST = 8;          // K1, K2, K4: 8 x 8 outputs a thread
-constexpr int SB = 16 * ST;    // K1, K2, K4: a 128 x 128 tile
+constexpr int ST = 8;          // 8 x 8 outputs a thread
+constexpr int SB = 16 * ST;    // a 128 x 128 tile
 constexpr int SB2 = SB * SB;   // floats of one partial dot tile
-constexpr int TT = 32;         // transpose tile
+using dist_tile::TT;          // transpose tile
 
 }  // namespace
 
@@ -146,43 +164,6 @@ __device__ __forceinline__ void ladder_eval(float d2, float bw, const VganLadder
     }
 }
 
-// acc[i][j] = sum_k zr[row0 + 4 ty + i][k] * zc[col0 + 4 tx + j][k]
-__device__ __forceinline__ void tile_dot(const float* __restrict__ zr,
-                                         const float* __restrict__ zc, int R, int C,
-                                         int d, int row0, int col0,
-                                         float (*As)[BM + 4], float (*Bs)[BN + 4],
-                                         float acc[4][4]) {
-    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < d; k0 += BK) {
-#pragma unroll
-        for (int l = 0; l < (BM * BK) / NT; ++l) {
-            const int idx = tid + l * NT;
-            const int r = idx / BK, kk = idx % BK;
-            const int gk = k0 + kk;
-            const int gr = row0 + r, gc = col0 + r;
-            As[kk][r] = (gr < R && gk < d) ? zr[(size_t)gr * d + gk] : 0.f;
-            Bs[kk][r] = (gc < C && gk < d) ? zc[(size_t)gc * d + gk] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-            const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-            const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-}
-
 // Sum of v over the block, in a fixed order; the result is valid in thread 0.
 __device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
@@ -197,21 +178,13 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
     return t;
 }
 
-// z_t[k * ld + r] = z[r * d + k] for r < m, 0 for m <= r < ld; 32 x 32
-// tiles through shared memory, so both sides are coalesced.
+// z_t[k * ld + r] = z[r * d + k] for r < m, 0 for m <= r < ld.
 __global__ void transpose_pad_kernel(const float* __restrict__ z, int m, int d, int ld,
                                      float* __restrict__ z_t) {
     __shared__ float t[TT][TT + 1];
-    const int r0 = blockIdx.x * TT, k0 = blockIdx.y * TT;
-    for (int j = threadIdx.y; j < TT; j += blockDim.y) {
-        const int r = r0 + j, k = k0 + threadIdx.x;
-        t[j][threadIdx.x] = r < m && k < d ? z[(size_t)r * d + k] : 0.f;
-    }
-    __syncthreads();
-    for (int j = threadIdx.y; j < TT; j += blockDim.y) {
-        const int k = k0 + j, r = r0 + threadIdx.x;
-        if (k < d) z_t[(size_t)k * ld + r] = t[threadIdx.x][j];
-    }
+    dist_tile::transpose_tile(
+        [&](int r, int k) { return r < m && k < d ? z[(size_t)r * d + k] : 0.f; },
+        blockIdx.x * TT, blockIdx.y * TT, d, ld, z_t, t);
 }
 
 // The b-th tile pair (J, I), J <= I, of the upper triangle of tiles x tiles.
@@ -507,108 +480,326 @@ finalize_sums(const float* __restrict__ partials, int nblocks, float* __restrict
     }
 }
 
-// Replaces mmd_gram.py:_flash_bwd_kernel. Block (blockIdx.x, blockIdx.y) =
-// (row block, column split); partial s of sz / rs lives at sz + s m d and
-// rs + s m. See the layout note at the top of this file.
-__global__ void __launch_bounds__(NT)
-flash_bwd_kernel(const float* __restrict__ z, const float* __restrict__ norms,
-                 const float* __restrict__ bw_ptr, int m, int d, int n1, float cxx,
-                 float cyy, float cxy, VganLadder L, float* __restrict__ sz,
-                 float* __restrict__ rs) {
-    __shared__ __align__(16) float As[BK][BM + 4];
-    __shared__ __align__(16) float Bs[BK][BN + 4];
-    __shared__ float S[BM][BN + 1];
-    __shared__ __align__(16) float Zs[BN][FD + 4];
-    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-    const int row0 = blockIdx.x * BM;
-    const int split = blockIdx.y, nsplit = gridDim.y;
-    sz += (size_t)split * m * d;
-    rs += (size_t)split * m;
-    const float bw = *bw_ptr;
-    float rsum[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int col0 = split * BN; col0 < m; col0 += nsplit * BN) {
-        const bool first = col0 == split * BN;
-        float acc[4][4];
-        tile_dot(z, z, m, m, d, row0, col0, As, Bs, acc);
+// ---------------------------------------------------------------------------
+// K3: S @ z and rowsum(S), S = coeff .* K'(d2), no m^2 buffer. See the top
+// of this file.
+// ---------------------------------------------------------------------------
+
+// What a K3 launch works on. z_t (d x ld) is z column-major (the distance
+// operands); z_aug (ld x ldz) is z row-major with a column of ones at d and
+// zeros to ldz, a multiple of 128 (the S @ z operand: column d of S @ z_aug
+// is rowsum(S)). The column tiles of the square are split into nsplit runs
+// of `per` tiles; split 0 adds its run's S @ z_aug straight into sz and rs,
+// split s > 0 into partial s - 1 ((ld x ldz) each), which flash_finalize
+// adds to sz and rs in split order.
+struct Flash {
+    const float* z_t;
+    const float* z_aug;
+    const float* norms;
+    int m, d, n1, ld, ldz, tiles, per;
+    float cxx, cyy, cxy;
+};
+
+constexpr size_t FLASH_SMEM = sizeof(float) * (dist_tile::smem_floats<ST, ST>() + SB2);
+
+// The S entry of rows j (the tile's row, a z row of the column tile) and i
+// from its d2: K' through ladder_call, times the quadrant's coefficient, 0
+// outside the m x m square.
+__device__ __forceinline__ float s_entry(float d2, int j, int i, const Flash& f, float bw,
+                                         const VganLadder& L) {
+    float k, kp;
+    ladder_call<false, true>(d2, bw, L, k, kp);
+    const bool jx = j < f.n1, ix = i < f.n1;
+    const float coeff = (jx && ix) ? f.cxx : ((!jx && !ix) ? f.cyy : f.cxy);
+    return (i < f.m && j < f.m) ? coeff * kp : 0.f;
+}
+
+// d2 of the thread's entries acc[r][c] = z_j . z_i, j = J 128 + tile_row(r),
+// i = I 128 + tile_col(c), as K1's epilogue forms it, stored transposed to
+// the product's operand layout, St[j - J 128][i - I 128]: each thread's four
+// consecutive i go out as one 16-byte store, and the 16 threads of a row
+// fill 64 consecutive words. No call here, so the 64 dots are not live
+// across one.
+__device__ __forceinline__ void d2_tile(const float (&acc)[ST][ST], int I, int J, const Flash& f,
+                                        float* St) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int r = row0 + ty * 4 + i;
+    for (int g = 0; g < ST; g += 4) {  // four columns at a time: few norms live
+        float ni[4];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int c = col0 + tx * 4 + j;
-                float s = 0.f;
-                if (r < m && c < m) {
-                    const float d2 = fmaxf(-2.f * acc[i][j] + norms[r] + norms[c], 0.f);
-                    float k, kp;
-                    ladder_eval<false, true>(d2, bw, L, k, kp);
-                    const bool rx = r < n1, cx = c < n1;
-                    const float coeff = (rx && cx) ? cxx : ((!rx && !cx) ? cyy : cxy);
-                    s = coeff * kp;
-                }
-                S[ty * 4 + i][tx * 4 + j] = s;
-                rsum[i] += s;
-            }
+        for (int q = 0; q < 4; ++q) {
+            const int i = I * SB + dist_tile::tile_col(g + q);
+            ni[q] = i < f.m ? f.norms[i] : 0.f;
         }
-        __syncthreads();
-        for (int dc = 0; dc < d; dc += FD) {
 #pragma unroll
-            for (int l = 0; l < (BN * FD) / NT; ++l) {
-                const int idx = tid + l * NT;
-                const int c = idx / FD, k = idx % FD;
-                const int gc = col0 + c, gk = dc + k;
-                Zs[c][k] = (gc < m && gk < d) ? z[(size_t)gc * d + gk] : 0.f;
-            }
-            __syncthreads();
-            float out[4][4];
+        for (int r = 0; r < ST; ++r) {
+            const int jl = dist_tile::tile_row(r), j = J * SB + jl;
+            const float nj = j < f.m ? f.norms[j] : 0.f;
+            float v[4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-#pragma unroll 8
-            for (int c = 0; c < BN; ++c) {
-                const float4 b = *reinterpret_cast<const float4*>(&Zs[c][tx * 4]);
-                const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const float a = S[ty * 4 + i][c];
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) out[i][j] = fmaf(a, bv[j], out[i][j]);
-                }
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int r = row0 + ty * 4 + i;
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    const int k = dc + tx * 4 + j;
-                    if (r < m && k < d) {
-                        float* p = &sz[(size_t)r * d + k];
-                        *p = first ? out[i][j] : *p + out[i][j];
-                    }
-                }
-            }
-            __syncthreads();
+            for (int q = 0; q < 4; ++q) v[q] = fmaxf(fmaf(-2.f, acc[r][g + q], ni[q] + nj), 0.f);
+            *reinterpret_cast<float4*>(St + jl * SB + dist_tile::tile_col(g)) =
+                make_float4(v[0], v[1], v[2], v[3]);
         }
-    }
-    // rowsum(S): the 16 threads of one ty share its 4 rows (lanes 0-15 or
-    // 16-31 of a warp); fixed-order butterfly.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        float v = rsum[i];
-#pragma unroll
-        for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-        const int r = row0 + ty * 4 + i;
-        if (tx == 0 && r < m) rs[r] = v;
     }
 }
 
-// out[i] = sum over s of parts[s n + i], in split order.
+// One 16-row step of S @ z_aug: out[r][c] += sum over kk < 16 of
+// As[kk][tile_row(r)] Bs[kk][tile_col(c)], As a chunk of an S tile [j][i]
+// and Bs one of z_aug's rows, both [16][128] in shared memory.
+__device__ __forceinline__ void s_z_step(const float* As, const float* Bs, float (&out)[ST][ST]) {
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+    for (int kk = 0; kk < dist_tile::BK; ++kk) {
+        float av[ST], bv[ST];
+#pragma unroll
+        for (int g = 0; g < ST / 4; ++g) {
+            const float4 v = *reinterpret_cast<const float4*>(As + kk * SB + g * 64 + ty * 4);
+            av[4 * g] = v.x, av[4 * g + 1] = v.y, av[4 * g + 2] = v.z, av[4 * g + 3] = v.w;
+        }
+#pragma unroll
+        for (int g = 0; g < ST / 4; ++g) {
+            const float4 v = *reinterpret_cast<const float4*>(Bs + kk * SB + g * 64 + tx * 4);
+            bv[4 * g] = v.x, bv[4 * g + 1] = v.y, bv[4 * g + 2] = v.z, bv[4 * g + 3] = v.w;
+        }
+#pragma unroll
+        for (int r = 0; r < ST; ++r)
+#pragma unroll
+            for (int q = 0; q < ST; ++q) out[r][q] = fmaf(av[r], bv[q], out[r][q]);
+    }
+}
+
+// out[r][c] += sum over the column tile's rows k of St[k][tile_row(r)]
+// z_aug[J 128 + k][c0 + tile_col(c)]: St, one S tile [j][i], stays in shared
+// memory; z_aug's 16-row chunks are double-buffered through cp.async into
+// Zs (2 x 16 x 128 floats). count: the tile's valid rows. Ends with a
+// barrier.
+__device__ __forceinline__ void s_times_z(const float* St, const Flash& f, int J, int c0,
+                                          int count, float* Zs, float (&out)[ST][ST]) {
+    const dist_tile::Operand b{f.z_aug + (size_t)J * SB * f.ldz, f.ldz, c0, nullptr};
+    const int n = dist_tile::cdiv(count, dist_tile::BK);
+    dist_tile::load_chunk<SB>(b, count, 0, Zs);
+    dist_tile::cp_async_commit();
+    for (int c = 0; c < n; ++c) {
+        const float* Bs = Zs + (c % 2) * dist_tile::BK * SB;
+        if (c + 1 < n) {
+            dist_tile::load_chunk<SB>(b, count, c + 1, Zs + ((c + 1) % 2) * dist_tile::BK * SB);
+            dist_tile::cp_async_commit();
+            dist_tile::cp_async_wait<1>();
+        } else {
+            dist_tile::cp_async_wait<0>();
+        }
+        __syncthreads();
+        const float* As = St + c * dist_tile::BK * SB;
+        s_z_step(As, Bs, out);
+        __syncthreads();  // the next chunk's load refills this buffer
+    }
+}
+
+// A thread's 8 x 8 of rows I 128 + tile_row(r), columns c0 + tile_col(c) of
+// S @ z_aug from split s: to sz and rs (s == 0), or to partial s - 1
+// ((ld x ldz) row-major, 16-byte runs). add: add to what is there (a later
+// column tile of the split), else store.
+__device__ __forceinline__ void emit(const float (&v)[ST][ST], const Flash& f, int I, int c0,
+                                     int s, bool add, float* __restrict__ P,
+                                     float* __restrict__ sz, float* __restrict__ rs) {
+#pragma unroll
+    for (int r = 0; r < ST; ++r) {
+        const int i = I * SB + dist_tile::tile_row(r);
+        if (i >= f.m) continue;
+        float* prow = P + ((size_t)(s - 1) * f.ld + i) * f.ldz;
+        float* zrow = sz + (size_t)i * f.d;
+#pragma unroll
+        for (int g = 0; g < ST; g += 4) {
+            const int col = c0 + dist_tile::tile_col(g);
+            if (s > 0) {
+                float4* p = reinterpret_cast<float4*>(prow + col);
+                float4 o = make_float4(v[r][g], v[r][g + 1], v[r][g + 2], v[r][g + 3]);
+                if (add) {
+                    const float4 w = *p;
+                    o = make_float4(w.x + o.x, w.y + o.y, w.z + o.z, w.w + o.w);
+                }
+                *p = o;
+                continue;
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                if (col + q < f.d)
+                    zrow[col + q] = add ? zrow[col + q] + v[r][g + q] : v[r][g + q];
+                else if (col + q == f.d)
+                    rs[i] = add ? rs[i] + v[r][g + q] : v[r][g + q];
+            }
+        }
+    }
+}
+
+// K3's operands from z in one pass: z_aug (ld x ldz) = z, a column of ones
+// at d (rows below m) and zeros; z_t (d x ld) = z column-major, rows m .. ld
+// zero. One 32 x 32 tile of z_aug a block, written as it is read; its
+// columns below d go on to z_t through the transpose.
+__global__ void flash_prep_kernel(const float* __restrict__ z, int m, int d, int ld, int ldz,
+                                  float* __restrict__ z_t, float* __restrict__ z_aug) {
+    __shared__ float t[TT][TT + 1];
+    dist_tile::transpose_tile(
+        [&](int r, int k) {
+            const float v = r < m ? (k < d ? z[(size_t)r * d + k] : (k == d ? 1.f : 0.f)) : 0.f;
+            z_aug[(size_t)r * ldz + k] = v;
+            return v;
+        },
+        blockIdx.x * TT, blockIdx.y * TT, d, ld, z_t, t);
+}
+
+// Mode (a)'s two halves of a column tile, each behind a call (inlined
+// together into the kernel's loop they passed 128 registers and spilled):
+// the 128 x 128 dot tile of rows J and I over all of d on dist_tile's
+// pipeline, its d2 into St;
+__device__ __noinline__ void flash_d2(const Flash f, int I, int J, float* smem, float* St) {
+    float acc[ST][ST];
+#pragma unroll
+    for (int r = 0; r < ST; ++r)
+#pragma unroll
+        for (int c = 0; c < ST; ++c) acc[r][c] = 0.f;
+    dist_tile::NoHook hook;
+    dist_tile::product<ST, ST>(dist_tile::Operand{f.z_t, f.ld, J * SB, nullptr},
+                               dist_tile::Operand{f.z_t, f.ld, I * SB, nullptr}, f.d, smem, acc,
+                               hook);
+    d2_tile(acc, I, J, f, St);
+}
+
+// S in place of d2 in St (thread t the words t, t + 256, ...: conflict-free,
+// and one value live across each ladder call);
+__device__ __noinline__ void flash_s(const Flash f, int I, int J, float bw, const VganLadder& L,
+                                     float* St) {
+    for (int e = threadIdx.x; e < SB2; e += NT)
+        St[e] = s_entry(St[e], J * SB + e / SB, I * SB + e % SB, f, bw, L);
+}
+
+// and one 128-column chunk of S @ z_aug, added to the block's rows.
+__device__ __noinline__ void flash_chunk(const Flash f, const float* St, int I, int J, int c0, int s,
+                                         bool add, float* Zs, float* P, float* sz, float* rs) {
+    float out[ST][ST];
+#pragma unroll
+    for (int r = 0; r < ST; ++r)
+#pragma unroll
+        for (int c = 0; c < ST; ++c) out[r][c] = 0.f;
+    s_times_z(St, f, J, c0, min(SB, f.m - J * SB), Zs, out);
+    emit(out, f, I, c0, s, add, P, sz, rs);
+}
+
+// Mode (a): block (I, s) walks the column tiles J of split s. For each: the
+// dot tile and its d2 (flash_d2), S in place (flash_s), then S @ z_aug in
+// 128-column chunks (flash_chunk), each added to the block's own rows of
+// its output in J order (no other block touches them).
+__global__ void __launch_bounds__(NT, 2)  // two blocks an SM: at most 128 registers
+flash_tile_kernel(const Flash f, const float* __restrict__ bw_ptr, VganLadder L,
+                  float* __restrict__ P, float* __restrict__ sz, float* __restrict__ rs) {
+    extern __shared__ __align__(16) float smem[];
+    float* St = smem + dist_tile::smem_floats<ST, ST>();
+    const int I = blockIdx.x, s = blockIdx.y;
+    const float bw = *bw_ptr;
+    const int J0 = s * f.per, J1 = min(f.tiles, J0 + f.per);
+    for (int J = J0; J < J1; ++J) {
+        flash_d2(f, I, J, smem, St);
+        __syncthreads();
+        flash_s(f, I, J, bw, L, St);
+        __syncthreads();
+        for (int c0 = 0; c0 < f.ldz; c0 += SB) flash_chunk(f, St, I, J, c0, s, J > J0, smem, P, sz, rs);
+    }
+}
+
+// Mode (b), pass 2: block (b, q) forms the S entries of tile pair b (J <= I,
+// dot_slices_kernel's b-th block over the symmetric square) at thread t's
+// slots e = FLASH_S_SLOTS q .. + FLASH_S_SLOTS - 1: the entry (tile_row(e / 8),
+// tile_col(e % 8)) of thread t, whose nslices partial dots lie at e 256 + t
+// of each slice's tile (coalesced), added in slice order. S(j, i) goes to S
+// tile (J, I) at [j - J 128][i - I 128] and, for J < I, as S(i, j) (S is
+// symmetric to the bit: the dot, the norms' sum and the coefficient are) to
+// tile (I, J) at [i - I 128][j - J 128]: the operand layout of pass 3.
+constexpr int FLASH_S_SLOTS = 4;  // 16 blocks a tile pair: the ladder is latency-bound
+
 __global__ void __launch_bounds__(NT)
-sum_splits(const float* __restrict__ parts, int nsplit, size_t n, float* __restrict__ out) {
-    for (size_t i = (size_t)blockIdx.x * NT + threadIdx.x; i < n; i += (size_t)gridDim.x * NT) {
-        float t = parts[i];
-        for (int s = 1; s < nsplit; ++s) t += parts[(size_t)s * n + i];
-        out[i] = t;
+flash_s_kernel(const Flash f, const float* __restrict__ dots, int nslices,
+               const float* __restrict__ bw_ptr, VganLadder L, float* __restrict__ S_tiles) {
+    const int b = blockIdx.x, t = threadIdx.x;
+    int J, I;
+    tile_pair(b, f.tiles, J, I);
+    const float bw = *bw_ptr;
+    const size_t stride = (size_t)gridDim.x * SB2;  // one slice's tiles to the next
+    const float* src = dots + (size_t)b * SB2 + t;
+    float* to = S_tiles + (size_t)(J * f.tiles + I) * SB2;
+    float* mirror = S_tiles + (size_t)(I * f.tiles + J) * SB2;
+    const int e0 = blockIdx.y * FLASH_S_SLOTS;
+    for (int e = e0; e < e0 + FLASH_S_SLOTS; ++e) {
+        float v = src[e * NT];
+        for (int sl = 1; sl < nslices; ++sl) v += src[sl * stride + e * NT];
+        const int jl = (e / ST / 4) * 64 + (t / 16) * 4 + (e / ST) % 4;  // tile_row(e / 8)
+        const int il = (e % ST / 4) * 64 + (t % 16) * 4 + e % 4;         // tile_col(e % 8)
+        const int j = J * SB + jl, i = I * SB + il;
+        const float nj = j < f.m ? f.norms[j] : 0.f, ni = i < f.m ? f.norms[i] : 0.f;
+        const float sv = s_entry(fmaxf(fmaf(-2.f, v, ni + nj), 0.f), j, i, f, bw, L);
+        to[jl * SB + il] = sv;
+        if (I != J) mirror[il * SB + jl] = sv;
+    }
+}
+
+// Mode (b), pass 3: block (I, s, c) owns rows I, split s and output columns
+// [128 c, 128 c + 128): the sum over the split's column tiles J of S tile
+// (J, I) times z_aug's chunk, in registers, on one cp.async pipeline over
+// all (J, 16-row chunk) steps of the split (the next tile's first chunk is
+// in flight while a tile ends); it goes out once.
+__global__ void __launch_bounds__(NT, 2)
+flash_product_kernel(const Flash f, const float* __restrict__ S_tiles, float* __restrict__ P,
+                     float* __restrict__ sz, float* __restrict__ rs) {
+    extern __shared__ __align__(16) float smem[];
+    constexpr int CH = SB / dist_tile::BK;  // 16-row chunks of a column tile
+    constexpr int STAGE = dist_tile::BK * 2 * SB;
+    const int I = blockIdx.x, s = blockIdx.y, c0 = blockIdx.z * SB;
+    const int J0 = s * f.per, steps = (min(f.tiles, J0 + f.per) - J0) * CH;
+    float out[ST][ST];
+#pragma unroll
+    for (int r = 0; r < ST; ++r)
+#pragma unroll
+        for (int c = 0; c < ST; ++c) out[r][c] = 0.f;
+    auto load = [&](int step) {  // chunk step % CH of column tile J0 + step / CH
+        const int J = J0 + step / CH, count = min(SB, f.m - J * SB);
+        float* S = smem + (step % dist_tile::STAGES) * STAGE;
+        dist_tile::load_chunk<SB>(dist_tile::Operand{S_tiles + (size_t)(J * f.tiles + I) * SB2, SB, 0,
+                                                     nullptr},
+                                  count, step % CH, S);
+        dist_tile::load_chunk<SB>(dist_tile::Operand{f.z_aug + (size_t)J * SB * f.ldz, f.ldz, c0,
+                                                     nullptr},
+                                  count, step % CH, S + dist_tile::BK * SB);
+        dist_tile::cp_async_commit();
+    };
+    load(0);
+    for (int step = 0; step < steps; ++step) {
+        if (step + 1 < steps) {
+            load(step + 1);
+            dist_tile::cp_async_wait<1>();
+        } else {
+            dist_tile::cp_async_wait<0>();
+        }
+        __syncthreads();
+        const float* As = smem + (step % dist_tile::STAGES) * STAGE;
+        const float* Bs = As + dist_tile::BK * SB;
+        s_z_step(As, Bs, out);
+        __syncthreads();  // the step after next refills this stage
+    }
+    emit(out, f, I, c0, s, false, P, sz, rs);
+}
+
+// sz[i][k] += P[s][i][k] and rs[i] += P[s][i][d] for the nsplit - 1 partials,
+// in split order.
+__global__ void __launch_bounds__(NT)
+flash_finalize(const float* __restrict__ P, int nsplit, int m, int d, int ld, int ldz,
+               float* __restrict__ sz, float* __restrict__ rs) {
+    const size_t n = (size_t)m * (d + 1);
+    for (size_t e = (size_t)blockIdx.x * NT + threadIdx.x; e < n; e += (size_t)gridDim.x * NT) {
+        const int i = static_cast<int>(e / (d + 1)), k = static_cast<int>(e % (d + 1));
+        const float* p = P + (size_t)i * ldz + k;
+        float* o = k < d ? sz + (size_t)i * d + k : rs + i;
+        float t = *o;
+        for (int s = 0; s + 1 < nsplit; ++s) t += p[(size_t)s * ld * ldz];
+        *o = t;
     }
 }
 
@@ -674,29 +865,54 @@ int vgan_gram_quadrant_sums_stash(const float* z, const float* norms, const floa
                          static_cast<cudaStream_t>(stream));
 }
 
-// nsplit column splits (1 <= nsplit <= cdiv(m, BN)). With nsplit > 1 the
-// partials go to scratch (nsplit m d + nsplit m floats) and are summed into
-// sz / rs; with nsplit == 1 scratch is unused.
+// K3. slice: the d columns of one slice of the dot pass, a positive multiple
+// of 16, or d itself for mode (a) (no dot pass); nsplit: the column splits
+// (1 <= nsplit <= the column tiles, each split per = cdiv(tiles, nsplit)
+// tiles). scratch, in this order: z_t (d x M, M = m rounded up to 128),
+// z_aug (M x D1, D1 = d + 1 rounded up to 128), in mode (b) the partial dot
+// tiles (cdiv(d, slice) x tiles (tiles + 1) / 2 x 128^2) and the S tiles
+// (tiles^2 x 128^2), and with nsplit > 1 the partials of splits 1 .. nsplit - 1
+// ((nsplit - 1) x M x D1). ops/cuda/mmd_gram.py flash_schedule picks slice and
+// nsplit and flash_scratch_floats sizes the scratch.
 int vgan_gram_backward_flash(const float* z, const float* norms, const float* bw, int m,
                              int d, int n1, float cxx, float cyy, float cxy,
-                             const VganLadder* ladder, int nsplit, float* scratch,
+                             const VganLadder* ladder, int slice, int nsplit, float* scratch,
                              float* sz, float* rs, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (nsplit < 1 || nsplit > cdiv(m, BN)) return static_cast<int>(cudaErrorInvalidValue);
-    dim3 grid(cdiv(m, BM), nsplit);
-    if (nsplit == 1) {
-        flash_bwd_kernel<<<grid, NT, 0, s>>>(z, norms, bw, m, d, n1, cxx, cyy, cxy,
-                                             *ladder, sz, rs);
-        return static_cast<int>(cudaGetLastError());
+    const int tiles = cdiv(m, SB), ld = tiles * SB, ldz = cdiv(d + 1, SB) * SB;
+    if (m < 1 || d < 1 || slice < 1 || (slice < d && slice % dist_tile::BK) || nsplit < 1 ||
+        nsplit > tiles || ldz / TT > 65535)
+        return invalid();
+    const int per = cdiv(tiles, nsplit), nslices = cdiv(d, slice);
+    if (cdiv(tiles, per) != nsplit || nslices > 65535) return invalid();
+    float* z_t = scratch;
+    float* z_aug = z_t + (size_t)d * ld;
+    float* dots = z_aug + (size_t)ld * ldz;
+    float* P = dots + (nslices > 1 ? (size_t)nslices * (tiles * (tiles + 1) / 2) * SB2 : 0);
+    const Flash f{z_t, z_aug, norms, m, d, n1, ld, ldz, tiles, per, cxx, cyy, cxy};
+    flash_prep_kernel<<<dim3(ld / TT, ldz / TT), dim3(TT, 8), 0, s>>>(z, m, d, ld, ldz, z_t, z_aug);
+    if (nslices == 1) {
+        cudaError_t err = cudaFuncSetAttribute(flash_tile_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(FLASH_SMEM));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        flash_tile_kernel<<<dim3(tiles, nsplit), NT, FLASH_SMEM, s>>>(f, bw, *ladder, P, sz, rs);
+    } else {
+        float* S_tiles = P;
+        P = S_tiles + (size_t)tiles * tiles * SB2;
+        const Panel p = make_panel(m, m, 0);  // the tile pairs J <= I
+        dot_slices_kernel<<<dim3(p.tiles(), nslices), NT, TILE_SMEM, s>>>(p, z_t, ld, 0, z_t, ld, d,
+                                                                         slice, dots);
+        flash_s_kernel<<<dim3(p.tiles(), ST * ST / FLASH_S_SLOTS), NT, 0, s>>>(f, dots, nslices, bw,
+                                                                              *ladder, S_tiles);
+        flash_product_kernel<<<dim3(tiles, nsplit, ldz / SB), NT, TILE_SMEM, s>>>(f, S_tiles, P, sz,
+                                                                                 rs);
     }
-    float* sz_parts = scratch;
-    float* rs_parts = scratch + (size_t)nsplit * m * d;
-    flash_bwd_kernel<<<grid, NT, 0, s>>>(z, norms, bw, m, d, n1, cxx, cyy, cxy, *ladder,
-                                         sz_parts, rs_parts);
-    const size_t n = (size_t)m * d;
-    const int blocks = static_cast<int>((n + NT - 1) / NT < 4096 ? (n + NT - 1) / NT : 4096);
-    sum_splits<<<blocks, NT, 0, s>>>(sz_parts, nsplit, n, sz);
-    sum_splits<<<cdiv(m, NT), NT, 0, s>>>(rs_parts, nsplit, (size_t)m, rs);
+    if (nsplit > 1) {
+        const size_t n = (size_t)m * (d + 1);
+        flash_finalize<<<static_cast<int>(std::min<size_t>((n + NT - 1) / NT, 4096)), NT, 0, s>>>(
+            P, nsplit, m, d, ld, ldz, sz, rs);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 

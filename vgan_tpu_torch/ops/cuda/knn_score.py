@@ -6,9 +6,12 @@ For each mask m, test row i and train row j the masked squared distance is
 the expansion ``max((an + bn) - 2 (xte .* m) @ xtr^T, 0)``; the score of
 (m, i) is the k-th smallest distance of the row ('kth', pyod KNN 'largest')
 or the mean of the k smallest ('mean'), exact under ties. The (nt, ntr)
-distances never reach device memory (``csrc/knn_score.cu``). The kernel
-walks only each mask's selected columns: the wrapper hands it the column
-lists (:func:`selected_columns`) and column-major copies of the rows.
+distances never reach device memory (``csrc/knn_score.cu``). The kernels
+walk only each mask's selected columns: the wrapper hands them the column
+lists (:func:`selected_columns`) and column-major copies of the rows. K6
+(few selected columns) filters each train tile's distances in registers
+and buffers only the candidates below each row's k-th value; K7 (many)
+selects from a distance tile in shared memory.
 
 Which kernel runs is the JAX package's regime rule on the same constants:
 the resident kernel (K6, :func:`knn_scores_resident`) where
@@ -139,6 +142,7 @@ _SIGNATURES = {
     name: [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
     for name in ("vgan_knn_resident", "vgan_knn_stream")
 }
+_SIGNATURES["vgan_knn_prep"] = [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P]
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,26 +157,52 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch_scores(fn_name, x_test, x_train, masks, k, mode, exclude_self) -> torch.Tensor:
+def kernel_operands(x_test, x_train, masks):
+    """``(xte_t, xtr_t, cols, counts)``: the kernels' operands, the rows'
+    column-major copies zero-padded to whole tiles and each mask's selected
+    columns first, ascending, with their counts. On the card one launch
+    (``knn_prep_kernel``), whose ``cols`` holds only the selected columns
+    of each row (the rest is never read); on the CPU its plain version
+    (:func:`selected_columns`, ``_column_major``)."""
+    if not x_test.is_cuda:
+        return (_column_major(x_test, KERNEL_TILE), _column_major(x_train, KERNEL_TILE),
+                *selected_columns(masks))
     nt, d = x_test.shape
     ntr, nm = x_train.shape[0], masks.shape[0]
     dev = x_test.device
     _check("x_test", x_test, (nt, d), dev)
     _check("x_train", x_train, (ntr, d), dev)
     _check("masks", masks, (nm, d), dev)
-    cols, counts = selected_columns(masks)
-    xte_t = _column_major(x_test, KERNEL_TILE)
-    xtr_t = _column_major(x_train, KERNEL_TILE)
+    ld_te, ld_tr = _round_up(nt, KERNEL_TILE), _round_up(ntr, KERNEL_TILE)
+    buf = torch.empty(d * (ld_te + ld_tr) + nm * (d + 1), dtype=torch.float32, device=dev)
+    xte_t = buf[:d * ld_te].view(d, ld_te)
+    xtr_t = buf[d * ld_te:d * (ld_te + ld_tr)].view(d, ld_tr)
+    ints = buf[d * (ld_te + ld_tr):].view(torch.int32)
+    cols, counts = ints[:nm * d].view(nm, d), ints[nm * d:]
+    _launch("vgan_knn_prep", dev, _ptr(x_test), nt, ld_te, _ptr(x_train), ntr, ld_tr,
+            _ptr(masks), nm, d, _ptr(xte_t), _ptr(xtr_t), _ptr(cols), _ptr(counts), lib=_lib())
+    return xte_t, xtr_t, cols, counts
+
+
+def _launch_scores(fn_name, x_test, x_train, masks, k, mode, exclude_self,
+                   lib=None) -> torch.Tensor:
+    """Launch ``fn_name`` of ``lib`` (default: this module's library) on the
+    operands of :func:`kernel_operands`."""
+    nt, d = x_test.shape
+    ntr, nm = x_train.shape[0], masks.shape[0]
+    dev = x_test.device
+    xte_t, xtr_t, cols, counts = kernel_operands(x_test, x_train, masks)
     out = torch.empty((nm, nt), dtype=torch.float32, device=dev)
     _launch(fn_name, dev, _ptr(xte_t), xte_t.shape[1], _ptr(xtr_t), xtr_t.shape[1], _ptr(cols),
             _ptr(counts), nm, nt, ntr, d, int(k), int(mode == "mean"), int(bool(exclude_self)),
-            _ptr(out), lib=_lib())
+            _ptr(out), lib=lib if lib is not None else _lib())
     return out
 
 
 def knn_scores_resident(x_test, x_train, masks, k: int, mode: str = "kth",
                         exclude_self: bool = False) -> torch.Tensor:
-    """K6: the JAX resident regime (the same kernel as K7 on Hopper)."""
+    """K6: the JAX resident regime; one mask x 128 test rows per block,
+    the selection filtered in registers."""
     out = _launch_scores("vgan_knn_resident", x_test, x_train, masks, k, mode, exclude_self)
     knn_scores_resident.launches += 1
     return out

@@ -7,13 +7,14 @@ plain PyTorch version beside it:
 - :func:`gram_quadrant_sums` (forward quadrant sums XX, XY, YY);
 - :func:`gram_quadrant_sums_stash` (the same plus the (m, m) K'(d2));
 - :func:`gram_backward_flash` (``S @ z`` and ``rowsum(S)`` with S the
-  coefficient-weighted K', no m^2 buffer);
+  coefficient-weighted K', no m^2 buffer; :func:`flash_schedule`);
 - :func:`kprime_panel` (an (R, C) K'(d2) row panel).
 
-K1, K2 and K4 run on 128 x 128 tiles; :func:`tile_schedule` picks, from
-the number of tiles a launch forms (:func:`tile_pairs`,
-:func:`panel_blocks`), whether the summed d axis is split over the card
-(mode (b)) or each tile runs its epilogue in registers (mode (a)).
+All four run on 128 x 128 tiles; :func:`tile_schedule` picks, from the
+number of tiles a launch forms (:func:`tile_pairs`, :func:`panel_blocks`),
+whether the summed d axis is split over the card (mode (b)) or each tile
+runs its epilogue in registers (mode (a)). K3 also splits the column tiles
+of the square into runs (:func:`flash_schedule`).
 
 A wrapper given CPU tensors returns its plain version; given CUDA tensors it
 launches its kernel or raises. The wrappers take the unpadded (m, d) rows:
@@ -50,16 +51,15 @@ PANEL_BYTES = 1 << 28
 # to 0 to force the bounded-memory panel backward.
 _KP_STASH_BYTES = 7 << 30
 MAX_MULTS = 8
-# The row and column tile of K3 (BM = BN in csrc/mmd_gram.cu); also the row
-# granularity of the panel backward's panels.
-KERNEL_TILE = 64
-# The flash backward splits its columns over this many blocks per SM at
-# least, within FLASH_SPLIT_BYTES of partial sums.
-FLASH_BLOCKS_PER_SM = 2
+# The row granularity of the panel backward's panels.
+PANEL_ROW_MULTIPLE = 64
+# K3 splits the column tiles of the square into runs whose partial sums of
+# S @ z (beyond the first run's, which goes straight to the output) stay
+# within FLASH_SPLIT_BYTES.
 FLASH_SPLIT_BYTES = 1 << 28
-# K1, K2 and K4: their 128 x 128 tiles (SB in csrc/mmd_gram.cu) and the
-# d-chunk of dist_tile.cuh (BK), of which a d slice is a multiple; d is split
-# until tiles x slices give each SM this many blocks.
+# The kernels' 128 x 128 tiles (SB in csrc/mmd_gram.cu) and the d-chunk of
+# dist_tile.cuh (BK), of which a d slice is a multiple; d is split until
+# tiles x slices give each SM this many blocks.
 STASH_TILE = 128
 STASH_BK = 16
 STASH_BLOCKS_PER_SM = 2
@@ -220,7 +220,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vgan_gram_quadrant_sums": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
     "vgan_gram_quadrant_sums_stash": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
-    "vgan_gram_backward_flash": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _I, _P, _P, _P, _P],
+    "vgan_gram_backward_flash": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _I, _I, _P, _P, _P, _P],
     "vgan_transpose_pad": [_P, _I, _I, _I, _P, _P],
     "vgan_kprime_panel": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
 }
@@ -388,14 +388,52 @@ def gram_quadrant_sums_stash(z, norms, bw, n1: int, mults):
     return sums.reshape(1, 4), kp
 
 
-def flash_splits(m: int, d: int, sms: int) -> int:
-    """Column splits of the flash backward: enough (row block, split) blocks
-    to give each of ``sms`` SMs ``FLASH_BLOCKS_PER_SM``, at most one split
-    per column tile, and at most ``FLASH_SPLIT_BYTES`` of partial sums."""
-    tiles = _cdiv(m, KERNEL_TILE)
-    want = _cdiv(FLASH_BLOCKS_PER_SM * sms, tiles)
-    fit = FLASH_SPLIT_BYTES // (4 * m * (d + 1))
-    return max(1, min(want, tiles, fit))
+@functools.lru_cache(maxsize=None)
+def flash_schedule(m: int, d: int, sms: int) -> Tuple[str, int, int]:
+    """``(mode, slice, nsplit)`` of a K3 launch. The mode and d slice are
+    K1's (:func:`tile_schedule` over the tile pairs): in mode (a) a block
+    (row tile, split) forms each of its ordered dot tiles over all of d; in
+    mode (b) a pass forms the partial dot tiles of every (tile pair, d
+    slice), a second adds them into the S tiles, and a block (row tile,
+    split, 128-column chunk of ``[z | 1]``) multiplies them with z.
+    The column tiles go in ``nsplit`` runs of ``per = cdiv(tiles, nsplit)``
+    tiles: the run length that finishes soonest in waves of
+    ``STASH_BLOCKS_PER_SM * sms`` blocks (a block's time taken as its run
+    length), the longer run on a tie, with the partials of runs 1 ..
+    nsplit - 1 within ``FLASH_SPLIT_BYTES``."""
+    tiles = _cdiv(m, STASH_TILE)
+    mode, slice_, _ = tile_schedule(tile_pairs(m), d, sms)
+    per_split = tiles * (flash_chunks(d) if mode == "b" else 1)  # blocks of one split
+    wave = STASH_BLOCKS_PER_SM * sms
+    slot = 4 * tiles * STASH_TILE * flash_chunks(d) * STASH_TILE
+    best = None
+    for per in range(tiles, 0, -1):
+        nsplit = _cdiv(tiles, per)
+        if nsplit > 1 and (nsplit - 1) * slot > FLASH_SPLIT_BYTES:
+            break
+        cost = per * _cdiv(nsplit * per_split, wave)
+        if best is None or cost < best[0]:
+            best = (cost, nsplit)
+    return mode, slice_, best[1]
+
+
+def flash_chunks(d: int) -> int:
+    """128-column chunks of ``[z | 1]`` (d + 1 columns, the ones column
+    giving rowsum(S)), zero-padded."""
+    return _cdiv(d + 1, STASH_TILE)
+
+
+def flash_scratch_floats(m: int, d: int, slice_: int, nsplit: int) -> int:
+    """K3's scratch: z column-major (d x M), ``[z | 1]`` row-major (M x
+    128 chunks), in mode (b) the partial dot tiles of every (tile pair,
+    slice) and the S tiles of every ordered tile (mode (b) runs only while
+    the tile pairs fall short of half a wave: at most about two waves of
+    tiles), and the partial sums of splits 1 .. nsplit - 1."""
+    tiles = _cdiv(m, STASH_TILE)
+    M, D1 = tiles * STASH_TILE, flash_chunks(d) * STASH_TILE
+    count = _cdiv(d, slice_)
+    mode_b = (count * tile_pairs(m) + tiles * tiles) * STASH_TILE ** 2 if count > 1 else 0
+    return d * M + M * D1 + mode_b + (nsplit - 1) * M * D1
 
 
 def gram_backward_flash(z, norms, bw, n1: int, n2: int, mults):
@@ -407,13 +445,14 @@ def gram_backward_flash(z, norms, bw, n1: int, n2: int, mults):
         raise ValueError(f"n1 + n2 = {n1 + n2} != m = {m}")
     sz = torch.empty((m, d), dtype=torch.float32, device=z.device)
     rs = torch.empty((m, 1), dtype=torch.float32, device=z.device)
-    nsplit = flash_splits(m, d, _sms(z.device))
-    scratch = torch.empty(nsplit * m * (d + 1) if nsplit > 1 else 1, dtype=torch.float32,
+    _, slice_, nsplit = flash_schedule(m, d, _sms(z.device))
+    scratch = torch.empty(flash_scratch_floats(m, d, slice_, nsplit), dtype=torch.float32,
                           device=z.device)
     cxx, cyy, cxy = _coefficients(n1, n2)
     _launch("vgan_gram_backward_flash", z.device, _ptr(z), _ptr(norms),
             _ptr(bw.reshape(1)), m, d, n1, cxx, cyy, cxy,
-            ctypes.byref(_ladder(tuple(mults))), nsplit, _ptr(scratch), _ptr(sz), _ptr(rs))
+            ctypes.byref(_ladder(tuple(mults))), slice_, nsplit, _ptr(scratch), _ptr(sz),
+            _ptr(rs))
     gram_backward_flash.launches += 1
     return sz, rs
 
@@ -509,9 +548,10 @@ def _q_vector(m: int, n1: int, device) -> torch.Tensor:
 
 
 def _panel_rows(m: int) -> int:
-    """Largest KERNEL_TILE-multiple panel height R with R m 4 <= PANEL_BYTES."""
-    max_rows = (PANEL_BYTES // (m * 4)) // KERNEL_TILE * KERNEL_TILE
-    return max(KERNEL_TILE, min(m, max_rows))
+    """Largest PANEL_ROW_MULTIPLE-multiple panel height R with R m 4 <=
+    PANEL_BYTES."""
+    max_rows = (PANEL_BYTES // (m * 4)) // PANEL_ROW_MULTIPLE * PANEL_ROW_MULTIPLE
+    return max(PANEL_ROW_MULTIPLE, min(m, max_rows))
 
 
 def gram_backward_panel(z, norms, bw, n1: int, mults) -> torch.Tensor:
