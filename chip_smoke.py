@@ -52,6 +52,16 @@ Phases (each asserts; any failure exits non-zero):
    notebook configuration (d=10, n=2000, lr 0.001, 15 epochs) in one K8
    launch, in the loss and mask bands, then ``continue_fit`` on the scan
    path and a checkpoint restored into a fresh estimator on the card;
+3e. the other native bases (lof, abod, cof, iforest, mahalanobis, copod,
+   hbos, ecod), which launch no kernel: on the bench ensemble's data and
+   masks (iforest at bench.py's 256 masks, 100 trees, chunk 32),
+   decision_function, predict, decision_scores_ and labels_ on the card with
+   the KNN counts at zero, the ROC AUC of the planted outliers held, the
+   first 16 masks' raw scores held to each scorer function on the CPU and
+   their ensemble to the same ensemble with device='cpu' (a disagreement of
+   lof, abod or cof must be a near-tie of float64 distances), each base's
+   decision_function time; then lof, iforest and copod on the stress
+   ensemble (500 masks, 2000 x 10240 train rows);
 4. the other regimes through ``fit`` (d=1024 flash; d=10240 with the K'
    stash off, panel), and the d=10 notebook configuration of both
    estimators, which runs no kernel. Every kernel fit's losses are held
@@ -73,7 +83,8 @@ Phases (each asserts; any failure exits non-zero):
    and times its eight kernels against this tree's on the same inputs, in
    turns (K3 through the parent's own C entry, K6 and K7 also held to the
    parent's scores bit for bit in both modes), and the kl stress and flash
-   fits' steps/s with the parent's K3 and with this tree's.
+   fits' steps/s with the parent's K3 and with this tree's. Phase 3e's
+   times are repeated there.
 
 Prints a JSON line of the kernels, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -204,6 +215,53 @@ K4_REAL_PANEL = dict(n1=22528, n2=22528, d=10240, offset=0)
 PLAIN_GRAM_ARRAYS, PLAIN_MAX_BYTES = 10, 24 << 30
 BENCH_ENSEMBLE = dict(n_train=1000, n_test=500, d=100, n_masks=1024, k=10)  # bench.py:414-419
 STRESS_ENSEMBLE = dict(subspace_count=500, n_test=500, k=10)
+# phase 3e: the other native bases on the bench ensemble's data and masks;
+# iforest at bench.py's own configuration (bench.py:472-493); lof, iforest
+# and copod once more on the stress ensemble
+OTHER_BASES = ("lof", "abod", "cof", "iforest", "mahalanobis", "copod", "hbos", "ecod")
+NEIGHBOR_BASES = ("lof", "abod", "cof")
+IFOREST_BENCH = dict(n_masks=256, n_trees=100, chunk=32)
+STRESS_BASES = ("lof", "iforest", "copod")
+# The card against the host: the pool's first CHECK_MASKS masks (the whole
+# pool of the index-reading bases takes minutes on the host's CPU).
+CHECK_MASKS = 16
+# Each base's raw scores on the card against its scorer function on the CPU,
+# in float64 where the score is a continuous function of the distances:
+# lof, abod and mahalanobis carry the f32 rounding of d2 (within
+# KNN_D2_FRAC of max(an + bn)) through a few divisions, far below 1e-4; cof
+# forms its pair distances by the identity |a_i - a_j|^2 = sq_i + sq_j -
+# 2 dots, which cancels in f32 to about sqrt(2^-24) of the root distance, and
+# its ratio of two chaining sums doubles that (the JAX package's own tests
+# absorb it at 1e-3); copod and ecod sum f32 logarithms of exact count
+# fractions over the selected dimensions. iforest and hbos make discrete
+# decisions on f32 arithmetic (a split threshold, a bin number) as the JAX
+# package does in the input's f32: their reference is the CPU in float32,
+# where every decision is the same, and only the logarithms and the mean over
+# trees round differently.
+RAW_RTOL = dict(lof=1e-4, abod=1e-4, cof=1e-3, mahalanobis=1e-4, copod=1e-5, ecod=1e-5,
+                iforest=1e-5, hbos=1e-5)
+RAW_ATOL_FRAC = 1e-5
+RAW_F32_BASES = ("iforest", "hbos")
+# ROC AUC of the planted outliers that the JAX package (vgan_tpu) gives on
+# the CPU on the same data, masks and configuration
+# (examples/jax_base_auc.py): 1.0 for every base, so each is held to
+# BENCH_AUC_MIN
+JAX_BENCH_AUC = dict(lof=1.0, abod=1.0, cof=1.0, iforest=1.0, mahalanobis=1.0, copod=1.0,
+                     hbos=1.0, ecod=1.0)
+# lof, abod and cof read neighbour sets (cof also their order). The card and
+# the CPU form d2 = an + bn - 2 cross in f32, in other summation orders: each
+# within (s + 2) 2^-24 2 (an + bn) of the exact value, s the mask's selected
+# columns (the sums' forward error bound), so two neighbours whose float64 d2
+# lie within twice the sum of their bounds can change places between them:
+# such a (mask, row) is "tie-exposed". A raw
+# score beyond the tolerance above must be tie-exposed: for lof, a gap at the
+# k-th place of the row's own list or of one of its neighbours' (their lrd
+# reads their sets); for abod, of the row's own; for cof, a gap anywhere in
+# the first k + 1 places of the row's list or of a neighbour's (the chain
+# reads the order). Aggregated, a row is held to ENSEMBLE_FRAC of the largest
+# score plus, for each mask where it is tie-exposed, that mask's weight times
+# its z-score range (how far one changed neighbour set can move the row's
+# z-score).
 
 
 def check(cond, msg: str) -> None:
@@ -1011,11 +1069,7 @@ def phase_ensembles(device, model, X, log):
         runs["stress", base] = (ens, Xt)
 
     cfg = BENCH_ENSEMBLE
-    rng = np.random.default_rng(22)
-    xtr = rng.standard_normal((cfg["n_train"], cfg["d"]), dtype=np.float32)
-    xte, is_out = outlier_rows(rng, cfg["n_test"], cfg["d"])
-    subs = rng.uniform(size=(cfg["n_masks"], cfg["d"])) < 0.3
-    subs[~subs.any(axis=1), 0] = True
+    xtr, xte, is_out, subs = bench_data()
     for base in ("knn", "knn_mean"):
         ens = SubspaceEnsemble(subs, np.full(cfg["n_masks"], 1.0 / cfg["n_masks"]), base=base,
                                k=cfg["k"]).fit(xtr)
@@ -1026,6 +1080,210 @@ def phase_ensembles(device, model, X, log):
         launches["knn_scores_resident"] += 3
         runs["bench", base] = (ens, xte)
     return launches, runs
+
+
+def bench_data():
+    """The bench ensemble's rows and masks (bench.py:414-419): 1000 x 100
+    Gaussian train rows, 500 test rows with N_OUTLIERS planted, 1024 masks
+    of about 30 features."""
+    cfg = BENCH_ENSEMBLE
+    rng = np.random.default_rng(22)
+    xtr = rng.standard_normal((cfg["n_train"], cfg["d"]), dtype=np.float32)
+    xte, is_out = outlier_rows(rng, cfg["n_test"], cfg["d"])
+    subs = rng.uniform(size=(cfg["n_masks"], cfg["d"])) < 0.3
+    subs[~subs.any(axis=1), 0] = True
+    return xtr, xte, is_out, subs
+
+
+def base_config(base: str, subs):
+    """(masks, constructor keywords) of a base on the bench data: iforest
+    at bench.py's configuration, the others at the bench ensemble's k."""
+    if base == "iforest":
+        cfg = IFOREST_BENCH
+        return subs[:cfg["n_masks"]], dict(n_trees=cfg["n_trees"], chunk=cfg["chunk"])
+    return subs, dict(k=BENCH_ENSEMBLE["k"])
+
+
+def host_reference(base: str, xte, xtr, masks, k: int):
+    """Raw (masks, nt) scores of ``base`` from its scorer function on the
+    CPU, in float64 (float32 for the bases whose decisions are defined in
+    f32)."""
+    from vgan_tpu_torch.ensemble import od
+
+    dtype = torch.float32 if base in RAW_F32_BASES else torch.float64
+    te, tr = torch.from_numpy(xte).to(dtype), torch.from_numpy(xtr).to(dtype)
+    m = torch.from_numpy(masks).to(dtype)
+    if base in od._DIM_BASES:
+        return od._dim_subspace_raw(od._dim_scores_impl(te, tr, base=base, n_bins=10), m)
+    scorer, kk = od._scorer_and_k(base, k=k, n_trees=k)
+    return scorer(te, tr, m, kk)
+
+
+def tie_exposure(base: str, xte, xtr, masks, k: int) -> torch.Tensor:
+    """(masks, nt) bool: the (mask, test row) pairs whose score can change
+    with a near-tie lost between the card's and the host's d2 (see
+    NEIGHBOR_BASES' tolerance note), from float64 d2 on the CPU."""
+    te, tr = torch.from_numpy(xte).double(), torch.from_numpy(xtr).double()
+    m = torch.from_numpy(masks).double()
+    an, bn = ((te * te) @ m.T).T, ((tr * tr) @ m.T).T
+    gamma = (m.sum(dim=1) + 2.0) * 2.0**-24 * 2.0  # per mask: the f32 bound's factor
+
+    def ties(q, qn, exclude_self):
+        d2 = qn[:, :, None] + bn[:, None, :] - 2.0 * (q[None] * m[:, None, :]) @ tr.T
+        bound = gamma[:, None, None] * (qn[:, :, None] + bn[:, None, :])
+        if exclude_self:
+            i = torch.arange(len(tr))
+            d2[:, i, i] = torch.inf
+        vals, idx = torch.sort(d2, dim=-1, stable=True)
+        err = torch.gather(bound, 2, idx[..., :k + 1])
+        gap = (vals[..., 1:k + 1] - vals[..., :k]) <= 2.0 * (err[..., 1:] + err[..., :-1])
+        return gap[..., k - 1], gap.any(dim=-1), idx[..., :k]
+
+    edge_te, any_te, nbr_te = ties(te, an, False)
+    if base == "abod":
+        return edge_te
+    edge_tr, any_tr, _ = ties(tr, bn, True)
+    c, nt, _ = nbr_te.shape
+    own, theirs = (edge_te, edge_tr) if base == "lof" else (any_te, any_tr)
+    via_nbr = torch.gather(theirs, 1, nbr_te.reshape(c, -1)).reshape(c, nt, k).any(dim=-1)
+    return own | via_nbr
+
+
+def hold_against_host(base: str, ens_kw: dict, xte, xtr, masks, log) -> None:
+    """The first CHECK_MASKS masks: raw scores on the card against the
+    scorer function on the CPU, and the card's ensemble against the same
+    ensemble with device='cpu'."""
+    from vgan_tpu_torch import SubspaceEnsemble
+
+    masks = masks[:CHECK_MASKS]
+    proba = np.full(len(masks), 1.0 / len(masks))
+    card = SubspaceEnsemble(masks, proba, base=base, **ens_kw).fit(xtr)
+    host = SubspaceEnsemble(masks, proba, base=base, device="cpu", **ens_kw).fit(xtr)
+    k = ens_kw.get("n_trees", ens_kw.get("k", 0))
+    raw = torch.from_numpy(card._raw_per_subspace(xte)).double()
+    ref = host_reference(base, xte, xtr, masks, k).double()
+    err = torch.abs(raw - ref)
+    lim = RAW_RTOL[base] * torch.abs(ref) + RAW_ATOL_FRAC * float(torch.max(torch.abs(ref)))
+    beyond = err > lim
+    exposed = tie_exposure(base, xte, xtr, masks, k) if base in NEIGHBOR_BASES else \
+        torch.zeros_like(beyond)
+    unexplained = beyond & ~exposed
+    check(not bool(unexplained.any()),
+          f"{base}: {int(unexplained.sum())} raw scores beyond rtol {RAW_RTOL[base]} that no "
+          f"near-tie explains (max abs err {float(err[unexplained].max()):.3e})"
+          if bool(unexplained.any()) else "")
+    raw_err = float(err[~exposed].max())
+    agg = card.decision_function(xte)
+    agg_host = host.decision_function(xte)
+    d_agg = np.abs(agg - agg_host)
+    base_lim = ENSEMBLE_FRAC * float(np.max(np.abs(agg_host)))
+    ref_z = (ref - ref.mean(dim=1, keepdim=True)) / (ref.std(dim=1, keepdim=True, correction=0)
+                                                     + 1e-12)
+    z_range = (ref_z.amax(dim=1) - ref_z.amin(dim=1)).numpy()
+    row_lim = base_lim + (exposed.numpy() * (proba * z_range)[:, None]).sum(axis=0)
+    check(bool(np.all(d_agg <= row_lim)),
+          f"{base}: card vs CPU ensemble: a row's error passes its limit by "
+          f"{float(np.max(d_agg - row_lim)):.3e}")
+    tight = ~exposed.numpy().any(axis=0)
+    log(f"    vs the host ({len(masks)} masks): raw max abs err {raw_err:.3e} on "
+        f"{int((~exposed).sum())} unexposed entries (limit rtol {RAW_RTOL[base]} + "
+        f"{RAW_ATOL_FRAC} x max |ref| {float(torch.max(torch.abs(ref))):.4g}; reference "
+        f"{'float32' if base in RAW_F32_BASES else 'float64'}), {int(beyond.sum())} beyond it, "
+        f"all among {int(exposed.sum())} tie-exposed of {exposed.numel()}; ensemble max abs err "
+        f"{float(d_agg[tight].max()) if tight.any() else 0.0:.3e} on {int(tight.sum())} "
+        f"unexposed rows (limit {base_lim:.3e}), {float(d_agg.max()):.3e} over all rows "
+        f"(row limits up to {float(row_lim.max()):.3e})")
+
+
+def phase_other_bases(device, model, X, log) -> dict:
+    """The other native bases through the public API (no KNN kernel): on
+    the bench ensemble's data and masks (iforest at bench.py's
+    configuration), decision_function, predict, decision_scores_ and labels_
+    on the card, the K6 / K7 counts at zero, the card held to the host, the
+    planted outliers' ROC AUC held, and each base's decision_function time;
+    then lof, iforest and copod on the stress ensemble. Returns each base's
+    times."""
+    from vgan_tpu_torch import SubspaceEnsemble
+    from vgan_tpu_torch.ops.cuda import knn_score as KS
+
+    t_phase = time.perf_counter()
+    xtr, xte, is_out, subs = bench_data()
+    rates = {}
+    for base in OTHER_BASES:
+        t_base = time.perf_counter()
+        masks, kw = base_config(base, subs)
+        ens = SubspaceEnsemble(masks, np.full(len(masks), 1.0 / len(masks)), base=base,
+                               **kw).fit(xtr)
+        check(ens.device.type == "cuda", f"the ensemble runs on {ens.device}")
+        label = (f"{base} ({len(masks)} masks, {len(xtr)} x {xtr.shape[1]} train, "
+                 f"{len(xte)} test, " + ", ".join(f"{k}={v}" for k, v in kw.items()) + ")")
+        sync()
+        KS.reset_launch_counts()
+        scores = ens.decision_function(xte)
+        labels = ens.predict(xte)
+        train_scores = ens.decision_scores_
+        train_labels = ens.labels_
+        sync()
+        counts = KS.launch_counts()
+        check(sum(counts.values()) == 0, f"{label}: KNN kernel launches {counts}")
+        check(scores.shape == (len(xte),) and np.all(np.isfinite(scores)),
+              f"{label}: scores not finite")
+        check(train_scores.shape == (len(xtr),) and np.all(np.isfinite(train_scores)),
+              f"{label}: decision_scores_ not finite")
+        check(set(np.unique(labels)) <= {0, 1}, f"{label}: predict labels {np.unique(labels)}")
+        check(np.array_equal(train_labels, (train_scores > ens.threshold_).astype(np.int64)),
+              f"{label}: labels_ != decision_scores_ > threshold_")
+        auc = roc_auc(scores, is_out)
+        jax_auc = JAX_BENCH_AUC[base]
+        auc_min = BENCH_AUC_MIN if jax_auc >= BENCH_AUC_MIN else jax_auc - 0.02
+        check(auc >= auc_min, f"{label}: ROC AUC {auc:.4f} < {auc_min:.4f}")
+        log(f"  {label}: launches {counts}; {int(labels.sum())} of {len(xte)} test and "
+            f"{int(train_labels.sum())} of {len(xtr)} train rows labelled outliers; ROC AUC of "
+            f"the {N_OUTLIERS} planted outliers {auc:.4f} (limit {auc_min:.4f}; the JAX package "
+            f"on the CPU: {jax_auc:.4f}"
+            + ("" if jax_auc >= BENCH_AUC_MIN else ", below BENCH_AUC_MIN: held to it less 0.02")
+            + ")")
+        hold_against_host(base, kw, xte, xtr, masks, log)
+        times = []
+        for _ in range(4):  # a warm-up, then the median of 3
+            sync()
+            t0 = time.perf_counter()
+            ens.decision_function(xte)
+            times.append(time.perf_counter() - t0)
+        sec = statistics.median(times[1:])
+        split = device_split(lambda: ens.decision_function(xte), calls=1)
+        busy_ms = sum(split.values()) / 1e3
+        top = sorted(split.items(), key=lambda kv: -kv[1])[:4]
+        rates[base] = {"ms": sec * 1e3, "subspace_scorings_per_s": len(masks) / sec,
+                       "n_masks": len(masks)}
+        log(f"    decision_function {sec * 1e3:.3f} ms (median of 3 after a warm-up), "
+            f"{len(masks) / sec:.1f} subspace-scorings/s; "
+            f"{time.perf_counter() - t_base:.1f} s for the base in this phase")
+        log(f"    on the device (profiler, one call) {busy_ms:.3f} ms, "
+            f"{100.0 * busy_ms / (sec * 1e3):.1f}% of the call: "
+            + ", ".join(f"{name[:48]} {us / 1e3:.3f} ms" for name, us in top))
+
+    k = STRESS_ENSEMBLE["k"]
+    Xt, _ = outlier_rows(np.random.default_rng(21), STRESS_ENSEMBLE["n_test"], X.shape[1])
+    for base in STRESS_BASES:
+        ens = SubspaceEnsemble.from_model(model, STRESS_ENSEMBLE["subspace_count"], base=base,
+                                          k=k).fit(X)
+        sync()
+        KS.reset_launch_counts()
+        t0 = time.perf_counter()
+        scores = ens.decision_function(Xt)
+        sec = time.perf_counter() - t0
+        counts = KS.launch_counts()
+        check(sum(counts.values()) == 0, f"stress {base}: KNN kernel launches {counts}")
+        check(scores.shape == (len(Xt),) and np.all(np.isfinite(scores)),
+              f"stress {base}: scores not finite")
+        rates["stress " + base] = {"ms": sec * 1e3, "n_masks": len(ens.subspaces),
+                                   "subspace_scorings_per_s": len(ens.subspaces) / sec}
+        log(f"  stress ensemble {base} ({len(ens.subspaces)} masks, {len(X)} x {X.shape[1]} "
+            f"train, {len(Xt)} test): decision_function {sec:.3f} s (first call), "
+            f"{len(ens.subspaces) / sec:.1f} subspace-scorings/s, launches {counts}")
+    log(f"  phase 3e: {time.perf_counter() - t_phase:.1f} s")
+    return rates
 
 
 def phase_other_regimes(device, n, d_flash, d_panel, batch, log):
@@ -2286,6 +2544,10 @@ def main(argv=None) -> int:
     log("phase 3d: the fused whole-fit path (fit_impl='fused'), notebook configuration")
     k8_launches = phase_fused_main_path(device, log)
 
+    log("phase 3e: the other native bases at full width (lof, abod, cof, iforest, "
+        "mahalanobis, copod, hbos, ecod)")
+    base_rates = phase_other_bases(device, stress_model, X_stress, log)
+
     log("phase 4: the other regimes through fit, the notebook configurations")
     launches = phase_other_regimes(device, n, d_flash, d, batch, log)
     launches["gram_quadrant_sums_stash"] = k2_launches
@@ -2310,6 +2572,9 @@ def main(argv=None) -> int:
     rates = flash_fit_rates(device, parent_libs, log)
     next(row for row in rows if row["name"] == "gram_backward_flash")["fit_steps_per_s"] = rates
     ensemble_rates(ensembles, log)
+    for base, r in base_rates.items():
+        log(f"  {base} decision_function ({r['n_masks']} masks): {r['ms']:.3f} ms, "
+            f"{r['subspace_scorings_per_s']:.1f} subspace-scorings/s")
     sps = fit_steps_per_s(device, n, d, batch)
     log(f"  stress fit (n={n}, d={d}, batch {batch}): {sps:.2f} steps/s")
     kl_sps = kl_fit_steps_per_s(device, n, d, batch)

@@ -372,7 +372,8 @@ def test_port_imports_neither_jax_nor_vgan_tpu():
         "import vgan_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(vgan_tpu_torch.__path__, 'vgan_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert {'vgan_tpu_torch.ops.cuda.fused_no_kl', 'vgan_tpu_torch.utils.checkpoint'} <= set(names)\n"
+        "assert {'vgan_tpu_torch.ops.cuda.fused_no_kl', 'vgan_tpu_torch.utils.checkpoint',\n"
+        "        'vgan_tpu_torch.ensemble.iforest'} <= set(names)\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'vgan_tpu'))\n"
         "assert not bad, bad\n"

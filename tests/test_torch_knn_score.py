@@ -59,14 +59,32 @@ def _port(xte, xtr, masks, k, mode, exclude_self):
     return got.numpy()
 
 
-def _assert_close(got, want, xte, xtr, masks, mode, exclude_self):
+def _kth_diagnosis(got, want, xte, xtr, masks, k, exclude_self, eps):
+    """What a failing 'kth' comparison reports: the masks beyond eps, and a
+    second call of the port's plain version on the same inputs (equal to the
+    first, or to JAX's), with the host's torch threads and CPU capability. A
+    second call that agrees with JAX marks a transient fault of the host."""
+    def d2_err(s):
+        return np.abs(s.astype(np.float64) ** 2 - want.astype(np.float64) ** 2)
+
+    again = TK.knn_scores_all_masks_reference(
+        torch.from_numpy(xte), torch.from_numpy(xtr), torch.from_numpy(masks.astype(np.float32)),
+        k, "kth", exclude_self).numpy()
+    return dict(err=float(d2_err(got).max()), eps=eps,
+                masks_beyond=np.nonzero((d2_err(got) > eps).any(axis=1))[0].tolist(),
+                second_call_equals_first=bool(np.array_equal(again, got)),
+                second_call_err=float(d2_err(again).max()), threads=torch.get_num_threads(),
+                cpu=torch.backends.cpu.get_cpu_capability())
+
+
+def _assert_close(got, want, xte, xtr, masks, k, mode, exclude_self):
     m = masks.astype(np.float64)
     scale = float(((xte.astype(np.float64) ** 2) @ m.T).max()
                   + ((xtr.astype(np.float64) ** 2) @ m.T).max())
     eps = D2_FRAC * scale
     if mode == "kth":
         err = np.abs(got.astype(np.float64) ** 2 - want.astype(np.float64) ** 2).max()
-        assert err <= eps, (err, scale)
+        assert err <= eps, _kth_diagnosis(got, want, xte, xtr, masks, k, exclude_self, eps)
     else:
         s1 = TK.knn_scores_all_masks_reference(torch.from_numpy(xte), torch.from_numpy(xtr),
                                                torch.from_numpy(masks.astype(np.float32)), 1,
@@ -86,7 +104,7 @@ def test_plain_vs_pallas_resident(mode, exclude_self):
     assert JK._resident_supported(260, 20) and TK._resident_supported(260, 20)
     got = _port(xte, xtr, masks, 5, mode, exclude_self)
     want = _jax(xte, xtr, masks, 5, mode, exclude_self)
-    _assert_close(got, want, xte, xtr, masks, mode, exclude_self)
+    _assert_close(got, want, xte, xtr, masks, 5, mode, exclude_self)
 
 
 @pytest.mark.parametrize("mode", ["kth", "mean"])
@@ -136,7 +154,7 @@ def test_plain_vs_pallas_streaming(streaming_regime, mode, exclude_self):
     got = _port(xte, xtr, masks, 5, mode, exclude_self)
     want = _jax(xte, xtr, masks, 5, mode, exclude_self)
     assert streaming_regime, "the JAX side did not run its streaming kernel"
-    _assert_close(got, want, xte, xtr, masks, mode, exclude_self)
+    _assert_close(got, want, xte, xtr, masks, 5, mode, exclude_self)
 
 
 @pytest.mark.parametrize("mode", ["kth", "mean"])

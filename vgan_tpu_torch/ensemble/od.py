@@ -1,5 +1,4 @@
-"""Subspace-ensemble outlier detection with the ``knn`` / ``knn_mean`` bases
-(counterpart of ``vgan_tpu.ensemble.od``).
+"""Subspace-ensemble outlier detection (counterpart of ``vgan_tpu.ensemble.od``).
 
 The V-GAN paper's downstream use: sample subspace masks from a fitted model,
 score the data in each subspace with a base detector, and combine the
@@ -9,14 +8,19 @@ scores. Masked distances use the expansion
 
 so each subspace's distance matrix is one matrix product. On the card, and
 wherever :func:`~vgan_tpu_torch.ops.cuda.knn_score.knn_kernel_supported`
-holds, a whole ``decision_function`` is the fused KNN kernel (K6 or K7), then
-the z-score and the aggregation on the device, and one host fetch of the
-(nt,) scores. Past those shapes (k > 64, very wide d) the generic torch path
-scores a chunk of masks at a time, as the JAX package does on the TPU.
+holds, a whole ``knn`` / ``knn_mean`` ``decision_function`` is the fused KNN
+kernel (K6 or K7), then the z-score and the aggregation on the device, and
+one host fetch of the (nt,) scores. Every other native base, and the knn
+bases past those shapes, score a ``(c, d)`` chunk of masks in one batched
+call per chunk, as the JAX package vmaps each chunk.
 
-Only ``knn`` and ``knn_mean`` are ported; the package's other string bases
-and ``mesh`` raise ``NotImplementedError`` naming ``ROADMAP.md``. A
-pyod-style detector instance runs the CPU loop over subspaces.
+Ported bases: the neighbour family (``knn``, ``knn_mean``, ``lof``,
+``abod``, ``cof``), ``iforest`` (:mod:`vgan_tpu_torch.ensemble.iforest`),
+``mahalanobis``, and the dimension-decomposable ``copod`` / ``hbos`` /
+``ecod``, whose per-dimension score planes are shared by every mask. The
+package's parametric bases and ``mesh`` raise ``NotImplementedError``
+naming ``ROADMAP.md``. A pyod-style detector instance runs the CPU loop over
+subspaces.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from vgan_tpu_torch._device import resolve_device
+from vgan_tpu_torch.ensemble.iforest import DEFAULT_PSI, iforest_scores_masked
 from vgan_tpu_torch.ops.cuda.knn_score import knn_kernel_supported, knn_scores_all_masks
 
 
@@ -78,6 +83,12 @@ _CHUNK_ELEMS_BUDGET = 2**27
 # elementwise consumer would.
 _MERGE_BLOCK = 2048
 _KPASS_MAX_K = 128
+# Mahalanobis holds a (d, d) masked covariance and its Cholesky factor per
+# mask in flight: chunk x d^2 stays under this many elements.
+_MAHA_CHUNK_BUDGET = 2**26
+# abod and cof gather an (n, k, d) neighbour-difference block per mask in
+# flight: chunk x n x k x d stays under this many elements.
+_ABOD_CHUNK_BUDGET = 2**26
 # test_chunk zscore: the moments pass's raw (n_subspaces, nt) scores stay on
 # the host up to this many elements (1 GB of f32); past it they are scored
 # again in the second pass.
@@ -95,26 +106,57 @@ def _stream_chunk(chunk: int, nt: int, blk: int) -> int:
     return max(1, min(chunk, _STREAM_CHUNK_BUDGET // max(nt * blk, 1)))
 
 
-def _effective_chunk(base, chunk: int, nt: int, ntr: int, d: int) -> int:
-    """Memory governor for the mask chunk of the generic path (the knn
-    branch of the JAX package's governor, then the eager-torch buffers)."""
+def _effective_chunk(base, chunk: int, nt: int, ntr: int, d: int, k: int = 0) -> int:
+    """Memory governor for the mask chunk of the generic path: the JAX
+    package's governor for the native bases, then the eager-torch buffers.
+    ``k`` is the base's k (the tree count for iforest)."""
+    # the rows a chunk's distances are formed for: lof and cof also search
+    # the train rows' own neighbours
+    rows = max(nt, ntr) if base in ("lof", "cof") else nt
     width = ntr
-    if base in ("knn", "knn_mean") and ntr > STREAM_NTR:
-        width = min(_stream_block(nt), _MERGE_BLOCK)
-        chunk = _stream_chunk(chunk, nt, width)
-    return max(1, min(chunk, _CHUNK_ELEMS_BUDGET // max(nt * (d + width), 1)))
+    if base in ("knn", "knn_mean", "lof", "abod", "cof") and ntr > STREAM_NTR:
+        width = min(_stream_block(rows), _MERGE_BLOCK)
+        chunk = _stream_chunk(chunk, rows, width)
+    if base in ("abod", "cof"):
+        chunk = min(chunk, _ABOD_CHUNK_BUDGET // max(rows * max(k, 2) * d, 1))
+    if base == "mahalanobis":
+        return max(1, min(chunk, _MAHA_CHUNK_BUDGET // max(d * d, 1)))
+    if base == "iforest":
+        # the (chunk, trees, rows) node ids, gathered values and path lengths
+        per_mask = 4 * k * max(nt, DEFAULT_PSI)
+    elif base in ("lof", "abod", "cof"):
+        # the masked query rows, the distances, and the stable sort's values
+        # and int64 indices of the (value, index) neighbour selection
+        per_mask = rows * (d + 4 * width)
+    else:
+        per_mask = nt * (d + width)
+    return max(1, min(chunk, _CHUNK_ELEMS_BUDGET // max(per_mask, 1)))
+
+
+def _k_smallest_by_index(d2: torch.Tensor, k: int):
+    """``(vals, idx)`` of the k smallest entries of each row in
+    ``(value, index)`` order: ties break by the smaller index, as the JAX
+    package's streamed k-pass merge does (its dense ``approx_min_k`` leaves
+    the order of ties unspecified). A stable sort keeps equal values in
+    index order."""
+    if k > d2.shape[-1]:
+        raise ValueError(f"k={k} neighbours requested from {d2.shape[-1]} candidates")
+    vals, idx = torch.sort(d2, dim=-1, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def _masked_knn_streaming(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
                           k: int, exclude_self: bool):
     """Exact ``(d2_vals, train_idx)`` of the k smallest masked squared
-    distances, ascending, with the train axis streamed in blocks: (nt, k)
-    each, or (c, nt, k) for a (c, d) chunk of masks.
+    distances in ``(value, index)`` order, with the train axis streamed in
+    blocks: (nt, k) each, or (c, nt, k) for a (c, d) chunk of masks.
 
-    The running k smallest values and indices are carried across blocks; each
-    block merges into the carry with ``torch.topk`` over [carry | block],
-    which gives the same values as the JAX package's lexicographic k-pass
-    merge (indices may order ties differently). The (nt, ntr) matrix never
+    The running k smallest values and indices are carried across blocks;
+    each block merges into the carry by a stable sort of [carry | block].
+    The carry is already in (value, index) order, every carry index is below
+    every index of the block, and the block is in index order, so the stable
+    sort's first k are the k smallest by (value, index): the JAX package's
+    lexicographic k-pass merge, ties included. The (nt, ntr) matrix never
     exists, so n_train is unbounded at O(nt x block) memory per mask.
     """
     if k > _KPASS_MAX_K:
@@ -144,11 +186,22 @@ def _masked_knn_streaming(x_test: torch.Tensor, x_train: torch.Tensor, mask: tor
         cols = torch.arange(b0, b0 + xb.shape[0], device=x_test.device)[None, :]
         if exclude_self:
             d2 = torch.where(rows == cols, big, d2)
-        cand = torch.cat([vals, d2], dim=2)
         cand_idx = torch.cat([idx, cols.expand(c, nt, -1)], dim=2)
-        vals, pos = torch.topk(cand, k, dim=2, largest=False, sorted=True)
+        vals, pos = _k_smallest_by_index(torch.cat([vals, d2], dim=2), k)
         idx = torch.gather(cand_idx, 2, pos)
     return (vals[0], idx[0]) if mask.ndim == 1 else (vals, idx)
+
+
+def _masked_knn_vals_idx(x_test, x_train, mask, k: int, exclude_self: bool):
+    """``(d2, train_idx)`` of the k nearest masked neighbours in ``(value,
+    index)`` order: dense below ``STREAM_NTR``, streamed past it. The one
+    neighbour search of the bases that read indices (abod, cof)."""
+    if x_train.shape[0] > STREAM_NTR:
+        return _masked_knn_streaming(x_test, x_train, mask, k, exclude_self)
+    d2 = _masked_sq_dists(x_test, x_train, mask)
+    if exclude_self:
+        d2 = _mask_diagonal(d2)
+    return _k_smallest_by_index(d2, k)
 
 
 def _k_smallest(x_test, x_train, mask, k: int, exclude_self: bool) -> torch.Tensor:
@@ -176,6 +229,262 @@ def mean_dist_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: t
                             k: int, exclude_self: bool = False) -> torch.Tensor:
     """Mean distance to the k nearest neighbors (pyod KNN 'mean')."""
     return torch.mean(torch.sqrt(_k_smallest(x_test, x_train, mask, k, exclude_self)), dim=-1)
+
+
+def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[b, idx[b, i, j]]`` for a (c, n) table and (c, nq, k) indices."""
+    c, nq, k = idx.shape
+    return torch.gather(table, 1, idx.reshape(c, nq * k)).reshape(c, nq, k)
+
+
+def lof_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor, k: int,
+                      exclude_self: bool = False) -> torch.Tensor:
+    """Local outlier factor in the masked space, novelty-style (test rows
+    scored against the train set, as sklearn / pyod ``LOF(novelty=True)``):
+    (nt,) for a (d,) mask, (c, nt) for a (c, d) chunk.
+
+    Dense, the neighbours are selected on the distance ``sqrt(d2)``, the
+    train rows' own pairs set to ``finfo.max / 4`` after the square root;
+    streamed (past ``STREAM_NTR``), on d2, with the square root after. Both
+    as the JAX package does, so ties made by rounding in the square root
+    break the same way."""
+    eps = 1e-12
+    m = _as_batch(mask, x_train)
+    n_tr = x_train.shape[0]
+    if n_tr > STREAM_NTR:
+        d2_tr, nbr_tr = _masked_knn_streaming(x_train, x_train, m, k, exclude_self=True)
+        knn_d_tr = torch.sqrt(d2_tr)
+        d2_te, nbr_te = _masked_knn_streaming(x_test, x_train, m, k, exclude_self=exclude_self)
+        knn_d_te = torch.sqrt(d2_te)
+    else:
+        big = torch.finfo(x_train.dtype).max / 4
+        d_tr = torch.sqrt(_masked_sq_dists(x_train, x_train, m))
+        diag = torch.arange(n_tr, device=x_train.device)
+        d_tr[:, diag, diag] = big
+        knn_d_tr, nbr_tr = _k_smallest_by_index(d_tr, k)
+        d2_te = _masked_sq_dists(x_test, x_train, m)
+        if exclude_self:
+            d2_te = _mask_diagonal(d2_te)
+        knn_d_te, nbr_te = _k_smallest_by_index(torch.sqrt(d2_te), k)
+    kdist_tr = knn_d_tr[..., -1]  # (c, ntr)
+    reach_tr = torch.maximum(_gather_rows(kdist_tr, nbr_tr), knn_d_tr)
+    lrd_tr = 1.0 / (torch.mean(reach_tr, dim=-1) + eps)
+    reach_te = torch.maximum(_gather_rows(kdist_tr, nbr_te), knn_d_te)
+    lrd_te = 1.0 / (torch.mean(reach_te, dim=-1) + eps)
+    out = torch.mean(_gather_rows(lrd_tr, nbr_te), dim=-1) / (lrd_te + eps)
+    return out[0] if mask.ndim == 1 else out
+
+
+def _neighbor_diff_gram(x: torch.Tensor, x_train: torch.Tensor, m: torch.Tensor,
+                        idx: torch.Tensor):
+    """``(dots, sq)`` of the masked neighbour differences of a (c, d) chunk:
+    for query row x_i with neighbours a_1..a_k (``idx`` (c, n, k)),
+    ``dots[b, i]`` is the (k, k) Gram of (a_j - x_i) on mask b's dimensions
+    and ``sq[b, i]`` its diagonal, the squared neighbour distances formed
+    directly (the expansion used to select them cancels for close pairs).
+    Shared by the abod and cof bases."""
+    diffs = x_train[idx] * m[:, None, None, :] - (x[None] * m[:, None, :])[:, :, None, :]
+    dots = diffs @ diffs.transpose(-1, -2)
+    return dots, torch.diagonal(dots, dim1=-2, dim2=-1)
+
+
+def abod_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor, k: int,
+                       exclude_self: bool = False) -> torch.Tensor:
+    """Negated angle-based outlier factor in the masked subspace (FastABOD,
+    Kriegel et al. 2008; pyod ``ABOD(method='fast')``): over the k nearest
+    masked neighbours a_1..a_k of each test row x, the population variance
+    over pairs i < j of <a_i - x, a_j - x> / (|a_i - x|^2 |a_j - x|^2),
+    negated so that higher is more outlying. Coincident points get an
+    eps-guarded denominator (0, not NaN)."""
+    if k < 2:
+        raise ValueError(
+            f"abod needs k >= 2 (the angle variance is over neighbor PAIRS); got k={k}"
+        )
+    eps = 1e-12
+    m = _as_batch(mask, x_train)
+    _, idx = _masked_knn_vals_idx(x_test, x_train, m, k, exclude_self)
+    dots, sq = _neighbor_diff_gram(x_test, x_train, m, idx)
+    wcos = dots / (sq[..., :, None] * sq[..., None, :] + eps)
+    pair = torch.triu(torch.ones((k, k), dtype=x_train.dtype, device=x_train.device), 1)
+    n_pairs = k * (k - 1) // 2
+    mean = torch.sum(wcos * pair, dim=(-2, -1)) / n_pairs
+    var = torch.sum((wcos - mean[..., None, None]) ** 2 * pair, dim=(-2, -1)) / n_pairs
+    return -var[0] if mask.ndim == 1 else -var
+
+
+def _cof_ac_dist(x: torch.Tensor, x_train: torch.Tensor, m: torch.Tensor, idx: torch.Tensor,
+                 k: int) -> torch.Tensor:
+    """(c, n) average chaining distance of each query row through its k
+    nearest masked train neighbours, in ``idx``'s (value, index) order with
+    the query as the chain's root: neighbour j costs its least masked
+    distance to the prefix {root, n_1..n_{j-1}}, weighted 2 (k + 1 - j) /
+    ((k + 1) k) (pyod COF's set-based nearest path, chained by distance from
+    the root). The pair distances come from the difference Gram,
+    |a_i - a_j|^2 = |a_i - x|^2 + |a_j - x|^2 - 2 <a_i - x, a_j - x>, which
+    cancels in float32 for neighbours much closer to each other than to the
+    root (as in the JAX package)."""
+    dots, sq = _neighbor_diff_gram(x, x_train, m, idx)
+    root_d = torch.sqrt(torch.clamp_min(sq, 0.0))
+    pair_d = torch.sqrt(torch.clamp_min(sq[..., :, None] + sq[..., None, :] - 2.0 * dots, 0.0))
+    big = torch.finfo(x.dtype).max / 4
+    earlier = torch.tril(torch.ones((k, k), dtype=torch.bool, device=x.device), -1)
+    # least distance to the strictly earlier neighbours (none for j = 1: big)
+    prefix_min = torch.amin(torch.where(earlier, pair_d, big), dim=-1)
+    cost = torch.minimum(root_d, prefix_min)
+    j = torch.arange(1, k + 1, dtype=x.dtype, device=x.device)
+    return torch.sum(cost * (2.0 * (k + 1 - j) / ((k + 1) * k)), dim=-1)
+
+
+def cof_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor, k: int,
+                      exclude_self: bool = False) -> torch.Tensor:
+    """Connectivity-based outlier factor in the masked subspace (Tang et al.
+    2002; pyod ``COF``): ``COF(x) = k ac(x) / sum_{o in kNN(x)} ac(o)`` with
+    ``ac`` the average chaining distance (:func:`_cof_ac_dist`). The train
+    rows' chains always leave out the row itself; ``exclude_self`` does the
+    same for the query rows. Neighbour ties break by the smaller index; an
+    all-duplicate neighbourhood (0/0) scores 0 through an eps-guarded
+    denominator."""
+    if k < 1:
+        raise ValueError(f"cof needs k >= 1 (the chaining set); got k={k}")
+    if k >= x_train.shape[0]:
+        raise ValueError(
+            f"cof needs k < n_train (self excluded from the train chain); "
+            f"got k={k}, n_train={x_train.shape[0]}"
+        )
+    eps = 1e-12
+    m = _as_batch(mask, x_train)
+    _, idx_tr = _masked_knn_vals_idx(x_train, x_train, m, k, exclude_self=True)
+    ac_tr = _cof_ac_dist(x_train, x_train, m, idx_tr, k)
+    _, idx_te = _masked_knn_vals_idx(x_test, x_train, m, k, exclude_self=exclude_self)
+    ac_te = _cof_ac_dist(x_test, x_train, m, idx_te, k)
+    out = ac_te * k / (torch.sum(_gather_rows(ac_tr, idx_te), dim=-1) + eps)
+    return out[0] if mask.ndim == 1 else out
+
+
+def mahalanobis_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                              k: int = 0) -> torch.Tensor:
+    """Squared Mahalanobis distance to the train distribution in the masked
+    subspace (the PCA / MCD family with every component kept): (nt,) for a
+    (d,) mask, (c, nt) for a (c, d) chunk.
+
+    Centering commutes with masking, so each mask's covariance is the
+    Hadamard-masked full covariance ``(m m^T) .* cov``. Unmasked dimensions
+    get an identity diagonal (their residual is 0), masked ones a ridge of
+    ``max(1e-6 trace / d_sub, 1e-12)``. The chunk's (c, d, d) matrices are
+    factored in one batched Cholesky that does not sync the host; a failed
+    factorization gives NaN scores, as the JAX package's Cholesky does. ``k``
+    is ignored."""
+    del k
+    m = _as_batch(mask, x_train)
+    n = x_train.shape[0]
+    mu = torch.mean(x_train, dim=0)
+    xc = x_train - mu
+    cov = (xc.T @ xc) / max(n - 1, 1)
+    cov_m = cov * (m[:, :, None] * m[:, None, :])
+    d_sub = torch.clamp_min(torch.sum(m, dim=1), 1.0)
+    trace = torch.diagonal(cov_m, dim1=-2, dim2=-1).sum(-1)
+    ridge = torch.clamp_min(1e-6 * trace / d_sub, 1e-12)
+    cov_m = cov_m + torch.diag_embed(m * ridge[:, None] + (1.0 - m))
+    z = (x_test - mu)[None] * m[:, None, :]
+    chol, info = torch.linalg.cholesky_ex(cov_m)
+    chol = torch.where((info == 0)[:, None, None], chol, torch.nan)
+    w = torch.cholesky_solve(z.transpose(-1, -2), chol)  # (c, d, nt)
+    out = torch.sum(z * w.transpose(-1, -2), dim=-1)
+    return out[0] if mask.ndim == 1 else out
+
+
+def _iforest_adapter(x_test, x_train, mask, k):
+    """The ensemble's scorer signature for iforest (k is the tree count)."""
+    return iforest_scores_masked(x_test, x_train, mask, n_trees=k)
+
+
+# ---------------------------------------------------------------------------
+# dimension-decomposable bases: per-dimension score planes shared by every
+# mask, so the whole ensemble is masked-sum matrix products
+# ---------------------------------------------------------------------------
+
+
+def _ecdf_tails(x_test: torch.Tensor, sorted_cols: torch.Tensor):
+    """``(-log F(x), -log (1 - F(x^-)))``, (nt, d) each: the train columns'
+    left and right empirical tails at each test value, floored at 1/n.
+    ``sorted_cols`` is (d, ntr), each train column sorted."""
+    n_tr = sorted_cols.shape[1]
+    q = x_test.T.contiguous()
+    left = torch.searchsorted(sorted_cols, q, right=True).to(x_test.dtype) / n_tr
+    right = 1.0 - torch.searchsorted(sorted_cols, q, right=False).to(x_test.dtype) / n_tr
+    floor = 1.0 / n_tr
+    u_l = -torch.log(torch.clamp_min(left, floor))
+    u_r = -torch.log(torch.clamp_min(right, floor))
+    return u_l.T, u_r.T
+
+
+def copod_dim_scores(x_test: torch.Tensor, x_train: torch.Tensor) -> torch.Tensor:
+    """(nt, d) per-dimension two-sided ECDF tail scores, COPOD-style:
+    ``max(-log F_left(x), -log F_right(x))`` from the train columns' empirical
+    CDFs, tails floored at 1/n (no skewness correction, as in the JAX
+    package). Every mask's score is a masked sum: ``O @ masks.T``."""
+    u_l, u_r = _ecdf_tails(x_test, torch.sort(x_train.T, dim=1).values.contiguous())
+    return torch.maximum(u_l, u_r)
+
+
+def hbos_dim_scores(x_test: torch.Tensor, x_train: torch.Tensor, n_bins: int = 10) -> torch.Tensor:
+    """(nt, d) per-dimension histogram tail scores, HBOS-style:
+    ``-log(density(bin(x)) + eps)`` with ``n_bins`` equal-width bins over
+    each train column's [min, max]. Bin numbers truncate toward zero; a test
+    value outside the train range (the tests are inclusive) gets density 0,
+    the largest score."""
+    n_tr = x_train.shape[0]
+    eps = 1e-12
+    lo, hi = torch.amin(x_train, dim=0), torch.amax(x_train, dim=0)
+    width = torch.clamp_min((hi - lo) / n_bins, eps)
+
+    def bins(x):
+        # clamp before the cast so that far values cannot overflow int64;
+        # the cast truncates toward zero, as the JAX package's astype does
+        b = torch.clamp((x - lo) / width, -1.0, float(n_bins)).to(torch.int64)
+        return torch.clamp(b, 0, n_bins - 1)
+
+    counts = torch.zeros((n_bins, x_train.shape[1]), dtype=x_train.dtype, device=x_train.device)
+    counts.scatter_add_(0, bins(x_train), torch.ones_like(x_train))
+    density = counts / (n_tr * width)
+    in_range = (x_test >= lo) & (x_test <= hi)
+    dens_te = torch.gather(density, 0, bins(x_test))
+    return -torch.log(torch.where(in_range, dens_te, 0.0) + eps)
+
+
+def ecod_dim_scores(x_test: torch.Tensor, x_train: torch.Tensor) -> torch.Tensor:
+    """(nt, d, 3) per-dimension ECOD planes ``[U_left, U_right, U_auto]``
+    (Li et al. 2022): the left and right ECDF tails as in
+    :func:`copod_dim_scores`, and the auto plane taking the left tail where
+    the train column is left-skewed (its skewness sign read from the
+    standardized cube, which cannot overflow). The ensemble's score is the
+    largest of the three planes' masked sums (inductive: train-column ECDFs
+    only, as in the JAX package)."""
+    sorted_cols = torch.sort(x_train.T, dim=1).values.contiguous()
+    u_l, u_r = _ecdf_tails(x_test, sorted_cols)
+    centered = sorted_cols - torch.mean(sorted_cols, dim=1, keepdim=True)
+    std = torch.std(sorted_cols, dim=1, keepdim=True, correction=0)
+    skew = torch.mean((centered / (std + 1e-30)) ** 3, dim=1)
+    u_auto = torch.where(skew < 0, u_l, u_r)
+    return torch.stack([u_l, u_r, u_auto], dim=-1)
+
+
+def _dim_scores_impl(x_test: torch.Tensor, x_train: torch.Tensor, *, base: str,
+                     n_bins: int) -> torch.Tensor:
+    if base == "hbos":
+        return hbos_dim_scores(x_test, x_train, n_bins=n_bins)
+    if base == "ecod":
+        return ecod_dim_scores(x_test, x_train)
+    return copod_dim_scores(x_test, x_train)
+
+
+def _dim_subspace_raw(dim_scores: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Raw (n_masks, nt) scores from the per-dimension planes: one
+    masked-sum product for copod / hbos; for ecod's (nt, d, 3) planes three,
+    and the largest of the three sums."""
+    if dim_scores.ndim == 3:
+        return torch.amax(torch.einsum("tdp,md->mtp", dim_scores, masks), dim=-1)
+    return (dim_scores @ masks.T).T
 
 
 def _chunked_masks(subspaces, proba, chunk: int):
@@ -329,9 +638,17 @@ def _bucket_aggregate(s: np.ndarray, proba: np.ndarray, aggregation: str, n_buck
     return np.max([s[idx == b].mean(axis=0) for b in range(n_buckets)], axis=0)
 
 
-# The JAX package's base names: the ported ones and those still to port.
-_PORTED_BASES = ("knn", "knn_mean")
-_BASE_SCORERS = ("knn", "knn_mean", "lof", "abod", "cof", "iforest", "mahalanobis")
+# The JAX package's string bases: the non-parametric scorers, the
+# dimension-decomposable bases, and the parametric ones still to port.
+_BASE_SCORERS = {
+    "knn": knn_scores_masked,
+    "knn_mean": mean_dist_scores_masked,
+    "lof": lof_scores_masked,
+    "abod": abod_scores_masked,
+    "cof": cof_scores_masked,
+    "iforest": _iforest_adapter,
+    "mahalanobis": mahalanobis_scores_masked,
+}
 _DIM_BASES = ("copod", "hbos", "ecod")
 _PARAM_BASES = (
     "loda", "kde", "cblof", "gmm", "inne", "pca", "sampling", "kpca",
@@ -348,16 +665,29 @@ _NEIGHBOR_BASES = ("knn", "knn_mean", "lof", "abod", "cof", "sod")
 # which drop the self column positionally but have no k.
 _POSITIONAL_EXCL_BASES = _NEIGHBOR_BASES + ("sos", "lmdd")
 
+# The self-excluding scorers, for scoring the train set itself (pyod's
+# unsupplied-X kneighbors semantics). iforest and mahalanobis are
+# distribution-based: they include the point, as pyod's detectors do.
+_BASE_SCORERS_EXCL = {
+    name: (functools.partial(fn, exclude_self=True) if name in _NEIGHBOR_BASES else fn)
+    for name, fn in _BASE_SCORERS.items()
+}
 
-def _scorer_and_k(base: str, *, k: int, exclude_self: bool = False):
-    """Resolve a base name to its (scorer, k) pair."""
-    if base not in _PORTED_BASES:
+
+def _require_ported(base: str) -> None:
+    if base in _PARAM_BASES:
         raise NotImplementedError(
-            f"base={base!r} is not ported yet (only 'knn' and 'knn_mean' are); "
+            f"base={base!r} is not ported yet (the parametric bases wait); "
             "see ROADMAP.md Queue 1"
         )
-    scorer = knn_scores_masked if base == "knn" else mean_dist_scores_masked
-    return (functools.partial(scorer, exclude_self=True) if exclude_self else scorer), k
+
+
+def _scorer_and_k(base: str, *, k: int, n_trees: int = 100, exclude_self: bool = False):
+    """Resolve a non-parametric base name to its (scorer, k) pair; iforest
+    reads the tree count as its k."""
+    _require_ported(base)
+    scorers = _BASE_SCORERS_EXCL if exclude_self else _BASE_SCORERS
+    return scorers[base], (n_trees if base == "iforest" else k)
 
 
 class SubspaceEnsemble(PyodSurfaceMixin):
@@ -369,12 +699,19 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         Either explicit masks (n_subspaces, d) + probabilities, or a fitted
         ``VGAN``/``VGAN_no_kl`` via ``from_model``.
     base:
-        'knn' (k-th NN distance) or 'knn_mean' (mean distance to the k
-        nearest), or a pyod-style detector instance (CPU loop; any object
-        with sklearn-style get_params/fit/decision_function). The JAX
-        package's other base names raise ``NotImplementedError``.
+        'knn' (k-th NN distance), 'knn_mean' (mean distance to the k
+        nearest), 'lof' (local outlier factor), 'abod' (negated angle-based
+        outlier factor over the k nearest, FastABOD), 'cof'
+        (connectivity-based outlier factor), 'iforest', 'mahalanobis'
+        (squared Mahalanobis distance in the subspace), the
+        dimension-decomposable 'copod', 'hbos' and 'ecod', or a pyod-style
+        detector instance (CPU loop; any object with sklearn-style
+        get_params/fit/decision_function). The JAX package's parametric
+        base names raise ``NotImplementedError``.
     k:
-        neighborhood size.
+        neighborhood size for the neighbor bases.
+    n_trees:
+        forest size for base='iforest'.
     aggregation:
         'average' (probability-weighted mean of per-subspace scores), 'max'
         (probability-ignoring maximum), the combo library's bucketed 'aom'
@@ -400,6 +737,8 @@ class SubspaceEnsemble(PyodSurfaceMixin):
     n_buckets, bucket_seed:
         bucket count for 'aom'/'moa' (combo's default 5) and the seed of the
         shuffle that assigns subspaces to buckets.
+    n_bins:
+        histogram resolution for base='hbos'.
     contamination:
         expected outlier fraction; sets the ``predict`` threshold at the
         (1 - contamination) quantile of the train scores (pyod semantics).
@@ -437,7 +776,9 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         normalize: Optional[str] = "zscore",
         chunk: int = 128,
         mesh=None,
+        n_trees: int = 100,
         n_buckets: int = 5,
+        n_bins: int = 10,
         contamination: float = 0.1,
         bucket_seed: int = 0,
         test_chunk: Optional[int] = None,
@@ -471,7 +812,7 @@ class SubspaceEnsemble(PyodSurfaceMixin):
                     f"{sorted(_BASE_SCORERS)} + {sorted(_DIM_BASES)} + "
                     f"{sorted(_PARAM_BASES)} or a pyod-style detector instance"
                 )
-            _scorer_and_k(base, k=k)  # raises for the bases not ported yet
+            _require_ported(base)
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (the mask axis sharded over devices) is not ported yet; "
@@ -517,7 +858,9 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         self.aggregation = aggregation
         self.normalize = normalize
         self.chunk = chunk
+        self.n_trees = n_trees
         self.n_buckets = n_buckets
+        self.n_bins = n_bins
         self.contamination = contamination
         self.bucket_seed = bucket_seed
         self.test_chunk = test_chunk
@@ -673,6 +1016,8 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         if not isinstance(self.base, str):
             return self._pyod_decision_function(x_test)
         x_t = self._as_device(x_test)
+        if self.base in _DIM_BASES:
+            return self._dim_decision_function(x_t)
         fused = self._knn_fused_decision_function(x_t, exclude_self=exclude_self)
         if fused is not None:
             return fused
@@ -686,9 +1031,10 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         aggregation per chunk and combines the chunks; ``reduce=False``
         returns the raw (n_chunks, chunk, nt) score blocks (padding rows
         included)."""
-        scorer, k = _scorer_and_k(self.base, k=self.k, exclude_self=exclude_self)
+        scorer, k = _scorer_and_k(self.base, k=self.k, n_trees=self.n_trees,
+                                  exclude_self=exclude_self)
         ntr, d = self._x_train.shape
-        chunk = _effective_chunk(self.base, self.chunk, x_test.shape[0], ntr, d)
+        chunk = _effective_chunk(self.base, self.chunk, x_test.shape[0], ntr, d, k)
         masks_np, proba_np = _chunked_masks(self.subspaces, self._combining_weights(), chunk)
         masks = torch.as_tensor(masks_np, dtype=torch.float32, device=self.device)
         if not reduce:
@@ -706,7 +1052,9 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         return out
 
     def _knn_kernel_route(self, x_test: torch.Tensor, exclude_self: bool) -> bool:
-        """Do these shapes take the fused KNN kernel (K6 or K7)?"""
+        """Do this base and these shapes take the fused KNN kernel (K6 or K7)?"""
+        if self.base not in ("knn", "knn_mean"):
+            return False
         nt, d = x_test.shape
         ntr = self._x_train.shape[0]
         return knn_kernel_supported(nt, ntr, d, self.k) and not (exclude_self and self.k >= ntr)
@@ -724,7 +1072,11 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         the kernel."""
         if not self._knn_kernel_route(x_test, exclude_self):
             return None
-        s = self._knn_scores_all_masks(x_test, exclude_self)
+        return self._aggregate_all_masks(self._knn_scores_all_masks(x_test, exclude_self))
+
+    def _aggregate_all_masks(self, s: torch.Tensor) -> np.ndarray:
+        """The z-score and the 'average'/'max' aggregation of every mask's
+        raw (n_masks, nt) scores on the device, then one host fetch."""
         if self.normalize == "zscore":
             s = _zscore(s)
         _, proba = self._device_pool()
@@ -819,10 +1171,24 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         if not isinstance(self.base, str):
             return self._pyod_per_subspace_raw(np.asarray(x_test))
         x_t = self._as_device(x_test)
+        if self.base in _DIM_BASES:
+            masks, _ = self._device_pool()
+            return self._dim_raw(x_t, masks).cpu().numpy()
         if self._knn_kernel_route(x_t, exclude_self):
             return self._knn_scores_all_masks(x_t, exclude_self).cpu().numpy()
         raw = self._native_scores(x_t, exclude_self, reduce=False)
         return raw.reshape(-1, x_t.shape[0])[: len(self.subspaces)].cpu().numpy()
+
+    def _dim_raw(self, x_test: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+        """Raw (n_masks, nt) scores of a dimension-decomposable base."""
+        planes = _dim_scores_impl(x_test, self._x_train, base=self.base, n_bins=self.n_bins)
+        return _dim_subspace_raw(planes, masks)
+
+    def _dim_decision_function(self, x_test: torch.Tensor) -> np.ndarray:
+        """The dimension-decomposable path (copod / hbos / ecod): the
+        per-dimension planes once, every mask's score a masked sum."""
+        masks, _ = self._device_pool()
+        return self._aggregate_all_masks(self._dim_raw(x_test, masks))
 
     def _pyod_per_subspace_raw(self, x_test: np.ndarray) -> np.ndarray:
         """(n_subspaces, nt) raw scores from a pyod-style detector loop."""
