@@ -95,6 +95,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import json
 import statistics
 import subprocess
@@ -215,13 +216,18 @@ K4_REAL_PANEL = dict(n1=22528, n2=22528, d=10240, offset=0)
 PLAIN_GRAM_ARRAYS, PLAIN_MAX_BYTES = 10, 24 << 30
 BENCH_ENSEMBLE = dict(n_train=1000, n_test=500, d=100, n_masks=1024, k=10)  # bench.py:414-419
 STRESS_ENSEMBLE = dict(subspace_count=500, n_test=500, k=10)
-# phase 3e: the other native bases on the bench ensemble's data and masks;
-# iforest at bench.py's own configuration (bench.py:472-493); lof, iforest
-# and copod once more on the stress ensemble
-OTHER_BASES = ("lof", "abod", "cof", "iforest", "mahalanobis", "copod", "hbos", "ecod")
+# phase 3e: the other native bases on the bench ensemble's data and masks,
+# at their default knobs; iforest at bench.py's own configuration
+# (bench.py:472-493), kpca on the first KPCA_BENCH_MASKS masks with the full
+# kernel (pyod's default, one (1000, 1000) eigh a mask); lof, iforest,
+# copod and the matmul-shaped kde, cblof and gmm once more on the stress
+# ensemble (mcd, pca and kpca would factor a (10240, 10240) matrix a mask)
+OTHER_BASES = ("lof", "abod", "cof", "iforest", "mahalanobis", "copod", "hbos", "ecod",
+               "mcd", "pca", "kpca", "cblof", "gmm", "kde")
 NEIGHBOR_BASES = ("lof", "abod", "cof")
 IFOREST_BENCH = dict(n_masks=256, n_trees=100, chunk=32)
-STRESS_BASES = ("lof", "iforest", "copod")
+KPCA_BENCH_MASKS = 128
+STRESS_BASES = ("lof", "iforest", "copod", "kde", "cblof", "gmm")
 # The card against the host: the pool's first CHECK_MASKS masks (the whole
 # pool of the index-reading bases takes minutes on the host's CPU).
 CHECK_MASKS = 16
@@ -238,16 +244,42 @@ CHECK_MASKS = 16
 # package does in the input's f32: their reference is the CPU in float32,
 # where every decision is the same, and only the logarithms and the mean over
 # trees round differently.
+# The parametric bases, each against float64: kde's log-kernel terms carry
+# the f32 distances' error (the neighbour bases' bound), small beside its
+# scores of about 50;
+# cblof's distances to centroids that are means of the same assigned rows,
+# and mcd's Cholesky of a well-conditioned (d, d) covariance, round as one
+# f32 product does; gmm carries 30 EM iterations of f32 responsibilities
+# (1.6e-5 measured on an H100); pca divides each component
+# distance by its explained-variance ratio, from an f32 eigh (Jacobi on the
+# card), and kpca each squared projection by its (1000, 1000) kernel
+# eigenvalue (both measured under 1e-5). cblof's assignments, mcd's
+# h-subsets and reweighting, and pca's component signs are discrete
+# decisions on f32 arithmetic: a mask where the float64 run takes one of
+# them within DECISION_REL of flipping (the scorers' ``margins``) is
+# "decision-exposed"; every other mask takes the host's decisions, so
+# float64 holds there. cblof's margin is relative to |x|^2 + max |c|^2, and
+# an f32 distance over s <= 100 active columns is within s 2^-24 of that
+# (3e-6 covers s = 50; the bench masks select about 30); mcd's distances
+# and pca's coefficients sat within 1e-6 and 1e-5 of float64 on an H100,
+# ten times which are their limits.
 RAW_RTOL = dict(lof=1e-4, abod=1e-4, cof=1e-3, mahalanobis=1e-4, copod=1e-5, ecod=1e-5,
-                iforest=1e-5, hbos=1e-5)
+                iforest=1e-5, hbos=1e-5, kde=1e-5, cblof=1e-5, mcd=1e-5, gmm=1e-4, pca=1e-4,
+                kpca=1e-4)
 RAW_ATOL_FRAC = 1e-5
 RAW_F32_BASES = ("iforest", "hbos")
+DECISION_REL = dict(cblof=3e-6, mcd=1e-5, pca=1e-4)
+# pca's batched eigh launches about 186 kernels a mask (190,000 a call at
+# 1024 masks), which take the profiler some 35 s to gather: its device
+# share is read from a call over its first PROFILE_MASKS masks (one chunk)
+PROFILE_MASKS = dict(pca=128)
 # ROC AUC of the planted outliers that the JAX package (vgan_tpu) gives on
 # the CPU on the same data, masks and configuration
 # (examples/jax_base_auc.py): 1.0 for every base, so each is held to
 # BENCH_AUC_MIN
 JAX_BENCH_AUC = dict(lof=1.0, abod=1.0, cof=1.0, iforest=1.0, mahalanobis=1.0, copod=1.0,
-                     hbos=1.0, ecod=1.0)
+                     hbos=1.0, ecod=1.0, mcd=1.0, pca=1.0, kpca=1.0, cblof=1.0, gmm=1.0,
+                     kde=1.0)
 # lof, abod and cof read neighbour sets (cof also their order). The card and
 # the CPU form d2 = an + bn - 2 cross in f32, in other summation orders: each
 # within (s + 2) 2^-24 2 (an + bn) of the exact value, s the mask's selected
@@ -1097,17 +1129,22 @@ def bench_data():
 
 def base_config(base: str, subs):
     """(masks, constructor keywords) of a base on the bench data: iforest
-    at bench.py's configuration, the others at the bench ensemble's k."""
+    at bench.py's configuration, kpca on the first KPCA_BENCH_MASKS masks,
+    the others on every mask; all at the bench ensemble's k (read by the
+    neighbour bases only) and every other knob at its default."""
     if base == "iforest":
         cfg = IFOREST_BENCH
         return subs[:cfg["n_masks"]], dict(n_trees=cfg["n_trees"], chunk=cfg["chunk"])
+    if base == "kpca":
+        return subs[:KPCA_BENCH_MASKS], dict(k=BENCH_ENSEMBLE["k"])
     return subs, dict(k=BENCH_ENSEMBLE["k"])
 
 
-def host_reference(base: str, xte, xtr, masks, k: int):
+def host_reference(base: str, ens, xte, xtr, masks, margins=None):
     """Raw (masks, nt) scores of ``base`` from its scorer function on the
-    CPU, in float64 (float32 for the bases whose decisions are defined in
-    f32)."""
+    CPU with the knobs of the ensemble ``ens``, in float64 (float32 for the
+    bases whose decisions are defined in f32); ``margins`` (a list) receives
+    the decision margins of the bases in DECISION_REL."""
     from vgan_tpu_torch.ensemble import od
 
     dtype = torch.float32 if base in RAW_F32_BASES else torch.float64
@@ -1115,7 +1152,9 @@ def host_reference(base: str, xte, xtr, masks, k: int):
     m = torch.from_numpy(masks).to(dtype)
     if base in od._DIM_BASES:
         return od._dim_subspace_raw(od._dim_scores_impl(te, tr, base=base, n_bins=10), m)
-    scorer, kk = od._scorer_and_k(base, k=k, n_trees=k)
+    scorer, kk = od._scorer_and_k(base, **od._scorer_params(ens))
+    if base in DECISION_REL:
+        scorer = functools.partial(scorer, margins=margins)
     return scorer(te, tr, m, kk)
 
 
@@ -1159,20 +1198,28 @@ def hold_against_host(base: str, ens_kw: dict, xte, xtr, masks, log) -> None:
     proba = np.full(len(masks), 1.0 / len(masks))
     card = SubspaceEnsemble(masks, proba, base=base, **ens_kw).fit(xtr)
     host = SubspaceEnsemble(masks, proba, base=base, device="cpu", **ens_kw).fit(xtr)
-    k = ens_kw.get("n_trees", ens_kw.get("k", 0))
     raw = torch.from_numpy(card._raw_per_subspace(xte)).double()
-    ref = host_reference(base, xte, xtr, masks, k).double()
+    margins = []
+    ref = host_reference(base, host, xte, xtr, masks, margins).double()
     err = torch.abs(raw - ref)
     lim = RAW_RTOL[base] * torch.abs(ref) + RAW_ATOL_FRAC * float(torch.max(torch.abs(ref)))
     beyond = err > lim
-    exposed = tie_exposure(base, xte, xtr, masks, k) if base in NEIGHBOR_BASES else \
-        torch.zeros_like(beyond)
+    if base in NEIGHBOR_BASES:
+        exposed = tie_exposure(base, xte, xtr, masks, ens_kw["k"])
+    elif margins:
+        least = torch.stack(margins).amin(dim=0)
+        exposed = (least <= DECISION_REL[base])[:, None].expand_as(beyond)
+        log(f"    {int((least <= DECISION_REL[base]).sum())} of {len(masks)} masks "
+            f"decision-exposed (least float64 margin {float(least.min()):.3e}, limit "
+            f"{DECISION_REL[base]})")
+    else:
+        exposed = torch.zeros_like(beyond)
     unexplained = beyond & ~exposed
     check(not bool(unexplained.any()),
           f"{base}: {int(unexplained.sum())} raw scores beyond rtol {RAW_RTOL[base]} that no "
           f"near-tie explains (max abs err {float(err[unexplained].max()):.3e})"
           if bool(unexplained.any()) else "")
-    raw_err = float(err[~exposed].max())
+    raw_err = float(err[~exposed].max()) if bool((~exposed).any()) else 0.0
     agg = card.decision_function(xte)
     agg_host = host.decision_function(xte)
     d_agg = np.abs(agg - agg_host)
@@ -1189,7 +1236,7 @@ def hold_against_host(base: str, ens_kw: dict, xte, xtr, masks, log) -> None:
         f"{int((~exposed).sum())} unexposed entries (limit rtol {RAW_RTOL[base]} + "
         f"{RAW_ATOL_FRAC} x max |ref| {float(torch.max(torch.abs(ref))):.4g}; reference "
         f"{'float32' if base in RAW_F32_BASES else 'float64'}), {int(beyond.sum())} beyond it, "
-        f"all among {int(exposed.sum())} tie-exposed of {exposed.numel()}; ensemble max abs err "
+        f"all among {int(exposed.sum())} exposed of {exposed.numel()}; ensemble max abs err "
         f"{float(d_agg[tight].max()) if tight.any() else 0.0:.3e} on {int(tight.sum())} "
         f"unexposed rows (limit {base_lim:.3e}), {float(d_agg.max()):.3e} over all rows "
         f"(row limits up to {float(row_lim.max()):.3e})")
@@ -1198,11 +1245,11 @@ def hold_against_host(base: str, ens_kw: dict, xte, xtr, masks, log) -> None:
 def phase_other_bases(device, model, X, log) -> dict:
     """The other native bases through the public API (no KNN kernel): on
     the bench ensemble's data and masks (iforest at bench.py's
-    configuration), decision_function, predict, decision_scores_ and labels_
-    on the card, the K6 / K7 counts at zero, the card held to the host, the
-    planted outliers' ROC AUC held, and each base's decision_function time;
-    then lof, iforest and copod on the stress ensemble. Returns each base's
-    times."""
+    configuration, kpca on KPCA_BENCH_MASKS masks), decision_function,
+    predict, decision_scores_ and labels_ on the card, the K6 / K7 counts at
+    zero, the card held to the host, the planted outliers' ROC AUC held, and
+    each base's decision_function time; then STRESS_BASES on the stress
+    ensemble. Returns each base's times."""
     from vgan_tpu_torch import SubspaceEnsemble
     from vgan_tpu_torch.ops.cuda import knn_score as KS
 
@@ -1251,16 +1298,32 @@ def phase_other_bases(device, model, X, log) -> dict:
             ens.decision_function(xte)
             times.append(time.perf_counter() - t0)
         sec = statistics.median(times[1:])
-        split = device_split(lambda: ens.decision_function(xte), calls=1)
+        t_prof = time.perf_counter()
+        prof_ens, prof_ms = ens, sec * 1e3
+        if base in PROFILE_MASKS:
+            pm = masks[:PROFILE_MASKS[base]]
+            prof_ens = SubspaceEnsemble(pm, np.full(len(pm), 1.0 / len(pm)), base=base,
+                                        **kw).fit(xtr)
+            prof_ens.decision_function(xte)
+            sync()
+            t0 = time.perf_counter()
+            prof_ens.decision_function(xte)
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        split = device_split(lambda: prof_ens.decision_function(xte), calls=1, host_ops=False,
+                             warmup=False)
+        t_prof = time.perf_counter() - t_prof
         busy_ms = sum(split.values()) / 1e3
         top = sorted(split.items(), key=lambda kv: -kv[1])[:4]
         rates[base] = {"ms": sec * 1e3, "subspace_scorings_per_s": len(masks) / sec,
                        "n_masks": len(masks)}
         log(f"    decision_function {sec * 1e3:.3f} ms (median of 3 after a warm-up), "
-            f"{len(masks) / sec:.1f} subspace-scorings/s; "
-            f"{time.perf_counter() - t_base:.1f} s for the base in this phase")
-        log(f"    on the device (profiler, one call) {busy_ms:.3f} ms, "
-            f"{100.0 * busy_ms / (sec * 1e3):.1f}% of the call: "
+            f"{len(masks) / sec:.1f} subspace-scorings/s"
+            + (f" (the whole {len(subs)}-mask pool at this rate: {len(subs) / len(masks) * sec:.2f}"
+               " s)" if len(masks) < len(subs) else "")
+            + f"; {time.perf_counter() - t_base:.1f} s for the base in this phase")
+        log(f"    on the device (profiler, one call over {len(prof_ens.subspaces)} masks, "
+            f"{prof_ms:.3f} ms; {t_prof:.1f} s to profile) {busy_ms:.3f} ms, "
+            f"{100.0 * busy_ms / prof_ms:.1f}% of the call: "
             + ", ".join(f"{name[:48]} {us / 1e3:.3f} ms" for name, us in top))
 
     k = STRESS_ENSEMBLE["k"]
@@ -1361,15 +1424,20 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_split(fn, calls: int = 10) -> dict:
+def device_split(fn, calls: int = 10, host_ops: bool = True, warmup: bool = True) -> dict:
     """Device microseconds a call of each kernel that ``fn`` launches, from
-    ``torch.profiler`` over ``calls`` calls after a warm-up."""
+    ``torch.profiler`` over ``calls`` calls after a warm-up (unless the
+    caller has warmed ``fn`` up); without ``host_ops`` only the device
+    activity is traced (fewer events to gather for a call that launches
+    tens of thousands of kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         for _ in range(calls):
             fn()
         sync()
@@ -2544,8 +2612,7 @@ def main(argv=None) -> int:
     log("phase 3d: the fused whole-fit path (fit_impl='fused'), notebook configuration")
     k8_launches = phase_fused_main_path(device, log)
 
-    log("phase 3e: the other native bases at full width (lof, abod, cof, iforest, "
-        "mahalanobis, copod, hbos, ecod)")
+    log("phase 3e: the other native bases at full width (" + ", ".join(OTHER_BASES) + ")")
     base_rates = phase_other_bases(device, stress_model, X_stress, log)
 
     log("phase 4: the other regimes through fit, the notebook configurations")

@@ -7,8 +7,8 @@ Runs ``vgan_tpu.ensemble.SubspaceEnsemble`` on the CPU on the data and
 masks phase 3e gives each base (``chip_smoke.bench_data`` and
 ``chip_smoke.base_config``: the bench ensemble's 1000 x 100 train rows, 500
 test rows with 25 planted outliers, 1024 masks at k=10; iforest on the
-first 256 masks with 100 trees and chunk 32) and prints the ROC AUC of the
-planted outliers, the limit phase 3e derives from it
+first 256 masks with 100 trees and chunk 32, kpca on the first 128) and
+prints the ROC AUC of the planted outliers, the limit phase 3e derives from it
 (``chip_smoke.JAX_BENCH_AUC``), and the seconds taken. The neighbour bases
 take minutes on the CPU (lof about 6, cof about 5).
 """
@@ -39,8 +39,9 @@ def main(bases) -> None:
         kw = dict(kw) if base == "iforest" else dict(kw, chunk=16)  # bounds the CPU's memory
         ens = SubspaceEnsemble(masks, np.full(len(masks), 1.0 / len(masks)), base=base, **kw)
         scores = np.asarray(ens.fit(xtr).decision_function(xte))
-        print(f"{base}: ROC AUC {chip_smoke.roc_auc(scores, is_out):.4f} "
-              f"(phase 3e holds {chip_smoke.JAX_BENCH_AUC[base]:.4f}), finite "
+        held = chip_smoke.JAX_BENCH_AUC.get(base)
+        print(f"{base}: ROC AUC {chip_smoke.roc_auc(scores, is_out):.4f} (phase 3e holds "
+              + (f"{held:.4f}" if held is not None else "none yet") + "), finite "
               f"{bool(np.all(np.isfinite(scores)))}, {time.perf_counter() - t0:.1f} s", flush=True)
 
 

@@ -366,7 +366,8 @@ def test_fit_rejects_bad_input():
 
 def test_port_imports_neither_jax_nor_vgan_tpu():
     """Every module of the port, and chip_smoke.py, in a fresh interpreter
-    (this process has JAX loaded by conftest)."""
+    (this process has JAX loaded by conftest); then one mcd ensemble scored,
+    and still neither JAX, vgan_tpu, scipy nor sklearn in ``sys.modules``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vgan_tpu_torch\n"
@@ -375,7 +376,16 @@ def test_port_imports_neither_jax_nor_vgan_tpu():
         "assert {'vgan_tpu_torch.ops.cuda.fused_no_kl', 'vgan_tpu_torch.utils.checkpoint',\n"
         "        'vgan_tpu_torch.ensemble.iforest'} <= set(names)\n"
         "import chip_smoke\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'vgan_tpu'))\n"
+        "banned = ('jax', 'jaxlib', 'flax', 'optax', 'vgan_tpu', 'scipy', 'sklearn')\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in banned)\n"
+        "assert not bad, bad\n"
+        "import numpy as np\n"
+        "from vgan_tpu_torch import SubspaceEnsemble\n"
+        "rng = np.random.default_rng(0)\n"
+        "ens = SubspaceEnsemble(rng.random((3, 5)) < 0.6, np.ones(3), base='mcd', device='cpu')\n"
+        "s = ens.fit(rng.normal(size=(30, 5))).decision_function(rng.normal(size=(8, 5)))\n"
+        "assert s.shape == (8,) and np.all(np.isfinite(s))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in banned)\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )

@@ -2,7 +2,10 @@
 and its dimension-decomposable bases (copod, hbos, ecod) against
 ``vgan_tpu.ensemble.od``: each scorer in float64 on the same inputs, in the
 dense and the streamed regime, and ``SubspaceEnsemble(device="cpu")`` for
-each base against the JAX ensemble.
+each base, and for the ported parametric bases (mcd, pca, kpca, cblof, gmm,
+kde; their scorers are held in ``test_torch_param_bases.py``), against the
+JAX ensemble. cblof and gmm are fed the JAX package's centroid draws
+(fixture ``jax_draws``).
 
 Neighbour ties: the port takes the k nearest by ``(value, index)`` in both
 regimes, as the JAX package's streamed k-pass merge does. The JAX package's
@@ -25,6 +28,7 @@ import vgan_tpu.ensemble.od as JOD
 import vgan_tpu_torch.ensemble.od as TOD
 from vgan_tpu.ensemble import SubspaceEnsemble as JaxEnsemble
 from vgan_tpu_torch import SubspaceEnsemble
+from test_torch_param_bases import jax_centroid_draws
 
 # float64 on both sides, the same operations: a few ulp.
 RTOL64 = 1e-9
@@ -38,7 +42,17 @@ RTOL = 1e-5
 ATOL_FRAC = 1e-5
 AGGREGATIONS = ["average", "max", "aom", "median", "vote"]
 NEIGHBOR = ["lof", "abod", "cof"]
-ENSEMBLE_BASES = ["lof", "abod", "cof", "mahalanobis", "copod", "hbos", "ecod"]
+PARAM_BASES = ["mcd", "pca", "kpca", "cblof", "gmm", "kde"]
+# The ensembles are float32 on both sides. gmm takes 3 components: 8 on 70
+# rows collapse onto a few rows each, with variances at the 1e-6 floor, and
+# 30 EM iterations carry each side's rounding to 2e-5 of the train scores.
+# kpca keeps its leading 4 components: on masks of one to four columns the
+# kernel spectrum reaches 1e-5 lambda_max within a few components, where
+# float32 eigh noise (about n 2^-24 lambda_max) is a sizeable part of the
+# eigenvalue a projection is divided by (test_torch_param_bases.py holds
+# every component in float64).
+BASE_KW = dict(gmm=dict(n_clusters=3), kpca=dict(kpca_n_components=4))
+ENSEMBLE_BASES = ["lof", "abod", "cof", "mahalanobis", "copod", "hbos", "ecod", *PARAM_BASES]
 
 
 def _close(got, want, rtol=RTOL):
@@ -217,6 +231,15 @@ def data():
     return dict(xtr=xtr, xte=xte, masks=masks, proba=rng.random(9))
 
 
+@pytest.fixture
+def jax_draws(monkeypatch):
+    """The port's centroid draws replaced by the JAX package's (float32
+    Gumbel noise, as the JAX ensemble draws in its float32 rows)."""
+    draws = functools.lru_cache(maxsize=None)(
+        lambda n, c, method, seed: jax_centroid_draws(n, c, method, seed, dtype=jnp.float32))
+    monkeypatch.setattr(TOD, "draw_centroids", draws)
+
+
 def _pair(data, **kw):
     jax_ens = JaxEnsemble(data["masks"], data["proba"], **kw).fit(data["xtr"])
     port = SubspaceEnsemble(data["masks"], data["proba"], device="cpu", **kw).fit(data["xtr"])
@@ -225,8 +248,9 @@ def _pair(data, **kw):
 
 @pytest.mark.parametrize("aggregation", AGGREGATIONS)
 @pytest.mark.parametrize("base", ENSEMBLE_BASES)
-def test_ensemble_decision_function_vs_jax(data, base, aggregation):
-    jax_ens, port = _pair(data, base=base, k=5, aggregation=aggregation, chunk=4)
+def test_ensemble_decision_function_vs_jax(data, jax_draws, base, aggregation):
+    jax_ens, port = _pair(data, base=base, k=5, aggregation=aggregation, chunk=4,
+                          **BASE_KW.get(base, {}))
     got = port.decision_function(data["xte"])
     assert got.shape == (len(data["xte"]),) and np.all(np.isfinite(got))
     _close(got, jax_ens.decision_function(data["xte"]))
@@ -239,8 +263,8 @@ def _labels_agree(got, want, scores, threshold):
 
 
 @pytest.mark.parametrize("base", ENSEMBLE_BASES)
-def test_ensemble_predict_labels_and_test_chunk_vs_jax(data, base):
-    jax_ens, port = _pair(data, base=base, k=5, chunk=4, test_chunk=7)
+def test_ensemble_predict_labels_and_test_chunk_vs_jax(data, jax_draws, base):
+    jax_ens, port = _pair(data, base=base, k=5, chunk=4, test_chunk=7, **BASE_KW.get(base, {}))
     labels = port.predict(data["xte"])
     want_labels = jax_ens.predict(data["xte"])
     assert np.isclose(port.threshold_, jax_ens.threshold_, rtol=RTOL,
@@ -256,7 +280,7 @@ def test_ensemble_predict_labels_and_test_chunk_vs_jax(data, base):
 
 
 @pytest.mark.parametrize("base", ["lof", "abod", "cof", "iforest", "mahalanobis", "copod",
-                                  "hbos", "ecod"])
+                                  "hbos", "ecod", *PARAM_BASES])
 def test_all_zero_and_padding_masks_give_finite_scores(data, base):
     """Chunk padding appends all-zero masks, and an all-zero mask is in the
     pool: every raw score is finite (the padding's weight-0 product with it
@@ -301,9 +325,14 @@ def test_guards_and_parametric_bases(data):
     with pytest.raises(ValueError, match="k < n_train"):
         ens.predict(data["xte"])
     assert len(TOD._PARAM_BASES) == 15
-    for base in TOD._PARAM_BASES:
+    waiting = [b for b in TOD._PARAM_BASES if b not in PARAM_BASES]
+    assert len(waiting) == 9 and set(PARAM_BASES) <= set(TOD._PARAM_BASES)
+    for base in waiting:
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             SubspaceEnsemble(data["masks"], data["proba"], base=base, device="cpu")
+    for base in PARAM_BASES:
+        ens = SubspaceEnsemble(data["masks"], data["proba"], base=base, device="cpu")
+        assert ens.base == base
     assert set(TOD._BASE_SCORERS) == set(JOD._BASE_SCORERS)
     assert TOD._DIM_BASES == JOD._DIM_BASES and TOD._PARAM_BASES == JOD._PARAM_BASES
 
@@ -318,5 +347,39 @@ def test_effective_chunk_follows_the_jax_governor():
         got = TOD._effective_chunk(base, 128, nt, ntr, d, k)
         assert 1 <= got <= want, (base, got, want)
     assert TOD._effective_chunk("mahalanobis", 128, 500, 2000, 10240) == 1
+    knobs = dict(n_clusters=8, gmm_covariance="diag", kpca_sampling=False, subset_size=20,
+                 mcd_starts=8)
+    for base, nt, ntr, d, kw in (
+            ("kde", 500, 1000, 100, {}), ("kde", 500, 40000, 100, {}),
+            ("kde", 9000, 40000, 20, {}), ("pca", 500, 1000, 100, {}),
+            ("pca", 500, 2000, 10240, {}), ("kpca", 500, 1000, 100, {}),
+            ("kpca", 500, 1000, 100, dict(kpca_sampling=True, subset_size=50)),
+            ("mcd", 500, 1000, 100, {}), ("mcd", 500, 1000, 100, dict(mcd_starts=2)),
+            ("cblof", 500, 2000, 10240, {}), ("gmm", 500, 2000, 10240, {}),
+            ("gmm", 500, 1000, 100, dict(gmm_covariance="full", n_clusters=4))):
+        cfg = dict(knobs, **kw)
+        want = JOD._effective_chunk(base, 128, nt, ntr, d, k=10, **cfg)
+        got = TOD._effective_chunk(base, 128, nt, ntr, d, 0, **cfg)
+        assert 1 <= got <= want, (base, got, want)
+        if base != "kde":
+            assert got == want, (base, got, want)
+    # kde streams past STREAM_NTR with the wider block (8192 train rows at
+    # 500 queries), not capped at _MERGE_BLOCK as the knn merge is
+    assert TOD._effective_chunk("kde", 128, 500, 40000, 100) == JOD._effective_chunk(
+        "kde", 128, 500, 40000, 100) == 32
+    assert TOD._effective_chunk("knn", 128, 500, 40000, 100) > 100
     assert TOD._effective_chunk("abod", 128, 500, 1000, 2000, 10) == JOD._effective_chunk(
         "abod", 128, 500, 1000, 2000, k=10) == 6
+
+
+@pytest.mark.parametrize("base", ["copod", "hbos", "ecod"])
+def test_dim_route_weighted_follows_jax(data, base):
+    """On the dim route, 'weighted' aggregates with the pool probabilities
+    (the JAX package's ``_dim_decision_function`` passes ``self.proba``),
+    not with ``weights=``; the weights still reach 'vote'."""
+    weights = np.linspace(0.1, 2.0, len(data["masks"]))
+    jax_ens, port = _pair(data, base=base, aggregation="weighted", weights=weights)
+    got = port.decision_function(data["xte"])
+    _close(got, jax_ens.decision_function(data["xte"]))
+    avg = SubspaceEnsemble(data["masks"], data["proba"], base=base, device="cpu").fit(data["xtr"])
+    _close(got, avg.decision_function(data["xte"]), rtol=1e-6)

@@ -244,11 +244,12 @@ def test_ensembles_from_one_jax_model():
 
 
 UNPORTED = [b for b in (*JOD._BASE_SCORERS, *JOD._DIM_BASES, *JOD._PARAM_BASES)
-            if b not in (*TOD._BASE_SCORERS, *TOD._DIM_BASES)]
+            if b not in (*TOD._BASE_SCORERS, *TOD._DIM_BASES, *TOD._PORTED_PARAM_BASES)]
 
 
 def test_unported_bases_and_mesh_raise(data):
-    assert len(UNPORTED) == 15 and UNPORTED == list(JOD._PARAM_BASES)
+    assert len(UNPORTED) == 9 and UNPORTED == [
+        b for b in JOD._PARAM_BASES if b not in ("mcd", "pca", "kpca", "cblof", "gmm", "kde")]
     for base in UNPORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SubspaceEnsemble(data["masks"], data["proba"], base=base, device="cpu")

@@ -2,7 +2,8 @@
 
 Adversarial subspace generation for outlier detection (V-GAN), with the
 same estimator API as ``vgan_tpu`` (``VGAN`` and ``VGAN_no_kl``) and its
-subspace ensemble (``SubspaceEnsemble``, the ``knn`` / ``knn_mean`` bases).
+subspace ensemble (``SubspaceEnsemble``: every non-parametric base, the
+dimension-decomposable bases and six of the parametric ones).
 The multi-bandwidth RBF MMD of every training step, the GoF test's Gram past
 the dense caps and the ensemble's masked KNN scores run through hand-written
 CUDA kernels (``vgan_tpu_torch.ops.cuda``), built with ``nvcc`` at first

@@ -16,11 +16,12 @@ call per chunk, as the JAX package vmaps each chunk.
 
 Ported bases: the neighbour family (``knn``, ``knn_mean``, ``lof``,
 ``abod``, ``cof``), ``iforest`` (:mod:`vgan_tpu_torch.ensemble.iforest`),
-``mahalanobis``, and the dimension-decomposable ``copod`` / ``hbos`` /
-``ecod``, whose per-dimension score planes are shared by every mask. The
-package's parametric bases and ``mesh`` raise ``NotImplementedError``
-naming ``ROADMAP.md``. A pyod-style detector instance runs the CPU loop over
-subspaces.
+``mahalanobis``, the dimension-decomposable ``copod`` / ``hbos`` /
+``ecod``, whose per-dimension score planes are shared by every mask, and the
+parametric ``mcd``, ``pca``, ``kpca``, ``cblof``, ``gmm`` and ``kde`` with
+the knobs only they read. The package's nine other parametric bases and
+``mesh`` raise ``NotImplementedError`` naming ``ROADMAP.md``. A pyod-style
+detector instance runs the CPU loop over subspaces.
 """
 
 from __future__ import annotations
@@ -28,12 +29,13 @@ from __future__ import annotations
 import functools
 import math
 import warnings
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from vgan_tpu_torch._device import resolve_device
+from vgan_tpu_torch.ensemble.chi2 import chi2_cdf, chi2_ppf
 from vgan_tpu_torch.ensemble.iforest import DEFAULT_PSI, iforest_scores_masked
 from vgan_tpu_torch.ops.cuda.knn_score import knn_kernel_supported, knn_scores_all_masks
 
@@ -106,7 +108,10 @@ def _stream_chunk(chunk: int, nt: int, blk: int) -> int:
     return max(1, min(chunk, _STREAM_CHUNK_BUDGET // max(nt * blk, 1)))
 
 
-def _effective_chunk(base, chunk: int, nt: int, ntr: int, d: int, k: int = 0) -> int:
+def _effective_chunk(base, chunk: int, nt: int, ntr: int, d: int, k: int = 0, *,
+                     n_clusters: int = 8, gmm_covariance: str = "diag",
+                     kpca_sampling: bool = False, subset_size: int = 20,
+                     mcd_starts: int = 8) -> int:
     """Memory governor for the mask chunk of the generic path: the JAX
     package's governor for the native bases, then the eager-torch buffers.
     ``k`` is the base's k (the tree count for iforest)."""
@@ -114,13 +119,39 @@ def _effective_chunk(base, chunk: int, nt: int, ntr: int, d: int, k: int = 0) ->
     # the train rows' own neighbours
     rows = max(nt, ntr) if base in ("lof", "cof") else nt
     width = ntr
-    if base in ("knn", "knn_mean", "lof", "abod", "cof") and ntr > STREAM_NTR:
-        width = min(_stream_block(rows), _MERGE_BLOCK)
+    if base in ("knn", "knn_mean", "lof", "abod", "cof", "kde") and ntr > STREAM_NTR:
+        # kde's logsumexp streams wider blocks than the knn merge
+        width = _stream_block(rows)
+        if base != "kde":
+            width = min(width, _MERGE_BLOCK)
         chunk = _stream_chunk(chunk, rows, width)
     if base in ("abod", "cof"):
         chunk = min(chunk, _ABOD_CHUNK_BUDGET // max(rows * max(k, 2) * d, 1))
     if base == "mahalanobis":
         return max(1, min(chunk, _MAHA_CHUNK_BUDGET // max(d * d, 1)))
+    # the parametric bases: the JAX package's per-mask element counts under
+    # _MAHA_CHUNK_BUDGET (pca: the standardized train copy and its
+    # projections, the (d, d) covariance and eigenvectors, the query
+    # projections; kpca: the (n, n) kernel, its centred copy and the eigh
+    # workspace, the (nt, n) planes; mcd: the masked train copy, per start the
+    # centred and weighted copies and the (d, d) covariance and factor;
+    # cblof / gmm: the masked train copy and the (ntr, C) assignments, the
+    # per-component residuals and covariances under 'full')
+    per_mask = None
+    if base == "pca":
+        per_mask = 2 * ntr * d + 2 * d * d + nt * d
+    elif base == "kpca":
+        n = min(ntr, max(2, subset_size)) if kpca_sampling else ntr
+        per_mask = 4 * n * n + 3 * nt * n
+    elif base == "mcd":
+        per_mask = ntr * d + mcd_starts * (2 * ntr * d + 2 * d * d) + nt * d
+    elif base in ("cblof", "gmm"):
+        c = max(n_clusters, 1)
+        per_mask = ntr * (d + c)
+        if base == "gmm" and gmm_covariance == "full":
+            per_mask = max(per_mask, c * ntr * d + c * d * d)
+    if per_mask is not None:
+        return max(1, min(chunk, _MAHA_CHUNK_BUDGET // max(per_mask, 1)))
     if base == "iforest":
         # the (chunk, trees, rows) node ids, gathered values and path lengths
         per_mask = 4 * k * max(nt, DEFAULT_PSI)
@@ -399,6 +430,568 @@ def _iforest_adapter(x_test, x_train, mask, k):
 
 
 # ---------------------------------------------------------------------------
+# parametric bases: covariance and spectral (pca, kpca, mcd), clustering
+# (cblof, gmm) and density (kde). Each scores a (c, d) chunk of masks with
+# leading batch dimensions and Python loops over fixed iteration counts.
+# ---------------------------------------------------------------------------
+
+
+def _eigh_descending(a: torch.Tensor):
+    """``(evals, evecs)`` of the symmetrized ``a``, largest first, the
+    eigenvalues clipped at 0 (``jnp.linalg.eigh`` symmetrizes its input)."""
+    evals, evecs = torch.linalg.eigh(0.5 * (a + a.mT))
+    return torch.clamp_min(evals.flip(-1), 0.0), evecs.flip(-1)
+
+
+def _leading_valid(evals: torch.Tensor) -> torch.Tensor:
+    """Eigenvalues above ``1e-5 * lambda_max`` (and the dtype's tiny), the
+    numerically zero directions excluded."""
+    tiny = torch.finfo(evals.dtype).tiny
+    return evals > torch.clamp_min(evals[..., :1] * 1e-5, tiny)
+
+
+def pca_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                      k: int = 0, *, n_components: int = 0, n_selected: int = 0,
+                      standardize: bool = True, weighted: bool = True,
+                      margins: Optional[list] = None) -> torch.Tensor:
+    """pyod's PCA detector in the masked subspace: ``sum_j ||z - v_j|| /
+    w_j`` over the selected components ``v_j`` (explained-variance ratio
+    ``w_j``; unweighted when ``weighted=False``), z the query standardized by
+    the train columns (ddof 0, a constant column scale 1) but not centred by
+    PCA's own mean. Components follow sklearn's ``svd_flip`` sign rule (the
+    largest-magnitude coefficient positive, the first row winning a tie);
+    eigenvalues at or below ``1e-5 * lambda_max`` are excluded;
+    ``n_selected`` takes components from the smallest-variance end of the
+    kept ``n_components`` (0 means all, pyod's None). The counts stay
+    tensors per mask: no host sync. ``margins`` (a list) receives each
+    mask's least relative gap between a selected component's two largest
+    coefficient magnitudes (the sign decision). ``k`` is ignored."""
+    del k
+    ntr, d = x_train.shape
+    if ntr < 2:
+        raise ValueError(
+            f"pca needs at least 2 train rows to define a covariance; got n_train={ntr}"
+        )
+    m = _as_batch(mask, x_train)
+    xm_tr = x_train[None] * m[:, None, :]
+    mu = torch.mean(xm_tr, dim=1, keepdim=True)
+    if standardize:
+        scale = torch.sqrt(torch.mean((xm_tr - mu) ** 2, dim=1, keepdim=True))
+        scale = torch.where(scale > 0.0, scale, 1.0)
+    else:
+        mu, scale = torch.zeros_like(mu), torch.ones_like(mu)
+    z_tr = (xm_tr - mu) / scale
+    z_te = (x_test[None] * m[:, None, :] - mu) / scale
+    z_trc = z_tr - torch.mean(z_tr, dim=1, keepdim=True)
+    # unmasked dimensions are zero rows and columns of the covariance; give
+    # them distinct negative eigenvalues (clipped to 0, so excluded, and the
+    # masked block's eigenpairs unchanged): float32 eigh can fail to
+    # converge on the many repeated zeros
+    dead = (1.0 - m) * (1.0 + torch.arange(d, dtype=m.dtype, device=m.device) / d)
+    evals, v = _eigh_descending(z_trc.mT @ z_trc / max(ntr - 1, 1) - torch.diag_embed(dead))
+    i_star = torch.argmax(torch.abs(v), dim=-2, keepdim=True)
+    sgn = torch.sign(torch.gather(v, -2, i_star))
+    v = v * torch.where(sgn == 0.0, 1.0, sgn)
+    valid = _leading_valid(evals)
+    r = torch.sum(valid, dim=-1, keepdim=True)
+    n_comp = torch.clamp_max(r, n_components) if n_components > 0 else r
+    n_sel = torch.clamp_max(n_comp, n_selected) if n_selected > 0 else n_comp
+    rank = torch.cumsum(valid.to(torch.int64), dim=-1) - 1
+    selected = valid & (rank >= n_comp - n_sel) & (rank < n_comp)
+    if margins is not None and d > 1:
+        top = torch.topk(torch.abs(v), 2, dim=-2).values
+        gap = (top[:, 0] - top[:, 1]) / torch.clamp_min(top[:, 0], 1e-30)
+        margins.append(torch.amin(torch.where(selected, gap, torch.inf), dim=-1))
+    coeff = selected.to(x_train.dtype)
+    if weighted:
+        tiny = torch.finfo(evals.dtype).tiny
+        ratio = evals / torch.clamp_min(torch.sum(evals, dim=-1, keepdim=True), tiny)
+        coeff = coeff / torch.clamp_min(ratio, 1e-12)
+    sq = torch.sum(z_te * z_te, dim=-1, keepdim=True)
+    dist = torch.sqrt(torch.clamp_min(sq + 1.0 - 2.0 * (z_te @ v), 0.0))
+    out = (dist @ coeff[..., None])[..., 0]
+    return out[0] if mask.ndim == 1 else out
+
+
+def _kde_log_kernel_sum(x_test: torch.Tensor, x_train: torch.Tensor, m: torch.Tensor,
+                        bandwidth: float, exclude_self: bool) -> torch.Tensor:
+    """(c, nt) ``logsumexp_j(-d2_m(test_i, train_j) / (2 h^2))``, the train
+    axis streamed in ``_stream_block(nt)`` blocks past ``STREAM_NTR`` with a
+    running maximum and a rescaled sum of exponentials."""
+    inv = 1.0 / (2.0 * bandwidth * bandwidth)
+    ntr = x_train.shape[0]
+    if ntr <= STREAM_NTR:
+        d2 = _masked_sq_dists(x_test, x_train, m)
+        if exclude_self:
+            d2 = _mask_diagonal(d2)
+        return torch.logsumexp(-d2 * inv, dim=-1)
+    nt = x_test.shape[0]
+    blk = _stream_block(nt)
+    rows = torch.arange(nt, device=x_test.device)[:, None]
+    m_run = torch.full((m.shape[0], nt), -torch.inf, dtype=x_test.dtype, device=x_test.device)
+    s_run = torch.zeros_like(m_run)
+    for b0 in range(0, ntr, blk):
+        logk = -_masked_sq_dists(x_test, x_train[b0:b0 + blk], m) * inv
+        if exclude_self:
+            cols = torch.arange(b0, b0 + logk.shape[-1], device=x_test.device)[None, :]
+            logk = torch.where(rows == cols, -torch.inf, logk)
+        # the first block holds a column other than the row itself, so the
+        # running maximum is finite from it on
+        m_new = torch.maximum(m_run, torch.amax(logk, dim=-1))
+        s_run = s_run * torch.exp(m_run - m_new) + torch.sum(torch.exp(logk - m_new[..., None]),
+                                                             dim=-1)
+        m_run = m_new
+    return m_run + torch.log(s_run)
+
+
+def kde_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                      k: int = 0, *, bandwidth: float = 1.0,
+                      exclude_self: bool = False) -> torch.Tensor:
+    """Negative Gaussian-KDE log-density in the masked subspace:
+    ``-(logsumexp_j(-d2_m / (2 h^2)) - log n - (d_sub / 2) log(2 pi h^2))``,
+    sklearn ``KernelDensity`` for an all-column mask. ``exclude_self`` drops
+    the positional (i, i) pair and divides by n - 1. ``k`` is ignored."""
+    del k
+    m = _as_batch(mask, x_train)
+    ntr = x_train.shape[0]
+    ll = _kde_log_kernel_sum(x_test, x_train, m, bandwidth, exclude_self)
+    n_eff = max(ntr - 1, 1) if exclude_self else ntr
+    log_norm = math.log(n_eff) + 0.5 * torch.sum(m, dim=1) * math.log(
+        2.0 * math.pi * bandwidth * bandwidth)
+    out = log_norm[:, None] - ll
+    return out[0] if mask.ndim == 1 else out
+
+
+@functools.lru_cache(maxsize=None)
+def _mcd_tables(ntr: int, d: int, support_fraction: float):
+    """Per active dimension count p = 1..d (float64 numpy): the support
+    size h, the raw consistency factor ``c(p, h / n)``, ``chi2.ppf(0.975,
+    p)`` and ``c(p, 0.975)``, with sklearn's ``c(p, a) = a / chi2.cdf(
+    chi2.ppf(a, p), p + 2)`` (``a`` where the quantile is infinite)."""
+    dofs = np.arange(1, d + 1)
+
+    def consistency(alpha):
+        q = chi2_ppf(np.clip(alpha, 0.0, 1.0), dofs)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            return alpha / np.where(np.isfinite(q), chi2_cdf(q, dofs + 2), 1.0)
+
+    if support_fraction > 0.0:
+        h = np.full(d, int(support_fraction * ntr))
+    else:
+        h = np.minimum(np.ceil(0.5 * (ntr + dofs + 1)).astype(np.int64), ntr)
+    return (h, consistency(h / ntr), chi2_ppf(np.full(d, 0.975), dofs),
+            consistency(np.full(d, 0.975)))
+
+
+@functools.lru_cache(maxsize=None)
+def _mcd_start_ranks(ntr: int, n_starts: int, seed: int) -> np.ndarray:
+    """(n_starts, ntr) rank of each train row in each start's permutation,
+    one ``np.random.default_rng(seed).permutation(ntr)`` a start: the JAX
+    package's draws, shared by every mask and chunk."""
+    rng = np.random.default_rng(seed)
+    perms = np.stack([rng.permutation(ntr) for _ in range(n_starts)])
+    return np.argsort(perms, axis=1)
+
+
+def _h_smallest(d2: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """0/1 weights of exactly the ``h`` smallest entries of each row, ties
+    to the smaller index (a stable argsort, then its inverse permutation)."""
+    order = torch.argsort(d2, dim=-1, stable=True)
+    ranks = torch.arange(d2.shape[-1], device=d2.device).expand_as(order)
+    rank = torch.empty_like(order).scatter_(-1, order, ranks)
+    return (rank < h[..., None]).to(d2.dtype)
+
+
+def mcd_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                      k: int = 0, *, support_fraction: float = 0.0, n_starts: int = 8,
+                      c_steps: int = 15, seed: int = 0,
+                      margins: Optional[list] = None) -> torch.Tensor:
+    """Minimum Covariance Determinant (FastMCD; sklearn ``MinCovDet`` under
+    pyod's MCD) in the masked subspace: squared Mahalanobis distance of the
+    queries to the reweighted robust estimate.
+
+    Support size ``h = min(ceil((n + p + 1) / 2), n)`` with p the mask's
+    active dimensions (``int(support_fraction * n)`` when it is > 0);
+    ``n_starts`` starts, each the first p + 1 rows of a seeded permutation,
+    run ``c_steps`` c-steps (the biased mean and covariance of the current h
+    rows, then the h smallest Mahalanobis distances, ties to the smaller
+    index); the start with the least masked log-determinant wins. The raw
+    estimate's distances are divided by ``c(p, h / n)``, rows below
+    ``chi2.ppf(0.975, p)`` are kept, and the queries' distances to their
+    biased covariance are divided by ``c(p, 0.975)``. Covariances are the
+    Hadamard-masked full ones with an identity diagonal on unmasked
+    dimensions and the mahalanobis base's ridge; a failed factorization
+    gives NaN, with no host sync. The chunk's masks and the starts share one
+    leading batch dimension. ``margins`` (a list) receives each mask's least
+    relative gap at the winning start's h-subset boundaries and at the
+    reweighting threshold. ``k`` is ignored."""
+    del k
+    ntr, d = x_train.shape
+    if ntr < 2:
+        raise ValueError(
+            f"mcd needs at least 2 train rows to define a covariance; got n_train={ntr}"
+        )
+    dt, dev = x_train.dtype, x_train.device
+    h_tab, corr_raw, chi2_rw, c_alpha = (
+        torch.as_tensor(t, device=dev) for t in _mcd_tables(ntr, d, float(support_fraction)))
+    m = _as_batch(mask, x_train)
+    c = m.shape[0]
+    xm = x_train[None] * m[:, None, :]  # (c, ntr, d)
+    pop = torch.sum(m, dim=1)
+    p_sub = torch.clamp_min(pop, 1.0)
+    p_idx = torch.clamp(pop.to(torch.int64) - 1, 0, d - 1)
+    h = h_tab[p_idx]
+    fix = torch.diag_embed(1.0 - m)
+    mm = m[:, :, None] * m[:, None, :]
+
+    def robust_cov(w, lead):
+        """Mean, Cholesky factor and masked log-determinant of the biased
+        weighted covariance; ``w`` is (c, *lead, ntr)."""
+        view = (c,) + (1,) * len(lead)
+        xb, mb = xm.view(view + (ntr, d)), m.view(view + (d,))
+        sw = torch.clamp_min(torch.sum(w, dim=-1), 1.0)
+        mu = (w[..., None, :] @ xb)[..., 0, :] / sw[..., None]
+        xc = xb - mu[..., None, :]
+        cov = (w[..., :, None] * xc).mT @ xc / sw[..., None, None] * mm.view(view + (d, d))
+        ridge = torch.clamp_min(
+            1e-6 * torch.diagonal(cov, dim1=-2, dim2=-1).sum(-1) / p_sub.view(view), 1e-12)
+        cov = cov + fix.view(view + (d, d)) + torch.diag_embed(ridge[..., None] * mb)
+        chol, info = torch.linalg.cholesky_ex(cov)
+        chol = torch.where((info == 0)[..., None, None], chol, torch.nan)
+        logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)) * mb, dim=-1)
+        return mu, chol, logdet
+
+    def maha(chol, mu, x):
+        """(c, *lead, rows) squared distances of ``x``'s masked rows."""
+        lead = mu.shape[1:-1]
+        z = x[None] * m[:, None, :]
+        z = z.view((c,) + (1,) * len(lead) + z.shape[1:]) - mu[..., None, :]
+        y = torch.linalg.solve_triangular(chol, z.mT, upper=False)
+        return torch.sum(y * y, dim=-2)
+
+    ranks = torch.as_tensor(_mcd_start_ranks(ntr, int(n_starts), int(seed)), device=dev)
+    first = torch.clamp_max(pop.to(torch.int64) + 1, ntr)
+    w = (ranks[None] < first[:, None, None]).to(dt)  # (c, S, ntr)
+    lead = (int(n_starts),)
+    gaps = torch.full(w.shape[:2], torch.inf, dtype=dt, device=dev)
+    for _ in range(int(c_steps)):
+        mu, chol, _ = robust_cov(w, lead)
+        d2 = maha(chol, mu, x_train)
+        w = _h_smallest(d2, h[:, None])
+        if margins is not None:
+            vals = torch.sort(d2, dim=-1).values
+            at = torch.clamp(h, 1, ntr - 1)[:, None, None].expand(c, int(n_starts), 1)
+            gap = (torch.gather(vals, -1, at) - torch.gather(vals, -1, at - 1))[..., 0]
+            gap = gap / torch.clamp_min(torch.gather(vals, -1, at)[..., 0], 1e-30)
+            gaps = torch.minimum(gaps, torch.where((h < ntr)[:, None], gap, torch.inf))
+    logdet = robust_cov(w, lead)[2]
+    best = torch.argmin(logdet, dim=1)
+    w_raw = torch.gather(w, 1, best[:, None, None].expand(c, 1, ntr))[:, 0]
+    mu, chol, _ = robust_cov(w_raw, ())
+    d2 = maha(chol, mu, x_train) / torch.clamp_min(corr_raw[p_idx], 1e-30).to(dt)[:, None]
+    thr = chi2_rw[p_idx].to(dt)[:, None]
+    w_rw = (d2 < thr).to(dt)
+    if margins is not None:
+        margins.append(torch.minimum(
+            torch.gather(gaps, 1, best[:, None])[:, 0],
+            torch.amin(torch.abs(d2 - thr), dim=-1) / thr[:, 0]))
+    mu, chol, _ = robust_cov(w_rw, ())
+    out = maha(chol, mu, x_test) / torch.clamp_min(c_alpha[p_idx], 1e-30).to(dt)[:, None]
+    return out[0] if mask.ndim == 1 else out
+
+
+@functools.lru_cache(maxsize=None)
+def _kpca_subsample(ntr: int, size: int, seed: int) -> np.ndarray:
+    """The fit subsample of ``kpca_sampling``: the JAX package's host draw
+    ``np.random.default_rng(seed).choice(ntr, size, replace=False)``."""
+    return np.random.default_rng(seed).choice(ntr, size=size, replace=False)
+
+
+def kpca_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                       k: int = 0, *, n_components: int = 0, gamma: float = 0.0,
+                       sampling: bool = False, subset_size: int = 20,
+                       seed: int = 0) -> torch.Tensor:
+    """Kernel-PCA novelty score (Hoffmann 2007; pyod KPCA) with an RBF
+    kernel in the masked subspace: the spherical potential ``1 - 2
+    mean_j k(x, x_j) + mean_ij k(x_i, x_j)`` minus the squared projections
+    onto the double-centred train kernel's components, each divided by its
+    eigenvalue. ``gamma = 0`` means ``1 / popcount(mask)``; components at or
+    below ``1e-5 * lambda_max`` are excluded and ``n_components = 0`` keeps
+    every other one. ``sampling=True`` fits on ``subset_size`` train rows
+    drawn by ``np.random.default_rng(seed)``, shared by every mask. One
+    (n, n) ``eigh`` a mask. ``k`` is ignored."""
+    del k
+    ntr = x_train.shape[0]
+    if sampling:
+        size = max(2, min(int(subset_size), int(ntr)))
+        idx = torch.as_tensor(_kpca_subsample(ntr, size, int(seed)), device=x_train.device)
+        x_fit = x_train[idx]
+    else:
+        x_fit = x_train
+    n = x_fit.shape[0]
+    if n < 2:
+        raise ValueError(
+            f"kpca needs at least 2 fit rows to define a kernel spectrum; got n_train={n}"
+        )
+    m = _as_batch(mask, x_fit)
+    g = gamma if gamma > 0.0 else (1.0 / torch.clamp_min(torch.sum(m, dim=1), 1.0))[:, None, None]
+    k_tr = torch.exp(-g * _masked_sq_dists(x_fit, x_fit, m))
+    k_te = torch.exp(-g * _masked_sq_dists(x_test, x_fit, m))
+    col_mean = torch.mean(k_tr, dim=-2)  # (c, n)
+    all_mean = torch.mean(col_mean, dim=-1)[:, None, None]
+    evals, alphas = _eigh_descending(k_tr - col_mean[:, None, :] - col_mean[:, :, None]
+                                     + all_mean)
+    valid = _leading_valid(evals)
+    rank = torch.cumsum(valid.to(torch.int64), dim=-1) - 1
+    selected = valid & (rank < n_components) if n_components > 0 else valid
+    te_mean = torch.mean(k_te, dim=-1, keepdim=True)
+    proj = (k_te - te_mean - col_mean[:, None, :] + all_mean) @ alphas
+    tiny = torch.finfo(evals.dtype).tiny
+    proj_sq = torch.where(selected[:, None, :], proj * proj
+                          / torch.clamp_min(evals, tiny)[:, None, :], 0.0)
+    out = 1.0 - 2.0 * te_mean[..., 0] + all_mean[..., 0] - torch.sum(proj_sq, dim=-1)
+    return out[0] if mask.ndim == 1 else out
+
+
+class CentroidDraws(NamedTuple):
+    """The random draws of ``_init_centroids``, shared by every mask.
+
+    'rows': ``rows`` (C,) int64 distinct train rows. 'kmeans++': ``first``
+    the first centroid's train row (a 0-d int64) and ``gumbel`` (C - 1, n)
+    Gumbel noise, one row a later centroid, which is ``argmax(log(mind2 +
+    1e-12) + gumbel[i])`` (the Gumbel-max form of a categorical draw)."""
+
+    rows: Optional[torch.Tensor] = None
+    first: Optional[torch.Tensor] = None
+    gumbel: Optional[torch.Tensor] = None
+
+
+@functools.lru_cache(maxsize=None)
+def draw_centroids(n: int, n_clusters: int, method: str, seed: int) -> CentroidDraws:
+    """The centroid init's draws on the CPU, from a CPU ``torch.Generator``
+    seeded with ``seed``: C distinct rows for 'rows'; for 'kmeans++' the
+    first row and float64 Gumbel noise ``-log(-log(u))``."""
+    if method not in ("rows", "kmeans++"):
+        raise ValueError(f"unknown cluster_init={method!r}: expected 'rows' or 'kmeans++'")
+    g = torch.Generator().manual_seed(int(seed))
+    if method == "rows":
+        return CentroidDraws(rows=torch.randperm(int(n), generator=g)[:n_clusters])
+    first = torch.randint(0, int(n), (), generator=g)
+    u = torch.rand((n_clusters - 1, int(n)), generator=g, dtype=torch.float64)
+    tiny = torch.finfo(torch.float64).tiny
+    return CentroidDraws(first=first, gumbel=-torch.log(-torch.log(torch.clamp(u, tiny, 1.0))))
+
+
+def _init_centroids(xm: torch.Tensor, n_clusters: int, method: str,
+                    draws: CentroidDraws) -> torch.Tensor:
+    """(c, C, d) initial centroids of the (c, n, d) masked train rows: the
+    drawn rows, or D^2-weighted k-means++ seeding, each mask with its own
+    distances and the shared Gumbel noise."""
+    if method == "rows":
+        return xm[:, draws.rows.to(xm.device)]
+    if method != "kmeans++":
+        raise ValueError(f"unknown cluster_init={method!r}: expected 'rows' or 'kmeans++'")
+    c, n, _ = xm.shape
+    batch = torch.arange(c, device=xm.device)
+    gumbel = draws.gumbel.to(device=xm.device, dtype=xm.dtype)
+    cen = [xm[:, int(draws.first)]]
+    x_sq = torch.sum(xm * xm, dim=-1)
+    mind2 = torch.full((c, n), torch.finfo(xm.dtype).max / 4, dtype=xm.dtype, device=xm.device)
+    for i in range(1, n_clusters):
+        last = cen[-1]
+        d2 = torch.clamp_min(x_sq - 2.0 * (xm @ last[..., None])[..., 0]
+                             + torch.sum(last * last, dim=-1, keepdim=True), 0.0)
+        mind2 = torch.minimum(mind2, d2)
+        nxt = torch.argmax(torch.log(mind2 + 1e-12) + gumbel[i - 1], dim=-1)
+        cen.append(xm[batch, nxt])
+    return torch.stack(cen, dim=1)
+
+
+def _centroid_d2(x_sq: torch.Tensor, x: torch.Tensor, cen: torch.Tensor) -> torch.Tensor:
+    """(c, n, C) squared distances of (c, n, d) rows to (c, C, d) centroids."""
+    c_sq = torch.sum(cen * cen, dim=-1)
+    return torch.clamp_min(x_sq[..., None] + c_sq[:, None, :] - 2.0 * (x @ cen.mT), 0.0)
+
+
+def _cblof_large_mask(counts: torch.Tensor, n_tr: int, alpha: float, beta: float) -> torch.Tensor:
+    """(c, C) pyod CBLOF large clusters from (c, C) sizes: over the clusters
+    sorted by size (a stable sort, equal sizes in index order), the first
+    boundary i = 1..C-1 where the top-i sizes cover ``alpha * n`` and the
+    ratio across it is at least ``beta``, else the first alpha boundary,
+    else the first beta one, else every cluster (where pyod raises). An
+    empty cluster is never large."""
+    n_clusters = counts.shape[-1]
+    order = torch.argsort(counts, dim=-1, descending=True, stable=True)
+    sizes = torch.gather(counts, -1, order)
+    alpha_ok = torch.cumsum(sizes, dim=-1)[..., :-1] >= alpha * n_tr
+    beta_ok = sizes[..., :-1] >= beta * torch.clamp_min(sizes[..., 1:], 1e-9)
+
+    def first_boundary(ok):
+        return torch.where(ok.any(dim=-1), torch.argmax(ok.to(torch.int64), dim=-1) + 1,
+                           n_clusters)
+
+    both = alpha_ok & beta_ok
+    thr = torch.where(both.any(dim=-1), first_boundary(both),
+                      torch.where(alpha_ok.any(dim=-1), first_boundary(alpha_ok),
+                                  first_boundary(beta_ok)))
+    large_sorted = (torch.arange(n_clusters, device=counts.device) < thr[..., None]) & (sizes > 0)
+    return torch.zeros_like(large_sorted).scatter_(-1, order, large_sorted)
+
+
+def _cluster_checks(name: str, what: str, n_clusters: int, lowest: int, n_tr: int) -> None:
+    if n_clusters < lowest:
+        raise ValueError(f"{name} needs {what} >= {lowest}; got {n_clusters}")
+    if n_clusters > n_tr:
+        raise ValueError(
+            f"{name} needs {what} <= n_train; got {n_clusters} for {n_tr} train rows"
+        )
+
+
+def cblof_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                        k: int = 0, *, n_clusters: int = 8, alpha: float = 0.9,
+                        beta: float = 5.0, kmeans_iter: int = 30, cluster_seed: int = 0,
+                        init: str = "rows", draws: Optional[CentroidDraws] = None,
+                        margins: Optional[list] = None) -> torch.Tensor:
+    """Cluster-based local outlier factor (He, Xu & Deng 2003; pyod CBLOF,
+    ``use_weights=False``) in the masked subspace: ``kmeans_iter`` fixed
+    Lloyd iterations from :func:`_init_centroids` (an empty cluster keeps
+    its centroid; ``argmin`` ties to the first centroid), pyod's large /
+    small split (:func:`_cblof_large_mask`), then a query's distance to its
+    own centroid if that cluster is large, else to the nearest large
+    centroid. ``draws`` default to :func:`draw_centroids` of
+    ``cluster_seed``. ``margins`` (a list) receives each mask's least gap
+    between a train row's two nearest centroids, relative to ``|x|^2 +
+    max |c|^2``, over every assignment. ``k`` is ignored."""
+    del k
+    n_tr = x_train.shape[0]
+    _cluster_checks("cblof", "n_clusters", n_clusters, 2, n_tr)
+    if not 0.0 < alpha <= 1.0:
+        raise ValueError(f"cblof needs alpha in (0, 1]; got {alpha!r}")
+    if not beta >= 1.0:
+        raise ValueError(f"cblof needs beta >= 1; got {beta!r}")
+    if draws is None:
+        draws = draw_centroids(n_tr, n_clusters, init, cluster_seed)
+    m = _as_batch(mask, x_train)
+    xm_tr = x_train[None] * m[:, None, :]
+    xm_te = x_test[None] * m[:, None, :]
+    cen = _init_centroids(xm_tr, n_clusters, init, draws)
+    tr_sq = torch.sum(xm_tr * xm_tr, dim=-1)
+
+    def assign(cen):
+        d2 = _centroid_d2(tr_sq, xm_tr, cen)
+        if margins is not None:
+            two = torch.topk(d2, 2, dim=-1, largest=False).values
+            scale = tr_sq + torch.amax(torch.sum(cen * cen, dim=-1), dim=-1, keepdim=True)
+            margins.append(torch.amin((two[..., 1] - two[..., 0])
+                                      / torch.clamp_min(scale, 1e-30), dim=-1))
+        return torch.argmin(d2, dim=-1)
+
+    for _ in range(int(kmeans_iter)):
+        one = torch.nn.functional.one_hot(assign(cen), n_clusters).to(x_train.dtype)
+        counts = torch.sum(one, dim=1)[..., None]
+        cen = torch.where(counts > 0, (one.mT @ xm_tr) / torch.clamp_min(counts, 1.0), cen)
+    lab_tr = assign(cen)
+    counts = torch.nn.functional.one_hot(lab_tr, n_clusters).sum(dim=1).to(x_train.dtype)
+    large = _cblof_large_mask(counts, n_tr, alpha, beta)
+    d2_te = _centroid_d2(torch.sum(xm_te * xm_te, dim=-1), xm_te, cen)
+    lab_te = torch.argmin(d2_te, dim=-1, keepdim=True)
+    own = torch.sqrt(torch.gather(d2_te, -1, lab_te)[..., 0])
+    big = torch.finfo(x_test.dtype).max / 4
+    nearest_large = torch.sqrt(torch.amin(torch.where(large[:, None, :], d2_te, big), dim=-1))
+    in_large = torch.gather(large, -1, lab_te[..., 0])
+    out = torch.where(in_large, own, nearest_large)
+    return out[0] if mask.ndim == 1 else out
+
+
+def _gmm_full_nll(xm_te, xm_tr, m, mu, n_components, em_iter, reg_covar, d_sub, log2pi):
+    """Full-covariance EM of :func:`gmm_scores_masked`: per-component (d, d)
+    covariances masked as ``(m m^T) .* Sigma`` plus an identity diagonal on
+    unmasked dimensions (which add 0 to the log-determinant and the
+    quadratic form), ``cholesky_ex`` and ``cholesky_solve``; a failed
+    factorization gives NaN."""
+    ntr = xm_tr.shape[1]
+    mm = (m[:, :, None] * m[:, None, :])[:, None]
+    fix = torch.diag_embed(m * reg_covar + (1.0 - m))[:, None]
+    xc0 = xm_tr - torch.mean(xm_tr, dim=1, keepdim=True)
+    cov = (xc0.mT @ xc0 / max(ntr - 1, 1))[:, None] * mm + fix
+    cov = cov.expand(-1, n_components, -1, -1)
+    logw = torch.full(mu.shape[:2], -math.log(n_components), dtype=xm_tr.dtype,
+                      device=xm_tr.device)
+
+    def log_prob(x, mu, cov, logw):
+        chol, info = torch.linalg.cholesky_ex(cov)
+        chol = torch.where((info == 0)[..., None, None], chol, torch.nan)
+        z = (x[:, None] - mu[:, :, None, :]) * m[:, None, None, :]  # (c, C, n, d)
+        w = torch.cholesky_solve(z.mT, chol)
+        quad = torch.sum(z * w.mT, dim=-1)
+        logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+        return logw[:, None, :] - 0.5 * ((quad + logdet[..., None]).mT
+                                         + d_sub[:, None, None] * log2pi)
+
+    for _ in range(int(em_iter)):
+        resp = torch.softmax(log_prob(xm_tr, mu, cov, logw), dim=-1)
+        nc = torch.sum(resp, dim=1) + 1e-12
+        mu = resp.mT @ xm_tr / nc[..., None]
+        z = xm_tr[:, None] - mu[:, :, None, :]
+        cov = (z.mT * resp.mT[:, :, None, :]) @ z / nc[..., None, None] * mm + fix
+        logw = torch.log(nc / torch.sum(nc, dim=-1, keepdim=True))
+    return -torch.logsumexp(log_prob(xm_te, mu, cov, logw), dim=-1)
+
+
+def gmm_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                      k: int = 0, *, n_components: int = 4, em_iter: int = 30,
+                      component_seed: int = 0, reg_covar: float = 1e-6, init: str = "rows",
+                      covariance: str = "diag",
+                      draws: Optional[CentroidDraws] = None) -> torch.Tensor:
+    """Negative Gaussian-mixture log-likelihood in the masked subspace (pyod
+    GMM: ``-score_samples``): ``em_iter`` fixed EM iterations from
+    :func:`_init_centroids` means (``draws`` default to
+    :func:`draw_centroids` of ``component_seed``), the train variance as
+    every component's start. 'diag' keeps each E / M step matmul-shaped,
+    the variances floored at ``reg_covar``; 'full' is
+    :func:`_gmm_full_nll`. ``k`` is ignored."""
+    del k
+    n_tr = x_train.shape[0]
+    _cluster_checks("gmm", "n_components", n_components, 1, n_tr)
+    if covariance not in ("diag", "full"):
+        raise ValueError(f"unknown covariance={covariance!r}: expected 'diag' or 'full'")
+    if draws is None:
+        draws = draw_centroids(n_tr, n_components, init, component_seed)
+    m = _as_batch(mask, x_train)
+    xm_tr = x_train[None] * m[:, None, :]
+    xm_te = x_test[None] * m[:, None, :]
+    d_sub = torch.sum(m, dim=1)
+    mu = _init_centroids(xm_tr, n_components, init, draws)
+    log2pi = math.log(2.0 * math.pi)
+    if covariance == "full":
+        out = _gmm_full_nll(xm_te, xm_tr, m, mu, n_components, em_iter, reg_covar, d_sub,
+                            log2pi)
+        return out[0] if mask.ndim == 1 else out
+    mc = m[:, None, :]
+    var = torch.clamp_min(torch.var(xm_tr, dim=1, correction=0), reg_covar)[:, None, :] * mc \
+        + (1.0 - mc)
+    var = var.expand(-1, n_components, -1)
+    logw = torch.full(mu.shape[:2], -math.log(n_components), dtype=x_train.dtype,
+                      device=x_train.device)
+    sq_tr = xm_tr * xm_tr
+
+    def log_prob(x, x_sq, mu, var, logw):
+        inv = mc / var  # (c, C, d), zero on unmasked dimensions
+        quad = x_sq @ inv.mT - 2.0 * (x @ (mu * inv).mT) + torch.sum(mu * mu * inv, dim=-1)[:, None]
+        logdet = torch.sum(mc * torch.log(var), dim=-1)
+        return logw[:, None, :] - 0.5 * (quad + logdet[:, None, :] + d_sub[:, None, None] * log2pi)
+
+    for _ in range(int(em_iter)):
+        resp = torch.softmax(log_prob(xm_tr, sq_tr, mu, var, logw), dim=-1)
+        nc = (torch.sum(resp, dim=1) + 1e-12)[..., None]
+        mu = resp.mT @ xm_tr / nc
+        var = (torch.clamp_min(resp.mT @ sq_tr / nc - mu * mu, 0.0) + reg_covar) * mc + (1.0 - mc)
+        logw = torch.log(nc[..., 0] / torch.sum(nc[..., 0], dim=-1, keepdim=True))
+    out = -torch.logsumexp(log_prob(xm_te, xm_te * xm_te, mu, var, logw), dim=-1)
+    return out[0] if mask.ndim == 1 else out
+
+
+# ---------------------------------------------------------------------------
 # dimension-decomposable bases: per-dimension score planes shared by every
 # mask, so the whole ensemble is masked-sum matrix products
 # ---------------------------------------------------------------------------
@@ -639,7 +1232,8 @@ def _bucket_aggregate(s: np.ndarray, proba: np.ndarray, aggregation: str, n_buck
 
 
 # The JAX package's string bases: the non-parametric scorers, the
-# dimension-decomposable bases, and the parametric ones still to port.
+# dimension-decomposable bases, and the parametric ones (each with knobs only
+# it reads), of which the last nine are still to port.
 _BASE_SCORERS = {
     "knn": knn_scores_masked,
     "knn_mean": mean_dist_scores_masked,
@@ -654,6 +1248,7 @@ _PARAM_BASES = (
     "loda", "kde", "cblof", "gmm", "inne", "pca", "sampling", "kpca",
     "mcd", "ae", "dsvdd", "sod", "ocsvm", "sos", "lmdd",
 )
+_PORTED_PARAM_BASES = ("mcd", "pca", "kpca", "cblof", "gmm", "kde")
 
 # Neighbor-based bases: the k < n_train guards of exclude_self reach exactly
 # these (sod is parametric but neighbor-semantic).
@@ -675,19 +1270,122 @@ _BASE_SCORERS_EXCL = {
 
 
 def _require_ported(base: str) -> None:
-    if base in _PARAM_BASES:
+    if base in _PARAM_BASES and base not in _PORTED_PARAM_BASES:
         raise NotImplementedError(
-            f"base={base!r} is not ported yet (the parametric bases wait); "
+            f"base={base!r} is not ported yet (nine parametric bases wait); "
             "see ROADMAP.md Queue 1"
         )
 
 
-def _scorer_and_k(base: str, *, k: int, n_trees: int = 100, exclude_self: bool = False):
-    """Resolve a non-parametric base name to its (scorer, k) pair; iforest
-    reads the tree count as its k."""
+def _scorer_and_k(base: str, *, k: int, n_trees: int = 100, projection_seed: int = 0,
+                  kde_bandwidth: float = 1.0, n_clusters: int = 8, cluster_alpha: float = 0.9,
+                  cluster_beta: float = 5.0, kmeans_iter: int = 30, cluster_seed: int = 0,
+                  cluster_init: str = "rows", gmm_covariance: str = "diag",
+                  pca_n_components: int = 0, pca_n_selected: int = 0,
+                  pca_standardize: bool = True, pca_weighted: bool = True,
+                  subset_size: int = 20, kpca_n_components: int = 0, kpca_gamma: float = 0.0,
+                  kpca_sampling: bool = False, support_fraction: float = 0.0,
+                  mcd_starts: int = 8, mcd_steps: int = 15, exclude_self: bool = False):
+    """Resolve a base name to its (scorer, k) pair, the knobs mapped as the
+    JAX package maps them: iforest reads the tree count as its k; gmm reads
+    ``n_clusters`` as its components and ``kmeans_iter`` as its EM
+    iterations; mcd and kpca read ``projection_seed``. ``exclude_self``
+    reaches the neighbour bases only (kde in an ensemble keeps the point)."""
     _require_ported(base)
+    if base == "pca":
+        return functools.partial(pca_scores_masked, n_components=int(pca_n_components),
+                                 n_selected=int(pca_n_selected),
+                                 standardize=bool(pca_standardize),
+                                 weighted=bool(pca_weighted)), 0
+    if base == "kpca":
+        return functools.partial(kpca_scores_masked, n_components=int(kpca_n_components),
+                                 gamma=float(kpca_gamma), sampling=bool(kpca_sampling),
+                                 subset_size=int(subset_size), seed=int(projection_seed)), 0
+    if base == "mcd":
+        return functools.partial(mcd_scores_masked, support_fraction=float(support_fraction),
+                                 n_starts=int(mcd_starts), c_steps=int(mcd_steps),
+                                 seed=int(projection_seed)), 0
+    if base == "kde":
+        return functools.partial(kde_scores_masked, bandwidth=float(kde_bandwidth)), 0
+    if base == "cblof":
+        return functools.partial(cblof_scores_masked, n_clusters=int(n_clusters),
+                                 alpha=float(cluster_alpha), beta=float(cluster_beta),
+                                 kmeans_iter=int(kmeans_iter), cluster_seed=int(cluster_seed),
+                                 init=str(cluster_init)), 0
+    if base == "gmm":
+        return functools.partial(gmm_scores_masked, n_components=int(n_clusters),
+                                 em_iter=int(kmeans_iter), component_seed=int(cluster_seed),
+                                 init=str(cluster_init), covariance=str(gmm_covariance)), 0
     scorers = _BASE_SCORERS_EXCL if exclude_self else _BASE_SCORERS
     return scorers[base], (n_trees if base == "iforest" else k)
+
+
+_SCORER_KNOBS = (
+    "k", "n_trees", "projection_seed", "kde_bandwidth", "n_clusters", "cluster_alpha",
+    "cluster_beta", "kmeans_iter", "cluster_seed", "cluster_init", "gmm_covariance",
+    "pca_n_components", "pca_n_selected", "pca_standardize", "pca_weighted", "subset_size",
+    "kpca_n_components", "kpca_gamma", "kpca_sampling", "support_fraction", "mcd_starts",
+    "mcd_steps",
+)
+
+
+def _scorer_params(ens) -> dict:
+    """The base-scorer configuration an ensemble carries, as
+    :func:`_scorer_and_k` keywords."""
+    return {name: getattr(ens, name) for name in _SCORER_KNOBS}
+
+
+def _is_int(val, lowest: int) -> bool:
+    return isinstance(val, (int, np.integer)) and not isinstance(val, bool) and val >= lowest
+
+
+def _is_real(val) -> bool:
+    return isinstance(val, (int, float, np.floating)) and not isinstance(val, bool)
+
+
+def _check_knobs(base, kde_bandwidth, n_clusters, cluster_alpha, cluster_beta, cluster_init,
+                 gmm_covariance, subset_size, support_fraction, mcd_starts, mcd_steps,
+                 kpca_n_components, kpca_gamma, pca_n_components, pca_n_selected) -> None:
+    """The JAX constructor's ``ValueError`` guards of the ported knobs."""
+    if not kde_bandwidth > 0:
+        raise ValueError(f"kde_bandwidth must be positive; got {kde_bandwidth!r} "
+                         "(sklearn KernelDensity convention)")
+    if not 0.0 < cluster_alpha <= 1.0:
+        raise ValueError(f"cluster_alpha must be in (0, 1]; got {cluster_alpha!r} "
+                         "(fraction of train rows the large clusters must cover)")
+    if not cluster_beta >= 1.0:
+        raise ValueError(f"cluster_beta must be >= 1; got {cluster_beta!r} (size ratio "
+                         "across the large/small boundary)")
+    if base == "cblof" and n_clusters < 2:
+        raise ValueError(f"cblof needs n_clusters >= 2; got {n_clusters}")
+    if base == "gmm" and n_clusters < 1:
+        raise ValueError(f"gmm needs n_clusters >= 1 (mixture components); got {n_clusters}")
+    if cluster_init not in ("rows", "kmeans++"):
+        raise ValueError(f"unknown cluster_init={cluster_init!r}: expected 'rows' or "
+                         "'kmeans++'")
+    if gmm_covariance not in ("diag", "full"):
+        raise ValueError(f"unknown gmm_covariance={gmm_covariance!r}: expected 'diag' or "
+                         "'full'")
+    if not _is_int(subset_size, 1):
+        raise ValueError(f"subset_size must be an int >= 1 (base='sampling' subsample "
+                         f"size); got {subset_size!r}")
+    if not (_is_real(support_fraction) and 0.0 <= support_fraction <= 1.0):
+        raise ValueError(f"support_fraction must be in [0, 1] (0 = sklearn's None: h = "
+                         f"ceil((n + p + 1)/2) per subspace); got {support_fraction!r}")
+    for name, val in (("mcd_starts", mcd_starts), ("mcd_steps", mcd_steps)):
+        if not _is_int(val, 1):
+            raise ValueError(f"{name} must be an int >= 1; got {val!r}")
+    if not _is_int(kpca_n_components, 0):
+        raise ValueError(f"kpca_n_components must be an int >= 0 (0 = all valid "
+                         f"components, pyod's None); got {kpca_n_components!r}")
+    if not (_is_real(kpca_gamma) and kpca_gamma >= 0.0):
+        raise ValueError(f"kpca_gamma must be a float >= 0 (0 = pyod's None: "
+                         f"1/n_active_features per subspace); got {kpca_gamma!r}")
+    for name, val in (("pca_n_components", pca_n_components),
+                      ("pca_n_selected", pca_n_selected)):
+        if not _is_int(val, 0):
+            raise ValueError(f"{name} must be an int >= 0 (0 = all valid components, "
+                             f"pyod's None); got {val!r}")
 
 
 class SubspaceEnsemble(PyodSurfaceMixin):
@@ -704,10 +1402,13 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         outlier factor over the k nearest, FastABOD), 'cof'
         (connectivity-based outlier factor), 'iforest', 'mahalanobis'
         (squared Mahalanobis distance in the subspace), the
-        dimension-decomposable 'copod', 'hbos' and 'ecod', or a pyod-style
-        detector instance (CPU loop; any object with sklearn-style
-        get_params/fit/decision_function). The JAX package's parametric
-        base names raise ``NotImplementedError``.
+        dimension-decomposable 'copod', 'hbos' and 'ecod', the parametric
+        'mcd' (Minimum Covariance Determinant), 'pca', 'kpca' (kernel PCA),
+        'cblof' (cluster-based LOF), 'gmm' (Gaussian-mixture NLL) and 'kde'
+        (Gaussian-KDE NLL), or a pyod-style detector instance (CPU loop; any
+        object with sklearn-style get_params/fit/decision_function). The
+        JAX package's nine other parametric base names raise
+        ``NotImplementedError``.
     k:
         neighborhood size for the neighbor bases.
     n_trees:
@@ -739,6 +1440,31 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         shuffle that assigns subspaces to buckets.
     n_bins:
         histogram resolution for base='hbos'.
+    projection_seed:
+        the start-permutation seed of base='mcd' and the fit-subsample seed
+        of base='kpca' (``kpca_sampling``).
+    kde_bandwidth:
+        Gaussian kernel width for base='kde' (sklearn KernelDensity's 1.0).
+    n_clusters, cluster_alpha, cluster_beta, kmeans_iter, cluster_seed, cluster_init:
+        base='cblof': k-means clusters, pyod's large/small split rule
+        (alpha, beta), fixed Lloyd iterations, the seed of the centroid
+        init's draws and the init ('rows' or 'kmeans++'). base='gmm' reads
+        ``n_clusters`` as its components, ``kmeans_iter`` as its EM
+        iterations, and the seed and init.
+    gmm_covariance:
+        'diag' or 'full' component covariances for base='gmm'.
+    pca_n_components, pca_n_selected, pca_standardize, pca_weighted:
+        pyod PCA's n_components, n_selected_components, standardization
+        and weighted (0 means pyod's None; ``pca_n_selected`` takes
+        components from the smallest-variance end of the kept list).
+    subset_size, kpca_n_components, kpca_gamma, kpca_sampling:
+        base='kpca': the fit subsample's size when ``kpca_sampling``, the
+        components kept (0: every valid one), the RBF gamma (0:
+        ``1 / popcount(mask)``).
+    support_fraction, mcd_starts, mcd_steps:
+        base='mcd': sklearn MinCovDet's support_fraction (0 is its None:
+        ``h = ceil((n + p + 1) / 2)`` per subspace), the random starts and
+        the c-steps each runs.
     contamination:
         expected outlier fraction; sets the ``predict`` threshold at the
         (1 - contamination) quantile of the train scores (pyod semantics).
@@ -781,6 +1507,26 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         n_bins: int = 10,
         contamination: float = 0.1,
         bucket_seed: int = 0,
+        projection_seed: int = 0,
+        kde_bandwidth: float = 1.0,
+        n_clusters: int = 8,
+        cluster_alpha: float = 0.9,
+        cluster_beta: float = 5.0,
+        kmeans_iter: int = 30,
+        cluster_seed: int = 0,
+        cluster_init: str = "rows",
+        gmm_covariance: str = "diag",
+        pca_n_components: int = 0,
+        pca_n_selected: int = 0,
+        pca_standardize: bool = True,
+        pca_weighted: bool = True,
+        subset_size: int = 20,
+        kpca_n_components: int = 0,
+        kpca_gamma: float = 0.0,
+        kpca_sampling: bool = False,
+        support_fraction: float = 0.0,
+        mcd_starts: int = 8,
+        mcd_steps: int = 15,
         test_chunk: Optional[int] = None,
         jl_dim: Optional[int] = None,
         jl_seed: int = 0,
@@ -799,6 +1545,9 @@ class SubspaceEnsemble(PyodSurfaceMixin):
             )
         if normalize not in (None, "zscore"):
             raise ValueError(f"unknown normalize={normalize!r}: expected 'zscore' or None")
+        _check_knobs(base, kde_bandwidth, n_clusters, cluster_alpha, cluster_beta, cluster_init,
+                     gmm_covariance, subset_size, support_fraction, mcd_starts, mcd_steps,
+                     kpca_n_components, kpca_gamma, pca_n_components, pca_n_selected)
         if test_chunk is not None and (
             not isinstance(test_chunk, (int, np.integer))
             or isinstance(test_chunk, bool)
@@ -863,6 +1612,26 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         self.n_bins = n_bins
         self.contamination = contamination
         self.bucket_seed = bucket_seed
+        self.projection_seed = projection_seed
+        self.kde_bandwidth = kde_bandwidth
+        self.n_clusters = n_clusters
+        self.cluster_alpha = cluster_alpha
+        self.cluster_beta = cluster_beta
+        self.kmeans_iter = kmeans_iter
+        self.cluster_seed = cluster_seed
+        self.cluster_init = cluster_init
+        self.gmm_covariance = gmm_covariance
+        self.pca_n_components = pca_n_components
+        self.pca_n_selected = pca_n_selected
+        self.pca_standardize = pca_standardize
+        self.pca_weighted = pca_weighted
+        self.subset_size = subset_size
+        self.kpca_n_components = kpca_n_components
+        self.kpca_gamma = kpca_gamma
+        self.kpca_sampling = kpca_sampling
+        self.support_fraction = support_fraction
+        self.mcd_starts = mcd_starts
+        self.mcd_steps = mcd_steps
         self.test_chunk = test_chunk
         self.device = resolve_device(device)
         self._x_train = None
@@ -1031,10 +1800,12 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         aggregation per chunk and combines the chunks; ``reduce=False``
         returns the raw (n_chunks, chunk, nt) score blocks (padding rows
         included)."""
-        scorer, k = _scorer_and_k(self.base, k=self.k, n_trees=self.n_trees,
-                                  exclude_self=exclude_self)
+        scorer, k = _scorer_and_k(self.base, exclude_self=exclude_self, **_scorer_params(self))
         ntr, d = self._x_train.shape
-        chunk = _effective_chunk(self.base, self.chunk, x_test.shape[0], ntr, d, k)
+        chunk = _effective_chunk(self.base, self.chunk, x_test.shape[0], ntr, d, k,
+                                 n_clusters=self.n_clusters, gmm_covariance=self.gmm_covariance,
+                                 kpca_sampling=self.kpca_sampling, subset_size=self.subset_size,
+                                 mcd_starts=self.mcd_starts)
         masks_np, proba_np = _chunked_masks(self.subspaces, self._combining_weights(), chunk)
         masks = torch.as_tensor(masks_np, dtype=torch.float32, device=self.device)
         if not reduce:
@@ -1074,13 +1845,15 @@ class SubspaceEnsemble(PyodSurfaceMixin):
             return None
         return self._aggregate_all_masks(self._knn_scores_all_masks(x_test, exclude_self))
 
-    def _aggregate_all_masks(self, s: torch.Tensor) -> np.ndarray:
+    def _aggregate_all_masks(self, s: torch.Tensor, weights=None) -> np.ndarray:
         """The z-score and the 'average'/'max' aggregation of every mask's
-        raw (n_masks, nt) scores on the device, then one host fetch."""
+        raw (n_masks, nt) scores on the device (weighted by the combining
+        weights unless ``weights`` is given), then one host fetch."""
         if self.normalize == "zscore":
             s = _zscore(s)
-        _, proba = self._device_pool()
-        return _reduce(s, proba, self._reduce_aggregation).cpu().numpy()
+        if weights is None:
+            _, weights = self._device_pool()
+        return _reduce(s, weights, self._reduce_aggregation).cpu().numpy()
 
     def predict(self, x_test: np.ndarray) -> np.ndarray:
         """0/1 outlier labels (pyod convention): threshold at the
@@ -1186,9 +1959,13 @@ class SubspaceEnsemble(PyodSurfaceMixin):
 
     def _dim_decision_function(self, x_test: torch.Tensor) -> np.ndarray:
         """The dimension-decomposable path (copod / hbos / ecod): the
-        per-dimension planes once, every mask's score a masked sum."""
+        per-dimension planes once, every mask's score a masked sum. The pool
+        probabilities weight the masks, under 'weighted' too, where
+        ``weights=`` is not read: the JAX package's dim route does so
+        (ROADMAP.md Queue 3)."""
         masks, _ = self._device_pool()
-        return self._aggregate_all_masks(self._dim_raw(x_test, masks))
+        proba = torch.as_tensor(self.proba, device=self.device)
+        return self._aggregate_all_masks(self._dim_raw(x_test, masks), proba)
 
     def _pyod_per_subspace_raw(self, x_test: np.ndarray) -> np.ndarray:
         """(n_subspaces, nt) raw scores from a pyod-style detector loop."""
