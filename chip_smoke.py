@@ -218,16 +218,23 @@ BENCH_ENSEMBLE = dict(n_train=1000, n_test=500, d=100, n_masks=1024, k=10)  # be
 STRESS_ENSEMBLE = dict(subspace_count=500, n_test=500, k=10)
 # phase 3e: the other native bases on the bench ensemble's data and masks,
 # at their default knobs; iforest at bench.py's own configuration
-# (bench.py:472-493), kpca on the first KPCA_BENCH_MASKS masks with the full
-# kernel (pyod's default, one (1000, 1000) eigh a mask); lof, iforest,
-# copod and the matmul-shaped kde, cblof and gmm once more on the stress
-# ensemble (mcd, pca and kpca would factor a (10240, 10240) matrix a mask)
+# (bench.py:472-493); kpca (the full kernel, pyod's default: one (1000, 1000)
+# eigh a mask), ocsvm (300 FISTA steps of 60 bisection steps, a few hundred
+# launches a step), ae and dsvdd (50 Adam epochs) on the first
+# FEW_MASKS masks; lof, iforest, copod and the matmul-shaped kde, cblof,
+# gmm, loda, inne, sampling, lmdd and sod once more on the stress ensemble
+# (mcd, pca and kpca would factor a (10240, 10240) matrix a mask; ocsvm and
+# sos are 300 x 60 and 64 launch-bound steps over (2000, 2000) kernels a
+# mask; ae and dsvdd would train 50 epochs of a (2000, 10240) autoencoder a
+# mask)
 OTHER_BASES = ("lof", "abod", "cof", "iforest", "mahalanobis", "copod", "hbos", "ecod",
-               "mcd", "pca", "kpca", "cblof", "gmm", "kde")
+               "mcd", "pca", "kpca", "cblof", "gmm", "kde", "loda", "inne", "sampling", "sod",
+               "lmdd", "ocsvm", "sos", "ae", "dsvdd")
 NEIGHBOR_BASES = ("lof", "abod", "cof")
 IFOREST_BENCH = dict(n_masks=256, n_trees=100, chunk=32)
-KPCA_BENCH_MASKS = 128
-STRESS_BASES = ("lof", "iforest", "copod", "kde", "cblof", "gmm")
+FEW_MASKS, FEW_MASK_BASES = 128, ("kpca", "ocsvm", "ae", "dsvdd")
+STRESS_BASES = ("lof", "iforest", "copod", "kde", "cblof", "gmm", "loda", "inne", "sampling",
+                "lmdd", "sod")
 # The card against the host: the pool's first CHECK_MASKS masks (the whole
 # pool of the index-reading bases takes minutes on the host's CPU).
 CHECK_MASKS = 16
@@ -263,23 +270,61 @@ CHECK_MASKS = 16
 # (3e-6 covers s = 50; the bench masks select about 30); mcd's distances
 # and pca's coefficients sat within 1e-6 and 1e-5 of float64 on an H100,
 # ten times which are their limits.
+# The bases of PR 11. loda decides its bins on f32 projections, as hbos does
+# on f32 values: its reference is the CPU in float32, whose densities and
+# logarithms round differently, and whose projections round otherwise: a
+# train projection that changes bins moves one count by 1, and a query in
+# that bin by |log(1 + 1/c)| / P, under the limit for c >= 20 of the P = 100
+# directions (a query's own bin is a decision, below). sampling is the
+# square root of one f32 distance (within s 2^-24 of |x|^2 + |y|^2
+# relative). sod's reference
+# means and variances are short sums of exact row values, and its score
+# the root of a sum of squared deviations, which loses relative precision
+# only where a query sits near its reference mean (the absolute floor
+# covers that); lmdd's closed forms sum squared deviations from a mean of
+# 1000 rows. inne's ratios 1 - r2' / r2 carry two f32 distances' error. ocsvm
+# solves a QP by 300 f32 FISTA steps whose kernel carries the distances'
+# error, and its offset averages f(x) over the margin support vectors, a set
+# that can change by a vector near its tolerance (f there equals the offset
+# to the solver's precision). sos finds each row's beta by 64 f32 bisection
+# steps on an entropy that carries the distances' error, then multiplies
+# 1000 binding complements. ae and dsvdd train 50 f32 Adam epochs, whose
+# normalized step moves a weight of near-zero gradient by +-lr on the sign
+# of its rounding (up to sqrt(50) lr = 7e-3 of drift; 1e-3 relative seen on
+# an H100). The first chip run of these limits saw at most, of the largest
+# score: sampling 1.6e-7, inne 1.3e-7, sod 8.0e-8, lmdd 9.0e-8, loda
+# 1.8e-7, ocsvm 4.8e-7, sos 8.2e-6.
+# Decisions (the margins of each float64 host run, relative as each scorer
+# says; DECISION_REL): a query's loda bin, its projection against the bin
+# edges, each within s 2^-24 of sum_j |x_j w_j| (s <= 80 active columns, the
+# edges' own error twice that: 2e-5); inne's coverage tests and
+# covering-ball choice, and sod's neighbour places and variance test, on
+# distances within 2 (s + 2) 2^-24
+# of the rows' squared norms on either side of the gap; dsvdd's centre snap
+# (|c| against 0.1 and its sign) on mean embeddings of two f32 layers.
 RAW_RTOL = dict(lof=1e-4, abod=1e-4, cof=1e-3, mahalanobis=1e-4, copod=1e-5, ecod=1e-5,
                 iforest=1e-5, hbos=1e-5, kde=1e-5, cblof=1e-5, mcd=1e-5, gmm=1e-4, pca=1e-4,
-                kpca=1e-4)
+                kpca=1e-4, loda=1e-4, inne=1e-5, sampling=1e-5, sod=1e-5, lmdd=1e-5,
+                ocsvm=1e-4, sos=1e-4, ae=1e-2, dsvdd=1e-2)
 RAW_ATOL_FRAC = 1e-5
-RAW_F32_BASES = ("iforest", "hbos")
-DECISION_REL = dict(cblof=3e-6, mcd=1e-5, pca=1e-4)
+RAW_F32_BASES = ("iforest", "hbos", "loda")
+DECISION_REL = dict(cblof=3e-6, mcd=1e-5, pca=1e-4, loda=2e-5, inne=5e-5, sod=3e-5,
+                    dsvdd=3e-4)
 # pca's batched eigh launches about 186 kernels a mask (190,000 a call at
 # 1024 masks), which take the profiler some 35 s to gather: its device
-# share is read from a call over its first PROFILE_MASKS masks (one chunk)
-PROFILE_MASKS = dict(pca=128)
+# share is read from a call over its first PROFILE_MASKS masks (one chunk).
+# ocsvm launches about 150,000 kernels a chunk whatever its size (300 FISTA
+# steps of 60 bisection steps): one chunk of 25 masks; sos about 900 a
+# chunk of 12: 128 masks.
+PROFILE_MASKS = dict(pca=128, ocsvm=25, sos=128)
 # ROC AUC of the planted outliers that the JAX package (vgan_tpu) gives on
 # the CPU on the same data, masks and configuration
 # (examples/jax_base_auc.py): 1.0 for every base, so each is held to
 # BENCH_AUC_MIN
 JAX_BENCH_AUC = dict(lof=1.0, abod=1.0, cof=1.0, iforest=1.0, mahalanobis=1.0, copod=1.0,
                      hbos=1.0, ecod=1.0, mcd=1.0, pca=1.0, kpca=1.0, cblof=1.0, gmm=1.0,
-                     kde=1.0)
+                     kde=1.0, loda=1.0, inne=1.0, sampling=1.0, sod=1.0, lmdd=1.0, ocsvm=1.0,
+                     sos=1.0, ae=1.0, dsvdd=1.0)
 # lof, abod and cof read neighbour sets (cof also their order). The card and
 # the CPU form d2 = an + bn - 2 cross in f32, in other summation orders: each
 # within (s + 2) 2^-24 2 (an + bn) of the exact value, s the mask's selected
@@ -1129,14 +1174,14 @@ def bench_data():
 
 def base_config(base: str, subs):
     """(masks, constructor keywords) of a base on the bench data: iforest
-    at bench.py's configuration, kpca on the first KPCA_BENCH_MASKS masks,
-    the others on every mask; all at the bench ensemble's k (read by the
-    neighbour bases only) and every other knob at its default."""
+    at bench.py's configuration, FEW_MASK_BASES on the first FEW_MASKS
+    masks, the others on every mask; all at the bench ensemble's k (read by
+    the neighbour bases only) and every other knob at its default."""
     if base == "iforest":
         cfg = IFOREST_BENCH
         return subs[:cfg["n_masks"]], dict(n_trees=cfg["n_trees"], chunk=cfg["chunk"])
-    if base == "kpca":
-        return subs[:KPCA_BENCH_MASKS], dict(k=BENCH_ENSEMBLE["k"])
+    if base in FEW_MASK_BASES:
+        return subs[:FEW_MASKS], dict(k=BENCH_ENSEMBLE["k"])
     return subs, dict(k=BENCH_ENSEMBLE["k"])
 
 
@@ -1207,11 +1252,13 @@ def hold_against_host(base: str, ens_kw: dict, xte, xtr, masks, log) -> None:
     if base in NEIGHBOR_BASES:
         exposed = tie_exposure(base, xte, xtr, masks, ens_kw["k"])
     elif margins:
-        least = torch.stack(margins).amin(dim=0)
-        exposed = (least <= DECISION_REL[base])[:, None].expand_as(beyond)
-        log(f"    {int((least <= DECISION_REL[base]).sum())} of {len(masks)} masks "
-            f"decision-exposed (least float64 margin {float(least.min()):.3e}, limit "
-            f"{DECISION_REL[base]})")
+        # a (masks,) margin exposes a mask, a (masks, nt) one a (mask, row) entry
+        least = functools.reduce(torch.minimum, (m if m.ndim == 2 else m[:, None]
+                                                 for m in margins)).double()
+        exposed = (least <= DECISION_REL[base]).expand_as(beyond)
+        log(f"    {int(exposed.any(dim=1).sum())} of {len(masks)} masks and "
+            f"{int(exposed.sum())} entries decision-exposed (least margin "
+            f"{float(least.min()):.3e}, limit {DECISION_REL[base]})")
     else:
         exposed = torch.zeros_like(beyond)
     unexplained = beyond & ~exposed
@@ -1245,7 +1292,7 @@ def hold_against_host(base: str, ens_kw: dict, xte, xtr, masks, log) -> None:
 def phase_other_bases(device, model, X, log) -> dict:
     """The other native bases through the public API (no KNN kernel): on
     the bench ensemble's data and masks (iforest at bench.py's
-    configuration, kpca on KPCA_BENCH_MASKS masks), decision_function,
+    configuration, FEW_MASK_BASES on FEW_MASKS masks), decision_function,
     predict, decision_scores_ and labels_ on the card, the K6 / K7 counts at
     zero, the card held to the host, the planted outliers' ROC AUC held, and
     each base's decision_function time; then STRESS_BASES on the stress

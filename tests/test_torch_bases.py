@@ -324,13 +324,8 @@ def test_guards_and_parametric_bases(data):
                            device="cpu").fit(data["xtr"])
     with pytest.raises(ValueError, match="k < n_train"):
         ens.predict(data["xte"])
-    assert len(TOD._PARAM_BASES) == 15
-    waiting = [b for b in TOD._PARAM_BASES if b not in PARAM_BASES]
-    assert len(waiting) == 9 and set(PARAM_BASES) <= set(TOD._PARAM_BASES)
-    for base in waiting:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            SubspaceEnsemble(data["masks"], data["proba"], base=base, device="cpu")
-    for base in PARAM_BASES:
+    assert len(TOD._PARAM_BASES) == 15 and set(PARAM_BASES) <= set(TOD._PARAM_BASES)
+    for base in TOD._PARAM_BASES:  # every parametric base is ported
         ens = SubspaceEnsemble(data["masks"], data["proba"], base=base, device="cpu")
         assert ens.base == base
     assert set(TOD._BASE_SCORERS) == set(JOD._BASE_SCORERS)

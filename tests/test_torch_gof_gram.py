@@ -6,6 +6,9 @@ On the CPU ``a_times_k`` returns its plain version; the CUDA kernel itself is
 held to that plain version on the card by chip_smoke.py.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -118,6 +121,23 @@ def test_tiled_sweep_draws_from_the_generator_and_blocks_rows(monkeypatch):
                                                  n_permutations=25, device="cpu")
     np.testing.assert_allclose(s3.numpy(), s1.numpy(), rtol=1e-6)
     np.testing.assert_array_equal(p3.numpy(), p1.numpy())
+
+
+def assert_names_parallel_item(message: str) -> None:
+    """A refusal of ``mesh=`` names the Queue 1 item of ROADMAP.md that
+    ports ``parallel/``, and that item exists there."""
+    item = re.search(r"ROADMAP\.md Queue 1, item (\d+)", message)
+    assert item is not None, message
+    roadmap = (Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
+    queue1 = roadmap.split("### Queue 1")[1].split("### Queue 2")[0]
+    assert f"\n{item.group(1)}. **`parallel/`**" in queue1, message
+
+
+def test_mesh_message_names_a_roadmap_item():
+    x, y, _ = _separated_pair(5, 5, 3, seed=6)
+    with pytest.raises(NotImplementedError) as raised:
+        TG.mmd_permutation_test_tiled(x, y, [0.1], mesh=object(), device="cpu")
+    assert_names_parallel_item(str(raised.value))
 
 
 def test_tiled_rejects_mesh_and_bad_precision():

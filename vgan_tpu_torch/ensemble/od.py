@@ -14,14 +14,16 @@ one host fetch of the (nt,) scores. Every other native base, and the knn
 bases past those shapes, score a ``(c, d)`` chunk of masks in one batched
 call per chunk, as the JAX package vmaps each chunk.
 
-Ported bases: the neighbour family (``knn``, ``knn_mean``, ``lof``,
-``abod``, ``cof``), ``iforest`` (:mod:`vgan_tpu_torch.ensemble.iforest`),
-``mahalanobis``, the dimension-decomposable ``copod`` / ``hbos`` /
-``ecod``, whose per-dimension score planes are shared by every mask, and the
-parametric ``mcd``, ``pca``, ``kpca``, ``cblof``, ``gmm`` and ``kde`` with
-the knobs only they read. The package's nine other parametric bases and
-``mesh`` raise ``NotImplementedError`` naming ``ROADMAP.md``. A pyod-style
-detector instance runs the CPU loop over subspaces.
+Every base of the JAX package is here: the neighbour family (``knn``,
+``knn_mean``, ``lof``, ``abod``, ``cof``, and ``sod``), ``iforest``
+(:mod:`vgan_tpu_torch.ensemble.iforest`), ``mahalanobis``, the
+dimension-decomposable ``copod`` / ``hbos`` / ``ecod``, whose per-dimension
+score planes are shared by every mask, and the parametric bases with the
+knobs only they read: ``mcd``, ``pca``, ``kpca``, ``cblof``, ``gmm``,
+``kde``, ``loda``, ``inne``, ``sampling``, ``lmdd``, ``ocsvm``, ``sos``,
+``ae`` and ``dsvdd``. Only ``mesh`` raises ``NotImplementedError`` naming
+``ROADMAP.md``. A pyod-style detector instance runs the CPU loop over
+subspaces.
 """
 
 from __future__ import annotations
@@ -109,9 +111,10 @@ def _stream_chunk(chunk: int, nt: int, blk: int) -> int:
 
 
 def _effective_chunk(base, chunk: int, nt: int, ntr: int, d: int, k: int = 0, *,
-                     n_clusters: int = 8, gmm_covariance: str = "diag",
-                     kpca_sampling: bool = False, subset_size: int = 20,
-                     mcd_starts: int = 8) -> int:
+                     n_clusters: int = 8, gmm_covariance: str = "diag", n_trees: int = 100,
+                     inne_psi: int = 8, kpca_sampling: bool = False, subset_size: int = 20,
+                     mcd_starts: int = 8, ae_hidden: tuple = (64, 32),
+                     sod_ref_set: int = 10) -> int:
     """Memory governor for the mask chunk of the generic path: the JAX
     package's governor for the native bases, then the eager-torch buffers.
     ``k`` is the base's k (the tree count for iforest)."""
@@ -130,21 +133,46 @@ def _effective_chunk(base, chunk: int, nt: int, ntr: int, d: int, k: int = 0, *,
     if base == "mahalanobis":
         return max(1, min(chunk, _MAHA_CHUNK_BUDGET // max(d * d, 1)))
     # the parametric bases: the JAX package's per-mask element counts under
-    # _MAHA_CHUNK_BUDGET (pca: the standardized train copy and its
-    # projections, the (d, d) covariance and eigenvectors, the query
-    # projections; kpca: the (n, n) kernel, its centred copy and the eigh
-    # workspace, the (nt, n) planes; mcd: the masked train copy, per start the
-    # centred and weighted copies and the (d, d) covariance and factor;
+    # _MAHA_CHUNK_BUDGET (inne: the masked centres and the (nt, T psi)
+    # coverage plane; pca: the standardized train copy and its projections,
+    # the (d, d) covariance and eigenvectors, the query projections; kpca:
+    # the (n, n) kernel, its centred copy and the eigh workspace, the (nt, n)
+    # planes; mcd: the masked train copy, per start the centred and weighted
+    # copies and the (d, d) covariance and factor; sod: the train and query
+    # distance, indicator and SNN planes and the (nt, ref_set, d) reference
+    # rows; ae / dsvdd: weights and Adam state, the layers' activations and
+    # their gradients; ocsvm: the train and test kernels and the masked train
+    # copy; sos: the train distance, shifted and kernel planes and the test
+    # binding planes; lmdd: the masked copies and aad's (block, nt, d) plane;
     # cblof / gmm: the masked train copy and the (ntr, C) assignments, the
-    # per-component residuals and covariances under 'full')
+    # per-component residuals and covariances under 'full'), plus what eager
+    # torch holds beyond them
     per_mask = None
-    if base == "pca":
+    if base == "inne":
+        per_mask = n_trees * inne_psi * (d + nt)
+    elif base == "pca":
         per_mask = 2 * ntr * d + 2 * d * d + nt * d
     elif base == "kpca":
         n = min(ntr, max(2, subset_size)) if kpca_sampling else ntr
         per_mask = 4 * n * n + 3 * nt * n
     elif base == "mcd":
         per_mask = ntr * d + mcd_starts * (2 * ntr * d + 2 * d * d) + nt * d
+    elif base == "sod":
+        # and the stable sorts' values and int64 indices over the train and
+        # query rows
+        per_mask = 2 * ntr * ntr + 3 * nt * ntr + nt * sod_ref_set * d + 3 * (ntr + nt) * ntr
+    elif base in ("ae", "dsvdd"):
+        # and autograd's saved activations: each layer's output and its
+        # ReLU's over the train rows
+        h_sum = sum(ae_hidden)
+        w = 2 * (d * ae_hidden[0] + sum(a * b for a, b in zip(ae_hidden[:-1], ae_hidden[1:])))
+        per_mask = 6 * w + 6 * ntr * (d + h_sum) + nt * (d + h_sum)
+    elif base == "ocsvm":
+        per_mask = 2 * ntr * ntr + nt * ntr + ntr * d
+    elif base == "sos":
+        per_mask = 4 * ntr * ntr + 3 * ntr * nt
+    elif base == "lmdd":
+        per_mask = ntr * d + 3 * nt * d + _LMDD_BLOCK * nt * d
     elif base in ("cblof", "gmm"):
         c = max(n_clusters, 1)
         per_mask = ntr * (d + c)
@@ -450,6 +478,17 @@ def _leading_valid(evals: torch.Tensor) -> torch.Tensor:
     return evals > torch.clamp_min(evals[..., :1] * 1e-5, tiny)
 
 
+def _masked_standardize(x_test: torch.Tensor, x_train: torch.Tensor, m: torch.Tensor):
+    """(c, ntr, d) and (c, nt, d) rows standardized by each mask's masked
+    train columns (StandardScaler: ddof-0 std, a constant column scale 1;
+    unmasked columns come out exactly 0). Shared by pca, ae and dsvdd."""
+    xm_tr = x_train[None] * m[:, None, :]
+    mu = torch.mean(xm_tr, dim=1, keepdim=True)
+    scale = torch.sqrt(torch.mean((xm_tr - mu) ** 2, dim=1, keepdim=True))
+    scale = torch.where(scale > 0.0, scale, 1.0)
+    return (xm_tr - mu) / scale, (x_test[None] * m[:, None, :] - mu) / scale
+
+
 def pca_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
                       k: int = 0, *, n_components: int = 0, n_selected: int = 0,
                       standardize: bool = True, weighted: bool = True,
@@ -473,15 +512,10 @@ def pca_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.T
             f"pca needs at least 2 train rows to define a covariance; got n_train={ntr}"
         )
     m = _as_batch(mask, x_train)
-    xm_tr = x_train[None] * m[:, None, :]
-    mu = torch.mean(xm_tr, dim=1, keepdim=True)
     if standardize:
-        scale = torch.sqrt(torch.mean((xm_tr - mu) ** 2, dim=1, keepdim=True))
-        scale = torch.where(scale > 0.0, scale, 1.0)
+        z_tr, z_te = _masked_standardize(x_test, x_train, m)
     else:
-        mu, scale = torch.zeros_like(mu), torch.ones_like(mu)
-    z_tr = (xm_tr - mu) / scale
-    z_te = (x_test[None] * m[:, None, :] - mu) / scale
+        z_tr, z_te = x_train[None] * m[:, None, :], x_test[None] * m[:, None, :]
     z_trc = z_tr - torch.mean(z_tr, dim=1, keepdim=True)
     # unmasked dimensions are zero rows and columns of the covariance; give
     # them distinct negative eigenvalues (clipped to 0, so excluded, and the
@@ -559,6 +593,143 @@ def kde_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.T
     log_norm = math.log(n_eff) + 0.5 * torch.sum(m, dim=1) * math.log(
         2.0 * math.pi * bandwidth * bandwidth)
     out = log_norm[:, None] - ll
+    return out[0] if mask.ndim == 1 else out
+
+
+def _bin_index(x: torch.Tensor, lo: torch.Tensor, width: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Equal-width histogram bin numbers from ``lo``, clipped to [0, n_bins):
+    clamped before the cast so that far values cannot overflow int64, and
+    truncated toward zero by it, as the JAX package's ``astype`` does.
+    Shared by hbos and loda."""
+    b = torch.clamp((x - lo) / width, -1.0, float(n_bins)).to(torch.int64)
+    return torch.clamp(b, 0, n_bins - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def draw_loda_directions(d: int, n_projections: int, seed: int, device=None,
+                         dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """loda's (d, n_projections) N(0, 1) directions: drawn in float64 from a
+    CPU ``torch.Generator`` seeded with ``seed``, then cast and moved once per
+    (device, dtype) and shared by every chunk and mask. (The JAX package draws
+    from ``PRNGKey(seed)``, which torch cannot reproduce.)"""
+    g = torch.Generator().manual_seed(int(seed))
+    w = torch.randn((int(d), int(n_projections)), generator=g, dtype=torch.float64)
+    return w.to(device=device, dtype=dtype)
+
+
+def loda_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                       k: int = 0, *, n_projections: int = 100, n_bins: int = 10, seed: int = 0,
+                       directions: Optional[torch.Tensor] = None,
+                       margins: Optional[list] = None) -> torch.Tensor:
+    """LODA (Pevny 2016; pyod LODA) in the masked subspace: the mean over
+    the masked directions ``W .* m`` of the negative log density of each
+    query's bin in an equal-width ``n_bins`` histogram of the train
+    projections. Dense directions (not pyod's sqrt(d)-sparse ones), shared
+    by every mask: ``directions`` (d, n_projections), else
+    :func:`draw_loda_directions` of ``seed``. Bin numbers truncate toward
+    zero and clip to the histogram; a query outside the train range gets
+    density 0 (score ``-log(1e-12)``). The lookup is ``n_bins`` compare
+    passes, no scatter. ``margins`` (a list) receives each (mask, query)'s
+    least distance, over the directions, from its projection to a bin edge
+    (the range's ends included), relative to the projections' magnitude
+    ``sum_j |x_j w_j|``. ``k`` is ignored."""
+    del k
+    eps = 1e-12
+    ntr, d = x_train.shape
+    if directions is None:
+        directions = draw_loda_directions(d, n_projections, seed, x_train.device, x_train.dtype)
+    m = _as_batch(mask, x_train)
+    wm = directions.to(device=x_train.device, dtype=x_train.dtype)[None] * m[:, :, None]
+    z_tr, z_te = x_train @ wm, x_test @ wm  # (c, rows, P)
+    lo = torch.amin(z_tr, dim=1, keepdim=True)
+    hi = torch.amax(z_tr, dim=1, keepdim=True)
+    width = torch.clamp_min((hi - lo) / n_bins, eps)
+    idx_tr, idx_te = _bin_index(z_tr, lo, width, n_bins), _bin_index(z_te, lo, width, n_bins)
+    density = torch.zeros_like(z_te)
+    for b in range(n_bins):
+        count = torch.sum(idx_tr == b, dim=1, keepdim=True).to(x_train.dtype)
+        density = density + torch.where(idx_te == b, count / (ntr * width), 0.0)
+    in_range = (z_te >= lo) & (z_te <= hi)
+    if margins is not None:
+        aw = torch.abs(wm)
+        scale = torch.abs(x_test) @ aw + torch.amax(torch.abs(x_train) @ aw, dim=1, keepdim=True)
+        edges = lo[..., None] + width[..., None] * torch.arange(
+            n_bins + 1, dtype=x_train.dtype, device=x_train.device)  # (c, 1, P, B + 1)
+        rel = torch.amin(torch.abs(z_te[..., None] - edges), dim=-1) / scale
+        # 0 / 0: no masked column, every projection exactly 0
+        margins.append(torch.amin(torch.nan_to_num(rel, nan=torch.inf), dim=-1))
+    out = torch.mean(-torch.log(torch.where(in_range, density, 0.0) + eps), dim=-1)
+    return out[0] if mask.ndim == 1 else out
+
+
+@functools.lru_cache(maxsize=None)
+def _inne_centres(ntr: int, psi: int, n_estimators: int, seed: int) -> np.ndarray:
+    """(T, psi) train rows of the INNE members, ``psi`` without replacement
+    a member from one ``np.random.default_rng(seed)``: the JAX package's
+    draws."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.choice(ntr, size=psi, replace=False) for _ in range(n_estimators)])
+
+
+def inne_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                       k: int = 0, *, n_estimators: int = 100, psi: int = 8,
+                       seed: int = 0, margins: Optional[list] = None) -> torch.Tensor:
+    """INNE (Bandaragoda et al. 2018; pyod INNE) in the masked subspace, all
+    distances squared: each member's ``psi`` centres
+    (:func:`_inne_centres`, shared by every mask) get the squared distance
+    to their nearest fellow centre as radius and ``1 - r2[nn(c)] /
+    max(r2[c], 1e-30)`` as isolation ratio; a query takes the ratio of the
+    smallest ball covering it (ties to the lowest index) and 1 where none
+    does, averaged over members. ``psi`` clamps to n_train. ``margins`` (a
+    list) receives each mask's least gap between a centre's two nearest
+    fellows of other radii, and each (mask, query)'s least gap between its
+    distance to a centre and that radius and between the smallest covering
+    radius and another of another ratio, each relative to the two rows'
+    squared norms. ``k`` is ignored."""
+    del k
+    ntr, d = x_train.shape
+    psi_eff = min(int(psi), int(ntr))
+    if psi_eff < 2:
+        raise ValueError(
+            f"inne needs at least 2 train rows to define ball radii; got n_train={ntr} "
+            f"(psi={psi})"
+        )
+    t = int(n_estimators)
+    idx = torch.as_tensor(_inne_centres(ntr, psi_eff, t, int(seed)).reshape(-1),
+                          device=x_train.device)
+    m = _as_batch(mask, x_test)
+    c, nt = m.shape[0], x_test.shape[0]
+    cm = x_train[idx][None] * m[:, None, :]  # (c, T psi, d)
+    sq_c = torch.sum(cm * cm, dim=-1)
+    cm_t, sq_t = cm.view(c, t, psi_eff, d), sq_c.view(c, t, psi_eff)
+    d2_cc = torch.clamp_min(sq_t[..., :, None] + sq_t[..., None, :] - 2.0 * (cm_t @ cm_t.mT), 0.0)
+    big = torch.finfo(x_test.dtype).max / 4
+    d2_cc = torch.where(torch.eye(psi_eff, dtype=torch.bool, device=x_test.device), big, d2_cc)
+    r2, nn = torch.min(d2_cc, dim=-1)  # (c, T, psi); ties to the first index
+    ratio = 1.0 - torch.gather(r2, -1, nn) / torch.clamp_min(r2, 1e-30)
+    # x . (m .* c) == (m .* x) . (m .* c) for a 0/1 mask
+    sq_x = ((x_test * x_test) @ m.T).T
+    d2_q = torch.clamp_min(sq_x[:, :, None] + sq_c[:, None, :] - 2.0 * (x_test @ cm.mT), 0.0)
+    d2_q = d2_q.view(c, nt, t, psi_eff)
+    covered = d2_q <= r2[:, None]
+    sel = torch.argmin(torch.where(covered, r2[:, None], big), dim=-1, keepdim=True)
+    ratio_sel = torch.gather(ratio[:, None].expand(c, nt, t, psi_eff), -1, sel)[..., 0]
+    if margins is not None:
+        norms = sq_t[..., :, None] + sq_t[..., None, :]
+        two = torch.topk(d2_cc, 2, dim=-1, largest=False)
+        r2_two = torch.gather(r2[..., None, :].expand(*d2_cc.shape), -1, two.indices)
+        nn_gap = torch.where(r2_two[..., 0] == r2_two[..., 1], torch.inf,
+                             (two.values[..., 1] - two.values[..., 0])
+                             / torch.gather(norms, -1, two.indices[..., :1])[..., 0])
+        margins.append(torch.amin(nn_gap, dim=(1, 2)))
+        q_norms = (sq_x[:, :, None] + sq_c[:, None, :]).view(c, nt, t, psi_eff)
+        r2_sel = torch.gather(r2[:, None].expand(c, nt, t, psi_eff), -1, sel)
+        other = covered & (torch.abs(ratio[:, None] - ratio_sel[..., None]) > 1e-6)
+        gap = torch.minimum(torch.abs(d2_q - r2[:, None]),
+                            torch.where(other, r2[:, None] - r2_sel, torch.inf)) / q_norms
+        # 0 / 0: a query and a centre of no masked norm, whose distances are exact
+        margins.append(torch.amin(torch.nan_to_num(gap, nan=torch.inf), dim=(2, 3)))
+    out = torch.mean(torch.where(covered.any(dim=-1), ratio_sel, 1.0), dim=-1)
     return out[0] if mask.ndim == 1 else out
 
 
@@ -701,10 +872,115 @@ def mcd_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.T
 
 
 @functools.lru_cache(maxsize=None)
-def _kpca_subsample(ntr: int, size: int, seed: int) -> np.ndarray:
-    """The fit subsample of ``kpca_sampling``: the JAX package's host draw
-    ``np.random.default_rng(seed).choice(ntr, size, replace=False)``."""
+def _subsample_rows(ntr: int, size: int, seed: int) -> np.ndarray:
+    """The train subsample of sampling and of ``kpca_sampling``: the JAX
+    package's host draw ``np.random.default_rng(seed).choice(ntr, size,
+    replace=False)``, shared by every mask."""
     return np.random.default_rng(seed).choice(ntr, size=size, replace=False)
+
+
+def sampling_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                           k: int = 0, *, subset_size: int = 20, seed: int = 0) -> torch.Tensor:
+    """Sampling outlier detector (Sugiyama & Borgwardt 2013; pyod Sampling)
+    in the masked subspace: the distance to the nearest of ``subset_size``
+    train rows drawn by :func:`_subsample_rows` (clamped to n_train, where
+    pyod raises). ``k`` is ignored."""
+    del k
+    ntr = x_train.shape[0]
+    if ntr < 1:
+        raise ValueError(f"sampling needs at least 1 train row; got {ntr}")
+    size = max(1, min(int(subset_size), int(ntr)))
+    idx = torch.as_tensor(_subsample_rows(ntr, size, int(seed)), device=x_train.device)
+    return torch.sqrt(torch.amin(_masked_sq_dists(x_test, x_train[idx], mask), dim=-1))
+
+
+def sod_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                      k: int = 20, *, ref_set: int = 10, alpha: float = 0.8,
+                      exclude_self: bool = False,
+                      margins: Optional[list] = None) -> torch.Tensor:
+    """Subspace Outlier Detection (Kriegel et al. 2009; pyod SOD) in the
+    masked subspace, novelty-style: each query's reference set is the
+    ``ref_set`` train rows sharing most of its k nearest neighbours (the
+    train rows' lists leave themselves out; the query's only under
+    ``exclude_self``, which also drops the (i, i) pair from the reference
+    set), ties to the lowest index; the relevant dimensions are the mask's
+    whose reference variance is below ``alpha`` times the mean over the
+    mask's dimensions; the score is ``sqrt(sum_rel (x - mean)^2 / n_rel)``,
+    0 with none relevant. Neighbours in ``(value, index)`` order; the SNN
+    counts are one product of 0/1 neighbour indicators. ``margins`` (a list)
+    receives each (mask, query)'s least relative gap at a decision: between
+    its k-th and (k + 1)-th neighbour, the same for each train row whose
+    k-th or (k + 1)-th neighbour is among the query's (the SNN count could
+    change), both relative to the rows' squared norms, and between a
+    dimension's reference variance and its threshold, relative to their
+    sum."""
+    ntr, d = x_train.shape
+    if int(k) < 1 or int(k) >= ntr:
+        raise ValueError(
+            f"sod needs 1 <= k < n_train neighbors (pyod clamps the same way); got k={k} "
+            f"with n_train={ntr}"
+        )
+    r_eff = min(int(ref_set), ntr)
+    if r_eff < 1:
+        raise ValueError(f"ref_set must be >= 1; got {ref_set!r}")
+    m = _as_batch(mask, x_train)
+    c, nt = m.shape[0], x_test.shape[0]
+    # with margins, one neighbour more: the (k + 1)-th bounds the k-th's place
+    kk = min(k + 1, ntr - 1) if margins is not None else k
+    d2_tr, idx_tr = _k_smallest_by_index(
+        _mask_diagonal(_masked_sq_dists(x_train, x_train, m)), kk)
+    d2_te = _masked_sq_dists(x_test, x_train, m)
+    if exclude_self:
+        d2_te = _mask_diagonal(d2_te)
+    d2_te, idx_te = _k_smallest_by_index(d2_te, kk)
+    t_ind = torch.zeros((c, ntr, ntr), dtype=x_train.dtype, device=x_train.device)
+    q_ind = torch.zeros((c, nt, ntr), dtype=x_train.dtype, device=x_train.device)
+    q_ind.scatter_(-1, idx_te[..., :k], 1.0)
+    snn = q_ind @ t_ind.scatter_(-1, idx_tr[..., :k], 1.0).mT
+    del t_ind
+    if margins is not None:
+        tr_norm = ((x_train * x_train) @ m.T).T
+
+        def boundary_gap(d2, idx, q_norm):
+            """(c, rows) gap between the k-th and (k + 1)-th neighbours."""
+            if kk == k:  # every other train row is a neighbour
+                return torch.full(d2.shape[:-1], torch.inf, dtype=d2.dtype, device=d2.device)
+            b_norm = torch.gather(tr_norm[:, None, :].expand(-1, d2.shape[1], -1), -1,
+                                  idx[..., k - 1:k + 1]).amax(dim=-1)
+            # 0 / 0: rows of no masked norm, whose distances are exact
+            return torch.nan_to_num((d2[..., k] - d2[..., k - 1]) / (q_norm + b_norm),
+                                    nan=torch.inf)
+
+        list_gap = boundary_gap(d2_te, idx_te, ((x_test * x_test) @ m.T).T)
+        if kk > k:  # train row j's count changes only if a boundary neighbour is the query's
+            gap_tr = boundary_gap(d2_tr, idx_tr, tr_norm)
+            hit = sum(torch.gather(q_ind, -1, idx_tr[:, None, :, i].expand(c, nt, ntr))
+                      for i in (k - 1, k)) > 0
+            list_gap = torch.minimum(list_gap, torch.amin(
+                torch.where(hit, gap_tr[:, None, :], torch.inf), dim=-1))
+    del q_ind, d2_tr, d2_te
+    if exclude_self:
+        snn = -_mask_diagonal(-snn)
+    # SNN counts are small integers: the -index / (2 ntr) bias (below the
+    # count gap of 1) makes every key distinct, the lowest index first
+    snn = snn - torch.arange(ntr, dtype=x_train.dtype, device=x_train.device) * (0.5 / ntr)
+    ref_idx = torch.topk(snn, r_eff, dim=-1).indices  # (c, nt, R)
+    xm = x_train[None] * m[:, None, :]
+    ref = xm[torch.arange(c, device=x_train.device)[:, None, None], ref_idx]  # (c, nt, R, d)
+    means = torch.mean(ref, dim=2)
+    var = torch.mean((ref - means[:, :, None]) ** 2, dim=2)
+    d_sub = torch.clamp_min(torch.sum(m, dim=1), 1.0)[:, None, None]
+    thr = alpha * torch.sum(var, dim=-1, keepdim=True) / d_sub
+    ind = ((var < thr) & (m[:, None, :] > 0)).to(x_train.dtype)
+    if margins is not None:
+        var_gap = torch.where(m[:, None, :] > 0,
+                              torch.nan_to_num(torch.abs(var - thr) / (var + thr), nan=torch.inf),
+                              torch.inf)
+        margins.append(torch.minimum(list_gap, torch.amin(var_gap, dim=-1)))
+    rel = torch.sum(ind, dim=-1)
+    dev = torch.sum(ind * (x_test[None] * m[:, None, :] - means) ** 2, dim=-1)
+    out = torch.where(rel > 0, torch.sqrt(dev / torch.clamp_min(rel, 1.0)), 0.0)
+    return out[0] if mask.ndim == 1 else out
 
 
 def kpca_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
@@ -724,7 +1000,7 @@ def kpca_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.
     ntr = x_train.shape[0]
     if sampling:
         size = max(2, min(int(subset_size), int(ntr)))
-        idx = torch.as_tensor(_kpca_subsample(ntr, size, int(seed)), device=x_train.device)
+        idx = torch.as_tensor(_subsample_rows(ntr, size, int(seed)), device=x_train.device)
         x_fit = x_train[idx]
     else:
         x_fit = x_train
@@ -750,6 +1026,221 @@ def kpca_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.
     proj_sq = torch.where(selected[:, None, :], proj * proj
                           / torch.clamp_min(evals, tiny)[:, None, :], 0.0)
     out = 1.0 - 2.0 * te_mean[..., 0] + all_mean[..., 0] - torch.sum(proj_sq, dim=-1)
+    return out[0] if mask.ndim == 1 else out
+
+
+def _as_numpy_dtype(dtype: torch.dtype):
+    return np.float32 if dtype == torch.float32 else np.float64
+
+
+@functools.lru_cache(maxsize=None)
+def _fista_momenta(iters: int, np_dtype) -> tuple:
+    """FISTA's momentum coefficients ``(t - 1) / t_new``, ``t_new = (1 +
+    sqrt(1 + 4 t^2)) / 2`` from t = 1, in ``np_dtype`` arithmetic as the JAX
+    package's scan carries t in the rows' dtype."""
+    one, t, out = np_dtype(1.0), np_dtype(1.0), []
+    for _ in range(iters):
+        t_new = np_dtype(0.5) * (one + np.sqrt(one + np_dtype(4.0) * t * t))
+        out.append(float((t - one) / t_new))
+        t = t_new
+    return tuple(out)
+
+
+def ocsvm_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                        k: int = 0, *, nu: float = 0.5, gamma: float = 0.0,
+                        iters: int = 300) -> torch.Tensor:
+    """One-class SVM (Schölkopf et al. 2001; pyod OCSVM over sklearn's
+    OneClassSVM) in the masked subspace, RBF kernel: the libsvm dual ``min
+    a^T K a / 2`` over the capped simplex ``0 <= a <= 1 / (nu n)``, ``sum a
+    = 1``, by ``iters`` projected FISTA steps of size ``1 / (1.02
+    lambda_max)`` (30 power steps from a uniform start), each projection a
+    60-step bisection on the shift from ``(min v - C, max v)``. ``rho`` is
+    the mean of ``K a`` over the margin support vectors (tolerance ``1e-3
+    C``), else over all of them; the score is ``(rho - K_test a) nu n``,
+    sklearn's negated decision function. ``gamma = 0`` means ``1 /
+    popcount(mask)``. The chunk's masks are one batch in every step (a few
+    hundred launches a step on the card). ``k`` is ignored."""
+    del k
+    ntr = x_train.shape[0]
+    if ntr < 2:
+        raise ValueError(f"ocsvm needs at least 2 train rows; got n_train={ntr}")
+    if not 0.0 < nu <= 1.0:
+        raise ValueError(
+            f"nu must be in (0, 1] (Schölkopf's outlier-fraction bound); got {nu!r}"
+        )
+    dt = x_train.dtype
+    m = _as_batch(mask, x_train)
+    g = gamma if gamma > 0.0 else (1.0 / torch.clamp_min(torch.sum(m, dim=1), 1.0))[:, None, None]
+    k_tr = torch.exp(-g * _masked_sq_dists(x_train, x_train, m))  # (c, n, n)
+    k_te = torch.exp(-g * _masked_sq_dists(x_test, x_train, m))
+    cap = 1.0 / (nu * ntr)
+    tiny = torch.finfo(dt).tiny
+
+    def k_times(v):
+        return (k_tr @ v[..., None])[..., 0]
+
+    b = torch.full((m.shape[0], ntr), 1.0 / math.sqrt(ntr), dtype=dt, device=x_train.device)
+    for _ in range(30):
+        b = k_times(b)
+        b = b / (torch.linalg.vector_norm(b, dim=-1, keepdim=True) + tiny)
+    step = (1.0 / (torch.sum(b * k_times(b), dim=-1) * 1.02 + tiny))[:, None]
+
+    def project(v):
+        lo = torch.amin(v, dim=-1, keepdim=True) - cap
+        hi = torch.amax(v, dim=-1, keepdim=True)
+        for _ in range(60):
+            mid = 0.5 * (lo + hi)
+            above = torch.sum(torch.clamp(v - mid, 0.0, cap), dim=-1, keepdim=True) > 1.0
+            lo, hi = torch.where(above, mid, lo), torch.where(above, hi, mid)
+        return torch.clamp(v - 0.5 * (lo + hi), 0.0, cap)
+
+    a = torch.full_like(b, 1.0 / ntr)
+    y = a
+    for coef in _fista_momenta(int(iters), _as_numpy_dtype(dt)):
+        a_new = project(y - step * k_times(y))
+        y = a_new + coef * (a_new - a)
+        a = a_new
+    f_tr = k_times(a)
+    tol = cap * 1e-3
+    margin = (a > tol) & (a < cap - tol)
+    sv = a > tol
+    n_margin = torch.sum(margin, dim=-1).to(dt)
+    rho_margin = torch.sum(torch.where(margin, f_tr, 0.0), dim=-1) / torch.clamp_min(n_margin, 1.0)
+    rho_sv = (torch.sum(torch.where(sv, f_tr, 0.0), dim=-1)
+              / torch.clamp_min(torch.sum(sv, dim=-1).to(dt), 1.0))
+    rho = torch.where(n_margin > 0, rho_margin, rho_sv)
+    out = (rho[:, None] - (k_te @ a[..., None])[..., 0]) * (nu * ntr)
+    return out[0] if mask.ndim == 1 else out
+
+
+def sos_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                      k: int = 0, *, perplexity: float = 4.5, iters: int = 64,
+                      exclude_self: bool = False) -> torch.Tensor:
+    """Stochastic Outlier Selection (Janssens et al. 2012; pyod SOS) in the
+    masked subspace: each train row's affinities ``exp(-beta_i d2_ij)``,
+    ``beta_i`` from ``iters`` bisection steps (from 1, doubling while the
+    upper bound is open, halving while the lower is 0) toward binding
+    entropy ``log(perplexity)``, on the kernel shifted by the row's
+    off-diagonal minimum. A query's score is ``prod_i (1 - b_i(x))``, the
+    binding probabilities formed in log space: a novel query joins row i's
+    denominator, with the betas frozen at their train values; under
+    ``exclude_self`` the leading ``n_train`` queries are the train rows
+    themselves and take the transductive formula without the (t, t) pair.
+    The guard ``perplexity < n_train`` is the JAX package's (a perplexity in
+    [n_train - 1, n_train) cannot be reached: the bisection halves beta
+    ``iters`` times). ``k`` is ignored."""
+    del k
+    n_tr = x_train.shape[0]
+    if n_tr < 2:
+        raise ValueError(
+            f"sos needs at least 2 train rows (the binding distribution is over the other "
+            f"points); got {n_tr}"
+        )
+    if not perplexity < n_tr:
+        raise ValueError(
+            f"sos needs perplexity < n_train (scikit-sos's constraint); got "
+            f"perplexity={perplexity} with n_train={n_tr}"
+        )
+    dt = x_train.dtype
+    m = _as_batch(mask, x_train)
+    diag = torch.eye(n_tr, dtype=torch.bool, device=x_train.device)
+    dshift = _masked_sq_dists(x_train, x_train, m)
+    dmin = torch.amin(dshift.masked_fill(diag, torch.inf), dim=-1)
+    dshift.sub_(dmin[..., None])  # >= 0 off the diagonal
+    log_u = math.log(perplexity)
+    tiny = torch.finfo(dt).tiny
+
+    def entropy_sumq(beta):
+        q = torch.exp(-dshift * beta[..., None]).masked_fill_(diag, 0.0)
+        sumq = torch.clamp_min(torch.sum(q, dim=-1), tiny)
+        return torch.log(sumq) + beta * torch.sum(dshift * q, dim=-1) / sumq, sumq
+
+    beta = torch.ones(dmin.shape, dtype=dt, device=x_train.device)
+    lo, hi = torch.zeros_like(beta), torch.full_like(beta, torch.inf)
+    for _ in range(int(iters)):
+        too_spread = entropy_sumq(beta)[0] > log_u  # raise beta to sharpen
+        lo = torch.where(too_spread, beta, lo)
+        hi = torch.where(too_spread, hi, beta)
+        half = 0.5 * (lo + hi)
+        beta = torch.where(too_spread, torch.where(torch.isinf(hi), beta * 2.0, half),
+                           torch.where(lo == 0.0, beta * 0.5, half))
+    sumq = entropy_sumq(beta)[1]
+    del dshift
+    log_sum_a = (-beta * dmin + torch.log(sumq))[..., None]  # log sum_{j != i} a_ij
+    log_a_te = -beta[..., None] * _masked_sq_dists(x_train, x_test, m)  # (c, n_tr, nt)
+    novel = log_a_te - torch.logaddexp(log_sum_a, log_a_te)
+    if exclude_self:
+        cols = torch.arange(x_test.shape[0], device=x_train.device)
+        rows = torch.arange(n_tr, device=x_train.device)[:, None]
+        b = torch.exp(torch.where(cols < n_tr, log_a_te - log_sum_a, novel))
+        b = torch.where(rows == cols, 0.0, b)
+    else:
+        b = torch.exp(novel)
+    out = torch.exp(torch.sum(torch.log1p(-torch.clamp(b, 0.0, 1.0)), dim=-2))
+    return out[0] if mask.ndim == 1 else out
+
+
+_LMDD_BLOCK = 256  # train-row block of the aad deviation plane
+
+
+def lmdd_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                       k: int = 0, *, dis_measure: str = "var",
+                       exclude_self: bool = False) -> torch.Tensor:
+    """Deviation-based outlier detection (Arning, Agrawal & Raghavan 1996;
+    the pyod lmdd family) in the masked subspace, singleton exception sets
+    in closed form: a novel row scores ``n max(D(X + x) - D(X), 0)``; under
+    ``exclude_self`` the leading ``n`` rows are the train rows and score
+    ``(n - 1) max(D(X) - D(X \\ x), 0)``. ``dis_measure`` 'var' (mean
+    per-dimension variance over the mask's dimensions) uses the exact update
+    and downdate identities; 'aad' (mean absolute deviation) accumulates the
+    per-element deviation differences over ``_LMDD_BLOCK`` train rows at a
+    time. Neither forms ``D_eff - D_full`` of two rounded sums. ``k`` is
+    ignored."""
+    del k
+    if dis_measure not in ("var", "aad"):
+        raise ValueError(
+            f"unknown dis_measure={dis_measure!r}: expected 'var' or 'aad' ('iqr' is not "
+            "offered — see the docstring)"
+        )
+    n = x_train.shape[0]
+    if n < 2:
+        raise ValueError(
+            f"lmdd needs at least 2 train rows (leave-one-out dissimilarity); got {n}"
+        )
+    m = _as_batch(mask, x_train)
+    mc = m[:, None, :]
+    d_act = torch.clamp_min(torch.sum(m, dim=1), 1.0)[:, None]
+    xm_tr = x_train[None] * mc
+    xm_te = x_test[None] * mc
+    s1 = torch.sum(xm_tr, dim=1, keepdim=True)  # (c, 1, d)
+    nf = float(n)
+    mu = s1 / nf
+    is_self = torch.arange(x_test.shape[0], device=x_train.device) < (n if exclude_self else 0)
+    self_f = is_self.to(x_train.dtype)
+    c_eff = (nf + 1.0) - 2.0 * self_f  # the count after the move: n + 1 or n - 1
+    if dis_measure == "var":
+        #   add x:    var' - var = (n (x-m)^2 / (n+1) - v) / (n+1)
+        #   remove x: var - var' = (n (x-m)^2 / (n-1) - v) / (n-1)
+        v = torch.sum(torch.square(xm_tr - mu) * mc, dim=1, keepdim=True) / nf
+        dev = (xm_te - mu) * mc
+        sf = torch.sum((nf * torch.square(dev) / c_eff[:, None] - v) * mc, dim=-1) \
+            / (c_eff * d_act)
+    else:
+        #   add:    D' - D = (n dlt + n own - S) / (n (n+1) d_act)
+        #   remove: D - D' = (-n dlt + n own - S) / (n (n-1) d_act)
+        # with dlt = sum_i (|x_i - mu_eff| - |x_i - mu|), own = |x - mu_eff|
+        mu_eff = torch.where(is_self[:, None], s1 - xm_te, s1 + xm_te) / c_eff[:, None]
+        dlt = torch.zeros(xm_te.shape[:2], dtype=x_train.dtype, device=x_train.device)
+        s_full = torch.zeros((m.shape[0], 1), dtype=x_train.dtype, device=x_train.device)
+        for b0 in range(0, n, _LMDD_BLOCK):
+            xb = xm_tr[:, b0:b0 + _LMDD_BLOCK]  # (c, blk, d)
+            full = torch.abs(xb - mu)
+            diff = torch.abs(xb[:, :, None, :] - mu_eff[:, None]).sub_(full[:, :, None])
+            dlt += torch.sum(diff.mul_(mc[:, None]), dim=(1, 3))
+            s_full += torch.sum(full * mc, dim=(1, 2))[:, None]
+        own = torch.sum(torch.abs(xm_te - mu_eff) * mc, dim=-1)
+        sf = (torch.where(is_self, -dlt, dlt) * nf + nf * own - s_full) / (nf * c_eff * d_act)
+    out = torch.clamp_min(sf, 0.0) * (nf - self_f)
     return out[0] if mask.ndim == 1 else out
 
 
@@ -991,6 +1482,144 @@ def gmm_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.T
     return out[0] if mask.ndim == 1 else out
 
 
+def _adam_train(loss_fn, params: list, epochs: int, lr: float) -> None:
+    """Full-batch Adam on the leaf tensors ``params`` in place, the JAX
+    package's step ``p - lr sqrt(1 - b2^t) / (1 - b1^t) m / (sqrt(v) +
+    eps)`` with eps 1e-8 on the raw ``sqrt(v)`` (``torch.optim.Adam`` puts
+    eps elsewhere, and the two drift apart over tens of epochs). The step
+    size is formed in the parameters' dtype. ``loss_fn(params)`` is the sum
+    of independent per-mask losses, so each mask's gradient is its own.
+    Trains under a caller's ``torch.no_grad()`` too."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    np_dt = _as_numpy_dtype(params[0].dtype)
+    one = np_dt(1.0)
+    m = [torch.zeros_like(p) for p in params]
+    v = [torch.zeros_like(p) for p in params]
+    for t in range(int(epochs)):
+        with torch.enable_grad():
+            grads = torch.autograd.grad(loss_fn(params), params)
+        tf = np_dt(t + 1)
+        size = float(np_dt(lr) * np.sqrt(one - np_dt(b2) ** tf) / (one - np_dt(b1) ** tf))
+        with torch.no_grad():  # multi-tensor ops: a few launches a step for every tensor
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, torch._foreach_mul(grads, 1 - b1))
+            torch._foreach_mul_(v, b2)
+            torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(grads, 1 - b2), grads))
+            denom = torch._foreach_add(torch._foreach_sqrt(v), eps)
+            torch._foreach_sub_(params, torch._foreach_div(torch._foreach_mul(m, size), denom))
+
+
+@functools.lru_cache(maxsize=None)
+def _glorot_weights(widths: tuple, seed: int) -> tuple:
+    """(in, out) Glorot-uniform float64 weights of an MLP of ``widths``,
+    layer by layer from one ``np.random.default_rng(seed)``: the JAX
+    package's draws of ae and dsvdd, shared by every mask."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.uniform(-math.sqrt(6.0 / (a + b)), math.sqrt(6.0 / (a + b)), (a, b))
+                 for a, b in zip(widths[:-1], widths[1:]))
+
+
+def _mask_weights(widths: tuple, seed: int, c: int, like: torch.Tensor) -> list:
+    """(c, in, out) leaf copies of :func:`_glorot_weights`, one a mask."""
+    return [torch.as_tensor(w, dtype=like.dtype, device=like.device).expand(c, -1, -1).clone()
+            .requires_grad_(True) for w in _glorot_weights(widths, int(seed))]
+
+
+def _mlp(params: list, z: torch.Tensor, biases: bool) -> torch.Tensor:
+    """The batched MLP ``(c, n, in) -> (c, n, out)``, ReLU between layers, a
+    linear last layer; ``params`` alternate weight and bias when ``biases``."""
+    step = 2 if biases else 1
+    n_layers = len(params) // step
+    a = z
+    for i in range(n_layers):
+        a = a @ params[step * i]
+        if biases:
+            a = a + params[step * i + 1]
+        if i < n_layers - 1:
+            a = torch.relu(a)
+    return a
+
+
+def ae_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                     k: int = 0, *, hidden: tuple = (64, 32), epochs: int = 50,
+                     lr: float = 1e-3, seed: int = 0) -> torch.Tensor:
+    """AutoEncoder reconstruction distance (pyod AutoEncoder) in the masked
+    subspace: rows standardized by the mask's train columns, a symmetric MLP
+    ``d -> hidden -> reversed(hidden) -> d`` (ReLU between layers, the output
+    multiplied by the mask) trained per mask by ``epochs`` full-batch Adam
+    steps (:func:`_adam_train`) on the masked MSE over ``ntr max(popcount,
+    1)`` from :func:`_glorot_weights` of ``seed``; the score is the
+    Euclidean distance from a standardized query to its reconstruction. The
+    chunk's masks train as one batch of per-mask weights (c, in, out).
+    ``k`` is ignored."""
+    del k
+    ntr, d = x_train.shape
+    if ntr < 2:
+        raise ValueError(f"ae needs at least 2 train rows to standardize; got n_train={ntr}")
+    m = _as_batch(mask, x_train)
+    c = m.shape[0]
+    z_tr, z_te = _masked_standardize(x_test, x_train, m)
+    norm = ntr * torch.clamp_min(torch.sum(m, dim=1), 1.0)
+    hidden = tuple(int(h) for h in hidden)
+    weights = _mask_weights((d, *hidden, *reversed(hidden[:-1]), d), seed, c, x_train)
+    params = []
+    for w in weights:
+        params += [w, torch.zeros((c, 1, w.shape[-1]), dtype=w.dtype, device=w.device,
+                                  requires_grad=True)]
+    mc = m[:, None, :]
+
+    def loss(ps):
+        return torch.sum(torch.sum((_mlp(ps, z_tr, True) * mc - z_tr) ** 2, dim=(1, 2)) / norm)
+
+    _adam_train(loss, params, epochs, lr)
+    with torch.no_grad():
+        out = torch.sqrt(torch.sum((_mlp(params, z_te, True) * mc - z_te) ** 2, dim=-1))
+    return out[0] if mask.ndim == 1 else out
+
+
+def dsvdd_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
+                        k: int = 0, *, hidden: tuple = (64, 32), epochs: int = 50,
+                        lr: float = 1e-3, weight_decay: float = 1e-5,
+                        seed: int = 0, margins: Optional[list] = None) -> torch.Tensor:
+    """Deep SVDD (Ruff et al. 2018; pyod DeepSVDD) in the masked subspace:
+    a bias-free MLP encoder ``d -> hidden`` on the standardized rows (as
+    :func:`ae_scores_masked`), the centre the mean initial embedding of the
+    train rows with coordinates below 0.1 in magnitude snapped to +-0.1,
+    trained per mask by ``epochs`` Adam steps on the mean squared distance
+    to the centre plus ``weight_decay`` times the squared weights; the score
+    is the query embedding's squared distance to the centre. ``margins`` (a
+    list) receives each mask's least distance of a centre coordinate from
+    the snap's decisions (magnitude 0.1, and the sign below it; an exact 0
+    is exact in any precision), relative to the mean magnitude of that
+    coordinate's embeddings. ``k`` is ignored."""
+    del k
+    ntr, d = x_train.shape
+    if ntr < 2:
+        raise ValueError(f"dsvdd needs at least 2 train rows to standardize; got n_train={ntr}")
+    m = _as_batch(mask, x_train)
+    z_tr, z_te = _masked_standardize(x_test, x_train, m)
+    params = _mask_weights((d, *(int(h) for h in hidden)), seed, m.shape[0], x_train)
+    with torch.no_grad():
+        c0 = torch.mean(_mlp(params, z_tr, False), dim=1, keepdim=True)
+        eps = torch.full_like(c0, 0.1)
+        centre = torch.where(torch.abs(c0) < eps, torch.where(c0 < 0, -eps, eps), c0)
+        if margins is not None:
+            scale = torch.clamp_min(torch.mean(torch.abs(_mlp(params, z_tr, False)), dim=1,
+                                               keepdim=True), 1e-30)
+            sign = torch.where(c0 == 0, torch.inf, torch.abs(c0))
+            margins.append(torch.amin(torch.minimum(torch.abs(torch.abs(c0) - 0.1), sign)
+                                      / scale, dim=(1, 2)))
+
+    def loss(ps):
+        sq = torch.mean(torch.sum((_mlp(ps, z_tr, False) - centre) ** 2, dim=-1), dim=-1)
+        return torch.sum(sq + weight_decay * sum(torch.sum(w * w, dim=(1, 2)) for w in ps))
+
+    _adam_train(loss, params, epochs, lr)
+    with torch.no_grad():
+        out = torch.sum((_mlp(params, z_te, False) - centre) ** 2, dim=-1)
+    return out[0] if mask.ndim == 1 else out
+
+
 # ---------------------------------------------------------------------------
 # dimension-decomposable bases: per-dimension score planes shared by every
 # mask, so the whole ensemble is masked-sum matrix products
@@ -1030,18 +1659,11 @@ def hbos_dim_scores(x_test: torch.Tensor, x_train: torch.Tensor, n_bins: int = 1
     eps = 1e-12
     lo, hi = torch.amin(x_train, dim=0), torch.amax(x_train, dim=0)
     width = torch.clamp_min((hi - lo) / n_bins, eps)
-
-    def bins(x):
-        # clamp before the cast so that far values cannot overflow int64;
-        # the cast truncates toward zero, as the JAX package's astype does
-        b = torch.clamp((x - lo) / width, -1.0, float(n_bins)).to(torch.int64)
-        return torch.clamp(b, 0, n_bins - 1)
-
     counts = torch.zeros((n_bins, x_train.shape[1]), dtype=x_train.dtype, device=x_train.device)
-    counts.scatter_add_(0, bins(x_train), torch.ones_like(x_train))
+    counts.scatter_add_(0, _bin_index(x_train, lo, width, n_bins), torch.ones_like(x_train))
     density = counts / (n_tr * width)
     in_range = (x_test >= lo) & (x_test <= hi)
-    dens_te = torch.gather(density, 0, bins(x_test))
+    dens_te = torch.gather(density, 0, _bin_index(x_test, lo, width, n_bins))
     return -torch.log(torch.where(in_range, dens_te, 0.0) + eps)
 
 
@@ -1233,7 +1855,7 @@ def _bucket_aggregate(s: np.ndarray, proba: np.ndarray, aggregation: str, n_buck
 
 # The JAX package's string bases: the non-parametric scorers, the
 # dimension-decomposable bases, and the parametric ones (each with knobs only
-# it reads), of which the last nine are still to port.
+# it reads).
 _BASE_SCORERS = {
     "knn": knn_scores_masked,
     "knn_mean": mean_dist_scores_masked,
@@ -1248,7 +1870,6 @@ _PARAM_BASES = (
     "loda", "kde", "cblof", "gmm", "inne", "pca", "sampling", "kpca",
     "mcd", "ae", "dsvdd", "sod", "ocsvm", "sos", "lmdd",
 )
-_PORTED_PARAM_BASES = ("mcd", "pca", "kpca", "cblof", "gmm", "kde")
 
 # Neighbor-based bases: the k < n_train guards of exclude_self reach exactly
 # these (sod is parametric but neighbor-semantic).
@@ -1269,63 +1890,91 @@ _BASE_SCORERS_EXCL = {
 }
 
 
-def _require_ported(base: str) -> None:
-    if base in _PARAM_BASES and base not in _PORTED_PARAM_BASES:
-        raise NotImplementedError(
-            f"base={base!r} is not ported yet (nine parametric bases wait); "
-            "see ROADMAP.md Queue 1"
-        )
-
-
-def _scorer_and_k(base: str, *, k: int, n_trees: int = 100, projection_seed: int = 0,
-                  kde_bandwidth: float = 1.0, n_clusters: int = 8, cluster_alpha: float = 0.9,
-                  cluster_beta: float = 5.0, kmeans_iter: int = 30, cluster_seed: int = 0,
-                  cluster_init: str = "rows", gmm_covariance: str = "diag",
-                  pca_n_components: int = 0, pca_n_selected: int = 0,
-                  pca_standardize: bool = True, pca_weighted: bool = True,
-                  subset_size: int = 20, kpca_n_components: int = 0, kpca_gamma: float = 0.0,
-                  kpca_sampling: bool = False, support_fraction: float = 0.0,
-                  mcd_starts: int = 8, mcd_steps: int = 15, exclude_self: bool = False):
+def _scorer_and_k(base: str, *, k: int, n_trees: int = 100, n_projections: int = 100,
+                  n_bins: int = 10, projection_seed: int = 0, kde_bandwidth: float = 1.0,
+                  n_clusters: int = 8, cluster_alpha: float = 0.9, cluster_beta: float = 5.0,
+                  kmeans_iter: int = 30, cluster_seed: int = 0, cluster_init: str = "rows",
+                  gmm_covariance: str = "diag", inne_psi: int = 8, pca_n_components: int = 0,
+                  pca_n_selected: int = 0, pca_standardize: bool = True,
+                  pca_weighted: bool = True, subset_size: int = 20, kpca_n_components: int = 0,
+                  kpca_gamma: float = 0.0, kpca_sampling: bool = False,
+                  support_fraction: float = 0.0, mcd_starts: int = 8, mcd_steps: int = 15,
+                  ae_hidden: tuple = (64, 32), ae_epochs: int = 50, ae_lr: float = 1e-3,
+                  sod_ref_set: int = 10, sod_alpha: float = 0.8, ocsvm_nu: float = 0.5,
+                  ocsvm_gamma: float = 0.0, ocsvm_iters: int = 300, sos_perplexity: float = 4.5,
+                  sos_iters: int = 64, lmdd_dis: str = "var", exclude_self: bool = False):
     """Resolve a base name to its (scorer, k) pair, the knobs mapped as the
-    JAX package maps them: iforest reads the tree count as its k; gmm reads
-    ``n_clusters`` as its components and ``kmeans_iter`` as its EM
-    iterations; mcd and kpca read ``projection_seed``. ``exclude_self``
-    reaches the neighbour bases only (kde in an ensemble keeps the point)."""
-    _require_ported(base)
+    JAX package maps them: iforest reads the tree count as its k, inne as
+    its ensemble size; gmm reads ``n_clusters`` as its components and
+    ``kmeans_iter`` as its EM iterations; loda, inne, sampling, mcd, kpca, ae
+    and dsvdd read ``projection_seed``; dsvdd shares the ae knobs with
+    weight decay 1e-5. ``exclude_self`` reaches the neighbour bases (sod
+    with the ensemble's k) and sos and lmdd (k 0); kde in an ensemble keeps
+    the point."""
+    partial = functools.partial
+    hidden = tuple(int(h) for h in ae_hidden)
+    if base == "loda":
+        return partial(loda_scores_masked, n_projections=int(n_projections), n_bins=int(n_bins),
+                       seed=int(projection_seed)), 0
+    if base == "inne":
+        return partial(inne_scores_masked, n_estimators=int(n_trees), psi=int(inne_psi),
+                       seed=int(projection_seed)), 0
     if base == "pca":
-        return functools.partial(pca_scores_masked, n_components=int(pca_n_components),
-                                 n_selected=int(pca_n_selected),
-                                 standardize=bool(pca_standardize),
-                                 weighted=bool(pca_weighted)), 0
+        return partial(pca_scores_masked, n_components=int(pca_n_components),
+                       n_selected=int(pca_n_selected), standardize=bool(pca_standardize),
+                       weighted=bool(pca_weighted)), 0
+    if base == "sampling":
+        return partial(sampling_scores_masked, subset_size=int(subset_size),
+                       seed=int(projection_seed)), 0
     if base == "kpca":
-        return functools.partial(kpca_scores_masked, n_components=int(kpca_n_components),
-                                 gamma=float(kpca_gamma), sampling=bool(kpca_sampling),
-                                 subset_size=int(subset_size), seed=int(projection_seed)), 0
+        return partial(kpca_scores_masked, n_components=int(kpca_n_components),
+                       gamma=float(kpca_gamma), sampling=bool(kpca_sampling),
+                       subset_size=int(subset_size), seed=int(projection_seed)), 0
     if base == "mcd":
-        return functools.partial(mcd_scores_masked, support_fraction=float(support_fraction),
-                                 n_starts=int(mcd_starts), c_steps=int(mcd_steps),
-                                 seed=int(projection_seed)), 0
+        return partial(mcd_scores_masked, support_fraction=float(support_fraction),
+                       n_starts=int(mcd_starts), c_steps=int(mcd_steps),
+                       seed=int(projection_seed)), 0
+    if base == "ae":
+        return partial(ae_scores_masked, hidden=hidden, epochs=int(ae_epochs), lr=float(ae_lr),
+                       seed=int(projection_seed)), 0
+    if base == "dsvdd":
+        return partial(dsvdd_scores_masked, hidden=hidden, epochs=int(ae_epochs),
+                       lr=float(ae_lr), weight_decay=1e-5, seed=int(projection_seed)), 0
+    if base == "sod":
+        return partial(sod_scores_masked, ref_set=int(sod_ref_set), alpha=float(sod_alpha),
+                       exclude_self=bool(exclude_self)), k
+    if base == "ocsvm":
+        return partial(ocsvm_scores_masked, nu=float(ocsvm_nu), gamma=float(ocsvm_gamma),
+                       iters=int(ocsvm_iters)), 0
+    if base == "sos":
+        return partial(sos_scores_masked, perplexity=float(sos_perplexity),
+                       iters=int(sos_iters), exclude_self=bool(exclude_self)), 0
+    if base == "lmdd":
+        return partial(lmdd_scores_masked, dis_measure=str(lmdd_dis),
+                       exclude_self=bool(exclude_self)), 0
     if base == "kde":
-        return functools.partial(kde_scores_masked, bandwidth=float(kde_bandwidth)), 0
+        return partial(kde_scores_masked, bandwidth=float(kde_bandwidth)), 0
     if base == "cblof":
-        return functools.partial(cblof_scores_masked, n_clusters=int(n_clusters),
-                                 alpha=float(cluster_alpha), beta=float(cluster_beta),
-                                 kmeans_iter=int(kmeans_iter), cluster_seed=int(cluster_seed),
-                                 init=str(cluster_init)), 0
+        return partial(cblof_scores_masked, n_clusters=int(n_clusters), alpha=float(cluster_alpha),
+                       beta=float(cluster_beta), kmeans_iter=int(kmeans_iter),
+                       cluster_seed=int(cluster_seed), init=str(cluster_init)), 0
     if base == "gmm":
-        return functools.partial(gmm_scores_masked, n_components=int(n_clusters),
-                                 em_iter=int(kmeans_iter), component_seed=int(cluster_seed),
-                                 init=str(cluster_init), covariance=str(gmm_covariance)), 0
+        return partial(gmm_scores_masked, n_components=int(n_clusters), em_iter=int(kmeans_iter),
+                       component_seed=int(cluster_seed), init=str(cluster_init),
+                       covariance=str(gmm_covariance)), 0
     scorers = _BASE_SCORERS_EXCL if exclude_self else _BASE_SCORERS
     return scorers[base], (n_trees if base == "iforest" else k)
 
 
+# The constructor's knobs that the scorers read, in its order.
 _SCORER_KNOBS = (
-    "k", "n_trees", "projection_seed", "kde_bandwidth", "n_clusters", "cluster_alpha",
-    "cluster_beta", "kmeans_iter", "cluster_seed", "cluster_init", "gmm_covariance",
-    "pca_n_components", "pca_n_selected", "pca_standardize", "pca_weighted", "subset_size",
-    "kpca_n_components", "kpca_gamma", "kpca_sampling", "support_fraction", "mcd_starts",
-    "mcd_steps",
+    "k", "n_trees", "n_bins", "n_projections", "projection_seed", "kde_bandwidth",
+    "n_clusters", "cluster_alpha", "cluster_beta", "kmeans_iter", "cluster_seed",
+    "cluster_init", "gmm_covariance", "inne_psi", "pca_n_components", "pca_n_selected",
+    "pca_standardize", "pca_weighted", "subset_size", "kpca_n_components", "kpca_gamma",
+    "kpca_sampling", "support_fraction", "mcd_starts", "mcd_steps", "ae_hidden", "ae_epochs",
+    "ae_lr", "sod_ref_set", "sod_alpha", "ocsvm_nu", "ocsvm_gamma", "ocsvm_iters",
+    "sos_perplexity", "sos_iters", "lmdd_dis",
 )
 
 
@@ -1343,10 +1992,13 @@ def _is_real(val) -> bool:
     return isinstance(val, (int, float, np.floating)) and not isinstance(val, bool)
 
 
-def _check_knobs(base, kde_bandwidth, n_clusters, cluster_alpha, cluster_beta, cluster_init,
-                 gmm_covariance, subset_size, support_fraction, mcd_starts, mcd_steps,
-                 kpca_n_components, kpca_gamma, pca_n_components, pca_n_selected) -> None:
-    """The JAX constructor's ``ValueError`` guards of the ported knobs."""
+def _check_knobs(base, *, kde_bandwidth, n_clusters, cluster_alpha, cluster_beta, cluster_init,
+                 gmm_covariance, inne_psi, subset_size, support_fraction, mcd_starts, mcd_steps,
+                 sod_ref_set, sod_alpha, ocsvm_nu, ocsvm_gamma, ocsvm_iters, sos_perplexity,
+                 sos_iters, lmdd_dis, ae_hidden, ae_epochs, ae_lr, kpca_n_components, kpca_gamma,
+                 pca_n_components, pca_n_selected, **unguarded) -> None:
+    """The JAX constructor's ``ValueError`` guards of the scorer knobs, in
+    its order (``unguarded``: the knobs it does not check)."""
     if not kde_bandwidth > 0:
         raise ValueError(f"kde_bandwidth must be positive; got {kde_bandwidth!r} "
                          "(sklearn KernelDensity convention)")
@@ -1366,6 +2018,9 @@ def _check_knobs(base, kde_bandwidth, n_clusters, cluster_alpha, cluster_beta, c
     if gmm_covariance not in ("diag", "full"):
         raise ValueError(f"unknown gmm_covariance={gmm_covariance!r}: expected 'diag' or "
                          "'full'")
+    if not _is_int(inne_psi, 2):
+        raise ValueError(f"inne_psi must be an int >= 2 (hypersphere-center subsample size); "
+                         f"got {inne_psi!r}")
     if not _is_int(subset_size, 1):
         raise ValueError(f"subset_size must be an int >= 1 (base='sampling' subsample "
                          f"size); got {subset_size!r}")
@@ -1375,6 +2030,37 @@ def _check_knobs(base, kde_bandwidth, n_clusters, cluster_alpha, cluster_beta, c
     for name, val in (("mcd_starts", mcd_starts), ("mcd_steps", mcd_steps)):
         if not _is_int(val, 1):
             raise ValueError(f"{name} must be an int >= 1; got {val!r}")
+    if not _is_int(sod_ref_set, 1):
+        raise ValueError(f"sod_ref_set must be an int >= 1 (pyod SOD's reference-set size); "
+                         f"got {sod_ref_set!r}")
+    if not (_is_real(sod_alpha) and sod_alpha > 0.0):
+        raise ValueError(f"sod_alpha must be a float > 0 (variance-threshold coefficient); "
+                         f"got {sod_alpha!r}")
+    if not (_is_real(ocsvm_nu) and 0.0 < ocsvm_nu <= 1.0):
+        raise ValueError(f"ocsvm_nu must be in (0, 1] (Schölkopf's outlier-fraction bound); "
+                         f"got {ocsvm_nu!r}")
+    if not (_is_real(ocsvm_gamma) and ocsvm_gamma >= 0.0):
+        raise ValueError(f"ocsvm_gamma must be >= 0 (0 = pyod's 'auto': 1/n_active_features "
+                         f"per subspace); got {ocsvm_gamma!r}")
+    if not _is_int(ocsvm_iters, 1):
+        raise ValueError(f"ocsvm_iters must be an int >= 1 (FISTA iteration budget); got "
+                         f"{ocsvm_iters!r}")
+    if not (_is_real(sos_perplexity) and sos_perplexity > 0.0):
+        raise ValueError(f"sos_perplexity must be a float > 0 (target binding-distribution "
+                         f"perplexity, paper default 4.5); got {sos_perplexity!r}")
+    if not _is_int(sos_iters, 1):
+        raise ValueError(f"sos_iters must be an int >= 1 (beta-bisection budget); got "
+                         f"{sos_iters!r}")
+    if lmdd_dis not in ("var", "aad"):
+        raise ValueError(f"unknown lmdd_dis={lmdd_dis!r}: expected 'var' or 'aad' (the "
+                         "leave-one-out-computable Arning dissimilarities)")
+    if not (len(tuple(ae_hidden)) >= 1 and all(_is_int(h, 1) for h in tuple(ae_hidden))):
+        raise ValueError(f"ae_hidden must be a non-empty tuple of ints >= 1 (encoder widths, "
+                         f"mirrored for the decoder); got {ae_hidden!r}")
+    if not _is_int(ae_epochs, 1):
+        raise ValueError(f"ae_epochs must be an int >= 1; got {ae_epochs!r}")
+    if not (_is_real(ae_lr) and ae_lr > 0.0):
+        raise ValueError(f"ae_lr must be a float > 0; got {ae_lr!r}")
     if not _is_int(kpca_n_components, 0):
         raise ValueError(f"kpca_n_components must be an int >= 0 (0 = all valid "
                          f"components, pyod's None); got {kpca_n_components!r}")
@@ -1404,15 +2090,20 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         (squared Mahalanobis distance in the subspace), the
         dimension-decomposable 'copod', 'hbos' and 'ecod', the parametric
         'mcd' (Minimum Covariance Determinant), 'pca', 'kpca' (kernel PCA),
-        'cblof' (cluster-based LOF), 'gmm' (Gaussian-mixture NLL) and 'kde'
-        (Gaussian-KDE NLL), or a pyod-style detector instance (CPU loop; any
-        object with sklearn-style get_params/fit/decision_function). The
-        JAX package's nine other parametric base names raise
-        ``NotImplementedError``.
+        'cblof' (cluster-based LOF), 'gmm' (Gaussian-mixture NLL), 'kde'
+        (Gaussian-KDE NLL), 'loda' (random-projection histograms), 'inne'
+        (isolation by nearest-neighbour hyperspheres), 'sampling' (distance
+        to the nearest of ``subset_size`` drawn train rows), 'sod' (subspace
+        outlier degree over shared-nearest-neighbour reference sets), 'lmdd'
+        (deviation-based smoothing factor), 'ocsvm' (one-class SVM), 'sos'
+        (stochastic outlier selection), 'ae' (autoencoder reconstruction
+        distance) and 'dsvdd' (Deep SVDD), or a pyod-style detector instance
+        (CPU loop; any object with sklearn-style
+        get_params/fit/decision_function).
     k:
-        neighborhood size for the neighbor bases.
+        neighborhood size for the neighbor bases (sod's n_neighbors).
     n_trees:
-        forest size for base='iforest'.
+        forest size for base='iforest', ensemble size for base='inne'.
     aggregation:
         'average' (probability-weighted mean of per-subspace scores), 'max'
         (probability-ignoring maximum), the combo library's bucketed 'aom'
@@ -1439,10 +2130,13 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         bucket count for 'aom'/'moa' (combo's default 5) and the seed of the
         shuffle that assigns subspaces to buckets.
     n_bins:
-        histogram resolution for base='hbos'.
-    projection_seed:
-        the start-permutation seed of base='mcd' and the fit-subsample seed
-        of base='kpca' (``kpca_sampling``).
+        histogram resolution for base='hbos' and base='loda'.
+    n_projections, projection_seed:
+        base='loda': the count of random directions, shared by every mask
+        and drawn from a CPU ``torch.Generator`` seeded with
+        ``projection_seed``. The seed also draws inne's centres, sampling's
+        subsample, mcd's start permutations, kpca's fit subsample
+        (``kpca_sampling``) and the initial weights of ae and dsvdd.
     kde_bandwidth:
         Gaussian kernel width for base='kde' (sklearn KernelDensity's 1.0).
     n_clusters, cluster_alpha, cluster_beta, kmeans_iter, cluster_seed, cluster_init:
@@ -1453,18 +2147,40 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         iterations, and the seed and init.
     gmm_covariance:
         'diag' or 'full' component covariances for base='gmm'.
+    inne_psi:
+        base='inne': the centres a member draws (pyod INNE's max_samples;
+        clamped to n_train).
     pca_n_components, pca_n_selected, pca_standardize, pca_weighted:
         pyod PCA's n_components, n_selected_components, standardization
         and weighted (0 means pyod's None; ``pca_n_selected`` takes
         components from the smallest-variance end of the kept list).
-    subset_size, kpca_n_components, kpca_gamma, kpca_sampling:
-        base='kpca': the fit subsample's size when ``kpca_sampling``, the
-        components kept (0: every valid one), the RBF gamma (0:
-        ``1 / popcount(mask)``).
+    subset_size:
+        base='sampling''s subsample size (clamped to n_train), and kpca's
+        fit subsample's size when ``kpca_sampling``.
+    kpca_n_components, kpca_gamma, kpca_sampling:
+        base='kpca': the components kept (0: every valid one), the RBF gamma
+        (0: ``1 / popcount(mask)``), and whether to fit on a subsample.
     support_fraction, mcd_starts, mcd_steps:
         base='mcd': sklearn MinCovDet's support_fraction (0 is its None:
         ``h = ceil((n + p + 1) / 2)`` per subspace), the random starts and
         the c-steps each runs.
+    ae_hidden, ae_epochs, ae_lr:
+        base='ae': pyod AutoEncoder's encoder widths (the decoder mirrors
+        them), full-batch Adam steps and learning rate, each mask training
+        its own network. base='dsvdd' reads the same three (its encoder is
+        ``ae_hidden``, without biases).
+    sod_ref_set, sod_alpha:
+        base='sod': pyod SOD's reference-set size and variance-threshold
+        coefficient.
+    ocsvm_nu, ocsvm_gamma, ocsvm_iters:
+        base='ocsvm': sklearn OneClassSVM's nu and gamma (0: ``1 /
+        popcount(mask)``) and the fixed FISTA iteration budget.
+    sos_perplexity, sos_iters:
+        base='sos': the binding distribution's perplexity (< n_train) and
+        the fixed beta-bisection budget.
+    lmdd_dis:
+        base='lmdd': 'var' (mean per-dimension variance) or 'aad' (mean
+        absolute deviation).
     contamination:
         expected outlier fraction; sets the ``predict`` threshold at the
         (1 - contamination) quantile of the train scores (pyod semantics).
@@ -1507,6 +2223,7 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         n_bins: int = 10,
         contamination: float = 0.1,
         bucket_seed: int = 0,
+        n_projections: int = 100,
         projection_seed: int = 0,
         kde_bandwidth: float = 1.0,
         n_clusters: int = 8,
@@ -1516,6 +2233,7 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         cluster_seed: int = 0,
         cluster_init: str = "rows",
         gmm_covariance: str = "diag",
+        inne_psi: int = 8,
         pca_n_components: int = 0,
         pca_n_selected: int = 0,
         pca_standardize: bool = True,
@@ -1527,6 +2245,17 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         support_fraction: float = 0.0,
         mcd_starts: int = 8,
         mcd_steps: int = 15,
+        ae_hidden: tuple = (64, 32),
+        ae_epochs: int = 50,
+        ae_lr: float = 1e-3,
+        sod_ref_set: int = 10,
+        sod_alpha: float = 0.8,
+        ocsvm_nu: float = 0.5,
+        ocsvm_gamma: float = 0.0,
+        ocsvm_iters: int = 300,
+        sos_perplexity: float = 4.5,
+        sos_iters: int = 64,
+        lmdd_dis: str = "var",
         test_chunk: Optional[int] = None,
         jl_dim: Optional[int] = None,
         jl_seed: int = 0,
@@ -1545,9 +2274,21 @@ class SubspaceEnsemble(PyodSurfaceMixin):
             )
         if normalize not in (None, "zscore"):
             raise ValueError(f"unknown normalize={normalize!r}: expected 'zscore' or None")
-        _check_knobs(base, kde_bandwidth, n_clusters, cluster_alpha, cluster_beta, cluster_init,
-                     gmm_covariance, subset_size, support_fraction, mcd_starts, mcd_steps,
-                     kpca_n_components, kpca_gamma, pca_n_components, pca_n_selected)
+        knobs = dict(
+            n_projections=n_projections, projection_seed=projection_seed,
+            kde_bandwidth=kde_bandwidth, n_clusters=n_clusters, cluster_alpha=cluster_alpha,
+            cluster_beta=cluster_beta, kmeans_iter=kmeans_iter, cluster_seed=cluster_seed,
+            cluster_init=cluster_init, gmm_covariance=gmm_covariance, inne_psi=inne_psi,
+            pca_n_components=pca_n_components, pca_n_selected=pca_n_selected,
+            pca_standardize=pca_standardize, pca_weighted=pca_weighted, subset_size=subset_size,
+            kpca_n_components=kpca_n_components, kpca_gamma=kpca_gamma,
+            kpca_sampling=kpca_sampling, support_fraction=support_fraction,
+            mcd_starts=mcd_starts, mcd_steps=mcd_steps, ae_hidden=ae_hidden,
+            ae_epochs=ae_epochs, ae_lr=ae_lr, sod_ref_set=sod_ref_set, sod_alpha=sod_alpha,
+            ocsvm_nu=ocsvm_nu, ocsvm_gamma=ocsvm_gamma, ocsvm_iters=ocsvm_iters,
+            sos_perplexity=sos_perplexity, sos_iters=sos_iters, lmdd_dis=lmdd_dis,
+        )
+        _check_knobs(base, **knobs)
         if test_chunk is not None and (
             not isinstance(test_chunk, (int, np.integer))
             or isinstance(test_chunk, bool)
@@ -1561,11 +2302,10 @@ class SubspaceEnsemble(PyodSurfaceMixin):
                     f"{sorted(_BASE_SCORERS)} + {sorted(_DIM_BASES)} + "
                     f"{sorted(_PARAM_BASES)} or a pyod-style detector instance"
                 )
-            _require_ported(base)
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (the mask axis sharded over devices) is not ported yet; "
-                "see ROADMAP.md Queue 1"
+                "see ROADMAP.md Queue 1, item 5"
             )
         if jl_dim is not None:
             if not (isinstance(jl_dim, (int, np.integer)) and jl_dim >= 1):
@@ -1612,26 +2352,9 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         self.n_bins = n_bins
         self.contamination = contamination
         self.bucket_seed = bucket_seed
-        self.projection_seed = projection_seed
-        self.kde_bandwidth = kde_bandwidth
-        self.n_clusters = n_clusters
-        self.cluster_alpha = cluster_alpha
-        self.cluster_beta = cluster_beta
-        self.kmeans_iter = kmeans_iter
-        self.cluster_seed = cluster_seed
-        self.cluster_init = cluster_init
-        self.gmm_covariance = gmm_covariance
-        self.pca_n_components = pca_n_components
-        self.pca_n_selected = pca_n_selected
-        self.pca_standardize = pca_standardize
-        self.pca_weighted = pca_weighted
-        self.subset_size = subset_size
-        self.kpca_n_components = kpca_n_components
-        self.kpca_gamma = kpca_gamma
-        self.kpca_sampling = kpca_sampling
-        self.support_fraction = support_fraction
-        self.mcd_starts = mcd_starts
-        self.mcd_steps = mcd_steps
+        for name, val in knobs.items():
+            setattr(self, name, val)
+        self.ae_hidden = tuple(ae_hidden)
         self.test_chunk = test_chunk
         self.device = resolve_device(device)
         self._x_train = None
@@ -1804,8 +2527,10 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         ntr, d = self._x_train.shape
         chunk = _effective_chunk(self.base, self.chunk, x_test.shape[0], ntr, d, k,
                                  n_clusters=self.n_clusters, gmm_covariance=self.gmm_covariance,
+                                 n_trees=self.n_trees, inne_psi=self.inne_psi,
                                  kpca_sampling=self.kpca_sampling, subset_size=self.subset_size,
-                                 mcd_starts=self.mcd_starts)
+                                 mcd_starts=self.mcd_starts, ae_hidden=self.ae_hidden,
+                                 sod_ref_set=self.sod_ref_set)
         masks_np, proba_np = _chunked_masks(self.subspaces, self._combining_weights(), chunk)
         masks = torch.as_tensor(masks_np, dtype=torch.float32, device=self.device)
         if not reduce:

@@ -225,7 +225,7 @@ def _tiled_stats(x, y, alphas, generator, n_permutations, precision, permutation
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (the permutation rows sharded over devices) is not ported "
-            "yet; see ROADMAP.md Queue 1, item 14"
+            "yet; see ROADMAP.md Queue 1, item 5"
         )
     if precision not in ("float32", "float64"):
         raise ValueError(f"precision must be 'float32' or 'float64', got {precision!r}")
