@@ -62,6 +62,20 @@ Phases (each asserts; any failure exits non-zero):
    lof, abod or cof must be a near-tie of float64 distances), each base's
    decision_function time; then lof, iforest and copod on the stress
    ensemble (500 masks, 2000 x 10240 train rows);
+3f. the heterogeneous ensemble with ``vgan_tpu``'s default members (knn,
+   lof, ecod): ``HeterogeneousEnsemble.from_model`` on the phase-3 stress
+   model (500 masks, 2000 x 10240 train rows), whose knn member runs K7
+   only: decision_function under 'average', 'select' and 'vote', predict,
+   predict_proba, decision_scores_ and labels_, each with its KNN launches
+   counted (one a call; labels_ none) and timed, held to a float64 numpy
+   recombination of the members' own outputs; then the knn member
+   distilled (one float64 eigh of 10752 x 10752) and scored with no KNN
+   launch. On the bench data (1024 masks, K6 only): all six combinations,
+   held the same way, ROC AUC asserted, predict, a JL member placed first,
+   every member distilled and each distiller held to a float64 host run;
+   every ensemble on the first 16 masks against the same ensemble with
+   device='cpu' (labels equal except on rows whose host score sits within
+   the allowed move of its threshold);
 4. the other regimes through ``fit`` (d=1024 flash; d=10240 with the K'
    stash off, panel), and the d=10 notebook configuration of both
    estimators, which runs no kernel. Every kernel fit's losses are held
@@ -216,6 +230,30 @@ K4_REAL_PANEL = dict(n1=22528, n2=22528, d=10240, offset=0)
 PLAIN_GRAM_ARRAYS, PLAIN_MAX_BYTES = 10, 24 << 30
 BENCH_ENSEMBLE = dict(n_train=1000, n_test=500, d=100, n_masks=1024, k=10)  # bench.py:414-419
 STRESS_ENSEMBLE = dict(subspace_count=500, n_test=500, k=10)
+# phase 3f: the heterogeneous ensemble with the JAX package's default members
+# (knn, lof, ecod) at the stress width and on the bench data; the bench
+# ensemble's every combination ('weighted' with HETERO_WEIGHTS), one with a
+# JL member placed first, and distillers of DISTILL_FEATURES random features
+HETERO_MEMBERS = ({"base": "knn"}, {"base": "lof"}, {"base": "ecod"})
+HETERO_COMBINATIONS = ("average", "max", "median", "select", "weighted", "vote")
+HETERO_WEIGHTS = (3.0, 1.0, 1.0)
+HETERO_JL = {"base": "knn", "jl_dim": 20}
+DISTILL_FEATURES = 512
+# The combination on the card against a float64 numpy recombination of the
+# same members' outputs: both standardize the same f32 scores in float64 and
+# round them to f32, where the reduction orders can differ by one ulp (6e-8
+# of a standardized score of at most a few units), then combine in float64
+# and round once more; held to this fraction of the largest combined score.
+# 'vote' sums 0/1 labels: equal. 'select''s weights: within HETERO_W_ATOL.
+HETERO_FRAC, HETERO_W_ATOL = 1e-6, 1e-6
+# A distiller on the card (float32 features, float64 solve) against a float64
+# host run on the same draws and train scores: the features' f32 rounding
+# reaches the predictions through a ridge-regularized solve, 3.1e-7 of the
+# largest prediction at most on the bench data on the CPU (nine fits of the
+# three members); held to 30 times that. The GCV pick must be the float64
+# run's unless its two smallest values lie within GCV_MARGIN_MIN (relative),
+# a hundred times what that rounding moves them.
+DISTILL_FRAC, GCV_MARGIN_MIN = 1e-5, 1e-4
 # phase 3e: the other native bases on the bench ensemble's data and masks,
 # at their default knobs; iforest at bench.py's own configuration
 # (bench.py:472-493); kpca (the full kernel, pyod's default: one (1000, 1000)
@@ -1396,6 +1434,398 @@ def phase_other_bases(device, model, X, log) -> dict:
     return rates
 
 
+def numpy_combine(member_scores, combination: str, weights=None):
+    """The plain reference of the heterogeneous combination: each member's
+    scores standardized in float64 over the batch and rounded to f32 (as
+    the ensemble's member_scores), combined in float64. Returns
+    (combined, weights or None)."""
+    s = np.stack([np.asarray(x, np.float64) for x in member_scores])
+    s = (s - s.mean(axis=1, keepdims=True)) / (s.std(axis=1, keepdims=True) + 1e-12)
+    s = s.astype(np.float32).astype(np.float64)
+    n = len(s)
+    if combination == "max":
+        return s.max(axis=0), None
+    if combination == "median":
+        return np.median(s, axis=0), None
+    if combination == "weighted":
+        w = np.asarray(weights, np.float64) / np.sum(weights)
+        return w @ s, w
+    if combination == "select":
+        cons = s.mean(axis=0)
+        cons = (cons - cons.mean()) / (cons.std() + 1e-12)
+        w = np.clip((s * cons[None, :]).mean(axis=1), 0.0, None)
+        w = w / w.sum() if w.sum() > 0 else np.full(n, 1.0 / n)
+        return w @ s, w
+    return s.mean(axis=0), None
+
+
+def hold_recombination(het, got, member_outputs, label) -> str:
+    """``got``, the ensemble's decision_function on the card, against the
+    float64 numpy recombination of its members' own outputs on the same rows
+    (``member_outputs``: their decision_function, or for 'vote' their
+    predict labels); 'vote' must be equal. Returns what it found."""
+    if het.combination == "vote":
+        n = len(het.members)
+        w = np.full(n, 1.0 / n) if het.weights is None else het.weights / het.weights.sum()
+        want = (w @ np.stack(member_outputs).astype(np.float64)).astype(np.float32)
+        check(np.array_equal(got, want), f"{label}: vote fractions differ from the members' labels")
+        return "vs the float64 recombination of the members' own labels: equal"
+    want, w = numpy_combine(member_outputs, het.combination, het.weights)
+    err, top = float(np.max(np.abs(got - want))), float(np.max(np.abs(want)))
+    check(err <= HETERO_FRAC * top,
+          f"{label}: vs the float64 recombination max abs err {err:.3e} > {HETERO_FRAC * top:.3e}")
+    if w is not None and het.combination == "select":
+        w_err = float(np.max(np.abs(het.member_weights_ - w)))
+        check(w_err <= HETERO_W_ATOL, f"{label}: member_weights_ {het.member_weights_} vs {w}")
+    return (f"vs the float64 recombination of the members' own outputs max abs err {err:.3e} "
+            f"of the largest {top:.4g} (limit {HETERO_FRAC} of it)")
+
+
+def member_times(het, x) -> str:
+    """Each member's own decision_function on ``x``, median of 3 (after the
+    calls before it)."""
+    parts = []
+    for m in het.members:
+        sec = median_seconds(functools.partial(m.decision_function, x))
+        parts.append(f"{m.base} {sec * 1e3:.3f} ms")
+    return ", ".join(parts)
+
+
+def counted(label: str, fn, want: dict):
+    """``fn()`` with the KNN counts set to 0 just before and read just after;
+    they must equal ``want``. Returns (result, counts, seconds)."""
+    from vgan_tpu_torch.ops.cuda import knn_score as KS
+
+    sync()
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    sec = time.perf_counter() - t0
+    counts = KS.launch_counts()
+    full = {"knn_scores_resident": 0, "knn_scores_stream": 0, **want}
+    check(counts == full, f"{label}: launches {counts}, expected {full}")
+    return out, counts, sec
+
+
+def median_seconds(fn, calls: int = 3) -> float:
+    """Median host-clock seconds of ``calls`` calls (after the caller's
+    warm-up), each ending in its host fetch."""
+    times = []
+    for _ in range(calls):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def lipschitz_limit(combination: str, d, w_card=None, w_host=None, z_host=None):
+    """How far a row's combined score may move when the standardized member
+    scores move by ``d`` (n_members, nt): 'average' / 'weighted' by the
+    weighted mean of the moves, 'max' / 'median' by the largest, 'select'
+    by its weights' mean plus what its weights' own change moves."""
+    if combination == "average":
+        return d.mean(axis=0)
+    if combination in ("max", "median"):
+        return d.max(axis=0)
+    lim = w_card.astype(np.float64) @ d
+    if combination == "select":
+        lim = lim + np.abs(w_card.astype(np.float64) - w_host) @ np.abs(z_host)
+    return lim
+
+
+def hold_hetero_host(card, host, x, exclude_self: bool, label: str):
+    """A non-vote ensemble on the card against the same ensemble on the
+    host: each row within ENSEMBLE_FRAC of the largest score plus how far
+    its members' measured moves can carry it (``lipschitz_limit``). Returns
+    (card scores, host scores, row limits, member moves)."""
+    got = card.decision_function(x, exclude_self=exclude_self)
+    want = host.decision_function(x, exclude_self=exclude_self)
+    zc = card.member_scores(x, exclude_self=exclude_self).astype(np.float64)
+    zh = host.member_scores(x, exclude_self=exclude_self).astype(np.float64)
+    d = np.abs(zc - zh)
+    w, wh = None, None
+    if card.combination == "weighted":
+        w = card.weights / card.weights.sum()
+    elif card.combination == "select":  # the weights of the calls above
+        w, wh = card.member_weights_, host.member_weights_
+    lim = ENSEMBLE_FRAC * float(np.max(np.abs(want))) + lipschitz_limit(card.combination, d, w,
+                                                                         wh, zh)
+    err = np.abs(got.astype(np.float64) - want)
+    check(bool(np.all(err <= lim)), f"{label}: card vs host passes a row's limit by "
+          f"{float(np.max(err - lim)):.3e}")
+    return got, want, lim, d
+
+
+def label_exposure(s_host, thr_card, thr_host, lim):
+    """Rows whose host score sits within the card's allowed move (``lim``)
+    plus the thresholds' own difference of the threshold."""
+    return np.abs(np.asarray(s_host, np.float64) - thr_host) <= lim + abs(thr_card - thr_host)
+
+
+def hold_vote_host(card, host, xtr, xte) -> int:
+    """'vote' on the card against the host: equal fractions except on rows
+    where some member's own predict score (train+test batch, self-pairs
+    excluded) sits within its allowed move of its threshold: ENSEMBLE_FRAC
+    of its largest score for knn and ecod (held here), its measured move for
+    lof (whose near-ties phase 3e holds). Returns the exposed rows' count."""
+    from vgan_tpu_torch.ensemble.hetero import _positional
+
+    n_tr = len(xtr)
+    both = np.concatenate([xtr, xte])
+    got, want = card.decision_function(xte), host.decision_function(xte)
+    exposed = np.zeros(len(xte), bool)
+    for mc, mh in zip(card.members, host.members):
+        sc = mc.decision_function(both, exclude_self=_positional(mc)).astype(np.float64)
+        sh = mh.decision_function(both, exclude_self=_positional(mh)).astype(np.float64)
+        err = np.abs(sc - sh)
+        if mc.base in NEIGHBOR_BASES:
+            lim = err
+        else:
+            lim = np.full(len(sh), ENSEMBLE_FRAC * float(np.max(np.abs(sh))))
+            check(bool(np.all(err <= lim)), f"vote member {mc.base}: card vs host max abs err "
+                                            f"{float(err.max()):.3e} > {float(lim[0]):.3e}")
+        q = 1.0 - mc.contamination
+        exposed |= label_exposure(sh[n_tr:], np.quantile(sc[:n_tr], q),
+                                  np.quantile(sh[:n_tr], q), lim[n_tr:])
+    check(np.array_equal(got[~exposed], want[~exposed]),
+          f"vote: card and host fractions differ on {int(np.sum(got[~exposed] != want[~exposed]))}"
+          " unexposed rows")
+    return int(exposed.sum())
+
+
+def hold_bench_host(make, masks, xtr, xte, label, log) -> None:
+    """Every bench ensemble of phase 3f on the pool's first CHECK_MASKS masks
+    (the whole pool's lof takes minutes on the host's CPU), on the card
+    against the same ensemble with device='cpu': scores (``hold_hetero_host``),
+    each member's own scores (knn and ecod within ENSEMBLE_FRAC; lof's
+    near-ties are held in phase 3e, and its measured moves enter the limits),
+    and the label decisions, equal except on exposed rows."""
+    n_tr = len(xtr)
+    both = np.concatenate([xtr, xte])
+    masks = masks[:CHECK_MASKS]
+    for c in HETERO_COMBINATIONS:
+        card, host = make(c, masks), make(c, masks, device="cpu")
+        lab = f"{label} {c}, first {len(masks)} masks, card vs host"
+        if c == "vote":
+            n_exp = hold_vote_host(card, host, xtr, xte)
+            lab_c, lab_h = card.predict(xte), host.predict(xte)
+            check(np.array_equal(lab_c, (card.decision_function(xte) > 0.5).astype(np.int64)),
+                  f"{lab}: predict is not the strict majority")
+            log(f"  {lab}: vote fractions equal on {len(xte) - n_exp} rows, {n_exp} exposed; "
+                f"predict labels differ on {int(np.sum(lab_c != lab_h))} rows")
+            continue
+        got, want, lim, d = hold_hetero_host(card, host, xte, False, lab)
+        tight = float(np.max(np.abs(got - want)))
+        log(f"  {lab}: max abs err {tight:.3e} (row limits {float(lim.min()):.3e} to "
+            f"{float(lim.max()):.3e}); members' standardized moves up to "
+            + ", ".join(f"{m.base} {float(x):.3e}" for m, x in zip(card.members, d.max(axis=1))))
+        if c != "average":
+            continue
+        for mc, mh in zip(card.members, host.members):
+            rc, rh = mc.decision_function(xte), mh.decision_function(xte)
+            err = np.abs(rc.astype(np.float64) - rh)
+            lim_m = ENSEMBLE_FRAC * float(np.max(np.abs(rh)))
+            if mc.base not in NEIGHBOR_BASES:
+                check(bool(np.all(err <= lim_m)), f"{lab} member {mc.base}: max abs err "
+                                                  f"{float(err.max()):.3e} > {lim_m:.3e}")
+            log(f"    member {mc.base}: card vs host max abs err {float(err.max()):.3e}, "
+                f"{int(np.sum(err > lim_m))} rows beyond {lim_m:.3e}"
+                + (" (near-ties: phase 3e)" if mc.base in NEIGHBOR_BASES else ""))
+        lab_c, lab_h = card.predict(xte), host.predict(xte)
+        thr_c, thr_h = card.threshold_, host.threshold_
+        _, want_b, lim_b, _ = hold_hetero_host(card, host, both, True, f"{lab} predict batch")
+        exposed = label_exposure(want_b[n_tr:], thr_c, thr_h, lim_b[n_tr:])
+        check(np.array_equal(lab_c[~exposed], lab_h[~exposed]),
+              f"{lab}: predict labels differ on unexposed rows")
+        log(f"    predict: threshold_ {thr_c:.6f} (host {thr_h:.6f}), labels equal on "
+            f"{int((~exposed).sum())} rows, {int(exposed.sum())} exposed, "
+            f"{int(np.sum(lab_c != lab_h))} differ")
+
+
+def distiller_f64(dist, x_tr, s_tr, x):
+    """A float64 host run of the fitted distiller ``dist`` on its own draws
+    (W, b) and transforms, fitted to the same train scores: features, solve
+    and GCV in float64. Returns (predictions on ``x``, the GCV values)."""
+    from vgan_tpu_torch.ensemble import distill as TD
+
+    p = {k: v.double().cpu() if torch.is_tensor(v) else v for k, v in dist._params.items()}
+
+    def standardized(a):
+        return (torch.from_numpy(np.asarray(a, np.float64)) - p["x_mu"]) / p["x_sd"]
+
+    y = (torch.from_numpy(np.asarray(s_tr, np.float32).astype(np.float64)) - p["y_mu"]) / p["y_sd"]
+    ridges = TD._GCV_RIDGES if dist.ridge == "gcv" else (dist.ridge,)
+    betas, gcvs = TD._rff_fit_gcv(standardized(x_tr), y, p["w"], p["b"],
+                                  torch.tensor(ridges, dtype=torch.float64), dist.n_features)
+    pick = ridges.index(dist.ridge_)  # the card's pick; the caller holds the host's to it
+    pred = TD._rff_predict(standardized(x), p["w"], p["b"], betas[pick], dist.n_features)
+    return (pred * p["y_sd"] + p["y_mu"]).numpy(), gcvs.numpy()
+
+
+def gcv_margin(gcvs) -> float:
+    """Relative gap between the two smallest GCV values (inf for one ridge)."""
+    g = np.sort(np.asarray(gcvs, np.float64))
+    return float((g[1] - g[0]) / g[0]) if len(g) > 1 else float("inf")
+
+
+def phase_hetero(device, model, X, log) -> dict:
+    """The heterogeneous ensemble (``vgan_tpu``'s default members knn, lof,
+    ecod) through the public API with the KNN counts read around every call:
+    at the stress width from the phase-3 model (K7: one launch a call) and on
+    the bench data (K6), each call held to a float64 numpy recombination of
+    its members' own outputs, the bench ensembles also to the same ensembles
+    on the host (first CHECK_MASKS masks), then distilled. Returns each
+    kernel's launches and the calls' times."""
+    from vgan_tpu_torch import HeterogeneousEnsemble
+    from vgan_tpu_torch.ensemble.distill import _GCV_RIDGES
+    from vgan_tpu_torch.ensemble.hetero import _positional
+
+    t_phase = time.perf_counter()
+    K6, K7 = "knn_scores_resident", "knn_scores_stream"
+    launches = {K6: 0, K7: 0}
+    times = {}
+
+    def run(label, fn, kernel, n):
+        out, counts, sec = counted(label, fn, {kernel: n})
+        launches[kernel] += n
+        return out, counts, sec
+
+    # the stress width: the phase-3 model's pool, 2000 x 10240 train rows
+    k = STRESS_ENSEMBLE["k"]
+    Xt, is_out = outlier_rows(np.random.default_rng(21), STRESS_ENSEMBLE["n_test"], X.shape[1])
+    het = HeterogeneousEnsemble.from_model(model, STRESS_ENSEMBLE["subspace_count"],
+                                           members=list(HETERO_MEMBERS), k=k).fit(X)
+    check(het.device.type == "cuda" and all(m.device == het.device for m in het.members),
+          f"the heterogeneous ensemble runs on {het.device}")
+    ens = {"average": het}
+    for c in ("select", "vote"):
+        ens[c] = HeterogeneousEnsemble(model.subspaces, model.proba, members=list(HETERO_MEMBERS),
+                                       combination=c, k=k).fit(X)
+    label = (f"stress hetero ({len(model.subspaces)} masks, {len(X)} x {X.shape[1]} train, "
+             f"{len(Xt)} test, k={k})")
+    calls = [(f"decision_function {c}", functools.partial(ens[c].decision_function, Xt))
+             for c in ("average", "select", "vote")]
+    calls += [("predict", functools.partial(het.predict, Xt)),
+              ("predict_proba linear", functools.partial(het.predict_proba, Xt, "linear"))]
+    outs = {}
+    for name, fn in calls:
+        outs[name], counts, first = run(f"{label} {name}", fn, K7, 1)
+        times["stress " + name] = median_seconds(fn)
+        log(f"  {label} {name}: launches {counts}; {first:.3f} s first call, "
+            f"{times['stress ' + name]:.3f} s (median of 3 after it)")
+    train_scores, counts, _ = run(f"{label} decision_scores_", lambda: het.decision_scores_, K7, 1)
+    train_labels, counts_l, _ = run(f"{label} labels_", lambda: het.labels_, K7, 0)
+    log(f"  {label} decision_scores_: launches {counts}; labels_: launches {counts_l}")
+    for name in ("decision_function average", "decision_function select",
+                 "decision_function vote"):
+        check(outs[name].shape == (len(Xt),) and np.all(np.isfinite(outs[name])),
+              f"{label} {name}: scores not finite")
+    check(set(np.unique(outs["predict"])) <= {0, 1}, f"{label}: predict labels")
+    proba = outs["predict_proba linear"]
+    check(proba.shape == (len(Xt), 2) and np.all((proba >= 0) & (proba <= 1))
+          and np.allclose(proba.sum(axis=1), 1.0), f"{label}: predict_proba")
+    check(train_scores.shape == (len(X),) and np.all(np.isfinite(train_scores)),
+          f"{label}: decision_scores_ not finite")
+    check(np.array_equal(train_labels, (train_scores > het.threshold_).astype(np.int64))
+          and het.threshold_ == float(np.quantile(train_scores, 1.0 - het.contamination)),
+          f"{label}: labels_ != decision_scores_ > threshold_")
+    member_out = [m.decision_function(Xt) for m in het.members]
+    member_labels = [m.predict(Xt) for m in ens["vote"].members]
+    for c in ("average", "select", "vote"):
+        found = hold_recombination(ens[c], outs[f"decision_function {c}"],
+                                   member_labels if c == "vote" else member_out, f"{label} {c}")
+        log(f"  {label} {c}: {found}; ROC AUC of the {N_OUTLIERS} planted outliers "
+            f"{roc_auc(outs[f'decision_function {c}'], is_out):.4f}"
+            + (f"; member_weights_ {ens[c].member_weights_}" if c == "select" else ""))
+    log(f"  {label} members' own decision_function: {member_times(het, Xt)}")
+    log(f"    (AUC not asserted: the masks come from a 2-epoch fit); "
+        f"{int(outs['predict'].sum())} of {len(Xt)} test rows labelled outliers")
+    _, counts, sec = run(f"{label} distill(members=[0])",
+                         lambda: het.distill(members=[0], n_features=DISTILL_FEATURES), K7, 1)
+    dist = het._distillers[0]
+    times["stress distill"] = sec
+    scores, counts_d, sec_d = run(f"{label} decision_function after distill",
+                                  functools.partial(het.decision_function, Xt), K7, 0)
+    check(np.all(np.isfinite(scores)), f"{label}: distilled scores not finite")
+    log(f"  {label} distill(members=[0], n_features={DISTILL_FEATURES}): launches {counts}, "
+        f"{sec:.3f} s (one float64 eigh of {DISTILL_FEATURES + X.shape[1]} x "
+        f"{DISTILL_FEATURES + X.shape[1]}); ridge_ {dist.ridge_}, GCV margin "
+        f"{gcv_margin(dist._gcvs):.3e}; then decision_function: launches {counts_d}, "
+        f"{sec_d:.3f} s, ROC AUC {roc_auc(scores, is_out):.4f}")
+
+    # the bench data: 1024 masks, d=100 (K6)
+    cfg = BENCH_ENSEMBLE
+    xtr, xte, is_out, subs = bench_data()
+    n_tr = len(xtr)
+
+    def make(c, masks, members=HETERO_MEMBERS, device=None):
+        return HeterogeneousEnsemble(
+            masks, np.full(len(masks), 1.0 / len(masks)), members=list(members), combination=c,
+            weights=HETERO_WEIGHTS if c == "weighted" else None, k=cfg["k"], device=device,
+        ).fit(xtr)
+
+    label = f"bench hetero ({len(subs)} masks, {n_tr} x {cfg['d']} train, {len(xte)} test)"
+    bench = {c: make(c, subs) for c in HETERO_COMBINATIONS}
+    member_out = [m.decision_function(xte) for m in bench["average"].members]
+    member_labels = [m.predict(xte) for m in bench["vote"].members]
+    for c, e in bench.items():
+        fn = functools.partial(e.decision_function, xte)
+        scores, counts, _ = run(f"{label} {c}", fn, K6, 1)
+        times["bench " + c] = median_seconds(fn)
+        found = hold_recombination(e, scores, member_labels if c == "vote" else member_out,
+                                   f"{label} {c}")
+        auc = roc_auc(scores, is_out)
+        check(auc >= BENCH_AUC_MIN, f"{label} {c}: ROC AUC {auc:.4f} < {BENCH_AUC_MIN}")
+        log(f"  {label} {c}: launches {counts}; {times['bench ' + c] * 1e3:.3f} ms (median of 3 "
+            f"after a warm-up); {found}; ROC AUC {auc:.4f}"
+            + (f"; member_weights_ {e.member_weights_}" if c == "select" else ""))
+    e = bench["average"]
+    log(f"  {label} members' own decision_function: {member_times(e, xte)}")
+    labels, counts, _ = run(f"{label} predict", functools.partial(e.predict, xte), K6, 1)
+    check(set(np.unique(labels)) <= {0, 1} and labels[:N_OUTLIERS].all(),
+          f"{label}: predict misses a planted outlier")
+    jl = make("average", subs, (HETERO_JL, *HETERO_MEMBERS))
+    s_jl, counts_jl, _ = run(f"{label} JL member first, decision_function",
+                             functools.partial(jl.decision_function, xte), K6, 2)
+    labels_jl, _, _ = run(f"{label} JL member first, predict", functools.partial(jl.predict, xte),
+                          K6, 2)
+    auc = roc_auc(s_jl, is_out)
+    check(auc >= BENCH_AUC_MIN and labels_jl[:N_OUTLIERS].all(),
+          f"{label} JL member first: ROC AUC {auc:.4f}")
+    log(f"  {label} predict: launches {counts}; {int(labels.sum())} of {len(xte)} labelled "
+        f"outliers; JL member first (jl_dim={HETERO_JL['jl_dim']}): decision_function launches "
+        f"{counts_jl}, ROC AUC {auc:.4f}, predict {int(labels_jl.sum())} labelled outliers")
+    _, counts, sec = run(f"{label} distill()", functools.partial(e.distill,
+                                                                 n_features=DISTILL_FEATURES),
+                         K6, 1)
+    s_d, counts_d, _ = run(f"{label} decision_function, every member distilled",
+                           functools.partial(e.decision_function, xte), K6, 0)
+    log(f"  {label} distill(): launches {counts}, {sec:.3f} s; then decision_function: "
+        f"launches {counts_d}, ROC AUC {roc_auc(s_d, is_out):.4f}")
+    for i, m in enumerate(e.members):
+        dist = e._distillers[i]
+        s_tr = m.decision_function(xtr, exclude_self=_positional(m))
+        want, gcvs = distiller_f64(dist, xtr, s_tr, xte)
+        margin = gcv_margin(gcvs)
+        host_pick = (_GCV_RIDGES[int(np.argmin(gcvs))] if dist.ridge == "gcv"
+                     else dist.ridge)
+        check(host_pick == dist.ridge_ or margin <= GCV_MARGIN_MIN,
+              f"{label} member {i}: ridge_ {dist.ridge_} on the card, {host_pick} in float64 "
+              f"with a GCV margin {margin:.3e}")
+        err = float(np.max(np.abs(dist.predict(xte) - want)))
+        lim = DISTILL_FRAC * float(np.max(np.abs(want)))
+        check(err <= lim, f"{label} member {i}: distiller vs float64 max abs err {err:.3e} > "
+                          f"{lim:.3e}")
+        log(f"    distiller {i} ({m.base}): ridge_ {dist.ridge_} (float64 host run: {host_pick}, "
+            f"GCV margin {margin:.3e}); predictions vs the float64 host run max abs err "
+            f"{err:.3e} (limit {lim:.3e})")
+    hold_bench_host(make, subs, xtr, xte, label, log)
+    log(f"  phase 3f: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "times": times}
+
+
 def phase_other_regimes(device, n, d_flash, d_panel, batch, log):
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
@@ -1917,9 +2347,10 @@ def knn_ops(n_selected: int, nm: int, nt: int, ntr: int) -> float:
     return 2 * nt * ntr * n_selected + 2 * (nt + ntr) * n_selected + nm * nt * ntr
 
 
-def knn_times(runs, errs, launches, log):
+def knn_times(runs, errs, launches, hetero_launches, log):
     """K6 and K7 at the shapes the ensembles' decision_function gives them,
-    on those ensembles' own device tensors (mode 'kth')."""
+    on those ensembles' own device tensors (mode 'kth'). ``launches`` are
+    phase 3c's, ``hetero_launches`` phase 3f's."""
     from vgan_tpu_torch.ops.cuda import knn_score as KS
 
     rows = []
@@ -1944,7 +2375,8 @@ def knn_times(runs, errs, launches, log):
         rows.append({
             "name": name, "route": "cuda", "source": "vgan_tpu_torch/ops/cuda/csrc/knn_score.cu",
             "replaces": f"vgan_tpu/ops/pallas/knn_score.py:{replaces}",
-            **t, "launches": launches[name], "max_abs_err": errs[name, (nt, ntr, d)],
+            **t, "launches": launches[name], "launches_hetero": hetero_launches[name],
+            "max_abs_err": errs[name, (nt, ntr, d)],
             "tol": f"kth |d s^2| <= eps = {KNN_D2_FRAC} (d <= {KNN_WIDE_D}) or {KNN_D2_FRAC_WIDE} "
                    "of max(an + bn); mean |d s| <= min(sqrt(eps), eps / s1); integer rows: kth "
                    "equal",
@@ -2662,6 +3094,9 @@ def main(argv=None) -> int:
     log("phase 3e: the other native bases at full width (" + ", ".join(OTHER_BASES) + ")")
     base_rates = phase_other_bases(device, stress_model, X_stress, log)
 
+    log("phase 3f: the heterogeneous ensemble (knn, lof, ecod) at full width, distilled")
+    hetero = phase_hetero(device, stress_model, X_stress, log)
+
     log("phase 4: the other regimes through fit, the notebook configurations")
     launches = phase_other_regimes(device, n, d_flash, d, batch, log)
     launches["gram_quadrant_sums_stash"] = k2_launches
@@ -2672,7 +3107,7 @@ def main(argv=None) -> int:
                                 "k1_large": K1_LARGE, "k4_real_panel": K4_REAL_PANEL,
                                 "gof": [gof_f64, gof_f32]}, errs, launches, log,
                        parent_flash(parent_libs["mmd_gram"], device) if parent_libs else None)
-    rows += knn_times(ensembles, errs, knn_launches, log)
+    rows += knn_times(ensembles, errs, knn_launches, hetero["launches"], log)
     rows.append(fused_times(device, errs, k8_launches, log))
     if parent_libs:
         log("  against the parent commit's K1-K8 (same inputs, in turns)")
@@ -2689,6 +3124,8 @@ def main(argv=None) -> int:
     for base, r in base_rates.items():
         log(f"  {base} decision_function ({r['n_masks']} masks): {r['ms']:.3f} ms, "
             f"{r['subspace_scorings_per_s']:.1f} subspace-scorings/s")
+    for name, sec in hetero["times"].items():
+        log(f"  hetero {name}: {sec * 1e3:.3f} ms")
     sps = fit_steps_per_s(device, n, d, batch)
     log(f"  stress fit (n={n}, d={d}, batch {batch}): {sps:.2f} steps/s")
     kl_sps = kl_fit_steps_per_s(device, n, d, batch)

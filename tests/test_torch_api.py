@@ -374,7 +374,8 @@ def test_port_imports_neither_jax_nor_vgan_tpu():
         "names = [m.name for m in pkgutil.walk_packages(vgan_tpu_torch.__path__, 'vgan_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert {'vgan_tpu_torch.ops.cuda.fused_no_kl', 'vgan_tpu_torch.utils.checkpoint',\n"
-        "        'vgan_tpu_torch.ensemble.iforest'} <= set(names)\n"
+        "        'vgan_tpu_torch.ensemble.iforest', 'vgan_tpu_torch.ensemble.hetero',\n"
+        "        'vgan_tpu_torch.ensemble.distill'} <= set(names)\n"
         "import chip_smoke\n"
         "banned = ('jax', 'jaxlib', 'flax', 'optax', 'vgan_tpu', 'scipy', 'sklearn')\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in banned)\n"
@@ -393,3 +394,20 @@ def test_port_imports_neither_jax_nor_vgan_tpu():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) >= 17
+
+
+def test_exports_match_jax():
+    """The port exports every name ``vgan_tpu`` exports from its ensemble
+    package and at its top level (the JAX package's ``TrainConfig`` and
+    ``__version__`` included)."""
+    import vgan_tpu
+    import vgan_tpu.ensemble
+    import vgan_tpu_torch
+    import vgan_tpu_torch.ensemble
+
+    assert set(vgan_tpu.ensemble.__all__) <= set(vgan_tpu_torch.ensemble.__all__)
+    assert set(vgan_tpu.__all__) <= set(vgan_tpu_torch.__all__)
+    for name in vgan_tpu_torch.__all__:
+        assert getattr(vgan_tpu_torch, name) is not None
+    for name in vgan_tpu_torch.ensemble.__all__:
+        assert getattr(vgan_tpu_torch.ensemble, name).__module__.startswith("vgan_tpu_torch.")

@@ -61,6 +61,19 @@ def _close(got, want, rtol=RTOL):
                                atol=ATOL_FRAC * max(float(np.abs(want).max()), 1e-30))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one thread for the module (the port's test files that import
+    this fixture too): their ops are tiny, and with several test workers on
+    the machine torch's spinning OpenMP threads made a trained base's
+    ensemble case 9x slower (ae's predict case: 74 s against 8.6 s beside
+    five busy processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rows(rng, n, d, integer):
     if integer:  # small integers: heavy ties, exact distances
         return rng.integers(-2, 3, size=(n, d)).astype(np.float64)

@@ -33,24 +33,12 @@ import vgan_tpu.ensemble.od as JOD
 import vgan_tpu_torch.ensemble.od as TOD
 from vgan_tpu.ensemble import SubspaceEnsemble as JaxEnsemble
 from vgan_tpu_torch import SubspaceEnsemble
-from test_torch_bases import stable_jax_selection  # noqa: F401  (a fixture)
+from test_torch_bases import one_torch_thread, stable_jax_selection  # noqa: F401  (fixtures)
 
 RTOL_SAME = 1e-9
 RTOL = 1e-8
 # ensembles: float32 on both sides, z-scored and summed over masks
 RTOL_ENS = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """torch on one thread for the module: its ops here are tiny, and with
-    several test workers on the machine its spinning OpenMP threads made a
-    trained base's ensemble case 9x slower (ae's predict case: 74 s against
-    8.6 s beside five busy processes)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def make_data(seed=0, ntr=40, nt=15, d=7, n_masks=9, integer=False, duplicates=True):

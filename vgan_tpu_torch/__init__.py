@@ -1,9 +1,12 @@
 """vgan_tpu_torch: the PyTorch / CUDA port of ``vgan_tpu`` for NVIDIA Hopper.
 
 Adversarial subspace generation for outlier detection (V-GAN), with the
-same estimator API as ``vgan_tpu`` (``VGAN`` and ``VGAN_no_kl``) and its
+same estimator API as ``vgan_tpu`` (``VGAN`` and ``VGAN_no_kl``), its
 subspace ensemble (``SubspaceEnsemble``: every non-parametric base, the
-dimension-decomposable bases and six of the parametric ones).
+dimension-decomposable bases and all fifteen parametric ones) and its
+heterogeneous ensemble (``HeterogeneousEnsemble``: several base families
+over one pool, standardized and combined, members optionally replaced by
+``ScoreDistiller`` regressors).
 The multi-bandwidth RBF MMD of every training step, the GoF test's Gram past
 the dense caps and the ensemble's masked KNN scores run through hand-written
 CUDA kernels (``vgan_tpu_torch.ops.cuda``), built with ``nvcc`` at first
@@ -15,8 +18,8 @@ reference it is tested against.
 
 __version__ = "0.1.0"
 
-__all__ = ["VGAN", "VGAN_no_kl", "SubspaceEnsemble", "TrainConfig", "resolve_device",
-           "__version__"]
+__all__ = ["VGAN", "VGAN_no_kl", "SubspaceEnsemble", "HeterogeneousEnsemble", "TrainConfig",
+           "resolve_device", "__version__"]
 
 from vgan_tpu_torch._device import resolve_device
 
@@ -27,10 +30,10 @@ def __getattr__(name):
         from vgan_tpu_torch.api import vgan as _vgan
 
         return getattr(_vgan, name)
-    if name == "SubspaceEnsemble":
-        from vgan_tpu_torch.ensemble.od import SubspaceEnsemble
+    if name in ("SubspaceEnsemble", "HeterogeneousEnsemble"):
+        import vgan_tpu_torch.ensemble as _ens
 
-        return SubspaceEnsemble
+        return getattr(_ens, name)
     if name == "TrainConfig":
         from vgan_tpu_torch.train.steps import TrainConfig
 
