@@ -18,7 +18,8 @@ Phases (each asserts; any failure exits non-zero):
    kernel (K5) against its float64 plain version at the GoF path's own
    shape (17000 pooled rows, d=10240, 1002 indicator rows) and a ragged one
    in its full-Gram regime, and in its panel regime (forced by lowering
-   ``GRAM_BUFFER_BYTES``) at a ragged shape with nine alphas and at the
+   ``GRAM_BUFFER_BYTES``) at a ragged shape with ten alphas (the stress
+   width's recommended one, 1.1e9, among them) and at the
    stress width; the KNN-score kernels (K6 resident, K7 streaming) against
    their plain version at both ensembles' shapes, both modes, with
    ``exclude_self`` at the ``predict`` batches, at ragged shapes and on
@@ -76,6 +77,19 @@ Phases (each asserts; any failure exits non-zero):
    every ensemble on the first 16 masks against the same ensemble with
    device='cpu' (labels equal except on rows whose host score sits within
    the allowed move of its threshold);
+3g. serving and the CLI at full width: ``vgan_tpu_torch.cli.main`` in
+   this process on the stress rows, ``fit --epochs 2`` (8 K2 launches,
+   ``.pt`` files), ``sample``, ``check-myopic``, ``score --base knn`` (one K7
+   launch, held to the API's decision_function) and ``export``, and one
+   ``python3 -m vgan_tpu_torch sample`` subprocess; the stress sampler's
+   ``torch.export`` program (masks equal to generate_subspaces to the bit)
+   and the stress knn ensemble's (the generic path, held to the live K7 call
+   within phase 3c's limit), each with its export seconds, artifact size
+   and call time; on the bench data the per-subspace knn program (against
+   K6 within phase 2's bound), the heterogeneous programs (knn, lof, ecod:
+   'average', 'select', knn distilled) within phase 3f's row limits, and
+   the iforest, loda and ocsvm programs on 16 masks within phase 3e's. Each
+   loaded program is called twice for the same bits and launches no kernel;
 4. the other regimes through ``fit`` (d=1024 flash; d=10240 with the K'
    stash off, panel), and the d=10 notebook configuration of both
    estimators, which runs no kernel. Every kernel fit's losses are held
@@ -110,6 +124,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import gc
+import io
 import json
 import statistics
 import subprocess
@@ -138,6 +154,10 @@ STRESS = dict(n=2000, d=10240, batch=500)  # bench.py's "no-kl stress" and "kl s
 GOF_ROWS, GOF_COUNT_F64, GOF_COUNT_F32 = 10000, 8500, 5000
 GOF_PERMUTATIONS = 1000  # check_if_myopic's default
 GOF_ALPHAS = (0.01, 1.0)
+# the alpha check_if_myopic adds at the stress width: the frozen training
+# bandwidth passed as an alpha (the reference quirk), 1.101283e+09 in phase
+# 3b's runs on the H100; phase 2 holds K5's panel regime at it too
+GOF_RECOMMENDED_ALPHA = 1.1e9
 ORACLE_PERMUTATIONS = 64
 
 # Tolerances, each with its reason:
@@ -259,7 +279,9 @@ DISTILL_FRAC, GCV_MARGIN_MIN = 1e-5, 1e-4
 # (bench.py:472-493); kpca (the full kernel, pyod's default: one (1000, 1000)
 # eigh a mask), ocsvm (300 FISTA steps of 60 bisection steps, a few hundred
 # launches a step), ae and dsvdd (50 Adam epochs) on the first
-# FEW_MASKS masks; lof, iforest, copod and the matmul-shaped kde, cblof,
+# FEW_MASKS masks, ocsvm on its first OCSVM_MASKS (two chunks: a call on
+# 128 masks took 14 s, and the phase makes a dozen, which kept the whole
+# smoke from its time); lof, iforest, copod and the matmul-shaped kde, cblof,
 # gmm, loda, inne, sampling, lmdd and sod once more on the stress ensemble
 # (mcd, pca and kpca would factor a (10240, 10240) matrix a mask; ocsvm and
 # sos are 300 x 60 and 64 launch-bound steps over (2000, 2000) kernels a
@@ -271,6 +293,9 @@ OTHER_BASES = ("lof", "abod", "cof", "iforest", "mahalanobis", "copod", "hbos", 
 NEIGHBOR_BASES = ("lof", "abod", "cof")
 IFOREST_BENCH = dict(n_masks=256, n_trees=100, chunk=32)
 FEW_MASKS, FEW_MASK_BASES = 128, ("kpca", "ocsvm", "ae", "dsvdd")
+OCSVM_MASKS = 50
+# phase 3g: the bench data's per-subspace and heterogeneous programs
+SERVING_MASKS = 32
 STRESS_BASES = ("lof", "iforest", "copod", "kde", "cblof", "gmm", "loda", "inne", "sampling",
                 "lmdd", "sod")
 # The card against the host: the pool's first CHECK_MASKS masks (the whole
@@ -1213,13 +1238,15 @@ def bench_data():
 def base_config(base: str, subs):
     """(masks, constructor keywords) of a base on the bench data: iforest
     at bench.py's configuration, FEW_MASK_BASES on the first FEW_MASKS
-    masks, the others on every mask; all at the bench ensemble's k (read by
-    the neighbour bases only) and every other knob at its default."""
+    masks (ocsvm on OCSVM_MASKS), the others on every mask; all at the
+    bench ensemble's k (read by the neighbour bases only) and every other
+    knob at its default."""
     if base == "iforest":
         cfg = IFOREST_BENCH
         return subs[:cfg["n_masks"]], dict(n_trees=cfg["n_trees"], chunk=cfg["chunk"])
     if base in FEW_MASK_BASES:
-        return subs[:FEW_MASKS], dict(k=BENCH_ENSEMBLE["k"])
+        n = OCSVM_MASKS if base == "ocsvm" else FEW_MASKS
+        return subs[:n], dict(k=BENCH_ENSEMBLE["k"])
     return subs, dict(k=BENCH_ENSEMBLE["k"])
 
 
@@ -1824,6 +1851,271 @@ def phase_hetero(device, model, X, log) -> dict:
     hold_bench_host(make, subs, xtr, xte, label, log)
     log(f"  phase 3f: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "times": times}
+
+
+def cli(argv) -> str:
+    """``vgan_tpu_torch.cli.main(argv)`` in this process; its stdout."""
+    from vgan_tpu_torch import cli as C
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = C.main(argv)
+    check(rc == 0, f"vgan_tpu_torch {' '.join(argv)} returned {rc}")
+    return out.getvalue()
+
+
+def mb(path) -> float:
+    return Path(path).stat().st_size / 1e6
+
+
+def generic_member_moves(het, x):
+    """(live standardized member scores, the same from the generic path the
+    exported program runs, their absolute difference): a knn member's live
+    call rides K6 / K7 and its program the generic chunked path; the other
+    members and a distilled one run the same path either way."""
+    from vgan_tpu_torch.ensemble.od import _zscore
+
+    rows = []
+    for i, m in enumerate(het.members):
+        if i in het._distillers:
+            rows.append(het._distillers[i].predict(x))
+        elif m.base in ("knn", "knn_mean"):
+            xd = m._as_device(m._project(np.asarray(x)))
+            rows.append(m._native_scores(xd, False, reduce=True).cpu().numpy())
+        else:
+            rows.append(m.decision_function(x))
+    z_gen = _zscore(torch.as_tensor(np.stack(rows).astype(np.float64))).float().numpy()
+    z_live = het.member_scores(x)
+    return z_live.astype(np.float64), z_gen.astype(np.float64), np.abs(z_live - z_gen)
+
+
+def phase_serving(device, model, X, log) -> dict:
+    """Serving and the CLI at full width. The CLI in this process on the
+    stress rows (``fit`` counts K2, ``score --base knn`` K7), ``python3 -m
+    vgan_tpu_torch`` once, the stress sampler's and the stress knn
+    ensemble's exported programs against their live calls, and on the bench
+    data the per-subspace (knn) and heterogeneous exports (first
+    SERVING_MASKS masks) and the iforest, loda and ocsvm ensemble exports
+    (first CHECK_MASKS), each sized for the batch it serves. Each loaded program is
+    called twice for the same bits and launches no kernel. Returns the CLI's
+    K2 and K7 launches."""
+    from vgan_tpu_torch import HeterogeneousEnsemble, SubspaceEnsemble, VGAN_no_kl
+    from vgan_tpu_torch import serving as S
+    from vgan_tpu_torch.ensemble.hetero import _combine
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
+
+    t_phase = time.perf_counter()
+    # torch.export traces in Python: keep the cyclic collector off the
+    # objects the earlier phases left (the traces took twice as long in the
+    # full smoke as alone)
+    gc.collect()
+    gc.freeze()
+    card = card_identity()
+    n, d = X.shape
+    k, nsubs = STRESS_ENSEMBLE["k"], STRESS_ENSEMBLE["subspace_count"]
+    Xt, _ = outlier_rows(np.random.default_rng(21), STRESS_ENSEMBLE["n_test"], d)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        np.save(tmp / "stress.npy", X)
+        np.save(tmp / "test.npy", Xt)
+        # the CLI in process, the launch counts read around each call
+        sync()
+        G.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = cli(["fit", "--data", str(tmp / "stress.npy"), "--epochs", "2", "--out",
+                   str(tmp / "run"), "--quiet"])
+        sync()
+        sec = time.perf_counter() - t0
+        counts = G.launch_counts()
+        steps = 2 * (n // 500)
+        check(counts["gram_quadrant_sums_stash"] == steps and sum(counts.values()) == steps,
+              f"CLI fit launched {counts}, expected {steps} of K2 only")
+        launches["gram_quadrant_sums_stash"] = steps
+        gen = tmp / "run" / "models" / "generator_0.pt"
+        check(gen.is_file() and out.startswith("final loss: "), f"CLI fit wrote no {gen}")
+        log(f"  cli fit --epochs 2 ({n} x {d}): {sec:.2f} s, launches {counts}; "
+            f"{out.strip()}")
+        loaded = VGAN_no_kl(verbose=False)
+        loaded.load_models(gen, ndims=d)
+        check(next(loaded.generator.parameters()).device.type == "cuda",
+              "the loaded generator is not on the card")
+        _, counts, sec = counted("cli sample", lambda: cli([
+            "sample", "--generator", str(gen), "--ndims", str(d), "--nsubs", str(nsubs),
+            "--out", str(tmp / "masks.npy")]), {})
+        check(np.array_equal(np.load(tmp / "masks.npy"), loaded.generate_subspaces(nsubs)),
+              "CLI sample masks differ from generate_subspaces")
+        log(f"  cli sample ({nsubs} masks): {sec:.2f} s, equal to generate_subspaces")
+        out, _, sec = counted("cli check-myopic", lambda: cli([
+            "check-myopic", "--data", str(tmp / "stress.npy"), "--generator", str(gen)]), {})
+        check("p-val" in out and "recommended bandwidth" in out, f"CLI check-myopic: {out}")
+        log(f"  cli check-myopic (count 500): {sec:.2f} s: {' '.join(out.split())}")
+        _, counts, sec = counted("cli score", lambda: cli([
+            "score", "--train", str(tmp / "stress.npy"), "--test", str(tmp / "test.npy"),
+            "--generator", str(gen), "--base", "knn", "--subspaces", str(nsubs), "--k", str(k),
+            "--out", str(tmp / "scores.npy")]), {"knn_scores_stream": 1})
+        launches["knn_scores_stream"] = 1
+        got = np.load(tmp / "scores.npy")
+        want = SubspaceEnsemble.from_model(loaded, nsubs, base="knn", k=k).fit(X) \
+            .decision_function(Xt)
+        err, lim = float(np.max(np.abs(got - want))), ENSEMBLE_FRAC * float(np.max(np.abs(want)))
+        check(err <= lim, f"CLI score vs decision_function max abs err {err:.3e} > {lim:.3e}")
+        log(f"  cli score --base knn --subspaces {nsubs} --k {k}: {sec:.2f} s, launches {counts}; "
+            f"vs decision_function max abs err {err:.3e} (limit {lim:.3e})")
+        t0 = time.perf_counter()
+        cli(["export", "--generator", str(gen), "--ndims", str(d), "--out",
+             str(tmp / "cli_sampler.pt2")])
+        sec = time.perf_counter() - t0
+        fn = S.load_sampler(tmp / "cli_sampler.pt2")
+        check(np.array_equal(S.sample_masks(fn, nsubs, loaded._latent_size, loaded.seed),
+                             loaded.generate_subspaces(nsubs)), "CLI export: masks differ")
+        log(f"  cli export: {sec:.2f} s, {mb(tmp / 'cli_sampler.pt2'):.1f} MB; its masks equal "
+            "generate_subspaces")
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "vgan_tpu_torch", "sample", "--generator",
+                              str(gen), "--ndims", str(d), "--nsubs", "50", "--out",
+                              str(tmp / "masks50.npy")], capture_output=True, text=True,
+                             timeout=300, cwd=Path(__file__).resolve().parent)
+        check(run.returncode == 0, f"python3 -m vgan_tpu_torch sample: {run.stderr[-2000:]}")
+        check(np.array_equal(np.load(tmp / "masks50.npy"), loaded.generate_subspaces(50)),
+              "python3 -m vgan_tpu_torch sample: masks differ")
+        log(f"  python3 -m vgan_tpu_torch sample (a subprocess on the card): "
+            f"{time.perf_counter() - t0:.2f} s, masks equal")
+
+        # the stress sampler (the phase-3 model)
+        t0 = time.perf_counter()
+        S.export_sampler(model, tmp / "sampler.pt2")
+        sec = time.perf_counter() - t0
+        fn = S.load_sampler(tmp / "sampler.pt2")
+        got = S.sample_masks(fn, nsubs, model._latent_size, model.seed)
+        want = model.generate_subspaces(nsubs)
+        differ = np.flatnonzero((got != want).any(axis=1))
+        if len(differ):
+            g = torch.Generator().manual_seed(int(model.seed))
+            z = torch.randn((nsubs, model._latent_size), generator=g).double()
+            gen64 = {name: v.double().cpu() for name, v in model.generator.state_dict().items()}
+            h = z
+            for i in range(4):
+                h = h @ gen64[f"main.{i}.weight"].T + gen64[f"main.{i}.bias"]
+            u = torch.softmax(h, dim=-1)
+            margin = torch.abs(u - 1.0 / d).min(dim=-1).values / (1.0 / d)
+            log(f"  sampler rows differing: {differ.tolist()}; float64 margins "
+                f"{margin[differ].tolist()}")
+        check(len(differ) == 0, f"the loaded sampler's masks differ on {len(differ)} rows")
+        check(np.array_equal(got, S.sample_masks(fn, nsubs, model._latent_size, model.seed)),
+              "the loaded sampler's second call differs")
+        n_params = sum(p.numel() for p in model.generator.parameters())
+        log(f"  export_sampler (stress generator, {n_params} parameters): {sec:.2f} s, "
+            f"{mb(tmp / 'sampler.pt2'):.1f} MB; {nsubs} masks equal to generate_subspaces, "
+            f"twice ({card})")
+
+        # the stress knn ensemble (phase 3c's) through its program, sized
+        # for the batch it serves (max_batch = 500: the chunk the live
+        # generic path takes; 4096 would unroll 250 chunks of 2 masks)
+        ens = SubspaceEnsemble.from_model(model, nsubs, base="knn", k=k).fit(X)
+        t0 = time.perf_counter()
+        S.export_ensemble_scorer(ens, tmp / "stress.pt2", max_batch=len(Xt))
+        sec = time.perf_counter() - t0
+        fn = S.load_ensemble_scorer(tmp / "stress.pt2")
+        got, counts, first = counted("stress program", functools.partial(fn, Xt), {})
+        check(np.array_equal(got, fn(Xt)), "the stress program's second call differs")
+        want, _, _ = counted("stress live", functools.partial(ens.decision_function, Xt),
+                             {"knn_scores_stream": 1})
+        err, lim = float(np.max(np.abs(got - want))), ENSEMBLE_FRAC * float(np.max(np.abs(want)))
+        check(err <= lim, f"stress program vs live K7 max abs err {err:.3e} > {lim:.3e}")
+        t_prog = median_seconds(functools.partial(fn, Xt))
+        t_live = median_seconds(functools.partial(ens.decision_function, Xt))
+        log(f"  export_ensemble_scorer (stress knn, {len(ens.subspaces)} masks, {n} x {d} "
+            f"train): {sec:.2f} s, {mb(tmp / 'stress.pt2'):.1f} MB; the program on {len(Xt)} "
+            f"rows {t_prog * 1e3:.3f} ms (first call {first * 1e3:.3f} ms, no kernel launch) "
+            f"against the live decision_function {t_live * 1e3:.3f} ms (K7), median of 3; "
+            f"max abs err {err:.3e} (limit {lim:.3e}) ({card})")
+
+        # the bench data: the per-subspace and heterogeneous programs on the
+        # first SERVING_MASKS masks (one lof chunk for batches of 500; the
+        # whole pool's lof would unroll 32 chunks into its program)
+        xtr, xte, _, subs = bench_data()
+        cfg, nt = BENCH_ENSEMBLE, len(xte)
+        subs = subs[:SERVING_MASKS]
+        raw = SubspaceEnsemble(subs, np.full(len(subs), 1.0 / len(subs)), k=cfg["k"],
+                               normalize=None).fit(xtr)
+        t0 = time.perf_counter()
+        S.export_per_subspace_scorer(raw, tmp / "per.pt2", max_batch=nt)
+        sec = time.perf_counter() - t0
+        fn = S.load_ensemble_scorer(tmp / "per.pt2")
+        got, _, _ = counted("per-subspace program", functools.partial(fn, xte), {})
+        check(np.array_equal(got, fn(xte)), "the per-subspace program's second call differs")
+        want, _, _ = counted("per-subspace live", functools.partial(raw.per_subspace_scores, xte),
+                             {"knn_scores_resident": 1})
+        # K6's squared scores against the generic path's: phase 2's bound,
+        # KNN_D2_FRAC of max(an + bn) per mask
+        m = subs.astype(np.float64)
+        scale = ((xte.astype(np.float64) ** 2) @ m.T).max(axis=0) \
+            + ((xtr.astype(np.float64) ** 2) @ m.T).max(axis=0)
+        e2 = np.abs(got.astype(np.float64) ** 2 - want.astype(np.float64) ** 2)
+        check(bool(np.all(e2 <= KNN_D2_FRAC * scale[:, None])),
+              f"per-subspace program vs K6: squared scores off by up to "
+              f"{float(np.max(e2 / scale[:, None])):.3e} of max(an + bn)")
+        log(f"  export_per_subspace_scorer (bench knn, {len(subs)} masks, raw): {sec:.2f} s, "
+            f"{mb(tmp / 'per.pt2'):.2f} MB; squared scores vs K6 within "
+            f"{float(np.max(e2 / scale[:, None])):.3e} of max(an + bn) (limit {KNN_D2_FRAC})")
+        for label, c, distill in (("average", "average", None), ("select", "select", None),
+                                  ("knn distilled", "average", [0])):
+            het = HeterogeneousEnsemble(subs, np.full(len(subs), 1.0 / len(subs)),
+                                        members=list(HETERO_MEMBERS), combination=c,
+                                        k=cfg["k"]).fit(xtr)
+            if distill:
+                het.distill(members=distill, n_features=DISTILL_FEATURES)
+            t0 = time.perf_counter()
+            S.export_hetero_scorer(het, tmp / "het.pt2", max_batch=nt)
+            sec = time.perf_counter() - t0
+            fn = S.load_ensemble_scorer(tmp / "het.pt2")
+            got, _, _ = counted(f"hetero {label} program", functools.partial(fn, xte), {})
+            check(np.array_equal(got, fn(xte)), f"hetero {label}: second call differs")
+            want = het.decision_function(xte)
+            z_live, z_gen, moves = generic_member_moves(het, xte)
+            w_live = w_gen = None
+            if c == "select":
+                w_live = het.member_weights_
+                w_gen = _combine(torch.from_numpy(z_gen), "select")[1].numpy()
+            lim = ENSEMBLE_FRAC * float(np.max(np.abs(want))) + lipschitz_limit(
+                c, moves, w_live, w_gen, z_gen)
+            err = np.abs(got.astype(np.float64) - want)
+            check(bool(np.all(err <= lim)), f"hetero {label} program vs live passes a row's "
+                                            f"limit by {float(np.max(err - lim)):.3e}")
+            log(f"  export_hetero_scorer (bench, knn + lof + ecod, {label}): {sec:.2f} s, "
+                f"{mb(tmp / 'het.pt2'):.2f} MB; vs live max abs err {float(err.max()):.3e} "
+                f"(row limits from {float(lim.min()):.3e}; the knn member's standardized "
+                f"move up to {float(moves.max()):.3e})")
+        # raw scores (normalize=None), so that phase 3e's per-mask limits
+        # carry over: a row of the average within RAW_RTOL of the mean |raw
+        # score| over the masks plus RAW_ATOL_FRAC of the largest
+        proba = np.full(CHECK_MASKS, 1.0 / CHECK_MASKS)
+        for base in ("iforest", "loda", "ocsvm"):
+            ens = SubspaceEnsemble(subs[:CHECK_MASKS], proba, base=base, k=cfg["k"],
+                                   normalize=None).fit(xtr)
+            t0 = time.perf_counter()
+            S.export_ensemble_scorer(ens, tmp / f"{base}.pt2", max_batch=nt)
+            sec = time.perf_counter() - t0
+            fn = S.load_ensemble_scorer(tmp / f"{base}.pt2")
+            got, _, t_prog = counted(f"{base} program", functools.partial(fn, xte), {})
+            check(np.array_equal(got, fn(xte)), f"{base} program: second call differs")
+            raw_live, _, t_live = counted(f"{base} live", functools.partial(
+                ens._raw_per_subspace, xte), {})
+            raw_live = raw_live.astype(np.float64)
+            want = proba @ raw_live  # the live decision_function, in float64
+            lim = (RAW_RTOL[base] * (proba @ np.abs(raw_live))
+                   + RAW_ATOL_FRAC * float(np.abs(raw_live).max()))
+            err = np.abs(got.astype(np.float64) - want)
+            check(bool(np.all(err <= lim)), f"{base} program vs live passes a row's limit by "
+                                            f"{float(np.max(err - lim)):.3e}")
+            log(f"  export_ensemble_scorer (bench {base}, {CHECK_MASKS} masks, raw): {sec:.2f} s, "
+                f"{mb(tmp / f'{base}.pt2'):.2f} MB; program {t_prog * 1e3:.1f} ms, live "
+                f"{t_live * 1e3:.1f} ms (first calls); max abs err {float(err.max()):.3e} (row "
+                f"limits from {float(lim.min()):.3e}); two calls equal")
+    gc.unfreeze()
+    log(f"  phase 3g: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def phase_other_regimes(device, n, d_flash, d_panel, batch, log):
@@ -3048,9 +3340,11 @@ def main(argv=None) -> int:
         # (rows of the data, n1, n2, d, permutations, alphas, panel rows or 0)
         gof_f64,
         (2000, 333, 517, 2500, 35, (0.01, 1.0, 7.5), 0),
-        # the panel regime at a ragged shape, four panels; nine alphas: two
-        # launches of pass 2 on each panel's d2
-        (2000, 333, 517, 2500, 35, (0.01, 0.03, 0.1, 0.3, 0.5, 1.0, 2.0, 5.0, 7.5), 256),
+        # the panel regime at a ragged shape, four panels; ten alphas (the
+        # stress width's recommended one last): two launches of pass 2 on
+        # each panel's d2
+        (2000, 333, 517, 2500, 35,
+         (0.01, 0.03, 0.1, 0.3, 0.5, 1.0, 2.0, 5.0, 7.5, GOF_RECOMMENDED_ALPHA), 256),
         # the panel regime at the float32 route's width, four panels
         (GOF_ROWS, 1300, 1300, d, 100, GOF_ALPHAS, 768),
     ], log)
@@ -3097,6 +3391,9 @@ def main(argv=None) -> int:
     log("phase 3f: the heterogeneous ensemble (knn, lof, ecod) at full width, distilled")
     hetero = phase_hetero(device, stress_model, X_stress, log)
 
+    log("phase 3g: serving and the CLI at full width")
+    cli_launches = phase_serving(device, stress_model, X_stress, log)
+
     log("phase 4: the other regimes through fit, the notebook configurations")
     launches = phase_other_regimes(device, n, d_flash, d, batch, log)
     launches["gram_quadrant_sums_stash"] = k2_launches
@@ -3108,6 +3405,9 @@ def main(argv=None) -> int:
                                 "gof": [gof_f64, gof_f32]}, errs, launches, log,
                        parent_flash(parent_libs["mmd_gram"], device) if parent_libs else None)
     rows += knn_times(ensembles, errs, knn_launches, hetero["launches"], log)
+    for row in rows:
+        if row["name"] in cli_launches:  # phase 3g's CLI: fit (K2) and score (K7)
+            row["launches_cli"] = cli_launches[row["name"]]
     rows.append(fused_times(device, errs, k8_launches, log))
     if parent_libs:
         log("  against the parent commit's K1-K8 (same inputs, in turns)")

@@ -296,9 +296,27 @@ def test_left_out_options_raise(cls, kwargs):
 
 @pytest.mark.parametrize("cls", [VGAN_no_kl, VGAN])
 def test_left_out_entry_points_raise(cls, tmp_path):
+    """No entry point is left out: ``.msgpack`` loading, the last, is
+    ported. A ``vgan_tpu`` generator file loads and samples JAX's masks; a
+    detector file is refused as not a generator; a missing file raises."""
+    import flax.serialization
+
+    module, params = _jax_generator(D, seed=9)
+    path = tmp_path / "generator_0.msgpack"
+    path.write_bytes(flax.serialization.to_bytes(params))
     model = cls(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.load_models(tmp_path / "generator_0.msgpack", ndims=4)
+    model.load_models(path, ndims=D)
+    z = np.random.default_rng(9).normal(size=(60, model._latent_size)).astype(np.float32)
+    want = np.asarray(j_binarize_mask(module.apply(params, jnp.asarray(z)), axis=-1))
+    assert want.any() and not want.all()
+    np.testing.assert_array_equal(model._masks_from_noise(torch.from_numpy(z)), want)
+    detector = JS.TrainConfig(ndims=D, batch_size=BS).detector_module()
+    det = detector.init(jax.random.PRNGKey(0), jnp.zeros((1, D), jnp.float32))
+    (tmp_path / "detector_0.msgpack").write_bytes(flax.serialization.to_bytes(det))
+    with pytest.raises(ValueError, match="reference generator"):
+        model.load_models(tmp_path / "detector_0.msgpack", ndims=D)
+    with pytest.raises(FileNotFoundError):
+        model.load_models(tmp_path / "generator_1.msgpack", ndims=D)
     # the checkpoint knobs are ported: accepted and kept
     kept = cls(device="cpu", checkpoint_dir="ck", checkpoint_every=5)
     assert (kept.checkpoint_dir, kept.checkpoint_every) == ("ck", 5)
@@ -375,9 +393,12 @@ def test_port_imports_neither_jax_nor_vgan_tpu():
         "for n in names: importlib.import_module(n)\n"
         "assert {'vgan_tpu_torch.ops.cuda.fused_no_kl', 'vgan_tpu_torch.utils.checkpoint',\n"
         "        'vgan_tpu_torch.ensemble.iforest', 'vgan_tpu_torch.ensemble.hetero',\n"
-        "        'vgan_tpu_torch.ensemble.distill'} <= set(names)\n"
+        "        'vgan_tpu_torch.ensemble.distill', 'vgan_tpu_torch.serving',\n"
+        "        'vgan_tpu_torch.cli', 'vgan_tpu_torch.__main__', 'vgan_tpu_torch.data',\n"
+        "        'vgan_tpu_torch.io_native', 'vgan_tpu_torch.utils.flax_msgpack',\n"
+        "        'vgan_tpu_torch.utils.profiling'} <= set(names)\n"
         "import chip_smoke\n"
-        "banned = ('jax', 'jaxlib', 'flax', 'optax', 'vgan_tpu', 'scipy', 'sklearn')\n"
+        "banned = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'vgan_tpu', 'scipy', 'sklearn')\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in banned)\n"
         "assert not bad, bad\n"
         "import numpy as np\n"

@@ -12,6 +12,13 @@ the dense caps and the ensemble's masked KNN scores run through hand-written
 CUDA kernels (``vgan_tpu_torch.ops.cuda``), built with ``nvcc`` at first
 use. Entry points run on ``cuda`` unless given ``device="cpu"``.
 
+Serving (``vgan_tpu_torch.serving``) exports the mask sampler and the
+ensemble scorers as ``torch.export`` programs that a serving process loads
+with torch alone; ``python -m vgan_tpu_torch`` (``vgan_tpu_torch.cli``) runs
+``fit``, ``sample``, ``export``, ``check-myopic`` and ``score`` from the
+command line; ``vgan_tpu``'s Flax ``.msgpack`` generators load wherever a
+generator file does.
+
 This package imports neither JAX nor ``vgan_tpu``; ``vgan_tpu`` stays the
 reference it is tested against.
 """

@@ -6,7 +6,9 @@ Counterpart of ``vgan_tpu.api.base``, in the reference's artifact layout:
 ``<dir>/models/generator_<run>.pt``: the generator's ``state_dict`` as the
 reference saves it (keys ``main.{i}.{weight, bias}``), so the reference's
 own loader reads it too; the kl estimator adds ``detector_<run>.pt`` (keys
-``{encoder, decoder}.main.{i}.{weight, bias}``). Two reference bugs stay
+``{encoder, decoder}.main.{i}.{weight, bias}``). A generator loads from
+such a ``.pt`` or from ``vgan_tpu``'s Flax ``.msgpack``
+(:mod:`vgan_tpu_torch.utils.flax_msgpack`). Two reference bugs stay
 fixed, as in the JAX package: ``detector_<run>.pt`` holds the detector, not
 the generator, and the models directory is created when missing.
 """
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import os
 import re
+import warnings
 from collections import defaultdict
 from pathlib import Path
 from typing import Optional
@@ -73,8 +76,15 @@ class EstimatorBase:
         self._plot_loss(path_to_directory, show=show)
 
     def _plot_loss(self, path_to_directory, show=False):
-        """Loss-curve PDF in the reference's styling."""
-        import matplotlib
+        """Loss-curve PDF in the reference's styling; skipped, with a
+        warning, where matplotlib is not installed (the package itself needs
+        only torch, numpy and pandas)."""
+        try:
+            import matplotlib
+        except ImportError:
+            warnings.warn("matplotlib is not installed: train_history.pdf is not written",
+                          RuntimeWarning, stacklevel=3)
+            return
 
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt
@@ -146,14 +156,15 @@ class EstimatorBase:
 
     @staticmethod
     def _load_state_dict(path) -> dict:
-        """A generator ``state_dict`` from a reference-layout ``.pt`` file."""
+        """A generator ``state_dict`` from a reference-layout ``.pt`` file or
+        from ``vgan_tpu``'s Flax ``.msgpack`` (``{"params": {"Dense_i":
+        {"kernel", "bias"}}}``, carried over by
+        :func:`~vgan_tpu_torch.interop.generator_state_dict_from_jax`)."""
         path = Path(path)
-        if path.suffix != ".pt":
-            raise NotImplementedError(
-                f"{path.name}: only torch .pt generator files load here; "
-                ".msgpack (Flax) loading is not ported, see ROADMAP.md Queue 1"
-            )
-        state = torch.load(path, map_location="cpu", weights_only=True)
+        if path.suffix == ".msgpack":
+            state = _state_dict_from_msgpack(path)
+        else:
+            state = torch.load(path, map_location="cpu", weights_only=True)
         layers = sorted({int(k.split(".")[1]) for k in state if k.startswith("main.")})
         if len(layers) != 4:
             raise ValueError(
@@ -166,3 +177,22 @@ class EstimatorBase:
             for i, j in enumerate(layers)
             for part in ("weight", "bias")
         }
+
+
+def _state_dict_from_msgpack(path: Path) -> dict:
+    """``main.{i}.{weight, bias}`` float32 tensors from a Flax generator
+    file; a tree of other layers (a detector's) gives no ``main.`` key."""
+    from vgan_tpu_torch.interop import generator_state_dict_from_jax
+    from vgan_tpu_torch.utils.flax_msgpack import load_msgpack
+
+    tree = load_msgpack(path)
+    tree = tree.get("params", tree) if isinstance(tree, dict) else {}
+    dense = {
+        name: {part: (leaf.float().numpy() if isinstance(leaf, torch.Tensor)
+                      else np.asarray(leaf, np.float32))
+               for part, leaf in layer.items()}
+        for name, layer in tree.items()
+        if re.fullmatch(r"Dense_\d+", str(name)) and isinstance(layer, dict)
+        and {"kernel", "bias"} <= set(layer)
+    }
+    return generator_state_dict_from_jax(dense) if len(dense) == len(tree) else {}

@@ -175,8 +175,10 @@ class _VGANCommon(EstimatorBase):
     # -- persistence --------------------------------------------------------
 
     def load_models(self, path_to_generator, ndims: int, device: str = None):
-        """Load a trained generator (a reference-layout ``.pt``) for
-        sampling, onto ``device`` (default: this estimator's device)."""
+        """Load a trained generator for sampling, onto ``device`` (default:
+        this estimator's device). Both formats load: a reference-layout
+        ``.pt`` (what this package's ``fit`` writes) and ``vgan_tpu``'s Flax
+        ``.msgpack``."""
         if device is not None:
             self.device = resolve_device(device)
         self._latent_size = latent_size_for(ndims)

@@ -26,7 +26,7 @@ exist to avoid gathers on the TPU).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -175,15 +175,18 @@ def iforest_from_draws(x_test: torch.Tensor, x_train: torch.Tensor, subsample: t
 
 def iforest_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
                           n_trees: int = 100, psi: int = DEFAULT_PSI,
-                          seed: int = 0) -> torch.Tensor:
+                          seed: int = 0, draws: Optional[IForestDraws] = None) -> torch.Tensor:
     """Isolation-forest anomaly scores in the masked feature space: (nt,) in
     (0, 1] for a (d,) mask, (c, nt) for a (c, d) chunk; higher is more
-    anomalous. The forest's draws come from :func:`draw_iforest` with
-    ``seed``, so every chunk of an ensemble grows its trees from the same
-    draws (the JAX package's ``key``)."""
+    anomalous. The forest's draws are ``draws``, else :func:`draw_iforest`
+    with ``seed``, so every chunk of an ensemble grows its trees from the
+    same draws (the JAX package's ``key``). A serving export passes them,
+    drawn before the trace, so that the program holds them as constants."""
     m = mask.to(device=x_test.device)
     m = m[None] if m.ndim == 1 else m
-    sub, feat_u, thr_u = draw_iforest(x_train.shape[0], int(n_trees), psi, seed).to(x_test.device)
+    if draws is None:
+        draws = draw_iforest(x_train.shape[0], int(n_trees), psi, seed)
+    sub, feat_u, thr_u = draws.to(x_test.device)
     features = split_features(feat_u, m)
     out = iforest_from_draws(x_test, x_train, sub, features, thr_u)
     return out[0] if mask.ndim == 1 else out

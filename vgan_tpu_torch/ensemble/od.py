@@ -38,7 +38,7 @@ import torch
 
 from vgan_tpu_torch._device import resolve_device
 from vgan_tpu_torch.ensemble.chi2 import chi2_cdf, chi2_ppf
-from vgan_tpu_torch.ensemble.iforest import DEFAULT_PSI, iforest_scores_masked
+from vgan_tpu_torch.ensemble.iforest import DEFAULT_PSI, draw_iforest, iforest_scores_masked
 from vgan_tpu_torch.ops.cuda.knn_score import knn_kernel_supported, knn_scores_all_masks
 
 
@@ -98,15 +98,54 @@ _ABOD_CHUNK_BUDGET = 2**26
 # again in the second pass.
 _TEST_CHUNK_CACHE_ELEMS = 2**28
 
+# Query-count stand-in where nt is the symbolic batch dimension of a
+# ``torch.export`` trace (vgan_tpu_torch.serving): the streamed tiles are
+# sized as if nt were this bound, so an exported program stays within its
+# memory budgets for serving batches up to it.
+_EXPORT_NT_HINT = 4096
+
+
+def _concrete_nt(nt) -> int:
+    """``nt``, or :data:`_EXPORT_NT_HINT` for a symbolic batch dimension."""
+    return _EXPORT_NT_HINT if isinstance(nt, torch.SymInt) else nt
+
+
+def _fixed_loop(n: int, body, carry: tuple) -> tuple:
+    """``carry = body(i, *carry)`` for i = 0..n-1. Eagerly a Python loop
+    (``i`` an int); under ``torch.export`` one ``while_loop`` (``i`` a 0-d
+    int64 tensor), so the exported graph holds the body once, not n
+    times."""
+    if not torch.compiler.is_exporting():
+        for i in range(n):
+            carry = body(i, *carry)
+        return carry
+    from torch._higher_order_ops import while_loop
+
+    i0 = torch.zeros((), dtype=torch.int64, device=carry[0].device)
+    out = while_loop(lambda i, *c: i < n, lambda i, *c: (i + 1, *body(i, *c)),
+                     (i0, *(c.clone() for c in carry)))
+    return tuple(out[1:])
+
+
+def _loop_table(values, dtype: torch.dtype, device):
+    """``lookup(i)``: step i's constant of a :func:`_fixed_loop` body, the
+    Python value eagerly, a 0-d tensor of ``dtype`` under export."""
+    if not torch.compiler.is_exporting():
+        return values.__getitem__
+    table = torch.tensor(values, dtype=dtype, device=device)
+    return lambda i: torch.index_select(table, 0, i.reshape(1))[0]
+
 
 def _stream_block(nt: int) -> int:
     """Train-block length for the streaming scorers at ``nt`` query rows."""
+    nt = _concrete_nt(nt)
     cap = max(512, (_STREAM_TILE_BUDGET // max(nt, 1)) // 128 * 128)
     return min(_STREAM_BLOCK, cap)
 
 
 def _stream_chunk(chunk: int, nt: int, blk: int) -> int:
     """Clamp the mask chunk so the streaming tiles fit memory."""
+    nt = _concrete_nt(nt)
     return max(1, min(chunk, _STREAM_CHUNK_BUDGET // max(nt * blk, 1)))
 
 
@@ -117,7 +156,10 @@ def _effective_chunk(base, chunk: int, nt: int, ntr: int, d: int, k: int = 0, *,
                      sod_ref_set: int = 10) -> int:
     """Memory governor for the mask chunk of the generic path: the JAX
     package's governor for the native bases, then the eager-torch buffers.
-    ``k`` is the base's k (the tree count for iforest)."""
+    ``k`` is the base's k (the tree count for iforest). The serving
+    exporters pass their ``max_batch`` as ``nt``; a symbolic ``nt`` counts
+    as :data:`_EXPORT_NT_HINT`."""
+    nt = _concrete_nt(nt)
     # the rows a chunk's distances are formed for: lof and cof also search
     # the train rows' own neighbours
     rows = max(nt, ntr) if base in ("lof", "cof") else nt
@@ -452,9 +494,9 @@ def mahalanobis_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask:
     return out[0] if mask.ndim == 1 else out
 
 
-def _iforest_adapter(x_test, x_train, mask, k):
+def _iforest_adapter(x_test, x_train, mask, k, draws=None):
     """The ensemble's scorer signature for iforest (k is the tree count)."""
-    return iforest_scores_masked(x_test, x_train, mask, n_trees=k)
+    return iforest_scores_masked(x_test, x_train, mask, n_trees=k, draws=draws)
 
 
 # ---------------------------------------------------------------------------
@@ -1079,27 +1121,32 @@ def ocsvm_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch
     def k_times(v):
         return (k_tr @ v[..., None])[..., 0]
 
-    b = torch.full((m.shape[0], ntr), 1.0 / math.sqrt(ntr), dtype=dt, device=x_train.device)
-    for _ in range(30):
+    def power_step(i, b):
         b = k_times(b)
-        b = b / (torch.linalg.vector_norm(b, dim=-1, keepdim=True) + tiny)
+        return (b / (torch.linalg.vector_norm(b, dim=-1, keepdim=True) + tiny),)
+
+    b = torch.full((m.shape[0], ntr), 1.0 / math.sqrt(ntr), dtype=dt, device=x_train.device)
+    (b,) = _fixed_loop(30, power_step, (b,))
     step = (1.0 / (torch.sum(b * k_times(b), dim=-1) * 1.02 + tiny))[:, None]
 
     def project(v):
-        lo = torch.amin(v, dim=-1, keepdim=True) - cap
-        hi = torch.amax(v, dim=-1, keepdim=True)
-        for _ in range(60):
+        def bisect(i, lo, hi):
             mid = 0.5 * (lo + hi)
             above = torch.sum(torch.clamp(v - mid, 0.0, cap), dim=-1, keepdim=True) > 1.0
-            lo, hi = torch.where(above, mid, lo), torch.where(above, hi, mid)
+            return torch.where(above, mid, lo), torch.where(above, hi, mid)
+
+        lo, hi = _fixed_loop(60, bisect, (torch.amin(v, dim=-1, keepdim=True) - cap,
+                                          torch.amax(v, dim=-1, keepdim=True)))
         return torch.clamp(v - 0.5 * (lo + hi), 0.0, cap)
 
-    a = torch.full_like(b, 1.0 / ntr)
-    y = a
-    for coef in _fista_momenta(int(iters), _as_numpy_dtype(dt)):
+    momentum = _loop_table(_fista_momenta(int(iters), _as_numpy_dtype(dt)), dt, x_train.device)
+
+    def fista_step(i, a, y):
         a_new = project(y - step * k_times(y))
-        y = a_new + coef * (a_new - a)
-        a = a_new
+        return a_new, a_new + momentum(i) * (a_new - a)
+
+    a = torch.full_like(b, 1.0 / ntr)
+    a, _ = _fixed_loop(int(iters), fista_step, (a, a))
     f_tr = k_times(a)
     tol = cap * 1e-3
     margin = (a > tol) & (a < cap - tol)
@@ -1155,15 +1202,18 @@ def sos_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.T
         sumq = torch.clamp_min(torch.sum(q, dim=-1), tiny)
         return torch.log(sumq) + beta * torch.sum(dshift * q, dim=-1) / sumq, sumq
 
-    beta = torch.ones(dmin.shape, dtype=dt, device=x_train.device)
-    lo, hi = torch.zeros_like(beta), torch.full_like(beta, torch.inf)
-    for _ in range(int(iters)):
+    def bisect(i, beta, lo, hi):
         too_spread = entropy_sumq(beta)[0] > log_u  # raise beta to sharpen
         lo = torch.where(too_spread, beta, lo)
         hi = torch.where(too_spread, hi, beta)
         half = 0.5 * (lo + hi)
         beta = torch.where(too_spread, torch.where(torch.isinf(hi), beta * 2.0, half),
                            torch.where(lo == 0.0, beta * 0.5, half))
+        return beta, lo, hi
+
+    beta = torch.ones(dmin.shape, dtype=dt, device=x_train.device)
+    beta, _, _ = _fixed_loop(int(iters), bisect,
+                             (beta, torch.zeros_like(beta), torch.full_like(beta, torch.inf)))
     sumq = entropy_sumq(beta)[1]
     del dshift
     log_sum_a = (-beta * dmin + torch.log(sumq))[..., None]  # log sum_{j != i} a_ij
@@ -1482,31 +1532,46 @@ def gmm_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.T
     return out[0] if mask.ndim == 1 else out
 
 
-def _adam_train(loss_fn, params: list, epochs: int, lr: float) -> None:
-    """Full-batch Adam on the leaf tensors ``params`` in place, the JAX
-    package's step ``p - lr sqrt(1 - b2^t) / (1 - b1^t) m / (sqrt(v) +
-    eps)`` with eps 1e-8 on the raw ``sqrt(v)`` (``torch.optim.Adam`` puts
-    eps elsewhere, and the two drift apart over tens of epochs). The step
-    size is formed in the parameters' dtype. ``loss_fn(params)`` is the sum
-    of independent per-mask losses, so each mask's gradient is its own.
-    Trains under a caller's ``torch.no_grad()`` too."""
+def _adam_train(loss_fn, params: list, epochs: int, lr: float, grad_fn=None) -> list:
+    """Full-batch Adam on ``params``, the JAX package's step ``p - lr sqrt(1
+    - b2^t) / (1 - b1^t) m / (sqrt(v) + eps)`` with eps 1e-8 on the raw
+    ``sqrt(v)`` (``torch.optim.Adam`` puts eps elsewhere, and the two drift
+    apart over tens of epochs). The step size is formed in the parameters'
+    dtype. ``loss_fn(params)`` is the sum of independent per-mask losses, so
+    each mask's gradient is its own. Returns the trained parameters.
+
+    Eagerly ``params`` are leaf tensors that require grad, trained in place
+    by ``torch.autograd.grad`` of ``loss_fn`` and multi-tensor ops (a few
+    launches a step for every tensor), under a caller's ``torch.no_grad()``
+    too. ``torch.export`` cannot trace ``torch.autograd.grad`` (nor
+    ``torch.func.grad``, whose constants leak out of the trace), so there
+    ``grad_fn(params)`` gives the gradients, written out as autograd forms
+    them, and the same arithmetic runs on new tensors."""
     b1, b2, eps = 0.9, 0.999, 1e-8
     np_dt = _as_numpy_dtype(params[0].dtype)
     one = np_dt(1.0)
     m = [torch.zeros_like(p) for p in params]
     v = [torch.zeros_like(p) for p in params]
+    exporting = torch.compiler.is_exporting()
     for t in range(int(epochs)):
-        with torch.enable_grad():
-            grads = torch.autograd.grad(loss_fn(params), params)
         tf = np_dt(t + 1)
         size = float(np_dt(lr) * np.sqrt(one - np_dt(b2) ** tf) / (one - np_dt(b1) ** tf))
-        with torch.no_grad():  # multi-tensor ops: a few launches a step for every tensor
+        if exporting:
+            grads = grad_fn(params)
+            m = [mi * b1 + g * (1 - b1) for mi, g in zip(m, grads)]
+            v = [vi * b2 + g * (1 - b2) * g for vi, g in zip(v, grads)]
+            params = [p - mi * size / (torch.sqrt(vi) + eps) for p, mi, vi in zip(params, m, v)]
+            continue
+        with torch.enable_grad():
+            grads = torch.autograd.grad(loss_fn(params), params)
+        with torch.no_grad():
             torch._foreach_mul_(m, b1)
             torch._foreach_add_(m, torch._foreach_mul(grads, 1 - b1))
             torch._foreach_mul_(v, b2)
             torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(grads, 1 - b2), grads))
             denom = torch._foreach_add(torch._foreach_sqrt(v), eps)
             torch._foreach_sub_(params, torch._foreach_div(torch._foreach_mul(m, size), denom))
+    return params
 
 
 @functools.lru_cache(maxsize=None)
@@ -1520,24 +1585,47 @@ def _glorot_weights(widths: tuple, seed: int) -> tuple:
 
 
 def _mask_weights(widths: tuple, seed: int, c: int, like: torch.Tensor) -> list:
-    """(c, in, out) leaf copies of :func:`_glorot_weights`, one a mask."""
+    """(c, in, out) copies of :func:`_glorot_weights`, one a mask: leaves
+    that require grad, except under ``torch.export`` (see
+    :func:`_adam_train`)."""
+    grad = not torch.compiler.is_exporting()
     return [torch.as_tensor(w, dtype=like.dtype, device=like.device).expand(c, -1, -1).clone()
-            .requires_grad_(True) for w in _glorot_weights(widths, int(seed))]
+            .requires_grad_(grad) for w in _glorot_weights(widths, int(seed))]
 
 
-def _mlp(params: list, z: torch.Tensor, biases: bool) -> torch.Tensor:
+def _mlp(params: list, z: torch.Tensor, biases: bool, inputs: Optional[list] = None
+         ) -> torch.Tensor:
     """The batched MLP ``(c, n, in) -> (c, n, out)``, ReLU between layers, a
-    linear last layer; ``params`` alternate weight and bias when ``biases``."""
+    linear last layer; ``params`` alternate weight and bias when ``biases``.
+    ``inputs`` (a list) receives each layer's input."""
     step = 2 if biases else 1
     n_layers = len(params) // step
     a = z
     for i in range(n_layers):
+        if inputs is not None:
+            inputs.append(a)
         a = a @ params[step * i]
         if biases:
             a = a + params[step * i + 1]
         if i < n_layers - 1:
             a = torch.relu(a)
     return a
+
+
+def _mlp_backward(params: list, inputs: list, g: torch.Tensor, biases: bool) -> list:
+    """The gradients of :func:`_mlp`'s ``params`` from ``g`` = d loss / d
+    output and the layers' ``inputs``, by the ops autograd's backward runs:
+    ``bmm`` with the transposed operand, the bias gradient summed over the
+    rows, ReLU's gradient kept where its output is positive."""
+    step = 2 if biases else 1
+    grads = [None] * len(params)
+    for i in reversed(range(len(params) // step)):
+        if biases:
+            grads[step * i + 1] = torch.sum(g, dim=1, keepdim=True)
+        grads[step * i] = torch.bmm(inputs[i].mT, g)
+        if i > 0:
+            g = torch.where(inputs[i] > 0, torch.bmm(g, params[step * i].mT), 0.0)
+    return grads
 
 
 def ae_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Tensor,
@@ -1565,13 +1653,19 @@ def ae_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Te
     params = []
     for w in weights:
         params += [w, torch.zeros((c, 1, w.shape[-1]), dtype=w.dtype, device=w.device,
-                                  requires_grad=True)]
+                                  requires_grad=w.requires_grad)]
     mc = m[:, None, :]
 
     def loss(ps):
         return torch.sum(torch.sum((_mlp(ps, z_tr, True) * mc - z_tr) ** 2, dim=(1, 2)) / norm)
 
-    _adam_train(loss, params, epochs, lr)
+    def grad(ps):
+        inputs = []
+        r = _mlp(ps, z_tr, True, inputs) * mc - z_tr
+        g = (torch.ones_like(norm) / norm)[:, None, None] * (2.0 * r) * mc
+        return _mlp_backward(ps, inputs, g, True)
+
+    params = _adam_train(loss, params, epochs, lr, grad)
     with torch.no_grad():
         out = torch.sqrt(torch.sum((_mlp(params, z_te, True) * mc - z_te) ** 2, dim=-1))
     return out[0] if mask.ndim == 1 else out
@@ -1614,7 +1708,16 @@ def dsvdd_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch
         sq = torch.mean(torch.sum((_mlp(ps, z_tr, False) - centre) ** 2, dim=-1), dim=-1)
         return torch.sum(sq + weight_decay * sum(torch.sum(w * w, dim=(1, 2)) for w in ps))
 
-    _adam_train(loss, params, epochs, lr)
+    def grad(ps):
+        inputs = []
+        diff = _mlp(ps, z_tr, False, inputs) - centre
+        inv_n = torch.ones((), dtype=diff.dtype, device=diff.device) / ntr
+        gs = _mlp_backward(ps, inputs, inv_n * (2.0 * diff), False)
+        # weight decay: w * w sends grad * w twice, before the network's term
+        decay = [torch.full((), weight_decay, dtype=w.dtype, device=w.device) * w for w in ps]
+        return [(dw + dw) + gw for dw, gw in zip(decay, gs)]
+
+    params = _adam_train(loss, params, epochs, lr, grad)
     with torch.no_grad():
         out = torch.sum((_mlp(params, z_te, False) - centre) ** 2, dim=-1)
     return out[0] if mask.ndim == 1 else out
@@ -1831,6 +1934,33 @@ def _reduce(s: torch.Tensor, proba: torch.Tensor, aggregation: str) -> torch.Ten
     return torch.sum(proba[:, None] * s, dim=0)
 
 
+def _chunked_scores(x_test: torch.Tensor, x_train: torch.Tensor, masks: torch.Tensor,
+                    proba: torch.Tensor, scorer, k: int, aggregation: str,
+                    normalize: Optional[str]) -> torch.Tensor:
+    """The generic path's (nt,) aggregated scores over ``(n_chunks, chunk,
+    d)`` masks and ``(n_chunks, chunk)`` weights: each chunk scored in one
+    batched call, z-scored under 'zscore', reduced by :func:`_reduce`, and
+    the chunks summed ('average') or maxed ('max'). Shared by
+    ``SubspaceEnsemble`` and the serving exporters (a program holds one
+    copy of a chunk's graph a chunk)."""
+    out = None
+    for mk, pk in zip(masks, proba):
+        s = scorer(x_test, x_train, mk, k)
+        if normalize == "zscore":
+            s = _zscore(s)
+        part = _reduce(s, pk, aggregation)
+        out = part if out is None else (torch.maximum(out, part) if aggregation == "max"
+                                        else out + part)
+    return out
+
+
+def _chunked_raw(x_test: torch.Tensor, x_train: torch.Tensor, masks: torch.Tensor, scorer,
+                 k: int) -> torch.Tensor:
+    """The generic path's raw ``(n_chunks, chunk, nt)`` scores over ``(n_chunks,
+    chunk, d)`` masks, one batched call a chunk (padding rows included)."""
+    return torch.stack([scorer(x_test, x_train, mk, k) for mk in masks])
+
+
 def _bucket_aggregate(s: np.ndarray, proba: np.ndarray, aggregation: str, n_buckets: int,
                       seed: int = 0):
     """AOM / MOA bucketed combination (the combo library's other two
@@ -1964,6 +2094,32 @@ def _scorer_and_k(base: str, *, k: int, n_trees: int = 100, n_projections: int =
                        covariance=str(gmm_covariance)), 0
     scorers = _BASE_SCORERS_EXCL if exclude_self else _BASE_SCORERS
     return scorers[base], (n_trees if base == "iforest" else k)
+
+
+def _scorer_with_draws(base: str, ntr: int, d: int, device, **params):
+    """:func:`_scorer_and_k` with the base's seeded torch draws made now, on
+    ``device``, and bound as arguments: iforest's forest, loda's directions,
+    cblof's and gmm's centroid draws; the other bases draw with numpy, which
+    a trace holds as constants. The serving exporters use it: under
+    ``torch.export`` a draw from a ``torch.Generator`` inside the traced
+    function is recorded as a random op (other values on every call of the
+    program), and a cached draw first made under the trace would cache a
+    traced tensor."""
+    scorer, k = _scorer_and_k(base, **params)
+    if base == "iforest":
+        draws = draw_iforest(ntr, int(k)).to(device)
+        return functools.partial(scorer, draws=draws), k
+    if base == "loda":
+        directions = draw_loda_directions(d, int(params["n_projections"]),
+                                          int(params["projection_seed"]), device, torch.float32)
+        return functools.partial(scorer, directions=directions), k
+    if base in ("cblof", "gmm"):
+        draws = draw_centroids(ntr, int(params["n_clusters"]), str(params["cluster_init"]),
+                               int(params["cluster_seed"]))
+        # copies: a slice of a larger draw would be saved with no whole tensor
+        draws = CentroidDraws(*(None if t is None else t.to(device, copy=True) for t in draws))
+        return functools.partial(scorer, draws=draws), k
+    return scorer, k
 
 
 # The constructor's knobs that the scorers read, in its order.
@@ -2534,18 +2690,10 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         masks_np, proba_np = _chunked_masks(self.subspaces, self._combining_weights(), chunk)
         masks = torch.as_tensor(masks_np, dtype=torch.float32, device=self.device)
         if not reduce:
-            return torch.stack([scorer(x_test, self._x_train, mk, k) for mk in masks])
+            return _chunked_raw(x_test, self._x_train, masks, scorer, k)
         proba = torch.as_tensor(proba_np, device=self.device)
-        agg = self._reduce_aggregation
-        out = None
-        for mk, pk in zip(masks, proba):
-            s = scorer(x_test, self._x_train, mk, k)
-            if self.normalize == "zscore":
-                s = _zscore(s)
-            part = _reduce(s, pk, agg)
-            out = part if out is None else (torch.maximum(out, part) if agg == "max"
-                                            else out + part)
-        return out
+        return _chunked_scores(x_test, self._x_train, masks, proba, scorer, k,
+                               self._reduce_aggregation, self.normalize)
 
     def _knn_kernel_route(self, x_test: torch.Tensor, exclude_self: bool) -> bool:
         """Do this base and these shapes take the fused KNN kernel (K6 or K7)?"""
