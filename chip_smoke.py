@@ -279,9 +279,7 @@ DISTILL_FRAC, GCV_MARGIN_MIN = 1e-5, 1e-4
 # (bench.py:472-493); kpca (the full kernel, pyod's default: one (1000, 1000)
 # eigh a mask), ocsvm (300 FISTA steps of 60 bisection steps, a few hundred
 # launches a step), ae and dsvdd (50 Adam epochs) on the first
-# FEW_MASKS masks, ocsvm on its first OCSVM_MASKS (two chunks: a call on
-# 128 masks took 14 s, and the phase makes a dozen, which kept the whole
-# smoke from its time); lof, iforest, copod and the matmul-shaped kde, cblof,
+# FEW_MASKS masks; lof, iforest, copod and the matmul-shaped kde, cblof,
 # gmm, loda, inne, sampling, lmdd and sod once more on the stress ensemble
 # (mcd, pca and kpca would factor a (10240, 10240) matrix a mask; ocsvm and
 # sos are 300 x 60 and 64 launch-bound steps over (2000, 2000) kernels a
@@ -293,7 +291,6 @@ OTHER_BASES = ("lof", "abod", "cof", "iforest", "mahalanobis", "copod", "hbos", 
 NEIGHBOR_BASES = ("lof", "abod", "cof")
 IFOREST_BENCH = dict(n_masks=256, n_trees=100, chunk=32)
 FEW_MASKS, FEW_MASK_BASES = 128, ("kpca", "ocsvm", "ae", "dsvdd")
-OCSVM_MASKS = 50
 # phase 3g: the bench data's per-subspace and heterogeneous programs
 SERVING_MASKS = 32
 STRESS_BASES = ("lof", "iforest", "copod", "kde", "cblof", "gmm", "loda", "inne", "sampling",
@@ -1238,15 +1235,13 @@ def bench_data():
 def base_config(base: str, subs):
     """(masks, constructor keywords) of a base on the bench data: iforest
     at bench.py's configuration, FEW_MASK_BASES on the first FEW_MASKS
-    masks (ocsvm on OCSVM_MASKS), the others on every mask; all at the
-    bench ensemble's k (read by the neighbour bases only) and every other
-    knob at its default."""
+    masks, the others on every mask; all at the bench ensemble's k (read by
+    the neighbour bases only) and every other knob at its default."""
     if base == "iforest":
         cfg = IFOREST_BENCH
         return subs[:cfg["n_masks"]], dict(n_trees=cfg["n_trees"], chunk=cfg["chunk"])
     if base in FEW_MASK_BASES:
-        n = OCSVM_MASKS if base == "ocsvm" else FEW_MASKS
-        return subs[:n], dict(k=BENCH_ENSEMBLE["k"])
+        return subs[:FEW_MASKS], dict(k=BENCH_ENSEMBLE["k"])
     return subs, dict(k=BENCH_ENSEMBLE["k"])
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The live scorers whose loops run through ``od._fixed_loop`` or
-``_adam_train``'s export branch (ocsvm, sos, ae, dsvdd) against the same
-scorers of another tree, on one NVIDIA GPU, in turns.
+"""The live scorers whose loops run through ``od._fixed_loop`` (ocsvm, sos)
+or whose Adam steps take ``_mlp_backward``'s gradients (ae, dsvdd) against
+the same scorers of another tree, on one NVIDIA GPU, in turns.
 
     python3 examples/torch_live_loops_probe.py --other DIR [--pairs 5]
 

@@ -93,14 +93,38 @@ def test_adam_step_is_the_jax_step():
     """Two steps of :func:`_adam_train` on ``sum(p^2 / 2)`` (gradient p),
     written out: eps on the raw sqrt(v), bias corrections in the step."""
     p0 = torch.tensor([[1.0, -2.0, 1e-9]], dtype=torch.float64)
-    p = p0.clone().requires_grad_(True)
-    TOD._adam_train(lambda ps: torch.sum(ps[0] ** 2) / 2, [p], 2, 0.1)
+    (p,) = TOD._adam_train(lambda ps: [ps[0]], [p0.clone()], 2, 0.1)
     want, m, v = p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)
     for t in (1, 2):
         g = want.clone()
         m, v = 0.9 * m + 0.1 * g, 0.999 * v + (1 - 0.999) * g * g
         want = want - 0.1 * np.sqrt(1 - 0.999**t) / (1 - 0.9**t) * m / (torch.sqrt(v) + 1e-8)
-    np.testing.assert_allclose(p.detach().numpy(), want.numpy(), rtol=1e-14)
+    np.testing.assert_allclose(p.numpy(), want.numpy(), rtol=1e-14)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("biases", [True, False])
+def test_mlp_backward_is_autograd(biases, dtype):
+    """:func:`_mlp_backward`, the gradients ae and dsvdd train on (live and
+    in an exported program), equals ``torch.autograd.grad`` of the batched
+    MLP to the bit, ReLU's zeros included."""
+    rng = np.random.default_rng(15)
+    widths, c, n = (6, 5, 3, 6), 4, 9
+    params = []
+    for a, b in zip(widths[:-1], widths[1:]):
+        params.append(torch.tensor(rng.normal(size=(c, a, b)), dtype=dtype))
+        if biases:
+            params.append(torch.tensor(rng.normal(size=(c, 1, b)), dtype=dtype))
+    z = torch.tensor(rng.normal(size=(c, n, widths[0])), dtype=dtype)
+    g = torch.tensor(rng.normal(size=(c, n, widths[-1])), dtype=dtype)
+    leaves = [p.clone().requires_grad_(True) for p in params]
+    want = torch.autograd.grad(torch.sum(TOD._mlp(leaves, z, biases) * g), leaves)
+    inputs = []
+    TOD._mlp(params, z, biases, inputs)
+    got = TOD._mlp_backward(params, inputs, g, biases)
+    assert any(torch.any(i == 0) for i in inputs[1:])
+    for w, h in zip(want, got):
+        np.testing.assert_array_equal(h.numpy(), w.numpy())
 
 
 def test_scorer_guards():

@@ -1532,45 +1532,32 @@ def gmm_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.T
     return out[0] if mask.ndim == 1 else out
 
 
-def _adam_train(loss_fn, params: list, epochs: int, lr: float, grad_fn=None) -> list:
+def _adam_train(grad_fn, params: list, epochs: int, lr: float) -> list:
     """Full-batch Adam on ``params``, the JAX package's step ``p - lr sqrt(1
     - b2^t) / (1 - b1^t) m / (sqrt(v) + eps)`` with eps 1e-8 on the raw
     ``sqrt(v)`` (``torch.optim.Adam`` puts eps elsewhere, and the two drift
     apart over tens of epochs). The step size is formed in the parameters'
-    dtype. ``loss_fn(params)`` is the sum of independent per-mask losses, so
-    each mask's gradient is its own. Returns the trained parameters.
-
-    Eagerly ``params`` are leaf tensors that require grad, trained in place
-    by ``torch.autograd.grad`` of ``loss_fn`` and multi-tensor ops (a few
-    launches a step for every tensor), under a caller's ``torch.no_grad()``
-    too. ``torch.export`` cannot trace ``torch.autograd.grad`` (nor
-    ``torch.func.grad``, whose constants leak out of the trace), so there
-    ``grad_fn(params)`` gives the gradients, written out as autograd forms
-    them, and the same arithmetic runs on new tensors."""
+    dtype. ``grad_fn(params)`` gives the gradients of a sum of independent
+    per-mask losses, so each mask's gradient is its own, written out as
+    autograd forms them (:func:`_mlp_backward`): ``torch.export`` traces
+    neither ``torch.autograd.grad`` nor ``torch.func.grad``, so the live
+    call and an exported program run the same ops. The update is
+    multi-tensor (a few launches a step for every tensor) on new tensors.
+    Returns the trained parameters."""
     b1, b2, eps = 0.9, 0.999, 1e-8
     np_dt = _as_numpy_dtype(params[0].dtype)
     one = np_dt(1.0)
     m = [torch.zeros_like(p) for p in params]
     v = [torch.zeros_like(p) for p in params]
-    exporting = torch.compiler.is_exporting()
     for t in range(int(epochs)):
         tf = np_dt(t + 1)
         size = float(np_dt(lr) * np.sqrt(one - np_dt(b2) ** tf) / (one - np_dt(b1) ** tf))
-        if exporting:
-            grads = grad_fn(params)
-            m = [mi * b1 + g * (1 - b1) for mi, g in zip(m, grads)]
-            v = [vi * b2 + g * (1 - b2) * g for vi, g in zip(v, grads)]
-            params = [p - mi * size / (torch.sqrt(vi) + eps) for p, mi, vi in zip(params, m, v)]
-            continue
-        with torch.enable_grad():
-            grads = torch.autograd.grad(loss_fn(params), params)
-        with torch.no_grad():
-            torch._foreach_mul_(m, b1)
-            torch._foreach_add_(m, torch._foreach_mul(grads, 1 - b1))
-            torch._foreach_mul_(v, b2)
-            torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(grads, 1 - b2), grads))
-            denom = torch._foreach_add(torch._foreach_sqrt(v), eps)
-            torch._foreach_sub_(params, torch._foreach_div(torch._foreach_mul(m, size), denom))
+        grads = grad_fn(params)
+        m = torch._foreach_add(torch._foreach_mul(m, b1), torch._foreach_mul(grads, 1 - b1))
+        v = torch._foreach_add(torch._foreach_mul(v, b2),
+                               torch._foreach_mul(torch._foreach_mul(grads, 1 - b2), grads))
+        denom = torch._foreach_add(torch._foreach_sqrt(v), eps)
+        params = torch._foreach_sub(params, torch._foreach_div(torch._foreach_mul(m, size), denom))
     return params
 
 
@@ -1585,12 +1572,9 @@ def _glorot_weights(widths: tuple, seed: int) -> tuple:
 
 
 def _mask_weights(widths: tuple, seed: int, c: int, like: torch.Tensor) -> list:
-    """(c, in, out) copies of :func:`_glorot_weights`, one a mask: leaves
-    that require grad, except under ``torch.export`` (see
-    :func:`_adam_train`)."""
-    grad = not torch.compiler.is_exporting()
+    """(c, in, out) copies of :func:`_glorot_weights`, one a mask."""
     return [torch.as_tensor(w, dtype=like.dtype, device=like.device).expand(c, -1, -1).clone()
-            .requires_grad_(grad) for w in _glorot_weights(widths, int(seed))]
+            for w in _glorot_weights(widths, int(seed))]
 
 
 def _mlp(params: list, z: torch.Tensor, biases: bool, inputs: Optional[list] = None
@@ -1652,22 +1636,17 @@ def ae_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch.Te
     weights = _mask_weights((d, *hidden, *reversed(hidden[:-1]), d), seed, c, x_train)
     params = []
     for w in weights:
-        params += [w, torch.zeros((c, 1, w.shape[-1]), dtype=w.dtype, device=w.device,
-                                  requires_grad=w.requires_grad)]
+        params += [w, torch.zeros((c, 1, w.shape[-1]), dtype=w.dtype, device=w.device)]
     mc = m[:, None, :]
 
-    def loss(ps):
-        return torch.sum(torch.sum((_mlp(ps, z_tr, True) * mc - z_tr) ** 2, dim=(1, 2)) / norm)
-
-    def grad(ps):
+    def grad(ps):  # of sum((mlp(ps, z_tr) * mc - z_tr)^2 / norm)
         inputs = []
         r = _mlp(ps, z_tr, True, inputs) * mc - z_tr
         g = (torch.ones_like(norm) / norm)[:, None, None] * (2.0 * r) * mc
         return _mlp_backward(ps, inputs, g, True)
 
-    params = _adam_train(loss, params, epochs, lr, grad)
-    with torch.no_grad():
-        out = torch.sqrt(torch.sum((_mlp(params, z_te, True) * mc - z_te) ** 2, dim=-1))
+    params = _adam_train(grad, params, epochs, lr)
+    out = torch.sqrt(torch.sum((_mlp(params, z_te, True) * mc - z_te) ** 2, dim=-1))
     return out[0] if mask.ndim == 1 else out
 
 
@@ -1693,22 +1672,17 @@ def dsvdd_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch
     m = _as_batch(mask, x_train)
     z_tr, z_te = _masked_standardize(x_test, x_train, m)
     params = _mask_weights((d, *(int(h) for h in hidden)), seed, m.shape[0], x_train)
-    with torch.no_grad():
-        c0 = torch.mean(_mlp(params, z_tr, False), dim=1, keepdim=True)
-        eps = torch.full_like(c0, 0.1)
-        centre = torch.where(torch.abs(c0) < eps, torch.where(c0 < 0, -eps, eps), c0)
-        if margins is not None:
-            scale = torch.clamp_min(torch.mean(torch.abs(_mlp(params, z_tr, False)), dim=1,
-                                               keepdim=True), 1e-30)
-            sign = torch.where(c0 == 0, torch.inf, torch.abs(c0))
-            margins.append(torch.amin(torch.minimum(torch.abs(torch.abs(c0) - 0.1), sign)
-                                      / scale, dim=(1, 2)))
+    c0 = torch.mean(_mlp(params, z_tr, False), dim=1, keepdim=True)
+    eps = torch.full_like(c0, 0.1)
+    centre = torch.where(torch.abs(c0) < eps, torch.where(c0 < 0, -eps, eps), c0)
+    if margins is not None:
+        scale = torch.clamp_min(torch.mean(torch.abs(_mlp(params, z_tr, False)), dim=1,
+                                           keepdim=True), 1e-30)
+        sign = torch.where(c0 == 0, torch.inf, torch.abs(c0))
+        margins.append(torch.amin(torch.minimum(torch.abs(torch.abs(c0) - 0.1), sign)
+                                  / scale, dim=(1, 2)))
 
-    def loss(ps):
-        sq = torch.mean(torch.sum((_mlp(ps, z_tr, False) - centre) ** 2, dim=-1), dim=-1)
-        return torch.sum(sq + weight_decay * sum(torch.sum(w * w, dim=(1, 2)) for w in ps))
-
-    def grad(ps):
+    def grad(ps):  # of sum(mean |mlp(ps, z_tr) - centre|^2 + weight_decay |ps|^2)
         inputs = []
         diff = _mlp(ps, z_tr, False, inputs) - centre
         inv_n = torch.ones((), dtype=diff.dtype, device=diff.device) / ntr
@@ -1717,9 +1691,8 @@ def dsvdd_scores_masked(x_test: torch.Tensor, x_train: torch.Tensor, mask: torch
         decay = [torch.full((), weight_decay, dtype=w.dtype, device=w.device) * w for w in ps]
         return [(dw + dw) + gw for dw, gw in zip(decay, gs)]
 
-    params = _adam_train(loss, params, epochs, lr, grad)
-    with torch.no_grad():
-        out = torch.sum((_mlp(params, z_te, False) - centre) ** 2, dim=-1)
+    params = _adam_train(grad, params, epochs, lr)
+    out = torch.sum((_mlp(params, z_te, False) - centre) ** 2, dim=-1)
     return out[0] if mask.ndim == 1 else out
 
 
