@@ -90,6 +90,16 @@ Phases (each asserts; any failure exits non-zero):
    'average', 'select', knn distilled) within phase 3f's row limits, and
    the iforest, loda and ocsvm programs on 16 masks within phase 3e's. Each
    loaded program is called twice for the same bits and launches no kernel;
+3h. the multi-device paths in a world of one: an NCCL group of one rank
+   over loopback and a ``make_mesh(data=1, model=1)`` mesh; the
+   data-parallel no-kl and kl stress fits with ``shard_features`` (K2 8
+   launches; K1 and K3), their loss histories held to phases 3 and 3b;
+   ``check_if_myopic`` on the kl mesh model at phase 3b's counts (K5 on the
+   sharded permutation rows), its p-values equal to phase 3b's; the stress
+   (K7) and bench (K6) knn ensembles with ``mesh=``, and split into four
+   mask shards run in turn, held to phase 3c's unsharded calls; the CLI's
+   ``fit --mesh data=1 --shard-features`` (K2) and ``score --mesh data=1
+   --base knn`` (K7); ``python3 -m vgan_tpu_torch._dryrun 4``;
 4. the other regimes through ``fit`` (d=1024 flash; d=10240 with the K'
    stash off, panel), and the d=10 notebook configuration of both
    estimators, which runs no kernel. Every kernel fit's losses are held
@@ -160,6 +170,10 @@ GOF_ALPHAS = (0.01, 1.0)
 GOF_RECOMMENDED_ALPHA = 1.1e9
 ORACLE_PERMUTATIONS = 64
 
+# phase 3h: the ensembles' mask axis split into this many shards, whose
+# per-rank bodies run in turn on the one card
+MESH_SHARDS = 4
+
 # Tolerances, each with its reason:
 # quadrant sums: same f32 inputs, sums of m^2 positive terms; the kernel and
 # the plain version differ only in summation order (d-chunk FMA order and
@@ -180,6 +194,11 @@ GRAD_FRAC = 1e-4
 # read 3.8e-7 and 5.2e-7 and the TF32 control 1.2e-5, which the check must
 # refuse.
 TERM_FRAC = 2e-6
+# phase 3h's fits in a world of one against phases 3 and 3b: every
+# collective is over one rank and the step's arithmetic is the
+# single-device step's, so the histories are expected equal to the bit; a
+# sum ordered otherwise may move them by a few ulp, far below this.
+RTOL_MESH_FIT = 1e-5
 # the fit's per-epoch losses on the kernel path vs the dense torch path:
 # eight Adadelta steps compound f32 rounding differences of ~1e-6.
 RTOL_FIT_LOSS = 1e-3
@@ -1015,7 +1034,8 @@ def gof_oracle(x, y, alpha: float, a_rows, device, block: int = 2048):
 
 def phase_kl_main_path(device, n, d, batch, log):
     """The kl stress fit -> sample -> GoF workflow. Returns the launches of
-    K1 and K3 in the kl fit and of K5 in check_if_myopic."""
+    K1 and K3 in the kl fit and of K5 in check_if_myopic, and the fit's loss
+    history and the GoF p-values (phase 3h holds its mesh runs to them)."""
     from vgan_tpu_torch import VGAN
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
     from vgan_tpu_torch.ops.mmd_test import (
@@ -1025,8 +1045,8 @@ def phase_kl_main_path(device, n, d, batch, log):
 
     X = np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)
     steps = n // batch  # per epoch: phases [detector, generator]
-    model, counts, _ = fit_against_dense(X, device, "kl stress fit", log, cls=VGAN,
-                                         epochs=2, batch_size=batch)
+    model, counts, kl_losses = fit_against_dense(X, device, "kl stress fit", log, cls=VGAN,
+                                                 epochs=2, batch_size=batch)
     want = {"gram_quadrant_sums": 2 * steps, "gram_quadrant_sums_stash": 0,
             "gram_backward_flash": steps, "kprime_panel": 0}
     check(counts == want, f"kl stress fit launches {counts}, expected {want}")
@@ -1077,7 +1097,7 @@ def phase_kl_main_path(device, n, d, batch, log):
         f"(|d stat| {abs(float(s64[0]) - s_or):.2e}); float32 route stat {s32:.9e} "
         f"(rel {abs(s32 - float(s64[0])) / abs(float(s64[0])):.2e})")
     launches["a_times_k"] = k5
-    return launches
+    return launches, {"losses": kl_losses, "pvals": pvals}
 
 
 def phase_fused_main_path(device, log):
@@ -2110,6 +2130,201 @@ def phase_serving(device, model, X, log) -> dict:
                 f"limits from {float(lim.min()):.3e}); two calls equal")
     gc.unfreeze()
     log(f"  phase 3g: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def same_history(label: str, got, want) -> str:
+    """``got`` equal to ``want`` to the bit, or within RTOL_MESH_FIT."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape, f"{label}: history {got.shape} vs {want.shape}")
+    if np.array_equal(got, want, equal_nan=True):
+        return "equal to the bit"
+    check(np.allclose(got, want, rtol=RTOL_MESH_FIT, atol=0.0, equal_nan=True),
+          f"{label}: {got.tolist()} vs {want.tolist()}")
+    seen = np.isfinite(want)
+    gap = float(np.max(np.abs(got[seen] - want[seen]) / np.abs(want[seen])))
+    return f"within {gap:.3e} relative (limit {RTOL_MESH_FIT})"
+
+
+def phase_multidevice(device, n, d, batch, main_losses, kl_results, runs, log) -> dict:
+    """The multi-device paths (``vgan_tpu_torch.parallel``) on the card, in
+    an NCCL group of one rank over loopback (the one card of this machine):
+    the data-parallel no-kl and kl stress fits with the columns sharded
+    (K2; K1 and K3), held to phases 3 and 3b; ``check_if_myopic`` on the kl
+    mesh model at phase 3b's counts (K5 on the sharded permutation rows),
+    held to phase 3b's p-values; the stress (K7) and bench (K6) knn
+    ensembles with ``mesh=``, and each split into MESH_SHARDS mask shards
+    whose per-rank bodies run in turn, held to phase 3c's unsharded calls;
+    the CLI's ``fit --mesh data=1 --shard-features`` (K2) and ``score --mesh
+    data=1`` (K7); ``python3 -m vgan_tpu_torch._dryrun 4`` (gloo CPU ranks).
+    Every item's kernel counts are set to 0 just before it and read just
+    after. Returns the phase's launches of each kernel."""
+    import torch.distributed as dist
+
+    from vgan_tpu_torch import VGAN, SubspaceEnsemble, VGAN_no_kl
+    from vgan_tpu_torch.ops.cuda import gof_gram as GG
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
+    from vgan_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+
+    torch.cuda.set_device(device.index or 0)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(data=1, model=1)
+        probe = torch.arange(4.0, device=device)
+        dist.all_reduce(probe)
+        sync()
+        check(dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+              and probe.tolist() == [0.0, 1.0, 2.0, 3.0],
+              f"NCCL world of one: backend {dist.get_backend()}, mesh on {mesh.device_type}")
+        log(f"  NCCL group of one over loopback, mesh {tuple(mesh.shape)} "
+            f"{mesh.mesh_dim_names} on {mesh.device_type}, an all_reduce on the card: "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        X = np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)  # phase 3's rows
+        steps = 2 * (n // batch)
+        zero = {"gram_quadrant_sums": 0, "gram_quadrant_sums_stash": 0,
+                "gram_backward_flash": 0, "kprime_panel": 0}
+        # each dp fit right after the same fit unsharded (warm), for its time
+        plain_sec = fit_counts(X, device, epochs=2, batch_size=batch)[3]
+        _, counts, losses, sec = fit_counts(X, device, epochs=2, batch_size=batch, mesh=mesh,
+                                            shard_features=True)
+        want = dict(zero, gram_quadrant_sums_stash=steps)
+        check(counts == want, f"dp no-kl stress fit launched {counts}, expected {want}")
+        add(counts)
+        log(f"  dp no-kl stress fit (mesh data=1 model=1, shard_features): {sec:.2f} s (the "
+            f"unsharded fit just before: {plain_sec:.2f} s), launches {counts}; losses "
+            f"{losses.tolist()}, "
+            f"{same_history('dp no-kl stress fit', losses, main_losses)} to phase 3's")
+
+        plain_sec = fit_counts(X, device, cls=VGAN, epochs=2, batch_size=batch)[3]
+        kl_model, counts, losses, sec = fit_counts(X, device, cls=VGAN, epochs=2,
+                                                   batch_size=batch, mesh=mesh,
+                                                   shard_features=True)
+        want = dict(zero, gram_quadrant_sums=2 * (n // batch), gram_backward_flash=n // batch)
+        check(counts == want, f"dp kl stress fit launched {counts}, expected {want}")
+        add(counts)
+        log(f"  dp kl stress fit (mesh, shard_features): {sec:.2f} s (the unsharded fit just "
+            f"before: {plain_sec:.2f} s), launches {counts}; losses {losses.tolist()}, "
+            f"{same_history('dp kl stress fit', losses, kl_results['losses'])} to phase 3b's")
+
+        Xg = np.random.default_rng(5).standard_normal((GOF_ROWS, d), dtype=np.float32)
+        for count, precision in ((GOF_COUNT_F64, "float64"), (GOF_COUNT_F32, "float32")):
+            sync()
+            GG.reset_launch_counts()
+            t0 = time.perf_counter()
+            p = kl_model.check_if_myopic(Xg, count=count, precision=precision,
+                                         rng=np.random.default_rng(6)).to_numpy().ravel()
+            sync()
+            sec = time.perf_counter() - t0
+            counts = GG.launch_counts()
+            check(counts["a_times_k"] > 0, f"mesh check_if_myopic({precision}) launched no K5")
+            add(counts)
+            check(p.tolist() == kl_results["pvals"][precision],
+                  f"mesh check_if_myopic({precision}) p-values {p.tolist()} vs phase 3b's "
+                  f"{kl_results['pvals'][precision]}")
+            log(f"  check_if_myopic with the mesh, count={count} {precision} (permutation "
+                f"rows sharded over 'data'): {sec:.2f} s, launches {counts}; p-values "
+                f"{p.tolist()} equal to phase 3b's")
+
+        for kind, kernel in (("stress", "knn_scores_stream"), ("bench", "knn_scores_resident")):
+            ens, Xt = runs[kind, "knn"]
+            want = ens.decision_function(Xt)
+            lim = ENSEMBLE_FRAC * float(np.max(np.abs(want)))
+            mesh_ens = SubspaceEnsemble(ens.subspaces, ens.proba, base="knn", k=ens.k,
+                                        mesh=mesh).fit(ens._train_matrix())
+            got, counts, sec = counted(f"{kind} ensemble with mesh",
+                                       lambda: mesh_ens.decision_function(Xt), {kernel: 1})
+            add(counts)
+            err = float(np.max(np.abs(got - want)))
+            check(err <= lim, f"{kind} ensemble with mesh: max abs err {err:.3e} > {lim:.3e}")
+            log(f"  {kind} knn ensemble with mesh= ({len(ens.subspaces)} masks): {sec:.3f} s, "
+                f"launches {counts}; vs phase 3c's unsharded call max abs err {err:.3e} "
+                f"(limit {lim:.3e})")
+            x_dev = mesh_ens._as_device(Xt)
+            parts, counts, sec = counted(
+                f"{kind} ensemble in {MESH_SHARDS} shards",
+                lambda: [mesh_ens._mask_shard(x_dev, False, s, MESH_SHARDS)
+                         for s in range(MESH_SHARDS)],
+                {kernel: MESH_SHARDS})
+            add(counts)
+            got = torch.stack(parts).sum(dim=0).cpu().numpy()  # the shards' 'average' sum
+            err = float(np.max(np.abs(got - want)))
+            check(err <= lim, f"{kind} ensemble in {MESH_SHARDS} shards: max abs err {err:.3e}")
+            log(f"  {kind} knn ensemble as {MESH_SHARDS} mask shards in turn (each rank's "
+                f"body): {sec:.3f} s, launches {counts}; their sum vs the unsharded call max "
+                f"abs err {err:.3e} (limit {lim:.3e})")
+
+        ens, Xt = runs["stress", "knn"]
+        k, nsubs = ens.k, len(ens.subspaces)
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            np.save(tmp / "stress.npy", X)
+            np.save(tmp / "test.npy", Xt)
+            sync()
+            G.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = cli(["fit", "--data", str(tmp / "stress.npy"), "--epochs", "2", "--batch-size",
+                       str(batch), "--mesh", "data=1", "--shard-features", "--out",
+                       str(tmp / "run"), "--quiet"])
+            sync()
+            sec = time.perf_counter() - t0
+            counts = G.launch_counts()
+            check(counts == dict(zero, gram_quadrant_sums_stash=steps),
+                  f"cli fit --mesh launched {counts}")
+            add(counts)
+            gen = tmp / "run" / "models" / "generator_0.pt"
+            final = float(out.split("final loss: ")[1].split()[0])
+            check(gen.is_file(), f"cli fit --mesh wrote no {gen}")
+            log(f"  cli fit --mesh data=1 --shard-features --epochs 2: {sec:.2f} s, launches "
+                f"{counts}; final loss {final!r}, "
+                f"{same_history('cli fit --mesh', [final], main_losses[-1:])} to phase 3's")
+            loaded = VGAN_no_kl(verbose=False)
+            loaded.load_models(gen, ndims=d)
+            _, counts, sec = counted("cli score --mesh", lambda: cli([
+                "score", "--train", str(tmp / "stress.npy"), "--test", str(tmp / "test.npy"),
+                "--generator", str(gen), "--base", "knn", "--subspaces", str(nsubs), "--k",
+                str(k), "--mesh", "data=1", "--out", str(tmp / "scores.npy")]),
+                {"knn_scores_stream": 1})
+            add(counts)
+            got = np.load(tmp / "scores.npy")
+            want = SubspaceEnsemble.from_model(loaded, nsubs, base="knn", k=k).fit(X) \
+                .decision_function(Xt)
+            err = float(np.max(np.abs(got - want)))
+            lim = ENSEMBLE_FRAC * float(np.max(np.abs(want)))
+            check(err <= lim, f"cli score --mesh vs decision_function max abs err {err:.3e}")
+            log(f"  cli score --mesh data=1 --base knn: {sec:.2f} s, launches {counts}; vs the "
+                f"unsharded decision_function max abs err {err:.3e} (limit {lim:.3e})")
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "vgan_tpu_torch._dryrun", "4"],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=Path(__file__).resolve().parent)
+    ok = [line for line in run.stdout.splitlines() if "dryrun_multidevice OK" in line]
+    check(run.returncode == 0 and len(ok) == 1,
+          f"python3 -m vgan_tpu_torch._dryrun 4: rc {run.returncode}\n{run.stderr[-3000:]}")
+    log(f"  python3 -m vgan_tpu_torch._dryrun 4 (gloo CPU ranks, no card): "
+        f"{time.perf_counter() - t0:.2f} s: {ok[0]}")
+    log(f"  phase 3h: {time.perf_counter() - t_phase:.1f} s; {card_identity()}; launches "
+        f"{launches}")
     return launches
 
 
@@ -3371,8 +3586,10 @@ def main(argv=None) -> int:
     log("phase 3: no-kl main path at full width")
     k2_launches, stress_model, X_stress = phase_main_path(device, n, d, batch, log)
 
+    main_losses = np.asarray(stress_model.train_history["generator_loss"])
+
     log("phase 3b: kl main path at full width")
-    kl_launches = phase_kl_main_path(device, n, d, batch, log)
+    kl_launches, kl_results = phase_kl_main_path(device, n, d, batch, log)
 
     log("phase 3c: the subspace ensemble at full width (knn, knn_mean)")
     knn_launches, ensembles = phase_ensembles(device, stress_model, X_stress, log)
@@ -3389,6 +3606,10 @@ def main(argv=None) -> int:
     log("phase 3g: serving and the CLI at full width")
     cli_launches = phase_serving(device, stress_model, X_stress, log)
 
+    log("phase 3h: the multi-device paths in a world of one (NCCL over loopback)")
+    mesh_launches = phase_multidevice(device, n, d, batch, main_losses, kl_results, ensembles,
+                                      log)
+
     log("phase 4: the other regimes through fit, the notebook configurations")
     launches = phase_other_regimes(device, n, d_flash, d, batch, log)
     launches["gram_quadrant_sums_stash"] = k2_launches
@@ -3403,6 +3624,8 @@ def main(argv=None) -> int:
     for row in rows:
         if row["name"] in cli_launches:  # phase 3g's CLI: fit (K2) and score (K7)
             row["launches_cli"] = cli_launches[row["name"]]
+        if row["name"] in mesh_launches:  # phase 3h's sharded paths (K1-K3, K5-K7)
+            row["launches_mesh"] = mesh_launches[row["name"]]
     rows.append(fused_times(device, errs, k8_launches, log))
     if parent_libs:
         log("  against the parent commit's K1-K8 (same inputs, in turns)")

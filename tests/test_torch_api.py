@@ -290,8 +290,19 @@ _LEFT_OUT = [
 @pytest.mark.parametrize("cls,kwargs", [(VGAN_no_kl, kw) for kw in _LEFT_OUT]
                          + [(VGAN, kw) for kw in _LEFT_OUT])
 def test_left_out_options_raise(cls, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cls(device="cpu", **kwargs)
+    """The bf16 options raise, naming ROADMAP.md; ``mesh=`` and
+    ``shard_features=`` are ported (tests/test_torch_parallel.py) and raise
+    only when misused: a mesh that is not a ``DeviceMesh``, or
+    ``shard_features`` without a mesh."""
+    if "mesh" in kwargs:
+        with pytest.raises(TypeError, match="make_mesh"):
+            cls(device="cpu", **kwargs)
+    elif "shard_features" in kwargs:
+        with pytest.raises(ValueError, match="needs mesh="):
+            cls(device="cpu", **kwargs)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cls(device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("cls", [VGAN_no_kl, VGAN])
@@ -396,7 +407,10 @@ def test_port_imports_neither_jax_nor_vgan_tpu():
         "        'vgan_tpu_torch.ensemble.distill', 'vgan_tpu_torch.serving',\n"
         "        'vgan_tpu_torch.cli', 'vgan_tpu_torch.__main__', 'vgan_tpu_torch.data',\n"
         "        'vgan_tpu_torch.io_native', 'vgan_tpu_torch.utils.flax_msgpack',\n"
-        "        'vgan_tpu_torch.utils.profiling'} <= set(names)\n"
+        "        'vgan_tpu_torch.utils.profiling', 'vgan_tpu_torch.parallel',\n"
+        "        'vgan_tpu_torch.parallel.mesh', 'vgan_tpu_torch.parallel.input',\n"
+        "        'vgan_tpu_torch.parallel.ring', 'vgan_tpu_torch.parallel.dp',\n"
+        "        'vgan_tpu_torch._dryrun'} <= set(names)\n"
         "import chip_smoke\n"
         "banned = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'vgan_tpu', 'scipy', 'sklearn')\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in banned)\n"

@@ -34,7 +34,6 @@ from vgan_tpu_torch.ensemble import SubspaceEnsemble
 from vgan_tpu_torch.serving import load_sampler, sample_masks
 from vgan_tpu_torch.utils import flax_msgpack, profiling
 from test_torch_bases import one_torch_thread  # noqa: F401  (module fixture)
-from test_torch_gof_gram import assert_names_parallel_item
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -170,14 +169,18 @@ def test_main_module_runs(rows, tmp_path):
 def test_refusals(rows, tmp_path):
     path, _ = rows
     fit = ["fit", "--data", str(path), "--epochs", "1", "--device", "cpu"]
+    # --mesh is ported (tests/test_torch_parallel.py runs it under gloo); in
+    # this one process a mesh of two devices is oversubscribed, refused
+    # before any process group starts, and a malformed spec stops the CLI
     for extra in (["--mesh", "data=2"], ["--mesh", "data=2", "--shard-features"]):
-        with pytest.raises(NotImplementedError) as raised:
+        with pytest.raises(ValueError, match="devices"):
             TCLI.main(fit + extra)
-        assert_names_parallel_item(str(raised.value))
-    with pytest.raises(NotImplementedError) as raised:
+    with pytest.raises(ValueError, match="devices"):
         TCLI.main(["score", "--train", str(path), "--generator", "g.pt", "--mesh", "data=2",
                    "--device", "cpu"])
-    assert_names_parallel_item(str(raised.value))
+    with pytest.raises(SystemExit, match="data=N"):
+        TCLI.main(fit + ["--mesh", "data=two"])
+    assert not torch.distributed.is_initialized()
     for flag in ("--model-dtype", "--opt-state-dtype", "--gram-dtype"):
         with pytest.raises(NotImplementedError, match="bf16 options"):
             TCLI.main(fit + [flag, "bfloat16"])

@@ -16,7 +16,6 @@ import vgan_tpu.ensemble.od as JOD
 import vgan_tpu_torch.ensemble.od as TOD
 from vgan_tpu.ensemble import SubspaceEnsemble as JaxEnsemble
 from vgan_tpu_torch import SubspaceEnsemble
-from test_torch_gof_gram import assert_names_parallel_item
 
 # Scores are f32 sums over masks of distances formed in another summation
 # order: held to rtol 1e-5 with an atol of 1e-5 of the score scale.
@@ -249,14 +248,14 @@ UNPORTED = [b for b in (*JOD._BASE_SCORERS, *JOD._DIM_BASES, *JOD._PARAM_BASES)
 
 
 def test_unported_bases_and_mesh_raise(data):
-    """No base is left to port: every JAX base name constructs. Only
-    ``mesh=`` raises, naming the ROADMAP item that ports it."""
+    """No base is left to port: every JAX base name constructs. ``mesh=``
+    is ported (tests/test_torch_parallel.py): it raises only for an object
+    that is not a ``DeviceMesh``, naming ``make_mesh``."""
     assert UNPORTED == []
     for base in (*JOD._BASE_SCORERS, *JOD._DIM_BASES, *JOD._PARAM_BASES):
         assert SubspaceEnsemble(data["masks"], data["proba"], base=base, device="cpu").base == base
-    with pytest.raises(NotImplementedError, match="ROADMAP") as raised:
+    with pytest.raises(TypeError, match="make_mesh"):
         SubspaceEnsemble(data["masks"], data["proba"], mesh=object(), device="cpu")
-    assert_names_parallel_item(str(raised.value))
     for kw in (dict(base="nope"), dict(aggregation="mean"), dict(normalize="rank"),
                dict(aggregation="weighted"), dict(test_chunk=0),
                dict(weights=-np.ones(13))):

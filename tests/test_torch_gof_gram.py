@@ -6,7 +6,6 @@ On the CPU ``a_times_k`` returns its plain version; the CUDA kernel itself is
 held to that plain version on the card by chip_smoke.py.
 """
 
-import re
 from pathlib import Path
 
 import jax
@@ -123,26 +122,21 @@ def test_tiled_sweep_draws_from_the_generator_and_blocks_rows(monkeypatch):
     np.testing.assert_array_equal(p3.numpy(), p1.numpy())
 
 
-def assert_names_parallel_item(message: str) -> None:
-    """A refusal of ``mesh=`` names the Queue 1 item of ROADMAP.md that
-    ports ``parallel/``, and that item exists there."""
-    item = re.search(r"ROADMAP\.md Queue 1, item (\d+)", message)
-    assert item is not None, message
+def test_mesh_message_names_a_roadmap_item():
+    """``mesh=`` is ported (ROADMAP.md Queue 1, item 5; held to JAX in
+    tests/test_torch_parallel.py): what it refuses is an object that is not
+    a mesh, and the message names where a mesh comes from."""
+    x, y, _ = _separated_pair(5, 5, 3, seed=6)
+    with pytest.raises(TypeError, match="vgan_tpu_torch.parallel.make_mesh"):
+        TG.mmd_permutation_test_tiled(x, y, [0.1], mesh=object(), device="cpu")
     roadmap = (Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
     queue1 = roadmap.split("### Queue 1")[1].split("### Queue 2")[0]
-    assert f"\n{item.group(1)}. **`parallel/`**" in queue1, message
-
-
-def test_mesh_message_names_a_roadmap_item():
-    x, y, _ = _separated_pair(5, 5, 3, seed=6)
-    with pytest.raises(NotImplementedError) as raised:
-        TG.mmd_permutation_test_tiled(x, y, [0.1], mesh=object(), device="cpu")
-    assert_names_parallel_item(str(raised.value))
+    assert "5. **Done (PR 14): `parallel/`" in queue1
 
 
 def test_tiled_rejects_mesh_and_bad_precision():
     x, y, _ = _separated_pair(5, 5, 3, seed=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TG.mmd_permutation_test_tiled_sweep(x, y, [0.1], mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         TG.mmd_permutation_test_tiled(x, y, [0.1], precision="float16", device="cpu")

@@ -17,7 +17,9 @@ ensemble scorers as ``torch.export`` programs that a serving process loads
 with torch alone; ``python -m vgan_tpu_torch`` (``vgan_tpu_torch.cli``) runs
 ``fit``, ``sample``, ``export``, ``check-myopic`` and ``score`` from the
 command line; ``vgan_tpu``'s Flax ``.msgpack`` generators load wherever a
-generator file does.
+generator file does. ``vgan_tpu_torch.parallel`` runs the fit, the ensemble
+and the GoF test over a ``torch.distributed`` device mesh, one process per
+device (``mesh=``).
 
 This package imports neither JAX nor ``vgan_tpu``; ``vgan_tpu`` stays the
 reference it is tested against.

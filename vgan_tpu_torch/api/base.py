@@ -11,6 +11,11 @@ such a ``.pt`` or from ``vgan_tpu``'s Flax ``.msgpack``
 (:mod:`vgan_tpu_torch.utils.flax_msgpack`). Two reference bugs stay
 fixed, as in the JAX package: ``detector_<run>.pt`` holds the detector, not
 the generator, and the models directory is created when missing.
+
+Under a mesh (``self.mesh``) only global rank 0 writes these files and
+prints the epochs; every rank then meets at a barrier
+(:func:`vgan_tpu_torch.parallel.mesh.write_on_rank0`), so ranks sharing one
+directory leave one run's files.
 """
 
 from __future__ import annotations
@@ -48,9 +53,26 @@ class EstimatorBase:
             "generator optimizer": self.generator_optimizer,
         }
 
+    @property
+    def _prints(self) -> bool:
+        """Print the epochs? ``verbose``, and under a mesh on rank 0 only."""
+        from vgan_tpu_torch.parallel.mesh import is_rank0
+
+        return self.verbose and is_rank0(getattr(self, "mesh", None))
+
+    def _on_rank0(self, write, *args, **kwargs):
+        """``write(*args, **kwargs)``; under a mesh on rank 0 only, then a
+        barrier of every rank."""
+        from vgan_tpu_torch.parallel.mesh import write_on_rank0
+
+        return write_on_rank0(getattr(self, "mesh", None), write, *args, **kwargs)
+
     def model_snapshot(self, path_to_directory=None, run_number=0, show=False):
         """Write the per-epoch loss CSV, upsert ``params.csv`` by run
-        number, and render the loss-curve PDF."""
+        number, and render the loss-curve PDF (rank 0 only under a mesh)."""
+        self._on_rank0(self._write_snapshot, path_to_directory, run_number, show)
+
+    def _write_snapshot(self, path_to_directory=None, run_number=0, show=False):
         import pandas as pd
 
         if path_to_directory is None:
@@ -107,9 +129,12 @@ class EstimatorBase:
             print("The show option has been depricated due to lack of utility")
 
     def _log_metrics_jsonl(self, wall_seconds: float) -> None:
-        """JSONL metrics beside the CSV artifacts, when a directory is set."""
-        if self.path_to_directory is None:
-            return
+        """JSONL metrics beside the CSV artifacts, when a directory is set
+        (rank 0 only under a mesh)."""
+        if self.path_to_directory is not None:
+            self._on_rank0(self._write_metrics_jsonl, wall_seconds)
+
+    def _write_metrics_jsonl(self, wall_seconds: float) -> None:
         from vgan_tpu_torch.utils.metrics import MetricsLogger
 
         path = Path(self.path_to_directory) / "metrics.jsonl"

@@ -9,6 +9,14 @@ plus ``model_snapshot``, ``load_models``, ``get_params``,
 fused whole-fit path (``fit_impl='fused'``). It runs on ``cuda`` unless
 given ``device="cpu"``.
 
+With ``mesh=`` (:func:`vgan_tpu_torch.parallel.make_mesh`) every rank of the
+mesh's world builds the same estimator and calls ``fit`` with the same data:
+each keeps its block of the dataset (columns too with ``shard_features``),
+the fit runs data-parallel (:mod:`vgan_tpu_torch.parallel.dp`) with the
+state replicated, ``check_if_myopic`` shards its permutation rows past the
+dense caps, and only rank 0 prints the epochs and writes artifacts and
+checkpoints.
+
 Reference quirks kept, as in the JAX package (``replicate_reference_quirks``):
 
 - ``VGAN.__init__`` hard-codes ``seed = 777`` whatever the argument;
@@ -46,7 +54,9 @@ from vgan_tpu_torch.ops.mmd_test import (
     mmd_permutation_test_sweep,
     mmd_permutation_test_sweep_precise,
 )
+from vgan_tpu_torch.parallel.mesh import check_mesh_device
 from vgan_tpu_torch.train.steps import (
+    WHOLE,
     AlternationSchedule,
     TrainConfig,
     init_kl_state,
@@ -120,7 +130,8 @@ class _VGANCommon(EstimatorBase):
         precise path (valid near the null): host float64 up to 16384 pooled
         rows, past that the streaming-Gram kernel on this estimator's device
         with a float64 reduction. 'float32' is the device sweep (screening
-        only), through the kernel past 8192 pooled rows.
+        only), through the kernel past 8192 pooled rows. Under a mesh the
+        kernel routes shard their permutation rows over 'data'.
         """
         import pandas as pd
 
@@ -142,14 +153,14 @@ class _VGANCommon(EstimatorBase):
             _, pvals = mmd_permutation_test_sweep_precise(
                 x_sample, ux_sample, alphas=alphas,
                 rng=np.random.default_rng(seed), n_permutations=n_permutations,
-                device=self.device,
+                device=self.device, mesh=self.mesh,
             )
         else:
             g = torch.Generator(device=self.device).manual_seed(int(seed))
             _, pvals = mmd_permutation_test_sweep(
                 torch.from_numpy(x_sample), torch.from_numpy(ux_sample),
                 alphas=alphas, generator=g, n_permutations=n_permutations,
-                device=self.device,
+                device=self.device, mesh=self.mesh,
             )
             pvals = pvals.cpu().numpy()
         results = [float(p) for p in np.asarray(pvals)]
@@ -214,7 +225,7 @@ class _VGANCommon(EstimatorBase):
             "bandwidth": bandwidth,
             "schedule": schedule.get_state() if schedule is not None else None,
         }
-        save_train_state(path, train_state_to_payload(state), meta)
+        save_train_state(path, train_state_to_payload(state), meta, mesh=self.mesh)
 
     def restore_checkpoint(self, path):
         """Restore a checkpoint written by :meth:`save_checkpoint` onto this
@@ -257,10 +268,12 @@ class _VGANCommon(EstimatorBase):
                 f"checkpointed batch_size is {self._config.batch_size}; "
                 "drop-last batching would train zero batches"
             )
-        x_dev = torch.as_tensor(np.ascontiguousarray(X, dtype=np.float32), device=self.device)
+        x_dev = self._place_dataset(X)
+        layout = self._layout()
         if self._kl:
             state, det_hist, gen_hist = kl_train_epochs(
-                self.train_state, x_dev, self._schedule.phase_array(epochs), self._config)
+                self.train_state, x_dev, self._schedule.phase_array(epochs), self._config,
+                layout=layout)
             det_hist = det_hist.cpu().numpy().astype(np.float64)
             gen_hist = gen_hist.cpu().numpy().astype(np.float64)
             # continue the last-seen-loss semantics across the resume point
@@ -274,7 +287,8 @@ class _VGANCommon(EstimatorBase):
             prev_g.extend(float(v) for v in gen_hist)
             self.detector = state.detector
         else:
-            state, losses = no_kl_train_epochs(self.train_state, x_dev, self._config, epochs)
+            state, losses = no_kl_train_epochs(self.train_state, x_dev, self._config, epochs,
+                                               layout=layout)
             self.train_history["generator_loss"].extend(
                 float(v) for v in losses.cpu().numpy().astype(np.float64))
         self._finalize_fit(state)
@@ -311,21 +325,50 @@ class _VGANCommon(EstimatorBase):
         self._latent_size = config.latent_size
         return X, config
 
+    def _place_dataset(self, X) -> torch.Tensor:
+        """The dataset on the device as float32: this rank's block under a
+        mesh (:func:`~vgan_tpu_torch.parallel.input.shard_dataset`), whole
+        otherwise."""
+        X = np.ascontiguousarray(X, dtype=np.float32)
+        if self.mesh is not None:
+            from vgan_tpu_torch.parallel.input import shard_dataset
+
+            return shard_dataset(X, self.mesh, shard_features=self.shard_features)
+        return torch.as_tensor(X, device=self.device)
+
+    def _layout(self):
+        """How a training step splits: over the mesh's 'data' ranks, or not."""
+        if self.mesh is None:
+            return WHOLE
+        from vgan_tpu_torch.parallel.dp import MeshBatches
+
+        return MeshBatches(self.mesh, self._config.batch_size, self.shard_features)
+
     def _persist_artifacts(self, save_detector: bool):
+        """The reference-layout artifacts of a finished fit (rank 0 only
+        under a mesh)."""
         if self.path_to_directory is None:
             return
+        self._on_rank0(self._write_artifacts, save_detector)
+
+    def _write_artifacts(self, save_detector: bool):
         path = Path(self.path_to_directory)
         models_dir = path / "models"
         run_number = self._count_runs(models_dir)
         self._save_generator(models_dir, run_number, self.generator)
         if save_detector:
             self._save_detector(models_dir, run_number, self.detector)
-        self.model_snapshot(path, run_number, show=False)
+        self._write_snapshot(path, run_number, show=False)
 
 
-def _reject_left_out(mesh, shard_features, **dtypes) -> None:
-    if mesh is not None or shard_features:
-        raise _not_ported("mesh / shard_features (multi-device fit, parallel/)")
+def _check_mesh(mesh, shard_features: bool, device) -> None:
+    check_mesh_device(mesh, device)
+    if shard_features and mesh is None:
+        raise ValueError("shard_features=True shards the feature axis over a mesh's 'model' "
+                         "axis: it needs mesh=")
+
+
+def _reject_bf16(**dtypes) -> None:
     for name, value in dtypes.items():
         if value is not None:
             raise _not_ported(f"{name}={value!r} (bf16 options)")
@@ -370,11 +413,11 @@ class VGAN(_VGANCommon):
         device=None,
     ):
         super().__init__(path_to_directory)
-        _reject_left_out(mesh, shard_features,
-                         gram_matmul_dtype=gram_matmul_dtype,
-                         model_matmul_dtype=model_matmul_dtype,
-                         opt_state_dtype=opt_state_dtype)
+        _reject_bf16(gram_matmul_dtype=gram_matmul_dtype,
+                     model_matmul_dtype=model_matmul_dtype,
+                     opt_state_dtype=opt_state_dtype)
         self.device = resolve_device(device)
+        _check_mesh(mesh, shard_features, self.device)
         self.storage = dict(
             batch_size=batch_size, temperature=temperature, epochs=epochs,
             lr_G=lr_G, lr_D=lr_D, iternum_d=iternum_d, iternum_g=iternum_g,
@@ -382,8 +425,8 @@ class VGAN(_VGANCommon):
             path_to_directory=path_to_directory,
         )
         self._kl = True
-        self.mesh = None
-        self.shard_features = False
+        self.mesh = mesh
+        self.shard_features = shard_features
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.gram_matmul_dtype = None
@@ -454,7 +497,8 @@ class VGAN(_VGANCommon):
         of each kind (NaN before the first)."""
         t_start = time.time()
         X, config = self._prepare_fit_config(X)
-        x_dev = torch.as_tensor(np.ascontiguousarray(X, dtype=np.float32), device=self.device)
+        x_dev = self._place_dataset(X)
+        layout = self._layout()
         self._schedule = AlternationSchedule(self.iternum_d, self.iternum_g)
         state = init_kl_state(config, self.seed, self.device)
         done = 0
@@ -462,7 +506,7 @@ class VGAN(_VGANCommon):
         while done < self.epochs:
             chunk = min(self.checkpoint_every or self.epochs, self.epochs - done)
             state, det_hist, gen_hist = kl_train_epochs(
-                state, x_dev, self._schedule.phase_array(chunk), config
+                state, x_dev, self._schedule.phase_array(chunk), config, layout=layout
             )
             det_hist = det_hist.cpu().numpy().astype(np.float64)
             gen_hist = gen_hist.cpu().numpy().astype(np.float64)
@@ -470,7 +514,7 @@ class VGAN(_VGANCommon):
             det_hist[np.isnan(det_hist)] = last_d
             gen_hist[np.isnan(gen_hist)] = last_g
             for i in range(chunk):
-                if self.verbose:
+                if self._prints:
                     print(f"\rEpoch {done + i} of {self.epochs}")
                     print(f"Average loss in the epoch Generator: {gen_hist[i]}")
                     print(f"Average loss in the epoch Detector: {det_hist[i]}")
@@ -521,19 +565,19 @@ class VGAN_no_kl(_VGANCommon):
         device=None,
     ):
         super().__init__(path_to_directory)
-        _reject_left_out(mesh, shard_features,
-                         gram_matmul_dtype=gram_matmul_dtype,
-                         model_matmul_dtype=model_matmul_dtype,
-                         opt_state_dtype=opt_state_dtype)
+        _reject_bf16(gram_matmul_dtype=gram_matmul_dtype,
+                     model_matmul_dtype=model_matmul_dtype,
+                     opt_state_dtype=opt_state_dtype)
         self.device = resolve_device(device)
+        _check_mesh(mesh, shard_features, self.device)
         self.storage = dict(
             batch_size=batch_size, epochs=epochs, lr=lr, momentum=momentum,
             seed=seed, weight_decay=weight_decay,
             path_to_directory=path_to_directory,
         )
         self._kl = False
-        self.mesh = None
-        self.shard_features = False
+        self.mesh = mesh
+        self.shard_features = shard_features
         self.gram_matmul_dtype = None
         self.model_matmul_dtype = None
         self.opt_state_dtype = None
@@ -576,7 +620,7 @@ class VGAN_no_kl(_VGANCommon):
 
     def _record_losses(self, losses: np.ndarray, first_epoch: int) -> None:
         for i, loss in enumerate(losses):
-            if self.verbose:
+            if self._prints:
                 print(f"\rEpoch {first_epoch + i} of {self.epochs}")
                 print(f"Average loss in the epoch: {loss}")
             self.train_history["generator_loss"].append(float(loss))
@@ -586,10 +630,13 @@ class VGAN_no_kl(_VGANCommon):
         'fused'``, ``ops/cuda/fused_no_kl.py``); on the CPU its plain
         version. Same per-step math as the scan path, other random streams
         (in-kernel noise, rotational batching). Single device, fresh fits;
-        ``ValueError`` for ``checkpoint_every``, ``generator_grad`` other
+        ``ValueError`` for ``mesh``, ``checkpoint_every``, ``generator_grad`` other
         than 'reference' and shapes outside ``fused_supported``."""
         from vgan_tpu_torch.ops.cuda.fused_no_kl import fused_no_kl_fit, fused_supported
 
+        if self.mesh is not None:
+            raise ValueError("fit_impl='fused' is single-device; drop mesh= or use "
+                             "fit_impl='scan'")
         if self.checkpoint_every is not None:
             raise ValueError(
                 "fit_impl='fused' runs the whole fit as one kernel launch; periodic "
@@ -630,11 +677,12 @@ class VGAN_no_kl(_VGANCommon):
         state = init_no_kl_state(config, self.seed, self.device)
         if self.fit_impl == "fused":
             return self._fit_fused(X, state, config, t_start)
-        x_dev = torch.as_tensor(np.ascontiguousarray(X, dtype=np.float32), device=self.device)
+        x_dev = self._place_dataset(X)
+        layout = self._layout()
         done = 0
         while done < self.epochs:
             chunk = min(self.checkpoint_every or self.epochs, self.epochs - done)
-            state, losses = no_kl_train_epochs(state, x_dev, config, chunk)
+            state, losses = no_kl_train_epochs(state, x_dev, config, chunk, layout=layout)
             self._record_losses(losses.cpu().numpy().astype(np.float64), done)
             done += chunk
             if self.checkpoint_dir is not None:

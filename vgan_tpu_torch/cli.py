@@ -17,8 +17,11 @@ Where it differs from ``vgan_tpu``'s:
 - ``--mmd-impl`` takes the port's ``auto``/``torch``/``cuda``/``chunked``,
   and ``jnp``/``pallas`` as the names of ``torch``/``cuda``, so a
   ``vgan_tpu`` command line runs unchanged.
-- ``--mesh`` and ``--shard-features`` raise ``NotImplementedError``: the
-  multi-device paths are not ported (ROADMAP.md Queue 1, item 5).
+- ``--mesh data=N[,model=M]`` builds a mesh over the ``torch.distributed``
+  world, one process per device: run the command under ``torchrun
+  --nproc-per-node N`` (``env://``), or with ``data=1`` in a plain process
+  (a world of one). Every rank runs the command; only rank 0 prints and
+  writes files.
 - ``fit --variant no_kl`` refuses ``--generator-grad`` and
   ``--latent-size`` away from their defaults (``vgan_tpu`` drops them
   silently there).
@@ -42,7 +45,6 @@ _SCORE_BASES = ("knn", "knn_mean", "lof", "abod", "cof", "iforest",
                 "ocsvm", "sos", "lmdd", "copod", "hbos", "ecod")
 # vgan_tpu's --mmd-impl names of the port's implementations
 _MMD_IMPL_ALIASES = {"jnp": "torch", "pallas": "cuda"}
-_PARALLEL = "ROADMAP.md Queue 1, item 5"
 
 
 def _add_device(p: argparse.ArgumentParser) -> None:
@@ -68,21 +70,39 @@ def _add_common_hyperparams(p: argparse.ArgumentParser) -> None:
     p.add_argument("--gram-dtype", choices=["bfloat16"], default=None,
                    help="bf16 Gram matmuls (not ported: raises)")
     p.add_argument("--mesh", default=None, metavar="data=N[,model=M]",
-                   help=f"multi-device mesh (not ported: raises; {_PARALLEL})")
+                   help="multi-device mesh: shard batch rows over 'data' (and features "
+                        "over 'model' with --shard-features), one process per device "
+                        "(torchrun --nproc-per-node N*M), e.g. --mesh data=4,model=2")
     p.add_argument("--shard-features", action="store_true",
-                   help="shard the feature axis over the mesh's 'model' axis "
-                        f"(not ported: raises; {_PARALLEL})")
+                   help="additionally shard the feature axis over the mesh's 'model' axis "
+                        "(for d >= 10k)")
     p.add_argument("--no-quirks", action="store_true",
                    help="disable reference-quirk replication")
     p.add_argument("--quiet", action="store_true")
     _add_device(p)
 
 
-def _refuse_mesh(spec) -> None:
-    if spec is not None:
-        raise NotImplementedError(
-            f"--mesh {spec} (the multi-device paths, parallel/) is not ported yet; "
-            f"see {_PARALLEL}")
+def _parse_mesh(spec, device):
+    """'data=N[,model=M]' -> a mesh over the ``torch.distributed`` world
+    (joined from torchrun's environment, or a world of one); None for None."""
+    if spec is None:
+        return None
+    axes = {"data": 1, "model": 1}
+    for part in spec.split(","):
+        name, _, value = part.partition("=")
+        name = name.strip()
+        if name not in axes or not value.strip().isdigit():
+            raise SystemExit(f"--mesh: expected data=N[,model=M], got {spec!r}")
+        axes[name] = int(value)
+    from vgan_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(data=axes["data"], model=axes["model"], device=device)
+
+
+def _rank0(mesh) -> bool:
+    from vgan_tpu_torch.parallel.mesh import is_rank0
+
+    return is_rank0(mesh)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -203,8 +223,8 @@ def build_parser() -> argparse.ArgumentParser:
     score.add_argument("--gmm-covariance", choices=["diag", "full"], default="diag",
                        help="gmm covariance family")
     score.add_argument("--mesh", default=None, metavar="data=N",
-                       help=f"shard the subspace axis over devices (not ported: raises; "
-                            f"{_PARALLEL})")
+                       help="shard the subspace axis over devices (one process per device: "
+                            "torchrun --nproc-per-node N)")
     score.add_argument("--subspaces", type=int, default=500)
     score.add_argument("--aggregation",
                        choices=["average", "max", "aom", "moa", "median", "vote"],
@@ -239,7 +259,7 @@ def _fit(args, parser) -> int:
             ("--latent-size", args.latent_size, None)) if value != default]
         if dropped:
             parser.error(f"{', '.join(dropped)} only apply to --variant kl")
-    _refuse_mesh(args.mesh)
+    mesh = _parse_mesh(args.mesh, args.device)
     x = _load_data(args.data)
     common = dict(
         batch_size=args.batch_size,
@@ -252,6 +272,8 @@ def _fit(args, parser) -> int:
         gram_matmul_dtype=args.gram_dtype,
         model_matmul_dtype=args.model_dtype,
         opt_state_dtype=args.opt_state_dtype,
+        mesh=mesh,
+        shard_features=args.shard_features,
         replicate_reference_quirks=not args.no_quirks,
         verbose=not args.quiet,
         device=args.device,
@@ -264,12 +286,15 @@ def _fit(args, parser) -> int:
     else:
         model = VGAN_no_kl(lr=args.lr, **common)
     model.fit(x)
+    if args.checkpoint:
+        model.save_checkpoint(args.checkpoint)
+    if not _rank0(mesh):
+        return 0
     if model.train_history["generator_loss"]:
         print(f"final loss: {model.train_history['generator_loss'][-1]}")
     else:
         print("final loss: n/a (0 epochs)")
     if args.checkpoint:
-        model.save_checkpoint(args.checkpoint)
         print(f"checkpoint written to {args.checkpoint}")
     return 0
 
@@ -295,7 +320,7 @@ def _score(args, parser) -> int:
         bad = [b for b in member_bases if b not in _SCORE_BASES]
         if bad:
             parser.error(f"--members: unknown base(s) {bad}; choose from {sorted(_SCORE_BASES)}")
-    _refuse_mesh(args.mesh)
+    mesh = _parse_mesh(args.mesh, args.device)
     x_train = _load_data(args.train)
     x_test = _load_data(args.test) if args.test else x_train
     model = _sampler(args, x_train.shape[1], seed=args.seed)
@@ -310,7 +335,7 @@ def _score(args, parser) -> int:
         ocsvm_gamma=args.ocsvm_gamma, sos_perplexity=args.sos_perplexity,
         lmdd_dis=args.lmdd_dis, n_clusters=args.n_clusters,
         gmm_covariance=args.gmm_covariance, aggregation=args.aggregation,
-        device=args.device,
+        mesh=mesh, device=args.device,
     )
     if member_bases:
         ens = HeterogeneousEnsemble.from_model(
@@ -323,6 +348,8 @@ def _score(args, parser) -> int:
         ens = SubspaceEnsemble.from_model(model, subspace_count=args.subspaces, base=args.base,
                                           **knobs).fit(x_train)
     scores = ens.decision_function(x_test)
+    if not _rank0(mesh):
+        return 0
     if args.out:
         np.save(args.out, scores)
         print(f"{scores.shape} scores -> {args.out}")

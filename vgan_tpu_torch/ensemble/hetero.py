@@ -107,8 +107,11 @@ class HeterogeneousEnsemble(PyodSurfaceMixin):
         ``cuda`` when None (raises without a card); ``"cpu"`` only when
         asked for. Every member gets it unless its dict names another.
     **shared:
-        kwargs applied to every member (e.g. ``aggregation=``, ``chunk=``,
-        ``test_chunk=``); member dicts override.
+        kwargs applied to every member (e.g. ``mesh=``, ``aggregation=``,
+        ``chunk=``, ``test_chunk=``); member dicts override. A ``mesh``
+        shards each member's masks over its 'data' ranks; the
+        standardization, the combination and the distillers then run alike
+        on every rank.
 
     ``predict`` reads the original-space train matrix, so a JL member may
     come first (``vgan_tpu`` reads member 0's, projected, matrix there and

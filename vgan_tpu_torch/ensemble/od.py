@@ -21,9 +21,15 @@ dimension-decomposable ``copod`` / ``hbos`` / ``ecod``, whose per-dimension
 score planes are shared by every mask, and the parametric bases with the
 knobs only they read: ``mcd``, ``pca``, ``kpca``, ``cblof``, ``gmm``,
 ``kde``, ``loda``, ``inne``, ``sampling``, ``lmdd``, ``ocsvm``, ``sos``,
-``ae`` and ``dsvdd``. Only ``mesh`` raises ``NotImplementedError`` naming
-``ROADMAP.md``. A pyod-style detector instance runs the CPU loop over
+``ae`` and ``dsvdd``. A pyod-style detector instance runs the CPU loop over
 subspaces.
+
+With ``mesh=`` the mask axis splits over the mesh's 'data' ranks: each rank
+scores its shard (K6 / K7 on its masks on the knn kernel route, its mask
+chunks on the generic route), one all-reduce combines the shards (a sum
+for 'average', a max for 'max', padding masks never winning), and the raw
+per-subspace scores are all-gathered in mask order. Every rank calls with
+the same arguments and gets the same scores.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from vgan_tpu_torch._device import resolve_device
 from vgan_tpu_torch.ensemble.chi2 import chi2_cdf, chi2_ppf
 from vgan_tpu_torch.ensemble.iforest import DEFAULT_PSI, draw_iforest, iforest_scores_masked
 from vgan_tpu_torch.ops.cuda.knn_score import knn_kernel_supported, knn_scores_all_masks
+from vgan_tpu_torch.parallel.mesh import check_mesh_device
 
 
 def _as_batch(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -1778,14 +1785,15 @@ def _dim_subspace_raw(dim_scores: torch.Tensor, masks: torch.Tensor) -> torch.Te
     return (dim_scores @ masks.T).T
 
 
-def _chunked_masks(subspaces, proba, chunk: int):
+def _chunked_masks(subspaces, proba, chunk: int, n_shards: int = 1):
     """(n_chunks, chunk, d) masks + (n_chunks, chunk) proba, zero-padded so
-    the subspace axis splits into whole chunks. Padding rows carry
-    proba == 0, which every aggregation honors (weight 0 for 'average',
-    never the winner of 'max')."""
+    the subspace axis splits into whole chunks, and the chunks into
+    ``n_shards`` equal groups. Padding rows carry proba == 0, which every
+    aggregation honors (weight 0 for 'average', never the winner of
+    'max')."""
     masks_np = np.asarray(subspaces, dtype=bool)
     proba_np = np.asarray(proba, dtype=np.float32)
-    pad = (-len(masks_np)) % chunk
+    pad = (-len(masks_np)) % (chunk * n_shards)
     if pad:
         masks_np = np.concatenate([masks_np, np.zeros((pad, masks_np.shape[1]), bool)])
         proba_np = np.concatenate([proba_np, np.zeros((pad,), np.float32)])
@@ -2254,7 +2262,10 @@ class SubspaceEnsemble(PyodSurfaceMixin):
     chunk:
         masks scored at once on the generic path (a memory bound).
     mesh:
-        not ported: anything but None raises ``NotImplementedError``.
+        a mesh (:func:`vgan_tpu_torch.parallel.make_mesh`) whose 'data'
+        ranks split the mask axis; None scores every mask on this device.
+        The dim route (copod, hbos, ecod) and pyod-style instances ignore
+        it: their whole ensemble is a few masked sums or a host loop.
     n_buckets, bucket_seed:
         bucket count for 'aom'/'moa' (combo's default 5) and the seed of the
         shuffle that assigns subspaces to buckets.
@@ -2431,11 +2442,6 @@ class SubspaceEnsemble(PyodSurfaceMixin):
                     f"{sorted(_BASE_SCORERS)} + {sorted(_DIM_BASES)} + "
                     f"{sorted(_PARAM_BASES)} or a pyod-style detector instance"
                 )
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (the mask axis sharded over devices) is not ported yet; "
-                "see ROADMAP.md Queue 1, item 5"
-            )
         if jl_dim is not None:
             if not (isinstance(jl_dim, (int, np.integer)) and jl_dim >= 1):
                 raise ValueError(f"jl_dim must be a positive int or None; got {jl_dim!r}")
@@ -2486,6 +2492,8 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         self.ae_hidden = tuple(ae_hidden)
         self.test_chunk = test_chunk
         self.device = resolve_device(device)
+        check_mesh_device(mesh, self.device)
+        self.mesh = mesh
         self._x_train = None
         self._threshold = None
         self._decision_scores = None
@@ -2639,6 +2647,8 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         x_t = self._as_device(x_test)
         if self.base in _DIM_BASES:
             return self._dim_decision_function(x_t)
+        if self.mesh is not None:
+            return self._mesh_scores(x_t, exclude_self, reduce=True).cpu().numpy()
         fused = self._knn_fused_decision_function(x_t, exclude_self=exclude_self)
         if fused is not None:
             return fused
@@ -2652,6 +2662,13 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         aggregation per chunk and combines the chunks; ``reduce=False``
         returns the raw (n_chunks, chunk, nt) score blocks (padding rows
         included)."""
+        return self._native_shard(x_test, exclude_self, reduce, 0, 1)
+
+    def _native_shard(self, x_test: torch.Tensor, exclude_self: bool, reduce: bool,
+                      shard: int, n_shards: int):
+        """:meth:`_native_scores` over shard ``shard`` of ``n_shards`` equal
+        groups of mask chunks (the masks zero-padded to ``chunk *
+        n_shards``)."""
         scorer, k = _scorer_and_k(self.base, exclude_self=exclude_self, **_scorer_params(self))
         ntr, d = self._x_train.shape
         chunk = _effective_chunk(self.base, self.chunk, x_test.shape[0], ntr, d, k,
@@ -2660,13 +2677,62 @@ class SubspaceEnsemble(PyodSurfaceMixin):
                                  kpca_sampling=self.kpca_sampling, subset_size=self.subset_size,
                                  mcd_starts=self.mcd_starts, ae_hidden=self.ae_hidden,
                                  sod_ref_set=self.sod_ref_set)
-        masks_np, proba_np = _chunked_masks(self.subspaces, self._combining_weights(), chunk)
-        masks = torch.as_tensor(masks_np, dtype=torch.float32, device=self.device)
+        masks_np, proba_np = _chunked_masks(self.subspaces, self._combining_weights(), chunk,
+                                            n_shards)
+        per = masks_np.shape[0] // n_shards
+        part = slice(shard * per, (shard + 1) * per)
+        masks = torch.as_tensor(masks_np[part], dtype=torch.float32, device=self.device)
         if not reduce:
             return _chunked_raw(x_test, self._x_train, masks, scorer, k)
-        proba = torch.as_tensor(proba_np, device=self.device)
+        proba = torch.as_tensor(proba_np[part], device=self.device)
         return _chunked_scores(x_test, self._x_train, masks, proba, scorer, k,
                                self._reduce_aggregation, self.normalize)
+
+    def _mask_shard(self, x_test: torch.Tensor, exclude_self: bool, shard: int, n_shards: int,
+                    reduce: bool = True) -> torch.Tensor:
+        """A rank's work under a mesh, as a function of its shard of the
+        mask axis: on the knn kernel route K6 / K7 on masks ``[shard * per,
+        (shard + 1) * per)`` (the pool zero-padded to ``per * n_shards``
+        masks), else :meth:`_native_shard`. ``reduce=True``: the shard's
+        (nt,) partial aggregate, which the shards' sum ('average') or max
+        ('max') combines into the whole call's; ``reduce=False``: its raw
+        (rows, nt) scores, padding rows included, in mask order."""
+        if not self._knn_kernel_route(x_test, exclude_self):
+            out = self._native_shard(x_test, exclude_self, reduce, shard, n_shards)
+            return out if reduce else out.reshape(-1, x_test.shape[0])
+        masks, weights = self._device_pool()
+        per = -(-masks.shape[0] // n_shards)
+        pad = per * n_shards - masks.shape[0]
+        masks = torch.cat([masks, masks.new_zeros((pad, masks.shape[1]))])[shard * per:][:per]
+        weights = torch.cat([weights, weights.new_zeros(pad)])[shard * per:][:per]
+        s = knn_scores_all_masks(x_test, self._x_train, masks, self.k,
+                                 mode="mean" if self.base == "knn_mean" else "kth",
+                                 exclude_self=exclude_self)
+        if not reduce:
+            return s
+        if self.normalize == "zscore":
+            s = _zscore(s)
+        return _reduce(s, weights, self._reduce_aggregation)
+
+    def _mesh_scores(self, x_test: torch.Tensor, exclude_self: bool, reduce: bool):
+        """:meth:`_mask_shard` on this rank's 'data' shard, then one
+        collective over 'data': an all-reduce (sum or max) of the partial
+        aggregates, or an all-gather of the raw rows in mask order (every
+        rank's shard has the same row count)."""
+        import torch.distributed as dist
+
+        from vgan_tpu_torch.parallel.mesh import axis_size
+        from vgan_tpu_torch.parallel.ring import gather_rows
+
+        group = self.mesh.get_group("data")
+        n_shards = axis_size(self.mesh, "data")
+        local = self._mask_shard(x_test, exclude_self, self.mesh.get_local_rank("data"),
+                                 n_shards, reduce)
+        if reduce:
+            op = dist.ReduceOp.MAX if self._reduce_aggregation == "max" else dist.ReduceOp.SUM
+            dist.all_reduce(local, op=op, group=group)
+            return local
+        return gather_rows(local, group, local.shape[0] * n_shards)
 
     def _knn_kernel_route(self, x_test: torch.Tensor, exclude_self: bool) -> bool:
         """Do this base and these shapes take the fused KNN kernel (K6 or K7)?"""
@@ -2793,6 +2859,9 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         if self.base in _DIM_BASES:
             masks, _ = self._device_pool()
             return self._dim_raw(x_t, masks).cpu().numpy()
+        if self.mesh is not None:
+            raw = self._mesh_scores(x_t, exclude_self, reduce=False)
+            return raw[: len(self.subspaces)].cpu().numpy()
         if self._knn_kernel_route(x_t, exclude_self):
             return self._knn_scores_all_masks(x_t, exclude_self).cpu().numpy()
         raw = self._native_scores(x_t, exclude_self, reduce=False)

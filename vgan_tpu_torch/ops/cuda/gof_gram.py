@@ -14,6 +14,10 @@ Kahan-compensated. All statistics then come from C and A in O(P m):
     s_xx(p) = sum_i A[p, i] C[p, i],   s_xy(p) = sum_i (1 - A[p, i]) C[p, i],
     s_yy(p) = 1^T K 1 - s_xx(p) - 2 s_xy(p).
 
+Under a mesh the indicator rows split over its 'data' ranks, each rank
+running K5 on its rows against the replicated pooled rows; the statistics
+are all-gathered in row order.
+
 The unbiased statistic is a near-cancellation of O(m^2)-entry sums: under
 the null it sits near 1e-7 while float32 final sums carry rounding of order
 one, so ``precise=True`` fetches the C planes and reduces the quadratic
@@ -217,16 +221,34 @@ def _stats_for_rows(a_rows, z, norms, alphas, n1: int, n2: int, precise: bool = 
     return torch.cat(chunks, dim=1)
 
 
+def _sharded_stats(a_rows, z, norms, alphas, n1: int, n2: int, precise: bool, mesh):
+    """:func:`_stats_for_rows` with the indicator rows split over the mesh's
+    'data' ranks (zero rows pad them to a multiple): each rank streams its
+    rows against the replicated pooled rows, K5 on its rows only, and the
+    statistics are all-gathered in row order. With ``precise`` each rank
+    reduces its own C planes in float64 on the host, as the single-device
+    route does."""
+    from vgan_tpu_torch.parallel.mesh import axis_size
+    from vgan_tpu_torch.parallel.ring import gather_rows
+
+    n_rows = a_rows.shape[0]
+    p, r = axis_size(mesh, "data"), mesh.get_local_rank("data")
+    per = -(-n_rows // p)
+    padded = torch.zeros((per * p, a_rows.shape[1]), dtype=a_rows.dtype, device=a_rows.device)
+    padded[:n_rows] = a_rows
+    local = _stats_for_rows(padded[r * per:(r + 1) * per], z, norms, alphas, n1, n2, precise)
+    # rows of the gather are statistics columns; NCCL gathers card tensors
+    stats = gather_rows(local.T.contiguous().to(mesh.device_type), mesh.get_group("data"),
+                        per * p).T[:, :n_rows]
+    return stats.to(local.device)
+
+
 def _tiled_stats(x, y, alphas, generator, n_permutations, precision, permutations, mesh,
                  device) -> torch.Tensor:
     """(n_alphas, 1 + P) statistics of the observed split, then of each
     permutation: float32 pooled rows and the [observed; permutations]
-    indicator rows on one device, through :func:`_stats_for_rows`."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the permutation rows sharded over devices) is not ported "
-            "yet; see ROADMAP.md Queue 1, item 5"
-        )
+    indicator rows on one device, through :func:`_stats_for_rows`, or over
+    the 'data' ranks of ``mesh`` (:func:`_sharded_stats`)."""
     if precision not in ("float32", "float64"):
         raise ValueError(f"precision must be 'float32' or 'float64', got {precision!r}")
     z, n1, n2 = _pooled(x, y, device)
@@ -238,6 +260,11 @@ def _tiled_stats(x, y, alphas, generator, n_permutations, precision, permutation
     perms = torch.as_tensor(permutations, dtype=torch.float32, device=z.device)
     a_rows = torch.cat([base[None, :], perms])
     alphas = [float(al) for al in torch.as_tensor(alphas, dtype=torch.float64).reshape(-1)]
+    if mesh is not None:
+        from vgan_tpu_torch.parallel.mesh import check_mesh_device
+
+        check_mesh_device(mesh, z.device)
+        return _sharded_stats(a_rows, z, norms, alphas, n1, n2, precision == "float64", mesh)
     return _stats_for_rows(a_rows, z, norms, alphas, n1, n2, precise=precision == "float64")
 
 
@@ -261,7 +288,9 @@ def mmd_permutation_test_tiled_sweep(
     p-values near the null; the results are then CPU float64 tensors).
     ``permutations``: an optional pre-drawn (P, m) 0/1 matrix whose rows sum
     to n1, in place of the ``generator`` draw. ``device`` as in
-    ``mmd_permutation_test_sweep``.
+    ``mmd_permutation_test_sweep``. ``mesh``: a mesh whose 'data' ranks
+    split the indicator rows (every rank draws the same permutations from
+    its own equally seeded ``generator``); the results are replicated.
     """
     stats = _tiled_stats(x, y, alphas, generator, n_permutations, precision,
                          permutations, mesh, device)

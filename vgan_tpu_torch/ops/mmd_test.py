@@ -84,19 +84,21 @@ def mmd_permutation_test_sweep(
     n_permutations: int = 1000,
     permutations: Optional[torch.Tensor] = None,
     device=None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-alpha tests for each alpha, sharing the distances and the
     permutation set. Returns ``(statistics, p_values)``, each (len(alphas),).
     Working precision is the inputs' (float32 on the estimator path:
     screening only, see :func:`mmd_permutation_test_sweep_precise`). Past
     ``DENSE_GOF_MAX_M`` pooled samples the K5 kernel computes the test in
-    float32."""
+    float32, with its permutation rows sharded over the 'data' ranks of a
+    ``mesh`` when one is given."""
     if len(x) + len(y) > DENSE_GOF_MAX_M:
         from vgan_tpu_torch.ops.cuda import gof_gram
 
         return gof_gram.mmd_permutation_test_tiled_sweep(
             x, y, alphas, generator=generator, n_permutations=n_permutations,
-            permutations=permutations, device=device)
+            permutations=permutations, mesh=mesh, device=device)
     z, n1, n2 = _pooled(x, y, device)
     d2 = pairwise_sq_dists(z)
     base = torch.cat([torch.ones(n1, dtype=z.dtype), torch.zeros(n2, dtype=z.dtype)]).to(z.device)
@@ -167,6 +169,7 @@ def mmd_permutation_test_sweep_precise(
     n_permutations: int = 1000,
     permutations=None,
     device=None,
+    mesh=None,
 ):
     """float64 sweep, the precise path for null-regime p-values.
 
@@ -175,7 +178,8 @@ def mmd_permutation_test_sweep_precise(
     computed in float64 numpy. Past ``DENSE_PRECISE_MAX_M`` pooled samples
     the K5 kernel computes Kahan-compensated float32 C planes on ``device``
     (:func:`resolve_device`: the card unless told otherwise) and the
-    quadratic forms are reduced in float64 on the host. ``rng`` is a
+    quadratic forms are reduced in float64 on the host (the permutation rows
+    sharded over the 'data' ranks of ``mesh``, when given). ``rng`` is a
     ``numpy.random.Generator`` that draws the permutations on both routes;
     ``permutations`` an optional pre-drawn (P, m) 0/1 matrix (rows sum to
     n1). Returns numpy ``(statistics, p_values)``.
@@ -194,7 +198,7 @@ def mmd_permutation_test_sweep_precise(
 
         stats, pvals = gof_gram.mmd_permutation_test_tiled_sweep(
             x.astype(np.float32), y.astype(np.float32), alphas, precision="float64",
-            permutations=permutations, device=resolve_device(device))
+            permutations=permutations, mesh=mesh, device=resolve_device(device))
         return stats.numpy(), pvals.numpy()
     z = np.concatenate([x, y], axis=0)
     zn = np.sum(z * z, axis=1)

@@ -200,7 +200,8 @@ def export_ensemble_scorer(ensemble, path, max_batch: int = 4096) -> None:
     ``decision_function`` to ``path`` (dynamic test batch).
 
     The training rows, masks, weights and the base scorer are the
-    program's. Where the train set streams (a neighbour base past
+    program's; an ensemble's ``mesh`` does not reach it (the program scores
+    every mask on the device it runs on). Where the train set streams (a neighbour base past
     ``STREAM_NTR``) or a governor clamps the mask chunk, the program is
     sized for serving batches up to ``max_batch``; larger batches still run,
     with proportionally more memory."""

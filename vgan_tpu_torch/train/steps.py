@@ -11,6 +11,11 @@ the first batch:
 no step reads anything back to the host. Per-epoch losses stay on the device
 until the caller fetches them.
 
+Every epoch takes a ``layout``: :data:`WHOLE` (the whole dataset and batch
+on one device) or, over a mesh, :class:`vgan_tpu_torch.parallel.dp.MeshBatches`
+(``x`` this rank's block; the networks run on this rank's rows of each
+batch, the losses on the whole batch, the gradients summed over 'data').
+
 Randomness: ``rng=(perm, noise)`` injects an epoch's permutation and noise
 (the lockstep tests hand both implementations the same numpy draws);
 without it both come from the state's seeded ``torch.Generator``. The
@@ -188,21 +193,60 @@ def init_no_kl_state(
     )
 
 
-def _epoch_inputs(state, x: torch.Tensor, config: TrainConfig, rng):
-    n = x.shape[0]
+class WholeBatch:
+    """The single-device layout of a training step: the whole dataset, batch
+    and Gram on one device. Each hook is the identity of its counterpart in
+    :class:`vgan_tpu_torch.parallel.dp.MeshBatches`, which splits a step
+    over a mesh's 'data' ranks."""
+
+    def n_rows(self, x: torch.Tensor) -> int:
+        """Global row count of the dataset ``x`` holds."""
+        return x.shape[0]
+
+    def batch_source(self, x: torch.Tensor, perm: torch.Tensor, batch_size: int):
+        """``b -> (batch_size, d)`` rows of batch ``b`` of the permutation."""
+        return _batches_from_perm(x, perm, batch_size).__getitem__
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a batch-sized tensor."""
+        return t
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole batch from every rank's rows (differentiable)."""
+        return t
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean over the whole batch of a tensor of this rank's rows."""
+        return torch.mean(t)
+
+    def reduce_grads(self, grads):
+        """The whole batch's gradients from this rank's contributions."""
+        return grads
+
+
+WHOLE = WholeBatch()
+
+
+def _epoch_inputs(state, x: torch.Tensor, config: TrainConfig, rng, layout):
+    """``(nb, batch_of, noise, injected)``: the batch count, the epoch's
+    batches as a function of the batch index, the (nb, batch_size, latent)
+    noise, and whether both were injected. The permutation runs over the
+    global rows."""
+    n = layout.n_rows(x)
+    nb = n // config.batch_size
     if rng is None:
         perm = torch.randperm(n, generator=state.rng, device=x.device)
-        batches = _batches_from_perm(x, perm, config.batch_size)
+        batch_of = layout.batch_source(x, perm, config.batch_size)
         noise = torch.randn(
-            (batches.shape[0], config.batch_size, config.latent_size),
+            (nb, config.batch_size, config.latent_size),
             generator=state.rng, dtype=x.dtype, device=x.device,
         )
-        return batches, noise, False
+        return nb, batch_of, noise, False
     perm, noise = rng
     perm = torch.as_tensor(perm, device=x.device).long()
-    batches = _batches_from_perm(x, perm, config.batch_size)
+    batch_of = layout.batch_source(x, perm, config.batch_size)
     noise = torch.as_tensor(noise).to(device=x.device, dtype=x.dtype)
-    return batches, noise, True
+    return nb, batch_of, noise, True
 
 
 def _use_gumbel(config: TrainConfig, injected: bool) -> bool:
@@ -220,23 +264,26 @@ def _gumbel_noise(state, config: TrainConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def no_kl_epoch(
-    state: NoKLTrainState, x: torch.Tensor, config: TrainConfig, rng=None
+    state: NoKLTrainState, x: torch.Tensor, config: TrainConfig, rng=None, layout=WHOLE
 ) -> Tuple[NoKLTrainState, torch.Tensor]:
     """One no-kl epoch; returns ``(state, mean epoch loss)`` (a device
     scalar). ``rng``: optional injected ``(perm, noise)``, noise of shape
-    (nb, batch_size, latent)."""
+    (nb, batch_size, latent). ``layout``: :data:`WHOLE`, or a mesh's
+    :class:`~vgan_tpu_torch.parallel.dp.MeshBatches` (``x`` then this rank's
+    block): the generator runs on this rank's rows, the loss on the whole
+    batch."""
     gen = state.generator
     opt = config.adadelta(config.lr_g)
-    batches, noise, injected = _epoch_inputs(state, x, config, rng)
+    nb, batch_of, noise, injected = _epoch_inputs(state, x, config, rng, layout)
     use_gumbel = _use_gumbel(config, injected)
     params = dict(gen.named_parameters())
     bw_value, bw_is_set = state.bw_value, state.bw_is_set
     losses = []
-    for b in range(batches.shape[0]):
-        batch, z = batches[b], noise[b]
-        gumbel = _gumbel_noise(state, config, x) if use_gumbel else None
+    for b in range(nb):
+        batch, z = batch_of(b), layout.rows(noise[b])
+        gumbel = layout.rows(_gumbel_noise(state, config, x)) if use_gumbel else None
         with torch.enable_grad():
-            u = gen(z, gumbel)
+            u = layout.gather(gen(z, gumbel))
             loss, bw_used = mmd_ops.mmd_loss_constrained_stateful(
                 batch,
                 u * batch,
@@ -248,7 +295,7 @@ def no_kl_epoch(
                 matmul_dtype=config.gram_matmul_dtype,
             )
             grads = torch.autograd.grad(loss, list(params.values()))
-        opt.step(params, grads, state.opt_state)
+        opt.step(params, layout.reduce_grads(grads), state.opt_state)
         bw_value = bw_used.detach()
         if config.freeze_bandwidth:
             bw_is_set = torch.ones_like(bw_is_set)
@@ -258,12 +305,12 @@ def no_kl_epoch(
 
 
 def no_kl_train_epochs(
-    state: NoKLTrainState, x: torch.Tensor, config: TrainConfig, epochs: int
+    state: NoKLTrainState, x: torch.Tensor, config: TrainConfig, epochs: int, layout=WHOLE
 ) -> Tuple[NoKLTrainState, torch.Tensor]:
     """``epochs`` no-kl epochs; the (epochs,) loss history stays on device."""
     losses = []
     for _ in range(epochs):
-        state, loss = no_kl_epoch(state, x, config)
+        state, loss = no_kl_epoch(state, x, config, layout=layout)
         losses.append(loss)
     return state, torch.stack(losses)
 
@@ -316,11 +363,6 @@ def init_kl_state(
     )
 
 
-def _l2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """The reference's ``__distance(..., 'L2')``: mean squared difference."""
-    return torch.mean((x - y) ** 2)
-
-
 def _detector_active_mask(det_params, encoder_active):
     """Per-parameter step flags: the decoder always steps; the encoder only
     while ``encoder_active`` (a device bool: no host sync)."""
@@ -331,19 +373,22 @@ def _detector_active_mask(det_params, encoder_active):
 
 
 def _kl_loss(det: Detector, batch, u, config: TrainConfig, bw_value, bw_is_set,
-             with_reconstruction: bool):
+             with_reconstruction: bool, layout=WHOLE):
     """``MMD(enc x, enc Ux) + temperature * coverage(U)`` and, for the
-    detector, ``-(that - 0.1 L2(x, dec x) - 0.1 L2(Ux, dec Ux))``. Without
-    the reconstruction terms only the encoder runs."""
+    detector, ``-(that - 0.1 L2(x, dec x) - 0.1 L2(Ux, dec Ux))``, L2 the
+    reference's ``__distance(..., 'L2')`` (the mean squared difference).
+    Without the reconstruction terms only the encoder runs. ``batch`` and
+    ``u`` are this rank's rows; the MMD, the coverage and the means are the
+    whole batch's."""
     ux = u * batch
     if with_reconstruction:
         (enc_x, dec_x), (enc_ux, dec_ux) = det(batch), det(ux)
     else:
         enc_x, enc_ux = det.encoder(batch), det.encoder(ux)
     mmd, bw = mmd_ops.mmd_loss_constrained_stateful(
-        enc_x,
-        enc_ux,
-        u,
+        layout.gather(enc_x),
+        layout.gather(enc_ux),
+        layout.gather(u),
         weight=config.temperature,
         bw_value=bw_value,
         bw_is_set=bw_is_set,
@@ -352,19 +397,23 @@ def _kl_loss(det: Detector, batch, u, config: TrainConfig, bw_value, bw_is_set,
     )
     if not with_reconstruction:
         return mmd, bw
-    return -(mmd - 0.1 * _l2(batch, dec_x) - 0.1 * _l2(ux, dec_ux)), bw
+    l2_x = layout.mean((batch - dec_x) ** 2)
+    l2_ux = layout.mean((ux - dec_ux) ** 2)
+    return -(mmd - 0.1 * l2_x - 0.1 * l2_ux), bw
 
 
 def kl_detector_epoch(
-    state: KLTrainState, x: torch.Tensor, config: TrainConfig, rng=None
+    state: KLTrainState, x: torch.Tensor, config: TrainConfig, rng=None, layout=WHOLE
 ) -> Tuple[KLTrainState, torch.Tensor]:
     """One detector epoch: per batch, ``U = G(z)`` detached, then one
     Adadelta step of the detector on ``-(MMD(enc x, enc Ux) - 0.1 L2(x,
     dec x) - 0.1 L2(Ux, dec Ux))``; the encoder steps only while active.
-    Returns ``(state, mean epoch loss)``; ``rng`` as in :func:`no_kl_epoch`."""
+    Returns ``(state, mean epoch loss)``; ``rng`` and ``layout`` as in
+    :func:`no_kl_epoch` (the generator and the detector run on this rank's
+    rows)."""
     gen, det = state.generator, state.detector
     opt = config.adadelta(config.lr_d)
-    batches, noise, injected = _epoch_inputs(state, x, config, rng)
+    nb, batch_of, noise, injected = _epoch_inputs(state, x, config, rng, layout)
     use_gumbel = _use_gumbel(config, injected)
     encoder_active = state.encoder_active
     if not config.replicate_encoder_freeze:
@@ -376,15 +425,15 @@ def kl_detector_epoch(
     active = _detector_active_mask(params, encoder_active)
     bw_value, bw_is_set = state.bw_value, state.bw_is_set
     losses = []
-    for b in range(batches.shape[0]):
-        batch, z = batches[b], noise[b]
-        gumbel = _gumbel_noise(state, config, x) if use_gumbel else None
+    for b in range(nb):
+        batch, z = layout.rows(batch_of(b)), layout.rows(noise[b])
+        gumbel = layout.rows(_gumbel_noise(state, config, x)) if use_gumbel else None
         with torch.no_grad():
             u = gen(z, gumbel)
         with torch.enable_grad():
-            loss, bw_used = _kl_loss(det, batch, u, config, bw_value, bw_is_set, True)
+            loss, bw_used = _kl_loss(det, batch, u, config, bw_value, bw_is_set, True, layout)
             grads = torch.autograd.grad(loss, list(params.values()))
-        opt.step(params, grads, state.det_opt, active=active)
+        opt.step(params, layout.reduce_grads(grads), state.det_opt, active=active)
         bw_value = bw_used.detach()
         if config.freeze_bandwidth:
             bw_is_set = torch.ones_like(bw_is_set)
@@ -394,7 +443,7 @@ def kl_detector_epoch(
 
 
 def kl_generator_epoch(
-    state: KLTrainState, x: torch.Tensor, config: TrainConfig, rng=None
+    state: KLTrainState, x: torch.Tensor, config: TrainConfig, rng=None, layout=WHOLE
 ) -> Tuple[KLTrainState, torch.Tensor]:
     """One generator epoch on ``MMD(enc x, enc Ux) + temperature *
     coverage(U)`` with the detector frozen. Under
@@ -404,24 +453,24 @@ def kl_generator_epoch(
     inactive (the reference's freeze leak)."""
     gen, det = state.generator, state.detector
     opt = config.adadelta(config.lr_g)
-    batches, noise, injected = _epoch_inputs(state, x, config, rng)
+    nb, batch_of, noise, injected = _epoch_inputs(state, x, config, rng, layout)
     use_gumbel = _use_gumbel(config, injected)
     params = dict(gen.named_parameters())
     bw_value, bw_is_set = state.bw_value, state.bw_is_set
     losses = []
-    for b in range(batches.shape[0]):
-        batch, z = batches[b], noise[b]
-        gumbel = _gumbel_noise(state, config, x) if use_gumbel else None
+    for b in range(nb):
+        batch, z = layout.rows(batch_of(b)), layout.rows(noise[b])
+        gumbel = layout.rows(_gumbel_noise(state, config, x)) if use_gumbel else None
         if config.replicate_generator_detach:
             with torch.no_grad():
                 loss, bw_used = _kl_loss(det, batch, gen(z, gumbel), config,
-                                         bw_value, bw_is_set, False)
+                                         bw_value, bw_is_set, False, layout)
         else:
             with torch.enable_grad():
                 loss, bw_used = _kl_loss(det, batch, gen(z, gumbel), config,
-                                         bw_value, bw_is_set, False)
+                                         bw_value, bw_is_set, False, layout)
                 grads = torch.autograd.grad(loss, list(params.values()))
-            opt.step(params, grads, state.gen_opt)
+            opt.step(params, layout.reduce_grads(grads), state.gen_opt)
         bw_value = bw_used.detach()
         if config.freeze_bandwidth:
             bw_is_set = torch.ones_like(bw_is_set)
@@ -437,7 +486,7 @@ PHASE_DETECTOR, PHASE_GENERATOR, PHASE_IDLE = 0, 1, 2
 
 
 def kl_train_epochs(
-    state: KLTrainState, x: torch.Tensor, phases, config: TrainConfig
+    state: KLTrainState, x: torch.Tensor, phases, config: TrainConfig, layout=WHOLE
 ) -> Tuple[KLTrainState, torch.Tensor, torch.Tensor]:
     """Run the epochs ``phases`` names (host ints: 0 detector, 1 generator,
     2 idle, from :class:`AlternationSchedule`). Returns ``(state,
@@ -449,10 +498,10 @@ def kl_train_epochs(
     det_hist, gen_hist = [], []
     for phase in np.asarray(phases).tolist():
         if phase == PHASE_DETECTOR:
-            state, loss = kl_detector_epoch(state, x, config)
+            state, loss = kl_detector_epoch(state, x, config, layout=layout)
             last_det = loss.to(torch.float32)
         elif phase == PHASE_GENERATOR:
-            state, loss = kl_generator_epoch(state, x, config)
+            state, loss = kl_generator_epoch(state, x, config, layout=layout)
             last_gen = loss.to(torch.float32)
         elif phase != PHASE_IDLE:
             raise ValueError(f"unknown phase code {phase}")

@@ -14,7 +14,7 @@ file), and older ``ckpt_*`` directories are pruned after the flip. A crash at
 any point leaves ``LATEST`` naming a complete (state, meta) pair. Without
 ``LATEST`` the legacy in-place layout (``state.pt`` and ``meta.json``
 directly under the path) is read. Orbax directories written by the JAX
-package are not read.
+package are not read. Under a mesh only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -46,8 +46,15 @@ def _latest_dir(path: Path) -> Optional[Path]:
     return None
 
 
-def save_train_state(path, payload: Any, meta: Optional[dict] = None) -> None:
-    """Save ``payload`` (tensors, dicts, lists) and JSON ``meta`` atomically."""
+def save_train_state(path, payload: Any, meta: Optional[dict] = None, mesh=None) -> None:
+    """Save ``payload`` (tensors, dicts, lists) and JSON ``meta`` atomically.
+    Under a ``mesh`` (the state replicated on every rank) only global rank 0
+    writes, and every rank then meets at a barrier."""
+    if mesh is not None:
+        from vgan_tpu_torch.parallel.mesh import write_on_rank0
+
+        write_on_rank0(mesh, save_train_state, path, payload, meta)
+        return
     path = Path(path).absolute()
     path.mkdir(parents=True, exist_ok=True)
     existing = [
