@@ -96,8 +96,10 @@ Phases (each asserts; any failure exits non-zero):
    launches; K1 and K3), their loss histories held to phases 3 and 3b;
    ``check_if_myopic`` on the kl mesh model at phase 3b's counts (K5 on the
    sharded permutation rows), its p-values equal to phase 3b's; the stress
-   (K7) and bench (K6) knn ensembles with ``mesh=``, and split into four
-   mask shards run in turn, held to phase 3c's unsharded calls; the CLI's
+   (K7) and bench (K6) knn ensembles with ``mesh=`` under 'average' and
+   'max', and split into four mask shards and into three (which pads the
+   pool with zero-weight masks) run in turn, held to the unsharded calls
+   within phase 3c's limit; the CLI's
    ``fit --mesh data=1 --shard-features`` (K2) and ``score --mesh data=1
    --base knn`` (K7); ``python3 -m vgan_tpu_torch._dryrun 4``;
 4. the other regimes through ``fit`` (d=1024 flash; d=10240 with the K'
@@ -170,9 +172,10 @@ GOF_ALPHAS = (0.01, 1.0)
 GOF_RECOMMENDED_ALPHA = 1.1e9
 ORACLE_PERMUTATIONS = 64
 
-# phase 3h: the ensembles' mask axis split into this many shards, whose
-# per-rank bodies run in turn on the one card
-MESH_SHARDS = 4
+# phase 3h: the ensembles' mask axis split into these many shards, whose
+# per-rank bodies run in turn on the one card; 4 divides the stress and
+# bench pools, 3 leaves zero-weight padding masks in the last shard
+MESH_SHARDS = (4, 3)
 
 # Tolerances, each with its reason:
 # quadrant sums: same f32 inputs, sums of m^2 positive terms; the kernel and
@@ -2161,8 +2164,10 @@ def phase_multidevice(device, n, d, batch, main_losses, kl_results, runs, log) -
     (K2; K1 and K3), held to phases 3 and 3b; ``check_if_myopic`` on the kl
     mesh model at phase 3b's counts (K5 on the sharded permutation rows),
     held to phase 3b's p-values; the stress (K7) and bench (K6) knn
-    ensembles with ``mesh=``, and each split into MESH_SHARDS mask shards
-    whose per-rank bodies run in turn, held to phase 3c's unsharded calls;
+    ensembles with ``mesh=`` under 'average' and 'max', and each split into
+    MESH_SHARDS mask shards (one count padding the pool) whose per-rank
+    bodies run in turn and are combined as the all-reduce does, held to
+    the unsharded calls within phase 3c's limit;
     the CLI's ``fit --mesh data=1 --shard-features`` (K2) and ``score --mesh
     data=1`` (K7); ``python3 -m vgan_tpu_torch._dryrun 4`` (gloo CPU ranks).
     Every item's kernel counts are set to 0 just before it and read just
@@ -2234,7 +2239,8 @@ def phase_multidevice(device, n, d, batch, main_losses, kl_results, runs, log) -
             sync()
             sec = time.perf_counter() - t0
             counts = GG.launch_counts()
-            check(counts["a_times_k"] > 0, f"mesh check_if_myopic({precision}) launched no K5")
+            check(counts == {"a_times_k": 1},
+                  f"mesh check_if_myopic({precision}) launched {counts}, expected one K5")
             add(counts)
             check(p.tolist() == kl_results["pvals"][precision],
                   f"mesh check_if_myopic({precision}) p-values {p.tolist()} vs phase 3b's "
@@ -2243,33 +2249,48 @@ def phase_multidevice(device, n, d, batch, main_losses, kl_results, runs, log) -
                 f"rows sharded over 'data'): {sec:.2f} s, launches {counts}; p-values "
                 f"{p.tolist()} equal to phase 3b's")
 
+        combine = {"average": lambda parts: torch.stack(parts).sum(dim=0),
+                   "max": lambda parts: torch.stack(parts).amax(dim=0)}
+        padded = 0
         for kind, kernel in (("stress", "knn_scores_stream"), ("bench", "knn_scores_resident")):
             ens, Xt = runs[kind, "knn"]
-            want = ens.decision_function(Xt)
-            lim = ENSEMBLE_FRAC * float(np.max(np.abs(want)))
-            mesh_ens = SubspaceEnsemble(ens.subspaces, ens.proba, base="knn", k=ens.k,
-                                        mesh=mesh).fit(ens._train_matrix())
-            got, counts, sec = counted(f"{kind} ensemble with mesh",
-                                       lambda: mesh_ens.decision_function(Xt), {kernel: 1})
-            add(counts)
-            err = float(np.max(np.abs(got - want)))
-            check(err <= lim, f"{kind} ensemble with mesh: max abs err {err:.3e} > {lim:.3e}")
-            log(f"  {kind} knn ensemble with mesh= ({len(ens.subspaces)} masks): {sec:.3f} s, "
-                f"launches {counts}; vs phase 3c's unsharded call max abs err {err:.3e} "
-                f"(limit {lim:.3e})")
-            x_dev = mesh_ens._as_device(Xt)
-            parts, counts, sec = counted(
-                f"{kind} ensemble in {MESH_SHARDS} shards",
-                lambda: [mesh_ens._mask_shard(x_dev, False, s, MESH_SHARDS)
-                         for s in range(MESH_SHARDS)],
-                {kernel: MESH_SHARDS})
-            add(counts)
-            got = torch.stack(parts).sum(dim=0).cpu().numpy()  # the shards' 'average' sum
-            err = float(np.max(np.abs(got - want)))
-            check(err <= lim, f"{kind} ensemble in {MESH_SHARDS} shards: max abs err {err:.3e}")
-            log(f"  {kind} knn ensemble as {MESH_SHARDS} mask shards in turn (each rank's "
-                f"body): {sec:.3f} s, launches {counts}; their sum vs the unsharded call max "
-                f"abs err {err:.3e} (limit {lim:.3e})")
+            for agg in ("average", "max"):
+                pool = dict(base="knn", k=ens.k, aggregation=agg)
+                single = SubspaceEnsemble(ens.subspaces, ens.proba, **pool).fit(
+                    ens._train_matrix())
+                want = single.decision_function(Xt)
+                lim = ENSEMBLE_FRAC * float(np.max(np.abs(want)))
+                mesh_ens = SubspaceEnsemble(ens.subspaces, ens.proba, mesh=mesh,
+                                            **pool).fit(ens._train_matrix())
+                got, counts, sec = counted(f"{kind} {agg} ensemble with mesh",
+                                           lambda: mesh_ens.decision_function(Xt), {kernel: 1})
+                add(counts)
+                err = float(np.max(np.abs(got - want)))
+                check(err <= lim,
+                      f"{kind} {agg} ensemble with mesh: max abs err {err:.3e} > {lim:.3e}")
+                log(f"  {kind} knn ensemble ('{agg}') with mesh= ({len(ens.subspaces)} masks): "
+                    f"{sec:.3f} s, launches {counts}; vs the unsharded call max abs err "
+                    f"{err:.3e} (limit {lim:.3e})")
+                x_dev = mesh_ens._as_device(Xt)
+                for shards in MESH_SHARDS:
+                    pad = (-len(ens.subspaces)) % shards
+                    padded += pad
+                    parts, counts, sec = counted(
+                        f"{kind} {agg} ensemble in {shards} shards",
+                        lambda: [mesh_ens._mask_shard(x_dev, False, s, shards)
+                                 for s in range(shards)],
+                        {kernel: shards})
+                    add(counts)
+                    got = combine[agg](parts).cpu().numpy()  # what the all-reduce does
+                    err = float(np.max(np.abs(got - want)))
+                    check(np.all(np.isfinite(got)) and err <= lim,
+                          f"{kind} {agg} ensemble in {shards} shards ({pad} padding masks): "
+                          f"max abs err {err:.3e} > {lim:.3e}")
+                    log(f"  {kind} knn ensemble ('{agg}') as {shards} mask shards in turn "
+                        f"(each rank's body; {pad} zero-weight padding masks): {sec:.3f} s, "
+                        f"launches {counts}; their {'sum' if agg == 'average' else 'max'} vs "
+                        f"the unsharded call max abs err {err:.3e} (limit {lim:.3e})")
+        check(padded > 0, "no shard split of phase 3h padded its pool")
 
         ens, Xt = runs["stress", "knn"]
         k, nsubs = ens.k, len(ens.subspaces)

@@ -31,11 +31,13 @@ from vgan_tpu_torch import VGAN, VGAN_no_kl, SubspaceEnsemble
 from vgan_tpu_torch.ensemble import od as TOD
 from vgan_tpu_torch.ops.cuda import gof_gram as TG
 from vgan_tpu_torch.parallel import (
+    data_sharding,
     make_mesh,
     mmd2_feature_sharded,
     mmd2_ring_rowsharded,
     no_kl_fit_program_dp,
     process_row_range,
+    replicated,
     shard_dataset,
 )
 from vgan_tpu_torch.parallel.dp import MeshBatches
@@ -71,6 +73,9 @@ ENS = dict(n_train=60, n_test=20, d=12, n_masks=13, k=5)  # 13: not a multiple o
 ONE_CHUNK = ("ocsvm", "ae", "dsvdd")  # scored in one chunk, as their own tests keep them
 NATIVE_BASES = sorted((*TOD._BASE_SCORERS, *TOD._DIM_BASES, *TOD._PARAM_BASES))
 GOF = dict(n1=40, n2=36, d=5, perms=60, alphas=(0.5,))
+# mesh axes of a 2-d tensor's dims, () for replicated
+PLACEMENTS = ((), ("data",), ("data", None), (None, "model"), ("data", "model"),
+              ("model", "data"))
 
 
 def ring_pair(n, d, shift, seed, dtype=np.float32):
@@ -280,6 +285,18 @@ def _estimator_checks(rank, out):
     out["shard_block_n_total"] = shard_dataset(rows[start:end], mesh, n_total=104).numpy()
 
 
+def _placement_checks(out):
+    """This rank's block of a tensor distributed over a 2 x 2 mesh with the
+    placements of ``data_sharding`` / ``replicated``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = make_mesh(data=2, model=2, device="cpu")
+    full = torch.arange(8 * 6, dtype=torch.float32).reshape(8, 6)
+    for i, axes in enumerate(PLACEMENTS):
+        placements = data_sharding(mesh, *axes) if axes else replicated(mesh)
+        out[f"placement_{i}"] = distribute_tensor(full, mesh, placements).to_local().numpy()
+
+
 def _ensemble_checks(rank, out, tmp):
     mesh = make_mesh(data=RANKS, model=1, device="cpu")
     xtr, xte, masks, proba = ens_data()
@@ -334,6 +351,7 @@ def world4(rank, tmp):
     out = {}
     _ring_checks(rank, out)
     _estimator_checks(rank, out)
+    _placement_checks(out)
     _ensemble_checks(rank, out, tmp)
     _gof_checks(rank, out)
     _dp_checks(rank, out, tmp)  # last: JAX's initial states are written meanwhile
@@ -666,6 +684,22 @@ def test_shard_dataset_and_process_row_range(worlds):
         assert tuple(res["row_range"]) == (25 * r, 25 * r + 25)
         # process rows (26 a rank) reassembled into the rank's 'data' block
         np.testing.assert_array_equal(res["shard_block_n_total"], rows[52 * i:52 * i + 52])
+
+
+def test_placements_match_jax_shardings(worlds):
+    """Each rank's block under ``data_sharding`` / ``replicated`` is the
+    block JAX's ``NamedSharding`` of the same spec puts on the device at the
+    same mesh position."""
+    ranks = worlds.ranks("world4")
+    mesh = JMESH.make_mesh(data=2, model=2, devices=jax.devices()[:4])
+    full = np.arange(8 * 6, dtype=np.float32).reshape(8, 6)
+    for i, axes in enumerate(PLACEMENTS):
+        sharding = JMESH.data_sharding(mesh, *axes) if axes else JMESH.replicated(mesh)
+        blocks = {s.device: np.asarray(s.data)
+                  for s in jax.device_put(full, sharding).addressable_shards}
+        for rank, r in enumerate(ranks):
+            np.testing.assert_array_equal(r[f"placement_{i}"], blocks[mesh.devices.flat[rank]],
+                                          err_msg=f"{axes} on rank {rank}")
 
 
 @pytest.mark.parametrize("base", NATIVE_BASES)

@@ -74,8 +74,9 @@ def _add_common_hyperparams(p: argparse.ArgumentParser) -> None:
                         "over 'model' with --shard-features), one process per device "
                         "(torchrun --nproc-per-node N*M), e.g. --mesh data=4,model=2")
     p.add_argument("--shard-features", action="store_true",
-                   help="additionally shard the feature axis over the mesh's 'model' axis "
-                        "(for d >= 10k)")
+                   help="additionally split the dataset's columns over the mesh's 'model' "
+                        "axis: this splits its storage only, since each step gathers the "
+                        "columns back and the 'model' ranks repeat the same full-width work")
     p.add_argument("--no-quirks", action="store_true",
                    help="disable reference-quirk replication")
     p.add_argument("--quiet", action="store_true")
@@ -97,12 +98,6 @@ def _parse_mesh(spec, device):
     from vgan_tpu_torch.parallel.mesh import make_mesh
 
     return make_mesh(data=axes["data"], model=axes["model"], device=device)
-
-
-def _rank0(mesh) -> bool:
-    from vgan_tpu_torch.parallel.mesh import is_rank0
-
-    return is_rank0(mesh)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -249,6 +244,7 @@ def _load_data(spec: str):
 
 def _fit(args, parser) -> int:
     from vgan_tpu_torch import VGAN, VGAN_no_kl
+    from vgan_tpu_torch.parallel.mesh import is_rank0
 
     if args.shard_features and args.mesh is None:
         parser.error("--shard-features requires --mesh (it shards the feature axis over "
@@ -288,7 +284,7 @@ def _fit(args, parser) -> int:
     model.fit(x)
     if args.checkpoint:
         model.save_checkpoint(args.checkpoint)
-    if not _rank0(mesh):
+    if not is_rank0(mesh):
         return 0
     if model.train_history["generator_loss"]:
         print(f"final loss: {model.train_history['generator_loss'][-1]}")
@@ -311,6 +307,7 @@ def _score(args, parser) -> int:
     import numpy as np
 
     from vgan_tpu_torch.ensemble import HeterogeneousEnsemble, SubspaceEnsemble
+    from vgan_tpu_torch.parallel.mesh import is_rank0, write_on_rank0
 
     # validate --members before any data or model loading, so that a typo'd
     # base name errors at once through the parser
@@ -348,10 +345,11 @@ def _score(args, parser) -> int:
         ens = SubspaceEnsemble.from_model(model, subspace_count=args.subspaces, base=args.base,
                                           **knobs).fit(x_train)
     scores = ens.decision_function(x_test)
-    if not _rank0(mesh):
+    if args.out:
+        write_on_rank0(mesh, np.save, args.out, scores)
+    if not is_rank0(mesh):
         return 0
     if args.out:
-        np.save(args.out, scores)
         print(f"{scores.shape} scores -> {args.out}")
     else:
         print(scores)

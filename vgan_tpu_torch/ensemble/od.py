@@ -2647,16 +2647,11 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         x_t = self._as_device(x_test)
         if self.base in _DIM_BASES:
             return self._dim_decision_function(x_t)
-        if self.mesh is not None:
-            return self._mesh_scores(x_t, exclude_self, reduce=True).cpu().numpy()
-        fused = self._knn_fused_decision_function(x_t, exclude_self=exclude_self)
-        if fused is not None:
-            return fused
-        return self._native_scores(x_t, exclude_self, reduce=True).cpu().numpy()
+        return self._mask_scores(x_t, exclude_self, reduce=True).cpu().numpy()
 
     def _native_scores(self, x_test: torch.Tensor, exclude_self: bool, reduce: bool):
-        """The generic path, a chunk of masks at a time (shared by
-        ``decision_function`` and ``per_subspace_scores``).
+        """The generic path over the whole pool, a chunk of masks at a time
+        (the knn bases' path off the kernel route).
 
         ``reduce=True`` applies the zscore and the 'average'/'max'
         aggregation per chunk and combines the chunks; ``reduce=False``
@@ -2690,21 +2685,25 @@ class SubspaceEnsemble(PyodSurfaceMixin):
 
     def _mask_shard(self, x_test: torch.Tensor, exclude_self: bool, shard: int, n_shards: int,
                     reduce: bool = True) -> torch.Tensor:
-        """A rank's work under a mesh, as a function of its shard of the
-        mask axis: on the knn kernel route K6 / K7 on masks ``[shard * per,
-        (shard + 1) * per)`` (the pool zero-padded to ``per * n_shards``
-        masks), else :meth:`_native_shard`. ``reduce=True``: the shard's
-        (nt,) partial aggregate, which the shards' sum ('average') or max
-        ('max') combines into the whole call's; ``reduce=False``: its raw
-        (rows, nt) scores, padding rows included, in mask order."""
+        """The scores of one shard of the mask axis (shard 0 of 1: the
+        whole pool; under a mesh, a rank's work): on the knn kernel route
+        K6 / K7 on masks ``[shard * per, (shard + 1) * per)`` (the pool
+        zero-padded to ``per * n_shards`` masks), else :meth:`_native_shard`.
+        ``reduce=True``: the shard's (nt,) partial aggregate, which the
+        shards' sum ('average') or max ('max') combines into the whole
+        call's; ``reduce=False``: its raw (rows, nt) scores, padding rows
+        included, in mask order."""
         if not self._knn_kernel_route(x_test, exclude_self):
             out = self._native_shard(x_test, exclude_self, reduce, shard, n_shards)
             return out if reduce else out.reshape(-1, x_test.shape[0])
         masks, weights = self._device_pool()
         per = -(-masks.shape[0] // n_shards)
         pad = per * n_shards - masks.shape[0]
-        masks = torch.cat([masks, masks.new_zeros((pad, masks.shape[1]))])[shard * per:][:per]
-        weights = torch.cat([weights, weights.new_zeros(pad)])[shard * per:][:per]
+        if pad:
+            masks = torch.cat([masks, masks.new_zeros((pad, masks.shape[1]))])
+            weights = torch.cat([weights, weights.new_zeros(pad)])
+        part = slice(shard * per, (shard + 1) * per)
+        masks, weights = masks[part], weights[part]
         s = knn_scores_all_masks(x_test, self._x_train, masks, self.k,
                                  mode="mean" if self.base == "knn_mean" else "kth",
                                  exclude_self=exclude_self)
@@ -2714,11 +2713,15 @@ class SubspaceEnsemble(PyodSurfaceMixin):
             s = _zscore(s)
         return _reduce(s, weights, self._reduce_aggregation)
 
-    def _mesh_scores(self, x_test: torch.Tensor, exclude_self: bool, reduce: bool):
-        """:meth:`_mask_shard` on this rank's 'data' shard, then one
-        collective over 'data': an all-reduce (sum or max) of the partial
-        aggregates, or an all-gather of the raw rows in mask order (every
-        rank's shard has the same row count)."""
+    def _mask_scores(self, x_test: torch.Tensor, exclude_self: bool, reduce: bool):
+        """The native bases' scores (shared by ``decision_function`` and
+        ``per_subspace_scores``): :meth:`_mask_shard` over the whole pool,
+        or under a mesh on this rank's 'data' shard, then one collective
+        over 'data': an all-reduce (sum or max) of the partial aggregates,
+        or an all-gather of the raw rows in mask order (every rank's shard
+        has the same row count)."""
+        if self.mesh is None:
+            return self._mask_shard(x_test, exclude_self, 0, 1, reduce)
         import torch.distributed as dist
 
         from vgan_tpu_torch.parallel.mesh import axis_size
@@ -2741,31 +2744,6 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         nt, d = x_test.shape
         ntr = self._x_train.shape[0]
         return knn_kernel_supported(nt, ntr, d, self.k) and not (exclude_self and self.k >= ntr)
-
-    def _knn_scores_all_masks(self, x_test: torch.Tensor, exclude_self: bool) -> torch.Tensor:
-        masks, _ = self._device_pool()
-        return knn_scores_all_masks(x_test, self._x_train, masks, self.k,
-                                    mode="mean" if self.base == "knn_mean" else "kth",
-                                    exclude_self=exclude_self)
-
-    def _knn_fused_decision_function(self, x_test: torch.Tensor, exclude_self: bool = False):
-        """The fused path (counterpart of the JAX ``_fused_knn_ensemble_scores``):
-        the kernel, then the zscore and the aggregation on the device, one
-        host fetch of the (nt,) scores. None where the shapes do not take
-        the kernel."""
-        if not self._knn_kernel_route(x_test, exclude_self):
-            return None
-        return self._aggregate_all_masks(self._knn_scores_all_masks(x_test, exclude_self))
-
-    def _aggregate_all_masks(self, s: torch.Tensor, weights=None) -> np.ndarray:
-        """The z-score and the 'average'/'max' aggregation of every mask's
-        raw (n_masks, nt) scores on the device (weighted by the combining
-        weights unless ``weights`` is given), then one host fetch."""
-        if self.normalize == "zscore":
-            s = _zscore(s)
-        if weights is None:
-            _, weights = self._device_pool()
-        return _reduce(s, weights, self._reduce_aggregation).cpu().numpy()
 
     def predict(self, x_test: np.ndarray) -> np.ndarray:
         """0/1 outlier labels (pyod convention): threshold at the
@@ -2859,13 +2837,8 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         if self.base in _DIM_BASES:
             masks, _ = self._device_pool()
             return self._dim_raw(x_t, masks).cpu().numpy()
-        if self.mesh is not None:
-            raw = self._mesh_scores(x_t, exclude_self, reduce=False)
-            return raw[: len(self.subspaces)].cpu().numpy()
-        if self._knn_kernel_route(x_t, exclude_self):
-            return self._knn_scores_all_masks(x_t, exclude_self).cpu().numpy()
-        raw = self._native_scores(x_t, exclude_self, reduce=False)
-        return raw.reshape(-1, x_t.shape[0])[: len(self.subspaces)].cpu().numpy()
+        raw = self._mask_scores(x_t, exclude_self, reduce=False)
+        return raw[: len(self.subspaces)].cpu().numpy()
 
     def _dim_raw(self, x_test: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
         """Raw (n_masks, nt) scores of a dimension-decomposable base."""
@@ -2879,8 +2852,11 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         ``weights=`` is not read: the JAX package's dim route does so
         (ROADMAP.md Queue 3)."""
         masks, _ = self._device_pool()
+        s = self._dim_raw(x_test, masks)
+        if self.normalize == "zscore":
+            s = _zscore(s)
         proba = torch.as_tensor(self.proba, device=self.device)
-        return self._aggregate_all_masks(self._dim_raw(x_test, masks), proba)
+        return _reduce(s, proba, self._reduce_aggregation).cpu().numpy()
 
     def _pyod_per_subspace_raw(self, x_test: np.ndarray) -> np.ndarray:
         """(n_subspaces, nt) raw scores from a pyod-style detector loop."""

@@ -23,7 +23,8 @@ same losses. Only the work is split, by :class:`MeshBatches`:
   replicated state, which stays equal on every rank.
 
 'model' ranks of one 'data' coordinate hold the same rows and do the same
-work. In a world of one every collective is over one rank and the fit is
+full-width work: ``shard_features`` splits only the dataset's storage. In
+a world of one every collective is over one rank and the fit is
 the single-device fit's to the bit.
 """
 
