@@ -28,7 +28,14 @@ Phases (each asserts; any failure exits non-zero):
    plain version with injected noise at the notebook shape, the gate's
    widest corner and two ragged shapes (each state leaf's change over the
    fit held, at a learning rate that moves it), its Philox noise's distribution,
-   and its rng-mode fit against the fit fed that noise, to the bit;
+   and its rng-mode fit against the fit fed that noise, to the bit; and the
+   bf16-operand variants of K1-K4 (``gram_matmul_dtype='bfloat16'``, the
+   tensor cores) against their plain versions on the same bf16-rounded
+   operands, each timed beside its f32 kernel with its bound: K1 at the kl
+   and flash fits' Grams, a ragged mode (a) and the panel fit's forward, K2
+   at the stress Gram, K3 in modes (b) (the kl Gram) and (a) (m=8192), K4 on
+   the square panel (with a ragged offset panel and an ordered one) and on
+   one real panel (m=45056, R=1472);
 3. the no-kl main path at full width: ``VGAN_no_kl`` fit at the stress
    configuration (n=2000, d=10240, batch 500, 2 epochs), then
    generate_subspaces, approx_subspace_dist and check_if_myopic;
@@ -102,6 +109,11 @@ Phases (each asserts; any failure exits non-zero):
    within phase 3c's limit; the CLI's
    ``fit --mesh data=1 --shard-features`` (K2) and ``score --mesh data=1
    --base knn`` (K7); ``python3 -m vgan_tpu_torch._dryrun 4``;
+3i. the bf16 options, all three together, at the stress width: the no-kl
+   stress fit (K2's bf16 variant, 8 launches, no f32 one), one kl cycle (K1's
+   and K3's) and a one-epoch panel fit (K1's and K4's), each held to the
+   same fit on the dense torch path with the same options, the first two
+   also to phases 3 and 3b within vgan_tpu's own rtol 0.08 of the f32 fit;
 4. the other regimes through ``fit`` (d=1024 flash; d=10240 with the K'
    stash off, panel), and the d=10 notebook configuration of both
    estimators, which runs no kernel. Every kernel fit's losses are held
@@ -116,7 +128,9 @@ Phases (each asserts; any failure exits non-zero):
    per step), the
    stress fits' steps/s, both ensembles' API-level subspace-scorings/s, and
    a profiler breakdown of one no-kl stress epoch and of one kl detector and
-   one kl generator epoch by device kernel, with the device's busy share.
+   one kl generator epoch by device kernel, with the device's busy share;
+   the stress fits' steps/s with the bf16 options beside them, for
+   information.
    K8's phase timer gives each phase's microseconds a step at both fused
    shapes. With ``--parent-csrc DIR`` (an earlier commit's
    ``vgan_tpu_torch/ops/cuda/csrc/``), it also builds that commit's kernels
@@ -258,6 +272,24 @@ FUSED_TIMED_EPOCHS = 2000  # the reference's default epochs
 FUSED_PLAIN_EPOCHS = 20  # the plain version's eager steps, timed over the fit's first epochs
 SCAN_TIMED_EPOCHS = 50
 FUSED_CORNER = dict(n=8192, d=128, bs=1000, epochs=20)  # K8's time per step at the gate's corner
+# The bf16-operand variants of K1-K4 (phase 2) are held to their plain
+# versions on the same bf16-rounded operands with the f32 kernels' limits:
+# the products of bf16 values are exact in f32, and the variants add each
+# mma's 16-term sum into IEEE f32 accumulators, so only the order of the
+# sums differs (quadrant sums RTOL_SUMS, K' RTOL_KP and ATOL_KP, S @ z and
+# rowsum(S) GRAD_FRAC of their largest entry).
+# the tensor cores' dense bf16 rate (NVIDIA data sheet, H100 SXM): the
+# bf16 variants' distance products are bound by it, the rest by the f32 rate
+PEAK_BF16_FLOPS = 989e12
+BF16_OPTIONS = dict(gram_matmul_dtype="bfloat16", model_matmul_dtype="bfloat16",
+                    opt_state_dtype="bfloat16")
+# phase 3i: a bf16-option fit on the kernels is held to the same fit on the
+# dense torch path with the same options at RTOL_FIT_LOSS, as the f32 fits
+# are: the two MMDs differ at the f32 level only, and the bf16 layers and
+# state see the same values on both paths (9.3e-7 apart on an H100 in this
+# phase's first run). Against the f32 fit, vgan_tpu's own limit for the
+# options (test_bf16_model_and_opt_state_fit_close_to_f32).
+RTOL_BF16_VS_F32 = 0.08
 N_OUTLIERS = 25
 # phase 5's large Gram shapes: K1 in the flash regime at m=40960 (mode (a)),
 # and K4 on one real panel of the panel regime (m=45056: (M, M) K' no longer
@@ -577,6 +609,132 @@ def phase_kernels(device, gram_shapes, flash_shapes, log):
         mode, _, nsplit = G.flash_schedule(n1 + n2, d, sms)
         log(f"  K3 {tag} mode ({mode}), {nsplit} splits: ok")
     return errs
+
+
+def bf16_bound(mma_ops: float, f32_ops: float, nbytes: float):
+    """A bf16 variant's bound: its distance product at the tensor cores' bf16
+    rate plus its other operations at the f32 rate, or its bytes (each
+    operand element at 2 bytes) at the HBM rate, whichever is larger, in ms."""
+    t_ops = (mma_ops / PEAK_BF16_FLOPS + f32_ops / PEAK_F32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_bf16_kernels(device, shapes, log) -> dict:
+    """Each bf16-operand variant (K1-K4) against its plain version on the
+    same bf16-rounded operands and the f32 rows' norms, twice for identical
+    bits, timed (CUDA events) beside its f32 kernel and its plain version on
+    the same inputs in this call, with its bound. ``shapes``: name -> the
+    (n1, n2, d) it is held at, the main path's first. Returns each variant's
+    row of the kernels line, less its launches."""
+    from vgan_tpu_torch.ops import mmd as M
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
+
+    mults = M.bandwidth_multipliers()
+    sms = G._sms(device)
+    rows = {}
+
+    def record(name, label, fn, f32, plain, err, tol, mma_ops, f32_ops, nbytes, iters=20):
+        warmup = 1 if iters < 20 else 3
+        t = {"shape": label, "ms": cuda_ms(fn, iters, warmup), "f32_ms": cuda_ms(f32, iters, warmup),
+             "plain_ms": cuda_ms(plain, iters, warmup), "max_abs_err": err, "tol": tol}
+        t["bound_ms"], t["bound_by"] = bf16_bound(mma_ops, f32_ops, nbytes)
+        log(f"  {name} {label}: {t['ms']:.4f} ms (f32 kernel {t['f32_ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}); max abs err "
+            f"{err:.3e} ({tol})")
+        if name in rows:
+            rows[name]["at_other_shapes"].append(t)
+        else:
+            rows[name] = dict(t, at_other_shapes=[])
+
+    sums_tol, kp_tol = f"rtol {RTOL_SUMS}", f"rtol {RTOL_KP} atol {ATOL_KP}"
+    for n1, n2, d in shapes["gram_quadrant_sums_bf16"]:
+        _, _, z, norms, bw = gram_inputs(n1, n2, d, seed=41, device=device)
+        m, zr = n1 + n2, G.rounded(z)
+        mode = G.tile_schedule(G.tile_pairs(m), d, sms)[0]
+        err = assert_close(f"gram_quadrant_sums_bf16 m={m} d={d}",
+                           G.gram_quadrant_sums_bf16(z, norms, bw, n1, mults),
+                           G.gram_quadrant_sums_reference(zr, norms, bw, n1, mults), RTOL_SUMS)
+        repeat_identical("gram_quadrant_sums_bf16",
+                         lambda: G.gram_quadrant_sums_bf16(z, norms, bw, n1, mults))
+        pairs = sym_pairs(m)
+        record("gram_quadrant_sums_bf16", f"m={m} d={d} mode ({mode})",
+               lambda: G.gram_quadrant_sums_bf16(z, norms, bw, n1, mults),
+               lambda: G.gram_quadrant_sums(z, norms, bw, n1, mults),
+               lambda: G.gram_quadrant_sums_reference(zr, norms, bw, n1, mults), err, sums_tol,
+               2 * pairs * d, OPS_PER_ENTRY * pairs, 2 * m * d + 4 * (m + 1 + 4))
+    for n1, n2, d in shapes["gram_quadrant_sums_stash_bf16"]:
+        _, _, z, norms, bw = gram_inputs(n1, n2, d, seed=42, device=device)
+        m, zr = n1 + n2, G.rounded(z)
+        s_k, kp_k = G.gram_quadrant_sums_stash_bf16(z, norms, bw, n1, mults)
+        s_p, kp_p = G.gram_quadrant_sums_stash_reference(zr, norms, bw, n1, mults)
+        err = max(assert_close(f"gram_quadrant_sums_stash_bf16 sums m={m} d={d}", s_k, s_p, RTOL_SUMS),
+                  assert_close(f"gram_quadrant_sums_stash_bf16 kp m={m} d={d}", kp_k, kp_p,
+                               RTOL_KP, ATOL_KP))
+        check(torch.equal(kp_k, kp_k.T), f"gram_quadrant_sums_stash_bf16 m={m}: K' is not symmetric")
+        repeat_identical("gram_quadrant_sums_stash_bf16",
+                         lambda: G.gram_quadrant_sums_stash_bf16(z, norms, bw, n1, mults))
+        pairs = sym_pairs(m)
+        record("gram_quadrant_sums_stash_bf16", f"m={m} d={d}",
+               lambda: G.gram_quadrant_sums_stash_bf16(z, norms, bw, n1, mults),
+               lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults),
+               lambda: G.gram_quadrant_sums_stash_reference(zr, norms, bw, n1, mults),
+               err, f"sums {sums_tol}; kp {kp_tol}", 2 * pairs * d, OPS_PER_ENTRY * pairs,
+               2 * m * d + 4 * (m + 1 + 4 + m * m))
+    for n1, n2, d in shapes["gram_backward_flash_bf16"]:
+        z, norms, bw = large_gram_inputs(n1 + n2, d, 43, device)
+        m, zr = n1 + n2, G.rounded(z)
+        mode, _, nsplit = G.flash_schedule(m, d, sms)
+        sz_k, rs_k = G.gram_backward_flash_bf16(z, norms, bw, n1, n2, mults)
+        sz_p, rs_p = G.gram_backward_flash_reference(zr, norms, bw, n1, n2, mults)
+        err = max(assert_frac(f"gram_backward_flash_bf16 sz m={m} d={d}", sz_k, sz_p, GRAD_FRAC),
+                  assert_frac(f"gram_backward_flash_bf16 rs m={m} d={d}", rs_k, rs_p, GRAD_FRAC))
+        del sz_k, rs_k, sz_p, rs_p
+        repeat_identical("gram_backward_flash_bf16",
+                         lambda: G.gram_backward_flash_bf16(z, norms, bw, n1, n2, mults))
+        pairs = sym_pairs(m)
+        iters = 20 if m <= 4096 else 3
+        record("gram_backward_flash_bf16", f"m={m} d={d} mode ({mode}), {nsplit} splits",
+               lambda: G.gram_backward_flash_bf16(z, norms, bw, n1, n2, mults),
+               lambda: G.gram_backward_flash(z, norms, bw, n1, n2, mults),
+               lambda: G.gram_backward_flash_reference(zr, norms, bw, n1, n2, mults), err,
+               f"{GRAD_FRAC} of max|ref|", 2 * pairs * d, OPS_PER_ENTRY * pairs + 2 * m * m * d,
+               2 * m * d + 4 * (m * d + 2 * m + 1), iters)
+        torch.cuda.empty_cache()
+    for n1, n2, d, R, checks in shapes["kprime_panel_bf16"]:
+        z, norms, bw = large_gram_inputs(n1 + n2, d, 44, device)
+        m, zr = n1 + n2, G.rounded(z)
+        cols_t = G.panel_operand(z, bf16=True)
+        err = 0.0
+        for r0, r1, offset in checks:  # the panel timed first, then ragged and ordered ones
+            tag = f"kprime_panel_bf16 rows {r0}:{r1} offset {offset} m={m} d={d}"
+            ct = cols_t if offset is not None else None
+            p_k = G.kprime_panel_bf16(z[r0:r1], z, norms[r0:r1], norms, bw, mults, offset=offset,
+                                      cols_t=ct)
+            e = assert_close(tag, p_k, G.kprime_panel_reference(zr[r0:r1], zr, norms[r0:r1], norms,
+                                                                bw, mults), RTOL_KP, ATOL_KP)
+            if offset is not None:
+                block = p_k[:, offset:offset + (r1 - r0)]
+                check(torch.equal(block, block.T), f"{tag}: K' of the diagonal block is not symmetric")
+            del p_k
+            repeat_identical(tag, lambda: G.kprime_panel_bf16(z[r0:r1], z, norms[r0:r1], norms, bw,
+                                                              mults, offset=offset, cols_t=ct))
+            err = max(err, e)
+        zr_rows, n_rows = z[:R], norms[:R]
+        cols_f32 = G.panel_operand(z)
+        mode = G.tile_schedule(G.panel_blocks(R, m, 0), d, sms)[0]
+        formed = R * m - R * (R - 1) // 2
+        record("kprime_panel_bf16", f"R={R} C={m} d={d} offset 0 mode ({mode})",
+               lambda: G.kprime_panel_bf16(zr_rows, z, n_rows, norms, bw, mults, offset=0,
+                                           cols_t=cols_t),
+               lambda: G.kprime_panel(zr_rows, z, n_rows, norms, bw, mults, offset=0,
+                                      cols_t=cols_f32),
+               lambda: G.kprime_panel_reference(zr[:R], zr, n_rows, norms, bw, mults), err, kp_tol,
+               formed * 2 * d, formed * OPS_PER_ENTRY, 2 * m * d + 4 * (R + m + 1 + R * m),
+               20 if m <= 4096 else 3)
+        del z, zr, cols_t, cols_f32
+        torch.cuda.empty_cache()
+    return rows
 
 
 def core_against_dense(x, y, bw, want: str, label: str, log):
@@ -1041,6 +1199,7 @@ def phase_kl_main_path(device, n, d, batch, log):
     history and the GoF p-values (phase 3h holds its mesh runs to them)."""
     from vgan_tpu_torch import VGAN
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
     from vgan_tpu_torch.ops.mmd_test import (
         mmd_permutation_test_sweep,
         mmd_permutation_test_sweep_precise,
@@ -1050,8 +1209,8 @@ def phase_kl_main_path(device, n, d, batch, log):
     steps = n // batch  # per epoch: phases [detector, generator]
     model, counts, kl_losses = fit_against_dense(X, device, "kl stress fit", log, cls=VGAN,
                                                  epochs=2, batch_size=batch)
-    want = {"gram_quadrant_sums": 2 * steps, "gram_quadrant_sums_stash": 0,
-            "gram_backward_flash": steps, "kprime_panel": 0}
+    want = dict(dict.fromkeys(G.launch_counts(), 0), gram_quadrant_sums=2 * steps,
+                gram_backward_flash=steps)
     check(counts == want, f"kl stress fit launches {counts}, expected {want}")
     launches = {k: counts[k] for k in ("gram_quadrant_sums", "gram_backward_flash")}
     kl_encodings_against_dense(model, X, batch, device, log)
@@ -2204,8 +2363,7 @@ def phase_multidevice(device, n, d, batch, main_losses, kl_results, runs, log) -
 
         X = np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)  # phase 3's rows
         steps = 2 * (n // batch)
-        zero = {"gram_quadrant_sums": 0, "gram_quadrant_sums_stash": 0,
-                "gram_backward_flash": 0, "kprime_panel": 0}
+        zero = dict.fromkeys(G.launch_counts(), 0)
         # each dp fit right after the same fit unsharded (warm), for its time
         plain_sec = fit_counts(X, device, epochs=2, batch_size=batch)[3]
         _, counts, losses, sec = fit_counts(X, device, epochs=2, batch_size=batch, mesh=mesh,
@@ -2349,6 +2507,79 @@ def phase_multidevice(device, n, d, batch, main_losses, kl_results, runs, log) -
     return launches
 
 
+def phase_bf16_options(device, n, d, batch, main_losses, kl_losses, log) -> dict:
+    """The three bf16 options together through the estimators at the stress
+    width (phase 3's rows): the no-kl stress fit (8 steps: K2's bf16 variant
+    only), one kl cycle (a detector and a generator epoch: K1's and K3's)
+    and a one-epoch panel fit (the K' stash off: K1's and K4's), each with
+    the kernel counts set to 0 just before it and read just after, held to
+    the same fit on the dense torch path with the same options, the first
+    two also to phases 3 and 3b's f32 fits. Returns each variant's launches
+    (K1's under the kl cycle and, apart, the panel fit)."""
+    from vgan_tpu_torch import VGAN
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
+
+    t_phase = time.perf_counter()
+    X = np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)
+    zero = dict.fromkeys(G.launch_counts(), 0)
+    steps = n // batch
+
+    def fit(label, want, cls=None, epochs=2):
+        model, counts, losses, sec = fit_counts(X, device, cls, epochs=epochs, batch_size=batch,
+                                                **BF16_OPTIONS)
+        check(counts == dict(zero, **want), f"{label}: launched {counts}, expected {want}")
+        _, plain_counts, plain, _ = fit_counts(X, device, cls, epochs=epochs, batch_size=batch,
+                                               mmd_impl="torch", **BF16_OPTIONS)
+        check(sum(plain_counts.values()) == 0, f"mmd_impl='torch' launched {plain_counts}")
+        seen = np.isfinite(plain)
+        gap = float(np.max(np.abs(losses[seen] - plain[seen]) / np.abs(plain[seen])))
+        check(np.allclose(losses, plain, rtol=RTOL_FIT_LOSS, atol=0.0, equal_nan=True),
+              f"{label}: kernel-path losses {losses} vs dense-path {plain}")
+        log(f"  {label}: losses {losses.tolist()}, launches {counts}, {sec:.3f} s "
+            f"({epochs * steps / sec:.2f} steps/s, the first call included); the dense torch "
+            f"path with the options: losses {plain.tolist()}, largest relative gap {gap:.3e} "
+            f"(limit {RTOL_FIT_LOSS})")
+        state = model.train_state
+        opt = state.det_opt if cls is VGAN else state.opt_state
+        check(model.generator.compute_dtype == torch.bfloat16
+              and all(t.dtype == torch.bfloat16 for t in opt.square_avg.values())
+              and all(p.dtype == torch.float32 for p in model.generator.parameters()),
+              f"{label}: the model or optimizer state is not as the options ask")
+        return counts, losses
+
+    def against_f32(label, losses, f32):
+        seen = np.isfinite(f32)
+        gap = float(np.max(np.abs(losses[seen] - f32[seen]) / np.abs(f32[seen])))
+        check(np.allclose(losses, f32, rtol=RTOL_BF16_VS_F32, atol=0.0, equal_nan=True),
+              f"{label}: bf16 losses {losses} vs the f32 fit's {f32}")
+        log(f"  {label}: against the f32 fit's losses {f32.tolist()}: largest relative gap "
+            f"{gap:.3e} (limit {RTOL_BF16_VS_F32}, vgan_tpu's own)")
+
+    counts, losses = fit("no-kl stress fit, bf16 options",
+                         {"gram_quadrant_sums_stash_bf16": 2 * steps})
+    against_f32("no-kl stress fit, bf16 options", losses, main_losses)
+    launches = {"gram_quadrant_sums_stash_bf16": counts["gram_quadrant_sums_stash_bf16"]}
+    counts, losses = fit("kl stress cycle, bf16 options",
+                         {"gram_quadrant_sums_bf16": 2 * steps, "gram_backward_flash_bf16": steps},
+                         cls=VGAN)
+    against_f32("kl stress cycle, bf16 options", losses, kl_losses)
+    launches["gram_quadrant_sums_bf16"] = counts["gram_quadrant_sums_bf16"]
+    launches["gram_backward_flash_bf16"] = counts["gram_backward_flash_bf16"]
+    saved = G._KP_STASH_BYTES
+    G._KP_STASH_BYTES = 0
+    try:
+        panels = -(-batch * 2 // G._panel_rows(2 * batch))
+        counts, _ = fit("panel fit, bf16 options", {"gram_quadrant_sums_bf16": steps,
+                                                    "kprime_panel_bf16": steps * panels},
+                        epochs=1)
+    finally:
+        G._KP_STASH_BYTES = saved
+    launches["kprime_panel_bf16"] = counts["kprime_panel_bf16"]
+    launches["gram_quadrant_sums_bf16", "panel fit"] = counts["gram_quadrant_sums_bf16"]
+    log(f"  phase 3i: {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    return launches
+
+
 def phase_other_regimes(device, n, d_flash, d_panel, batch, log):
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
@@ -2357,8 +2588,8 @@ def phase_other_regimes(device, n, d_flash, d_panel, batch, log):
     X = np.random.default_rng(1).standard_normal((n, d_flash), dtype=np.float32)
     _, counts, _ = fit_against_dense(X, device, f"flash fit d={d_flash}", log,
                                      epochs=2, batch_size=batch)
-    check(counts == {"gram_quadrant_sums": 2 * steps, "gram_quadrant_sums_stash": 0,
-                     "gram_backward_flash": 2 * steps, "kprime_panel": 0},
+    check(counts == dict(dict.fromkeys(G.launch_counts(), 0), gram_quadrant_sums=2 * steps,
+                         gram_backward_flash=2 * steps),
           f"flash fit launches {counts}, expected {2 * steps} of K1 and K3")
     launches["gram_quadrant_sums", "flash fit"] = counts["gram_quadrant_sums"]
     launches["gram_backward_flash"] = counts["gram_backward_flash"]
@@ -3384,11 +3615,11 @@ def ensemble_rates(runs, log) -> None:
             f"subspace-scorings/s (median of {iters})")
 
 
-def fit_steps_per_s(device, n, d, batch, epochs: int = 2) -> float:
+def fit_steps_per_s(device, n, d, batch, epochs: int = 2, **options) -> float:
     from vgan_tpu_torch.train.steps import TrainConfig, init_no_kl_state, no_kl_train_epochs
 
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)).to(device)
-    config = TrainConfig(ndims=d, batch_size=batch)
+    config = TrainConfig(ndims=d, batch_size=batch, **options)
     state = init_no_kl_state(config, 777, device)
     sync()
     t0 = time.perf_counter()
@@ -3399,7 +3630,7 @@ def fit_steps_per_s(device, n, d, batch, epochs: int = 2) -> float:
     return epochs * (n // batch) / dt
 
 
-def kl_fit_steps_per_s(device, n, d, batch) -> float:
+def kl_fit_steps_per_s(device, n, d, batch, **options) -> float:
     """The kl stress fit over one cycle of AlternationSchedule(1, 5): one
     detector epoch, then five generator epochs (the detached generator's
     loss evaluations)."""
@@ -3411,7 +3642,7 @@ def kl_fit_steps_per_s(device, n, d, batch) -> float:
     )
 
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)).to(device)
-    config = TrainConfig(ndims=d, batch_size=batch)
+    config = TrainConfig(ndims=d, batch_size=batch, **options)
     phases = AlternationSchedule(1, 5).phase_array(6)
     state = init_kl_state(config, 777, device)
     sync()
@@ -3485,7 +3716,8 @@ def sass_sizes() -> dict:
 
 def kernel_name(mangled: str) -> str:
     """The innermost name of a mangled ``_ZN<len><name>...`` symbol, with
-    its bool template arguments (``tile_kernel<1>``)."""
+    its operand type and bool template arguments (``tile_kernel<bf16,1>``;
+    a float operand is left out: ``tile_kernel<1>``)."""
     import re
 
     i, name = mangled.find("_ZN") + 3, mangled
@@ -3496,7 +3728,9 @@ def kernel_name(mangled: str) -> str:
         name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
     if 3 <= i < len(mangled) and mangled[i] == "I":  # template arguments, up to their "E"
         rest = mangled[i:]
-        args = re.findall(r"Lb([01])E", rest[:rest.find("EE") + 2])
+        head = rest[:rest.find("EE") + 2]
+        args = (["bf16"] if head.startswith("I13__nv_bfloat16") else []) + re.findall(
+            r"Lb([01])E", head)
         if args:
             name += f"<{','.join(args)}>"
     return name
@@ -3567,6 +3801,26 @@ def main(argv=None) -> int:
         (1100, 1013, 700, "a"),
     ], [kl_shape, flash_shape, (4096, 4096, 1024), (333, 517, 2000)], log)
     phase_core(device, stress_shape, (333, 517, 2000), log)
+    log("phase 2: the bf16-operand variants of K1-K4 (gram_matmul_dtype='bfloat16')")
+    rp = K4_REAL_PANEL
+    m_rp = rp["n1"] + rp["n2"]
+    m_st = stress_shape[0] + stress_shape[1]
+    bf16_rows = phase_bf16_kernels(device, {
+        # the kl cycle's Gram first (its main path), the flash fit's, a ragged
+        # mode (a), the panel fit's forward
+        "gram_quadrant_sums_bf16": [kl_shape, flash_shape, (1100, 1013, 700), stress_shape],
+        "gram_quadrant_sums_stash_bf16": [stress_shape],
+        # mode (b) at the kl cycle's Gram, mode (a) at m=8192
+        "gram_backward_flash_bf16": [kl_shape, (4096, 4096, 1024)],
+        # (n1, n2, d, R timed at offset 0, checks (r0, r1, offset)): the panel
+        # fit's square panel, a ragged one at an offset and an ordered one;
+        # then one real panel
+        "kprime_panel_bf16": [
+            (*stress_shape, m_st, [(0, m_st, 0), (256, 576, 256), (0, m_st, None)]),
+            (rp["n1"], rp["n2"], rp["d"], G._panel_rows(m_rp),
+             [(0, G._panel_rows(m_rp), 0)]),
+        ],
+    }, log)
     gof_errs = phase_gof_kernel(device, [
         # (rows of the data, n1, n2, d, permutations, alphas, panel rows or 0)
         gof_f64,
@@ -3631,6 +3885,9 @@ def main(argv=None) -> int:
     mesh_launches = phase_multidevice(device, n, d, batch, main_losses, kl_results, ensembles,
                                       log)
 
+    log("phase 3i: the bf16 options (gram, model and optimizer-state dtypes) at full width")
+    bf16_launches = phase_bf16_options(device, n, d, batch, main_losses, kl_results["losses"], log)
+
     log("phase 4: the other regimes through fit, the notebook configurations")
     launches = phase_other_regimes(device, n, d_flash, d, batch, log)
     launches["gram_quadrant_sums_stash"] = k2_launches
@@ -3648,6 +3905,19 @@ def main(argv=None) -> int:
         if row["name"] in mesh_launches:  # phase 3h's sharded paths (K1-K3, K5-K7)
             row["launches_mesh"] = mesh_launches[row["name"]]
     rows.append(fused_times(device, errs, k8_launches, log))
+    pallas = "vgan_tpu/ops/pallas/mmd_gram.py"
+    for name, replaces in (("gram_quadrant_sums_bf16", f"{pallas}:207 _fwd_kernel"),
+                           ("gram_quadrant_sums_stash_bf16", f"{pallas}:269 _fwd_stash_kernel"),
+                           ("gram_backward_flash_bf16", f"{pallas}:469 _flash_bwd_kernel"),
+                           ("kprime_panel_bf16", f"{pallas}:606 _kprime_panel_kernel")):
+        row = {"name": name, "route": "cuda",
+               "source": "vgan_tpu_torch/ops/cuda/csrc/mmd_gram.cu",
+               "replaces": replaces + " with matmul_dtype='bfloat16' (bf16 z_dot, :779)",
+               **bf16_rows[name], "launches": bf16_launches[name], "library_ms": None,
+               "bound_peak_tflops": PEAK_BF16_FLOPS / 1e12}
+        if name == "gram_quadrant_sums_bf16":
+            row["launches_panel_fit"] = bf16_launches["gram_quadrant_sums_bf16", "panel fit"]
+        rows.append(row)
     if parent_libs:
         log("  against the parent commit's K1-K8 (same inputs, in turns)")
         compared = parent_comparison(parent_libs, device, ensembles, [gof_f64, gof_f32], log)
@@ -3670,12 +3940,15 @@ def main(argv=None) -> int:
     kl_sps = kl_fit_steps_per_s(device, n, d, batch)
     log(f"  kl stress fit (n={n}, d={d}, batch {batch}, one detector and five generator "
         f"epochs): {kl_sps:.2f} steps/s")
+    log(f"  with the bf16 options (phase 3i's), for information: stress fit "
+        f"{fit_steps_per_s(device, n, d, batch, **BF16_OPTIONS):.2f} steps/s, kl stress fit "
+        f"{kl_fit_steps_per_s(device, n, d, batch, **BF16_OPTIONS):.2f} steps/s")
     profile_stress_epoch(device, n, d, batch, log)
     profile_stress_epoch(device, n, d, batch, log, kl=True)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
-    for row in rows:
-        row["bound_peak_tflops"] = PEAK_F32_FLOPS / 1e12  # the datapath of every kernel row
+    for row in rows:  # the datapath of every kernel row but the bf16 variants'
+        row.setdefault("bound_peak_tflops", PEAK_F32_FLOPS / 1e12)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -280,29 +280,43 @@ def test_no_card_raises(monkeypatch):
                                               for p in ("weight", "bias")]
 
 
-_LEFT_OUT = [
-    dict(mesh=object()), dict(shard_features=True),
-    dict(gram_matmul_dtype="bfloat16"), dict(model_matmul_dtype="bfloat16"),
-    dict(opt_state_dtype="bfloat16"),
-]
+_LEFT_OUT = [dict(mesh=object()), dict(shard_features=True)]
 
 
 @pytest.mark.parametrize("cls,kwargs", [(VGAN_no_kl, kw) for kw in _LEFT_OUT]
                          + [(VGAN, kw) for kw in _LEFT_OUT])
 def test_left_out_options_raise(cls, kwargs):
-    """The bf16 options raise, naming ROADMAP.md; ``mesh=`` and
-    ``shard_features=`` are ported (tests/test_torch_parallel.py) and raise
-    only when misused: a mesh that is not a ``DeviceMesh``, or
-    ``shard_features`` without a mesh."""
+    """``mesh=`` and ``shard_features=`` are ported
+    (tests/test_torch_parallel.py) and raise only when misused: a mesh that
+    is not a ``DeviceMesh``, or ``shard_features`` without a mesh. The bf16
+    options are ported (test_bf16_options_reach_the_config)."""
     if "mesh" in kwargs:
         with pytest.raises(TypeError, match="make_mesh"):
             cls(device="cpu", **kwargs)
-    elif "shard_features" in kwargs:
+    else:
         with pytest.raises(ValueError, match="needs mesh="):
             cls(device="cpu", **kwargs)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cls(device="cpu", **kwargs)
+
+
+_BF16_OPTIONS = ("gram_matmul_dtype", "model_matmul_dtype", "opt_state_dtype")
+
+
+@pytest.mark.parametrize("cls,option", [(c, o) for c in (VGAN_no_kl, VGAN) for o in _BF16_OPTIONS])
+def test_bf16_options_reach_the_config(cls, option):
+    """Each bf16 option is stored on the estimator as given (the others stay
+    None, as in vgan_tpu) and reaches the ``TrainConfig`` of a fit, and
+    through it the modules and the optimizer it builds."""
+    model = cls(device="cpu", **{option: "bfloat16"})
+    for name in _BF16_OPTIONS:
+        assert getattr(model, name) == ("bfloat16" if name == option else None)
+    config = model._make_config(D, BS)
+    for name in _BF16_OPTIONS:
+        assert getattr(config, name) == getattr(model, name)
+    gen = config.generator_module(kl=cls is VGAN)
+    assert gen.compute_dtype == (torch.bfloat16 if option == "model_matmul_dtype" else None)
+    state = config.adadelta(0.01).init(dict(gen.named_parameters()))
+    want = torch.bfloat16 if option == "opt_state_dtype" else torch.float32
+    assert all(t.dtype == want for t in state.square_avg.values())
 
 
 @pytest.mark.parametrize("cls", [VGAN_no_kl, VGAN])

@@ -14,6 +14,7 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import flax.serialization
 import jax.numpy as jnp
@@ -166,6 +167,10 @@ def test_main_module_runs(rows, tmp_path):
     assert np.load(tmp_path / "m.npy").shape == (5, 8)
 
 
+class _Stop(Exception):
+    """Raised in place of a fit, once its estimator has been read."""
+
+
 def test_refusals(rows, tmp_path):
     path, _ = rows
     fit = ["fit", "--data", str(path), "--epochs", "1", "--device", "cpu"]
@@ -181,9 +186,21 @@ def test_refusals(rows, tmp_path):
     with pytest.raises(SystemExit, match="data=N"):
         TCLI.main(fit + ["--mesh", "data=two"])
     assert not torch.distributed.is_initialized()
-    for flag in ("--model-dtype", "--opt-state-dtype", "--gram-dtype"):
-        with pytest.raises(NotImplementedError, match="bf16 options"):
+    # the bf16 flags reach the estimator (a fit with all three:
+    # test_torch_bf16.py)
+    seen = {}
+
+    def record(self, X):
+        seen.update(gram=self.gram_matmul_dtype, model=self.model_matmul_dtype,
+                    state=self.opt_state_dtype)
+        raise _Stop
+
+    for flag, key in (("--model-dtype", "model"), ("--opt-state-dtype", "state"),
+                      ("--gram-dtype", "gram")):
+        seen.clear()
+        with mock.patch.object(VGAN_no_kl, "fit", record), pytest.raises(_Stop):
             TCLI.main(fit + [flag, "bfloat16"])
+        assert seen == {k: ("bfloat16" if k == key else None) for k in ("gram", "model", "state")}
     # parser errors, before any data is read
     for extra in (["--shard-features"], ["--generator-grad", "st"], ["--latent-size", "3"],
                   ["--variant", "no_kl", "--latent-size", "1"]):

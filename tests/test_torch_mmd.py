@@ -166,8 +166,15 @@ def test_auto_on_cpu_takes_the_dense_path():
 
 
 def test_unknown_impl_and_bf16_raise():
+    """An unknown impl raises; ``matmul_dtype='bfloat16'`` is ported (the
+    distances from bf16-rounded operands and f32 norms, as JAX's; its paths
+    are held to JAX in test_torch_bf16.py), and another matmul dtype raises."""
     x, y = _pair(10)
     with pytest.raises(ValueError):
         TM.mmd2_biased_stateful(_t(x), _t(y), torch.tensor(1.0), torch.tensor(True), impl="jnp")
-    with pytest.raises(NotImplementedError):
-        TM.pairwise_sq_dists(_t(x), matmul_dtype="bfloat16")
+    x32 = x.astype(np.float32)
+    got = TM.pairwise_sq_dists(torch.from_numpy(x32), matmul_dtype="bfloat16")
+    want = JM.pairwise_sq_dists(jnp.asarray(x32), matmul_dtype="bfloat16")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        TM.pairwise_sq_dists(_t(x), matmul_dtype="float16")

@@ -146,8 +146,11 @@ def test_drop_last_batching_guard():
 
 
 def test_train_config_guards():
-    with pytest.raises(NotImplementedError):
-        TS.TrainConfig(ndims=4, batch_size=2, gram_matmul_dtype="bfloat16")
+    """The bf16 options take None or 'bfloat16' (ported: test_torch_bf16.py)."""
+    for name in ("gram_matmul_dtype", "model_matmul_dtype", "opt_state_dtype"):
+        assert getattr(TS.TrainConfig(ndims=4, batch_size=2, **{name: "bfloat16"}), name)
+        with pytest.raises(ValueError):
+            TS.TrainConfig(ndims=4, batch_size=2, **{name: "float16"})
     with pytest.raises(ValueError):
         TS.TrainConfig(ndims=4, batch_size=2, mmd_impl="pallas")
     with pytest.raises(ValueError):

@@ -66,10 +66,6 @@ from vgan_tpu_torch.train.steps import (
 )
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md Queue 1")
-
-
 def _column_l2_normalize(x: np.ndarray) -> np.ndarray:
     """sklearn ``normalize(x, axis=0)``: each column scaled to unit L2 norm."""
     norms = np.linalg.norm(x, axis=0)
@@ -368,12 +364,6 @@ def _check_mesh(mesh, shard_features: bool, device) -> None:
                          "axis: it needs mesh=")
 
 
-def _reject_bf16(**dtypes) -> None:
-    for name, value in dtypes.items():
-        if value is not None:
-            raise _not_ported(f"{name}={value!r} (bf16 options)")
-
-
 class VGAN(_VGANCommon):
     """Subspace generation with kernel learning: a generator trained
     adversarially against an encoder/decoder detector. The detector
@@ -413,9 +403,6 @@ class VGAN(_VGANCommon):
         device=None,
     ):
         super().__init__(path_to_directory)
-        _reject_bf16(gram_matmul_dtype=gram_matmul_dtype,
-                     model_matmul_dtype=model_matmul_dtype,
-                     opt_state_dtype=opt_state_dtype)
         self.device = resolve_device(device)
         _check_mesh(mesh, shard_features, self.device)
         self.storage = dict(
@@ -429,9 +416,9 @@ class VGAN(_VGANCommon):
         self.shard_features = shard_features
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
-        self.gram_matmul_dtype = None
-        self.model_matmul_dtype = None
-        self.opt_state_dtype = None
+        self.gram_matmul_dtype = gram_matmul_dtype
+        self.model_matmul_dtype = model_matmul_dtype
+        self.opt_state_dtype = opt_state_dtype
         self.batch_size = batch_size
         self.temperature = temperature
         self.epochs = epochs
@@ -476,6 +463,9 @@ class VGAN(_VGANCommon):
             replicate_generator_detach=self.replicate_generator_detach,
             elm=self.elm,
             mmd_impl=self.mmd_impl,
+            gram_matmul_dtype=self.gram_matmul_dtype,
+            model_matmul_dtype=self.model_matmul_dtype,
+            opt_state_dtype=self.opt_state_dtype,
             generator_grad=self.generator_grad,
             gumbel_tau=self.gumbel_tau,
             latent_override=self.latent_size,
@@ -565,9 +555,6 @@ class VGAN_no_kl(_VGANCommon):
         device=None,
     ):
         super().__init__(path_to_directory)
-        _reject_bf16(gram_matmul_dtype=gram_matmul_dtype,
-                     model_matmul_dtype=model_matmul_dtype,
-                     opt_state_dtype=opt_state_dtype)
         self.device = resolve_device(device)
         _check_mesh(mesh, shard_features, self.device)
         self.storage = dict(
@@ -578,9 +565,9 @@ class VGAN_no_kl(_VGANCommon):
         self._kl = False
         self.mesh = mesh
         self.shard_features = shard_features
-        self.gram_matmul_dtype = None
-        self.model_matmul_dtype = None
-        self.opt_state_dtype = None
+        self.gram_matmul_dtype = gram_matmul_dtype
+        self.model_matmul_dtype = model_matmul_dtype
+        self.opt_state_dtype = opt_state_dtype
         self.fit_impl = fit_impl
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
@@ -609,6 +596,9 @@ class VGAN_no_kl(_VGANCommon):
             weight_decay=self.weight_decay,
             freeze_bandwidth=True,
             mmd_impl=self.mmd_impl,
+            gram_matmul_dtype=self.gram_matmul_dtype,
+            model_matmul_dtype=self.model_matmul_dtype,
+            opt_state_dtype=self.opt_state_dtype,
             generator_grad=self.generator_grad,
             gumbel_tau=self.gumbel_tau,
         )
@@ -630,8 +620,10 @@ class VGAN_no_kl(_VGANCommon):
         'fused'``, ``ops/cuda/fused_no_kl.py``); on the CPU its plain
         version. Same per-step math as the scan path, other random streams
         (in-kernel noise, rotational batching). Single device, fresh fits;
-        ``ValueError`` for ``mesh``, ``checkpoint_every``, ``generator_grad`` other
-        than 'reference' and shapes outside ``fused_supported``."""
+        ``ValueError`` for ``mesh``, ``checkpoint_every``, ``model_matmul_dtype``
+        or ``opt_state_dtype``, ``generator_grad`` other than 'reference' and
+        shapes outside ``fused_supported``. As in the JAX package, the kernel
+        runs in float32 whatever ``gram_matmul_dtype`` asks (ROADMAP Queue 3)."""
         from vgan_tpu_torch.ops.cuda.fused_no_kl import fused_no_kl_fit, fused_supported
 
         if self.mesh is not None:
@@ -641,6 +633,10 @@ class VGAN_no_kl(_VGANCommon):
             raise ValueError(
                 "fit_impl='fused' runs the whole fit as one kernel launch; periodic "
                 "checkpointing needs the scan path (fit_impl='scan')")
+        if self.model_matmul_dtype is not None or self.opt_state_dtype is not None:
+            raise ValueError(
+                "fit_impl='fused' runs its own in-kernel f32 math and does not honor "
+                "model_matmul_dtype/opt_state_dtype; use fit_impl='scan' for the bf16 options")
         if self.generator_grad != "reference":
             raise ValueError(
                 "fit_impl='fused' implements the reference gradient estimator only; use "

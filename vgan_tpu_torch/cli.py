@@ -64,11 +64,13 @@ def _add_common_hyperparams(p: argparse.ArgumentParser) -> None:
                    help="MMD implementation ('jnp' and 'pallas' are vgan_tpu's names of "
                         "'torch' and 'cuda')")
     p.add_argument("--model-dtype", choices=["bfloat16"], default=None,
-                   help="bf16 Dense matmul operands (not ported: raises)")
+                   help="run generator/detector layers with bf16 operands (f32 master "
+                        "parameters, f32 accumulation, f32 pre-softmax logits)")
     p.add_argument("--opt-state-dtype", choices=["bfloat16"], default=None,
-                   help="bf16 Adadelta EMAs (not ported: raises)")
+                   help="store the Adadelta averages in bf16 (f32 math)")
     p.add_argument("--gram-dtype", choices=["bfloat16"], default=None,
-                   help="bf16 Gram matmuls (not ported: raises)")
+                   help="round the MMD's distance operands to bf16 (f32 accumulation; the "
+                        "Gram kernels' tensor-core variants on the card)")
     p.add_argument("--mesh", default=None, metavar="data=N[,model=M]",
                    help="multi-device mesh: shard batch rows over 'data' (and features "
                         "over 'model' with --shard-features), one process per device "

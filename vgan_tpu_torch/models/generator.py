@@ -9,6 +9,9 @@ The latent size the estimators use is ``L = max(d // 16, 1)``.
 
 ``Generator`` is the square L -> L x4 variant the reference defines but
 never instantiates.
+
+``compute_dtype=torch.bfloat16`` is the JAX package's ``model_matmul_dtype``
+(Flax ``Dense(dtype=bf16)``): see :func:`linear_stack`.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vgan_tpu_torch.models.initializers import REFERENCE_NORMAL, init_linear_
@@ -26,6 +30,25 @@ from vgan_tpu_torch.ops.activations import (
 )
 
 ACTIVATIONS = ("upper_softmax", "st", "gumbel_st")
+
+
+def linear_stack(main: nn.Sequential, h: torch.Tensor,
+                 compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The linear layers of ``main`` on ``h``. With ``compute_dtype``, as Flax
+    ``Dense(dtype=compute_dtype)``: each layer rounds its input, weight and
+    bias to it, multiplies in float32 (products of bf16 values are exact
+    there, and the sum is float32, as XLA accumulates; no global cuBLAS flag
+    is read), rounds the product once and adds the bias in the compute
+    dtype (a second rounding); the last layer's output is cast to float32.
+    The parameters keep their own dtype. The gradients round where JAX's
+    do: each layer's input and weight cotangents to the compute dtype."""
+    if compute_dtype is None:
+        return main(h)
+    for layer in main:
+        w = layer.weight.to(compute_dtype).float()
+        h = F.linear(h.to(compute_dtype).float(), w).to(compute_dtype)
+        h = h + layer.bias.to(compute_dtype)
+    return h.float()
 
 
 def _linear(fan_in: int, fan_out: int, scheme: str, generator, dtype) -> nn.Linear:
@@ -42,6 +65,7 @@ class GeneratorBig(nn.Module):
     device; move it with ``.to(device)``. ``activation`` selects the
     gradient estimator of the terminal binarization: 'upper_softmax'
     (reference), 'st' or 'gumbel_st' (which takes ``gumbel`` noise).
+    ``compute_dtype``: see :func:`linear_stack` (training and sampling both).
     """
 
     def __init__(
@@ -53,6 +77,7 @@ class GeneratorBig(nn.Module):
         gumbel_tau: float = 1.0,
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if activation not in ACTIVATIONS:
@@ -68,9 +93,10 @@ class GeneratorBig(nn.Module):
         self.latent_size = latent_size
         self.activation = activation
         self.gumbel_tau = gumbel_tau
+        self.compute_dtype = compute_dtype
 
     def forward(self, z: torch.Tensor, gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.main(z)
+        h = linear_stack(self.main, z, self.compute_dtype)
         if self.activation == "upper_softmax":
             return upper_softmax(h, axis=-1)
         if self.activation == "st":
@@ -84,7 +110,7 @@ class GeneratorBig(nn.Module):
 
     def sample(self, z: torch.Tensor) -> torch.Tensor:
         """The deterministic upper-softmax forward, whatever ``activation``."""
-        return upper_softmax(self.main(z), axis=-1)
+        return upper_softmax(linear_stack(self.main, z, self.compute_dtype), axis=-1)
 
 
 class Generator(nn.Module):

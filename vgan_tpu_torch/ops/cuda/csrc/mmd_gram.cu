@@ -8,6 +8,18 @@
 //   K3 vgan_gram_backward_flash       <- _flash_bwd_kernel     S @ z and rowsum(S), no m^2 buffer
 //   K4 vgan_kprime_panel              <- _kprime_panel_kernel  an (R, C) K'(d2) panel
 //
+// and each with a bf16-operand variant (the entries ending in _bf16), the
+// same kernels with `gram_matmul_dtype='bfloat16'` (the Pallas kernels' bf16
+// z_dot, mmd_gram.py:779): the distance product reads z rounded to bf16 (to
+// nearest even, by the transpose that makes the column-major copy, which is
+// then half the bytes) and runs on the tensor cores (dist_tile.cuh
+// product_bf16, f32 accumulators); the norms (from the f32 z, by the
+// caller), the ladder, the sums, K' and S are the f32 kernels' own code. K3's
+// S @ z stays the f32 product, on the bf16-rounded z (its z_aug holds the
+// rounded values in f32), as the Pallas kernel upcasts its bf16 z block.
+// On an H100 the product's rate is 989 TFLOP/s against the CUDA cores' 67,
+// so the bf16 variants are bound by the ladder and the epilogues' f32 work.
+//
 // What bounds them on an H100: the distance product. At the stress shape
 // (m = 1000 rows, d = 10240) the forward needs the m (m - 1) / 2 unordered
 // pairs' dot products, 1.02e10 flops on 41 MB of input: bound by the
@@ -178,9 +190,10 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
     return t;
 }
 
-// z_t[k * ld + r] = z[r * d + k] for r < m, 0 for m <= r < ld.
+// z_t[k * ld + r] = z[r * d + k] for r < m, 0 for m <= r < ld (in T).
+template <class T>
 __global__ void transpose_pad_kernel(const float* __restrict__ z, int m, int d, int ld,
-                                     float* __restrict__ z_t) {
+                                     T* __restrict__ z_t) {
     __shared__ float t[TT][TT + 1];
     dist_tile::transpose_tile(
         [&](int r, int k) { return r < m && k < d ? z[(size_t)r * d + k] : 0.f; },
@@ -354,28 +367,52 @@ __device__ __forceinline__ void write_sums(const float (&s)[3], float* red, floa
 
 constexpr size_t TILE_SMEM = sizeof(float) * dist_tile::smem_floats<ST, ST>();
 static_assert(TILE_SMEM <= 48 * 1024, "launched without raising the dynamic shared memory limit");
+static_assert(dist_tile::BF16_SMEM <= 48 * 1024, "launched without raising the dynamic shared memory limit");
+
+using dist_tile::bf16;
+
+// shared memory of the product of operands T (float: the f32 pipeline; bf16: the tensor cores)
+template <class T>
+__host__ __device__ constexpr size_t tile_smem() {
+    return sizeof(T) == 4 ? TILE_SMEM : static_cast<size_t>(dist_tile::BF16_SMEM);
+}
+
+// acc = the 128 x 128 dot tile of a_t's rows ra .. and b_t's rows rb .. over
+// k < count (column-major operands), in dist_tile's f32 tile layout.
+__device__ __forceinline__ void dot_tile(const float* a_t, int lda, int ra, const float* b_t,
+                                         int ldb, int rb, int count, void* smem,
+                                         float (&acc)[ST][ST]) {
+#pragma unroll
+    for (int r = 0; r < ST; ++r)
+#pragma unroll
+        for (int c = 0; c < ST; ++c) acc[r][c] = 0.f;
+    dist_tile::NoHook hook;
+    dist_tile::product<ST, ST>(dist_tile::Operand{a_t, lda, ra, nullptr},
+                               dist_tile::Operand{b_t, ldb, rb, nullptr}, count,
+                               static_cast<float*>(smem), acc, hook);
+}
+
+__device__ __forceinline__ void dot_tile(const bf16* a_t, int lda, int ra, const bf16* b_t, int ldb,
+                                         int rb, int count, void* smem, float (&acc)[ST][ST]) {
+    dist_tile::product_bf16(dist_tile::OperandH{a_t, lda, ra}, dist_tile::OperandH{b_t, ldb, rb},
+                            count, smem, acc);
+}
 
 // Mode (a): block b forms tile b of the panel over all of d, a_t / b_t the
 // row and column operands (column-major, ld a multiple of 4, every row up to
 // a tile's start + 128 inside), then the epilogue in registers. SUMS (K1):
 // the block's (XX, XY, YY) partial; else (K4) K' to kp.
-template <bool SUMS>
+template <class T, bool SUMS>
 __global__ void __launch_bounds__(NT, 2)  // two blocks an SM: at most 128 registers
-tile_kernel(const Panel p, const float* __restrict__ a_t, int lda, int row0,
-            const float* __restrict__ b_t, int ldb, int d, const float* __restrict__ n_rows,
+tile_kernel(const Panel p, const T* __restrict__ a_t, int lda, int row0,
+            const T* __restrict__ b_t, int ldb, int d, const float* __restrict__ n_rows,
             const float* __restrict__ n_cols, const float* __restrict__ bw_ptr, int n1,
             VganLadder L, float* __restrict__ partials, float* __restrict__ kp) {
     extern __shared__ __align__(16) float smem[];
     __shared__ float red[NT / 32];
     const TileAt t = p.at(blockIdx.x);
     float acc[ST][ST];
-#pragma unroll
-    for (int r = 0; r < ST; ++r)
-#pragma unroll
-        for (int c = 0; c < ST; ++c) acc[r][c] = 0.f;
-    dist_tile::NoHook hook;
-    dist_tile::product<ST, ST>(dist_tile::Operand{a_t, lda, row0 + t.r0, nullptr},
-                               dist_tile::Operand{b_t, ldb, t.c0, nullptr}, d, smem, acc, hook);
+    dot_tile(a_t, lda, row0 + t.r0, b_t, ldb, t.c0, d, smem, acc);
     int rows[ST], cols[ST];
 #pragma unroll
     for (int i = 0; i < ST; ++i) {
@@ -390,22 +427,17 @@ tile_kernel(const Panel p, const float* __restrict__ a_t, int lda, int row0,
 // Mode (b), pass 1: block (b, s) forms tile b's dot products over the d
 // columns [s slice, s slice + slice) and writes them to its own partial
 // tile of dots, entry (r, c) of thread t at (r ST + c) NT + t.
+template <class T>
 __global__ void __launch_bounds__(NT, 2)
-dot_slices_kernel(const Panel p, const float* __restrict__ a_t, int lda, int row0,
-                  const float* __restrict__ b_t, int ldb, int d, int slice,
+dot_slices_kernel(const Panel p, const T* __restrict__ a_t, int lda, int row0,
+                  const T* __restrict__ b_t, int ldb, int d, int slice,
                   float* __restrict__ dots) {
     extern __shared__ __align__(16) float smem[];
     const TileAt t = p.at(blockIdx.x);
     const size_t k0 = (size_t)blockIdx.y * slice;
     float acc[ST][ST];
-#pragma unroll
-    for (int r = 0; r < ST; ++r)
-#pragma unroll
-        for (int c = 0; c < ST; ++c) acc[r][c] = 0.f;
-    dist_tile::NoHook hook;
-    dist_tile::product<ST, ST>(dist_tile::Operand{a_t + k0 * lda, lda, row0 + t.r0, nullptr},
-                               dist_tile::Operand{b_t + k0 * ldb, ldb, t.c0, nullptr},
-                               min(slice, d - (int)k0), smem, acc, hook);
+    dot_tile(a_t + k0 * lda, lda, row0 + t.r0, b_t + k0 * ldb, ldb, t.c0, min(slice, d - (int)k0),
+             smem, acc);
     float* out = dots + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * SB2 + threadIdx.x;
 #pragma unroll
     for (int r = 0; r < ST; ++r)
@@ -492,20 +524,26 @@ finalize_sums(const float* __restrict__ partials, int nblocks, float* __restrict
 // of `per` tiles; split 0 adds its run's S @ z_aug straight into sz and rs,
 // split s > 0 into partial s - 1 ((ld x ldz) each), which flash_finalize
 // adds to sz and rs in split order.
+template <class T>
 struct Flash {
-    const float* z_t;
+    const T* z_t;
     const float* z_aug;
     const float* norms;
     int m, d, n1, ld, ldz, tiles, per;
     float cxx, cyy, cxy;
 };
 
-constexpr size_t FLASH_SMEM = sizeof(float) * (dist_tile::smem_floats<ST, ST>() + SB2);
+// the product's pipeline, then one S tile (St)
+template <class T>
+__host__ __device__ constexpr size_t flash_smem() {
+    return tile_smem<T>() + sizeof(float) * SB2;
+}
 
 // The S entry of rows j (the tile's row, a z row of the column tile) and i
 // from its d2: K' through ladder_call, times the quadrant's coefficient, 0
 // outside the m x m square.
-__device__ __forceinline__ float s_entry(float d2, int j, int i, const Flash& f, float bw,
+template <class T>
+__device__ __forceinline__ float s_entry(float d2, int j, int i, const Flash<T>& f, float bw,
                                          const VganLadder& L) {
     float k, kp;
     ladder_call<false, true>(d2, bw, L, k, kp);
@@ -520,7 +558,8 @@ __device__ __forceinline__ float s_entry(float d2, int j, int i, const Flash& f,
 // consecutive i go out as one 16-byte store, and the 16 threads of a row
 // fill 64 consecutive words. No call here, so the 64 dots are not live
 // across one.
-__device__ __forceinline__ void d2_tile(const float (&acc)[ST][ST], int I, int J, const Flash& f,
+template <class T>
+__device__ __forceinline__ void d2_tile(const float (&acc)[ST][ST], int I, int J, const Flash<T>& f,
                                         float* St) {
 #pragma unroll
     for (int g = 0; g < ST; g += 4) {  // four columns at a time: few norms live
@@ -573,7 +612,8 @@ __device__ __forceinline__ void s_z_step(const float* As, const float* Bs, float
 // memory; z_aug's 16-row chunks are double-buffered through cp.async into
 // Zs (2 x 16 x 128 floats). count: the tile's valid rows. Ends with a
 // barrier.
-__device__ __forceinline__ void s_times_z(const float* St, const Flash& f, int J, int c0,
+template <class T>
+__device__ __forceinline__ void s_times_z(const float* St, const Flash<T>& f, int J, int c0,
                                           int count, float* Zs, float (&out)[ST][ST]) {
     const dist_tile::Operand b{f.z_aug + (size_t)J * SB * f.ldz, f.ldz, c0, nullptr};
     const int n = dist_tile::cdiv(count, dist_tile::BK);
@@ -599,7 +639,8 @@ __device__ __forceinline__ void s_times_z(const float* St, const Flash& f, int J
 // S @ z_aug from split s: to sz and rs (s == 0), or to partial s - 1
 // ((ld x ldz) row-major, 16-byte runs). add: add to what is there (a later
 // column tile of the split), else store.
-__device__ __forceinline__ void emit(const float (&v)[ST][ST], const Flash& f, int I, int c0,
+template <class T>
+__device__ __forceinline__ void emit(const float (&v)[ST][ST], const Flash<T>& f, int I, int c0,
                                      int s, bool add, float* __restrict__ P,
                                      float* __restrict__ sz, float* __restrict__ rs) {
 #pragma unroll
@@ -635,13 +676,22 @@ __device__ __forceinline__ void emit(const float (&v)[ST][ST], const Flash& f, i
 // K3's operands from z in one pass: z_aug (ld x ldz) = z, a column of ones
 // at d (rows below m) and zeros; z_t (d x ld) = z column-major, rows m .. ld
 // zero. One 32 x 32 tile of z_aug a block, written as it is read; its
-// columns below d go on to z_t through the transpose.
+// columns below d go on to z_t through the transpose. With T = bf16 both
+// hold z rounded to bf16 (z_aug in f32, so that S @ z multiplies the values
+// the distances were formed from, exactly as the Pallas kernel's upcast).
+__device__ __forceinline__ float as_operand(float v, float*) { return v; }
+__device__ __forceinline__ float as_operand(float v, bf16*) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <class T>
 __global__ void flash_prep_kernel(const float* __restrict__ z, int m, int d, int ld, int ldz,
-                                  float* __restrict__ z_t, float* __restrict__ z_aug) {
+                                  T* __restrict__ z_t, float* __restrict__ z_aug) {
     __shared__ float t[TT][TT + 1];
     dist_tile::transpose_tile(
         [&](int r, int k) {
-            const float v = r < m ? (k < d ? z[(size_t)r * d + k] : (k == d ? 1.f : 0.f)) : 0.f;
+            const float v = r < m ? (k < d ? as_operand(z[(size_t)r * d + k], z_t) : (k == d ? 1.f : 0.f))
+                                  : 0.f;
             z_aug[(size_t)r * ldz + k] = v;
             return v;
         },
@@ -652,29 +702,25 @@ __global__ void flash_prep_kernel(const float* __restrict__ z, int m, int d, int
 // together into the kernel's loop they passed 128 registers and spilled):
 // the 128 x 128 dot tile of rows J and I over all of d on dist_tile's
 // pipeline, its d2 into St;
-__device__ __noinline__ void flash_d2(const Flash f, int I, int J, float* smem, float* St) {
+template <class T>
+__device__ __noinline__ void flash_d2(const Flash<T> f, int I, int J, float* smem, float* St) {
     float acc[ST][ST];
-#pragma unroll
-    for (int r = 0; r < ST; ++r)
-#pragma unroll
-        for (int c = 0; c < ST; ++c) acc[r][c] = 0.f;
-    dist_tile::NoHook hook;
-    dist_tile::product<ST, ST>(dist_tile::Operand{f.z_t, f.ld, J * SB, nullptr},
-                               dist_tile::Operand{f.z_t, f.ld, I * SB, nullptr}, f.d, smem, acc,
-                               hook);
+    dot_tile(f.z_t, f.ld, J * SB, f.z_t, f.ld, I * SB, f.d, smem, acc);
     d2_tile(acc, I, J, f, St);
 }
 
 // S in place of d2 in St (thread t the words t, t + 256, ...: conflict-free,
 // and one value live across each ladder call);
-__device__ __noinline__ void flash_s(const Flash f, int I, int J, float bw, const VganLadder& L,
+template <class T>
+__device__ __noinline__ void flash_s(const Flash<T> f, int I, int J, float bw, const VganLadder& L,
                                      float* St) {
     for (int e = threadIdx.x; e < SB2; e += NT)
         St[e] = s_entry(St[e], J * SB + e / SB, I * SB + e % SB, f, bw, L);
 }
 
 // and one 128-column chunk of S @ z_aug, added to the block's rows.
-__device__ __noinline__ void flash_chunk(const Flash f, const float* St, int I, int J, int c0, int s,
+template <class T>
+__device__ __noinline__ void flash_chunk(const Flash<T> f, const float* St, int I, int J, int c0, int s,
                                          bool add, float* Zs, float* P, float* sz, float* rs) {
     float out[ST][ST];
 #pragma unroll
@@ -689,11 +735,12 @@ __device__ __noinline__ void flash_chunk(const Flash f, const float* St, int I, 
 // dot tile and its d2 (flash_d2), S in place (flash_s), then S @ z_aug in
 // 128-column chunks (flash_chunk), each added to the block's own rows of
 // its output in J order (no other block touches them).
+template <class T>
 __global__ void __launch_bounds__(NT, 2)  // two blocks an SM: at most 128 registers
-flash_tile_kernel(const Flash f, const float* __restrict__ bw_ptr, VganLadder L,
+flash_tile_kernel(const Flash<T> f, const float* __restrict__ bw_ptr, VganLadder L,
                   float* __restrict__ P, float* __restrict__ sz, float* __restrict__ rs) {
     extern __shared__ __align__(16) float smem[];
-    float* St = smem + dist_tile::smem_floats<ST, ST>();
+    float* St = smem + tile_smem<T>() / sizeof(float);
     const int I = blockIdx.x, s = blockIdx.y;
     const float bw = *bw_ptr;
     const int J0 = s * f.per, J1 = min(f.tiles, J0 + f.per);
@@ -716,8 +763,9 @@ flash_tile_kernel(const Flash f, const float* __restrict__ bw_ptr, VganLadder L,
 // tile (I, J) at [i - I 128][j - J 128]: the operand layout of pass 3.
 constexpr int FLASH_S_SLOTS = 4;  // 16 blocks a tile pair: the ladder is latency-bound
 
+template <class T>
 __global__ void __launch_bounds__(NT)
-flash_s_kernel(const Flash f, const float* __restrict__ dots, int nslices,
+flash_s_kernel(const Flash<T> f, const float* __restrict__ dots, int nslices,
                const float* __restrict__ bw_ptr, VganLadder L, float* __restrict__ S_tiles) {
     const int b = blockIdx.x, t = threadIdx.x;
     int J, I;
@@ -746,8 +794,9 @@ flash_s_kernel(const Flash f, const float* __restrict__ dots, int nslices,
 // (J, I) times z_aug's chunk, in registers, on one cp.async pipeline over
 // all (J, 16-row chunk) steps of the split (the next tile's first chunk is
 // in flight while a tile ends); it goes out once.
+template <class T>
 __global__ void __launch_bounds__(NT, 2)
-flash_product_kernel(const Flash f, const float* __restrict__ S_tiles, float* __restrict__ P,
+flash_product_kernel(const Flash<T> f, const float* __restrict__ S_tiles, float* __restrict__ P,
                      float* __restrict__ sz, float* __restrict__ rs) {
     extern __shared__ __align__(16) float smem[];
     constexpr int CH = SB / dist_tile::BK;  // 16-row chunks of a column tile
@@ -807,12 +856,20 @@ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 inline int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
 
-// K1 (kp == nullptr) and K2 over the symmetric square of z (m, d). scratch,
-// in this order: z_t (d x M floats, M = m rounded up to 128); in mode (a)
-// (K1 with one slice) the sums' partials (3 x P, P = T (T + 1) / 2 tile pairs
-// of T = M / 128 tiles); in mode (b) the partial dot tiles (cdiv(d, slice) x
-// P x 128^2) and the sums' partials (3 x 4 P for K2, 3 x 16 P for K1: the
-// epilogue's blocks a tile pair).
+// floats of scratch that z's column-major copy (d x ld of T) takes
+template <class T>
+size_t zt_floats(int d, int ld) {
+    return (size_t)d * ld * sizeof(T) / sizeof(float);
+}
+
+// K1 (kp == nullptr) and K2 over the symmetric square of z (m, d), the
+// distance product on operands T. scratch, in this order: z_t (d x M of T,
+// M = m rounded up to 128); in mode (a) (K1 with one slice) the sums'
+// partials (3 x P, P = T (T + 1) / 2 tile pairs of T = M / 128 tiles); in
+// mode (b) the partial dot tiles (cdiv(d, slice) x P x 128^2) and the sums'
+// partials (3 x 4 P for K2, 3 x 16 P for K1: the epilogue's blocks a tile
+// pair).
+template <class T>
 int quadrant_sums(const float* z, const float* norms, const float* bw, int m, int d, int n1,
                   const VganLadder* ladder, int slice, float* scratch, float* sums, float* kp,
                   cudaStream_t s) {
@@ -820,18 +877,18 @@ int quadrant_sums(const float* z, const float* norms, const float* bw, int m, in
     const Panel p = make_panel(m, m, 0);
     const int ld = p.rows * SB, blocks = p.tiles(), nslices = cdiv(d, slice);
     if (nslices > 65535 || cdiv(d, TT) > 65535) return invalid();
-    float* z_t = scratch;
-    float* dots = z_t + (size_t)d * ld;
-    transpose_pad_kernel<<<dim3(ld / TT, cdiv(d, TT)), dim3(TT, 8), 0, s>>>(z, m, d, ld, z_t);
+    T* z_t = reinterpret_cast<T*>(scratch);
+    float* dots = scratch + zt_floats<T>(d, ld);
+    transpose_pad_kernel<T><<<dim3(ld / TT, cdiv(d, TT)), dim3(TT, 8), 0, s>>>(z, m, d, ld, z_t);
     if (!kp && nslices == 1) {
-        tile_kernel<true><<<blocks, NT, TILE_SMEM, s>>>(p, z_t, ld, 0, z_t, ld, d, norms, norms, bw,
-                                                        n1, *ladder, dots, nullptr);
+        tile_kernel<T, true><<<blocks, NT, tile_smem<T>(), s>>>(p, z_t, ld, 0, z_t, ld, d, norms,
+                                                                norms, bw, n1, *ladder, dots, nullptr);
         finalize_sums<<<1, NT, 0, s>>>(dots, blocks, sums);
         return static_cast<int>(cudaGetLastError());
     }
     float* partials = dots + (size_t)nslices * blocks * SB2;
-    dot_slices_kernel<<<dim3(blocks, nslices), NT, TILE_SMEM, s>>>(p, z_t, ld, 0, z_t, ld, d, slice,
-                                                                   dots);
+    dot_slices_kernel<T><<<dim3(blocks, nslices), NT, tile_smem<T>(), s>>>(p, z_t, ld, 0, z_t, ld, d,
+                                                                           slice, dots);
     const int parts = kp ? 4 : 16;
     if (kp)
         slices_epilogue_kernel<4, true, true><<<dim3(blocks, parts), NT, 0, s>>>(
@@ -840,6 +897,85 @@ int quadrant_sums(const float* z, const float* norms, const float* bw, int m, in
         slices_epilogue_kernel<16, true, false><<<dim3(blocks, parts), NT, 0, s>>>(
             dots, nslices, p, norms, norms, bw, n1, *ladder, partials, nullptr);
     finalize_sums<<<1, NT, 0, s>>>(partials, parts * blocks, sums);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K3 on operands T: see vgan_gram_backward_flash.
+template <class T>
+int backward_flash(const float* z, const float* norms, const float* bw, int m, int d, int n1,
+                   float cxx, float cyy, float cxy, const VganLadder* ladder, int slice, int nsplit,
+                   float* scratch, float* sz, float* rs, cudaStream_t s) {
+    const int tiles = cdiv(m, SB), ld = tiles * SB, ldz = cdiv(d + 1, SB) * SB;
+    if (m < 1 || d < 1 || slice < 1 || (slice < d && slice % dist_tile::BK) || nsplit < 1 ||
+        nsplit > tiles || ldz / TT > 65535)
+        return invalid();
+    const int per = cdiv(tiles, nsplit), nslices = cdiv(d, slice);
+    if (cdiv(tiles, per) != nsplit || nslices > 65535) return invalid();
+    T* z_t = reinterpret_cast<T*>(scratch);
+    float* z_aug = scratch + zt_floats<T>(d, ld);
+    float* dots = z_aug + (size_t)ld * ldz;
+    float* P = dots + (nslices > 1 ? (size_t)nslices * (tiles * (tiles + 1) / 2) * SB2 : 0);
+    const Flash<T> f{z_t, z_aug, norms, m, d, n1, ld, ldz, tiles, per, cxx, cyy, cxy};
+    flash_prep_kernel<T><<<dim3(ld / TT, ldz / TT), dim3(TT, 8), 0, s>>>(z, m, d, ld, ldz, z_t, z_aug);
+    if (nslices == 1) {
+        cudaError_t err = cudaFuncSetAttribute(flash_tile_kernel<T>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(flash_smem<T>()));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        flash_tile_kernel<T><<<dim3(tiles, nsplit), NT, flash_smem<T>(), s>>>(f, bw, *ladder, P, sz, rs);
+    } else {
+        float* S_tiles = P;
+        P = S_tiles + (size_t)tiles * tiles * SB2;
+        const Panel p = make_panel(m, m, 0);  // the tile pairs J <= I
+        dot_slices_kernel<T><<<dim3(p.tiles(), nslices), NT, tile_smem<T>(), s>>>(p, z_t, ld, 0, z_t,
+                                                                                  ld, d, slice, dots);
+        flash_s_kernel<T><<<dim3(p.tiles(), ST * ST / FLASH_S_SLOTS), NT, 0, s>>>(f, dots, nslices, bw,
+                                                                                 *ladder, S_tiles);
+        flash_product_kernel<T><<<dim3(tiles, nsplit, ldz / SB), NT, TILE_SMEM, s>>>(f, S_tiles, P, sz,
+                                                                                    rs);
+    }
+    if (nsplit > 1) {
+        const size_t n = (size_t)m * (d + 1);
+        flash_finalize<<<static_cast<int>(std::min<size_t>((n + NT - 1) / NT, 4096)), NT, 0, s>>>(
+            P, nsplit, m, d, ld, ldz, sz, rs);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int transpose_pad(const float* z, int n, int d, int ld, T* z_t, cudaStream_t s) {
+    if (n < 1 || d < 1 || ld < n || ld % TT || cdiv(d, TT) > 65535) return invalid();
+    transpose_pad_kernel<T><<<dim3(ld / TT, cdiv(d, TT)), dim3(TT, 8), 0, s>>>(z, n, d, ld, z_t);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K4 on operands T: see vgan_kprime_panel. A bf16 operand's column starts
+// must be multiples of 8 (16-byte copies of eight bf16).
+template <class T>
+int kprime_panel(const T* rows_t, int ld_rows, int row0, const T* cols_t, int ld_cols,
+                 const float* n_rows, const float* n_cols, const float* bw, int R, int C, int d,
+                 int diag, const VganLadder* ladder, int slice, float* scratch, float* kp,
+                 cudaStream_t s) {
+    const int align = 16 / sizeof(T) - 1;  // 3 for f32 (float4 copies), 7 for bf16
+    if (R < 1 || C < 1 || d < 1 || slice < 1 || slice % dist_tile::BK ||
+        ((ld_rows | ld_cols | row0) & align))
+        return invalid();
+    if (diag >= 0 && ((diag & align) || row0 != diag || rows_t != cols_t || diag + R > C ||
+                      (diag + R < C && (R & align))))
+        return invalid();
+    const Panel p = make_panel(R, C, diag);
+    const int blocks = p.tiles(), nslices = cdiv(d, slice);
+    if (nslices > 65535) return invalid();
+    if (nslices == 1) {
+        tile_kernel<T, false><<<blocks, NT, tile_smem<T>(), s>>>(p, rows_t, ld_rows, row0, cols_t,
+                                                                 ld_cols, d, n_rows, n_cols, bw, 0,
+                                                                 *ladder, nullptr, kp);
+        return static_cast<int>(cudaGetLastError());
+    }
+    dot_slices_kernel<T><<<dim3(blocks, nslices), NT, tile_smem<T>(), s>>>(
+        p, rows_t, ld_rows, row0, cols_t, ld_cols, d, slice, scratch);
+    slices_epilogue_kernel<4, false, true><<<dim3(blocks, 4), NT, 0, s>>>(
+        scratch, nslices, p, n_rows, n_cols, bw, 0, *ladder, nullptr, kp);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -852,8 +988,8 @@ extern "C" {
 int vgan_gram_quadrant_sums(const float* z, const float* norms, const float* bw, int m, int d,
                             int n1, const VganLadder* ladder, int slice, float* scratch,
                             float* sums, void* stream) {
-    return quadrant_sums(z, norms, bw, m, d, n1, ladder, slice, scratch, sums, nullptr,
-                         static_cast<cudaStream_t>(stream));
+    return quadrant_sums<float>(z, norms, bw, m, d, n1, ladder, slice, scratch, sums, nullptr,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // K2: always mode (b)'s passes. scratch: see quadrant_sums.
@@ -861,8 +997,8 @@ int vgan_gram_quadrant_sums_stash(const float* z, const float* norms, const floa
                                   int m, int d, int n1, const VganLadder* ladder, int slice,
                                   float* scratch, float* sums, float* kp, void* stream) {
     if (!kp) return invalid();
-    return quadrant_sums(z, norms, bw, m, d, n1, ladder, slice, scratch, sums, kp,
-                         static_cast<cudaStream_t>(stream));
+    return quadrant_sums<float>(z, norms, bw, m, d, n1, ladder, slice, scratch, sums, kp,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // K3. slice: the d columns of one slice of the dot pass, a positive multiple
@@ -878,51 +1014,14 @@ int vgan_gram_backward_flash(const float* z, const float* norms, const float* bw
                              int d, int n1, float cxx, float cyy, float cxy,
                              const VganLadder* ladder, int slice, int nsplit, float* scratch,
                              float* sz, float* rs, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int tiles = cdiv(m, SB), ld = tiles * SB, ldz = cdiv(d + 1, SB) * SB;
-    if (m < 1 || d < 1 || slice < 1 || (slice < d && slice % dist_tile::BK) || nsplit < 1 ||
-        nsplit > tiles || ldz / TT > 65535)
-        return invalid();
-    const int per = cdiv(tiles, nsplit), nslices = cdiv(d, slice);
-    if (cdiv(tiles, per) != nsplit || nslices > 65535) return invalid();
-    float* z_t = scratch;
-    float* z_aug = z_t + (size_t)d * ld;
-    float* dots = z_aug + (size_t)ld * ldz;
-    float* P = dots + (nslices > 1 ? (size_t)nslices * (tiles * (tiles + 1) / 2) * SB2 : 0);
-    const Flash f{z_t, z_aug, norms, m, d, n1, ld, ldz, tiles, per, cxx, cyy, cxy};
-    flash_prep_kernel<<<dim3(ld / TT, ldz / TT), dim3(TT, 8), 0, s>>>(z, m, d, ld, ldz, z_t, z_aug);
-    if (nslices == 1) {
-        cudaError_t err = cudaFuncSetAttribute(flash_tile_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(FLASH_SMEM));
-        if (err != cudaSuccess) return static_cast<int>(err);
-        flash_tile_kernel<<<dim3(tiles, nsplit), NT, FLASH_SMEM, s>>>(f, bw, *ladder, P, sz, rs);
-    } else {
-        float* S_tiles = P;
-        P = S_tiles + (size_t)tiles * tiles * SB2;
-        const Panel p = make_panel(m, m, 0);  // the tile pairs J <= I
-        dot_slices_kernel<<<dim3(p.tiles(), nslices), NT, TILE_SMEM, s>>>(p, z_t, ld, 0, z_t, ld, d,
-                                                                         slice, dots);
-        flash_s_kernel<<<dim3(p.tiles(), ST * ST / FLASH_S_SLOTS), NT, 0, s>>>(f, dots, nslices, bw,
-                                                                              *ladder, S_tiles);
-        flash_product_kernel<<<dim3(tiles, nsplit, ldz / SB), NT, TILE_SMEM, s>>>(f, S_tiles, P, sz,
-                                                                                 rs);
-    }
-    if (nsplit > 1) {
-        const size_t n = (size_t)m * (d + 1);
-        flash_finalize<<<static_cast<int>(std::min<size_t>((n + NT - 1) / NT, 4096)), NT, 0, s>>>(
-            P, nsplit, m, d, ld, ldz, sz, rs);
-    }
-    return static_cast<int>(cudaGetLastError());
+    return backward_flash<float>(z, norms, bw, m, d, n1, cxx, cyy, cxy, ladder, slice, nsplit,
+                                 scratch, sz, rs, static_cast<cudaStream_t>(stream));
 }
 
 // z (n, d) to z_t (d, ld) column-major, rows n .. ld zero (ld >= n, a
 // multiple of 32): K4's operands.
 int vgan_transpose_pad(const float* z, int n, int d, int ld, float* z_t, void* stream) {
-    if (n < 1 || d < 1 || ld < n || ld % TT || cdiv(d, TT) > 65535) return invalid();
-    transpose_pad_kernel<<<dim3(ld / TT, cdiv(d, TT)), dim3(TT, 8), 0,
-                           static_cast<cudaStream_t>(stream)>>>(z, n, d, ld, z_t);
-    return static_cast<int>(cudaGetLastError());
+    return transpose_pad<float>(z, n, d, ld, z_t, static_cast<cudaStream_t>(stream));
 }
 
 // K4: the (R, C) panel kp of K'(d2) between rows row0 .. row0 + R of rows_t
@@ -937,27 +1036,47 @@ int vgan_kprime_panel(const float* rows_t, int ld_rows, int row0, const float* c
                       int ld_cols, const float* n_rows, const float* n_cols, const float* bw,
                       int R, int C, int d, int diag, const VganLadder* ladder, int slice,
                       float* scratch, float* kp, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (R < 1 || C < 1 || d < 1 || slice < 1 || slice % dist_tile::BK ||
-        ((ld_rows | ld_cols | row0) & 3))
-        return invalid();
-    if (diag >= 0 && ((diag & 3) || row0 != diag || rows_t != cols_t || diag + R > C ||
-                      (diag + R < C && (R & 3))))
-        return invalid();
-    const Panel p = make_panel(R, C, diag);
-    const int blocks = p.tiles(), nslices = cdiv(d, slice);
-    if (nslices > 65535) return invalid();
-    if (nslices == 1) {
-        tile_kernel<false><<<blocks, NT, TILE_SMEM, s>>>(p, rows_t, ld_rows, row0, cols_t, ld_cols,
-                                                         d, n_rows, n_cols, bw, 0, *ladder, nullptr,
-                                                         kp);
-        return static_cast<int>(cudaGetLastError());
-    }
-    dot_slices_kernel<<<dim3(blocks, nslices), NT, TILE_SMEM, s>>>(p, rows_t, ld_rows, row0, cols_t,
-                                                                   ld_cols, d, slice, scratch);
-    slices_epilogue_kernel<4, false, true><<<dim3(blocks, 4), NT, 0, s>>>(
-        scratch, nslices, p, n_rows, n_cols, bw, 0, *ladder, nullptr, kp);
-    return static_cast<int>(cudaGetLastError());
+    return kprime_panel<float>(rows_t, ld_rows, row0, cols_t, ld_cols, n_rows, n_cols, bw, R, C, d,
+                               diag, ladder, slice, scratch, kp, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16-operand variants: the same arguments (z f32, rounded by the
+// transpose; the norms from the f32 z), z_t of bf16 in the scratch (d x M / 2
+// floats); K4's operands bf16 from vgan_transpose_pad_bf16, every column
+// start a multiple of 8.
+int vgan_gram_quadrant_sums_bf16(const float* z, const float* norms, const float* bw, int m,
+                                 int d, int n1, const VganLadder* ladder, int slice,
+                                 float* scratch, float* sums, void* stream) {
+    return quadrant_sums<bf16>(z, norms, bw, m, d, n1, ladder, slice, scratch, sums, nullptr,
+                               static_cast<cudaStream_t>(stream));
+}
+
+int vgan_gram_quadrant_sums_stash_bf16(const float* z, const float* norms, const float* bw,
+                                       int m, int d, int n1, const VganLadder* ladder, int slice,
+                                       float* scratch, float* sums, float* kp, void* stream) {
+    if (!kp) return invalid();
+    return quadrant_sums<bf16>(z, norms, bw, m, d, n1, ladder, slice, scratch, sums, kp,
+                               static_cast<cudaStream_t>(stream));
+}
+
+int vgan_gram_backward_flash_bf16(const float* z, const float* norms, const float* bw, int m,
+                                  int d, int n1, float cxx, float cyy, float cxy,
+                                  const VganLadder* ladder, int slice, int nsplit, float* scratch,
+                                  float* sz, float* rs, void* stream) {
+    return backward_flash<bf16>(z, norms, bw, m, d, n1, cxx, cyy, cxy, ladder, slice, nsplit,
+                                scratch, sz, rs, static_cast<cudaStream_t>(stream));
+}
+
+int vgan_transpose_pad_bf16(const float* z, int n, int d, int ld, bf16* z_t, void* stream) {
+    return transpose_pad<bf16>(z, n, d, ld, z_t, static_cast<cudaStream_t>(stream));
+}
+
+int vgan_kprime_panel_bf16(const bf16* rows_t, int ld_rows, int row0, const bf16* cols_t,
+                           int ld_cols, const float* n_rows, const float* n_cols, const float* bw,
+                           int R, int C, int d, int diag, const VganLadder* ladder, int slice,
+                           float* scratch, float* kp, void* stream) {
+    return kprime_panel<bf16>(rows_t, ld_rows, row0, cols_t, ld_cols, n_rows, n_cols, bw, R, C, d,
+                              diag, ladder, slice, scratch, kp, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

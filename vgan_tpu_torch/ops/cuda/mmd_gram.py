@@ -10,6 +10,15 @@ plain PyTorch version beside it:
   coefficient-weighted K', no m^2 buffer; :func:`flash_schedule`);
 - :func:`kprime_panel` (an (R, C) K'(d2) row panel).
 
+Each has a bf16-operand variant (:func:`gram_quadrant_sums_bf16`,
+:func:`gram_quadrant_sums_stash_bf16`, :func:`gram_backward_flash_bf16`,
+:func:`kprime_panel_bf16`), the kernels of ``matmul_dtype='bfloat16'``:
+same arguments, the distance product on z rounded to bf16 (on the tensor
+cores), the norms given (the f32 z's) and everything after the product
+f32. K3's variant multiplies S with the rounded z, as the Pallas kernel does.
+Their plain versions are the f32 ones on the rounded operands
+(:func:`rounded`); each variant counts its own launches.
+
 All four run on 128 x 128 tiles; :func:`tile_schedule` picks, from the
 number of tiles a launch forms (:func:`tile_pairs`, :func:`panel_blocks`),
 whether the summed d axis is split over the card (mode (b)) or each tile
@@ -27,7 +36,12 @@ the regime (flash, stash or panel) is the same function of (m, d) as in the
 JAX package, through the padded layout of ``_pad_layout``. The backward is
 rank-1: with ``q_i = 1/n1`` on x rows and ``-1/n2`` on y rows,
 ``S = (q q^T) .* K'`` and ``dz = 4 g (rowsum(S) z - S @ z)``. No gradient
-flows to the bandwidth.
+flows to the bandwidth. With ``matmul_dtype='bfloat16'`` it takes the bf16
+variants and keeps the JAX backward's operands: the norms always from the
+f32 z; the stash backward contracts K' with the f32 z; the flash backward's
+``S @ z`` is on the rounded z and ``rowsum(S) z`` on the f32 z; the panel
+backward's panels come from the rounded z and its ``K' @ (q .* z)`` from
+the f32 z.
 """
 
 from __future__ import annotations
@@ -38,6 +52,7 @@ from typing import Tuple
 
 import torch
 
+from vgan_tpu_torch._dtypes import low_precision
 from vgan_tpu_torch.ops import mmd as _mmd
 
 # The JAX package's tiling constants, kept because they decide the regime
@@ -109,6 +124,12 @@ def cuda_supported(x: torch.Tensor, y: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 # plain versions (the arithmetic of the Pallas kernels, on whole tensors)
 # ---------------------------------------------------------------------------
+
+
+def rounded(z: torch.Tensor) -> torch.Tensor:
+    """z as the bf16 variants' distance product reads it: rounded to bf16
+    (to nearest even), in float32."""
+    return z.to(torch.bfloat16).to(z.dtype)
 
 
 def _sq_dists(zr, zc, nr, nc):
@@ -224,6 +245,8 @@ _SIGNATURES = {
     "vgan_transpose_pad": [_P, _I, _I, _I, _P, _P],
     "vgan_kprime_panel": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
 }
+# the bf16-operand variants take the same arguments
+_SIGNATURES.update({f"{name}_bf16": argtypes for name, argtypes in list(_SIGNATURES.items())})
 
 
 @functools.lru_cache(maxsize=None)
@@ -238,9 +261,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.float32) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -263,25 +286,28 @@ def _column_major(x: torch.Tensor, rows_multiple: int) -> torch.Tensor:
     return out
 
 
-def _transposed(x: torch.Tensor, ld: int) -> torch.Tensor:
+def _transposed(x: torch.Tensor, ld: int, bf16: bool = False) -> torch.Tensor:
     """(d, ld) column-major copy of the (n, d) float32 rows ``x``, rows n ..
-    ld zero: ``transpose_pad_kernel`` on the card, torch on the CPU."""
+    ld zero, in float32 or rounded to bf16: ``transpose_pad_kernel`` on the
+    card, torch on the CPU."""
     n, d = x.shape
+    dtype = torch.bfloat16 if bf16 else torch.float32
     if not x.is_cuda:
-        out = torch.zeros((d, ld), dtype=torch.float32)
+        out = torch.zeros((d, ld), dtype=dtype)
         out[:, :n] = x.T
         return out
     _check("x", x, (n, d), x.device)
-    out = torch.empty((d, ld), dtype=torch.float32, device=x.device)
-    _launch("vgan_transpose_pad", x.device, _ptr(x), n, d, ld, _ptr(out))
+    out = torch.empty((d, ld), dtype=dtype, device=x.device)
+    _launch(_entry("vgan_transpose_pad", bf16)[0], x.device, _ptr(x), n, d, ld, _ptr(out))
     return out
 
 
-def panel_operand(x: torch.Tensor) -> torch.Tensor:
-    """K4's column-major operand of the (n, d) rows ``x``: one tile more than
-    n rounded up to 128, so that a tile may start at any row below n (a
-    panel's diagonal block starts at its row offset)."""
-    return _transposed(x, _round_up(x.shape[0], STASH_TILE) + STASH_TILE)
+def panel_operand(x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """K4's column-major operand of the (n, d) rows ``x`` (rounded to bf16
+    for :func:`kprime_panel_bf16`): one tile more than n rounded up to 128,
+    so that a tile may start at any row below n (a panel's diagonal block
+    starts at its row offset)."""
+    return _transposed(x, _round_up(x.shape[0], STASH_TILE) + STASH_TILE, bf16)
 
 
 def _sms(device) -> int:
@@ -335,39 +361,71 @@ def stash_slices(m: int, d: int, sms: int) -> Tuple[int, int]:
     return tile_schedule(tile_pairs(m), d, sms)[1:]
 
 
-def stash_scratch_floats(m: int, d: int, slice_: int) -> int:
+def _zt_floats(d: int, M: int, zbytes: int) -> int:
+    """Floats of scratch that the (d, M) column-major copy of z takes with
+    ``zbytes`` a value (4, or 2 for the bf16 variants)."""
+    return d * M * zbytes // 4
+
+
+def stash_scratch_floats(m: int, d: int, slice_: int, zbytes: int = 4) -> int:
     """K2's scratch, always mode (b)'s: the column-major padded z, the
     partial dot tile of every (tile pair, slice), and three sums per quarter
     of a tile pair."""
     pairs = tile_pairs(m)
-    return d * _round_up(m, STASH_TILE) + _cdiv(d, slice_) * pairs * STASH_TILE ** 2 + 12 * pairs
+    return (_zt_floats(d, _round_up(m, STASH_TILE), zbytes)
+            + _cdiv(d, slice_) * pairs * STASH_TILE ** 2 + 12 * pairs)
 
 
-def quadrant_sums_scratch_floats(m: int, d: int, slice_: int) -> int:
+def quadrant_sums_scratch_floats(m: int, d: int, slice_: int, zbytes: int = 4) -> int:
     """K1's scratch: the column-major padded z, then in mode (a) (one slice)
     three sums per tile pair; in mode (b) the partial dot tile of every
     (tile pair, slice), at most one wave of them, and three sums per
     sixteenth of a tile pair (its epilogue's blocks). Never m^2."""
     pairs, count = tile_pairs(m), _cdiv(d, slice_)
-    zt = d * _round_up(m, STASH_TILE)
+    zt = _zt_floats(d, _round_up(m, STASH_TILE), zbytes)
     if count == 1:
         return zt + 3 * pairs
     return zt + count * pairs * STASH_TILE ** 2 + 48 * pairs
+
+
+def _entry(name: str, bf16: bool) -> Tuple[str, int]:
+    """The C entry of a kernel and the bytes of its z operand: the f32 one,
+    or its bf16-operand variant."""
+    return (name + "_bf16", 2) if bf16 else (name, 4)
+
+
+def _quadrant_sums_launch(bf16: bool, stash: bool, z, norms, bw, n1: int, mults):
+    """``(sums (1, 4), kp (m, m) or None)`` from K1 (K2 with ``stash``), on
+    f32 or bf16 operands."""
+    m, d = _check_gram_inputs(z, norms, bw)
+    slice_, _ = stash_slices(m, d, _sms(z.device))
+    entry, zbytes = _entry("vgan_gram_quadrant_sums" + ("_stash" if stash else ""), bf16)
+    size = (stash_scratch_floats if stash else quadrant_sums_scratch_floats)(m, d, slice_, zbytes)
+    scratch = torch.empty(size, dtype=torch.float32, device=z.device)
+    sums = torch.empty(4, dtype=torch.float32, device=z.device)
+    kp = torch.empty((m, m), dtype=torch.float32, device=z.device) if stash else None
+    _launch(entry, z.device, _ptr(z), _ptr(norms), _ptr(bw.reshape(1)), m, d, n1,
+            ctypes.byref(_ladder(tuple(mults))), slice_, _ptr(scratch), _ptr(sums),
+            *([_ptr(kp)] if stash else []))
+    return sums.reshape(1, 4), kp
 
 
 def gram_quadrant_sums(z, norms, bw, n1: int, mults) -> torch.Tensor:
     """Quadrant sums ``(1, 4)`` = [XX, XY, YY, 0] of ``K(d2(z, z))``."""
     if not z.is_cuda:
         return gram_quadrant_sums_reference(z, norms, bw, n1, mults)
-    m, d = _check_gram_inputs(z, norms, bw)
-    slice_, _ = stash_slices(m, d, _sms(z.device))
-    scratch = torch.empty(quadrant_sums_scratch_floats(m, d, slice_), dtype=torch.float32,
-                          device=z.device)
-    sums = torch.empty(4, dtype=torch.float32, device=z.device)
-    _launch("vgan_gram_quadrant_sums", z.device, _ptr(z), _ptr(norms), _ptr(bw.reshape(1)), m,
-            d, n1, ctypes.byref(_ladder(tuple(mults))), slice_, _ptr(scratch), _ptr(sums))
+    sums, _ = _quadrant_sums_launch(False, False, z, norms, bw, n1, mults)
     gram_quadrant_sums.launches += 1
-    return sums.reshape(1, 4)
+    return sums
+
+
+def gram_quadrant_sums_bf16(z, norms, bw, n1: int, mults) -> torch.Tensor:
+    """:func:`gram_quadrant_sums` with d2 from ``rounded(z)`` and ``norms``."""
+    if not z.is_cuda:
+        return gram_quadrant_sums_reference(rounded(z), norms, bw, n1, mults)
+    sums, _ = _quadrant_sums_launch(True, False, z, norms, bw, n1, mults)
+    gram_quadrant_sums_bf16.launches += 1
+    return sums
 
 
 def gram_quadrant_sums_stash(z, norms, bw, n1: int, mults):
@@ -375,17 +433,18 @@ def gram_quadrant_sums_stash(z, norms, bw, n1: int, mults):
     (K2: four launches on one stream, counted once)."""
     if not z.is_cuda:
         return gram_quadrant_sums_stash_reference(z, norms, bw, n1, mults)
-    m, d = _check_gram_inputs(z, norms, bw)
-    slice_, _ = stash_slices(m, d, _sms(z.device))
-    scratch = torch.empty(stash_scratch_floats(m, d, slice_), dtype=torch.float32,
-                          device=z.device)
-    sums = torch.empty(4, dtype=torch.float32, device=z.device)
-    kp = torch.empty((m, m), dtype=torch.float32, device=z.device)
-    _launch("vgan_gram_quadrant_sums_stash", z.device, _ptr(z), _ptr(norms),
-            _ptr(bw.reshape(1)), m, d, n1, ctypes.byref(_ladder(tuple(mults))), slice_,
-            _ptr(scratch), _ptr(sums), _ptr(kp))
+    out = _quadrant_sums_launch(False, True, z, norms, bw, n1, mults)
     gram_quadrant_sums_stash.launches += 1
-    return sums.reshape(1, 4), kp
+    return out
+
+
+def gram_quadrant_sums_stash_bf16(z, norms, bw, n1: int, mults):
+    """:func:`gram_quadrant_sums_stash` with d2 from ``rounded(z)`` and ``norms``."""
+    if not z.is_cuda:
+        return gram_quadrant_sums_stash_reference(rounded(z), norms, bw, n1, mults)
+    out = _quadrant_sums_launch(True, True, z, norms, bw, n1, mults)
+    gram_quadrant_sums_stash_bf16.launches += 1
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -423,7 +482,7 @@ def flash_chunks(d: int) -> int:
     return _cdiv(d + 1, STASH_TILE)
 
 
-def flash_scratch_floats(m: int, d: int, slice_: int, nsplit: int) -> int:
+def flash_scratch_floats(m: int, d: int, slice_: int, nsplit: int, zbytes: int = 4) -> int:
     """K3's scratch: z column-major (d x M), ``[z | 1]`` row-major (M x
     128 chunks), in mode (b) the partial dot tiles of every (tile pair,
     slice) and the S tiles of every ordered tile (mode (b) runs only while
@@ -433,27 +492,43 @@ def flash_scratch_floats(m: int, d: int, slice_: int, nsplit: int) -> int:
     M, D1 = tiles * STASH_TILE, flash_chunks(d) * STASH_TILE
     count = _cdiv(d, slice_)
     mode_b = (count * tile_pairs(m) + tiles * tiles) * STASH_TILE ** 2 if count > 1 else 0
-    return d * M + M * D1 + mode_b + (nsplit - 1) * M * D1
+    return _zt_floats(d, M, zbytes) + M * D1 + mode_b + (nsplit - 1) * M * D1
 
 
 def gram_backward_flash(z, norms, bw, n1: int, n2: int, mults):
     """``(sz (m, d), rs (m, 1))`` = ``(S @ z, rowsum(S))``, S = coeff .* K'."""
     if not z.is_cuda:
         return gram_backward_flash_reference(z, norms, bw, n1, n2, mults)
+    out = _flash_launch(False, z, norms, bw, n1, n2, mults)
+    gram_backward_flash.launches += 1
+    return out
+
+
+def gram_backward_flash_bf16(z, norms, bw, n1: int, n2: int, mults):
+    """:func:`gram_backward_flash` on ``rounded(z)`` (S's distances and S @ z)
+    with ``norms``."""
+    if not z.is_cuda:
+        return gram_backward_flash_reference(rounded(z), norms, bw, n1, n2, mults)
+    out = _flash_launch(True, z, norms, bw, n1, n2, mults)
+    gram_backward_flash_bf16.launches += 1
+    return out
+
+
+def _flash_launch(bf16: bool, z, norms, bw, n1: int, n2: int, mults):
     m, d = _check_gram_inputs(z, norms, bw)
     if n1 + n2 != m:
         raise ValueError(f"n1 + n2 = {n1 + n2} != m = {m}")
     sz = torch.empty((m, d), dtype=torch.float32, device=z.device)
     rs = torch.empty((m, 1), dtype=torch.float32, device=z.device)
     _, slice_, nsplit = flash_schedule(m, d, _sms(z.device))
-    scratch = torch.empty(flash_scratch_floats(m, d, slice_, nsplit), dtype=torch.float32,
+    entry, zbytes = _entry("vgan_gram_backward_flash", bf16)
+    scratch = torch.empty(flash_scratch_floats(m, d, slice_, nsplit, zbytes), dtype=torch.float32,
                           device=z.device)
     cxx, cyy, cxy = _coefficients(n1, n2)
-    _launch("vgan_gram_backward_flash", z.device, _ptr(z), _ptr(norms),
+    _launch(entry, z.device, _ptr(z), _ptr(norms),
             _ptr(bw.reshape(1)), m, d, n1, cxx, cyy, cxy,
             ctypes.byref(_ladder(tuple(mults))), slice_, nsplit, _ptr(scratch), _ptr(sz),
             _ptr(rs))
-    gram_backward_flash.launches += 1
     return sz, rs
 
 
@@ -487,6 +562,25 @@ def kprime_panel(z_rows, z_cols, n_rows, n_cols, bw, mults, offset=None,
     panels)."""
     if not z_rows.is_cuda:
         return kprime_panel_reference(z_rows, z_cols, n_rows, n_cols, bw, mults)
+    kp = _panel_launch(False, z_rows, z_cols, n_rows, n_cols, bw, mults, offset, cols_t)
+    kprime_panel.launches += 1
+    return kp
+
+
+def kprime_panel_bf16(z_rows, z_cols, n_rows, n_cols, bw, mults, offset=None,
+                      cols_t=None) -> torch.Tensor:
+    """:func:`kprime_panel` with d2 from the rounded rows and columns and the
+    given norms; ``cols_t`` is ``panel_operand(z_cols, bf16=True)``, and
+    ``offset`` (and R when columns follow the block) a multiple of 8."""
+    if not z_rows.is_cuda:
+        return kprime_panel_reference(rounded(z_rows), rounded(z_cols), n_rows, n_cols, bw,
+                                      mults)
+    kp = _panel_launch(True, z_rows, z_cols, n_rows, n_cols, bw, mults, offset, cols_t)
+    kprime_panel_bf16.launches += 1
+    return kp
+
+
+def _panel_launch(bf16: bool, z_rows, z_cols, n_rows, n_cols, bw, mults, offset, cols_t):
     R, d = z_rows.shape
     C = z_cols.shape[0]
     dev = z_rows.device
@@ -496,15 +590,17 @@ def kprime_panel(z_rows, z_cols, n_rows, n_cols, bw, mults, offset=None,
     _check("n_cols", n_cols, (C,), dev)
     _check("bw", bw.reshape(1), (1,), dev)
     if cols_t is None:
-        cols_t = panel_operand(z_cols)
-    _check("cols_t", cols_t, (d, _round_up(C, STASH_TILE) + STASH_TILE), dev)
+        cols_t = panel_operand(z_cols, bf16)
+    _check("cols_t", cols_t, (d, _round_up(C, STASH_TILE) + STASH_TILE), dev,
+           torch.bfloat16 if bf16 else torch.float32)
     if offset is None:
-        rows_t, row0, diag = _transposed(z_rows, _round_up(R, STASH_TILE)), 0, -1
+        rows_t, row0, diag = _transposed(z_rows, _round_up(R, STASH_TILE), bf16), 0, -1
     else:
-        if not (0 <= offset and offset + R <= C and offset % 4 == 0
-                and (offset + R == C or R % 4 == 0)):
-            raise ValueError(f"offset {offset} with R={R}, C={C}: expected a multiple of 4 with "
-                             "offset + R <= C, and R a multiple of 4 unless offset + R == C")
+        a = 8 if bf16 else 4  # a column start: 16 bytes
+        if not (0 <= offset and offset + R <= C and offset % a == 0
+                and (offset + R == C or R % a == 0)):
+            raise ValueError(f"offset {offset} with R={R}, C={C}: expected a multiple of {a} with "
+                             f"offset + R <= C, and R a multiple of {a} unless offset + R == C")
         if z_rows.data_ptr() != z_cols[offset:].data_ptr():
             raise ValueError("with an offset, z_rows must be the view z_cols[offset:offset + R]")
         rows_t, row0, diag = cols_t, offset, offset
@@ -513,23 +609,24 @@ def kprime_panel(z_rows, z_cols, n_rows, n_cols, bw, mults, offset=None,
     scratch = torch.empty(max(1, panel_scratch_floats(blocks, d, slice_)), dtype=torch.float32,
                           device=dev)
     kp = torch.empty((R, C), dtype=torch.float32, device=dev)
-    _launch("vgan_kprime_panel", dev, _ptr(rows_t), rows_t.shape[1], row0, _ptr(cols_t),
-            cols_t.shape[1], _ptr(n_rows), _ptr(n_cols), _ptr(bw.reshape(1)), R, C, d, diag,
-            ctypes.byref(_ladder(tuple(mults))), slice_, _ptr(scratch), _ptr(kp))
-    kprime_panel.launches += 1
+    _launch(_entry("vgan_kprime_panel", bf16)[0], dev, _ptr(rows_t), rows_t.shape[1],
+            row0, _ptr(cols_t), cols_t.shape[1], _ptr(n_rows), _ptr(n_cols), _ptr(bw.reshape(1)),
+            R, C, d, diag, ctypes.byref(_ladder(tuple(mults))), slice_, _ptr(scratch), _ptr(kp))
     return kp
 
 
 KERNELS = (gram_quadrant_sums, gram_quadrant_sums_stash, gram_backward_flash, kprime_panel)
+BF16_KERNELS = (gram_quadrant_sums_bf16, gram_quadrant_sums_stash_bf16, gram_backward_flash_bf16,
+                kprime_panel_bf16)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
+    for fn in KERNELS + BF16_KERNELS:
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    return {fn.__name__: fn.launches for fn in KERNELS + BF16_KERNELS}
 
 
 reset_launch_counts()
@@ -554,20 +651,23 @@ def _panel_rows(m: int) -> int:
     return max(PANEL_ROW_MULTIPLE, min(m, max_rows))
 
 
-def gram_backward_panel(z, norms, bw, n1: int, mults) -> torch.Tensor:
+def gram_backward_panel(z, norms, bw, n1: int, mults, bf16: bool = False) -> torch.Tensor:
     """Unscaled cotangent ``rowsum(S) z - S @ z`` through bounded (R, m) K'
     panels: ``rowsum(S) = q .* (K' @ q)``, ``S @ z = q .* (K' @ (q .* z))``.
     On the card, one column-major copy of z serves every panel, and each
-    panel's diagonal block is formed pair-once (its row offset)."""
+    panel's diagonal block is formed pair-once (its row offset). ``bf16``:
+    the panels from :func:`kprime_panel_bf16`; the contractions stay on the
+    f32 z."""
     m = z.shape[0]
     R = _panel_rows(m)
     q = _q_vector(m, n1, z.device)
     qz = q[:, None] * z
-    z_t = panel_operand(z) if z.is_cuda else None
+    z_t = panel_operand(z, bf16) if z.is_cuda else None
+    panel = kprime_panel_bf16 if bf16 else kprime_panel
     out = torch.empty_like(z)
     for off in range(0, m, R):
         rows = slice(off, off + R)
-        kp = kprime_panel(z[rows], z, norms[rows], norms, bw, mults, offset=off, cols_t=z_t)
+        kp = panel(z[rows], z, norms[rows], norms, bw, mults, offset=off, cols_t=z_t)
         a = kp @ q
         u = kp @ qz
         out[rows] = q[rows, None] * (a[:, None] * z[rows] - u)
@@ -583,10 +683,11 @@ def _mmd2_from_sums(sums, n1: int, n2: int):
 
 
 class _MMD2Core(torch.autograd.Function):
-    """Biased MMD^2 through the kernels, with the JAX package's custom VJP."""
+    """Biased MMD^2 through the kernels, with the JAX package's custom VJP;
+    ``bf16``: the bf16-operand variants (``matmul_dtype='bfloat16'``)."""
 
     @staticmethod
-    def forward(ctx, x, y, bw, mults, want_grad):
+    def forward(ctx, x, y, bw, mults, want_grad, bf16=False):
         n1, n2 = x.shape[0], y.shape[0]
         z = torch.cat([x, y], dim=0).to(torch.float32).contiguous()
         norms = torch.sum(z * z, dim=1)
@@ -594,10 +695,12 @@ class _MMD2Core(torch.autograd.Function):
         M, D, _ = _pad_layout(n1 + n2, x.shape[1])
         kp = None
         if want_grad and _stash_kprime(M, D):
-            sums, kp = gram_quadrant_sums_stash(z, norms, bw, n1, mults)
+            stash = gram_quadrant_sums_stash_bf16 if bf16 else gram_quadrant_sums_stash
+            sums, kp = stash(z, norms, bw, n1, mults)
         else:
-            sums = gram_quadrant_sums(z, norms, bw, n1, mults)
-        ctx.mults, ctx.n1, ctx.n2 = mults, n1, n2
+            sums = (gram_quadrant_sums_bf16 if bf16 else gram_quadrant_sums)(z, norms, bw, n1,
+                                                                            mults)
+        ctx.mults, ctx.n1, ctx.n2, ctx.bf16 = mults, n1, n2, bf16
         ctx.dtypes = (x.dtype, y.dtype)
         ctx.save_for_backward(z, norms, bw, kp)
         return _mmd2_from_sums(sums, n1, n2)
@@ -623,34 +726,37 @@ class _MMD2Core(torch.autograd.Function):
                 a, u = au[:, :1], au[:, 1:]
             dz = 4.0 * g * (q[:, None] * (a * z - u))
         elif D <= FLASH_D_MAX:
-            sz, rs = gram_backward_flash(z, norms, bw, n1, n2, mults)
+            flash = gram_backward_flash_bf16 if ctx.bf16 else gram_backward_flash
+            sz, rs = flash(z, norms, bw, n1, n2, mults)
             dz = 4.0 * g * (rs * z - sz)
         else:
-            dz = 4.0 * g * gram_backward_panel(z, norms, bw, n1, mults)
+            dz = 4.0 * g * gram_backward_panel(z, norms, bw, n1, mults, ctx.bf16)
         dx = dz[:n1].to(ctx.dtypes[0])
         dy = dz[n1:].to(ctx.dtypes[1])
-        return dx, dy, None, None, None
+        return dx, dy, None, None, None, None
 
 
-def mmd2_cuda_core(x, y, bw, mults) -> torch.Tensor:
+def mmd2_cuda_core(x, y, bw, mults, matmul_dtype=None) -> torch.Tensor:
     """Biased MMD^2 through the kernels, given a resolved bandwidth. The
     stash kernel runs only when a gradient will be taken (inside the
-    Function's forward, grad mode is always off, so it is decided here)."""
+    Function's forward, grad mode is always off, so it is decided here).
+    ``matmul_dtype='bfloat16'`` takes the bf16-operand variants."""
+    bf16 = low_precision(matmul_dtype, "matmul_dtype") is not None
     want_grad = torch.is_grad_enabled() and (x.requires_grad or y.requires_grad)
-    return _MMD2Core.apply(x, y, bw, tuple(mults), want_grad)
+    return _MMD2Core.apply(x, y, bw, tuple(mults), want_grad, bf16)
 
 
-def mmd2_biased_cuda(x, y, bandwidth=None, mults=_mmd.bandwidth_multipliers()):
+def mmd2_biased_cuda(x, y, bandwidth=None, mults=_mmd.bandwidth_multipliers(), matmul_dtype=None):
     """Kernel counterpart of :func:`vgan_tpu_torch.ops.mmd.mmd2_biased`."""
     if bandwidth is None:
         bandwidth = _mmd.candidate_bandwidth(torch.cat([x, y], dim=0))
     bw = torch.as_tensor(bandwidth, dtype=torch.float32, device=x.device)
-    return mmd2_cuda_core(x, y, bw, mults), bw
+    return mmd2_cuda_core(x, y, bw, mults, matmul_dtype), bw
 
 
 def mmd2_biased_stateful_cuda(x, y, bw_value, bw_is_set,
-                              mults=_mmd.bandwidth_multipliers()):
+                              mults=_mmd.bandwidth_multipliers(), matmul_dtype=None):
     """Kernel counterpart of ``mmd2_biased_stateful``."""
     candidate = _mmd.candidate_bandwidth(torch.cat([x, y], dim=0))
     bw = torch.where(bw_is_set, bw_value, candidate).to(torch.float32)
-    return mmd2_cuda_core(x, y, bw, mults), bw
+    return mmd2_cuda_core(x, y, bw, mults, matmul_dtype), bw

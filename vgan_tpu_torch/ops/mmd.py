@@ -16,6 +16,14 @@ caller. ``impl`` selects the implementation: 'torch' materializes the Gram,
 picks the kernels for CUDA tensors with d >= 512 or m >= 4096 (the JAX
 package's ``pallas_supported`` rule) and escapes to 'chunked' past
 ``_DENSE_MAX_M`` samples otherwise.
+
+``matmul_dtype='bfloat16'`` (the JAX package's ``gram_matmul_dtype``) rounds
+the operands of the distance product ``<x_i, y_j>`` to bf16 on every path;
+the norms come from the unrounded rows (so a row's distance to itself is
+not 0 before the clamp) and the ladder stays in the input's dtype. The
+product is taken in float32 on the rounded values, whose products are exact
+there, so only the summation order differs from JAX's bf16 dot with float32
+accumulation; the CUDA path runs the kernels' bf16-operand variants.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ from typing import Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from vgan_tpu_torch._dtypes import low_precision
 
 DEFAULT_N_KERNELS = 5
 DEFAULT_MUL_FACTOR = 2.0
@@ -35,12 +45,6 @@ _DENSE_MAX_M = 16384
 IMPLS = ("torch", "auto", "cuda", "chunked")
 
 
-def _no_low_precision(matmul_dtype: Optional[str]) -> None:
-    if matmul_dtype is not None:
-        raise NotImplementedError(
-            "matmul_dtype / gram_matmul_dtype other than None (bf16 distance "
-            "products) is not ported yet; see ROADMAP.md Queue 1, 'bf16 options'"
-        )
 
 
 def bandwidth_multipliers(
@@ -56,13 +60,19 @@ def pairwise_sq_dists(
     y: Optional[torch.Tensor] = None,
     matmul_dtype: Optional[str] = None,
 ) -> torch.Tensor:
-    """``d2[i, j] = |x_i|^2 + |y_j|^2 - 2 <x_i, y_j>``, clamped at 0."""
-    _no_low_precision(matmul_dtype)
+    """``d2[i, j] = |x_i|^2 + |y_j|^2 - 2 <x_i, y_j>``, clamped at 0; with
+    ``matmul_dtype`` the cross product is float32 on the rounded rows, cast
+    to x's dtype, and the norms are the unrounded rows'."""
     if y is None:
         y = x
     xn = torch.sum(x * x, dim=-1)
     yn = torch.sum(y * y, dim=-1)
-    d2 = xn[:, None] + yn[None, :] - 2.0 * (x @ y.T)
+    md = low_precision(matmul_dtype, "matmul_dtype")
+    if md is None:
+        cross = x @ y.T
+    else:
+        cross = (x.to(md).float() @ y.to(md).float().T).to(x.dtype)
+    d2 = xn[:, None] + yn[None, :] - 2.0 * cross
     return torch.clamp_min(d2, 0.0)
 
 
@@ -176,9 +186,9 @@ def mmd2_biased_stateful(
     Returns ``(mmd2, bandwidth_used)``; no host sync."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl={impl!r}: expected one of {IMPLS}")
-    _no_low_precision(matmul_dtype)
+    low_precision(matmul_dtype, "matmul_dtype")
     if impl == "chunked":
-        return mmd2_biased_chunked(x, y, bw_value, bw_is_set, mults)
+        return mmd2_biased_chunked(x, y, bw_value, bw_is_set, mults, matmul_dtype=matmul_dtype)
     if impl != "torch":
         from vgan_tpu_torch.ops.cuda.mmd_gram import (
             cuda_supported,
@@ -187,12 +197,13 @@ def mmd2_biased_stateful(
 
         m = x.shape[0] + y.shape[0]
         if impl == "cuda" or (impl == "auto" and cuda_supported(x, y)):
-            return mmd2_biased_stateful_cuda(x, y, bw_value, bw_is_set, mults)
+            return mmd2_biased_stateful_cuda(x, y, bw_value, bw_is_set, mults, matmul_dtype)
         if impl == "auto" and m > _DENSE_MAX_M:
-            return mmd2_biased_chunked(x, y, bw_value, bw_is_set, mults)
+            return mmd2_biased_chunked(x, y, bw_value, bw_is_set, mults,
+                                       matmul_dtype=matmul_dtype)
     n1 = x.shape[0]
     z = torch.cat([x, y], dim=0)
-    d2 = pairwise_sq_dists(z)
+    d2 = pairwise_sq_dists(z, matmul_dtype=matmul_dtype)
     candidate = candidate_bandwidth(z)
     bw = torch.where(bw_is_set, bw_value, candidate)
     k = multi_rbf_gram(d2, bw, mults)
@@ -213,19 +224,25 @@ def mmd2_biased_chunked(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Unbounded-m biased MMD^2: row-blocked quadrant sums with O(block x m)
     memory; each block is recomputed in the backward
-    (``torch.utils.checkpoint``) instead of saved."""
-    _no_low_precision(matmul_dtype)
+    (``torch.utils.checkpoint``) instead of saved. ``matmul_dtype`` rounds
+    the blocks' product operands (products in z's dtype). The row blocks and
+    the columns read two rounded copies of z, as JAX's ``z_pad_dot`` and
+    ``z_dot``: each copy's cotangent is summed over the blocks in the matmul
+    dtype, as JAX's are."""
     n1, n2 = x.shape[0], y.shape[0]
     m = n1 + n2
     z = torch.cat([x, y], dim=0)
     candidate = candidate_bandwidth(z)
     bw = torch.where(bw_is_set, bw_value, candidate).to(z.dtype)
     zn = torch.sum(z * z, dim=-1)
+    md = low_precision(matmul_dtype, "matmul_dtype")
+    z_rows_dot, z_cols_dot = (z, z) if md is None else (z.to(md), z.to(md))
     col_x = torch.arange(m, device=z.device) < n1
 
-    def block_sums(rows, start: int):
+    def block_sums(rows, rows_dot, start: int):
         rn = torch.sum(rows * rows, dim=-1)
-        d2 = torch.clamp_min(rn[:, None] + zn[None, :] - 2.0 * (rows @ z.T), 0.0)
+        cross = rows_dot.to(z.dtype) @ z_cols_dot.to(z.dtype).T
+        d2 = torch.clamp_min(rn[:, None] + zn[None, :] - 2.0 * cross, 0.0)
         k = multi_rbf_gram(d2, bw, mults)
         row_x = (start + torch.arange(rows.shape[0], device=z.device)) < n1
         sxx = torch.sum(torch.where(row_x[:, None] & col_x[None, :], k, 0.0))
@@ -235,8 +252,9 @@ def mmd2_biased_chunked(
 
     total = torch.zeros(3, dtype=z.dtype, device=z.device)
     for start in range(0, m, row_block):
-        rows = z[start:start + row_block]
-        total = total + checkpoint(block_sums, rows, start, use_reentrant=False)
+        block = slice(start, start + row_block)
+        total = total + checkpoint(block_sums, z[block], z_rows_dot[block], start,
+                                   use_reentrant=False)
     mmd2 = (
         total[0] / (n1 * n1) - 2.0 * total[1] / (n1 * n2) + total[2] / (n2 * n2)
     )

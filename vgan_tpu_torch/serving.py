@@ -69,7 +69,9 @@ def export_sampler(model, path) -> None:
     The program maps noise ``z (b, latent)`` to boolean masks ``(b, d)``:
     the generator's deterministic upper-softmax forward, then
     :func:`~vgan_tpu_torch.ops.activations.binarize_mask`. The weights are
-    the program's; it runs on the generator's device."""
+    the program's; it runs on the generator's device. A generator built with
+    ``model_matmul_dtype='bfloat16'`` is traced with its bf16 layers, as
+    ``generate_subspaces`` samples it."""
     generator = model.generator
     dtype = next(generator.parameters()).dtype
 

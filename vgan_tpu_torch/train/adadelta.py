@@ -13,6 +13,12 @@ written in the JAX package's operation order, so the two agree to the last
 bit in float64. The state is explicit (it can be carried over from the JAX
 package); parameters and state are updated in place.
 
+``state_dtype='bfloat16'`` stores ``E[g^2]`` and ``E[dx^2]`` in bf16, as the
+JAX package's option does: each update upcasts them to the parameter's
+dtype, computes the new averages and ``delta`` there (``delta`` from the
+unrounded new ``E[g^2]``), and rounds each average once, to nearest even,
+when it is stored. A float32 state keeps the in-place update above.
+
 Freezing: torch skips parameters whose ``grad`` is None (no update, no
 weight decay, no state advance). ``step(..., active=...)`` reproduces that
 per leaf. A leaf's flag may be a Python bool or a 0-dim bool tensor on the
@@ -26,6 +32,8 @@ from __future__ import annotations
 from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Union
 
 import torch
+
+from vgan_tpu_torch._dtypes import low_precision
 
 
 class AdadeltaState(NamedTuple):
@@ -42,19 +50,18 @@ class Adadelta:
         weight_decay: float = 0.0,
         state_dtype: Optional[str] = None,
     ):
-        if state_dtype is not None:
-            raise NotImplementedError(
-                "opt_state_dtype other than None (bf16 Adadelta state) is not "
-                "ported yet; see ROADMAP.md Queue 1, 'bf16 options'"
-            )
+        self.state_dtype = low_precision(state_dtype, "state_dtype")
         self.learning_rate = learning_rate
         self.rho = rho
         self.eps = eps
         self.weight_decay = weight_decay
 
     def init(self, params: Dict[str, torch.Tensor]) -> AdadeltaState:
-        zeros = {k: torch.zeros_like(p) for k, p in params.items()}
-        return AdadeltaState(zeros, {k: torch.zeros_like(p) for k, p in params.items()})
+        def zeros():
+            return {k: torch.zeros_like(p, dtype=self.state_dtype or p.dtype)
+                    for k, p in params.items()}
+
+        return AdadeltaState(zeros(), zeros())
 
     @torch.no_grad()
     def step(
@@ -74,15 +81,21 @@ class Adadelta:
                 continue
             sq, acc = state.square_avg[name], state.acc_delta[name]
             g = g + wd * p
-            if not isinstance(a, torch.Tensor):
+            if not isinstance(a, torch.Tensor) and sq.dtype == p.dtype:
                 sq.mul_(rho).add_((1.0 - rho) * g * g)
                 delta = g * torch.sqrt(acc + eps) / torch.sqrt(sq + eps)
                 acc.mul_(rho).add_((1.0 - rho) * delta * delta)
                 p.add_(-lr * delta)
                 continue
-            new_sq = rho * sq + (1.0 - rho) * g * g
-            delta = g * torch.sqrt(acc + eps) / torch.sqrt(new_sq + eps)
-            new_acc = rho * acc + (1.0 - rho) * delta * delta
-            p.add_(torch.where(a, -lr * delta, torch.zeros_like(delta)))
-            sq.copy_(torch.where(a, new_sq, sq))
-            acc.copy_(torch.where(a, new_acc, acc))
+            # the math in the parameter's dtype; a bf16 state rounds once, in copy_
+            sqm, accm = sq.to(p.dtype), acc.to(p.dtype)
+            new_sq = rho * sqm + (1.0 - rho) * g * g
+            delta = g * torch.sqrt(accm + eps) / torch.sqrt(new_sq + eps)
+            new_acc = rho * accm + (1.0 - rho) * delta * delta
+            upd = -lr * delta
+            if isinstance(a, torch.Tensor):
+                upd = torch.where(a, upd, torch.zeros_like(upd))
+                new_sq, new_acc = torch.where(a, new_sq, sqm), torch.where(a, new_acc, accm)
+            p.add_(upd)
+            sq.copy_(new_sq)
+            acc.copy_(new_acc)

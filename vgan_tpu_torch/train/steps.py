@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from vgan_tpu_torch.models.detector import Detector
+from vgan_tpu_torch._dtypes import low_precision
 from vgan_tpu_torch.models.generator import GeneratorBig, latent_size_for
 from vgan_tpu_torch.models.initializers import REFERENCE_NORMAL, TORCH_DEFAULT
 from vgan_tpu_torch.ops import mmd as mmd_ops
@@ -63,7 +64,12 @@ GENERATOR_GRADS = ("reference", "st", "gumbel_st")
 class TrainConfig:
     """Static training configuration; fields and defaults as the JAX
     package's ``TrainConfig`` (``mmd_impl`` takes 'torch' for 'jnp' and
-    'cuda' for 'pallas')."""
+    'cuda' for 'pallas'). The three bf16 options take None or 'bfloat16':
+    ``gram_matmul_dtype`` rounds the MMD's distance operands
+    (:mod:`vgan_tpu_torch.ops.mmd`), ``model_matmul_dtype`` runs the
+    generator's and the detector's layers in bf16
+    (:func:`~vgan_tpu_torch.models.generator.linear_stack`) and
+    ``opt_state_dtype`` stores the Adadelta averages in bf16."""
 
     ndims: int
     batch_size: int
@@ -98,17 +104,17 @@ class TrainConfig:
                 "(expected 'reference', 'st' or 'gumbel_st')"
             )
         for name in ("gram_matmul_dtype", "model_matmul_dtype", "opt_state_dtype"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: bf16 options are not "
-                    "ported yet; see ROADMAP.md Queue 1, 'bf16 options'"
-                )
+            low_precision(getattr(self, name), name)
 
     @property
     def latent_size(self) -> int:
         if self.latent_override is not None:
             return int(self.latent_override)
         return latent_size_for(self.ndims)
+
+    @property
+    def _compute_dtype(self) -> Optional[torch.dtype]:
+        return low_precision(self.model_matmul_dtype, "model_matmul_dtype")
 
     def generator_module(
         self,
@@ -130,6 +136,7 @@ class TrainConfig:
             gumbel_tau=self.gumbel_tau,
             dtype=dtype,
             generator=generator,
+            compute_dtype=self._compute_dtype,
         )
 
     def detector_module(
@@ -142,6 +149,7 @@ class TrainConfig:
             init_scheme=self.init_scheme_kl,
             dtype=dtype,
             generator=generator,
+            compute_dtype=self._compute_dtype,
         )
 
     def adadelta(self, lr: float) -> Adadelta:
