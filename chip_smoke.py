@@ -31,8 +31,10 @@ Phases (each asserts; any failure exits non-zero):
    and its rng-mode fit against the fit fed that noise, to the bit; and the
    bf16-operand variants of K1-K4 (``gram_matmul_dtype='bfloat16'``, the
    tensor cores) against their plain versions on the same bf16-rounded
-   operands, each timed beside its f32 kernel with its bound: K1 at the kl
-   and flash fits' Grams, a ragged mode (a) and the panel fit's forward, K2
+   operands, each timed beside its f32 kernel with its bound (K1 and K2
+   bf16, the bf16 forward of TMA-fed ``wgmma`` in thread-block clusters,
+   also with each pass's device time): K1 at the kl and flash fits' Grams,
+   a ragged m past one wave of tile pairs and the panel fit's forward, K2
    at the stress Gram, K3 in modes (b) (the kl Gram) and (a) (m=8192), K4 on
    the square panel (with a ragged offset panel and an ordered one) and on
    one real panel (m=45056, R=1472);
@@ -100,7 +102,9 @@ Phases (each asserts; any failure exits non-zero):
 3h. the multi-device paths in a world of one: an NCCL group of one rank
    over loopback and a ``make_mesh(data=1, model=1)`` mesh; the
    data-parallel no-kl and kl stress fits with ``shard_features`` (K2 8
-   launches; K1 and K3), their loss histories held to phases 3 and 3b;
+   launches; K1 and K3), their loss histories held to phases 3 and 3b; the
+   dp no-kl fit again with the three bf16 options (K2 bf16 8 launches),
+   held in phase 3i to the single-device fit with them, to the bit;
    ``check_if_myopic`` on the kl mesh model at phase 3b's counts (K5 on the
    sharded permutation rows), its p-values equal to phase 3b's; the stress
    (K7) and bench (K6) knn ensembles with ``mesh=`` under 'average' and
@@ -135,9 +139,10 @@ Phases (each asserts; any failure exits non-zero):
    shapes. With ``--parent-csrc DIR`` (an earlier commit's
    ``vgan_tpu_torch/ops/cuda/csrc/``), it also builds that commit's kernels
    and times its eight kernels against this tree's on the same inputs, in
-   turns (K3 through the parent's own C entry, K6 and K7 also held to the
-   parent's scores bit for bit in both modes), and the kl stress and flash
-   fits' steps/s with the parent's K3 and with this tree's. Phase 3e's
+   turns (K6 and K7 also held to the parent's scores bit for bit in both
+   modes, K1-K4 in f32 and K3 and K4 bf16 held to the parent's outputs bit
+   for bit), the bf16 forward (K1 and K2 bf16) against the parent's, and
+   the kl stress and flash fits' steps/s with the parent's K3 and with this tree's. Phase 3e's
    times are repeated there.
 
 Prints a JSON line of the kernels, the card's name and power limit, and as
@@ -613,8 +618,10 @@ def phase_kernels(device, gram_shapes, flash_shapes, log):
 
 def bf16_bound(mma_ops: float, f32_ops: float, nbytes: float):
     """A bf16 variant's bound: its distance product at the tensor cores' bf16
-    rate plus its other operations at the f32 rate, or its bytes (each
-    operand element at 2 bytes) at the HBM rate, whichever is larger, in ms."""
+    rate plus its other operations at the f32 rate, or its bytes at the HBM
+    rate, whichever is larger, in ms. K1, K2 and K3 bf16 read the f32 z (4
+    bytes a value: they round it on the card); K4 bf16 reads its prepared
+    bf16 operands (2 bytes)."""
     t_ops = (mma_ops / PEAK_BF16_FLOPS + f32_ops / PEAK_F32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -639,9 +646,14 @@ def phase_bf16_kernels(device, shapes, log) -> dict:
         t = {"shape": label, "ms": cuda_ms(fn, iters, warmup), "f32_ms": cuda_ms(f32, iters, warmup),
              "plain_ms": cuda_ms(plain, iters, warmup), "max_abs_err": err, "tol": tol}
         t["bound_ms"], t["bound_by"] = bf16_bound(mma_ops, f32_ops, nbytes)
+        passes = ""
+        if name in ("gram_quadrant_sums_bf16", "gram_quadrant_sums_stash_bf16"):
+            t["device_us"] = device_split(fn, calls=10)  # the bf16 forward's passes
+            passes = "; device us a call: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in sorted(t["device_us"].items(), key=lambda kv: -kv[1]))
         log(f"  {name} {label}: {t['ms']:.4f} ms (f32 kernel {t['f32_ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}); max abs err "
-            f"{err:.3e} ({tol})")
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}){passes}; "
+            f"max abs err {err:.3e} ({tol})")
         if name in rows:
             rows[name]["at_other_shapes"].append(t)
         else:
@@ -651,36 +663,43 @@ def phase_bf16_kernels(device, shapes, log) -> dict:
     for n1, n2, d in shapes["gram_quadrant_sums_bf16"]:
         _, _, z, norms, bw = gram_inputs(n1, n2, d, seed=41, device=device)
         m, zr = n1 + n2, G.rounded(z)
-        mode = G.tile_schedule(G.tile_pairs(m), d, sms)[0]
+        slices = G.cluster_schedule(G.tile_pairs(m), d, sms)[0]
         err = assert_close(f"gram_quadrant_sums_bf16 m={m} d={d}",
                            G.gram_quadrant_sums_bf16(z, norms, bw, n1, mults),
                            G.gram_quadrant_sums_reference(zr, norms, bw, n1, mults), RTOL_SUMS)
         repeat_identical("gram_quadrant_sums_bf16",
                          lambda: G.gram_quadrant_sums_bf16(z, norms, bw, n1, mults))
         pairs = sym_pairs(m)
-        record("gram_quadrant_sums_bf16", f"m={m} d={d} mode ({mode})",
+        record("gram_quadrant_sums_bf16", f"m={m} d={d}, {slices} CTAs a cluster",
                lambda: G.gram_quadrant_sums_bf16(z, norms, bw, n1, mults),
                lambda: G.gram_quadrant_sums(z, norms, bw, n1, mults),
                lambda: G.gram_quadrant_sums_reference(zr, norms, bw, n1, mults), err, sums_tol,
-               2 * pairs * d, OPS_PER_ENTRY * pairs, 2 * m * d + 4 * (m + 1 + 4))
+               2 * pairs * d, OPS_PER_ENTRY * pairs, 4 * m * d + 4 * (m + 1 + 4))
     for n1, n2, d in shapes["gram_quadrant_sums_stash_bf16"]:
         _, _, z, norms, bw = gram_inputs(n1, n2, d, seed=42, device=device)
         m, zr = n1 + n2, G.rounded(z)
         s_k, kp_k = G.gram_quadrant_sums_stash_bf16(z, norms, bw, n1, mults)
         s_p, kp_p = G.gram_quadrant_sums_stash_reference(zr, norms, bw, n1, mults)
-        err = max(assert_close(f"gram_quadrant_sums_stash_bf16 sums m={m} d={d}", s_k, s_p, RTOL_SUMS),
-                  assert_close(f"gram_quadrant_sums_stash_bf16 kp m={m} d={d}", kp_k, kp_p,
-                               RTOL_KP, ATOL_KP))
+        e_sums = assert_close(f"gram_quadrant_sums_stash_bf16 sums m={m} d={d}", s_k, s_p, RTOL_SUMS)
+        e_kp = assert_close(f"gram_quadrant_sums_stash_bf16 kp m={m} d={d}", kp_k, kp_p, RTOL_KP,
+                            ATOL_KP)
+        err = max(e_sums, e_kp)
         check(torch.equal(kp_k, kp_k.T), f"gram_quadrant_sums_stash_bf16 m={m}: K' is not symmetric")
+        rel = float(torch.max(torch.abs(s_k - s_p)[0, :3] / torch.abs(s_p)[0, :3]))
+        log(f"  gram_quadrant_sums_stash_bf16 m={m} d={d} (the tensor cores sum 64 products "
+            f"before each f32 fold): K' max abs err {e_kp:.3e} (max|K'| "
+            f"{float(torch.max(torch.abs(kp_p))):.3e}), sums max rel err {rel:.3e}; K' symmetric "
+            f"to the bit")
         repeat_identical("gram_quadrant_sums_stash_bf16",
                          lambda: G.gram_quadrant_sums_stash_bf16(z, norms, bw, n1, mults))
         pairs = sym_pairs(m)
-        record("gram_quadrant_sums_stash_bf16", f"m={m} d={d}",
+        slices = G.cluster_schedule(G.tile_pairs(m), d, sms)[0]
+        record("gram_quadrant_sums_stash_bf16", f"m={m} d={d}, {slices} CTAs a cluster",
                lambda: G.gram_quadrant_sums_stash_bf16(z, norms, bw, n1, mults),
                lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults),
                lambda: G.gram_quadrant_sums_stash_reference(zr, norms, bw, n1, mults),
                err, f"sums {sums_tol}; kp {kp_tol}", 2 * pairs * d, OPS_PER_ENTRY * pairs,
-               2 * m * d + 4 * (m + 1 + 4 + m * m))
+               4 * m * d + 4 * (m + 1 + 4 + m * m))
     for n1, n2, d in shapes["gram_backward_flash_bf16"]:
         z, norms, bw = large_gram_inputs(n1 + n2, d, 43, device)
         m, zr = n1 + n2, G.rounded(z)
@@ -699,7 +718,7 @@ def phase_bf16_kernels(device, shapes, log) -> dict:
                lambda: G.gram_backward_flash(z, norms, bw, n1, n2, mults),
                lambda: G.gram_backward_flash_reference(zr, norms, bw, n1, n2, mults), err,
                f"{GRAD_FRAC} of max|ref|", 2 * pairs * d, OPS_PER_ENTRY * pairs + 2 * m * m * d,
-               2 * m * d + 4 * (m * d + 2 * m + 1), iters)
+               4 * m * d + 4 * (m * d + 2 * m + 1), iters)
         torch.cuda.empty_cache()
     for n1, n2, d, R, checks in shapes["kprime_panel_bf16"]:
         z, norms, bw = large_gram_inputs(n1 + n2, d, 44, device)
@@ -2316,11 +2335,15 @@ def same_history(label: str, got, want) -> str:
     return f"within {gap:.3e} relative (limit {RTOL_MESH_FIT})"
 
 
-def phase_multidevice(device, n, d, batch, main_losses, kl_results, runs, log) -> dict:
+def phase_multidevice(device, n, d, batch, main_losses, kl_results, runs, log,
+                      mesh_runs=None) -> dict:
     """The multi-device paths (``vgan_tpu_torch.parallel``) on the card, in
     an NCCL group of one rank over loopback (the one card of this machine):
     the data-parallel no-kl and kl stress fits with the columns sharded
-    (K2; K1 and K3), held to phases 3 and 3b; ``check_if_myopic`` on the kl
+    (K2; K1 and K3), held to phases 3 and 3b; the dp no-kl stress fit again
+    with the three bf16 options (K2 bf16), its losses left in
+    ``mesh_runs["no-kl bf16"]`` for phase 3i, which holds them to its
+    single-device fit to the bit; ``check_if_myopic`` on the kl
     mesh model at phase 3b's counts (K5 on the sharded permutation rows),
     held to phase 3b's p-values; the stress (K7) and bench (K6) knn
     ensembles with ``mesh=`` under 'average' and 'max', and each split into
@@ -2375,6 +2398,19 @@ def phase_multidevice(device, n, d, batch, main_losses, kl_results, runs, log) -
             f"unsharded fit just before: {plain_sec:.2f} s), launches {counts}; losses "
             f"{losses.tolist()}, "
             f"{same_history('dp no-kl stress fit', losses, main_losses)} to phase 3's")
+
+        model, counts, losses, sec = fit_counts(X, device, epochs=2, batch_size=batch, mesh=mesh,
+                                                shard_features=True, **BF16_OPTIONS)
+        want = dict(zero, gram_quadrant_sums_stash_bf16=steps)
+        check(counts == want, f"dp no-kl stress fit with the bf16 options launched {counts}, "
+                              f"expected {want}")
+        check(model.generator.compute_dtype == torch.bfloat16,
+              "dp no-kl stress fit: the generator does not compute in bf16")
+        add(counts)
+        if mesh_runs is not None:
+            mesh_runs["no-kl bf16"] = losses
+        log(f"  dp no-kl stress fit with the bf16 options (mesh, shard_features): {sec:.2f} s, "
+            f"launches {counts}; losses {losses.tolist()} (held to phase 3i's fit)")
 
         plain_sec = fit_counts(X, device, cls=VGAN, epochs=2, batch_size=batch)[3]
         kl_model, counts, losses, sec = fit_counts(X, device, cls=VGAN, epochs=2,
@@ -2507,15 +2543,16 @@ def phase_multidevice(device, n, d, batch, main_losses, kl_results, runs, log) -
     return launches
 
 
-def phase_bf16_options(device, n, d, batch, main_losses, kl_losses, log) -> dict:
+def phase_bf16_options(device, n, d, batch, main_losses, kl_losses, log, mesh_losses=None) -> dict:
     """The three bf16 options together through the estimators at the stress
     width (phase 3's rows): the no-kl stress fit (8 steps: K2's bf16 variant
     only), one kl cycle (a detector and a generator epoch: K1's and K3's)
     and a one-epoch panel fit (the K' stash off: K1's and K4's), each with
     the kernel counts set to 0 just before it and read just after, held to
     the same fit on the dense torch path with the same options, the first
-    two also to phases 3 and 3b's f32 fits. Returns each variant's launches
-    (K1's under the kl cycle and, apart, the panel fit)."""
+    two also to phases 3 and 3b's f32 fits; the no-kl fit also to phase
+    3h's dp fit with the options (``mesh_losses``), to the bit. Returns each
+    variant's launches (K1's under the kl cycle and, apart, the panel fit)."""
     from vgan_tpu_torch import VGAN
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
@@ -2558,6 +2595,11 @@ def phase_bf16_options(device, n, d, batch, main_losses, kl_losses, log) -> dict
     counts, losses = fit("no-kl stress fit, bf16 options",
                          {"gram_quadrant_sums_stash_bf16": 2 * steps})
     against_f32("no-kl stress fit, bf16 options", losses, main_losses)
+    if mesh_losses is not None:
+        check(np.array_equal(losses, mesh_losses),
+              f"no-kl stress fit, bf16 options: {losses.tolist()} vs phase 3h's dp fit "
+              f"{mesh_losses.tolist()}")
+        log("  no-kl stress fit, bf16 options: equal to the bit to phase 3h's dp fit with them")
     launches = {"gram_quadrant_sums_stash_bf16": counts["gram_quadrant_sums_stash_bf16"]}
     counts, losses = fit("kl stress cycle, bf16 options",
                          {"gram_quadrant_sums_bf16": 2 * steps, "gram_backward_flash_bf16": steps},
@@ -3147,8 +3189,8 @@ def build_parent(src_dir: Path, log) -> dict:
     ``vgan_tpu_torch/ops/cuda/csrc/``: the four ``.cu`` files and the headers
     they include), built with the package's flags into
     ``build/parent_kernels/`` (one ``nvcc`` each, started together) and bound
-    with this tree's signatures: every kernel but K3 keeps this tree's C
-    interface, and :func:`parent_flash` binds K3 with the parent's own."""
+    with this tree's signatures (:func:`parent_quadrant_sums_bf16` reads
+    what the parent's bf16 forward takes)."""
     from vgan_tpu_torch.ops.cuda import _build
     from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
@@ -3166,6 +3208,8 @@ def build_parent(src_dir: Path, log) -> dict:
 
     with ThreadPoolExecutor(len(PARENT_SOURCES)) as pool:
         libs = dict(zip(PARENT_SOURCES, pool.map(build, PARENT_SOURCES)))
+    # a parent with the cluster kernel's header takes this tree's bf16 forward arguments
+    libs["mmd_gram"].cluster_forward = (src_dir / "wgmma_tile.cuh").is_file()
     for name, module in (("gof_gram", GG), ("knn_score", KS), ("fused_no_kl", FN),
                          ("mmd_gram", G)):
         for fn, argtypes in module._SIGNATURES.items():
@@ -3207,33 +3251,52 @@ def parent_gram_kernels(lib):
     return sums, panel
 
 
-def parent_flash(lib, device):
-    """The parent commit's K3 through its own C entry (the 64 x 64 tile design:
-    ``vgan_gram_backward_flash(..., ladder, nsplit, scratch, sz, rs,
-    stream)``, its column splits and partial sums sized as its wrapper sized
-    them), as a drop-in for ``mmd_gram.gram_backward_flash``."""
+def parent_quadrant_sums_bf16(lib, device):
+    """The parent commit's bf16 K1 and K2 (``vgan_gram_quadrant_sums_bf16``,
+    ``vgan_gram_quadrant_sums_stash_bf16``) as drop-ins for
+    ``gram_quadrant_sums_bf16`` and ``gram_quadrant_sums_stash_bf16``. A
+    parent with the cluster kernel (``build_parent`` marks it
+    ``cluster_forward``) runs through this tree's wrappers. One before it
+    (the ``product_bf16`` passes) is launched as its wrapper launched it:
+    the d slice of ``stash_slices`` and the f32 kernels' scratch with its
+    column-major z at 2 bytes; that branch serves no parent after the
+    cluster kernel's."""
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.vgan_gram_backward_flash  # z, norms, bw, m, d, n1, cxx, cyy, cxy, ladder, nsplit,
-    fn.argtypes = [P, P, P, I, I, I, F, F, F, P, I, P, P, P, P]  # scratch, sz, rs, stream
-    fn.restype = ctypes.c_int
+    if lib.cluster_forward:
+        def wrapped(stash, z, norms, bw, n1, mults):
+            with using_lib(G, lib):
+                fn = G.gram_quadrant_sums_stash_bf16 if stash else G.gram_quadrant_sums_bf16
+                return fn(z, norms, bw, n1, mults)
+        return (functools.partial(wrapped, False), functools.partial(wrapped, True))
+
     sms = G._sms(device)
 
+    def launch(stash, z, norms, bw, n1, mults):
+        m, d = G._check_gram_inputs(z, norms, bw)
+        slice_, _ = G.stash_slices(m, d, sms)
+        size = ((G.stash_scratch_floats if stash else G.quadrant_sums_scratch_floats)(m, d, slice_)
+                - G._zt_floats(d, G._round_up(m, G.STASH_TILE), 2))
+        scratch = torch.empty(size, dtype=torch.float32, device=device)
+        sums = torch.empty(4, dtype=torch.float32, device=device)
+        kp = torch.empty((m, m), dtype=torch.float32, device=device) if stash else None
+        G._launch(f"vgan_gram_quadrant_sums{'_stash' if stash else ''}_bf16", z.device,
+                  G._ptr(z), G._ptr(norms), G._ptr(bw.reshape(1)), m, d, n1,
+                  ctypes.byref(G._ladder(tuple(mults))), slice_, G._ptr(scratch), G._ptr(sums),
+                  *([G._ptr(kp)] if stash else []), lib=lib)
+        return (sums.reshape(1, 4), kp) if stash else sums.reshape(1, 4)
+
+    return (functools.partial(launch, False), functools.partial(launch, True))
+
+
+def parent_flash(lib):
+    """The parent commit's K3 as a drop-in for ``mmd_gram.gram_backward_flash``:
+    this tree's launch on the parent's library, its launches not counted."""
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
+
     def flash(z, norms, bw, n1, n2, mults):
-        m, d = z.shape
-        tiles = -(-m // 64)
-        nsplit = max(1, min(-(-2 * sms // tiles), tiles, (1 << 28) // (4 * m * (d + 1))))
-        scratch = torch.empty(nsplit * m * (d + 1) if nsplit > 1 else 1, dtype=torch.float32,
-                              device=device)
-        sz = torch.empty((m, d), dtype=torch.float32, device=device)
-        rs = torch.empty((m, 1), dtype=torch.float32, device=device)
-        cxx, cyy, cxy = G._coefficients(n1, n2)
-        rc = fn(z.data_ptr(), norms.data_ptr(), bw.reshape(1).data_ptr(), m, d, n1, cxx, cyy, cxy,
-                ctypes.byref(G._ladder(tuple(mults))), nsplit, scratch.data_ptr(), sz.data_ptr(),
-                rs.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-        check(rc == 0, f"parent gram_backward_flash: CUDA error {rc}")
-        return sz, rs
+        with using_lib(G, lib):
+            return G._flash_launch(False, z, norms, bw, n1, n2, mults)
 
     return flash
 
@@ -3267,8 +3330,8 @@ def flash_fit_rates(device, libs, log) -> dict:
     encodings) and the flash fit (n=2000, d=1024, batch 500,
     FLASH_FIT_EPOCHS epochs: K1 and K3 each step), host clock, after a
     warm-up of each; with the parent's kernels (``libs``), in turns:
-    parent, this tree, this tree, parent, twice, the parent's K3 through
-    its own C entry in its turns. Then the flash fit's device time a step
+    parent, this tree, this tree, parent, twice, the parent's K3 in its
+    turns. Then the flash fit's device time a step
     with each K3 (``torch.profiler``, 4 epochs): the fit is host-bound, so
     K3's share of its steps shows there and not in its steps/s."""
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
@@ -3276,7 +3339,7 @@ def flash_fit_rates(device, libs, log) -> dict:
     n, d, batch = STRESS["n"], STRESS["d"], STRESS["batch"]
     turns = ["parent", "this tree", "this tree", "parent"] * 2 if libs else ["this tree"]
     k3 = G.gram_backward_flash
-    parent_k3 = parent_flash(libs["mmd_gram"], device) if libs else None
+    parent_k3 = parent_flash(libs["mmd_gram"]) if libs else None
     kl_fit_steps_per_s(device, n, d, batch)
     fit_steps_per_s(device, n, 1024, batch)
     rates = {"kl stress fit": {}, "flash fit": {}, "flash fit device us/step": {}}
@@ -3301,16 +3364,19 @@ def flash_fit_rates(device, libs, log) -> dict:
 
 def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
     """The parent's K1 (at the kl, flash and panel fits' Grams and at
-    m=40960), K3 (at the kl and flash fits' Grams and at m=40960, through
-    its own C entry), K4 (the panel fit's square panel and one real panel),
+    m=40960), K3 (at the kl and flash fits' Grams and at m=40960), K4 (the panel fit's square panel and one real panel),
     K2 (at the no-kl stress fit's Gram), K8 (the 2000-epoch notebook fit and the
     20-epoch corner, rng mode), K5 (at both GoF shapes), K6 and K7 (at the
-    ensembles' decision_function shapes) against this tree's, on the same
-    inputs, in turns: parent, this tree, this tree, parent. Each case makes
-    its inputs when it runs and frees them after. Returns, per (kernel,
-    shape), the four times and the largest difference of the outputs
-    relative to the parent's largest entry; for K6 and K7 also whether the
-    scores equal the parent's to the bit in each mode."""
+    ensembles' decision_function shapes), the bf16 forward (K1 bf16 at phase
+    2's four shapes, K2 bf16 at the stress Gram: ``parent_quadrant_sums_bf16``)
+    and K3 bf16 and K4 bf16 (the kl Gram, the square
+    panel) against this tree's, on the same inputs, in turns: parent, this
+    tree, this tree, parent. Each case makes its inputs when it runs and
+    frees them after. Returns, per (kernel, shape), the four times and the
+    largest difference of the outputs relative to the parent's largest
+    entry; for K6 and K7 also whether the scores equal the parent's to the
+    bit in each mode, and for the m = 1000 cases of K1-K4 in f32 and of K3
+    and K4 bf16, whose code this tree keeps, that they do (checked)."""
     from vgan_tpu_torch.ops import mmd as M
     from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
@@ -3319,7 +3385,25 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
 
     gram_lib = libs["mmd_gram"]
     parent_sums, parent_panel = parent_gram_kernels(gram_lib)
+    parent_sums_bf16, parent_stash_bf16 = parent_quadrant_sums_bf16(gram_lib, device)
     mults = M.bandwidth_multipliers()
+
+    def same_bits(label, old, new):
+        """The check that ``new`` gives ``old``'s bits (a kernel whose code
+        this tree keeps), as an extra of a case."""
+        def extra():
+            a, b_ = old(), new()
+            a, b_ = (x if isinstance(x, tuple) else (x,) for x in (a, b_))
+            equal = all(torch.equal(u, v) for u, v in zip(a, b_))
+            check(equal, f"{label}: this tree's outputs differ from the parent's")
+            return {"equal_bits": equal}
+        return extra
+
+    def with_bits(label, make):
+        def made():
+            old, new = make()
+            return old, new, same_bits(label, old, new)
+        return made
 
     def inputs(n1, n2, d, seed, large):
         if large:
@@ -3349,7 +3433,7 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
                                            cols_t=cols_t))
         return make
 
-    parent_k3 = parent_flash(gram_lib, device)
+    parent_k3 = parent_flash(gram_lib)
 
     def flash_case(shape, large=False):
         def make():
@@ -3368,6 +3452,37 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
                 return G.gram_quadrant_sums_stash(z, norms, bw, n1, mults)
 
         return old, lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults)
+
+    def bf16_forward_case(shape, stash):
+        """The bf16 forward: the parent's (``parent_quadrant_sums_bf16``)
+        against this tree's cluster kernel."""
+        def make():
+            n1, n2, d = shape
+            z, norms, bw = inputs(n1, n2, d, 21, False)
+            old, new = ((parent_stash_bf16, G.gram_quadrant_sums_stash_bf16) if stash
+                        else (parent_sums_bf16, G.gram_quadrant_sums_bf16))
+            return (lambda: old(z, norms, bw, n1, mults), lambda: new(z, norms, bw, n1, mults))
+        return make
+
+    def bf16_kept_case(shape, panel):
+        """K3 bf16 (``panel`` False) or K4 bf16 on the square panel, whose
+        code this tree keeps: the parent's library through this tree's
+        wrapper."""
+        def make():
+            n1, n2, d = shape
+            z, norms, bw = inputs(n1, n2, d, 21, False)
+            if panel:
+                cols_t = G.panel_operand(z, bf16=True)
+                call = lambda: G.kprime_panel_bf16(z, z, norms, norms, bw, mults,  # noqa: E731
+                                                   offset=0, cols_t=cols_t)
+            else:
+                call = lambda: G.gram_backward_flash_bf16(z, norms, bw, n1, n2, mults)  # noqa: E731
+
+            def old():
+                with using_lib(G, gram_lib):
+                    return call()
+            return old, call
+        return make
 
     def fused_case(Xf, bs, epochs, seed, kseed):
         def make():
@@ -3426,22 +3541,33 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
     rp = K4_REAL_PANEL
     m_rp = rp["n1"] + rp["n2"]
     R_rp = G._panel_rows(m_rp)
-    cases = [(f"gram_quadrant_sums m={2 * b} d={dk}", 20, sums_case((b, b, dk)))
-             for dk in (d // 16, 1024, d)]
-    cases += [(f"gram_backward_flash m={2 * b} d={dk}", 20, flash_case((b, b, dk)))
-              for dk in (d // 16, 1024)]
+    cases = [(f"gram_quadrant_sums m={2 * b} d={dk}", 20,
+              with_bits("gram_quadrant_sums", sums_case((b, b, dk)))) for dk in (d // 16, 1024, d)]
+    cases += [(f"gram_backward_flash m={2 * b} d={dk}", 20,
+               with_bits("gram_backward_flash", flash_case((b, b, dk)))) for dk in (d // 16, 1024)]
     cases += [
         (f"gram_backward_flash m={sum(K1_LARGE[:2])} d={K1_LARGE[2]}", 3,
          flash_case(K1_LARGE, large=True)),
         (f"gram_quadrant_sums m={sum(K1_LARGE[:2])} d={K1_LARGE[2]}", 3,
          sums_case(K1_LARGE, large=True)),
         (f"kprime_panel R={2 * b} C={2 * b} d={d} offset 0 (with the column-major copy)", 20,
-         panel_case(b, b, d, 2 * b, 0, False)),
+         with_bits("kprime_panel", panel_case(b, b, d, 2 * b, 0, False))),
         (f"kprime_panel R={R_rp} C={m_rp} d={rp['d']} offset {rp['offset']}", 3,
          panel_case(rp["n1"], rp["n2"], rp["d"], R_rp, rp["offset"], True)),
-        (f"gram_quadrant_sums_stash m={2 * b} d={d}", 20, stash_case),
+        (f"gram_quadrant_sums_stash m={2 * b} d={d}", 20,
+         with_bits("gram_quadrant_sums_stash", stash_case)),
         (f"fused_no_kl_fit_cuda n=2000 d=10 bs=500, {FUSED_TIMED_EPOCHS} epochs", 3,
          fused_case(notebook_data(), 500, FUSED_TIMED_EPOCHS, 11, 99)),
+    ]
+    cases += [(f"gram_quadrant_sums_bf16 m={n1 + n2} d={dk}", 20,
+               bf16_forward_case((n1, n2, dk), False))
+              for n1, n2, dk in ((b, b, d // 16), (b, b, 1024), (1100, 1013, 700), (b, b, d))]
+    cases += [
+        (f"gram_quadrant_sums_stash_bf16 m={2 * b} d={d}", 20, bf16_forward_case((b, b, d), True)),
+        (f"gram_backward_flash_bf16 m={2 * b} d={d // 16}", 20,
+         with_bits("gram_backward_flash_bf16", bf16_kept_case((b, b, d // 16), False))),
+        (f"kprime_panel_bf16 R={2 * b} C={2 * b} d={d} offset 0", 20,
+         with_bits("kprime_panel_bf16", bf16_kept_case((b, b, d), True))),
     ]
     Xc = np.random.default_rng(13).standard_normal((FUSED_CORNER["n"], FUSED_CORNER["d"]),
                                                    dtype=np.float32)
@@ -3882,11 +4008,13 @@ def main(argv=None) -> int:
     cli_launches = phase_serving(device, stress_model, X_stress, log)
 
     log("phase 3h: the multi-device paths in a world of one (NCCL over loopback)")
+    mesh_runs = {}
     mesh_launches = phase_multidevice(device, n, d, batch, main_losses, kl_results, ensembles,
-                                      log)
+                                      log, mesh_runs)
 
     log("phase 3i: the bf16 options (gram, model and optimizer-state dtypes) at full width")
-    bf16_launches = phase_bf16_options(device, n, d, batch, main_losses, kl_results["losses"], log)
+    bf16_launches = phase_bf16_options(device, n, d, batch, main_losses, kl_results["losses"], log,
+                                       mesh_runs["no-kl bf16"])
 
     log("phase 4: the other regimes through fit, the notebook configurations")
     launches = phase_other_regimes(device, n, d_flash, d, batch, log)
@@ -3897,7 +4025,7 @@ def main(argv=None) -> int:
     rows = phase_times(device, {"kl": kl_shape, "flash": flash_shape, "stress": stress_shape,
                                 "k1_large": K1_LARGE, "k4_real_panel": K4_REAL_PANEL,
                                 "gof": [gof_f64, gof_f32]}, errs, launches, log,
-                       parent_flash(parent_libs["mmd_gram"], device) if parent_libs else None)
+                       parent_flash(parent_libs["mmd_gram"]) if parent_libs else None)
     rows += knn_times(ensembles, errs, knn_launches, hetero["launches"], log)
     for row in rows:
         if row["name"] in cli_launches:  # phase 3g's CLI: fit (K2) and score (K7)
@@ -3917,6 +4045,8 @@ def main(argv=None) -> int:
                "bound_peak_tflops": PEAK_BF16_FLOPS / 1e12}
         if name == "gram_quadrant_sums_bf16":
             row["launches_panel_fit"] = bf16_launches["gram_quadrant_sums_bf16", "panel fit"]
+        if name in mesh_launches:  # phase 3h's dp no-kl fit with the options (K2 bf16)
+            row["launches_mesh"] = mesh_launches[name]
         rows.append(row)
     if parent_libs:
         log("  against the parent commit's K1-K8 (same inputs, in turns)")

@@ -22,8 +22,9 @@ Each variant is the source with a part cut out by text substitution,
 built with ``nvcc`` (one each, started together), and timed in turns
 through the package's wrapper (CUDA events, median of 20 calls). With
 ``--parent-csrc DIR`` (an earlier commit's ``vgan_tpu_torch/ops/cuda/csrc/``)
-the parent's kernel is split the same way in the same call, through its
-own C entry (``chip_smoke.parent_flash``).
+the parent's kernel (the pipelined design, whose entry takes this tree's
+arguments) is split the same way in the same call, through this tree's
+launch (``chip_smoke.parent_flash``).
 ``--large`` also times the whole kernel at m = 40960, d = 1024 (3 calls)
 with its bytes allocated beyond the inputs. Prints the card's name and
 power limit first. Exits non-zero without a CUDA device.
@@ -56,13 +57,6 @@ def _cut(src: str, start: str, end: str, repl: str) -> str:
     return src[:i] + repl + src[src.index(end, i):]
 
 
-def _tile64_design(src: str) -> dict:
-    """The earlier ``flash_bwd_kernel`` (64 x 64 tile, inlined ladder)."""
-    no_sz = _cut(src, "        for (int dc = 0; dc < d; dc += FD) {", "    // rowsum(S)", "    }\n")
-    stub = no_sz.replace("ladder_eval<false, true>(d2, bw, L, k, kp);", "kp = d2 * 1e-6f;", 1)
-    return {"whole": src, "no_sz": no_sz, "no_sz_stub": stub}
-
-
 # The pipelined design: S @ z's 16-row step reduced to a checksum of its
 # operands, and the ladder to one product.
 _S_Z_CHECKSUM = """__device__ __forceinline__ void s_z_step(const float* As, const float* Bs, float (&out)[ST][ST]) {
@@ -70,16 +64,12 @@ _S_Z_CHECKSUM = """__device__ __forceinline__ void s_z_step(const float* As, con
 _LADDER = "ladder_call<false, true>(d2, bw, L, k, kp);"
 
 
-def _pipelined_design(src: str) -> dict:
+def variants(src: str) -> dict:
     no_sz = _cut(src, "__device__ __forceinline__ void s_z_step(", "\n}\n", _S_Z_CHECKSUM)
     if no_sz.count(_LADDER) != 1:
         raise ValueError(f"marker {_LADDER!r} occurs {no_sz.count(_LADDER)} times")
     return {"whole": src, "no_sz": no_sz,
             "no_sz_stub": no_sz.replace(_LADDER, "k = 0.f, kp = d2 * 1e-6f;")}
-
-
-def variants(src: str) -> dict:
-    return _pipelined_design(src) if "s_z_step" in src else _tile64_design(src)
 
 
 def build_all(dirs: dict, out: Path, flags, nvcc) -> dict:
@@ -129,12 +119,13 @@ def main(argv=None) -> int:
 
         def bind(key):
             """K3 of the library ``key``, a drop-in for gram_backward_flash."""
-            if key[0] == "parent":
-                return S.parent_flash(libs[key], device)
             lib = libs[key]
             for name, argtypes in G._SIGNATURES.items():
-                getattr(lib, name).argtypes = argtypes
-                getattr(lib, name).restype = ctypes.c_int
+                if hasattr(lib, name):  # an entry added since is not the parent's
+                    getattr(lib, name).argtypes = argtypes
+                    getattr(lib, name).restype = ctypes.c_int
+            if key[0] == "parent":
+                return S.parent_flash(lib)
 
             def flash(*call):
                 with S.using_lib(G, lib):

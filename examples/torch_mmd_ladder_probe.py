@@ -66,7 +66,8 @@ def main() -> int:
     sources = variants((_build.CSRC / "mmd_gram.cu").read_text())
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
-        (out / "dist_tile.cuh").write_text((_build.CSRC / "dist_tile.cuh").read_text())
+        for h in _build.CSRC.glob("*.cuh"):  # the headers mmd_gram.cu includes
+            (out / h.name).write_text(h.read_text())
 
         def build(name):
             src, lib = out / f"mmd_gram_{name}.cu", out / f"libmmd_gram_{name}.so"

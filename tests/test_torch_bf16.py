@@ -526,14 +526,21 @@ def test_cli_fit_with_the_bf16_flags(tmp_path):
     del out
 
 
-def test_bf16_scratch_holds_z_in_half_the_floats():
-    """The bf16 variants' column-major copy of z takes half its f32 floats
-    in each scratch layout (``zt_floats`` of csrc/mmd_gram.cu); the rest of
-    the layout is the f32 kernels'."""
-    m, d, slice_ = 1000, 640, 96
-    half = d * TG._round_up(m, TG.STASH_TILE) // 2
-    for fn, args in ((TG.stash_scratch_floats, (m, d, slice_)),
-                     (TG.quadrant_sums_scratch_floats, (m, d, slice_)),
-                     (TG.quadrant_sums_scratch_floats, (m, d, d)),
-                     (TG.flash_scratch_floats, (m, d, slice_, 3))):
-        assert fn(*args) - fn(*args, zbytes=2) == half
+@pytest.mark.parametrize("kernel", ["K2 bf16", "K1 bf16 sliced", "K1 bf16 one CTA", "K3 bf16"])
+def test_bf16_scratch_holds_z_in_half_the_floats(kernel):
+    """The bf16 variants' copy of z takes half the floats of the f32 z: K1
+    bf16 and K2 bf16 (``bf16_forward_scratch_floats``: the row-major
+    rounded copy and three sums a CTA of their clusters: K2 bf16 at the
+    stress Gram, K1 bf16 at the kl Gram, both three CTAs a pair, and at one);
+    K3 bf16 (``flash_scratch_floats``: its column-major copy, the rest of
+    the layout the f32 kernel's)."""
+    m, d, slice_ = 1000, 10240 if kernel == "K2 bf16" else 640, 96
+    if kernel == "K3 bf16":
+        args = (m, d, slice_, 3)
+        half = d * TG._round_up(m, TG.STASH_TILE) // 2
+        assert TG.flash_scratch_floats(*args) - TG.flash_scratch_floats(*args, zbytes=2) == half
+        return
+    slices = 1 if kernel == "K1 bf16 one CTA" else TG.cluster_schedule(TG.tile_pairs(m), d, 132)[0]
+    assert slices == (1 if kernel == "K1 bf16 one CTA" else 3)
+    sums = 3 * TG.tile_pairs(m) * slices
+    assert TG.bf16_forward_scratch_floats(m, d, slices) - sums == m * d // 2

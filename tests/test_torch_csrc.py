@@ -71,6 +71,23 @@ def test_build_key_follows_the_included_header(tmp_path, monkeypatch, module):
     assert _build.source_key(src) != key
 
 
+def test_build_key_follows_the_wgmma_header(tmp_path):
+    """mmd_gram.cu's bf16 forward includes ``wgmma_tile.cuh`` (the TMA-fed
+    wgmma product): a byte of it builds anew; the sources that do not
+    include it keep their key."""
+    for f in _build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    src, other = tmp_path / "mmd_gram.cu", tmp_path / "knn_score.cu"
+    assert '#include "wgmma_tile.cuh"' in src.read_text()
+    assert "wgmma_tile.cuh" not in other.read_text()
+    key, other_key = _build.source_key(src), _build.source_key(other)
+    header = tmp_path / "wgmma_tile.cuh"
+    header.write_bytes(header.read_bytes().replace(b"constexpr int STAGES = 4;",
+                                                   b"constexpr int STAGES = 3;"))
+    assert _build.source_key(src) != key
+    assert _build.source_key(other) == other_key
+
+
 def test_build_key_ignores_headers_not_included(tmp_path):
     for f in _build.CSRC.iterdir():
         shutil.copy(f, tmp_path / f.name)

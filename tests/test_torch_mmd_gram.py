@@ -320,6 +320,62 @@ def test_stash_slices_cover_d_and_fill_the_card():
     assert scratch == 10240 * 1024 + 7 * 36 * 128 * 128 + 12 * 36
 
 
+def _cluster_slices(d, slices):
+    """A model of cluster_gram_kernel's d split (csrc/mmd_gram.cu): CTA q of
+    a cluster takes the 64-column chunks [q n / slices, (q + 1) n / slices)
+    of the n = cdiv(d, 64), as column ranges clipped to d."""
+    n = -(-d // TG.BF16_CHUNK)
+    return [(q * n // slices * TG.BF16_CHUNK, min(d, (q + 1) * n // slices * TG.BF16_CHUNK))
+            for q in range(slices)]
+
+
+@pytest.mark.parametrize("m,d", [(1000, 10240), (1000, 640), (1000, 1024), (2113, 700),
+                                 (850, 2500), (40, 40), (300, 100), (40960, 1024)])
+def test_cluster_schedule_covers_d_within_a_wave(m, d):
+    """K1 bf16's and K2 bf16's clusters: slices that start at multiples of
+    the 64-column chunk and cover d exactly, none empty; at most
+    CLUSTER_MAX a cluster; at most one wave of CTAs (one an SM) unless a
+    cluster is a single CTA; as many slices as the wave allows; and the
+    clusters of a wave fill it."""
+    sms = 132
+    pairs = TG.tile_pairs(m)
+    slices, clusters = TG.cluster_schedule(pairs, d, sms)
+    assert 1 <= slices <= TG.CLUSTER_MAX
+    assert slices == 1 or slices * pairs <= sms
+    assert slices == min(TG.CLUSTER_MAX, -(-d // TG.BF16_CHUNK)) or (slices + 1) * pairs > sms
+    assert clusters == sms // slices and clusters * slices <= sms
+    ranges = _cluster_slices(d, slices)
+    assert ranges[0][0] == 0 and ranges[-1][1] == d
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0
+    assert all(k0 % TG.BF16_CHUNK == 0 and k1 > k0 for k0, k1 in ranges)
+
+
+def test_cluster_schedule_at_the_fits_grams():
+    """m = 1000 (36 tile pairs): three CTAs a pair on 108 of 132 SMs, 44
+    clusters a wave; m = 2113 (153 pairs, past a wave): one CTA a pair."""
+    assert TG.cluster_schedule(TG.tile_pairs(1000), 10240, 132) == (3, 44)
+    assert TG.cluster_schedule(TG.tile_pairs(1000), 640, 132) == (3, 44)
+    assert TG.cluster_schedule(TG.tile_pairs(2113), 700, 132) == (1, 132)
+    # narrow d: no more slices than chunks
+    assert TG.cluster_schedule(1, 100, 132) == (2, 66)
+    assert _cluster_slices(10240, 3) == [(0, 3392), (3392, 6784), (6784, 10240)]
+
+
+@pytest.mark.parametrize("m,d,slices", [(1000, 10240, 3), (1000, 640, 3), (2113, 700, 1),
+                                        (333, 2500, 8)])
+def test_bf16_forward_scratch_holds_no_partial_tile(m, d, slices):
+    """K1 bf16's and K2 bf16's scratch: the row-major bf16 copy of z (d
+    padded to a 16-byte row) and three sums a CTA, and nothing else: less
+    than one 128 x 128 partial dot tile beyond the copy (the cluster adds
+    its slices' tiles in shared memory)."""
+    scratch = TG.bf16_forward_scratch_floats(m, d, slices)
+    copy = m * (-(-d // 8) * 8) // 2
+    assert scratch - copy == 3 * TG.tile_pairs(m) * slices
+    assert scratch - copy < TG.STASH_TILE ** 2
+    assert 2 * copy >= m * d  # every value of z, two to a float
+
+
 def _cdiv(a, b):
     return -(-a // b)
 

@@ -15,6 +15,7 @@ work. The ranks import no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 import subprocess
@@ -66,13 +67,30 @@ WAIT_S = 300
 # inputs, made from seeds alike in this process and in the ranks
 # ---------------------------------------------------------------------------
 
-DP = dict(n=40, d=16, bs=10, epochs=3)  # the float64 no-kl dp epochs
+DP = dict(n=40, d=16, bs=10, epochs=3)  # the no-kl dp epochs (float64; float32 with a bf16 option)
 KL = dict(n=40, d=48, bs=10)  # the kl dp epoch pair (detector, then generator)
 KL_FLAGS = {"replicate_generator_detach": False}  # the generator trains: its rows gather
 ENS = dict(n_train=60, n_test=20, d=12, n_masks=13, k=5)  # 13: not a multiple of chunk x ranks
 ONE_CHUNK = ("ocsvm", "ae", "dsvdd")  # scored in one chunk, as their own tests keep them
 NATIVE_BASES = sorted((*TOD._BASE_SCORERS, *TOD._DIM_BASES, *TOD._PARAM_BASES))
 GOF = dict(n1=40, n2=36, d=5, perms=60, alphas=(0.5,))
+# the dp epochs again in float32 with each bf16 option, against vgan_tpu's
+# mesh epochs with the same option, at tests/test_torch_bf16.py's lockstep
+# limit: the bf16 roundings of the layers (and of the Gram's operands and
+# the optimizer state) turn float32 summation-order differences into
+# bf16-sized ones wherever a value lies near a rounding boundary, so the
+# losses and the bandwidth are held within half a bf16 ulp
+BF16 = "bfloat16"
+BF16_OPTIONS = ("gram_matmul_dtype", "model_matmul_dtype", "opt_state_dtype")
+FIT_RTOL = 2e-3
+# The kl epoch pair with bf16 layers runs JAX's side op by op
+# (jax.disable_jit): XLA's fusions may keep a bf16 layer's intermediates
+# in f32 (excess precision), and at this configuration's bandwidth (about
+# 2e-3, L = 3 encodings) the generator epoch's loss is so sensitive to the
+# encodings' bf16 roundings that one batch of JAX's jitted epoch lay 5% from
+# JAX's own op-by-op evaluation of the same step, which the port follows
+# within 4e-5 (the detector epoch and the other options agree jitted).
+EAGER_OPTION = "model_matmul_dtype"
 # mesh axes of a 2-d tensor's dims, () for replicated
 PLACEMENTS = ((), ("data",), ("data", None), (None, "model"), ("data", "model"),
               ("model", "data"))
@@ -185,51 +203,110 @@ def _initial_state(path: Path):
     return torch.load(path, weights_only=True)
 
 
+def _dp_dtypes(option):
+    """The dp runs' dtype and training options: float64 with none, or
+    float32 with one bf16 option (``option``, a TrainConfig field)."""
+    if option is None:
+        return torch.float64, np.float64, {}
+    return torch.float32, np.float32, {option: BF16}
+
+
+@contextlib.contextmanager
+def _gram_dtypes_seen(seen: set):
+    """Record, in ``seen``, the ``matmul_dtype`` that each MMD loss call of
+    the epochs receives."""
+    real = TS.mmd_ops.mmd_loss_constrained_stateful
+
+    def recording(*args, **kwargs):
+        seen.add(str(kwargs.get("matmul_dtype")))
+        return real(*args, **kwargs)
+
+    TS.mmd_ops.mmd_loss_constrained_stateful = recording
+    try:
+        yield
+    finally:
+        TS.mmd_ops.mmd_loss_constrained_stateful = real
+
+
+def _options_reached(out, prefix, gram_seen, modules, opt_states):
+    """What the epochs ran with, under ``<prefix>_gram``, ``_compute`` and
+    ``_state``: the MMD calls' ``matmul_dtype``, the layers'
+    ``compute_dtype`` and the Adadelta averages' dtypes (each the sorted
+    distinct values)."""
+    out[f"{prefix}_gram"] = np.array(sorted(gram_seen))
+    out[f"{prefix}_compute"] = np.array(sorted({str(m.compute_dtype) for m in modules}))
+    out[f"{prefix}_state"] = np.array(sorted(
+        {str(t.dtype) for o in opt_states for t in (*o.square_avg.values(), *o.acc_delta.values())}))
+
+
 def _dp_checks(rank, out, tmp):
     mesh = make_mesh(data=2, model=2, device="cpu")
-    # float64 no-kl epochs from JAX's initial state, columns sharded too
-    config = TS.TrainConfig(ndims=DP["d"], batch_size=DP["bs"], mmd_impl="torch")
-    state = TS.init_no_kl_state(config, 0, "cpu", dtype=torch.float64)
+    for option in (None, *BF16_OPTIONS):
+        _dp_no_kl_run(mesh, out, tmp, option)
+        _dp_kl_run(mesh, out, tmp, option)
+
+
+def _dp_no_kl_run(mesh, out, tmp, option):
+    """No-kl epochs from JAX's initial state, columns sharded too; keys
+    ``dp_*`` (float64, with the parameters) or ``dp_*_<option>``."""
+    dtype, npdtype, options = _dp_dtypes(option)
+    key = "" if option is None else f"_{option}"
+    config = TS.TrainConfig(ndims=DP["d"], batch_size=DP["bs"], mmd_impl="torch", **options)
+    state = TS.init_no_kl_state(config, 0, "cpu", dtype=dtype)
     state.generator.load_state_dict(_initial_state(tmp / "no_kl_init.pt"))
-    x = np.random.default_rng(20).normal(size=(DP["n"], DP["d"]))
+    x = np.random.default_rng(20).normal(size=(DP["n"], DP["d"])).astype(npdtype)
     x_local = shard_dataset(x, mesh, shard_features=True)
     layout = MeshBatches(mesh, DP["bs"], shard_features=True)
-    losses = []
-    for e in range(DP["epochs"]):
-        perm, noise = dp_draws(30 + e, DP["n"], DP["n"] // DP["bs"], DP["bs"],
-                               config.latent_size, np.float64)
-        state, loss = TS.no_kl_epoch(state, x_local, config, layout=layout,
-                                     rng=(torch.from_numpy(perm), torch.from_numpy(noise)))
-        losses.append(float(loss))
-    out["dp_losses"] = np.asarray(losses)
-    out["dp_bw"] = np.array(float(state.bw_value))
-    for name, p in state.generator.state_dict().items():
-        out[f"dp_param_{name}"] = p.numpy()
-    out["dp_spread"] = np.array(_replica_spread(
+    losses, gram_seen = [], set()
+    with _gram_dtypes_seen(gram_seen):
+        for e in range(DP["epochs"]):
+            perm, noise = dp_draws(30 + e, DP["n"], DP["n"] // DP["bs"], DP["bs"],
+                                   config.latent_size, npdtype)
+            state, loss = TS.no_kl_epoch(state, x_local, config, layout=layout,
+                                         rng=(torch.from_numpy(perm), torch.from_numpy(noise)))
+            losses.append(float(loss))
+    _options_reached(out, f"dp{key}", gram_seen, [state.generator], [state.opt_state])
+    out[f"dp_losses{key}"] = np.asarray(losses)
+    out[f"dp_bw{key}"] = np.array(float(state.bw_value))
+    if option is None:
+        for name, p in state.generator.state_dict().items():
+            out[f"dp_param_{name}"] = p.numpy()
+    out[f"dp_spread{key}"] = np.array(_replica_spread(
         [*state.generator.parameters(), *state.opt_state.square_avg.values(),
          *state.opt_state.acc_delta.values(), state.bw_value]))
 
-    # one kl epoch pair (detector, generator), float64, the generator training
-    config = TS.TrainConfig(ndims=KL["d"], batch_size=KL["bs"], mmd_impl="torch", **KL_FLAGS)
-    state = TS.init_kl_state(config, 0, "cpu", dtype=torch.float64)
+
+def _dp_kl_run(mesh, out, tmp, option):
+    """One kl epoch pair (detector, generator), the generator training;
+    keys ``kl_*`` (float64, with the parameters) or ``kl_*_<option>``."""
+    dtype, npdtype, options = _dp_dtypes(option)
+    key = "" if option is None else f"_{option}"
+    config = TS.TrainConfig(ndims=KL["d"], batch_size=KL["bs"], mmd_impl="torch", **KL_FLAGS,
+                            **options)
+    state = TS.init_kl_state(config, 0, "cpu", dtype=dtype)
     init = _initial_state(tmp / "kl_init.pt")
     state.generator.load_state_dict(init["generator"])
     state.detector.load_state_dict(init["detector"])
-    x = np.random.default_rng(21).normal(size=(KL["n"], KL["d"]))
+    x = np.random.default_rng(21).normal(size=(KL["n"], KL["d"])).astype(npdtype)
     x_local = shard_dataset(x, mesh, shard_features=True)
     layout = MeshBatches(mesh, KL["bs"], shard_features=True)
-    losses = []
-    for i, epoch in enumerate((TS.kl_detector_epoch, TS.kl_generator_epoch)):
-        perm, noise = dp_draws(40 + i, KL["n"], KL["n"] // KL["bs"], KL["bs"],
-                               config.latent_size, np.float64)
-        state, loss = epoch(state, x_local, config, layout=layout,
-                            rng=(torch.from_numpy(perm), torch.from_numpy(noise)))
-        losses.append(float(loss))
-    out["kl_losses"] = np.asarray(losses)
-    for prefix, module in (("gen", state.generator), ("det", state.detector)):
-        for name, p in module.state_dict().items():
-            out[f"kl_{prefix}_{name}"] = p.numpy()
-    out["kl_spread"] = np.array(_replica_spread(
+    losses, gram_seen = [], set()
+    with _gram_dtypes_seen(gram_seen):
+        for i, epoch in enumerate((TS.kl_detector_epoch, TS.kl_generator_epoch)):
+            perm, noise = dp_draws(40 + i, KL["n"], KL["n"] // KL["bs"], KL["bs"],
+                                   config.latent_size, npdtype)
+            state, loss = epoch(state, x_local, config, layout=layout,
+                                rng=(torch.from_numpy(perm), torch.from_numpy(noise)))
+            losses.append(float(loss))
+    _options_reached(out, f"kl{key}", gram_seen,
+                     [state.generator, state.detector.encoder, state.detector.decoder],
+                     [state.gen_opt, state.det_opt])
+    out[f"kl_losses{key}"] = np.asarray(losses)
+    if option is None:
+        for prefix, module in (("gen", state.generator), ("det", state.detector)):
+            for name, p in module.state_dict().items():
+                out[f"kl_{prefix}_{name}"] = p.numpy()
+    out[f"kl_spread{key}"] = np.array(_replica_spread(
         [*state.generator.parameters(), *state.detector.parameters(),
          *state.det_opt.square_avg.values(), *state.gen_opt.acc_delta.values()]))
 
@@ -520,70 +597,122 @@ def _replicated(ranks, key):
     return ranks[0][key]
 
 
-def test_dp_no_kl_epochs_match_jax(worlds):
-    """Three float64 epochs on a 2 x 2 mesh with the columns sharded: the
-    port's dp epochs against JAX's epoch body on the same placement, with
-    the same permutations and noise."""
+def _jax_dp_state(inits, kind, option):
+    """JAX's initial dp state of ``kind`` ('no_kl' or 'kl'): ``inits[kind]``,
+    whose parameters the ranks loaded, in float64 without an option; else
+    made anew with the option (float32, the same parameters)."""
     from vgan_tpu.train.adadelta import AdadeltaState
 
+    js = inits[kind]
+    if option is not None:
+        cfg = DP if kind == "no_kl" else KL
+        init = JS.init_no_kl_state if kind == "no_kl" else JS.init_kl_state
+        fresh = init(JS.TrainConfig(ndims=cfg["d"], batch_size=cfg["bs"], **{option: BF16}),
+                     jax.random.PRNGKey(3 if kind == "no_kl" else 4))
+        params = ("params",) if kind == "no_kl" else ("gen_params", "det_params")
+        for name in params:
+            for a, b in zip(jax.tree.leaves(getattr(fresh, name)),
+                            jax.tree.leaves(getattr(js, name))):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        return fresh
     cast = lambda t: jax.tree.map(lambda a: a.astype(jnp.float64), t)  # noqa: E731
-    js = worlds.inits["no_kl"]
-    jstate = js._replace(params=cast(js.params),
-                         opt_state=AdadeltaState(cast(js.opt_state.square_avg),
-                                                 cast(js.opt_state.acc_delta)),
-                         bw_value=jnp.zeros((), jnp.float64))
-    jconfig = JS.TrainConfig(ndims=DP["d"], batch_size=DP["bs"], mmd_impl="jnp")
+    if kind == "no_kl":
+        return js._replace(params=cast(js.params),
+                           opt_state=AdadeltaState(cast(js.opt_state.square_avg),
+                                                   cast(js.opt_state.acc_delta)),
+                           bw_value=jnp.zeros((), jnp.float64))
+    return js._replace(
+        gen_params=cast(js.gen_params), det_params=cast(js.det_params),
+        gen_opt=AdadeltaState(cast(js.gen_opt.square_avg), cast(js.gen_opt.acc_delta)),
+        det_opt=AdadeltaState(cast(js.det_opt.square_avg), cast(js.det_opt.acc_delta)),
+        bw_value=jnp.zeros((), jnp.float64))
+
+
+
+def _assert_options_reached(ranks, prefix, option, dtype):
+    """On every rank the epochs ran with ``option`` and no other: the MMD
+    calls got ``matmul_dtype`` 'bfloat16' only under gram_matmul_dtype, the
+    layers computed in bf16 only under model_matmul_dtype, and the Adadelta
+    averages were stored in bf16 only under opt_state_dtype (else in
+    ``dtype``, the parameters')."""
+    want = {"gram": [BF16 if option == "gram_matmul_dtype" else "None"],
+            "compute": [str(torch.bfloat16) if option == "model_matmul_dtype" else "None"],
+            "state": [str(torch.bfloat16 if option == "opt_state_dtype" else dtype)]}
+    for rank, out in enumerate(ranks):
+        for what, values in want.items():
+            assert out[f"{prefix}_{what}"].tolist() == values, (rank, what, option)
+
+
+@pytest.mark.parametrize("option", [None, *BF16_OPTIONS])
+def test_dp_no_kl_epochs_match_jax(worlds, option):
+    """Three epochs on a 2 x 2 mesh with the columns sharded: the port's dp
+    epochs against JAX's epoch body on the same placement, with the same
+    permutations and noise; in float64 (losses rtol 1e-9, parameters 1e-8),
+    or in float32 with one bf16 option on both sides (losses and bandwidth
+    within FIT_RTOL). Every rank's epochs ran with that option and no other
+    (_assert_options_reached)."""
+    jstate = _jax_dp_state(worlds.inits, "no_kl", option)
+    _, npdtype, options = _dp_dtypes(option)
+    jconfig = JS.TrainConfig(ndims=DP["d"], batch_size=DP["bs"], mmd_impl="jnp", **options)
     mesh = JMESH.make_mesh(data=2, model=2, devices=jax.devices()[:4])
-    x = np.random.default_rng(20).normal(size=(DP["n"], DP["d"]))
+    x = np.random.default_rng(20).normal(size=(DP["n"], DP["d"])).astype(npdtype)
     xs = JDP._shard_x(x, mesh, shard_features=True)
     losses = []
     for e in range(DP["epochs"]):
         perm, noise = dp_draws(30 + e, DP["n"], DP["n"] // DP["bs"], DP["bs"],
-                               jconfig.latent_size, np.float64)
+                               jconfig.latent_size, npdtype)
         jstate, loss = JS._no_kl_epoch_body(jstate, xs, jconfig,
                                             rng=(jnp.asarray(perm), jnp.asarray(noise)))
         losses.append(float(loss))
     ranks = worlds.ranks("world4")
-    np.testing.assert_allclose(_replicated(ranks, "dp_losses"), losses, rtol=1e-9)
-    np.testing.assert_allclose(_replicated(ranks, "dp_bw"), float(jstate.bw_value), rtol=1e-12)
-    want = generator_state_dict_from_jax(jax.tree.map(np.asarray, jstate.params))
-    for name, p in want.items():
-        np.testing.assert_allclose(_replicated(ranks, f"dp_param_{name}"), p.numpy(),
-                                   rtol=1e-8, atol=1e-12, err_msg=name)
-    assert float(ranks[0]["dp_spread"]) == 0.0, "the replicated state differs between ranks"
+    key = "" if option is None else f"_{option}"
+    _assert_options_reached(ranks, f"dp{key}", option, _dp_dtypes(option)[0])
+    rtol = 1e-9 if option is None else FIT_RTOL
+    np.testing.assert_allclose(_replicated(ranks, f"dp_losses{key}"), losses, rtol=rtol)
+    np.testing.assert_allclose(_replicated(ranks, f"dp_bw{key}"), float(jstate.bw_value),
+                               rtol=1e-12 if option is None else FIT_RTOL)
+    if option is None:
+        want = generator_state_dict_from_jax(jax.tree.map(np.asarray, jstate.params))
+        for name, p in want.items():
+            np.testing.assert_allclose(_replicated(ranks, f"dp_param_{name}"), p.numpy(),
+                                       rtol=1e-8, atol=1e-12, err_msg=name)
+    assert float(ranks[0][f"dp_spread{key}"]) == 0.0, "the replicated state differs between ranks"
 
 
-def test_dp_kl_epoch_pair_matches_jax(worlds):
-    """A float64 detector epoch, then a training generator epoch, on the
-    2 x 2 mesh with the columns sharded, against JAX's epochs there."""
-    from vgan_tpu.train.adadelta import AdadeltaState
-
-    cast = lambda t: jax.tree.map(lambda a: a.astype(jnp.float64), t)  # noqa: E731
-    ks = worlds.inits["kl"]
-    jstate = ks._replace(
-        gen_params=cast(ks.gen_params), det_params=cast(ks.det_params),
-        gen_opt=AdadeltaState(cast(ks.gen_opt.square_avg), cast(ks.gen_opt.acc_delta)),
-        det_opt=AdadeltaState(cast(ks.det_opt.square_avg), cast(ks.det_opt.acc_delta)),
-        bw_value=jnp.zeros((), jnp.float64))
+@pytest.mark.parametrize("option", [None, *BF16_OPTIONS])
+def test_dp_kl_epoch_pair_matches_jax(worlds, option):
+    """A detector epoch, then a training generator epoch, on the 2 x 2 mesh
+    with the columns sharded, against JAX's epochs there: float64, or
+    float32 with one bf16 option (as test_dp_no_kl_epochs_match_jax; with
+    bf16 layers JAX's epochs run op by op, EAGER_OPTION)."""
+    jstate = _jax_dp_state(worlds.inits, "kl", option)
+    _, npdtype, options = _dp_dtypes(option)
     jconfig = JS.TrainConfig(ndims=KL["d"], batch_size=KL["bs"], mmd_impl="jnp",
-                             scan_unroll=1, **KL_FLAGS)
+                             scan_unroll=1, **KL_FLAGS, **options)
     mesh = JMESH.make_mesh(data=2, model=2, devices=jax.devices()[:4])
-    x = np.random.default_rng(21).normal(size=(KL["n"], KL["d"]))
+    x = np.random.default_rng(21).normal(size=(KL["n"], KL["d"])).astype(npdtype)
     xs = JDP._shard_x(x, mesh, shard_features=True)
     losses = []
-    for i, epoch in enumerate((JS.kl_detector_epoch, JS.kl_generator_epoch)):
-        perm, noise = dp_draws(40 + i, KL["n"], KL["n"] // KL["bs"], KL["bs"],
-                               jconfig.latent_size, np.float64)
-        jstate, loss = epoch(jstate, xs, jconfig, rng=(jnp.asarray(perm), jnp.asarray(noise)))
-        losses.append(float(loss))
+    # with bf16 layers, JAX's side op by op: see EAGER_OPTION
+    with jax.disable_jit() if option == EAGER_OPTION else contextlib.nullcontext():
+        for i, epoch in enumerate((JS.kl_detector_epoch, JS.kl_generator_epoch)):
+            perm, noise = dp_draws(40 + i, KL["n"], KL["n"] // KL["bs"], KL["bs"],
+                                   jconfig.latent_size, npdtype)
+            jstate, loss = epoch(jstate, xs, jconfig,
+                                 rng=(jnp.asarray(perm), jnp.asarray(noise)))
+            losses.append(float(loss))
     ranks = worlds.ranks("world4")
-    np.testing.assert_allclose(_replicated(ranks, "kl_losses"), losses, rtol=1e-9)
-    for prefix, tree, conv in (("gen", jstate.gen_params, generator_state_dict_from_jax),
-                               ("det", jstate.det_params, detector_state_dict_from_jax)):
-        for name, p in conv(jax.tree.map(np.asarray, tree)).items():
-            np.testing.assert_allclose(_replicated(ranks, f"kl_{prefix}_{name}"), p.numpy(),
-                                       rtol=1e-8, atol=1e-12, err_msg=f"{prefix} {name}")
-    assert float(ranks[0]["kl_spread"]) == 0.0, "the replicated state differs between ranks"
+    key = "" if option is None else f"_{option}"
+    _assert_options_reached(ranks, f"kl{key}", option, _dp_dtypes(option)[0])
+    np.testing.assert_allclose(_replicated(ranks, f"kl_losses{key}"), losses,
+                               rtol=1e-9 if option is None else FIT_RTOL)
+    if option is None:
+        for prefix, tree, conv in (("gen", jstate.gen_params, generator_state_dict_from_jax),
+                                   ("det", jstate.det_params, detector_state_dict_from_jax)):
+            for name, p in conv(jax.tree.map(np.asarray, tree)).items():
+                np.testing.assert_allclose(_replicated(ranks, f"kl_{prefix}_{name}"), p.numpy(),
+                                           rtol=1e-8, atol=1e-12, err_msg=f"{prefix} {name}")
+    assert float(ranks[0][f"kl_spread{key}"]) == 0.0, "the replicated state differs between ranks"
 
 
 @pytest.mark.parametrize("dtype", ["f32", "f64"])

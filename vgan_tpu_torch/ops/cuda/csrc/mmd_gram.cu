@@ -11,14 +11,30 @@
 // and each with a bf16-operand variant (the entries ending in _bf16), the
 // same kernels with `gram_matmul_dtype='bfloat16'` (the Pallas kernels' bf16
 // z_dot, mmd_gram.py:779): the distance product reads z rounded to bf16 (to
-// nearest even, by the transpose that makes the column-major copy, which is
-// then half the bytes) and runs on the tensor cores (dist_tile.cuh
-// product_bf16, f32 accumulators); the norms (from the f32 z, by the
-// caller), the ladder, the sums, K' and S are the f32 kernels' own code. K3's
-// S @ z stays the f32 product, on the bf16-rounded z (its z_aug holds the
-// rounded values in f32), as the Pallas kernel upcasts its bf16 z block.
-// On an H100 the product's rate is 989 TFLOP/s against the CUDA cores' 67,
-// so the bf16 variants are bound by the ladder and the epilogues' f32 work.
+// nearest even) and runs on the tensor cores with f32 accumulators; the
+// norms (from the f32 z, by the caller), the ladder, the sums, K' and S are
+// the f32 kernels' own code. On an H100 the product's rate is 989 TFLOP/s
+// against the CUDA cores' 67, so the bf16 variants are bound by the ladder,
+// the epilogues' f32 work and their operands' traffic.
+//
+// K1 bf16 and K2 bf16, the bf16 forward, have a Hopper design of their own
+// (quadrant_sums_bf16): round_rows_kernel writes z rounded to bf16,
+// row-major (the K-major layout wgmma reads natively; about 20 us at m =
+// 1000, d = 10240, the f32 z read once), then one cluster_gram_kernel
+// launch forms every tile pair on wgmma_tile.cuh's TMA-fed wgmma product,
+// the d axis split over the CTAs of a thread-block cluster (at most 8, one
+// CTA an SM, so that the pairs x slices fill a wave:
+// ops/cuda/mmd_gram.py cluster_schedule). Each CTA stages its partial
+// dot tile in its own shared memory; after a cluster barrier each takes
+// 1/S of the tile's rows, adds the S partials in slice order through
+// distributed shared memory and runs the epilogue below on them, so no
+// partial tile goes to device memory; finalize_sums ends the call. At the
+// fits' Grams the product is bound by the L2 -> shared traffic of its
+// operand tiles and the epilogue by the ladder.
+// K3 bf16 and K4 bf16 keep the f32 kernels' passes on the column-major bf16
+// copy (dist_tile.cuh product_bf16, mma.sync). K3's S @ z stays the f32
+// product, on the bf16-rounded z (its z_aug holds the rounded values in
+// f32), as the Pallas kernel upcasts its bf16 z block.
 //
 // What bounds them on an H100: the distance product. At the stress shape
 // (m = 1000 rows, d = 10240) the forward needs the m (m - 1) / 2 unordered
@@ -61,7 +77,7 @@
 //     them in slice order, four blocks a tile (sixteen for K1, whose
 //     epilogue stores nothing and is latency-bound).
 //
-// K1 and K2 copy z into the column-major, zero-padded layout the tile reads
+// K1 and K2 (f32) copy z into the column-major, zero-padded layout the tile reads
 // (transpose_pad_kernel, d x M, M = m rounded up to 128); K2 always takes
 // mode (b)'s passes, as its (m, m) stash does not fit in registers. K4's
 // operands come in that layout from the caller (vgan_transpose_pad), who
@@ -111,12 +127,18 @@
 // Plain C interface: every entry returns cudaGetLastError() after its
 // launches; pointers and the stream come from the caller (ctypes).
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 
 #include "dist_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -370,6 +392,123 @@ static_assert(TILE_SMEM <= 48 * 1024, "launched without raising the dynamic shar
 static_assert(dist_tile::BF16_SMEM <= 48 * 1024, "launched without raising the dynamic shared memory limit");
 
 using dist_tile::bf16;
+
+// ---------------------------------------------------------------------------
+// K1 bf16 and K2 bf16: the tile pairs of the symmetric square on the tensor
+// cores (wgmma_tile.cuh), d split inside a thread-block cluster. See the top
+// of this file.
+// ---------------------------------------------------------------------------
+
+namespace cg = cooperative_groups;
+namespace W = wgmma_tile;
+
+static_assert(W::CONSUMERS == 2 * NT && W::TILE == SB, "the epilogue's sums pass through NT threads");
+// floats of a row of a staged partial tile: a half-warp's float2 stores
+// (rows g, g + 1, g + 2, g + 3) fall in distinct banks
+constexpr int PPAD = SB + 8;
+// the ring (1024-byte aligned by hand: the swizzle's period) and one partial tile
+constexpr size_t CLUSTER_SMEM = 1024 + W::RING_BYTES + sizeof(float) * SB * PPAD;
+
+// zb[r ld + k] = z[r d + k] rounded to bf16 (to nearest even) for k < d, 0
+// for d <= k < ld (ld a multiple of 8): eight values a thread, one 16-byte
+// store.
+__global__ void __launch_bounds__(NT)
+round_rows_kernel(const float* __restrict__ z, int m, int d, int ld, bf16* __restrict__ zb) {
+    const int per_row = ld / 8;
+    const size_t i = (size_t)blockIdx.x * NT + threadIdx.x;
+    if (i >= (size_t)m * per_row) return;
+    const int r = static_cast<int>(i / per_row), k = static_cast<int>(i % per_row) * 8;
+    const float* src = z + (size_t)r * d + k;
+    __align__(16) bf16 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16_rn(k + e < d ? src[e] : 0.f);
+    *reinterpret_cast<uint4*>(zb + (size_t)r * ld + k) = *reinterpret_cast<const uint4*>(v);
+}
+
+// Q x Q entries at p (rows PPAD apart) into v, or added to v
+template <int Q>
+__device__ __forceinline__ void load_block(const float* p, bool add, float (&v)[Q][Q]) {
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+        float x[Q];
+        if constexpr (Q == 4) {
+            const float4 t = *reinterpret_cast<const float4*>(p + i * PPAD);
+            x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+        } else {
+            const float2 t = *reinterpret_cast<const float2*>(p + i * PPAD);
+            x[0] = t.x, x[1] = t.y;
+        }
+#pragma unroll
+        for (int j = 0; j < Q; ++j) v[i][j] = add ? v[i][j] + x[j] : x[j];
+    }
+}
+
+// Cluster b of S CTAs: tile pair b of the square (p, diag 0). CTA q forms
+// the pair's partial dot tile over d chunks [q chunks / S, (q + 1) chunks /
+// S) on the tensor cores and stages it in its own shared memory. Then it
+// takes the tile's Q-row groups [q G / S, (q + 1) G / S), G = 128 / Q: for
+// each of their Q x Q blocks a consumer thread adds the S CTAs' partials in
+// slice order, read through distributed shared memory, and runs the
+// epilogue (K1's sums, Q = 2; KP: K2's sums and K', Q = 4, K' in runs of
+// four). Its (XX, XY, YY) partial goes to partials[3 blockIdx.x ..].
+template <bool KP>
+__global__ void __launch_bounds__(W::THREADS, 1)
+cluster_gram_kernel(const __grid_constant__ CUtensorMap zmap, const Panel p, int chunks,
+                    const float* __restrict__ norms, const float* __restrict__ bw_ptr, int n1,
+                    VganLadder L, float* __restrict__ partials, float* __restrict__ kp) {
+    constexpr int Q = KP ? 4 : 2, G = SB / Q;
+    extern __shared__ uint8_t smem_raw[];
+    __shared__ W::Barriers bars;
+    __shared__ float upper[3][NT];          // the sums of consumer threads NT .. 2 NT
+    __shared__ float red[W::THREADS / 32];  // write_sums: warps 8 .. 16 add zeros
+    cg::cluster_group cluster = cg::this_cluster();
+    const int S = static_cast<int>(cluster.num_blocks()), q = static_cast<int>(cluster.block_rank());
+    const TileAt t = p.at(blockIdx.x / S);
+    uint8_t* ring = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                               ~static_cast<uintptr_t>(1023));
+    float* P = reinterpret_cast<float*>(ring + W::RING_BYTES);
+    const int k0 = q * chunks / S, n = (q + 1) * chunks / S - k0;
+    if (threadIdx.x == 0) W::init(bars);
+    __syncthreads();
+    if (threadIdx.x < W::CONSUMERS) {
+        float acc[W::ACC];
+#pragma unroll
+        for (int i = 0; i < W::ACC; ++i) acc[i] = 0.f;
+        W::consume(n, t.r0 == t.c0, ring, bars, acc);
+#pragma unroll
+        for (int i = 0; i < W::ACC; i += 2)
+            *reinterpret_cast<float2*>(P + W::acc_row(i) * PPAD + W::acc_col(i)) =
+                make_float2(acc[i], acc[i + 1]);
+    } else {
+        W::produce(&zmap, t.r0, t.c0, k0, n, ring, bars);
+    }
+    __syncwarp();
+    cluster.sync();  // every partial of the pair is staged
+    float s[3] = {0.f, 0.f, 0.f};
+    if (threadIdx.x < W::CONSUMERS) {
+        const float bw = *bw_ptr;
+        const int g0 = q * G / S, blocks = ((q + 1) * G / S - g0) * G;
+        for (int e = threadIdx.x; e < blocks; e += W::CONSUMERS) {
+            const int rl = Q * (g0 + e / G), cl = Q * (e % G);
+            float v[Q][Q];
+            for (int r = 0; r < S; ++r)
+                load_block<Q>(cluster.map_shared_rank(P, r) + rl * PPAD + cl, r > 0, v);
+            int rows[Q], cols[Q];
+#pragma unroll
+            for (int i = 0; i < Q; ++i) rows[i] = t.r0 + rl + i, cols[i] = t.c0 + cl + i;
+            epilogue<Q, true, KP>(v, rows, cols, t, p, norms, norms, bw, n1, L, s, kp);
+        }
+        if (threadIdx.x >= NT)
+#pragma unroll
+            for (int k = 0; k < 3; ++k) upper[k][threadIdx.x - NT] = s[k], s[k] = 0.f;
+    }
+    __syncthreads();
+    if (threadIdx.x < NT)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) s[k] += upper[k][threadIdx.x];
+    write_sums(s, red, partials, blockIdx.x);
+    cluster.sync();  // no CTA leaves while another reads its partial
+}
 
 // shared memory of the product of operands T (float: the f32 pipeline; bf16: the tensor cores)
 template <class T>
@@ -862,14 +1001,12 @@ size_t zt_floats(int d, int ld) {
     return (size_t)d * ld * sizeof(T) / sizeof(float);
 }
 
-// K1 (kp == nullptr) and K2 over the symmetric square of z (m, d), the
-// distance product on operands T. scratch, in this order: z_t (d x M of T,
-// M = m rounded up to 128); in mode (a) (K1 with one slice) the sums'
-// partials (3 x P, P = T (T + 1) / 2 tile pairs of T = M / 128 tiles); in
-// mode (b) the partial dot tiles (cdiv(d, slice) x P x 128^2) and the sums'
-// partials (3 x 4 P for K2, 3 x 16 P for K1: the epilogue's blocks a tile
-// pair).
-template <class T>
+// K1 (kp == nullptr) and K2 over the symmetric square of z (m, d), in f32.
+// scratch, in this order: z_t (d x M, M = m rounded up to 128); in mode (a)
+// (K1 with one slice) the sums' partials (3 x P, P = T (T + 1) / 2 tile
+// pairs of T = M / 128 tiles); in mode (b) the partial dot tiles (cdiv(d,
+// slice) x P x 128^2) and the sums' partials (3 x 4 P for K2, 3 x 16 P for
+// K1: the epilogue's blocks a tile pair).
 int quadrant_sums(const float* z, const float* norms, const float* bw, int m, int d, int n1,
                   const VganLadder* ladder, int slice, float* scratch, float* sums, float* kp,
                   cudaStream_t s) {
@@ -877,18 +1014,18 @@ int quadrant_sums(const float* z, const float* norms, const float* bw, int m, in
     const Panel p = make_panel(m, m, 0);
     const int ld = p.rows * SB, blocks = p.tiles(), nslices = cdiv(d, slice);
     if (nslices > 65535 || cdiv(d, TT) > 65535) return invalid();
-    T* z_t = reinterpret_cast<T*>(scratch);
-    float* dots = scratch + zt_floats<T>(d, ld);
-    transpose_pad_kernel<T><<<dim3(ld / TT, cdiv(d, TT)), dim3(TT, 8), 0, s>>>(z, m, d, ld, z_t);
+    float* z_t = scratch;
+    float* dots = scratch + zt_floats<float>(d, ld);
+    transpose_pad_kernel<float><<<dim3(ld / TT, cdiv(d, TT)), dim3(TT, 8), 0, s>>>(z, m, d, ld, z_t);
     if (!kp && nslices == 1) {
-        tile_kernel<T, true><<<blocks, NT, tile_smem<T>(), s>>>(p, z_t, ld, 0, z_t, ld, d, norms,
-                                                                norms, bw, n1, *ladder, dots, nullptr);
+        tile_kernel<float, true><<<blocks, NT, TILE_SMEM, s>>>(p, z_t, ld, 0, z_t, ld, d, norms,
+                                                               norms, bw, n1, *ladder, dots, nullptr);
         finalize_sums<<<1, NT, 0, s>>>(dots, blocks, sums);
         return static_cast<int>(cudaGetLastError());
     }
     float* partials = dots + (size_t)nslices * blocks * SB2;
-    dot_slices_kernel<T><<<dim3(blocks, nslices), NT, tile_smem<T>(), s>>>(p, z_t, ld, 0, z_t, ld, d,
-                                                                           slice, dots);
+    dot_slices_kernel<float><<<dim3(blocks, nslices), NT, TILE_SMEM, s>>>(p, z_t, ld, 0, z_t, ld, d,
+                                                                          slice, dots);
     const int parts = kp ? 4 : 16;
     if (kp)
         slices_epilogue_kernel<4, true, true><<<dim3(blocks, parts), NT, 0, s>>>(
@@ -897,6 +1034,90 @@ int quadrant_sums(const float* z, const float* norms, const float* bw, int m, in
         slices_epilogue_kernel<16, true, false><<<dim3(blocks, parts), NT, 0, s>>>(
             dots, nslices, p, norms, norms, bw, n1, *ladder, partials, nullptr);
     finalize_sums<<<1, NT, 0, s>>>(partials, parts * blocks, sums);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// cuTensorMapEncodeTiled, a CUDA entry outside the runtime, looked up through
+// the runtime's entry-point query (nothing links libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+    static const EncodeTiled fn = [] {
+        void* f = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                                 cudaEnableDefault, &found);
+        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+                   ? reinterpret_cast<EncodeTiled>(f)
+                   : nullptr;
+    }();
+    return fn;
+}
+
+// cluster_gram_kernel's dynamic shared memory limit, raised once a device
+template <bool KP>
+cudaError_t allow_cluster_smem() {
+    static std::atomic<unsigned long long> raised{0};  // a bit a device
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+    if (raised.load() & bit) return cudaSuccess;
+    err = cudaFuncSetAttribute(cluster_gram_kernel<KP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(CLUSTER_SMEM));
+    if (err == cudaSuccess) raised.fetch_or(bit);
+    return err;
+}
+
+// K1 bf16 (kp == nullptr) and K2 bf16 over the symmetric square of z (m,
+// d): round_rows_kernel, cluster_gram_kernel (`slices` CTAs a tile pair,
+// 1 <= slices <= 8 and at most the 64-column chunks of d), finalize_sums.
+// scratch, in this order: zb (m x ld bf16, ld = d rounded up to 8), the
+// sums' partials (3 x slices x P, P tile pairs).
+template <bool KP>
+int quadrant_sums_bf16(const float* z, const float* norms, const float* bw, int m, int d, int n1,
+                       const VganLadder* ladder, int slices, float* scratch, float* sums, float* kp,
+                       cudaStream_t s) {
+    const int chunks = cdiv(d, W::WBK), ld = cdiv(d, 8) * 8;
+    if (m < 1 || d < 1 || slices < 1 || slices > 8 || slices > chunks) return invalid();
+    const Panel p = make_panel(m, m, 0);
+    const long long grid = (long long)p.tiles() * slices;
+    const size_t round_blocks = ((size_t)m * (ld / 8) + NT - 1) / NT;
+    if (grid > INT_MAX || round_blocks > INT_MAX) return invalid();
+    const EncodeTiled encode = encode_tiled();
+    if (!encode) return static_cast<int>(cudaErrorSymbolNotFound);
+    bf16* zb = reinterpret_cast<bf16*>(scratch);
+    float* partials = scratch + (size_t)m * ld / 2;
+    CUtensorMap map;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(m)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * sizeof(bf16)};
+    const cuuint32_t box[2] = {W::WBK, W::TILE}, unit[2] = {1, 1};
+    if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, zb, dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return invalid();
+    cudaError_t err = allow_cluster_smem<KP>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    round_rows_kernel<<<static_cast<int>(round_blocks), NT, 0, s>>>(z, m, d, ld, zb);
+    cudaLaunchAttribute cluster;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = slices;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(grid));
+    cfg.blockDim = dim3(W::THREADS);
+    cfg.dynamicSmemBytes = CLUSTER_SMEM;
+    cfg.stream = s;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, cluster_gram_kernel<KP>, map, p, chunks, norms, bw, n1, *ladder,
+                             partials, kp);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    finalize_sums<<<1, NT, 0, s>>>(partials, static_cast<int>(grid), sums);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -988,8 +1209,8 @@ extern "C" {
 int vgan_gram_quadrant_sums(const float* z, const float* norms, const float* bw, int m, int d,
                             int n1, const VganLadder* ladder, int slice, float* scratch,
                             float* sums, void* stream) {
-    return quadrant_sums<float>(z, norms, bw, m, d, n1, ladder, slice, scratch, sums, nullptr,
-                                static_cast<cudaStream_t>(stream));
+    return quadrant_sums(z, norms, bw, m, d, n1, ladder, slice, scratch, sums, nullptr,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // K2: always mode (b)'s passes. scratch: see quadrant_sums.
@@ -997,8 +1218,8 @@ int vgan_gram_quadrant_sums_stash(const float* z, const float* norms, const floa
                                   int m, int d, int n1, const VganLadder* ladder, int slice,
                                   float* scratch, float* sums, float* kp, void* stream) {
     if (!kp) return invalid();
-    return quadrant_sums<float>(z, norms, bw, m, d, n1, ladder, slice, scratch, sums, kp,
-                                static_cast<cudaStream_t>(stream));
+    return quadrant_sums(z, norms, bw, m, d, n1, ladder, slice, scratch, sums, kp,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // K3. slice: the d columns of one slice of the dot pass, a positive multiple
@@ -1040,23 +1261,24 @@ int vgan_kprime_panel(const float* rows_t, int ld_rows, int row0, const float* c
                                diag, ladder, slice, scratch, kp, static_cast<cudaStream_t>(stream));
 }
 
-// The bf16-operand variants: the same arguments (z f32, rounded by the
-// transpose; the norms from the f32 z), z_t of bf16 in the scratch (d x M / 2
-// floats); K4's operands bf16 from vgan_transpose_pad_bf16, every column
-// start a multiple of 8.
+// The bf16-operand variants: the same arguments (z f32, rounded on the
+// card; the norms from the f32 z). K1 bf16 and K2 bf16 take `slices`, the
+// CTAs of a cluster (see quadrant_sums_bf16 for it and the scratch); K3
+// bf16's z_t is bf16 in the scratch (d x M / 2 floats); K4's operands bf16
+// from vgan_transpose_pad_bf16, every column start a multiple of 8.
 int vgan_gram_quadrant_sums_bf16(const float* z, const float* norms, const float* bw, int m,
-                                 int d, int n1, const VganLadder* ladder, int slice,
+                                 int d, int n1, const VganLadder* ladder, int slices,
                                  float* scratch, float* sums, void* stream) {
-    return quadrant_sums<bf16>(z, norms, bw, m, d, n1, ladder, slice, scratch, sums, nullptr,
-                               static_cast<cudaStream_t>(stream));
+    return quadrant_sums_bf16<false>(z, norms, bw, m, d, n1, ladder, slices, scratch, sums, nullptr,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 int vgan_gram_quadrant_sums_stash_bf16(const float* z, const float* norms, const float* bw,
-                                       int m, int d, int n1, const VganLadder* ladder, int slice,
+                                       int m, int d, int n1, const VganLadder* ladder, int slices,
                                        float* scratch, float* sums, float* kp, void* stream) {
     if (!kp) return invalid();
-    return quadrant_sums<bf16>(z, norms, bw, m, d, n1, ladder, slice, scratch, sums, kp,
-                               static_cast<cudaStream_t>(stream));
+    return quadrant_sums_bf16<true>(z, norms, bw, m, d, n1, ladder, slices, scratch, sums, kp,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 int vgan_gram_backward_flash_bf16(const float* z, const float* norms, const float* bw, int m,

@@ -17,7 +17,12 @@ same arguments, the distance product on z rounded to bf16 (on the tensor
 cores), the norms given (the f32 z's) and everything after the product
 f32. K3's variant multiplies S with the rounded z, as the Pallas kernel does.
 Their plain versions are the f32 ones on the rounded operands
-(:func:`rounded`); each variant counts its own launches.
+(:func:`rounded`); each variant counts its own launches. The bf16 forward
+(K1 bf16 and K2 bf16) has a Hopper design of its own: one pass rounds z to
+a row-major bf16 copy, and one kernel forms each tile pair on the tensor
+cores (``wgmma`` on TMA-fed tiles), its d axis split over the CTAs of a
+thread-block cluster that add their partial tiles in shared memory
+(:func:`cluster_schedule`).
 
 All four run on 128 x 128 tiles; :func:`tile_schedule` picks, from the
 number of tiles a launch forms (:func:`tile_pairs`, :func:`panel_blocks`),
@@ -78,6 +83,11 @@ FLASH_SPLIT_BYTES = 1 << 28
 STASH_TILE = 128
 STASH_BK = 16
 STASH_BLOCKS_PER_SM = 2
+# The bf16 forward (csrc/wgmma_tile.cuh) reads d in 64-column chunks (one
+# TMA box under the 128-byte swizzle) and splits them over the CTAs of a
+# cluster, at most the portable cluster size, one CTA an SM.
+BF16_CHUNK = 64
+CLUSTER_MAX = 8
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -361,28 +371,47 @@ def stash_slices(m: int, d: int, sms: int) -> Tuple[int, int]:
     return tile_schedule(tile_pairs(m), d, sms)[1:]
 
 
+def cluster_schedule(blocks: int, d: int, sms: int) -> Tuple[int, int]:
+    """``(slices, clusters)`` of a K1 bf16 or K2 bf16 launch over ``blocks``
+    tile pairs: a cluster of ``slices`` CTAs a tile pair, CTA q taking the
+    64-column chunks [q n / slices, (q + 1) n / slices) of the n = cdiv(d,
+    64), so that blocks x slices CTAs, one an SM, fill at most one wave of
+    ``sms``; at most ``CLUSTER_MAX`` and at most n. Past a wave of tile
+    pairs a cluster is one CTA over all of d. ``clusters``: the clusters of
+    one wave."""
+    slices = max(1, min(CLUSTER_MAX, sms // blocks, _cdiv(d, BF16_CHUNK)))
+    return slices, sms // slices
+
+
+def bf16_forward_scratch_floats(m: int, d: int, slices: int) -> int:
+    """K1 bf16's and K2 bf16's scratch: z rounded to bf16, row-major (m x d
+    rounded up to 8, two values a float), and three sums a CTA. No partial
+    dot tile: a cluster adds its slices' tiles in shared memory."""
+    return m * _round_up(d, 8) // 2 + 3 * tile_pairs(m) * slices
+
+
 def _zt_floats(d: int, M: int, zbytes: int) -> int:
     """Floats of scratch that the (d, M) column-major copy of z takes with
-    ``zbytes`` a value (4, or 2 for the bf16 variants)."""
+    ``zbytes`` a value (4, or 2 for K3 bf16's)."""
     return d * M * zbytes // 4
 
 
-def stash_scratch_floats(m: int, d: int, slice_: int, zbytes: int = 4) -> int:
+def stash_scratch_floats(m: int, d: int, slice_: int) -> int:
     """K2's scratch, always mode (b)'s: the column-major padded z, the
     partial dot tile of every (tile pair, slice), and three sums per quarter
     of a tile pair."""
     pairs = tile_pairs(m)
-    return (_zt_floats(d, _round_up(m, STASH_TILE), zbytes)
+    return (_zt_floats(d, _round_up(m, STASH_TILE), 4)
             + _cdiv(d, slice_) * pairs * STASH_TILE ** 2 + 12 * pairs)
 
 
-def quadrant_sums_scratch_floats(m: int, d: int, slice_: int, zbytes: int = 4) -> int:
+def quadrant_sums_scratch_floats(m: int, d: int, slice_: int) -> int:
     """K1's scratch: the column-major padded z, then in mode (a) (one slice)
     three sums per tile pair; in mode (b) the partial dot tile of every
     (tile pair, slice), at most one wave of them, and three sums per
     sixteenth of a tile pair (its epilogue's blocks). Never m^2."""
     pairs, count = tile_pairs(m), _cdiv(d, slice_)
-    zt = _zt_floats(d, _round_up(m, STASH_TILE), zbytes)
+    zt = _zt_floats(d, _round_up(m, STASH_TILE), 4)
     if count == 1:
         return zt + 3 * pairs
     return zt + count * pairs * STASH_TILE ** 2 + 48 * pairs
@@ -396,16 +425,21 @@ def _entry(name: str, bf16: bool) -> Tuple[str, int]:
 
 def _quadrant_sums_launch(bf16: bool, stash: bool, z, norms, bw, n1: int, mults):
     """``(sums (1, 4), kp (m, m) or None)`` from K1 (K2 with ``stash``), on
-    f32 or bf16 operands."""
+    f32 operands (the d slices of :func:`stash_slices`) or bf16 ones (the
+    clusters of :func:`cluster_schedule`)."""
     m, d = _check_gram_inputs(z, norms, bw)
-    slice_, _ = stash_slices(m, d, _sms(z.device))
-    entry, zbytes = _entry("vgan_gram_quadrant_sums" + ("_stash" if stash else ""), bf16)
-    size = (stash_scratch_floats if stash else quadrant_sums_scratch_floats)(m, d, slice_, zbytes)
+    if bf16:
+        split, _ = cluster_schedule(tile_pairs(m), d, _sms(z.device))
+        size = bf16_forward_scratch_floats(m, d, split)
+    else:
+        split, _ = stash_slices(m, d, _sms(z.device))
+        size = (stash_scratch_floats if stash else quadrant_sums_scratch_floats)(m, d, split)
     scratch = torch.empty(size, dtype=torch.float32, device=z.device)
     sums = torch.empty(4, dtype=torch.float32, device=z.device)
     kp = torch.empty((m, m), dtype=torch.float32, device=z.device) if stash else None
-    _launch(entry, z.device, _ptr(z), _ptr(norms), _ptr(bw.reshape(1)), m, d, n1,
-            ctypes.byref(_ladder(tuple(mults))), slice_, _ptr(scratch), _ptr(sums),
+    _launch(_entry("vgan_gram_quadrant_sums" + ("_stash" if stash else ""), bf16)[0], z.device,
+            _ptr(z), _ptr(norms), _ptr(bw.reshape(1)), m, d, n1,
+            ctypes.byref(_ladder(tuple(mults))), split, _ptr(scratch), _ptr(sums),
             *([_ptr(kp)] if stash else []))
     return sums.reshape(1, 4), kp
 
