@@ -30,14 +30,16 @@ Phases (each asserts; any failure exits non-zero):
    fit held, at a learning rate that moves it), its Philox noise's distribution,
    and its rng-mode fit against the fit fed that noise, to the bit; and the
    bf16-operand variants of K1-K4 (``gram_matmul_dtype='bfloat16'``, the
-   tensor cores) against their plain versions on the same bf16-rounded
-   operands, each timed beside its f32 kernel with its bound (K1 and K2
-   bf16, the bf16 forward of TMA-fed ``wgmma`` in thread-block clusters,
-   also with each pass's device time): K1 at the kl and flash fits' Grams,
-   a ragged m past one wave of tile pairs and the panel fit's forward, K2
-   at the stress Gram, K3 in modes (b) (the kl Gram) and (a) (m=8192), K4 on
-   the square panel (with a ragged offset panel and an ordered one) and on
-   one real panel (m=45056, R=1472);
+   tensor cores: TMA-fed ``wgmma`` in thread-block clusters) against their
+   plain versions on the same bf16-rounded operands, each timed beside its
+   f32 kernel with its bound and each pass's device time: K1 at the kl and
+   flash fits' Grams, a ragged m past one wave of tile pairs and the panel
+   fit's forward, K2 at the stress Gram, K3 at the kl Gram, at m=8192 and at
+   a ragged m with d past 16 chunks, K4 on the square panel (with a ragged
+   offset panel and an ordered one, d split in clusters), past half a wave
+   (one CTA a tile) on a ragged d with an offset panel whose columns lie on
+   both sides of its block and an ordered one with ragged rows, and on one
+   real panel (m=45056, R=1472);
 3. the no-kl main path at full width: ``VGAN_no_kl`` fit at the stress
    configuration (n=2000, d=10240, batch 500, 2 epochs), then
    generate_subspaces, approx_subspace_dist and check_if_myopic;
@@ -140,10 +142,12 @@ Phases (each asserts; any failure exits non-zero):
    ``vgan_tpu_torch/ops/cuda/csrc/``), it also builds that commit's kernels
    and times its eight kernels against this tree's on the same inputs, in
    turns (K6 and K7 also held to the parent's scores bit for bit in both
-   modes, K1-K4 in f32 and K3 and K4 bf16 held to the parent's outputs bit
-   for bit), the bf16 forward (K1 and K2 bf16) against the parent's, and
-   the kl stress and flash fits' steps/s with the parent's K3 and with this tree's. Phase 3e's
-   times are repeated there.
+   modes, K1-K4 in f32 held to the parent's outputs bit for bit), the bf16
+   forward (K1 and K2 bf16) against the parent's, the bf16 backward (K3 and
+   K4 bf16, launched as the parent's wrappers launched them) against the
+   parent's with both held to the plain version, and the kl stress and
+   flash fits' steps/s with the parent's K3 and with this tree's. Phase
+   3e's times are repeated there.
 
 Prints a JSON line of the kernels, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -617,11 +621,12 @@ def phase_kernels(device, gram_shapes, flash_shapes, log):
 
 
 def bf16_bound(mma_ops: float, f32_ops: float, nbytes: float):
-    """A bf16 variant's bound: its distance product at the tensor cores' bf16
-    rate plus its other operations at the f32 rate, or its bytes at the HBM
-    rate, whichever is larger, in ms. K1, K2 and K3 bf16 read the f32 z (4
-    bytes a value: they round it on the card); K4 bf16 reads its prepared
-    bf16 operands (2 bytes)."""
+    """A bf16 variant's bound: its products on the tensor cores at the bf16
+    rate (the distance product; K3 bf16's S @ z too, which it runs there
+    through the exact three-term split of S) plus its other operations at
+    the f32 rate, or its bytes at the HBM rate, whichever is larger, in ms.
+    K1, K2 and K3 bf16 read the f32 z (4 bytes a value: they round it on the
+    card); K4 bf16 reads its prepared bf16 operands (2 bytes)."""
     t_ops = (mma_ops / PEAK_BF16_FLOPS + f32_ops / PEAK_F32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -641,19 +646,22 @@ def phase_bf16_kernels(device, shapes, log) -> dict:
     sms = G._sms(device)
     rows = {}
 
-    def record(name, label, fn, f32, plain, err, tol, mma_ops, f32_ops, nbytes, iters=20):
+    def record(name, label, fn, f32, plain, err, tol, mma_ops, f32_ops, nbytes, iters=20,
+               old_count=None):
         warmup = 1 if iters < 20 else 3
         t = {"shape": label, "ms": cuda_ms(fn, iters, warmup), "f32_ms": cuda_ms(f32, iters, warmup),
              "plain_ms": cuda_ms(plain, iters, warmup), "max_abs_err": err, "tol": tol}
         t["bound_ms"], t["bound_by"] = bf16_bound(mma_ops, f32_ops, nbytes)
-        passes = ""
-        if name in ("gram_quadrant_sums_bf16", "gram_quadrant_sums_stash_bf16"):
-            t["device_us"] = device_split(fn, calls=10)  # the bf16 forward's passes
-            passes = "; device us a call: " + ", ".join(
-                f"{k} {v:.2f}" for k, v in sorted(t["device_us"].items(), key=lambda kv: -kv[1]))
+        old = ""
+        if old_count:  # the bound as counted before (K3 bf16: S @ z at the f32 rate)
+            t["bound_ms_old_count"] = bf16_bound(*old_count)[0]
+            old = f"; {t['bound_ms_old_count']:.4f} ms with S @ z at the f32 rate"
+        t["device_us"] = device_split(fn, calls=10)  # each pass's device time
+        passes = "; device us a call: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(t["device_us"].items(), key=lambda kv: -kv[1]))
         log(f"  {name} {label}: {t['ms']:.4f} ms (f32 kernel {t['f32_ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}){passes}; "
-            f"max abs err {err:.3e} ({tol})")
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}{old})"
+            f"{passes}; max abs err {err:.3e} ({tol})")
         if name in rows:
             rows[name]["at_other_shapes"].append(t)
         else:
@@ -703,7 +711,7 @@ def phase_bf16_kernels(device, shapes, log) -> dict:
     for n1, n2, d in shapes["gram_backward_flash_bf16"]:
         z, norms, bw = large_gram_inputs(n1 + n2, d, 43, device)
         m, zr = n1 + n2, G.rounded(z)
-        mode, _, nsplit = G.flash_schedule(m, d, sms)
+        cluster, groups, nsplit = G.flash_cluster_schedule(m, d, sms)
         sz_k, rs_k = G.gram_backward_flash_bf16(z, norms, bw, n1, n2, mults)
         sz_p, rs_p = G.gram_backward_flash_reference(zr, norms, bw, n1, n2, mults)
         err = max(assert_frac(f"gram_backward_flash_bf16 sz m={m} d={d}", sz_k, sz_p, GRAD_FRAC),
@@ -713,12 +721,15 @@ def phase_bf16_kernels(device, shapes, log) -> dict:
                          lambda: G.gram_backward_flash_bf16(z, norms, bw, n1, n2, mults))
         pairs = sym_pairs(m)
         iters = 20 if m <= 4096 else 3
-        record("gram_backward_flash_bf16", f"m={m} d={d} mode ({mode}), {nsplit} splits",
+        nbytes = 4 * m * d + 4 * (m * d + 2 * m + 1)
+        record("gram_backward_flash_bf16",
+               f"m={m} d={d}, {cluster} CTAs a cluster, {groups} output groups, {nsplit} splits",
                lambda: G.gram_backward_flash_bf16(z, norms, bw, n1, n2, mults),
                lambda: G.gram_backward_flash(z, norms, bw, n1, n2, mults),
                lambda: G.gram_backward_flash_reference(zr, norms, bw, n1, n2, mults), err,
-               f"{GRAD_FRAC} of max|ref|", 2 * pairs * d, OPS_PER_ENTRY * pairs + 2 * m * m * d,
-               4 * m * d + 4 * (m * d + 2 * m + 1), iters)
+               f"{GRAD_FRAC} of max|ref|", 2 * pairs * d + 2 * m * m * d, OPS_PER_ENTRY * pairs,
+               nbytes, iters,
+               old_count=(2 * pairs * d, OPS_PER_ENTRY * pairs + 2 * m * m * d, nbytes))
         torch.cuda.empty_cache()
     for n1, n2, d, R, checks in shapes["kprime_panel_bf16"]:
         z, norms, bw = large_gram_inputs(n1 + n2, d, 44, device)
@@ -741,9 +752,9 @@ def phase_bf16_kernels(device, shapes, log) -> dict:
             err = max(err, e)
         zr_rows, n_rows = z[:R], norms[:R]
         cols_f32 = G.panel_operand(z)
-        mode = G.tile_schedule(G.panel_blocks(R, m, 0), d, sms)[0]
+        ctas = G.panel_bf16_schedule(G.panel_blocks(R, m, 0), d, sms)
         formed = R * m - R * (R - 1) // 2
-        record("kprime_panel_bf16", f"R={R} C={m} d={d} offset 0 mode ({mode})",
+        record("kprime_panel_bf16", f"R={R} C={m} d={d} offset 0, {ctas} CTAs a cluster",
                lambda: G.kprime_panel_bf16(zr_rows, z, n_rows, norms, bw, mults, offset=0,
                                            cols_t=cols_t),
                lambda: G.kprime_panel(zr_rows, z, n_rows, norms, bw, mults, offset=0,
@@ -3182,6 +3193,11 @@ def knn_times(runs, errs, launches, hetero_launches, log):
 
 
 PARENT_SOURCES = ("knn_score", "gof_gram", "mmd_gram", "fused_no_kl")
+# The parent's bf16 backward entries (the column-major product_bf16 passes)
+# and the f32 entries whose arguments they take.
+PARENT_BF16_BACKWARD = {"vgan_gram_backward_flash_bf16": "vgan_gram_backward_flash",
+                        "vgan_kprime_panel_bf16": "vgan_kprime_panel",
+                        "vgan_transpose_pad_bf16": "vgan_transpose_pad"}
 
 
 def build_parent(src_dir: Path, log) -> dict:
@@ -3189,8 +3205,12 @@ def build_parent(src_dir: Path, log) -> dict:
     ``vgan_tpu_torch/ops/cuda/csrc/``: the four ``.cu`` files and the headers
     they include), built with the package's flags into
     ``build/parent_kernels/`` (one ``nvcc`` each, started together) and bound
-    with this tree's signatures (:func:`parent_quadrant_sums_bf16` reads
-    what the parent's bf16 forward takes)."""
+    with this tree's signatures, but for the bf16 backward's entries, which
+    take the parent's own (``PARENT_BF16_BACKWARD``). The parent's csrc must
+    have ``wgmma_tile.cuh`` (the TMA-fed bf16 forward): its K1 bf16 and K2
+    bf16 take this tree's arguments (:func:`parent_quadrant_sums_bf16`), its
+    K3 bf16 and K4 bf16 the column-major ``product_bf16`` passes'
+    (:func:`parent_backward_bf16`)."""
     from vgan_tpu_torch.ops.cuda import _build
     from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
@@ -3206,13 +3226,17 @@ def build_parent(src_dir: Path, log) -> dict:
                        check=True, capture_output=True, text=True, timeout=900)
         return ctypes.CDLL(str(lib))
 
+    if not (src_dir / "wgmma_tile.cuh").is_file():
+        raise ValueError(f"{src_dir}: a parent without the TMA-fed bf16 forward (wgmma_tile.cuh) "
+                         "is not supported")
     with ThreadPoolExecutor(len(PARENT_SOURCES)) as pool:
         libs = dict(zip(PARENT_SOURCES, pool.map(build, PARENT_SOURCES)))
-    # a parent with the cluster kernel's header takes this tree's bf16 forward arguments
-    libs["mmd_gram"].cluster_forward = (src_dir / "wgmma_tile.cuh").is_file()
     for name, module in (("gof_gram", GG), ("knn_score", KS), ("fused_no_kl", FN),
                          ("mmd_gram", G)):
-        for fn, argtypes in module._SIGNATURES.items():
+        signatures = dict(module._SIGNATURES)
+        if name == "mmd_gram":
+            signatures.update({fn: G._SIGNATURES[f32] for fn, f32 in PARENT_BF16_BACKWARD.items()})
+        for fn, argtypes in signatures.items():
             if hasattr(libs[name], fn):  # an entry added since is not the parent's
                 getattr(libs[name], fn).argtypes = argtypes
                 getattr(libs[name], fn).restype = ctypes.c_int
@@ -3251,42 +3275,78 @@ def parent_gram_kernels(lib):
     return sums, panel
 
 
-def parent_quadrant_sums_bf16(lib, device):
+def parent_quadrant_sums_bf16(lib):
     """The parent commit's bf16 K1 and K2 (``vgan_gram_quadrant_sums_bf16``,
-    ``vgan_gram_quadrant_sums_stash_bf16``) as drop-ins for
-    ``gram_quadrant_sums_bf16`` and ``gram_quadrant_sums_stash_bf16``. A
-    parent with the cluster kernel (``build_parent`` marks it
-    ``cluster_forward``) runs through this tree's wrappers. One before it
-    (the ``product_bf16`` passes) is launched as its wrapper launched it:
-    the d slice of ``stash_slices`` and the f32 kernels' scratch with its
-    column-major z at 2 bytes; that branch serves no parent after the
-    cluster kernel's."""
+    ``vgan_gram_quadrant_sums_stash_bf16``, the cluster kernel's arguments,
+    as this tree's) as drop-ins for ``gram_quadrant_sums_bf16`` and
+    ``gram_quadrant_sums_stash_bf16``: this tree's wrappers on the parent's
+    library."""
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
-    if lib.cluster_forward:
-        def wrapped(stash, z, norms, bw, n1, mults):
-            with using_lib(G, lib):
-                fn = G.gram_quadrant_sums_stash_bf16 if stash else G.gram_quadrant_sums_bf16
-                return fn(z, norms, bw, n1, mults)
-        return (functools.partial(wrapped, False), functools.partial(wrapped, True))
+    def wrapped(stash, z, norms, bw, n1, mults):
+        with using_lib(G, lib):
+            fn = G.gram_quadrant_sums_stash_bf16 if stash else G.gram_quadrant_sums_bf16
+            return fn(z, norms, bw, n1, mults)
+    return (functools.partial(wrapped, False), functools.partial(wrapped, True))
+
+
+def parent_backward_bf16(lib, device):
+    """The parent commit's K4 bf16 and K3 bf16 launched as the parent's
+    wrappers launched them: ``(panel, flash, operand)``, drop-ins for
+    ``kprime_panel_bf16``, ``gram_backward_flash_bf16`` and
+    ``panel_operand(x, bf16=True)``. Its K4 bf16 reads the column-major bf16
+    copy of ``vgan_transpose_pad_bf16`` (one tile taller than the rows
+    rounded up to 128; an ordered panel's rows get their own, rounded up to
+    128), with :func:`mmd_gram.tile_schedule`'s d slice and
+    :func:`mmd_gram.panel_scratch_floats`'s scratch; its K3 bf16
+    :func:`mmd_gram.flash_schedule`'s slice and splits and the f32 K3's
+    scratch with the column-major z at 2 bytes a value. Their launches are
+    not counted."""
+    from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     sms = G._sms(device)
 
-    def launch(stash, z, norms, bw, n1, mults):
-        m, d = G._check_gram_inputs(z, norms, bw)
-        slice_, _ = G.stash_slices(m, d, sms)
-        size = ((G.stash_scratch_floats if stash else G.quadrant_sums_scratch_floats)(m, d, slice_)
-                - G._zt_floats(d, G._round_up(m, G.STASH_TILE), 2))
-        scratch = torch.empty(size, dtype=torch.float32, device=device)
-        sums = torch.empty(4, dtype=torch.float32, device=device)
-        kp = torch.empty((m, m), dtype=torch.float32, device=device) if stash else None
-        G._launch(f"vgan_gram_quadrant_sums{'_stash' if stash else ''}_bf16", z.device,
-                  G._ptr(z), G._ptr(norms), G._ptr(bw.reshape(1)), m, d, n1,
-                  ctypes.byref(G._ladder(tuple(mults))), slice_, G._ptr(scratch), G._ptr(sums),
-                  *([G._ptr(kp)] if stash else []), lib=lib)
-        return (sums.reshape(1, 4), kp) if stash else sums.reshape(1, 4)
+    def transposed(x, ld):
+        n, d = x.shape
+        out = torch.empty((d, ld), dtype=torch.bfloat16, device=device)
+        G._launch("vgan_transpose_pad_bf16", device, G._ptr(x), n, d, ld, G._ptr(out), lib=lib)
+        return out
 
-    return (functools.partial(launch, False), functools.partial(launch, True))
+    def operand(x):
+        return transposed(x, G._round_up(x.shape[0], G.STASH_TILE) + G.STASH_TILE)
+
+    def panel(z_rows, z_cols, n_rows, n_cols, bw, mults, offset=None, cols_t=None):
+        R, C, d, dev = G._check_panel_inputs(z_rows, z_cols, n_rows, n_cols, bw, offset)
+        cols_t = operand(z_cols) if cols_t is None else cols_t
+        if offset is None:
+            rows_t, row0, diag = transposed(z_rows, G._round_up(R, G.STASH_TILE)), 0, -1
+        else:
+            rows_t, row0, diag = cols_t, offset, offset
+        blocks = G.panel_blocks(R, C, offset)
+        _, slice_, _ = G.tile_schedule(blocks, d, sms)
+        scratch = torch.empty(max(1, G.panel_scratch_floats(blocks, d, slice_)),
+                              dtype=torch.float32, device=dev)
+        kp = torch.empty((R, C), dtype=torch.float32, device=dev)
+        G._launch("vgan_kprime_panel_bf16", dev, G._ptr(rows_t), rows_t.shape[1], row0,
+                  G._ptr(cols_t), cols_t.shape[1], G._ptr(n_rows), G._ptr(n_cols),
+                  G._ptr(bw.reshape(1)), R, C, d, diag, ctypes.byref(G._ladder(tuple(mults))),
+                  slice_, G._ptr(scratch), G._ptr(kp), lib=lib)
+        return kp
+
+    def flash(z, norms, bw, n1, n2, mults):
+        m, d, sz, rs = G._flash_outputs(z, norms, bw, n1, n2)
+        _, slice_, nsplit = G.flash_schedule(m, d, sms)
+        size = (G.flash_scratch_floats(m, d, slice_, nsplit)
+                - G._zt_floats(d, G._round_up(m, G.STASH_TILE)) // 2)
+        scratch = torch.empty(size, dtype=torch.float32, device=z.device)
+        cxx, cyy, cxy = G._coefficients(n1, n2)
+        G._launch("vgan_gram_backward_flash_bf16", z.device, G._ptr(z), G._ptr(norms),
+                  G._ptr(bw.reshape(1)), m, d, n1, cxx, cyy, cxy,
+                  ctypes.byref(G._ladder(tuple(mults))), slice_, nsplit, G._ptr(scratch),
+                  G._ptr(sz), G._ptr(rs), lib=lib)
+        return sz, rs
+
+    return panel, flash, operand
 
 
 def parent_flash(lib):
@@ -3296,7 +3356,7 @@ def parent_flash(lib):
 
     def flash(z, norms, bw, n1, n2, mults):
         with using_lib(G, lib):
-            return G._flash_launch(False, z, norms, bw, n1, n2, mults)
+            return G._flash_launch(z, norms, bw, n1, n2, mults)
 
     return flash
 
@@ -3369,14 +3429,17 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
     20-epoch corner, rng mode), K5 (at both GoF shapes), K6 and K7 (at the
     ensembles' decision_function shapes), the bf16 forward (K1 bf16 at phase
     2's four shapes, K2 bf16 at the stress Gram: ``parent_quadrant_sums_bf16``)
-    and K3 bf16 and K4 bf16 (the kl Gram, the square
-    panel) against this tree's, on the same inputs, in turns: parent, this
-    tree, this tree, parent. Each case makes its inputs when it runs and
-    frees them after. Returns, per (kernel, shape), the four times and the
-    largest difference of the outputs relative to the parent's largest
-    entry; for K6 and K7 also whether the scores equal the parent's to the
-    bit in each mode, and for the m = 1000 cases of K1-K4 in f32 and of K3
-    and K4 bf16, whose code this tree keeps, that they do (checked)."""
+    and the bf16 backward (K3 bf16 at phase 2's three shapes, K4 bf16 at its
+    three timed panels: ``parent_backward_bf16``) against
+    this tree's, on the same inputs, in turns: parent, this tree, this tree,
+    parent. Each case makes its inputs when it runs and frees them after.
+    Returns, per (kernel, shape), the four times and the largest difference
+    of the outputs relative to the parent's largest entry; for K6 and K7
+    also whether the scores equal the parent's to the bit in each mode; for
+    the m = 1000 cases of K1-K4 in f32, whose code this tree keeps, that
+    they do (checked); and for the bf16 backward, whose kernels differ, each
+    tree's largest error against the plain version on the rounded operands
+    (checked, within phase 2's limits)."""
     from vgan_tpu_torch.ops import mmd as M
     from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
@@ -3385,7 +3448,8 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
 
     gram_lib = libs["mmd_gram"]
     parent_sums, parent_panel = parent_gram_kernels(gram_lib)
-    parent_sums_bf16, parent_stash_bf16 = parent_quadrant_sums_bf16(gram_lib, device)
+    parent_sums_bf16, parent_stash_bf16 = parent_quadrant_sums_bf16(gram_lib)
+    parent_panel_bf16, parent_flash_bf16, parent_operand_bf16 = parent_backward_bf16(gram_lib, device)
     mults = M.bandwidth_multipliers()
 
     def same_bits(label, old, new):
@@ -3464,24 +3528,44 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
             return (lambda: old(z, norms, bw, n1, mults), lambda: new(z, norms, bw, n1, mults))
         return make
 
-    def bf16_kept_case(shape, panel):
-        """K3 bf16 (``panel`` False) or K4 bf16 on the square panel, whose
-        code this tree keeps: the parent's library through this tree's
-        wrapper."""
+    def bf16_backward_case(shape, R=None):
+        """K3 bf16 (``R`` None) or K4 bf16 on the (R, m) panel at offset 0,
+        its column operand made once outside the calls (each tree's own), as
+        the panel backward makes it: the parent's and this tree's, each held
+        to the plain version on the rounded operands (phase 2's limits)."""
         def make():
             n1, n2, d = shape
-            z, norms, bw = inputs(n1, n2, d, 21, False)
-            if panel:
-                cols_t = G.panel_operand(z, bf16=True)
-                call = lambda: G.kprime_panel_bf16(z, z, norms, norms, bw, mults,  # noqa: E731
-                                                   offset=0, cols_t=cols_t)
+            m = n1 + n2
+            z, norms, bw = inputs(n1, n2, d, 21, m > 4096)
+            if R is None:
+                def run(flash):
+                    return lambda: flash(z, norms, bw, n1, n2, mults)
+                old, new = run(parent_flash_bf16), run(G.gram_backward_flash_bf16)
             else:
-                call = lambda: G.gram_backward_flash_bf16(z, norms, bw, n1, n2, mults)  # noqa: E731
+                def run(panel, cols_t):
+                    return lambda: panel(z[:R], z, norms[:R], norms, bw, mults, offset=0,
+                                         cols_t=cols_t)
+                old = run(parent_panel_bf16, parent_operand_bf16(z))
+                new = run(G.kprime_panel_bf16, G.panel_operand(z, bf16=True))
 
-            def old():
-                with using_lib(G, gram_lib):
-                    return call()
-            return old, call
+            def against_plain():
+                zr = G.rounded(z)
+                errs = {}
+                if R is None:
+                    sz_p, rs_p = G.gram_backward_flash_reference(zr, norms, bw, n1, n2, mults)
+                    for who, fn in (("parent", old), ("this tree", new)):
+                        sz_k, rs_k = fn()
+                        errs[who] = max(assert_frac(f"gram_backward_flash_bf16 sz ({who})", sz_k,
+                                                    sz_p, GRAD_FRAC),
+                                        assert_frac(f"gram_backward_flash_bf16 rs ({who})", rs_k,
+                                                    rs_p, GRAD_FRAC))
+                else:
+                    want = G.kprime_panel_reference(zr[:R], zr, norms[:R], norms, bw, mults)
+                    for who, fn in (("parent", old), ("this tree", new)):
+                        errs[who] = assert_close(f"kprime_panel_bf16 ({who})", fn(), want, RTOL_KP,
+                                                 ATOL_KP)
+                return {"max_abs_err_vs_plain": errs}
+            return old, new, against_plain
         return make
 
     def fused_case(Xf, bs, epochs, seed, kseed):
@@ -3564,10 +3648,15 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
               for n1, n2, dk in ((b, b, d // 16), (b, b, 1024), (1100, 1013, 700), (b, b, d))]
     cases += [
         (f"gram_quadrant_sums_stash_bf16 m={2 * b} d={d}", 20, bf16_forward_case((b, b, d), True)),
-        (f"gram_backward_flash_bf16 m={2 * b} d={d // 16}", 20,
-         with_bits("gram_backward_flash_bf16", bf16_kept_case((b, b, d // 16), False))),
+        (f"gram_backward_flash_bf16 m={2 * b} d={d // 16}", 20, bf16_backward_case((b, b, d // 16))),
+        ("gram_backward_flash_bf16 m=8192 d=1024", 3, bf16_backward_case((4096, 4096, 1024))),
+        ("gram_backward_flash_bf16 m=850 d=2000", 20, bf16_backward_case((333, 517, 2000))),
         (f"kprime_panel_bf16 R={2 * b} C={2 * b} d={d} offset 0", 20,
-         with_bits("kprime_panel_bf16", bf16_kept_case((b, b, d), True))),
+         bf16_backward_case((b, b, d), 2 * b)),
+        ("kprime_panel_bf16 R=640 C=4096 d=2100 offset 0", 20,
+         bf16_backward_case((2048, 2048, 2100), 640)),
+        (f"kprime_panel_bf16 R={R_rp} C={m_rp} d={rp['d']} offset 0", 3,
+         bf16_backward_case((rp["n1"], rp["n2"], rp["d"]), R_rp)),
     ]
     Xc = np.random.default_rng(13).standard_normal((FUSED_CORNER["n"], FUSED_CORNER["d"]),
                                                    dtype=np.float32)
@@ -3596,6 +3685,8 @@ def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
             results[label].update(more())
         bits = "".join(f"; {k.replace('_', ' ')}: {v}" for k, v in results[label].items()
                        if k.startswith("equal_bits"))
+        bits += "".join(f"; max abs err against the plain version, {who}: {e:.3e}" for who, e in
+                        results[label].get("max_abs_err_vs_plain", {}).items())
         log(f"  {label}: parent {t[0]:.4f}, {t[3]:.4f} ms; this tree {t[1]:.4f}, {t[2]:.4f} ms "
             f"({(t[0] + t[3]) / (t[1] + t[2]):.2f}x); outputs differ by at most {diff:.3e} of the "
             f"parent's largest{bits}")
@@ -3936,13 +4027,17 @@ def main(argv=None) -> int:
         # mode (a), the panel fit's forward
         "gram_quadrant_sums_bf16": [kl_shape, flash_shape, (1100, 1013, 700), stress_shape],
         "gram_quadrant_sums_stash_bf16": [stress_shape],
-        # mode (b) at the kl cycle's Gram, mode (a) at m=8192
-        "gram_backward_flash_bf16": [kl_shape, (4096, 4096, 1024)],
+        # the kl cycle's Gram (5 CTAs a cluster, 3 splits), m=8192 (8 CTAs,
+        # one split), and a ragged m with d past 16 chunks (two output groups)
+        "gram_backward_flash_bf16": [kl_shape, (4096, 4096, 1024), (333, 517, 2000)],
         # (n1, n2, d, R timed at offset 0, checks (r0, r1, offset)): the panel
-        # fit's square panel, a ragged one at an offset and an ordered one;
-        # then one real panel
+        # fit's square panel, a ragged one at an offset and an ordered one (d
+        # split in clusters); past half a wave of tiles (one CTA a tile) on a
+        # ragged d, an offset panel whose columns lie on both sides of its
+        # block and an ordered one with ragged rows; then one real panel
         "kprime_panel_bf16": [
             (*stress_shape, m_st, [(0, m_st, 0), (256, 576, 256), (0, m_st, None)]),
+            (2048, 2048, 2100, 640, [(0, 640, 0), (640, 1280, 640), (0, 520, None)]),
             (rp["n1"], rp["n2"], rp["d"], G._panel_rows(m_rp),
              [(0, G._panel_rows(m_rp), 0)]),
         ],

@@ -77,10 +77,11 @@ def cuts(src: str) -> dict:
     """The sources with a part of the cluster kernel cut out (see the top)."""
     from torch_mmd_ladder_probe import variants as ladder_variants
 
-    no_product = _cut(src, "        W::consume(n, t.r0 == t.c0, ring, bars, acc);\n", "")
-    no_product = _cut(no_product, "        W::produce(&zmap, t.r0, t.c0, k0, n, ring, bars);\n", "")
-    no_launch = _cut(src, "    err = cudaLaunchKernelEx(&cfg, cluster_gram_kernel<KP>,",
-                     "    err = cudaSuccess;\n    if (false) cudaLaunchKernelEx(&cfg, cluster_gram_kernel<KP>,")
+    no_product = _cut(src, "        W::consume(n, same, ring, bars, acc);\n", "")
+    no_product = _cut(no_product, "        W::produce(&rows_map, row0 + t.r0, &cols_map, t.c0, same, k0, n, "
+                      "ring, bars);\n", "")
+    no_launch = _cut(src, "    err = launch_clusters(cluster_gram_kernel<true, KP>,",
+                     "    err = cudaSuccess;\n    if (false) launch_clusters(cluster_gram_kernel<true, KP>,")
     return {"no_ladder": ladder_variants(src)["stub"], "no_product": no_product,
             "no_cluster_launch": no_launch}
 
@@ -126,7 +127,7 @@ def main(argv=None) -> int:
                       if args.parent_csrc else None)
             libs = dict(zip(sources, pool.map(build, sources.items())))
             if parent:
-                fns["parent"] = S.parent_quadrant_sums_bf16(parent.result()["mmd_gram"], device)
+                fns["parent"] = S.parent_quadrant_sums_bf16(parent.result()["mmd_gram"])
 
         def on(fn, lib):
             def call(*a):

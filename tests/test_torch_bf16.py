@@ -532,15 +532,34 @@ def test_bf16_scratch_holds_z_in_half_the_floats(kernel):
     bf16 and K2 bf16 (``bf16_forward_scratch_floats``: the row-major
     rounded copy and three sums a CTA of their clusters: K2 bf16 at the
     stress Gram, K1 bf16 at the kl Gram, both three CTAs a pair, and at one);
-    K3 bf16 (``flash_scratch_floats``: its column-major copy, the rest of
-    the layout the f32 kernel's)."""
-    m, d, slice_ = 1000, 10240 if kernel == "K2 bf16" else 640, 96
+    K3 bf16 (``flash_bf16_scratch_floats``: the same row-major rounded copy
+    and the partial outputs of its later splits, three at the kl Gram)."""
+    m, d = 1000, 10240 if kernel == "K2 bf16" else 640
     if kernel == "K3 bf16":
-        args = (m, d, slice_, 3)
-        half = d * TG._round_up(m, TG.STASH_TILE) // 2
-        assert TG.flash_scratch_floats(*args) - TG.flash_scratch_floats(*args, zbytes=2) == half
+        _, _, nsplit = TG.flash_cluster_schedule(m, d, 132)
+        assert nsplit == 3
+        partials = (nsplit - 1) * m * (d + 1)
+        assert TG.flash_bf16_scratch_floats(m, d, nsplit) - partials == m * d // 2
         return
     slices = 1 if kernel == "K1 bf16 one CTA" else TG.cluster_schedule(TG.tile_pairs(m), d, 132)[0]
     assert slices == (1 if kernel == "K1 bf16 one CTA" else 3)
     sums = 3 * TG.tile_pairs(m) * slices
     assert TG.bf16_forward_scratch_floats(m, d, slices) - sums == m * d // 2
+
+
+def test_split_bf16x3_reconstructs_f32_exactly():
+    """K3 bf16's three-term split of S (``split_bf16x3``, the plain version
+    of the kernel's): hi + mid + lo equals each float32 value to the bit,
+    over magnitudes from 1e-30 to 1e30 and both signs, each term a bf16
+    value; hi alone is the value rounded to bf16, and mid, lo shrink by at
+    least 2^8 a step."""
+    rng = np.random.default_rng(17)
+    s = (rng.standard_normal(4096) * 10.0 ** rng.uniform(-30, 30, 4096)).astype(np.float32)
+    s = torch.from_numpy(np.concatenate([s, np.float32([0.0, 1.0, -1.0, 3.0e-33])]))
+    hi, mid, lo = TG.split_bf16x3(s)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), s)
+    assert torch.equal(hi, s.to(torch.bfloat16))
+    big = torch.abs(s) > 1e-30
+    assert torch.all(torch.abs(mid.float()[big]) <= torch.abs(hi.float()[big]) * 2.0 ** -8)
+    assert torch.all(torch.abs(lo.float()[big]) <= torch.abs(mid.float()[big]) * 2.0 ** -8)

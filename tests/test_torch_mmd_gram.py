@@ -532,10 +532,97 @@ def test_panel_tiles_write_each_entry_once(R, C, offset):
 
 
 
-def test_panel_operand_layout():
-    """K4's column-major operand: (d, n rounded up to 128, plus one tile),
-    column k the k-th feature of every row, the padding rows zero."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_panel_operand_layout(dtype):
+    """K4's column operand. float32: column-major, (d, n rounded up to 128,
+    plus one tile), column k the k-th feature of every row, the padding rows
+    zero. bfloat16 (K4 bf16, read through TMA): the rows rounded to bf16,
+    row-major, d padded to a 16-byte row with zeros, no padding rows."""
     x = torch.from_numpy(np.random.default_rng(3).normal(size=(150, 7)).astype(np.float32))
-    op = TG.panel_operand(x)
-    assert op.shape == (7, 256 + TG.STASH_TILE) and op.dtype == torch.float32
-    assert torch.equal(op[:, :150], x.T) and not torch.any(op[:, 150:])
+    if dtype == "float32":
+        op = TG.panel_operand(x)
+        assert op.shape == (7, 256 + TG.STASH_TILE) and op.dtype == torch.float32
+        assert torch.equal(op[:, :150], x.T) and not torch.any(op[:, 150:])
+        return
+    op = TG.panel_operand(x, bf16=True)
+    assert op.shape == (150, 8) and op.dtype == torch.bfloat16
+    assert torch.equal(op[:, :7], x.to(torch.bfloat16)) and not torch.any(op[:, 7:])
+    assert torch.equal(op[:, :7].float(), TG.rounded(x))
+
+
+@pytest.mark.parametrize("R,C,offset,d,ctas", [
+    (1000, 1000, 0, 10240, 3), (320, 1000, 256, 10240, 5), (1000, 1000, None, 10240, 2),
+    (640, 4096, 640, 8300, 1), (520, 4096, None, 8300, 1), (1472, 45056, 0, 10240, 1),
+    (640, 4096, 0, 2100, 1), (40, 1000, 960, 100, 2),
+])
+def test_panel_bf16_schedule_within_a_wave(R, C, offset, d, ctas):
+    """K4 bf16's clusters: while the tiles fall short of half a wave, d is
+    split over 2..8 CTAs a tile with tiles x CTAs within one wave (one CTA an
+    SM), no more CTAs than d has 64-column chunks; past it, one CTA a tile
+    (K1 and K2 bf16's ``cluster_schedule``)."""
+    sms = 132
+    blocks = TG.panel_blocks(R, C, offset)
+    got = TG.panel_bf16_schedule(blocks, d, sms)
+    assert got == ctas and 1 <= got <= TG.CLUSTER_MAX and got <= -(-d // TG.BF16_CHUNK)
+    assert got == 1 or blocks * got <= sms
+    assert (got == 1) == (2 * blocks > sms or -(-d // TG.BF16_CHUNK) == 1)
+    assert got == TG.cluster_schedule(blocks, d, sms)[0]
+
+
+FLASH_BF16_SHAPES = [(1000, 640), (1000, 1024), (8192, 1024), (850, 2000), (50, 40),
+                     (40960, 1024), (2113, 700), (1000, 2048)]
+
+
+@pytest.mark.parametrize("m,d", FLASH_BF16_SHAPES)
+def test_flash_cluster_schedule_covers_d_and_the_square(m, d):
+    """K3 bf16's clusters (a model of ``flash_cluster_kernel``'s ranges): at
+    most 8 CTAs a cluster; each output group's chunks split over the CTAs,
+    at most two a CTA; the dot products' chunks split over the CTAs and
+    covering d; with one group the two ranges the same (the row tile's
+    chunks stay in shared memory); the S rows of a tile split over the CTAs;
+    every (row tile, column tile) formed once a group over the splits; the
+    later splits' partials within FLASH_SPLIT_BYTES; at the kl Gram one
+    wave."""
+    sms = 132
+    c, groups, nsplit = TG.flash_cluster_schedule(m, d, sms)
+    n = _cdiv(d, TG.BF16_CHUNK)
+    tiles = _cdiv(m, TG.STASH_TILE)
+    assert 1 <= c <= TG.CLUSTER_MAX and c <= n
+    assert groups == _cdiv(n, TG.FLASH_GROUP_CHUNKS)
+    dots = [range(q * n // c, (q + 1) * n // c) for q in range(c)]
+    assert sorted(k for r in dots for k in r) == list(range(n))
+    assert dots[-1][-1] * TG.BF16_CHUNK < d
+    for g in range(groups):
+        base, gn = g * TG.FLASH_GROUP_CHUNKS, min(TG.FLASH_GROUP_CHUNKS, n - g * TG.FLASH_GROUP_CHUNKS)
+        outs = [range(base + q * gn // c, base + (q + 1) * gn // c) for q in range(c)]
+        assert sorted(k for r in outs for k in r) == list(range(base, base + gn))
+        assert all(len(r) <= 2 for r in outs)
+        if groups == 1:
+            assert outs == dots and all(1 <= len(r) <= 2 for r in dots)
+    rows = [range(q * TG.STASH_TILE // c, (q + 1) * TG.STASH_TILE // c) for q in range(c)]
+    assert sorted(r for rr in rows for r in rr) == list(range(TG.STASH_TILE))
+    per = _cdiv(tiles, nsplit)
+    assert _cdiv(tiles, per) == nsplit
+    seen = np.zeros((tiles, tiles), dtype=np.int32)
+    for s in range(nsplit):
+        for J in range(s * per, min(tiles, (s + 1) * per)):
+            seen[:, J] += 1
+    assert np.all(seen == 1)
+    assert (nsplit - 1) * 4 * m * (d + 1) <= TG.FLASH_SPLIT_BYTES
+    if (m, d) == (1000, 640):
+        assert (c, groups, nsplit) == (5, 1, 3) and tiles * nsplit * c <= sms
+    if (m, d) == (8192, 1024):
+        assert (c, groups, nsplit) == (8, 1, 1)
+
+
+@pytest.mark.parametrize("m,d", FLASH_BF16_SHAPES)
+def test_flash_bf16_scratch_holds_no_m2_term(m, d):
+    """K3 bf16's scratch: the row-major bf16 copy of z and the later splits'
+    partial outputs (m x (d + 1) each), nothing of size m^2 (no dot tile, no
+    S tile); at m = 40960 less than an eighth of an (m, m) f32 buffer."""
+    _, _, nsplit = TG.flash_cluster_schedule(m, d, 132)
+    scratch = TG.flash_bf16_scratch_floats(m, d, nsplit)
+    assert scratch == m * TG._round_up(d, 8) // 2 + (nsplit - 1) * m * (d + 1)
+    assert scratch <= m * (TG._round_up(d, 8) // 2 + (nsplit - 1) * (d + 1))
+    if m == 40960:
+        assert scratch < m * m // 8

@@ -17,24 +17,42 @@
 // against the CUDA cores' 67, so the bf16 variants are bound by the ladder,
 // the epilogues' f32 work and their operands' traffic.
 //
-// K1 bf16 and K2 bf16, the bf16 forward, have a Hopper design of their own
-// (quadrant_sums_bf16): round_rows_kernel writes z rounded to bf16,
+// The bf16 variants have a Hopper design of their own, on wgmma_tile.cuh's
+// TMA-fed wgmma product. round_rows_kernel writes z rounded to bf16,
 // row-major (the K-major layout wgmma reads natively; about 20 us at m =
-// 1000, d = 10240, the f32 z read once), then one cluster_gram_kernel
-// launch forms every tile pair on wgmma_tile.cuh's TMA-fed wgmma product,
-// the d axis split over the CTAs of a thread-block cluster (at most 8, one
-// CTA an SM, so that the pairs x slices fill a wave:
-// ops/cuda/mmd_gram.py cluster_schedule). Each CTA stages its partial
-// dot tile in its own shared memory; after a cluster barrier each takes
-// 1/S of the tile's rows, adds the S partials in slice order through
-// distributed shared memory and runs the epilogue below on them, so no
-// partial tile goes to device memory; finalize_sums ends the call. At the
-// fits' Grams the product is bound by the L2 -> shared traffic of its
-// operand tiles and the epilogue by the ladder.
-// K3 bf16 and K4 bf16 keep the f32 kernels' passes on the column-major bf16
-// copy (dist_tile.cuh product_bf16, mma.sync). K3's S @ z stays the f32
-// product, on the bf16-rounded z (its z_aug holds the rounded values in
-// f32), as the Pallas kernel upcasts its bf16 z block.
+// 1000, d = 10240, the f32 z read once); TMA reads it through maps whose
+// out-of-range rows and columns fill zeros, so no copy is padded.
+//
+// K1 bf16, K2 bf16 (quadrant_sums_bf16) and K4 bf16 (kprime_panel_bf16):
+// one cluster_gram_kernel launch forms every tile, the d axis split over
+// the CTAs of a thread-block cluster (at most 8, one CTA an SM, so that the
+// tiles x slices fill a wave: ops/cuda/mmd_gram.py cluster_schedule; one
+// CTA a tile past half a wave, as on K4's real panels of about 4,170
+// tiles). Each CTA stages its partial dot tile in its own shared memory;
+// after a cluster barrier each takes 1/S of the tile's rows, adds the S
+// partials in slice order through distributed shared memory and runs the
+// epilogue below on them, so no partial tile goes to device memory;
+// finalize_sums ends K1's and K2's call. At the fits' Grams the product is
+// bound by the L2 -> shared traffic of its operand tiles and the epilogue
+// by the ladder. (A persistent K4 kernel for the real panels, its CTAs
+// sharing a column tile's chunks by TMA multicast and four epilogue warps
+// running the ladder during the next tile's product, measured slower than
+// one CTA a tile there: 6.35 ms against 5.92.)
+//
+// K3 bf16 (flash_cluster_kernel): a cluster of c CTAs on a row tile walks
+// the column tiles of its split. The CTAs split each dot tile's d chunks
+// and add their partials through distributed shared memory; each forms 1/c
+// of S's rows (the ladder) and splits each entry into three bf16 terms, hi
+// = bf16(S), mid = bf16(S - hi), lo = bf16(S - hi - mid), whose sum is S
+// exactly (f32's 24 significant bits in three of 8, f32's exponent range);
+// the CTAs exchange their rows, and each multiplies the whole S tile with
+// its own 64-column chunks of z_J (the very box the dot tile read, now
+// MN-major) on wgmma, three products a k-range, each fragment folded into
+// IEEE f32 as the dot product's. The products of bf16 values are exact in
+// f32, so S @ z comes out to f32 rounding, as the Pallas kernel's f32 S
+// times its upcast bf16 z block; rowsum(S) is summed in f64 beside the
+// ladder. The output block stays in registers for the whole walk: no dot
+// tile, S tile or per-tile partial goes to device memory.
 //
 // What bounds them on an H100: the distance product. At the stress shape
 // (m = 1000 rows, d = 10240) the forward needs the m (m - 1) / 2 unordered
@@ -213,9 +231,8 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 }
 
 // z_t[k * ld + r] = z[r * d + k] for r < m, 0 for m <= r < ld (in T).
-template <class T>
 __global__ void transpose_pad_kernel(const float* __restrict__ z, int m, int d, int ld,
-                                     T* __restrict__ z_t) {
+                                     float* __restrict__ z_t) {
     __shared__ float t[TT][TT + 1];
     dist_tile::transpose_tile(
         [&](int r, int k) { return r < m && k < d ? z[(size_t)r * d + k] : 0.f; },
@@ -282,7 +299,8 @@ __device__ __forceinline__ void store4(float* p, float a, float b, float c, floa
     if (n > 3) p[3] = e;
 }
 
-// ladder_eval behind a call, so that each epilogue keeps one copy of the
+// ladder_eval's arithmetic, kept behind a call (ladder_call below) so that
+// each epilogue keeps one copy of the
 // ladder (instruction-cache footprint: inlined into every entry, its integer
 // powers unroll into tens of thousands of instructions). The power-of-two
 // exponents of a geometric ladder are read off one squaring chain t, t^2,
@@ -291,8 +309,8 @@ __device__ __forceinline__ void store4(float* p, float a, float b, float c, floa
 // no loop (K1 at m = 40960, d = 1024: 48.6 ms against 55.4). Other
 // exponents go through int_pow.
 template <bool WANT_K, bool WANT_KP>
-__device__ __noinline__ void ladder_call(float d2, float bw, const VganLadder& L, float& k,
-                                         float& kp) {
+__device__ __forceinline__ void ladder_body(float d2, float bw, const VganLadder& L, float& k,
+                                            float& kp) {
     if (!L.use_pow) {
         ladder_eval<WANT_K, WANT_KP>(d2, bw, L, k, kp);
         return;
@@ -315,6 +333,15 @@ __device__ __noinline__ void ladder_call(float d2, float bw, const VganLadder& L
             if (WANT_KP) kp = kp - p / (bw * L.mult[q]);
         }
     }
+}
+
+// The same behind the call. K3 bf16 inlines ladder_body once, in a loop
+// over its entries: behind the call its ladder ran at less than half the
+// rate (the callee saves and restores its registers every entry).
+template <bool WANT_K, bool WANT_KP>
+__device__ __noinline__ void ladder_call(float d2, float bw, const VganLadder& L, float& k,
+                                         float& kp) {
+    ladder_body<WANT_K, WANT_KP>(d2, bw, L, k, kp);
 }
 
 // The epilogue of a thread's Q x Q entries of tile t: rows[i] and cols[j]
@@ -389,9 +416,8 @@ __device__ __forceinline__ void write_sums(const float (&s)[3], float* red, floa
 
 constexpr size_t TILE_SMEM = sizeof(float) * dist_tile::smem_floats<ST, ST>();
 static_assert(TILE_SMEM <= 48 * 1024, "launched without raising the dynamic shared memory limit");
-static_assert(dist_tile::BF16_SMEM <= 48 * 1024, "launched without raising the dynamic shared memory limit");
 
-using dist_tile::bf16;
+using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------------------
 // K1 bf16 and K2 bf16: the tile pairs of the symmetric square on the tensor
@@ -408,6 +434,13 @@ static_assert(W::CONSUMERS == 2 * NT && W::TILE == SB, "the epilogue's sums pass
 constexpr int PPAD = SB + 8;
 // the ring (1024-byte aligned by hand: the swizzle's period) and one partial tile
 constexpr size_t CLUSTER_SMEM = 1024 + W::RING_BYTES + sizeof(float) * SB * PPAD;
+
+// the column of an unpadded staged tile (rows SB floats apart) where entry
+// (r, c) lives: columns XORed by 8 (r % 4), so that a warp's float2 stores of
+// wgmma's fragment (eight rows, four column pairs) fall in distinct banks
+// two at a time, and four consecutive columns from a multiple of 4 stay
+// together
+__device__ __forceinline__ int p_col(int r, int c) { return c ^ ((r & 3) << 3); }
 
 // zb[r ld + k] = z[r d + k] rounded to bf16 (to nearest even) for k < d, 0
 // for d <= k < ld (ld a multiple of 8): eight values a thread, one 16-byte
@@ -443,18 +476,24 @@ __device__ __forceinline__ void load_block(const float* p, bool add, float (&v)[
     }
 }
 
-// Cluster b of S CTAs: tile pair b of the square (p, diag 0). CTA q forms
-// the pair's partial dot tile over d chunks [q chunks / S, (q + 1) chunks /
-// S) on the tensor cores and stages it in its own shared memory. Then it
-// takes the tile's Q-row groups [q G / S, (q + 1) G / S), G = 128 / Q: for
-// each of their Q x Q blocks a consumer thread adds the S CTAs' partials in
-// slice order, read through distributed shared memory, and runs the
-// epilogue (K1's sums, Q = 2; KP: K2's sums and K', Q = 4, K' in runs of
-// four). Its (XX, XY, YY) partial goes to partials[3 blockIdx.x ..].
-template <bool KP>
+// Cluster b of S CTAs: tile b of the panel p (K1 and K2: the tile pairs of
+// the symmetric square; K4: a panel's tiles while they fall short of a
+// wave). CTA q forms the tile's partial dot tile over d chunks [q chunks /
+// S, (q + 1) chunks / S) on the tensor cores, rows row0 + t.r0 .. of
+// rows_map against rows t.c0 .. of cols_map (one copy a stage when
+// one_copy, the maps reading one matrix, and the rows are the same), and
+// stages it in its own shared memory. Then it takes the tile's Q-row groups
+// [q G / S, (q + 1) G / S), G = 128 / Q: for each of their Q x Q blocks a
+// consumer thread adds the S CTAs' partials in slice order, read through
+// distributed shared memory, and runs the epilogue (K1's sums, Q = 2; K2's
+// sums and K', Q = 4; K4's K' alone, Q = 4; K' in runs of four). With SUMS
+// the CTA's (XX, XY, YY) partial goes to partials[3 blockIdx.x ..].
+template <bool SUMS, bool KP>
 __global__ void __launch_bounds__(W::THREADS, 1)
-cluster_gram_kernel(const __grid_constant__ CUtensorMap zmap, const Panel p, int chunks,
-                    const float* __restrict__ norms, const float* __restrict__ bw_ptr, int n1,
+cluster_gram_kernel(const __grid_constant__ CUtensorMap rows_map,
+                    const __grid_constant__ CUtensorMap cols_map, const Panel p, int row0,
+                    int one_copy, int chunks, const float* __restrict__ n_rows,
+                    const float* __restrict__ n_cols, const float* __restrict__ bw_ptr, int n1,
                     VganLadder L, float* __restrict__ partials, float* __restrict__ kp) {
     constexpr int Q = KP ? 4 : 2, G = SB / Q;
     extern __shared__ uint8_t smem_raw[];
@@ -464,6 +503,7 @@ cluster_gram_kernel(const __grid_constant__ CUtensorMap zmap, const Panel p, int
     cg::cluster_group cluster = cg::this_cluster();
     const int S = static_cast<int>(cluster.num_blocks()), q = static_cast<int>(cluster.block_rank());
     const TileAt t = p.at(blockIdx.x / S);
+    const bool same = one_copy && row0 + t.r0 == t.c0;
     uint8_t* ring = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                                ~static_cast<uintptr_t>(1023));
     float* P = reinterpret_cast<float*>(ring + W::RING_BYTES);
@@ -474,16 +514,16 @@ cluster_gram_kernel(const __grid_constant__ CUtensorMap zmap, const Panel p, int
         float acc[W::ACC];
 #pragma unroll
         for (int i = 0; i < W::ACC; ++i) acc[i] = 0.f;
-        W::consume(n, t.r0 == t.c0, ring, bars, acc);
+        W::consume(n, same, ring, bars, acc);
 #pragma unroll
         for (int i = 0; i < W::ACC; i += 2)
             *reinterpret_cast<float2*>(P + W::acc_row(i) * PPAD + W::acc_col(i)) =
                 make_float2(acc[i], acc[i + 1]);
     } else {
-        W::produce(&zmap, t.r0, t.c0, k0, n, ring, bars);
+        W::produce(&rows_map, row0 + t.r0, &cols_map, t.c0, same, k0, n, ring, bars);
     }
     __syncwarp();
-    cluster.sync();  // every partial of the pair is staged
+    cluster.sync();  // every partial of the tile is staged
     float s[3] = {0.f, 0.f, 0.f};
     if (threadIdx.x < W::CONSUMERS) {
         const float bw = *bw_ptr;
@@ -496,24 +536,20 @@ cluster_gram_kernel(const __grid_constant__ CUtensorMap zmap, const Panel p, int
             int rows[Q], cols[Q];
 #pragma unroll
             for (int i = 0; i < Q; ++i) rows[i] = t.r0 + rl + i, cols[i] = t.c0 + cl + i;
-            epilogue<Q, true, KP>(v, rows, cols, t, p, norms, norms, bw, n1, L, s, kp);
+            epilogue<Q, SUMS, KP>(v, rows, cols, t, p, n_rows, n_cols, bw, n1, L, s, kp);
         }
-        if (threadIdx.x >= NT)
+        if (SUMS && threadIdx.x >= NT)
 #pragma unroll
             for (int k = 0; k < 3; ++k) upper[k][threadIdx.x - NT] = s[k], s[k] = 0.f;
     }
-    __syncthreads();
-    if (threadIdx.x < NT)
+    if constexpr (SUMS) {
+        __syncthreads();
+        if (threadIdx.x < NT)
 #pragma unroll
-        for (int k = 0; k < 3; ++k) s[k] += upper[k][threadIdx.x];
-    write_sums(s, red, partials, blockIdx.x);
+            for (int k = 0; k < 3; ++k) s[k] += upper[k][threadIdx.x];
+        write_sums(s, red, partials, blockIdx.x);
+    }
     cluster.sync();  // no CTA leaves while another reads its partial
-}
-
-// shared memory of the product of operands T (float: the f32 pipeline; bf16: the tensor cores)
-template <class T>
-__host__ __device__ constexpr size_t tile_smem() {
-    return sizeof(T) == 4 ? TILE_SMEM : static_cast<size_t>(dist_tile::BF16_SMEM);
 }
 
 // acc = the 128 x 128 dot tile of a_t's rows ra .. and b_t's rows rb .. over
@@ -531,20 +567,14 @@ __device__ __forceinline__ void dot_tile(const float* a_t, int lda, int ra, cons
                                static_cast<float*>(smem), acc, hook);
 }
 
-__device__ __forceinline__ void dot_tile(const bf16* a_t, int lda, int ra, const bf16* b_t, int ldb,
-                                         int rb, int count, void* smem, float (&acc)[ST][ST]) {
-    dist_tile::product_bf16(dist_tile::OperandH{a_t, lda, ra}, dist_tile::OperandH{b_t, ldb, rb},
-                            count, smem, acc);
-}
-
 // Mode (a): block b forms tile b of the panel over all of d, a_t / b_t the
 // row and column operands (column-major, ld a multiple of 4, every row up to
 // a tile's start + 128 inside), then the epilogue in registers. SUMS (K1):
 // the block's (XX, XY, YY) partial; else (K4) K' to kp.
-template <class T, bool SUMS>
+template <bool SUMS>
 __global__ void __launch_bounds__(NT, 2)  // two blocks an SM: at most 128 registers
-tile_kernel(const Panel p, const T* __restrict__ a_t, int lda, int row0,
-            const T* __restrict__ b_t, int ldb, int d, const float* __restrict__ n_rows,
+tile_kernel(const Panel p, const float* __restrict__ a_t, int lda, int row0,
+            const float* __restrict__ b_t, int ldb, int d, const float* __restrict__ n_rows,
             const float* __restrict__ n_cols, const float* __restrict__ bw_ptr, int n1,
             VganLadder L, float* __restrict__ partials, float* __restrict__ kp) {
     extern __shared__ __align__(16) float smem[];
@@ -566,10 +596,9 @@ tile_kernel(const Panel p, const T* __restrict__ a_t, int lda, int row0,
 // Mode (b), pass 1: block (b, s) forms tile b's dot products over the d
 // columns [s slice, s slice + slice) and writes them to its own partial
 // tile of dots, entry (r, c) of thread t at (r ST + c) NT + t.
-template <class T>
 __global__ void __launch_bounds__(NT, 2)
-dot_slices_kernel(const Panel p, const T* __restrict__ a_t, int lda, int row0,
-                  const T* __restrict__ b_t, int ldb, int d, int slice,
+dot_slices_kernel(const Panel p, const float* __restrict__ a_t, int lda, int row0,
+                  const float* __restrict__ b_t, int ldb, int d, int slice,
                   float* __restrict__ dots) {
     extern __shared__ __align__(16) float smem[];
     const TileAt t = p.at(blockIdx.x);
@@ -663,9 +692,8 @@ finalize_sums(const float* __restrict__ partials, int nblocks, float* __restrict
 // of `per` tiles; split 0 adds its run's S @ z_aug straight into sz and rs,
 // split s > 0 into partial s - 1 ((ld x ldz) each), which flash_finalize
 // adds to sz and rs in split order.
-template <class T>
 struct Flash {
-    const T* z_t;
+    const float* z_t;
     const float* z_aug;
     const float* norms;
     int m, d, n1, ld, ldz, tiles, per;
@@ -673,16 +701,14 @@ struct Flash {
 };
 
 // the product's pipeline, then one S tile (St)
-template <class T>
 __host__ __device__ constexpr size_t flash_smem() {
-    return tile_smem<T>() + sizeof(float) * SB2;
+    return TILE_SMEM + sizeof(float) * SB2;
 }
 
 // The S entry of rows j (the tile's row, a z row of the column tile) and i
 // from its d2: K' through ladder_call, times the quadrant's coefficient, 0
 // outside the m x m square.
-template <class T>
-__device__ __forceinline__ float s_entry(float d2, int j, int i, const Flash<T>& f, float bw,
+__device__ __forceinline__ float s_entry(float d2, int j, int i, const Flash& f, float bw,
                                          const VganLadder& L) {
     float k, kp;
     ladder_call<false, true>(d2, bw, L, k, kp);
@@ -697,8 +723,7 @@ __device__ __forceinline__ float s_entry(float d2, int j, int i, const Flash<T>&
 // consecutive i go out as one 16-byte store, and the 16 threads of a row
 // fill 64 consecutive words. No call here, so the 64 dots are not live
 // across one.
-template <class T>
-__device__ __forceinline__ void d2_tile(const float (&acc)[ST][ST], int I, int J, const Flash<T>& f,
+__device__ __forceinline__ void d2_tile(const float (&acc)[ST][ST], int I, int J, const Flash& f,
                                         float* St) {
 #pragma unroll
     for (int g = 0; g < ST; g += 4) {  // four columns at a time: few norms live
@@ -751,8 +776,7 @@ __device__ __forceinline__ void s_z_step(const float* As, const float* Bs, float
 // memory; z_aug's 16-row chunks are double-buffered through cp.async into
 // Zs (2 x 16 x 128 floats). count: the tile's valid rows. Ends with a
 // barrier.
-template <class T>
-__device__ __forceinline__ void s_times_z(const float* St, const Flash<T>& f, int J, int c0,
+__device__ __forceinline__ void s_times_z(const float* St, const Flash& f, int J, int c0,
                                           int count, float* Zs, float (&out)[ST][ST]) {
     const dist_tile::Operand b{f.z_aug + (size_t)J * SB * f.ldz, f.ldz, c0, nullptr};
     const int n = dist_tile::cdiv(count, dist_tile::BK);
@@ -778,8 +802,7 @@ __device__ __forceinline__ void s_times_z(const float* St, const Flash<T>& f, in
 // S @ z_aug from split s: to sz and rs (s == 0), or to partial s - 1
 // ((ld x ldz) row-major, 16-byte runs). add: add to what is there (a later
 // column tile of the split), else store.
-template <class T>
-__device__ __forceinline__ void emit(const float (&v)[ST][ST], const Flash<T>& f, int I, int c0,
+__device__ __forceinline__ void emit(const float (&v)[ST][ST], const Flash& f, int I, int c0,
                                      int s, bool add, float* __restrict__ P,
                                      float* __restrict__ sz, float* __restrict__ rs) {
 #pragma unroll
@@ -815,21 +838,13 @@ __device__ __forceinline__ void emit(const float (&v)[ST][ST], const Flash<T>& f
 // K3's operands from z in one pass: z_aug (ld x ldz) = z, a column of ones
 // at d (rows below m) and zeros; z_t (d x ld) = z column-major, rows m .. ld
 // zero. One 32 x 32 tile of z_aug a block, written as it is read; its
-// columns below d go on to z_t through the transpose. With T = bf16 both
-// hold z rounded to bf16 (z_aug in f32, so that S @ z multiplies the values
-// the distances were formed from, exactly as the Pallas kernel's upcast).
-__device__ __forceinline__ float as_operand(float v, float*) { return v; }
-__device__ __forceinline__ float as_operand(float v, bf16*) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <class T>
+// columns below d go on to z_t through the transpose.
 __global__ void flash_prep_kernel(const float* __restrict__ z, int m, int d, int ld, int ldz,
-                                  T* __restrict__ z_t, float* __restrict__ z_aug) {
+                                  float* __restrict__ z_t, float* __restrict__ z_aug) {
     __shared__ float t[TT][TT + 1];
     dist_tile::transpose_tile(
         [&](int r, int k) {
-            const float v = r < m ? (k < d ? as_operand(z[(size_t)r * d + k], z_t) : (k == d ? 1.f : 0.f))
+            const float v = r < m ? (k < d ? z[(size_t)r * d + k] : (k == d ? 1.f : 0.f))
                                   : 0.f;
             z_aug[(size_t)r * ldz + k] = v;
             return v;
@@ -841,8 +856,7 @@ __global__ void flash_prep_kernel(const float* __restrict__ z, int m, int d, int
 // together into the kernel's loop they passed 128 registers and spilled):
 // the 128 x 128 dot tile of rows J and I over all of d on dist_tile's
 // pipeline, its d2 into St;
-template <class T>
-__device__ __noinline__ void flash_d2(const Flash<T> f, int I, int J, float* smem, float* St) {
+__device__ __noinline__ void flash_d2(const Flash f, int I, int J, float* smem, float* St) {
     float acc[ST][ST];
     dot_tile(f.z_t, f.ld, J * SB, f.z_t, f.ld, I * SB, f.d, smem, acc);
     d2_tile(acc, I, J, f, St);
@@ -850,16 +864,14 @@ __device__ __noinline__ void flash_d2(const Flash<T> f, int I, int J, float* sme
 
 // S in place of d2 in St (thread t the words t, t + 256, ...: conflict-free,
 // and one value live across each ladder call);
-template <class T>
-__device__ __noinline__ void flash_s(const Flash<T> f, int I, int J, float bw, const VganLadder& L,
+__device__ __noinline__ void flash_s(const Flash f, int I, int J, float bw, const VganLadder& L,
                                      float* St) {
     for (int e = threadIdx.x; e < SB2; e += NT)
         St[e] = s_entry(St[e], J * SB + e / SB, I * SB + e % SB, f, bw, L);
 }
 
 // and one 128-column chunk of S @ z_aug, added to the block's rows.
-template <class T>
-__device__ __noinline__ void flash_chunk(const Flash<T> f, const float* St, int I, int J, int c0, int s,
+__device__ __noinline__ void flash_chunk(const Flash f, const float* St, int I, int J, int c0, int s,
                                          bool add, float* Zs, float* P, float* sz, float* rs) {
     float out[ST][ST];
 #pragma unroll
@@ -874,12 +886,11 @@ __device__ __noinline__ void flash_chunk(const Flash<T> f, const float* St, int 
 // dot tile and its d2 (flash_d2), S in place (flash_s), then S @ z_aug in
 // 128-column chunks (flash_chunk), each added to the block's own rows of
 // its output in J order (no other block touches them).
-template <class T>
 __global__ void __launch_bounds__(NT, 2)  // two blocks an SM: at most 128 registers
-flash_tile_kernel(const Flash<T> f, const float* __restrict__ bw_ptr, VganLadder L,
+flash_tile_kernel(const Flash f, const float* __restrict__ bw_ptr, VganLadder L,
                   float* __restrict__ P, float* __restrict__ sz, float* __restrict__ rs) {
     extern __shared__ __align__(16) float smem[];
-    float* St = smem + tile_smem<T>() / sizeof(float);
+    float* St = smem + TILE_SMEM / sizeof(float);
     const int I = blockIdx.x, s = blockIdx.y;
     const float bw = *bw_ptr;
     const int J0 = s * f.per, J1 = min(f.tiles, J0 + f.per);
@@ -902,9 +913,8 @@ flash_tile_kernel(const Flash<T> f, const float* __restrict__ bw_ptr, VganLadder
 // tile (I, J) at [i - I 128][j - J 128]: the operand layout of pass 3.
 constexpr int FLASH_S_SLOTS = 4;  // 16 blocks a tile pair: the ladder is latency-bound
 
-template <class T>
 __global__ void __launch_bounds__(NT)
-flash_s_kernel(const Flash<T> f, const float* __restrict__ dots, int nslices,
+flash_s_kernel(const Flash f, const float* __restrict__ dots, int nslices,
                const float* __restrict__ bw_ptr, VganLadder L, float* __restrict__ S_tiles) {
     const int b = blockIdx.x, t = threadIdx.x;
     int J, I;
@@ -933,9 +943,8 @@ flash_s_kernel(const Flash<T> f, const float* __restrict__ dots, int nslices,
 // (J, I) times z_aug's chunk, in registers, on one cp.async pipeline over
 // all (J, 16-row chunk) steps of the split (the next tile's first chunk is
 // in flight while a tile ends); it goes out once.
-template <class T>
 __global__ void __launch_bounds__(NT, 2)
-flash_product_kernel(const Flash<T> f, const float* __restrict__ S_tiles, float* __restrict__ P,
+flash_product_kernel(const Flash f, const float* __restrict__ S_tiles, float* __restrict__ P,
                      float* __restrict__ sz, float* __restrict__ rs) {
     extern __shared__ __align__(16) float smem[];
     constexpr int CH = SB / dist_tile::BK;  // 16-row chunks of a column tile
@@ -991,14 +1000,236 @@ flash_finalize(const float* __restrict__ P, int nsplit, int m, int d, int ld, in
     }
 }
 
+// ---------------------------------------------------------------------------
+// K3 bf16: S @ z and rowsum(S) on the tensor cores, the S tile formed once a
+// column tile by a thread-block cluster. See the top of this file.
+// ---------------------------------------------------------------------------
+
+// What a K3 bf16 launch works on: z rounded to bf16 (zmap), the f32 rows'
+// norms, its m rows in tiles of 128 and its d columns in `chunks` 64-column
+// chunks, of which a cluster's output takes a group of at most FC_GROUP;
+// the column tiles in nsplit runs of `per`; the coefficients of S.
+struct FlashC {
+    const float* norms;
+    int m, d, n1, tiles, per, nsplit, chunks;
+    float cxx, cyy, cxy;
+};
+
+constexpr int FC_GROUP = 16;                     // output chunks a cluster: two a CTA, eight CTAs
+constexpr int FC_BOX = SB * W::WBK * 2;          // one 128-row box of 64 bf16 columns, 16 KB
+// Ibuf (2 boxes), Zbuf (2 boxes), S's three bf16 terms (2 boxes each) and
+// the partial dot tile (128 x 128 f32), after the 1024-byte alignment
+constexpr size_t FLASH_CLUSTER_SMEM = 1024 + 10 * FC_BOX + sizeof(float) * SB2;
+
+// byte offset of element (i, j) of a 128 x 64 K-major box under the 128-byte
+// swizzle (TMA's and wgmma's layout): the 16-byte unit j / 8 of row i moves
+// to unit (j / 8) ^ (i % 8)
+__device__ __forceinline__ int swizzled(int i, int j) {
+    return i * 128 + ((((j * 2) >> 4) ^ (i & 7)) << 4) + ((j * 2) & 15);
+}
+
+// s = hi + mid + lo exactly, each rounded to bf16 from what the previous
+// left (f32 has 24 significant bits, bf16 8; exact while lo is normal, |s|
+// above about 2^-110). ops/cuda/mmd_gram.py split_bf16x3 is the plain
+// version.
+__device__ __forceinline__ void split_bf16x3(float s, bf16& hi, bf16& mid, bf16& lo) {
+    hi = __float2bfloat16_rn(s);
+    const float r1 = s - __bfloat162float(hi);
+    mid = __float2bfloat16_rn(r1);
+    lo = __float2bfloat16_rn(r1 - __bfloat162float(mid));
+}
+
+// Cluster (I, s, g) of c CTAs (gridDim.x / c clusters, I fastest) owns row
+// tile I, the column tiles of split s and output chunk group g. CTA q takes
+// chunks [q n / c, (q + 1) n / c) of the dot products (n = chunks) and of
+// its group's output chunks; with one group (chunks <= 16, c = chunks / 2
+// rounded up) the two ranges are the same, at most two chunks, and row tile
+// I's chunks stay in Ibuf for the whole walk. For each column tile J:
+//  1. the partial dot tile over its chunks, J's chunks in Zbuf, each chunk's
+//     fragment folded into P in IEEE f32 (wgmma_tile.cuh's accumulation);
+//  2. (cluster barrier) its rows [q 128 / c, (q + 1) 128 / c) of S: the c
+//     partials added in rank order through distributed shared memory, d2,
+//     the ladder, the coefficient; each entry split into three bf16 terms
+//     and stored to the Sbuf of every CTA of the cluster (K-major under the
+//     swizzle), and the row's sum, in f64 (its x and y columns' terms
+//     cancel to a small rowsum), added to rs_acc in J order (one warp a
+//     row, a fixed butterfly);
+//  3. (cluster barrier: every CTA holds the whole S tile) S @ z_J over its
+//     output chunks: warpgroup g takes rows 64 (g % 2)
+//     and chunk g / 2, A each term of S, B the chunk of z_J in Zbuf read
+//     MN-major (the same box serves both products), each (term, 64-row
+//     half of J) a fragment from zero folded into the accumulators `out`,
+//     which stay in registers for the whole walk.
+// Then out goes to sz (split 0) or the split's partial, rs_acc to rs (group
+// 0 only). No dot tile, S tile or partial output goes to device memory.
+// rowsum(S) is summed beside the ladder rather than taken from a column of
+// ones beside z: at d = 1024 that column would be a 17th chunk, one CTA
+// past the 8 of a portable cluster.
+__global__ void __launch_bounds__(W::CONSUMERS, 1)
+flash_cluster_kernel(const __grid_constant__ CUtensorMap zmap, const FlashC f,
+                     const float* __restrict__ bw_ptr, VganLadder L, float* __restrict__ part,
+                     float* __restrict__ sz, float* __restrict__ rs) {
+    extern __shared__ uint8_t smem_raw[];
+    __shared__ uint64_t bar_i, bar_z;
+    __shared__ double rs_acc[SB];  // rowsum(S) of this CTA's rows, in J order
+    cg::cluster_group cluster = cg::this_cluster();
+    const int c = static_cast<int>(cluster.num_blocks()), q = static_cast<int>(cluster.block_rank());
+    int cl = blockIdx.x / c;
+    const int I = cl % f.tiles;
+    cl /= f.tiles;
+    const int split = cl % f.nsplit, grp = cl / f.nsplit;
+    uint8_t* Ibuf = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                               ~static_cast<uintptr_t>(1023));
+    uint8_t* Zbuf = Ibuf + 2 * FC_BOX;
+    uint8_t* Sbuf = Ibuf + 4 * FC_BOX;  // term t, half h of J at (2 t + h) FC_BOX
+    float* P = reinterpret_cast<float*>(Ibuf + 10 * FC_BOX);
+    const int tid = threadIdx.x, g = tid / 128, warp = tid / 32, lane = tid % 32;
+    const int d0 = q * f.chunks / c, d1 = (q + 1) * f.chunks / c;
+    const int gbase = grp * FC_GROUP, gn = min(FC_GROUP, f.chunks - gbase);
+    const int o0 = gbase + q * gn / c, o1 = gbase + (q + 1) * gn / c;
+    const bool resident = f.chunks <= FC_GROUP;  // then [o0, o1) == [d0, d1)
+    const int rb = q * SB / c, re = (q + 1) * SB / c;  // this CTA's rows of S
+    const float bw = *bw_ptr;
+    if (tid == 0) {
+        W::mbar_init(&bar_i, 1);
+        W::mbar_init(&bar_z, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    if (tid < SB) rs_acc[tid] = 0.0;
+    __syncthreads();
+    int loads_i = 0, loads_z = 0;  // TMA loads into Ibuf and Zbuf so far
+    auto load = [&](uint8_t* buf, uint64_t* bar, int row, int k0, int k1) {
+        if (tid == 0) {
+            W::mbar_expect_tx(bar, (k1 - k0) * FC_BOX);
+            for (int k = k0; k < k1; ++k)
+                W::tma_load(buf + (k - k0) * FC_BOX, &zmap, bar, k * W::WBK, row);
+        }
+    };
+    float out[W::ACC], frag[W::ACC];
+#pragma unroll
+    for (int i = 0; i < W::ACC; ++i) out[i] = 0.f;
+    if (resident) load(Ibuf, &bar_i, I * SB, d0, d1), ++loads_i;
+    const int J0 = split * f.per, J1 = min(f.tiles, J0 + f.per);
+    for (int J = J0; J < J1; ++J) {
+        // 1. the partial dot tile, two chunks at a time
+        for (int k = d0; k < d1; k += 2) {
+            const int k1 = min(d1, k + 2);
+            if (!resident) load(Ibuf, &bar_i, I * SB, k, k1), ++loads_i;
+            load(Zbuf, &bar_z, J * SB, k, k1), ++loads_z;
+            W::mbar_wait(&bar_i, (loads_i - 1) & 1);
+            W::mbar_wait(&bar_z, (loads_z - 1) & 1);
+            for (int kk = 0; kk < k1 - k; ++kk) {
+                const uint64_t da = W::smem_desc(Ibuf + kk * FC_BOX + (g % 2) * 64 * 128),
+                               db = W::smem_desc(Zbuf + kk * FC_BOX + (g / 2) * 64 * 128);
+                W::wgmma_fence();
+                W::wgmma_m64n64k16_fresh(frag, da, db);
+                W::wgmma_m64n64k16<1>(frag, da + 2, db + 2);
+                W::wgmma_m64n64k16<1>(frag, da + 4, db + 4);
+                W::wgmma_m64n64k16<1>(frag, da + 6, db + 6);
+                W::wgmma_commit();
+                W::wgmma_wait_all();
+                W::fence_operands(frag);
+                const bool first = k == d0 && kk == 0;
+#pragma unroll
+                for (int i = 0; i < W::ACC; i += 2) {
+                    const int r = W::acc_row(i);
+                    float2* pp = reinterpret_cast<float2*>(P + r * SB + p_col(r, W::acc_col(i)));
+                    const float2 o = first ? make_float2(0.f, 0.f) : *pp;
+                    *pp = make_float2(o.x + frag[i], o.y + frag[i + 1]);
+                }
+            }
+            __syncthreads();  // Ibuf and Zbuf are read
+        }
+        if (!resident && o1 > o0) load(Zbuf, &bar_z, J * SB, o0, o1), ++loads_z;
+        cluster.sync();  // every CTA's partial dot tile is staged
+        // 2. this CTA's rows of S
+        for (int r = rb + warp; r < re; r += W::CONSUMERS / 32) {
+            const int i = I * SB + r, jl = 4 * lane;
+            float dot[4];
+            for (int pc = 0; pc < c; ++pc) {
+                const float4 v = W::ld_cluster(W::cluster_addr(P + r * SB + p_col(r, jl), pc));
+                dot[0] = pc ? dot[0] + v.x : v.x, dot[1] = pc ? dot[1] + v.y : v.y;
+                dot[2] = pc ? dot[2] + v.z : v.z, dot[3] = pc ? dot[3] + v.w : v.w;
+            }
+            const float ni = i < f.m ? f.norms[i] : 0.f;
+            const bool ix = i < f.n1;
+            double row_sum = 0.0;  // in f64: a row's terms cancel across the quadrants
+            __align__(8) bf16 terms[3][4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int j = J * SB + jl + e;
+                const float nj = j < f.m ? f.norms[j] : 0.f;
+                const float d2 = fmaxf(fmaf(-2.f, dot[e], ni + nj), 0.f);
+                float k, kpv;
+                ladder_body<false, true>(d2, bw, L, k, kpv);
+                const bool jx = j < f.n1;
+                const float coeff = (jx && ix) ? f.cxx : ((!jx && !ix) ? f.cyy : f.cxy);
+                const float sv = (i < f.m && j < f.m) ? coeff * kpv : 0.f;
+                row_sum += static_cast<double>(sv);
+                split_bf16x3(sv, terms[0][e], terms[1][e], terms[2][e]);
+            }
+            const int off = (jl / 64) * FC_BOX + swizzled(r, jl % 64);
+            for (int pc = 0; pc < c; ++pc)  // to every CTA's Sbuf, this one's first
+#pragma unroll
+                for (int t = 0; t < 3; ++t)
+                    W::st_cluster(W::cluster_addr(Sbuf + 2 * t * FC_BOX + off, (q + pc) % c),
+                                  *reinterpret_cast<const uint2*>(terms[t]));
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) row_sum += __shfl_xor_sync(0xffffffffu, row_sum, o);
+            if (lane == 0) rs_acc[r] += row_sum;
+        }
+        asm volatile("fence.proxy.async;\n" ::: "memory");  // the Sbufs, for wgmma
+        cluster.sync();  // every CTA holds the whole S tile; P is read
+        // 3. S @ z_J over this CTA's output chunks
+        if (!resident && o1 > o0) W::mbar_wait(&bar_z, (loads_z - 1) & 1);
+        if (o0 + g / 2 < o1) {
+            const uint8_t* zc = Zbuf + (g / 2) * FC_BOX;
+#pragma unroll 1
+            for (int h = 0; h < 2; ++h)
+                for (int t = 0; t < 3; ++t) {
+                    const uint8_t* a = Sbuf + (2 * t + h) * FC_BOX + (g % 2) * 64 * 128;
+                    const uint64_t da = W::smem_desc(a), db = W::smem_desc_mn(zc + h * 64 * 128);
+                    W::wgmma_fence();
+                    W::wgmma_m64n64k16_fresh<1>(frag, da, db);
+                    W::wgmma_m64n64k16<1, 1>(frag, da + 2, db + 128);
+                    W::wgmma_m64n64k16<1, 1>(frag, da + 4, db + 256);
+                    W::wgmma_m64n64k16<1, 1>(frag, da + 6, db + 384);
+                    W::wgmma_commit();
+                    W::wgmma_wait_all();
+                    W::fence_operands(frag);
+#pragma unroll
+                    for (int i = 0; i < W::ACC; ++i) out[i] += frag[i];
+                }
+        }
+        __syncthreads();  // Zbuf and Sbuf are read
+    }
+    if (o0 + g / 2 < o1)
+#pragma unroll
+        for (int i = 0; i < W::ACC; ++i) {
+            const int row = I * SB + W::acc_row(i), col = o0 * W::WBK + W::acc_col(i);
+            if (row < f.m && col < f.d) {
+                if (split == 0) sz[(size_t)row * f.d + col] = out[i];
+                else part[((size_t)(split - 1) * f.m + row) * (f.d + 1) + col] = out[i];
+            }
+        }
+    if (grp == 0)
+        for (int r = rb + tid; r < re; r += W::CONSUMERS) {
+            const int i = I * SB + r;
+            if (i >= f.m) continue;
+            const float v = static_cast<float>(rs_acc[r]);
+            if (split == 0) rs[i] = v;
+            else part[((size_t)(split - 1) * f.m + i) * (f.d + 1) + f.d] = v;
+        }
+    cluster.sync();  // no CTA leaves while another may read its shared memory
+}
+
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 inline int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
 
-// floats of scratch that z's column-major copy (d x ld of T) takes
-template <class T>
+// floats of scratch that z's column-major copy (d x ld) takes
 size_t zt_floats(int d, int ld) {
-    return (size_t)d * ld * sizeof(T) / sizeof(float);
+    return (size_t)d * ld;
 }
 
 // K1 (kp == nullptr) and K2 over the symmetric square of z (m, d), in f32.
@@ -1015,17 +1246,17 @@ int quadrant_sums(const float* z, const float* norms, const float* bw, int m, in
     const int ld = p.rows * SB, blocks = p.tiles(), nslices = cdiv(d, slice);
     if (nslices > 65535 || cdiv(d, TT) > 65535) return invalid();
     float* z_t = scratch;
-    float* dots = scratch + zt_floats<float>(d, ld);
-    transpose_pad_kernel<float><<<dim3(ld / TT, cdiv(d, TT)), dim3(TT, 8), 0, s>>>(z, m, d, ld, z_t);
+    float* dots = scratch + zt_floats(d, ld);
+    transpose_pad_kernel<<<dim3(ld / TT, cdiv(d, TT)), dim3(TT, 8), 0, s>>>(z, m, d, ld, z_t);
     if (!kp && nslices == 1) {
-        tile_kernel<float, true><<<blocks, NT, TILE_SMEM, s>>>(p, z_t, ld, 0, z_t, ld, d, norms,
-                                                               norms, bw, n1, *ladder, dots, nullptr);
+        tile_kernel<true><<<blocks, NT, TILE_SMEM, s>>>(p, z_t, ld, 0, z_t, ld, d, norms, norms, bw,
+                                                        n1, *ladder, dots, nullptr);
         finalize_sums<<<1, NT, 0, s>>>(dots, blocks, sums);
         return static_cast<int>(cudaGetLastError());
     }
     float* partials = dots + (size_t)nslices * blocks * SB2;
-    dot_slices_kernel<float><<<dim3(blocks, nslices), NT, TILE_SMEM, s>>>(p, z_t, ld, 0, z_t, ld, d,
-                                                                          slice, dots);
+    dot_slices_kernel<<<dim3(blocks, nslices), NT, TILE_SMEM, s>>>(p, z_t, ld, 0, z_t, ld, d, slice,
+                                                                   dots);
     const int parts = kp ? 4 : 16;
     if (kp)
         slices_epilogue_kernel<4, true, true><<<dim3(blocks, parts), NT, 0, s>>>(
@@ -1057,19 +1288,63 @@ EncodeTiled encode_tiled() {
     return fn;
 }
 
-// cluster_gram_kernel's dynamic shared memory limit, raised once a device
-template <bool KP>
-cudaError_t allow_cluster_smem() {
+// A kernel's dynamic shared memory limit raised to `bytes`, once a device
+template <auto KERNEL>
+cudaError_t allow_smem(size_t bytes) {
     static std::atomic<unsigned long long> raised{0};  // a bit a device
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
     if (raised.load() & bit) return cudaSuccess;
-    err = cudaFuncSetAttribute(cluster_gram_kernel<KP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(CLUSTER_SMEM));
+    err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
     if (err == cudaSuccess) raised.fetch_or(bit);
     return err;
+}
+
+// The TMA map of a row-major bf16 matrix of `rows` x d (row stride ld
+// values, a multiple of 8), box 64 columns x box_rows rows, under the
+// 128-byte swizzle; reads past the edges fill zeros.
+int encode_rows(CUtensorMap* map, const bf16* x, int rows, int d, int ld, int box_rows) {
+    const EncodeTiled encode = encode_tiled();
+    if (!encode) return static_cast<int>(cudaErrorSymbolNotFound);
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * sizeof(bf16)};
+    const cuuint32_t box[2] = {W::WBK, static_cast<cuuint32_t>(box_rows)}, unit[2] = {1, 1};
+    if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(x), dims, strides, box,
+               unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return invalid();
+    return 0;
+}
+
+// z (m, d) rounded to bf16 into zb (m x ld): round_rows_kernel.
+int round_rows(const float* z, int m, int d, int ld, bf16* zb, cudaStream_t s) {
+    if (m < 1 || d < 1 || ld < d || ld % 8) return invalid();
+    const size_t blocks = ((size_t)m * (ld / 8) + NT - 1) / NT;
+    if (blocks > INT_MAX) return invalid();
+    round_rows_kernel<<<static_cast<int>(blocks), NT, 0, s>>>(z, m, d, ld, zb);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// cudaLaunchKernelEx of `kernel` in clusters of `cluster` CTAs
+template <class Kernel, class... Args>
+cudaError_t launch_clusters(Kernel kernel, long long grid, int threads, size_t smem, int cluster,
+                            cudaStream_t s, Args... args) {
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(grid));
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // K1 bf16 (kp == nullptr) and K2 bf16 over the symmetric square of z (m,
@@ -1085,44 +1360,83 @@ int quadrant_sums_bf16(const float* z, const float* norms, const float* bw, int 
     if (m < 1 || d < 1 || slices < 1 || slices > 8 || slices > chunks) return invalid();
     const Panel p = make_panel(m, m, 0);
     const long long grid = (long long)p.tiles() * slices;
-    const size_t round_blocks = ((size_t)m * (ld / 8) + NT - 1) / NT;
-    if (grid > INT_MAX || round_blocks > INT_MAX) return invalid();
-    const EncodeTiled encode = encode_tiled();
-    if (!encode) return static_cast<int>(cudaErrorSymbolNotFound);
+    if (grid > INT_MAX) return invalid();
     bf16* zb = reinterpret_cast<bf16*>(scratch);
     float* partials = scratch + (size_t)m * ld / 2;
     CUtensorMap map;
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(m)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * sizeof(bf16)};
-    const cuuint32_t box[2] = {W::WBK, W::TILE}, unit[2] = {1, 1};
-    if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, zb, dims, strides, box, unit,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-        return invalid();
-    cudaError_t err = allow_cluster_smem<KP>();
+    int rc = encode_rows(&map, zb, m, d, ld, SB);
+    if (rc) return rc;
+    cudaError_t err = allow_smem<cluster_gram_kernel<true, KP>>(CLUSTER_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
-    round_rows_kernel<<<static_cast<int>(round_blocks), NT, 0, s>>>(z, m, d, ld, zb);
-    cudaLaunchAttribute cluster;
-    cluster.id = cudaLaunchAttributeClusterDimension;
-    cluster.val.clusterDim.x = slices;
-    cluster.val.clusterDim.y = 1;
-    cluster.val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(static_cast<unsigned>(grid));
-    cfg.blockDim = dim3(W::THREADS);
-    cfg.dynamicSmemBytes = CLUSTER_SMEM;
-    cfg.stream = s;
-    cfg.attrs = &cluster;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, cluster_gram_kernel<KP>, map, p, chunks, norms, bw, n1, *ladder,
-                             partials, kp);
+    if ((rc = round_rows(z, m, d, ld, zb, s))) return rc;
+    err = launch_clusters(cluster_gram_kernel<true, KP>, grid, W::THREADS, CLUSTER_SMEM, slices, s,
+                          map, map, p, 0, 1, chunks, norms, norms, bw, n1, *ladder, partials, kp);
     if (err != cudaSuccess) return static_cast<int>(err);
     finalize_sums<<<1, NT, 0, s>>>(partials, static_cast<int>(grid), sums);
     return static_cast<int>(cudaGetLastError());
 }
 
-// K3 on operands T: see vgan_gram_backward_flash.
-template <class T>
+// K4 bf16: see vgan_kprime_panel_bf16.
+int kprime_panel_bf16(const bf16* rows_b, int row0, const bf16* cols_b, int ld,
+                      const float* n_rows, const float* n_cols, const float* bw, int R, int C,
+                      int d, int diag, const VganLadder* ladder, int slices, float* kp,
+                      cudaStream_t s) {
+    const int chunks = cdiv(d, W::WBK);
+    if (R < 1 || C < 1 || d < 1 || ld < d || ld % 8 || slices < 1 || slices > 8 || slices > chunks)
+        return invalid();
+    if (diag >= 0 && ((diag & 3) || row0 != diag || rows_b != cols_b || diag + R > C ||
+                      (diag + R < C && (R & 3))))
+        return invalid();
+    if (diag < 0 && row0 != 0) return invalid();
+    const Panel p = make_panel(R, C, diag);
+    const long long grid = (long long)p.tiles() * slices;
+    if (grid > INT_MAX) return invalid();
+    CUtensorMap cols_map, rows_map;
+    int rc = encode_rows(&cols_map, cols_b, C, d, ld, SB);
+    if (rc) return rc;
+    if (diag < 0 && (rc = encode_rows(&rows_map, rows_b, R, d, ld, SB))) return rc;
+    cudaError_t err = allow_smem<cluster_gram_kernel<false, true>>(CLUSTER_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = launch_clusters(cluster_gram_kernel<false, true>, grid, W::THREADS, CLUSTER_SMEM, slices, s,
+                          diag >= 0 ? cols_map : rows_map, cols_map, p, row0, diag >= 0 ? 1 : 0,
+                          chunks, n_rows, n_cols, bw, 0, *ladder, static_cast<float*>(nullptr), kp);
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// K3 bf16: see vgan_gram_backward_flash_bf16.
+int backward_flash_bf16(const float* z, const float* norms, const float* bw, int m, int d, int n1,
+                        float cxx, float cyy, float cxy, const VganLadder* ladder, int cluster,
+                        int nsplit, float* scratch, float* sz, float* rs, cudaStream_t s) {
+    const int chunks = cdiv(d, W::WBK), tiles = cdiv(m, SB), ld = cdiv(d, 8) * 8;
+    const int groups = cdiv(chunks, FC_GROUP);
+    if (m < 1 || d < 1 || nsplit < 1 || nsplit > tiles ||
+        cluster != (groups == 1 ? cdiv(chunks, 2) : 8))
+        return invalid();
+    const int per = cdiv(tiles, nsplit);
+    if (cdiv(tiles, per) != nsplit) return invalid();
+    const long long grid = (long long)tiles * nsplit * groups * cluster;
+    if (grid > INT_MAX) return invalid();
+    bf16* zb = reinterpret_cast<bf16*>(scratch);
+    float* part = scratch + (size_t)m * ld / 2;
+    CUtensorMap map;
+    int rc = encode_rows(&map, zb, m, d, ld, SB);
+    if (rc) return rc;
+    cudaError_t err = allow_smem<flash_cluster_kernel>(FLASH_CLUSTER_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if ((rc = round_rows(z, m, d, ld, zb, s))) return rc;
+    const FlashC f{norms, m, d, n1, tiles, per, nsplit, chunks, cxx, cyy, cxy};
+    err = launch_clusters(flash_cluster_kernel, grid, W::CONSUMERS, FLASH_CLUSTER_SMEM, cluster, s,
+                          map, f, bw, *ladder, part, sz, rs);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (nsplit > 1) {
+        const size_t n = (size_t)m * (d + 1);
+        flash_finalize<<<static_cast<int>(std::min<size_t>((n + NT - 1) / NT, 4096)), NT, 0, s>>>(
+            part, nsplit, m, d, m, d + 1, sz, rs);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K3: see vgan_gram_backward_flash.
 int backward_flash(const float* z, const float* norms, const float* bw, int m, int d, int n1,
                    float cxx, float cyy, float cxy, const VganLadder* ladder, int slice, int nsplit,
                    float* scratch, float* sz, float* rs, cudaStream_t s) {
@@ -1132,28 +1446,28 @@ int backward_flash(const float* z, const float* norms, const float* bw, int m, i
         return invalid();
     const int per = cdiv(tiles, nsplit), nslices = cdiv(d, slice);
     if (cdiv(tiles, per) != nsplit || nslices > 65535) return invalid();
-    T* z_t = reinterpret_cast<T*>(scratch);
-    float* z_aug = scratch + zt_floats<T>(d, ld);
+    float* z_t = scratch;
+    float* z_aug = scratch + zt_floats(d, ld);
     float* dots = z_aug + (size_t)ld * ldz;
     float* P = dots + (nslices > 1 ? (size_t)nslices * (tiles * (tiles + 1) / 2) * SB2 : 0);
-    const Flash<T> f{z_t, z_aug, norms, m, d, n1, ld, ldz, tiles, per, cxx, cyy, cxy};
-    flash_prep_kernel<T><<<dim3(ld / TT, ldz / TT), dim3(TT, 8), 0, s>>>(z, m, d, ld, ldz, z_t, z_aug);
+    const Flash f{z_t, z_aug, norms, m, d, n1, ld, ldz, tiles, per, cxx, cyy, cxy};
+    flash_prep_kernel<<<dim3(ld / TT, ldz / TT), dim3(TT, 8), 0, s>>>(z, m, d, ld, ldz, z_t, z_aug);
     if (nslices == 1) {
-        cudaError_t err = cudaFuncSetAttribute(flash_tile_kernel<T>,
+        cudaError_t err = cudaFuncSetAttribute(flash_tile_kernel,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(flash_smem<T>()));
+                                               static_cast<int>(flash_smem()));
         if (err != cudaSuccess) return static_cast<int>(err);
-        flash_tile_kernel<T><<<dim3(tiles, nsplit), NT, flash_smem<T>(), s>>>(f, bw, *ladder, P, sz, rs);
+        flash_tile_kernel<<<dim3(tiles, nsplit), NT, flash_smem(), s>>>(f, bw, *ladder, P, sz, rs);
     } else {
         float* S_tiles = P;
         P = S_tiles + (size_t)tiles * tiles * SB2;
         const Panel p = make_panel(m, m, 0);  // the tile pairs J <= I
-        dot_slices_kernel<T><<<dim3(p.tiles(), nslices), NT, tile_smem<T>(), s>>>(p, z_t, ld, 0, z_t,
-                                                                                  ld, d, slice, dots);
-        flash_s_kernel<T><<<dim3(p.tiles(), ST * ST / FLASH_S_SLOTS), NT, 0, s>>>(f, dots, nslices, bw,
-                                                                                 *ladder, S_tiles);
-        flash_product_kernel<T><<<dim3(tiles, nsplit, ldz / SB), NT, TILE_SMEM, s>>>(f, S_tiles, P, sz,
-                                                                                    rs);
+        dot_slices_kernel<<<dim3(p.tiles(), nslices), NT, TILE_SMEM, s>>>(p, z_t, ld, 0, z_t, ld, d,
+                                                                           slice, dots);
+        flash_s_kernel<<<dim3(p.tiles(), ST * ST / FLASH_S_SLOTS), NT, 0, s>>>(f, dots, nslices, bw,
+                                                                              *ladder, S_tiles);
+        flash_product_kernel<<<dim3(tiles, nsplit, ldz / SB), NT, TILE_SMEM, s>>>(f, S_tiles, P, sz,
+                                                                                 rs);
     }
     if (nsplit > 1) {
         const size_t n = (size_t)m * (d + 1);
@@ -1163,21 +1477,18 @@ int backward_flash(const float* z, const float* norms, const float* bw, int m, i
     return static_cast<int>(cudaGetLastError());
 }
 
-template <class T>
-int transpose_pad(const float* z, int n, int d, int ld, T* z_t, cudaStream_t s) {
+int transpose_pad(const float* z, int n, int d, int ld, float* z_t, cudaStream_t s) {
     if (n < 1 || d < 1 || ld < n || ld % TT || cdiv(d, TT) > 65535) return invalid();
-    transpose_pad_kernel<T><<<dim3(ld / TT, cdiv(d, TT)), dim3(TT, 8), 0, s>>>(z, n, d, ld, z_t);
+    transpose_pad_kernel<<<dim3(ld / TT, cdiv(d, TT)), dim3(TT, 8), 0, s>>>(z, n, d, ld, z_t);
     return static_cast<int>(cudaGetLastError());
 }
 
-// K4 on operands T: see vgan_kprime_panel. A bf16 operand's column starts
-// must be multiples of 8 (16-byte copies of eight bf16).
-template <class T>
-int kprime_panel(const T* rows_t, int ld_rows, int row0, const T* cols_t, int ld_cols,
+// K4: see vgan_kprime_panel.
+int kprime_panel(const float* rows_t, int ld_rows, int row0, const float* cols_t, int ld_cols,
                  const float* n_rows, const float* n_cols, const float* bw, int R, int C, int d,
                  int diag, const VganLadder* ladder, int slice, float* scratch, float* kp,
                  cudaStream_t s) {
-    const int align = 16 / sizeof(T) - 1;  // 3 for f32 (float4 copies), 7 for bf16
+    const int align = 3;  // column starts of float4 copies
     if (R < 1 || C < 1 || d < 1 || slice < 1 || slice % dist_tile::BK ||
         ((ld_rows | ld_cols | row0) & align))
         return invalid();
@@ -1188,12 +1499,12 @@ int kprime_panel(const T* rows_t, int ld_rows, int row0, const T* cols_t, int ld
     const int blocks = p.tiles(), nslices = cdiv(d, slice);
     if (nslices > 65535) return invalid();
     if (nslices == 1) {
-        tile_kernel<T, false><<<blocks, NT, tile_smem<T>(), s>>>(p, rows_t, ld_rows, row0, cols_t,
-                                                                 ld_cols, d, n_rows, n_cols, bw, 0,
-                                                                 *ladder, nullptr, kp);
+        tile_kernel<false><<<blocks, NT, TILE_SMEM, s>>>(p, rows_t, ld_rows, row0, cols_t, ld_cols,
+                                                         d, n_rows, n_cols, bw, 0, *ladder, nullptr,
+                                                         kp);
         return static_cast<int>(cudaGetLastError());
     }
-    dot_slices_kernel<T><<<dim3(blocks, nslices), NT, tile_smem<T>(), s>>>(
+    dot_slices_kernel<<<dim3(blocks, nslices), NT, TILE_SMEM, s>>>(
         p, rows_t, ld_rows, row0, cols_t, ld_cols, d, slice, scratch);
     slices_epilogue_kernel<4, false, true><<<dim3(blocks, 4), NT, 0, s>>>(
         scratch, nslices, p, n_rows, n_cols, bw, 0, *ladder, nullptr, kp);
@@ -1235,14 +1546,14 @@ int vgan_gram_backward_flash(const float* z, const float* norms, const float* bw
                              int d, int n1, float cxx, float cyy, float cxy,
                              const VganLadder* ladder, int slice, int nsplit, float* scratch,
                              float* sz, float* rs, void* stream) {
-    return backward_flash<float>(z, norms, bw, m, d, n1, cxx, cyy, cxy, ladder, slice, nsplit,
+    return backward_flash(z, norms, bw, m, d, n1, cxx, cyy, cxy, ladder, slice, nsplit,
                                  scratch, sz, rs, static_cast<cudaStream_t>(stream));
 }
 
 // z (n, d) to z_t (d, ld) column-major, rows n .. ld zero (ld >= n, a
 // multiple of 32): K4's operands.
 int vgan_transpose_pad(const float* z, int n, int d, int ld, float* z_t, void* stream) {
-    return transpose_pad<float>(z, n, d, ld, z_t, static_cast<cudaStream_t>(stream));
+    return transpose_pad(z, n, d, ld, z_t, static_cast<cudaStream_t>(stream));
 }
 
 // K4: the (R, C) panel kp of K'(d2) between rows row0 .. row0 + R of rows_t
@@ -1257,15 +1568,13 @@ int vgan_kprime_panel(const float* rows_t, int ld_rows, int row0, const float* c
                       int ld_cols, const float* n_rows, const float* n_cols, const float* bw,
                       int R, int C, int d, int diag, const VganLadder* ladder, int slice,
                       float* scratch, float* kp, void* stream) {
-    return kprime_panel<float>(rows_t, ld_rows, row0, cols_t, ld_cols, n_rows, n_cols, bw, R, C, d,
+    return kprime_panel(rows_t, ld_rows, row0, cols_t, ld_cols, n_rows, n_cols, bw, R, C, d,
                                diag, ladder, slice, scratch, kp, static_cast<cudaStream_t>(stream));
 }
 
-// The bf16-operand variants: the same arguments (z f32, rounded on the
-// card; the norms from the f32 z). K1 bf16 and K2 bf16 take `slices`, the
-// CTAs of a cluster (see quadrant_sums_bf16 for it and the scratch); K3
-// bf16's z_t is bf16 in the scratch (d x M / 2 floats); K4's operands bf16
-// from vgan_transpose_pad_bf16, every column start a multiple of 8.
+// The bf16-operand variants. K1 bf16 and K2 bf16 take the arguments of K1
+// and K2 but `slices`, the CTAs of a cluster (see quadrant_sums_bf16 for it
+// and the scratch): z f32, rounded on the card; the norms from the f32 z.
 int vgan_gram_quadrant_sums_bf16(const float* z, const float* norms, const float* bw, int m,
                                  int d, int n1, const VganLadder* ladder, int slices,
                                  float* scratch, float* sums, void* stream) {
@@ -1281,24 +1590,41 @@ int vgan_gram_quadrant_sums_stash_bf16(const float* z, const float* norms, const
                                     static_cast<cudaStream_t>(stream));
 }
 
+// K3 bf16: K3's arguments but `cluster`, the CTAs of a cluster (half the
+// 64-column chunks of d, rounded up, while they are at most 16; else 8 and
+// the chunks in groups of 16), and nsplit, the runs of column tiles (as
+// K3's). scratch, in this order: zb (m x ld bf16, ld = d rounded up to 8)
+// and with nsplit > 1 the partials of splits 1 .. nsplit - 1 ((nsplit - 1)
+// x m x (d + 1)). ops/cuda/mmd_gram.py flash_cluster_schedule picks cluster
+// and nsplit and flash_bf16_scratch_floats sizes the scratch.
 int vgan_gram_backward_flash_bf16(const float* z, const float* norms, const float* bw, int m,
                                   int d, int n1, float cxx, float cyy, float cxy,
-                                  const VganLadder* ladder, int slice, int nsplit, float* scratch,
+                                  const VganLadder* ladder, int cluster, int nsplit, float* scratch,
                                   float* sz, float* rs, void* stream) {
-    return backward_flash<bf16>(z, norms, bw, m, d, n1, cxx, cyy, cxy, ladder, slice, nsplit,
-                                scratch, sz, rs, static_cast<cudaStream_t>(stream));
+    return backward_flash_bf16(z, norms, bw, m, d, n1, cxx, cyy, cxy, ladder, cluster, nsplit,
+                               scratch, sz, rs, static_cast<cudaStream_t>(stream));
 }
 
-int vgan_transpose_pad_bf16(const float* z, int n, int d, int ld, bf16* z_t, void* stream) {
-    return transpose_pad<bf16>(z, n, d, ld, z_t, static_cast<cudaStream_t>(stream));
+// z (m, d) rounded to bf16 (to nearest even) into zb (m x ld, row-major, ld
+// >= d a multiple of 8, columns d .. ld zero): K4 bf16's operands.
+int vgan_round_rows_bf16(const float* z, int m, int d, int ld, bf16* zb, void* stream) {
+    return round_rows(z, m, d, ld, zb, static_cast<cudaStream_t>(stream));
 }
 
-int vgan_kprime_panel_bf16(const bf16* rows_t, int ld_rows, int row0, const bf16* cols_t,
-                           int ld_cols, const float* n_rows, const float* n_cols, const float* bw,
-                           int R, int C, int d, int diag, const VganLadder* ladder, int slice,
-                           float* scratch, float* kp, void* stream) {
-    return kprime_panel<bf16>(rows_t, ld_rows, row0, cols_t, ld_cols, n_rows, n_cols, bw, R, C, d,
-                              diag, ladder, slice, scratch, kp, static_cast<cudaStream_t>(stream));
+// K4 bf16: the (R, C) panel kp of K'(d2) between rows row0 .. row0 + R of
+// rows_b and the C rows of cols_b, both from vgan_round_rows_bf16 with row
+// stride ld. diag >= 0: rows_b is cols_b, row0 == diag, and the diagonal
+// block [diag, diag + R) is formed pair-once (diag, and R when columns
+// follow the block, multiples of 4); diag < 0: ordered tiles, row0 0. One
+// cluster of `slices` CTAs a tile (1 to 8, at most the 64-column chunks of
+// d), d split over them. No scratch. ops/cuda/mmd_gram.py
+// panel_bf16_schedule picks slices.
+int vgan_kprime_panel_bf16(const bf16* rows_b, int row0, const bf16* cols_b, int ld,
+                           const float* n_rows, const float* n_cols, const float* bw, int R, int C,
+                           int d, int diag, const VganLadder* ladder, int slices, float* kp,
+                           void* stream) {
+    return kprime_panel_bf16(rows_b, row0, cols_b, ld, n_rows, n_cols, bw, R, C, d, diag, ladder,
+                             slices, kp, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

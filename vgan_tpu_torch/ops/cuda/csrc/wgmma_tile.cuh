@@ -1,16 +1,16 @@
 // The bf16 product tile of Hopper's tensor cores, fed by TMA, for
-// mmd_gram.cu's bf16 forward (K1 bf16, K2 bf16). sm_90a only: wgmma exists
-// for no other target.
+// mmd_gram.cu's bf16 kernels (K1-K4 bf16). sm_90a only: wgmma exists for no
+// other target.
 //
 // One block of THREADS = 544 threads forms a 128 x 128 f32 tile
 //
 //   acc(r, c) = sum_k A[ra + r][k] B[rb + c][k],   k over the chunks k0 .. k0 + n,
 //
-// of one row-major bf16 matrix read through a TMA descriptor (box 64 x 128,
-// the 128-byte swizzle): rows ra .. ra + 128 give A, rows rb .. rb + 128 B,
-// both K-major (k contiguous), as wgmma reads 16-bit operands natively. A
-// chunk is 64 columns of k, one 128-byte swizzle row of bf16; TMA fills
-// rows and columns past the matrix's edge with zeros.
+// of row-major bf16 matrices read through TMA descriptors (box 64 x 128,
+// the 128-byte swizzle): rows ra .. ra + 128 of A's map, rows rb .. rb + 128
+// of B's, both K-major (k contiguous), as wgmma reads 16-bit operands
+// natively. A chunk is 64 columns of k, one 128-byte swizzle row of bf16;
+// TMA fills rows and columns past the matrix's edge with zeros.
 //
 // Warp specialization: warp 16 is the producer, whose lane 0 keeps the
 // STAGES-deep ring of chunks full (one mbarrier `full` a stage, completed by
@@ -19,8 +19,8 @@
 // wgmma.m64n64k16 on rows 64 (g % 2) .. + 64 of A against rows 64 (g / 2)
 // .. + 64 of B, both from shared memory: a quarter of the tile each, 64
 // accumulator registers a thread with the fragment below, so that 16 warps
-// share the epilogue that follows. When ra == rb (a tile on the diagonal)
-// one copy serves both operands.
+// share the epilogue that follows. When A and B are the same rows of one
+// matrix (a tile on the diagonal) one copy serves both operands.
 //
 // Accumulation: the tensor cores do not round a running sum to nearest
 // (they keep a fixed number of bits of it, so each product is cut at the
@@ -32,6 +32,11 @@
 // The warpgroups fold at different times, so one's adds overlap another's
 // wgmma. The accumulators' layout is wgmma's: thread t of
 // warpgroup g holds acc[i] at row acc_row(i), column acc_col(i).
+//
+// Also here, for mmd_gram.cu's flash_cluster_kernel, which builds its own
+// pipeline: loads and stores in another CTA's shared memory, and the
+// descriptor of an MN-major operand (a row-major matrix read as B with its
+// rows along k: wgmma's transposed B).
 
 #pragma once
 
@@ -111,11 +116,45 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
         : "memory");
 }
 
+// The address of p's offset in the shared memory of CTA `rank` of the
+// cluster, and 16-byte loads and 8-byte stores there (volatile: a kernel
+// that reaches many CTAs computes the addresses where it uses them rather
+// than holding each one in registers).
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+    uint32_t a;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+    return a;
+}
+
+__device__ __forceinline__ float4 ld_cluster(uint32_t a) {
+    float4 v;
+    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "r"(a)
+                 : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t a, uint2 v) {
+    asm volatile("st.shared::cluster.v2.u32 [%0], {%1, %2};\n" ::"r"(a), "r"(v.x), "r"(v.y)
+                 : "memory");
+}
+
 // wgmma's shared-memory descriptor of a K-major operand under the 128-byte
 // swizzle: 8-row groups 1024 bytes apart; +2 moves it 16 columns (32 bytes)
 // along k inside the swizzle row.
 __device__ __forceinline__ uint64_t smem_desc(const void* p) {
     return (static_cast<uint64_t>(smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(16 >> 4) << 16) |
+           (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// The same for an MN-major B operand (TRANS_B = 1 below): a 64-column box of
+// a row-major matrix whose 128-byte rows are k, eight k rows a 1024-byte
+// swizzle atom; a k16 step reads two atoms (1024 bytes apart: both offset
+// fields say so, so that the n64 product reads one atom along n), and +128
+// moves it 16 rows (2048 bytes) along k.
+__device__ __forceinline__ uint64_t smem_desc_mn(const void* p) {
+    return (static_cast<uint64_t>(smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) |
            (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
@@ -136,8 +175,9 @@ __device__ __forceinline__ void fence_operands(float (&d)[ACC]) {
 }
 
 // d (+)= the 64 x 64 x 16 product of the operands at da (rows) and db
-// (columns); SCALE_D = 0 ignores d's value.
-template <int SCALE_D>
+// (columns); SCALE_D = 0 ignores d's value. TRANS_B = 1: db is MN-major
+// (smem_desc_mn).
+template <int SCALE_D, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[ACC], uint64_t da, uint64_t db) {
     asm volatile(
         "{\n"
@@ -148,7 +188,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[ACC], uint64_t da, ui
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n"
+        "%32, %33, p, 1, 1, 0, %35;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -158,7 +198,35 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[ACC], uint64_t da, ui
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(SCALE_D));
+        : "l"(da), "l"(db), "r"(SCALE_D), "n"(TRANS_B));
+}
+
+// d = the 64 x 64 x 16 product alone (scale-d 0), d's registers written
+// only: a fragment that starts a sum holds nothing live before it, so its
+// registers serve other values between sums (register-bound kernels that
+// run the ladder between products: the caller fences d after the wait).
+template <int TRANS_B = 0>
+__device__ __forceinline__ void wgmma_m64n64k16_fresh(float (&d)[ACC], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, %35;\n"
+        "}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+          "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+          "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+          "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+          "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+          "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "l"(da), "l"(db), "r"(0), "n"(TRANS_B));
 }
 
 // row and column of a consumer thread's acc[i] inside the 128 x 128 tile
@@ -182,23 +250,24 @@ __device__ __forceinline__ void init(Barriers& b) {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// The producer warp: chunks k0 .. k0 + n of rows ra (and rb) into the ring.
-__device__ __forceinline__ void produce(const CUtensorMap* map, int ra, int rb, int k0, int n,
-                                        uint8_t* ring, Barriers& b) {
+// The producer warp: chunks k0 .. k0 + n of rows ra of map_a (and rb of
+// map_b) into the ring. same: the two are the same rows of one matrix.
+__device__ __forceinline__ void produce(const CUtensorMap* map_a, int ra, const CUtensorMap* map_b,
+                                        int rb, bool same, int k0, int n, uint8_t* ring,
+                                        Barriers& b) {
     if (threadIdx.x % 32 != 0) return;
-    const bool same = ra == rb;
     for (int c = 0; c < n; ++c) {
         const int s = c % STAGES;
         if (c >= STAGES) mbar_wait(&b.empty[s], (c / STAGES - 1) & 1);  // its last chunk was read
         uint8_t* a = ring + s * STAGE_BYTES;
         mbar_expect_tx(&b.full[s], same ? OPERAND_BYTES : STAGE_BYTES);
-        tma_load(a, map, &b.full[s], (k0 + c) * WBK, ra);
-        if (!same) tma_load(a + OPERAND_BYTES, map, &b.full[s], (k0 + c) * WBK, rb);
+        tma_load(a, map_a, &b.full[s], (k0 + c) * WBK, ra);
+        if (!same) tma_load(a + OPERAND_BYTES, map_b, &b.full[s], (k0 + c) * WBK, rb);
     }
 }
 
 // A consumer thread: acc += its entries of the product over the n chunks
-// (see the top of this file). same: ra == rb, one operand copy a stage.
+// (see the top of this file). same: one operand copy a stage.
 __device__ __forceinline__ void consume(int n, bool same, const uint8_t* ring, Barriers& b,
                                         float (&acc)[ACC]) {
     const int g = threadIdx.x / 128;

@@ -17,12 +17,15 @@ same arguments, the distance product on z rounded to bf16 (on the tensor
 cores), the norms given (the f32 z's) and everything after the product
 f32. K3's variant multiplies S with the rounded z, as the Pallas kernel does.
 Their plain versions are the f32 ones on the rounded operands
-(:func:`rounded`); each variant counts its own launches. The bf16 forward
-(K1 bf16 and K2 bf16) has a Hopper design of its own: one pass rounds z to
-a row-major bf16 copy, and one kernel forms each tile pair on the tensor
-cores (``wgmma`` on TMA-fed tiles), its d axis split over the CTAs of a
-thread-block cluster that add their partial tiles in shared memory
-(:func:`cluster_schedule`).
+(:func:`rounded`); each variant counts its own launches. They have a Hopper
+design of their own: one pass rounds z to a row-major bf16 copy, read
+through TMA, and the products run on the tensor cores (``wgmma``). The bf16
+forward (K1 bf16, K2 bf16) and K4 bf16 split each tile's d axis over the
+CTAs of a thread-block cluster that add their partial tiles in shared
+memory (:func:`cluster_schedule`, :func:`panel_bf16_schedule`); K3 bf16
+forms each S tile once in a cluster, as three bf16 terms that sum to it
+exactly (:func:`split_bf16x3`), and multiplies them with z on the tensor
+cores (:func:`flash_cluster_schedule`).
 
 All four run on 128 x 128 tiles; :func:`tile_schedule` picks, from the
 number of tiles a launch forms (:func:`tile_pairs`, :func:`panel_blocks`),
@@ -88,6 +91,9 @@ STASH_BLOCKS_PER_SM = 2
 # cluster, at most the portable cluster size, one CTA an SM.
 BF16_CHUNK = 64
 CLUSTER_MAX = 8
+# K3 bf16: output chunks (of BF16_CHUNK columns) a cluster, two a CTA
+# (FC_GROUP in csrc/mmd_gram.cu); wider d runs in groups of them.
+FLASH_GROUP_CHUNKS = 16
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -213,6 +219,21 @@ def kprime_panel_reference(z_rows, z_cols, n_rows, n_cols, bw, mults):
     return _kernel_deriv(_sq_dists(z_rows, z_cols, n_rows, n_cols), bw, mults)
 
 
+def split_bf16x3(s: torch.Tensor):
+    """``(hi, mid, lo)``, bf16, with ``s = hi + mid + lo`` exactly for float32
+    ``s`` (while lo is a normal number, |s| above about 2^-110): hi is s
+    rounded to bf16 (to nearest even), mid the rest rounded, lo what is left.
+    Each step takes 8 of f32's 24 significant bits and leaves an exact f32
+    remainder. K3 bf16 multiplies the three with the bf16 z on the tensor
+    cores (csrc/mmd_gram.cu ``split_bf16x3``), so that S @ z comes out to
+    f32 rounding."""
+    hi = s.to(torch.bfloat16)
+    r1 = s - hi.to(s.dtype)
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.to(s.dtype)).to(torch.bfloat16)
+    return hi, mid, lo
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -254,9 +275,17 @@ _SIGNATURES = {
     "vgan_gram_backward_flash": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _I, _I, _P, _P, _P, _P],
     "vgan_transpose_pad": [_P, _I, _I, _I, _P, _P],
     "vgan_kprime_panel": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+    # (..., slices, scratch, sums[, kp], stream)
+    "vgan_gram_quadrant_sums_bf16": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
+    "vgan_gram_quadrant_sums_stash_bf16": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+    # (..., ladder, cluster, nsplit, scratch, sz, rs, stream)
+    "vgan_gram_backward_flash_bf16": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _I, _I, _P, _P, _P,
+                                      _P],
+    "vgan_round_rows_bf16": [_P, _I, _I, _I, _P, _P],
+    # (rows_b, row0, cols_b, ld, n_rows, n_cols, bw, R, C, d, diag, ladder,
+    #  slices, kp, stream)
+    "vgan_kprime_panel_bf16": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P],
 }
-# the bf16-operand variants take the same arguments
-_SIGNATURES.update({f"{name}_bf16": argtypes for name, argtypes in list(_SIGNATURES.items())})
 
 
 @functools.lru_cache(maxsize=None)
@@ -296,28 +325,46 @@ def _column_major(x: torch.Tensor, rows_multiple: int) -> torch.Tensor:
     return out
 
 
-def _transposed(x: torch.Tensor, ld: int, bf16: bool = False) -> torch.Tensor:
+def _transposed(x: torch.Tensor, ld: int) -> torch.Tensor:
     """(d, ld) column-major copy of the (n, d) float32 rows ``x``, rows n ..
-    ld zero, in float32 or rounded to bf16: ``transpose_pad_kernel`` on the
-    card, torch on the CPU."""
+    ld zero: ``transpose_pad_kernel`` on the card, torch on the CPU."""
     n, d = x.shape
-    dtype = torch.bfloat16 if bf16 else torch.float32
     if not x.is_cuda:
-        out = torch.zeros((d, ld), dtype=dtype)
+        out = torch.zeros((d, ld), dtype=torch.float32)
         out[:, :n] = x.T
         return out
     _check("x", x, (n, d), x.device)
-    out = torch.empty((d, ld), dtype=dtype, device=x.device)
-    _launch(_entry("vgan_transpose_pad", bf16)[0], x.device, _ptr(x), n, d, ld, _ptr(out))
+    out = torch.empty((d, ld), dtype=torch.float32, device=x.device)
+    _launch("vgan_transpose_pad", x.device, _ptr(x), n, d, ld, _ptr(out))
+    return out
+
+
+def _rounded_rows(x: torch.Tensor) -> torch.Tensor:
+    """(n, ld) row-major copy of the (n, d) float32 rows ``x`` rounded to
+    bf16, ld = d rounded up to 8 (a 16-byte row, as TMA wants), columns d ..
+    ld zero: ``round_rows_kernel`` on the card, torch on the CPU."""
+    n, d = x.shape
+    ld = _round_up(d, 8)
+    if not x.is_cuda:
+        out = torch.zeros((n, ld), dtype=torch.bfloat16)
+        out[:, :d] = x
+        return out
+    _check("x", x, (n, d), x.device)
+    out = torch.empty((n, ld), dtype=torch.bfloat16, device=x.device)
+    _launch("vgan_round_rows_bf16", x.device, _ptr(x), n, d, ld, _ptr(out))
     return out
 
 
 def panel_operand(x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
-    """K4's column-major operand of the (n, d) rows ``x`` (rounded to bf16
-    for :func:`kprime_panel_bf16`): one tile more than n rounded up to 128,
-    so that a tile may start at any row below n (a panel's diagonal block
-    starts at its row offset)."""
-    return _transposed(x, _round_up(x.shape[0], STASH_TILE) + STASH_TILE, bf16)
+    """K4's column operand of the (n, d) rows ``x``. float32: column-major,
+    one tile more than n rounded up to 128, so that a tile may start at any
+    row below n (a panel's diagonal block starts at its row offset). bf16
+    (for :func:`kprime_panel_bf16`): ``x`` rounded to bf16, row-major (n, d
+    rounded up to 8), which the kernel reads through TMA (rows past n read
+    as zeros)."""
+    if bf16:
+        return _rounded_rows(x)
+    return _transposed(x, _round_up(x.shape[0], STASH_TILE) + STASH_TILE)
 
 
 def _sms(device) -> int:
@@ -390,10 +437,9 @@ def bf16_forward_scratch_floats(m: int, d: int, slices: int) -> int:
     return m * _round_up(d, 8) // 2 + 3 * tile_pairs(m) * slices
 
 
-def _zt_floats(d: int, M: int, zbytes: int) -> int:
-    """Floats of scratch that the (d, M) column-major copy of z takes with
-    ``zbytes`` a value (4, or 2 for K3 bf16's)."""
-    return d * M * zbytes // 4
+def _zt_floats(d: int, M: int) -> int:
+    """Floats of scratch that the (d, M) column-major copy of z takes."""
+    return d * M
 
 
 def stash_scratch_floats(m: int, d: int, slice_: int) -> int:
@@ -401,7 +447,7 @@ def stash_scratch_floats(m: int, d: int, slice_: int) -> int:
     partial dot tile of every (tile pair, slice), and three sums per quarter
     of a tile pair."""
     pairs = tile_pairs(m)
-    return (_zt_floats(d, _round_up(m, STASH_TILE), 4)
+    return (_zt_floats(d, _round_up(m, STASH_TILE))
             + _cdiv(d, slice_) * pairs * STASH_TILE ** 2 + 12 * pairs)
 
 
@@ -411,16 +457,10 @@ def quadrant_sums_scratch_floats(m: int, d: int, slice_: int) -> int:
     (tile pair, slice), at most one wave of them, and three sums per
     sixteenth of a tile pair (its epilogue's blocks). Never m^2."""
     pairs, count = tile_pairs(m), _cdiv(d, slice_)
-    zt = _zt_floats(d, _round_up(m, STASH_TILE), 4)
+    zt = _zt_floats(d, _round_up(m, STASH_TILE))
     if count == 1:
         return zt + 3 * pairs
     return zt + count * pairs * STASH_TILE ** 2 + 48 * pairs
-
-
-def _entry(name: str, bf16: bool) -> Tuple[str, int]:
-    """The C entry of a kernel and the bytes of its z operand: the f32 one,
-    or its bf16-operand variant."""
-    return (name + "_bf16", 2) if bf16 else (name, 4)
 
 
 def _quadrant_sums_launch(bf16: bool, stash: bool, z, norms, bw, n1: int, mults):
@@ -437,7 +477,8 @@ def _quadrant_sums_launch(bf16: bool, stash: bool, z, norms, bw, n1: int, mults)
     scratch = torch.empty(size, dtype=torch.float32, device=z.device)
     sums = torch.empty(4, dtype=torch.float32, device=z.device)
     kp = torch.empty((m, m), dtype=torch.float32, device=z.device) if stash else None
-    _launch(_entry("vgan_gram_quadrant_sums" + ("_stash" if stash else ""), bf16)[0], z.device,
+    _launch("vgan_gram_quadrant_sums" + ("_stash" if stash else "") + ("_bf16" if bf16 else ""),
+            z.device,
             _ptr(z), _ptr(norms), _ptr(bw.reshape(1)), m, d, n1,
             ctypes.byref(_ladder(tuple(mults))), split, _ptr(scratch), _ptr(sums),
             *([_ptr(kp)] if stash else []))
@@ -516,7 +557,7 @@ def flash_chunks(d: int) -> int:
     return _cdiv(d + 1, STASH_TILE)
 
 
-def flash_scratch_floats(m: int, d: int, slice_: int, nsplit: int, zbytes: int = 4) -> int:
+def flash_scratch_floats(m: int, d: int, slice_: int, nsplit: int) -> int:
     """K3's scratch: z column-major (d x M), ``[z | 1]`` row-major (M x
     128 chunks), in mode (b) the partial dot tiles of every (tile pair,
     slice) and the S tiles of every ordered tile (mode (b) runs only while
@@ -526,14 +567,14 @@ def flash_scratch_floats(m: int, d: int, slice_: int, nsplit: int, zbytes: int =
     M, D1 = tiles * STASH_TILE, flash_chunks(d) * STASH_TILE
     count = _cdiv(d, slice_)
     mode_b = (count * tile_pairs(m) + tiles * tiles) * STASH_TILE ** 2 if count > 1 else 0
-    return _zt_floats(d, M, zbytes) + M * D1 + mode_b + (nsplit - 1) * M * D1
+    return _zt_floats(d, M) + M * D1 + mode_b + (nsplit - 1) * M * D1
 
 
 def gram_backward_flash(z, norms, bw, n1: int, n2: int, mults):
     """``(sz (m, d), rs (m, 1))`` = ``(S @ z, rowsum(S))``, S = coeff .* K'."""
     if not z.is_cuda:
         return gram_backward_flash_reference(z, norms, bw, n1, n2, mults)
-    out = _flash_launch(False, z, norms, bw, n1, n2, mults)
+    out = _flash_launch(z, norms, bw, n1, n2, mults)
     gram_backward_flash.launches += 1
     return out
 
@@ -543,25 +584,78 @@ def gram_backward_flash_bf16(z, norms, bw, n1: int, n2: int, mults):
     with ``norms``."""
     if not z.is_cuda:
         return gram_backward_flash_reference(rounded(z), norms, bw, n1, n2, mults)
-    out = _flash_launch(True, z, norms, bw, n1, n2, mults)
+    out = _flash_launch_bf16(z, norms, bw, n1, n2, mults)
     gram_backward_flash_bf16.launches += 1
     return out
 
 
-def _flash_launch(bf16: bool, z, norms, bw, n1: int, n2: int, mults):
+def _flash_outputs(z, norms, bw, n1: int, n2: int):
     m, d = _check_gram_inputs(z, norms, bw)
     if n1 + n2 != m:
         raise ValueError(f"n1 + n2 = {n1 + n2} != m = {m}")
-    sz = torch.empty((m, d), dtype=torch.float32, device=z.device)
-    rs = torch.empty((m, 1), dtype=torch.float32, device=z.device)
+    return (m, d, torch.empty((m, d), dtype=torch.float32, device=z.device),
+            torch.empty((m, 1), dtype=torch.float32, device=z.device))
+
+
+def _flash_launch(z, norms, bw, n1: int, n2: int, mults):
+    m, d, sz, rs = _flash_outputs(z, norms, bw, n1, n2)
     _, slice_, nsplit = flash_schedule(m, d, _sms(z.device))
-    entry, zbytes = _entry("vgan_gram_backward_flash", bf16)
-    scratch = torch.empty(flash_scratch_floats(m, d, slice_, nsplit, zbytes), dtype=torch.float32,
+    scratch = torch.empty(flash_scratch_floats(m, d, slice_, nsplit), dtype=torch.float32,
                           device=z.device)
     cxx, cyy, cxy = _coefficients(n1, n2)
-    _launch(entry, z.device, _ptr(z), _ptr(norms),
+    _launch("vgan_gram_backward_flash", z.device, _ptr(z), _ptr(norms),
             _ptr(bw.reshape(1)), m, d, n1, cxx, cyy, cxy,
             ctypes.byref(_ladder(tuple(mults))), slice_, nsplit, _ptr(scratch), _ptr(sz),
+            _ptr(rs))
+    return sz, rs
+
+
+@functools.lru_cache(maxsize=None)
+def flash_cluster_schedule(m: int, d: int, sms: int) -> Tuple[int, int, int]:
+    """``(cluster, groups, nsplit)`` of a K3 bf16 launch. d's n = cdiv(d, 64)
+    chunks: a cluster of ``cluster`` CTAs a row tile, each taking
+    [q n / cluster, (q + 1) n / cluster) of the chunks for the dot products
+    and the same of the output, at most two (``cluster`` = n / 2 rounded up)
+    while n <= ``FLASH_GROUP_CHUNKS``; past that, 8 CTAs a cluster and the
+    output chunks in ``groups`` groups of 16, each group's cluster forming
+    the whole S (its ladder repeated a group). The column tiles go in
+    ``nsplit`` runs, as in :func:`flash_schedule`: the run length that
+    finishes soonest in waves of ``sms // cluster`` clusters, the longer run
+    on a tie, the partials of runs 1 .. nsplit - 1 (m x (d + 1) floats each)
+    within ``FLASH_SPLIT_BYTES``."""
+    chunks = _cdiv(d, BF16_CHUNK)
+    groups = _cdiv(chunks, FLASH_GROUP_CHUNKS)
+    cluster = _cdiv(chunks, 2) if groups == 1 else CLUSTER_MAX
+    tiles = _cdiv(m, STASH_TILE)
+    wave = max(1, sms // cluster)
+    best = None
+    for per in range(tiles, 0, -1):
+        nsplit = _cdiv(tiles, per)
+        if nsplit > 1 and (nsplit - 1) * 4 * m * (d + 1) > FLASH_SPLIT_BYTES:
+            break
+        cost = per * _cdiv(nsplit * tiles * groups, wave)
+        if best is None or cost < best[0]:
+            best = (cost, nsplit)
+    return cluster, groups, best[1]
+
+
+def flash_bf16_scratch_floats(m: int, d: int, nsplit: int) -> int:
+    """K3 bf16's scratch: z rounded to bf16, row-major (m x d rounded up to
+    8, two values a float), and the partial outputs of splits 1 .. nsplit -
+    1 (m x (d + 1) each, rowsum(S) in the last column). No dot tile and no S
+    tile: nothing grows with m^2."""
+    return m * _round_up(d, 8) // 2 + (nsplit - 1) * m * (d + 1)
+
+
+def _flash_launch_bf16(z, norms, bw, n1: int, n2: int, mults):
+    m, d, sz, rs = _flash_outputs(z, norms, bw, n1, n2)
+    cluster, _, nsplit = flash_cluster_schedule(m, d, _sms(z.device))
+    scratch = torch.empty(flash_bf16_scratch_floats(m, d, nsplit), dtype=torch.float32,
+                          device=z.device)
+    cxx, cyy, cxy = _coefficients(n1, n2)
+    _launch("vgan_gram_backward_flash_bf16", z.device, _ptr(z), _ptr(norms),
+            _ptr(bw.reshape(1)), m, d, n1, cxx, cyy, cxy,
+            ctypes.byref(_ladder(tuple(mults))), cluster, nsplit, _ptr(scratch), _ptr(sz),
             _ptr(rs))
     return sz, rs
 
@@ -575,6 +669,13 @@ def panel_blocks(R: int, C: int, offset=None) -> int:
         return rows * _cdiv(C, STASH_TILE)
     side = _cdiv(offset, STASH_TILE) + _cdiv(C - offset - R, STASH_TILE)
     return rows * (rows + 1) // 2 + rows * side
+
+
+def panel_bf16_schedule(blocks: int, d: int, sms: int) -> int:
+    """CTAs a tile's cluster in a K4 bf16 launch over ``blocks`` tiles: K1
+    and K2 bf16's :func:`cluster_schedule`, d split over up to 8 CTAs while
+    the tiles fall short of half a wave, one CTA a tile past it."""
+    return cluster_schedule(blocks, d, sms)[0]
 
 
 def panel_scratch_floats(blocks: int, d: int, slice_: int) -> int:
@@ -596,7 +697,7 @@ def kprime_panel(z_rows, z_cols, n_rows, n_cols, bw, mults, offset=None,
     panels)."""
     if not z_rows.is_cuda:
         return kprime_panel_reference(z_rows, z_cols, n_rows, n_cols, bw, mults)
-    kp = _panel_launch(False, z_rows, z_cols, n_rows, n_cols, bw, mults, offset, cols_t)
+    kp = _panel_launch(z_rows, z_cols, n_rows, n_cols, bw, mults, offset, cols_t)
     kprime_panel.launches += 1
     return kp
 
@@ -604,17 +705,19 @@ def kprime_panel(z_rows, z_cols, n_rows, n_cols, bw, mults, offset=None,
 def kprime_panel_bf16(z_rows, z_cols, n_rows, n_cols, bw, mults, offset=None,
                       cols_t=None) -> torch.Tensor:
     """:func:`kprime_panel` with d2 from the rounded rows and columns and the
-    given norms; ``cols_t`` is ``panel_operand(z_cols, bf16=True)``, and
-    ``offset`` (and R when columns follow the block) a multiple of 8."""
+    given norms; ``cols_t`` is ``panel_operand(z_cols, bf16=True)``."""
     if not z_rows.is_cuda:
         return kprime_panel_reference(rounded(z_rows), rounded(z_cols), n_rows, n_cols, bw,
                                       mults)
-    kp = _panel_launch(True, z_rows, z_cols, n_rows, n_cols, bw, mults, offset, cols_t)
+    kp = _panel_launch_bf16(z_rows, z_cols, n_rows, n_cols, bw, mults, offset, cols_t)
     kprime_panel_bf16.launches += 1
     return kp
 
 
-def _panel_launch(bf16: bool, z_rows, z_cols, n_rows, n_cols, bw, mults, offset, cols_t):
+def _check_panel_inputs(z_rows, z_cols, n_rows, n_cols, bw, offset):
+    """``(R, C, d, device)`` of a K4 launch, its inputs checked; with an
+    offset, ``z_rows`` must be the view ``z_cols[offset:offset + R]`` and
+    the offset (and R when columns follow the block) a multiple of 4."""
     R, d = z_rows.shape
     C = z_cols.shape[0]
     dev = z_rows.device
@@ -623,29 +726,50 @@ def _panel_launch(bf16: bool, z_rows, z_cols, n_rows, n_cols, bw, mults, offset,
     _check("n_rows", n_rows, (R,), dev)
     _check("n_cols", n_cols, (C,), dev)
     _check("bw", bw.reshape(1), (1,), dev)
-    if cols_t is None:
-        cols_t = panel_operand(z_cols, bf16)
-    _check("cols_t", cols_t, (d, _round_up(C, STASH_TILE) + STASH_TILE), dev,
-           torch.bfloat16 if bf16 else torch.float32)
-    if offset is None:
-        rows_t, row0, diag = _transposed(z_rows, _round_up(R, STASH_TILE), bf16), 0, -1
-    else:
-        a = 8 if bf16 else 4  # a column start: 16 bytes
-        if not (0 <= offset and offset + R <= C and offset % a == 0
-                and (offset + R == C or R % a == 0)):
-            raise ValueError(f"offset {offset} with R={R}, C={C}: expected a multiple of {a} with "
-                             f"offset + R <= C, and R a multiple of {a} unless offset + R == C")
+    if offset is not None:
+        if not (0 <= offset and offset + R <= C and offset % 4 == 0
+                and (offset + R == C or R % 4 == 0)):
+            raise ValueError(f"offset {offset} with R={R}, C={C}: expected a multiple of 4 with "
+                             f"offset + R <= C, and R a multiple of 4 unless offset + R == C")
         if z_rows.data_ptr() != z_cols[offset:].data_ptr():
             raise ValueError("with an offset, z_rows must be the view z_cols[offset:offset + R]")
+    return R, C, d, dev
+
+
+def _panel_launch(z_rows, z_cols, n_rows, n_cols, bw, mults, offset, cols_t):
+    R, C, d, dev = _check_panel_inputs(z_rows, z_cols, n_rows, n_cols, bw, offset)
+    if cols_t is None:
+        cols_t = panel_operand(z_cols)
+    _check("cols_t", cols_t, (d, _round_up(C, STASH_TILE) + STASH_TILE), dev)
+    if offset is None:
+        rows_t, row0, diag = _transposed(z_rows, _round_up(R, STASH_TILE)), 0, -1
+    else:
         rows_t, row0, diag = cols_t, offset, offset
     blocks = panel_blocks(R, C, offset)
     _, slice_, _ = tile_schedule(blocks, d, _sms(dev))
     scratch = torch.empty(max(1, panel_scratch_floats(blocks, d, slice_)), dtype=torch.float32,
                           device=dev)
     kp = torch.empty((R, C), dtype=torch.float32, device=dev)
-    _launch(_entry("vgan_kprime_panel", bf16)[0], dev, _ptr(rows_t), rows_t.shape[1],
+    _launch("vgan_kprime_panel", dev, _ptr(rows_t), rows_t.shape[1],
             row0, _ptr(cols_t), cols_t.shape[1], _ptr(n_rows), _ptr(n_cols), _ptr(bw.reshape(1)),
             R, C, d, diag, ctypes.byref(_ladder(tuple(mults))), slice_, _ptr(scratch), _ptr(kp))
+    return kp
+
+
+def _panel_launch_bf16(z_rows, z_cols, n_rows, n_cols, bw, mults, offset, cols_t):
+    R, C, d, dev = _check_panel_inputs(z_rows, z_cols, n_rows, n_cols, bw, offset)
+    if cols_t is None:
+        cols_t = panel_operand(z_cols, bf16=True)
+    _check("cols_t", cols_t, (C, _round_up(d, 8)), dev, torch.bfloat16)
+    if offset is None:
+        rows_b, row0, diag = _rounded_rows(z_rows), 0, -1
+    else:
+        rows_b, row0, diag = cols_t, offset, offset
+    slices = panel_bf16_schedule(panel_blocks(R, C, offset), d, _sms(dev))
+    kp = torch.empty((R, C), dtype=torch.float32, device=dev)
+    _launch("vgan_kprime_panel_bf16", dev, _ptr(rows_b), row0, _ptr(cols_t), cols_t.shape[1],
+            _ptr(n_rows), _ptr(n_cols), _ptr(bw.reshape(1)), R, C, d, diag,
+            ctypes.byref(_ladder(tuple(mults))), slices, _ptr(kp))
     return kp
 
 
@@ -688,10 +812,10 @@ def _panel_rows(m: int) -> int:
 def gram_backward_panel(z, norms, bw, n1: int, mults, bf16: bool = False) -> torch.Tensor:
     """Unscaled cotangent ``rowsum(S) z - S @ z`` through bounded (R, m) K'
     panels: ``rowsum(S) = q .* (K' @ q)``, ``S @ z = q .* (K' @ (q .* z))``.
-    On the card, one column-major copy of z serves every panel, and each
-    panel's diagonal block is formed pair-once (its row offset). ``bf16``:
-    the panels from :func:`kprime_panel_bf16`; the contractions stay on the
-    f32 z."""
+    On the card, one copy of z (:func:`panel_operand`) serves every panel,
+    and each panel's diagonal block is formed pair-once (its row offset).
+    ``bf16``: the panels from :func:`kprime_panel_bf16`; the contractions
+    stay on the f32 z."""
     m = z.shape[0]
     R = _panel_rows(m)
     q = _q_vector(m, n1, z.device)
