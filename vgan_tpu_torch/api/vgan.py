@@ -64,6 +64,7 @@ from vgan_tpu_torch.train.steps import (
     kl_train_epochs,
     no_kl_train_epochs,
 )
+from vgan_tpu_torch.utils.profiling import annotate
 
 
 def _column_l2_normalize(x: np.ndarray) -> np.ndarray:
@@ -254,6 +255,7 @@ class _VGANCommon(EstimatorBase):
         self.generator_optimizer = "Adadelta"
         return self
 
+    @annotate("vgan::continue_fit")
     def continue_fit(self, X, epochs: int):
         """Run ``epochs`` more training epochs from the current state (after
         ``fit`` or ``restore_checkpoint``), on the scan path."""
@@ -478,6 +480,7 @@ class VGAN(_VGANCommon):
         config = self._make_config(ndims, self.batch_size)
         return config.generator_module(kl=True).to(dev), config.detector_module().to(dev)
 
+    @annotate("vgan::fit")
     def fit(self, X):
         """Train generator and detector adversarially on X, in the phases of
         ``AlternationSchedule(iternum_d, iternum_g)``. The loss histories
@@ -663,6 +666,7 @@ class VGAN_no_kl(_VGANCommon):
         self._persist_artifacts(save_detector=False)
         return self
 
+    @annotate("vgan::fit")
     def fit(self, X):
         """Train the generator on X. The loss history stays on the device
         and is fetched once per chunk (one chunk, or ``checkpoint_every``

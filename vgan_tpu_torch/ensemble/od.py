@@ -47,6 +47,7 @@ from vgan_tpu_torch.ensemble.chi2 import chi2_cdf, chi2_ppf
 from vgan_tpu_torch.ensemble.iforest import DEFAULT_PSI, draw_iforest, iforest_scores_masked
 from vgan_tpu_torch.ops.cuda.knn_score import knn_kernel_supported, knn_scores_all_masks
 from vgan_tpu_torch.parallel.mesh import check_mesh_device
+from vgan_tpu_torch.utils.profiling import annotate, span
 
 
 def _as_batch(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -2615,6 +2616,7 @@ class SubspaceEnsemble(PyodSurfaceMixin):
     def _as_device(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=self.device)
 
+    @annotate("vgan::decision_function")
     def decision_function(self, x_test: np.ndarray, exclude_self: bool = False) -> np.ndarray:
         """Aggregated outlier scores (higher = more outlying).
 
@@ -2704,9 +2706,10 @@ class SubspaceEnsemble(PyodSurfaceMixin):
             weights = torch.cat([weights, weights.new_zeros(pad)])
         part = slice(shard * per, (shard + 1) * per)
         masks, weights = masks[part], weights[part]
-        s = knn_scores_all_masks(x_test, self._x_train, masks, self.k,
-                                 mode="mean" if self.base == "knn_mean" else "kth",
-                                 exclude_self=exclude_self)
+        with span("vgan::knn"):
+            s = knn_scores_all_masks(x_test, self._x_train, masks, self.k,
+                                     mode="mean" if self.base == "knn_mean" else "kth",
+                                     exclude_self=exclude_self)
         if not reduce:
             return s
         if self.normalize == "zscore":

@@ -62,6 +62,7 @@ import torch
 
 from vgan_tpu_torch._dtypes import low_precision
 from vgan_tpu_torch.ops import mmd as _mmd
+from vgan_tpu_torch.utils.profiling import span
 
 # The JAX package's tiling constants, kept because they decide the regime
 # (the CUDA kernels use their own tiles).
@@ -865,33 +866,34 @@ class _MMD2Core(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        z, norms, bw, kp = ctx.saved_tensors
-        mults, n1, n2 = ctx.mults, ctx.n1, ctx.n2
-        m = n1 + n2
-        M, D, _ = _pad_layout(m, z.shape[1])
-        g = g.to(torch.float32)
-        if kp is not None:
-            q = _q_vector(m, n1, z.device)
-            if M <= D:
-                # scale kp's columns; a is a rowsum, u reads z directly
-                kp_q = kp * q[None, :]
-                a = torch.sum(kp_q, dim=1, keepdim=True)
-                u = kp_q @ z
+        with span("vgan::mmd.backward"):
+            z, norms, bw, kp = ctx.saved_tensors
+            mults, n1, n2 = ctx.mults, ctx.n1, ctx.n2
+            m = n1 + n2
+            M, D, _ = _pad_layout(m, z.shape[1])
+            g = g.to(torch.float32)
+            if kp is not None:
+                q = _q_vector(m, n1, z.device)
+                if M <= D:
+                    # scale kp's columns; a is a rowsum, u reads z directly
+                    kp_q = kp * q[None, :]
+                    a = torch.sum(kp_q, dim=1, keepdim=True)
+                    u = kp_q @ z
+                else:
+                    # read kp once against the stacked rhs [q | q .* z]
+                    rhs = torch.cat([q[:, None], q[:, None] * z], dim=1)
+                    au = kp @ rhs
+                    a, u = au[:, :1], au[:, 1:]
+                dz = 4.0 * g * (q[:, None] * (a * z - u))
+            elif D <= FLASH_D_MAX:
+                flash = gram_backward_flash_bf16 if ctx.bf16 else gram_backward_flash
+                sz, rs = flash(z, norms, bw, n1, n2, mults)
+                dz = 4.0 * g * (rs * z - sz)
             else:
-                # read kp once against the stacked rhs [q | q .* z]
-                rhs = torch.cat([q[:, None], q[:, None] * z], dim=1)
-                au = kp @ rhs
-                a, u = au[:, :1], au[:, 1:]
-            dz = 4.0 * g * (q[:, None] * (a * z - u))
-        elif D <= FLASH_D_MAX:
-            flash = gram_backward_flash_bf16 if ctx.bf16 else gram_backward_flash
-            sz, rs = flash(z, norms, bw, n1, n2, mults)
-            dz = 4.0 * g * (rs * z - sz)
-        else:
-            dz = 4.0 * g * gram_backward_panel(z, norms, bw, n1, mults, ctx.bf16)
-        dx = dz[:n1].to(ctx.dtypes[0])
-        dy = dz[n1:].to(ctx.dtypes[1])
-        return dx, dy, None, None, None, None
+                dz = 4.0 * g * gram_backward_panel(z, norms, bw, n1, mults, ctx.bf16)
+            dx = dz[:n1].to(ctx.dtypes[0])
+            dy = dz[n1:].to(ctx.dtypes[1])
+            return dx, dy, None, None, None, None
 
 
 def mmd2_cuda_core(x, y, bw, mults, matmul_dtype=None) -> torch.Tensor:

@@ -34,6 +34,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from vgan_tpu_torch._dtypes import low_precision
+from vgan_tpu_torch.utils.profiling import annotate
 
 DEFAULT_N_KERNELS = 5
 DEFAULT_MUL_FACTOR = 2.0
@@ -172,6 +173,7 @@ def coverage_penalty(u: torch.Tensor) -> torch.Tensor:
     return torch.mean(1.0 - torch.amax(u, dim=0))
 
 
+@annotate("vgan::mmd.forward")
 def mmd2_biased_stateful(
     x: torch.Tensor,
     y: torch.Tensor,

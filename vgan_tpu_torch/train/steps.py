@@ -56,6 +56,7 @@ from vgan_tpu_torch.models.initializers import REFERENCE_NORMAL, TORCH_DEFAULT
 from vgan_tpu_torch.ops import mmd as mmd_ops
 from vgan_tpu_torch.ops.activations import sample_gumbel
 from vgan_tpu_torch.train.adadelta import Adadelta, AdadeltaState
+from vgan_tpu_torch.utils.profiling import span
 
 GENERATOR_GRADS = ("reference", "st", "gumbel_st")
 
@@ -288,26 +289,30 @@ def no_kl_epoch(
     bw_value, bw_is_set = state.bw_value, state.bw_is_set
     losses = []
     for b in range(nb):
-        batch, z = batch_of(b), layout.rows(noise[b])
-        gumbel = layout.rows(_gumbel_noise(state, config, x)) if use_gumbel else None
-        with torch.enable_grad():
-            u = layout.gather(gen(z, gumbel))
-            loss, bw_used = mmd_ops.mmd_loss_constrained_stateful(
-                batch,
-                u * batch,
-                u,
-                weight=config.penalty_weight,
-                bw_value=bw_value,
-                bw_is_set=bw_is_set,
-                impl=config.mmd_impl,
-                matmul_dtype=config.gram_matmul_dtype,
-            )
-            grads = torch.autograd.grad(loss, list(params.values()))
-        opt.step(params, layout.reduce_grads(grads), state.opt_state)
-        bw_value = bw_used.detach()
-        if config.freeze_bandwidth:
-            bw_is_set = torch.ones_like(bw_is_set)
-        losses.append(loss.detach())
+        with span("vgan::step"):
+            with span("vgan::forward"), torch.enable_grad():
+                batch, z = batch_of(b), layout.rows(noise[b])
+                gumbel = layout.rows(_gumbel_noise(state, config, x)) if use_gumbel else None
+                u = layout.gather(gen(z, gumbel))
+                loss, bw_used = mmd_ops.mmd_loss_constrained_stateful(
+                    batch,
+                    u * batch,
+                    u,
+                    weight=config.penalty_weight,
+                    bw_value=bw_value,
+                    bw_is_set=bw_is_set,
+                    impl=config.mmd_impl,
+                    matmul_dtype=config.gram_matmul_dtype,
+                )
+            with span("vgan::backward"), torch.enable_grad():
+                grads = torch.autograd.grad(loss, list(params.values()))
+            grads = layout.reduce_grads(grads)
+            with span("vgan::adadelta"):
+                opt.step(params, grads, state.opt_state)
+            bw_value = bw_used.detach()
+            if config.freeze_bandwidth:
+                bw_is_set = torch.ones_like(bw_is_set)
+            losses.append(loss.detach())
     state = dataclasses.replace(state, bw_value=bw_value, bw_is_set=bw_is_set)
     return state, torch.mean(torch.stack(losses))
 
@@ -316,11 +321,12 @@ def no_kl_train_epochs(
     state: NoKLTrainState, x: torch.Tensor, config: TrainConfig, epochs: int, layout=WHOLE
 ) -> Tuple[NoKLTrainState, torch.Tensor]:
     """``epochs`` no-kl epochs; the (epochs,) loss history stays on device."""
-    losses = []
-    for _ in range(epochs):
-        state, loss = no_kl_epoch(state, x, config, layout=layout)
-        losses.append(loss)
-    return state, torch.stack(losses)
+    with span("vgan::epochs"):
+        losses = []
+        for _ in range(epochs):
+            state, loss = no_kl_epoch(state, x, config, layout=layout)
+            losses.append(loss)
+        return state, torch.stack(losses)
 
 
 def no_kl_fit_program(
@@ -434,18 +440,24 @@ def kl_detector_epoch(
     bw_value, bw_is_set = state.bw_value, state.bw_is_set
     losses = []
     for b in range(nb):
-        batch, z = layout.rows(batch_of(b)), layout.rows(noise[b])
-        gumbel = layout.rows(_gumbel_noise(state, config, x)) if use_gumbel else None
-        with torch.no_grad():
-            u = gen(z, gumbel)
-        with torch.enable_grad():
-            loss, bw_used = _kl_loss(det, batch, u, config, bw_value, bw_is_set, True, layout)
-            grads = torch.autograd.grad(loss, list(params.values()))
-        opt.step(params, layout.reduce_grads(grads), state.det_opt, active=active)
-        bw_value = bw_used.detach()
-        if config.freeze_bandwidth:
-            bw_is_set = torch.ones_like(bw_is_set)
-        losses.append(loss.detach())
+        with span("vgan::step"):
+            with span("vgan::forward"):
+                batch, z = layout.rows(batch_of(b)), layout.rows(noise[b])
+                gumbel = layout.rows(_gumbel_noise(state, config, x)) if use_gumbel else None
+                with torch.no_grad():
+                    u = gen(z, gumbel)
+                with torch.enable_grad():
+                    loss, bw_used = _kl_loss(det, batch, u, config, bw_value, bw_is_set, True,
+                                             layout)
+            with span("vgan::backward"), torch.enable_grad():
+                grads = torch.autograd.grad(loss, list(params.values()))
+            grads = layout.reduce_grads(grads)
+            with span("vgan::adadelta"):
+                opt.step(params, grads, state.det_opt, active=active)
+            bw_value = bw_used.detach()
+            if config.freeze_bandwidth:
+                bw_is_set = torch.ones_like(bw_is_set)
+            losses.append(loss.detach())
     state = dataclasses.replace(state, bw_value=bw_value, bw_is_set=bw_is_set)
     return state, torch.mean(torch.stack(losses))
 
@@ -466,23 +478,24 @@ def kl_generator_epoch(
     params = dict(gen.named_parameters())
     bw_value, bw_is_set = state.bw_value, state.bw_is_set
     losses = []
+    detach = config.replicate_generator_detach
     for b in range(nb):
-        batch, z = layout.rows(batch_of(b)), layout.rows(noise[b])
-        gumbel = layout.rows(_gumbel_noise(state, config, x)) if use_gumbel else None
-        if config.replicate_generator_detach:
-            with torch.no_grad():
+        with span("vgan::step"):
+            with span("vgan::forward"), torch.set_grad_enabled(not detach):
+                batch, z = layout.rows(batch_of(b)), layout.rows(noise[b])
+                gumbel = layout.rows(_gumbel_noise(state, config, x)) if use_gumbel else None
                 loss, bw_used = _kl_loss(det, batch, gen(z, gumbel), config,
                                          bw_value, bw_is_set, False, layout)
-        else:
-            with torch.enable_grad():
-                loss, bw_used = _kl_loss(det, batch, gen(z, gumbel), config,
-                                         bw_value, bw_is_set, False, layout)
-                grads = torch.autograd.grad(loss, list(params.values()))
-            opt.step(params, layout.reduce_grads(grads), state.gen_opt)
-        bw_value = bw_used.detach()
-        if config.freeze_bandwidth:
-            bw_is_set = torch.ones_like(bw_is_set)
-        losses.append(loss.detach())
+            if not detach:
+                with span("vgan::backward"), torch.enable_grad():
+                    grads = torch.autograd.grad(loss, list(params.values()))
+                grads = layout.reduce_grads(grads)
+                with span("vgan::adadelta"):
+                    opt.step(params, grads, state.gen_opt)
+            bw_value = bw_used.detach()
+            if config.freeze_bandwidth:
+                bw_is_set = torch.ones_like(bw_is_set)
+            losses.append(loss.detach())
     state = dataclasses.replace(
         state, bw_value=bw_value, bw_is_set=bw_is_set,
         encoder_active=torch.zeros_like(state.encoder_active),
@@ -501,24 +514,25 @@ def kl_train_epochs(
     detector_history, generator_history)``, float32 device tensors of shape
     (epochs,): each epoch records the most recent loss of each kind, NaN
     before the first epoch of that kind."""
-    nan = torch.full((), float("nan"), dtype=torch.float32, device=x.device)
-    last_det, last_gen = nan, nan
-    det_hist, gen_hist = [], []
-    for phase in np.asarray(phases).tolist():
-        if phase == PHASE_DETECTOR:
-            state, loss = kl_detector_epoch(state, x, config, layout=layout)
-            last_det = loss.to(torch.float32)
-        elif phase == PHASE_GENERATOR:
-            state, loss = kl_generator_epoch(state, x, config, layout=layout)
-            last_gen = loss.to(torch.float32)
-        elif phase != PHASE_IDLE:
-            raise ValueError(f"unknown phase code {phase}")
-        det_hist.append(last_det)
-        gen_hist.append(last_gen)
-    if not det_hist:
-        empty = torch.zeros((0,), dtype=torch.float32, device=x.device)
-        return state, empty, empty
-    return state, torch.stack(det_hist), torch.stack(gen_hist)
+    with span("vgan::epochs"):
+        nan = torch.full((), float("nan"), dtype=torch.float32, device=x.device)
+        last_det, last_gen = nan, nan
+        det_hist, gen_hist = [], []
+        for phase in np.asarray(phases).tolist():
+            if phase == PHASE_DETECTOR:
+                state, loss = kl_detector_epoch(state, x, config, layout=layout)
+                last_det = loss.to(torch.float32)
+            elif phase == PHASE_GENERATOR:
+                state, loss = kl_generator_epoch(state, x, config, layout=layout)
+                last_gen = loss.to(torch.float32)
+            elif phase != PHASE_IDLE:
+                raise ValueError(f"unknown phase code {phase}")
+            det_hist.append(last_det)
+            gen_hist.append(last_gen)
+        if not det_hist:
+            empty = torch.zeros((0,), dtype=torch.float32, device=x.device)
+            return state, empty, empty
+        return state, torch.stack(det_hist), torch.stack(gen_hist)
 
 
 def kl_fit_program(
