@@ -39,10 +39,16 @@ Phases (each asserts; any failure exits non-zero):
    offset panel and an ordered one, d split in clusters), past half a wave
    (one CTA a tile) on a ragged d with an offset panel whose columns lie on
    both sides of its block and an ordered one with ragged rows, and on one
-   real panel (m=45056, R=1472);
+   real panel (m=45056, R=1472); and the multi-tensor Adadelta update
+   against its plain path, to the bit, over the stress fits' generator and
+   detector tensors (f32 and bf16 state, the encoder's device flag false and
+   true, a misaligned and a ragged leaf beside them), timed beside its byte
+   bound;
 3. the no-kl main path at full width: ``VGAN_no_kl`` fit at the stress
    configuration (n=2000, d=10240, batch 500, 2 epochs), then
-   generate_subspaces, approx_subspace_dist and check_if_myopic;
+   generate_subspaces, approx_subspace_dist and check_if_myopic; every fit
+   of phases 3-4 takes no plain-path Adadelta call, and those of phases 3,
+   3b and 3h launch the Adadelta kernel once an update;
 3b. the kl main path at full width: ``VGAN`` fit at the kl stress
    configuration (the same shape, 2 epochs: one detector and one generator
    epoch), the same fit on the dense torch path and with the reference
@@ -51,7 +57,9 @@ Phases (each asserts; any failure exits non-zero):
    generate_subspaces and approx_subspace_dist, then
    check_if_myopic past the dense caps (count 8500 in float64, 5000 in
    float32, from 10000 rows) through K5, the float64 route held to a
-   blockwise float64 oracle on the card and the float32 route to it;
+   blockwise float64 oracle on the card and the float32 route to it; then
+   the fit continued to its next detector epoch, whose frozen encoder (its
+   flag false on the card) stays as it was;
 3c. the subspace ensemble at full width, ``knn`` and ``knn_mean``:
    ``SubspaceEnsemble.from_model`` on the phase-3 stress model (500 sampled
    masks, 2000 x 10240 train rows, 500 test rows with 25 planted outliers),
@@ -183,6 +191,8 @@ PEAK_BYTES_PER_S = 3.35e12
 OPS_PER_ENTRY = 20
 
 STRESS = dict(n=2000, d=10240, batch=500)  # bench.py's "no-kl stress" and "kl stress" shape
+# the stress fits' Adadelta (the no-kl estimator's lr; torch's rho and eps)
+ADADELTA = dict(rho=0.9, eps=1e-6, lr=0.007, wd=0.04)
 # check_if_myopic on the kl path: counts past both dense caps (pooled rows
 # 17000 > 16384 on the float64 route, 10000 > 8192 on the float32 route),
 # sampled from this many rows of the stress width
@@ -1048,6 +1058,143 @@ def phase_fused_kernel(device, shapes, log):
     return errs
 
 
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """The raw bits of a float32 or 16-bit tensor (-0.0 apart from +0.0)."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def adadelta_leaves(device, shapes, flags, state_dtype, seed: int):
+    """(p, g, sq, acc, flag) for each shape: p ~ N(0, 1), g ~ N(0, 1e-4),
+    the averages positive, as a few steps leave them; then a misaligned leaf
+    of 3 chunks and 5 values (the scalar path over several blocks) and an
+    aligned one of 1001 values (a ragged tail past the 16-byte path)."""
+    from vgan_tpu_torch.ops.cuda import adadelta as A
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for shape, flag, offset in [(s, f, 0) for s, f in zip(shapes, flags)] + [
+            ((3 * A.CHUNK + 5,), True, 1), ((1001,), True, 0)]:
+        def draw(scale, low=None):
+            if low is None:
+                t = torch.randn(shape, generator=gen, device=device) * scale
+            else:
+                t = (torch.rand(shape, generator=gen, device=device) * scale + low).to(state_dtype)
+            return placed(t, offset)
+
+        out.append((draw(1.0), draw(1e-2), draw(1e-4, 1e-6), draw(1e-5, 1e-7), flag))
+    return out
+
+
+def placed(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of t that starts ``offset`` values into a fresh buffer."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
+
+
+def adadelta_copies(leaves):
+    """Copies of p and the averages at the same offsets from 16 bytes."""
+    def copy(t):
+        return placed(t, t.data_ptr() % 16 // t.element_size())
+
+    return [(copy(p), g, copy(sq), copy(acc), f) for p, g, sq, acc, f in leaves]
+
+
+def adadelta_models(d: int, device) -> dict:
+    """The stress fits' parameter shapes and step flags: the generator's 8
+    tensors, the detector's 16 with the encoder's device flag false (the kl
+    fit's window) and true."""
+    lat = d // 16
+
+    def stack(widths):
+        return [s for a, b in zip(widths[:-1], widths[1:]) for s in ((b, a), (b,))]
+
+    gen, enc = stack([lat, 2 * lat, 4 * lat, 8 * lat, d]), stack([d, 8 * lat, 4 * lat, 2 * lat, lat])
+    out = {"generator": (gen, [True] * 8)}
+    for label, on in (("detector, encoder frozen", False), ("detector, encoder active", True)):
+        out[label] = (enc + gen, [torch.tensor(on, device=device)] * 8 + [True] * 8)
+    return out
+
+
+def adadelta_bytes(leaves) -> int:
+    """Bytes one update must move: p, g and both averages read, p and both
+    averages written, once each, for every leaf that steps."""
+    total = 0
+    for p, g, sq, acc, flag in leaves:
+        if isinstance(flag, torch.Tensor) and not bool(flag):
+            continue
+        total += p.numel() * (3 * p.element_size() + 4 * sq.element_size())
+    return total
+
+
+def phase_adadelta_kernel(device, d: int, log) -> dict:
+    """The multi-tensor Adadelta kernel against its plain path at the stress
+    fits' tensor lists (f32 and bf16 state, the encoder's flag false and
+    true, a misaligned and a ragged leaf beside them): one launch, p and both
+    averages equal to the plain path's, a frozen leaf's bits unchanged, the
+    same bits twice. Returns the kernel table's row: CUDA-event ms (wrapper
+    included) and profiler device us of one update at each list, beside the
+    plain path's ms and the byte bound (phases 3, 3b and 3h add the fits'
+    launches: one an update, no plain-path call)."""
+    from vgan_tpu_torch.ops.cuda import adadelta as A
+
+    hp = (ADADELTA["rho"], ADADELTA["eps"], ADADELTA["lr"], ADADELTA["wd"])
+    times = []
+    for state in (torch.float32, torch.bfloat16):
+        for label, (shapes, flags) in adadelta_models(d, device).items():
+            start = adadelta_leaves(device, shapes, flags, state, seed=len(times))
+            kernel, plain = adadelta_copies(start), adadelta_copies(start)
+            A.reset_launch_counts()
+            A.update(kernel, *hp)
+            sync()
+            check(A.launch_counts() == {"adadelta_multi": 1, "plain_update": 0},
+                  f"adadelta {label}: launches {A.launch_counts()}")
+            check(not A.vector_aligned(kernel[-2]) and A.vector_aligned(kernel[0]),
+                  "adadelta: the misaligned leaf is not misaligned")
+            for leaf in plain:
+                A.plain_update(*leaf, *hp)
+            sync()
+            for i, (mine, theirs, first) in enumerate(zip(kernel, plain, start)):
+                frozen = isinstance(first[4], torch.Tensor) and not bool(first[4])
+                for j in (0, 2, 3):
+                    check(torch.equal(mine[j], theirs[j]),
+                          f"adadelta {label} {state}: leaf {i} part {j} differs from the plain path")
+                    if frozen:
+                        check(torch.equal(bits(mine[j]), bits(first[j])),
+                              f"adadelta {label} {state}: frozen leaf {i} changed")
+
+            def run():
+                leaves = adadelta_copies(start)
+                A.update(leaves, *hp)
+                return tuple(t for p, _, sq, acc, _ in leaves for t in (p, sq, acc))
+
+            repeat_identical(f"adadelta {label} {state}", run)
+            models = start[:len(shapes)]  # the model's own leaves, timed
+            A.reset_launch_counts()
+            ms = cuda_ms(lambda: A.update(models, *hp))
+            launches = A.launch_counts()["adadelta_multi"]
+            check(launches == 23, f"adadelta {label}: {launches} launches in 23 calls")
+            us = device_split(lambda: A.update(models, *hp), host_ops=False)
+            plain_ms = cuda_ms(lambda: [A.plain_update(*leaf, *hp) for leaf in models],
+                               iters=5, warmup=1)
+            nbytes = adadelta_bytes(models)
+            bound_ms, by = bound(0.0, nbytes)
+            row = {"shape": f"{label}, {sum(p.numel() for p, *_ in models)} values, "
+                            f"{str(state).split('.')[-1]} state",
+                   "ms": ms, "device_us": {k: v for k, v in us.items() if "adadelta" in k},
+                   "plain_ms": plain_ms, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": by}
+            times.append(row)
+            log(f"  adadelta_multi {row['shape']}: equal to the plain path to the bit, twice; "
+                f"{ms:.4f} ms (device us {row['device_us']}), plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({nbytes} bytes)")
+
+    first = times[0]
+    return {"name": "adadelta_multi", "route": "cuda",
+            "source": "vgan_tpu_torch/ops/cuda/csrc/adadelta.cu",
+            "replaces": "none (vgan_tpu/train/adadelta.py is plain jnp)",
+            **{k: first[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None, "at_other_shapes": times[1:]}
+
+
 def phase_knn_kernels(device, shapes, log):
     """K6 / K7 against their plain version (``KNN_*`` tolerances), their
     operands' launch against its plain version (equal), the regime's kernel
@@ -1129,18 +1276,25 @@ def phase_knn_kernels(device, shapes, log):
 def fit_counts(X, device, cls=None, **kw):
     """A fit with the kernel counts set to 0 just before it and read just
     after; the losses are the generator history, preceded by the detector
-    history for the kl estimator (NaN before the first epoch of a kind)."""
+    history for the kl estimator (NaN before the first epoch of a kind).
+    Returns ``(model, counts, losses, seconds, updates)``: ``counts`` the
+    MMD kernels' launches, ``updates`` the Adadelta kernel's (every update
+    of a fit on the card goes to it: no plain-path call)."""
     from vgan_tpu_torch import VGAN_no_kl
+    from vgan_tpu_torch.ops.cuda import adadelta as A
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     model = (cls or VGAN_no_kl)(verbose=False, device=device, **kw)
     sync()
     G.reset_launch_counts()
+    A.reset_launch_counts()
     t0 = time.perf_counter()
     model.fit(X)
     sync()
     seconds = time.perf_counter() - t0
     counts = G.launch_counts()
+    updates = A.launch_counts()
+    check(updates["plain_update"] == 0, f"a fit on the card took the plain Adadelta path: {updates}")
     kinds = [k for k in ("detector_loss", "generator_loss") if k in model.train_history]
     for kind in kinds:
         h = np.asarray(model.train_history[kind])
@@ -1149,42 +1303,50 @@ def fit_counts(X, device, cls=None, **kw):
         check(np.all(np.isnan(h[:lead])) and np.all(np.isfinite(h[lead:])),
               f"{kind} history {h.tolist()} is not finite from its first epoch on")
     losses = np.concatenate([np.asarray(model.train_history[k]) for k in kinds])
-    return model, counts, losses, seconds
+    return model, counts, losses, seconds, updates["adadelta_multi"]
 
 
 def fit_against_dense(X, device, label, log, **kw):
     """A fit on the default (kernel) path, then the same fit (same seed and
-    streams) on the dense torch path; their loss histories must agree."""
-    model, counts, losses, seconds = fit_counts(X, device, **kw)
-    log(f"  {label}: losses {losses.tolist()} in {seconds:.3f} s, launches {counts}")
-    _, plain_counts, plain_losses, _ = fit_counts(X, device, mmd_impl="torch", **kw)
+    streams) on the dense torch path; their loss histories must agree, and
+    both update through the Adadelta kernel as often. Returns the first
+    fit's model, MMD launches, losses and Adadelta launches."""
+    model, counts, losses, seconds, updates = fit_counts(X, device, **kw)
+    log(f"  {label}: losses {losses.tolist()} in {seconds:.3f} s, launches {counts}, "
+        f"Adadelta launches {updates}")
+    _, plain_counts, plain_losses, _, plain_updates = fit_counts(X, device, mmd_impl="torch", **kw)
     check(sum(plain_counts.values()) == 0, f"mmd_impl='torch' launched {plain_counts}")
+    check(plain_updates == updates,
+          f"{label}: {plain_updates} Adadelta launches on the dense path, {updates} on the kernel's")
     check(np.allclose(losses, plain_losses, rtol=RTOL_FIT_LOSS, atol=0.0, equal_nan=True),
           f"{label}: kernel-path losses {losses} vs dense-path {plain_losses}")
     seen = np.isfinite(plain_losses)
     gap = float(np.max(np.abs(losses[seen] - plain_losses[seen]) / np.abs(plain_losses[seen])))
     log(f"  {label}: dense torch path losses {plain_losses.tolist()} agree within "
         f"{RTOL_FIT_LOSS} (largest relative gap {gap:.3e})")
-    return model, counts, losses
+    return model, counts, losses, updates
 
 
 def phase_main_path(device, n, d, batch, log):
     """The stress fit -> sample -> GoF workflow; returns the K2 launches,
-    the fitted model and its training rows."""
+    the fitted model, its training rows and the fit's Adadelta launches
+    (one an update: ``steps``)."""
     X = np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)
     steps = 2 * (n // batch)
-    model, counts, _ = fit_against_dense(X, device, "stress fit", log,
+    model, counts, _, updates = fit_against_dense(X, device, "stress fit", log,
                                               epochs=2, batch_size=batch)
     check(counts["gram_quadrant_sums_stash"] == steps,
           f"stress fit launched the stash kernel {counts['gram_quadrant_sums_stash']} times, "
           f"expected {steps}")
     check(sum(counts.values()) == steps, f"stress fit launched other kernels: {counts}")
+    check(updates == steps, f"stress fit launched the Adadelta kernel {updates} times, "
+                            f"expected {steps}")
 
     sample_workflow(model, batch, d, log)
     p = model.check_if_myopic(X, count=batch, rng=np.random.default_rng(3)).to_numpy().ravel()
     check(np.all((p >= 0.0) & (p <= 1.0)), f"p-values out of [0, 1]: {p}")
     log(f"  GoF p-values {p.tolist()}")
-    return counts["gram_quadrant_sums_stash"], model, X
+    return counts["gram_quadrant_sums_stash"], model, X, updates
 
 
 def sample_workflow(model, nsubs, d, log):
@@ -1224,10 +1386,13 @@ def gof_oracle(x, y, alpha: float, a_rows, device, block: int = 2048):
 
 
 def phase_kl_main_path(device, n, d, batch, log):
-    """The kl stress fit -> sample -> GoF workflow. Returns the launches of
-    K1 and K3 in the kl fit and of K5 in check_if_myopic, and the fit's loss
-    history and the GoF p-values (phase 3h holds its mesh runs to them)."""
+    """The kl stress fit -> sample -> GoF workflow, then the fit continued
+    into its next detector epoch, the encoder frozen. Returns the launches
+    of K1 and K3 in the kl fit and of K5 in check_if_myopic, and the fit's
+    loss history, the GoF p-values (phase 3h holds its mesh runs to them)
+    and the Adadelta kernel's launches in each fit (one an update)."""
     from vgan_tpu_torch import VGAN
+    from vgan_tpu_torch.ops.cuda import adadelta as A
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
     from vgan_tpu_torch.ops.mmd_test import (
@@ -1237,17 +1402,22 @@ def phase_kl_main_path(device, n, d, batch, log):
 
     X = np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)
     steps = n // batch  # per epoch: phases [detector, generator]
-    model, counts, kl_losses = fit_against_dense(X, device, "kl stress fit", log, cls=VGAN,
+    model, counts, kl_losses, updates = fit_against_dense(X, device, "kl stress fit", log, cls=VGAN,
                                                  epochs=2, batch_size=batch)
     want = dict(dict.fromkeys(G.launch_counts(), 0), gram_quadrant_sums=2 * steps,
                 gram_backward_flash=steps)
     check(counts == want, f"kl stress fit launches {counts}, expected {want}")
+    # the generator detached: updates in the detector epoch only
+    check(updates == steps, f"kl stress fit: {updates} Adadelta launches, expected {steps}")
     launches = {k: counts[k] for k in ("gram_quadrant_sums", "gram_backward_flash")}
     kl_encodings_against_dense(model, X, batch, device, log)
-    _, counts_q, losses_q, _ = fit_counts(X, device, cls=VGAN, epochs=2, batch_size=batch,
-                                          replicate_reference_quirks=False)
+    _, counts_q, losses_q, _, updates_q = fit_counts(X, device, cls=VGAN, epochs=2,
+                                                     batch_size=batch,
+                                                     replicate_reference_quirks=False)
     want_q = dict(want, gram_backward_flash=2 * steps)
     check(counts_q == want_q, f"kl fit with the quirks off launched {counts_q}, expected {want_q}")
+    check(updates_q == 2 * steps,
+          f"kl fit with the quirks off: {updates_q} Adadelta launches, expected {2 * steps}")
     log(f"  kl fit, quirks off (the generator trains): losses {losses_q.tolist()}, launches {counts_q}")
     sample_workflow(model, batch, d, log)
 
@@ -1289,7 +1459,25 @@ def phase_kl_main_path(device, n, d, batch, log):
         f"(|d stat| {abs(float(s64[0]) - s_or):.2e}); float32 route stat {s32:.9e} "
         f"(rel {abs(s32 - float(s64[0])) / abs(float(s64[0])):.2e})")
     launches["a_times_k"] = k5
-    return launches, {"losses": kl_losses, "pvals": pvals}
+
+    # the schedule's 4 other generator epochs (detached), then a detector
+    # epoch with the encoder frozen: its flag false on the card
+    before = {k: v.clone() for k, v in model.detector.named_parameters()}
+    sync()
+    A.reset_launch_counts()
+    model.continue_fit(X, model.iternum_g)
+    sync()
+    frozen = A.launch_counts()
+    check(frozen == {"adadelta_multi": steps, "plain_update": 0},
+          f"kl stress fit continued to a detector epoch: Adadelta {frozen}, expected {steps}")
+    for name, p in model.detector.named_parameters():
+        check(torch.equal(p, before[name]) == name.startswith("encoder."),
+              f"kl detector epoch, encoder frozen: {name} "
+              f"{'changed' if name.startswith('encoder.') else 'stayed'}")
+    updates = {"kl stress fit": updates, "kl fit, quirks off": updates_q,
+               "kl detector epoch, encoder frozen": frozen["adadelta_multi"]}
+    log(f"  Adadelta kernel launches {updates}, no plain-path call; the frozen encoder unchanged")
+    return launches, {"losses": kl_losses, "pvals": pvals, "updates": updates}
 
 
 def phase_fused_main_path(device, log):
@@ -2400,36 +2588,42 @@ def phase_multidevice(device, n, d, batch, main_losses, kl_results, runs, log,
         zero = dict.fromkeys(G.launch_counts(), 0)
         # each dp fit right after the same fit unsharded (warm), for its time
         plain_sec = fit_counts(X, device, epochs=2, batch_size=batch)[3]
-        _, counts, losses, sec = fit_counts(X, device, epochs=2, batch_size=batch, mesh=mesh,
-                                            shard_features=True)
+        _, counts, losses, sec, updates = fit_counts(X, device, epochs=2, batch_size=batch,
+                                                     mesh=mesh, shard_features=True)
         want = dict(zero, gram_quadrant_sums_stash=steps)
         check(counts == want, f"dp no-kl stress fit launched {counts}, expected {want}")
-        add(counts)
+        check(updates == steps, f"dp no-kl stress fit: {updates} Adadelta launches, not {steps}")
+        add(dict(counts, adadelta_multi=updates))
         log(f"  dp no-kl stress fit (mesh data=1 model=1, shard_features): {sec:.2f} s (the "
             f"unsharded fit just before: {plain_sec:.2f} s), launches {counts}; losses "
             f"{losses.tolist()}, "
             f"{same_history('dp no-kl stress fit', losses, main_losses)} to phase 3's")
 
-        model, counts, losses, sec = fit_counts(X, device, epochs=2, batch_size=batch, mesh=mesh,
-                                                shard_features=True, **BF16_OPTIONS)
+        model, counts, losses, sec, updates = fit_counts(X, device, epochs=2, batch_size=batch,
+                                                         mesh=mesh, shard_features=True,
+                                                         **BF16_OPTIONS)
         want = dict(zero, gram_quadrant_sums_stash_bf16=steps)
         check(counts == want, f"dp no-kl stress fit with the bf16 options launched {counts}, "
                               f"expected {want}")
+        check(updates == steps, f"dp no-kl stress fit with the bf16 options: {updates} Adadelta "
+                                f"launches, not {steps}")
         check(model.generator.compute_dtype == torch.bfloat16,
               "dp no-kl stress fit: the generator does not compute in bf16")
-        add(counts)
+        add(dict(counts, adadelta_multi=updates))
         if mesh_runs is not None:
             mesh_runs["no-kl bf16"] = losses
         log(f"  dp no-kl stress fit with the bf16 options (mesh, shard_features): {sec:.2f} s, "
             f"launches {counts}; losses {losses.tolist()} (held to phase 3i's fit)")
 
         plain_sec = fit_counts(X, device, cls=VGAN, epochs=2, batch_size=batch)[3]
-        kl_model, counts, losses, sec = fit_counts(X, device, cls=VGAN, epochs=2,
-                                                   batch_size=batch, mesh=mesh,
-                                                   shard_features=True)
+        kl_model, counts, losses, sec, updates = fit_counts(X, device, cls=VGAN, epochs=2,
+                                                            batch_size=batch, mesh=mesh,
+                                                            shard_features=True)
         want = dict(zero, gram_quadrant_sums=2 * (n // batch), gram_backward_flash=n // batch)
         check(counts == want, f"dp kl stress fit launched {counts}, expected {want}")
-        add(counts)
+        check(updates == n // batch,
+              f"dp kl stress fit: {updates} Adadelta launches, not {n // batch}")
+        add(dict(counts, adadelta_multi=updates))
         log(f"  dp kl stress fit (mesh, shard_features): {sec:.2f} s (the unsharded fit just "
             f"before: {plain_sec:.2f} s), launches {counts}; losses {losses.tolist()}, "
             f"{same_history('dp kl stress fit', losses, kl_results['losses'])} to phase 3b's")
@@ -2573,10 +2767,10 @@ def phase_bf16_options(device, n, d, batch, main_losses, kl_losses, log, mesh_lo
     steps = n // batch
 
     def fit(label, want, cls=None, epochs=2):
-        model, counts, losses, sec = fit_counts(X, device, cls, epochs=epochs, batch_size=batch,
+        model, counts, losses, sec, _ = fit_counts(X, device, cls, epochs=epochs, batch_size=batch,
                                                 **BF16_OPTIONS)
         check(counts == dict(zero, **want), f"{label}: launched {counts}, expected {want}")
-        _, plain_counts, plain, _ = fit_counts(X, device, cls, epochs=epochs, batch_size=batch,
+        _, plain_counts, plain, _, _ = fit_counts(X, device, cls, epochs=epochs, batch_size=batch,
                                                mmd_impl="torch", **BF16_OPTIONS)
         check(sum(plain_counts.values()) == 0, f"mmd_impl='torch' launched {plain_counts}")
         seen = np.isfinite(plain)
@@ -2639,7 +2833,7 @@ def phase_other_regimes(device, n, d_flash, d_panel, batch, log):
     steps = n // batch
     launches = {}
     X = np.random.default_rng(1).standard_normal((n, d_flash), dtype=np.float32)
-    _, counts, _ = fit_against_dense(X, device, f"flash fit d={d_flash}", log,
+    _, counts, _, _ = fit_against_dense(X, device, f"flash fit d={d_flash}", log,
                                      epochs=2, batch_size=batch)
     check(counts == dict(dict.fromkeys(G.launch_counts(), 0), gram_quadrant_sums=2 * steps,
                          gram_backward_flash=2 * steps),
@@ -2651,7 +2845,7 @@ def phase_other_regimes(device, n, d_flash, d_panel, batch, log):
     G._KP_STASH_BYTES = 0
     try:
         X = np.random.default_rng(2).standard_normal((n, d_panel), dtype=np.float32)
-        _, counts, _ = fit_against_dense(X, device, f"panel fit d={d_panel}", log,
+        _, counts, _, _ = fit_against_dense(X, device, f"panel fit d={d_panel}", log,
                                          epochs=1, batch_size=batch)
     finally:
         G._KP_STASH_BYTES = saved
@@ -2663,7 +2857,7 @@ def phase_other_regimes(device, n, d_flash, d_panel, batch, log):
 
     # the reference notebook's configuration (d=10): dense torch path, no kernel
     Xn = notebook_data()
-    model, counts, losses, _ = fit_counts(Xn, device, **NOTEBOOK_FIT)
+    model, counts, losses, _, _ = fit_counts(Xn, device, **NOTEBOOK_FIT)
     check(sum(counts.values()) == 0, f"the d=10 notebook fit launched kernels: {counts}")
     model.approx_subspace_dist()
     log(f"  notebook config d=10: final loss {losses[-1]:.6f} (reference band about 2.5-5), "
@@ -2674,7 +2868,7 @@ def phase_other_regimes(device, n, d_flash, d_panel, batch, log):
     # detach), so it keeps the init's two complementary masks near 0.5 / 0.5
     from vgan_tpu_torch import VGAN
 
-    model, counts, losses, _ = fit_counts(Xn, device, cls=VGAN, epochs=15)
+    model, counts, losses, _, _ = fit_counts(Xn, device, cls=VGAN, epochs=15)
     check(sum(counts.values()) == 0, f"the d=10 kl notebook fit launched kernels: {counts}")
     model.approx_subspace_dist()
     check(len(model.subspaces) == 2 and np.all(model.subspaces.sum(axis=0) == 1)
@@ -4079,8 +4273,11 @@ def main(argv=None) -> int:
         ("ragged bs", 300, 12, 100, 2),
     ], log).items()})
 
+    log("phase 2: the multi-tensor Adadelta update against its plain path")
+    adadelta_row = phase_adadelta_kernel(device, d, log)
+
     log("phase 3: no-kl main path at full width")
-    k2_launches, stress_model, X_stress = phase_main_path(device, n, d, batch, log)
+    k2_launches, stress_model, X_stress, updates = phase_main_path(device, n, d, batch, log)
 
     main_losses = np.asarray(stress_model.train_history["generator_loss"])
 
@@ -4128,6 +4325,9 @@ def main(argv=None) -> int:
         if row["name"] in mesh_launches:  # phase 3h's sharded paths (K1-K3, K5-K7)
             row["launches_mesh"] = mesh_launches[row["name"]]
     rows.append(fused_times(device, errs, k8_launches, log))
+    adadelta_row["launches"] = {"no-kl stress fit": updates, **kl_results["updates"]}
+    adadelta_row["launches_mesh"] = mesh_launches["adadelta_multi"]  # phase 3h's dp fits
+    rows.append(adadelta_row)
     pallas = "vgan_tpu/ops/pallas/mmd_gram.py"
     for name, replaces in (("gram_quadrant_sums_bf16", f"{pallas}:207 _fwd_kernel"),
                            ("gram_quadrant_sums_stash_bf16", f"{pallas}:269 _fwd_stash_kernel"),

@@ -321,7 +321,7 @@ def test_detector_bf16_compute_matches_flax():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("flag", [None, True, "device False"])
+@pytest.mark.parametrize("flag", [None, True, False, "device True", "device False"])
 def test_adadelta_bf16_state_matches_jax(flag):
     """Three updates on the same float32 grads: the stored bf16 state equal
     to JAX's to the bit (both round to nearest even), the parameters within
@@ -336,7 +336,7 @@ def test_adadelta_bf16_state_matches_jax(flag):
     tparams = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
     tstate = topt.init(tparams)
     assert all(t.dtype == torch.bfloat16 for t in tstate.square_avg.values())
-    on = flag != "device False"
+    on = flag not in (False, "device False")
     jactive = {"encoder.main.0.weight": jnp.asarray(on), "decoder.main.0.bias": True}
     tactive = None if flag is None else {
         "encoder.main.0.weight": flag if isinstance(flag, bool) else torch.tensor(on)}

@@ -14,7 +14,7 @@ import pytest
 
 from vgan_tpu_torch.ops.cuda import _build
 
-MODULES = ["mmd_gram", "gof_gram", "knn_score", "fused_no_kl"]
+MODULES = ["mmd_gram", "gof_gram", "knn_score", "fused_no_kl", "adadelta"]
 _SCALARS = {"int": ctypes.c_int, "unsigned": ctypes.c_uint, "float": ctypes.c_float}
 
 

@@ -54,19 +54,22 @@ def test_detector_forward_and_layout_match_flax():
     assert abs(float(sd["encoder.main.0.weight"].std()) - 0.1) < 0.01, "kl init: N(0, 0.1)"
 
 
+@pytest.mark.parametrize("state_dtype", [None, "bfloat16"])
 @pytest.mark.parametrize("flag", [True, False, "device True", "device False"])
-def test_adadelta_active_flags_match_jax(flag):
+def test_adadelta_active_flags_match_jax(flag, state_dtype):
     """A frozen leaf takes no update, no weight decay and no state advance;
-    the flag may be a host bool or a 0-dim device tensor."""
+    the flag may be a host bool or a 0-dim device tensor. Float64
+    parameters; a full-precision state within 1e-10 of JAX's, a bf16 state
+    equal to it to the bit."""
     rng = np.random.default_rng(5)
     shapes = {"encoder.main.0.weight": (3, 4), "decoder.main.0.bias": (3,)}
     params = {k: rng.normal(size=s) for k, s in shapes.items()}
     on = flag if isinstance(flag, bool) else flag == "device True"
-    jopt = jax_adadelta(0.007, weight_decay=0.04)
+    jopt = jax_adadelta(0.007, weight_decay=0.04, state_dtype=state_dtype)
     jparams = {k: jnp.asarray(v) for k, v in params.items()}
     jstate = jopt.init(jparams)
     jactive = {"encoder.main.0.weight": jnp.asarray(on), "decoder.main.0.bias": True}
-    topt = TA.Adadelta(0.007, weight_decay=0.04)
+    topt = TA.Adadelta(0.007, weight_decay=0.04, state_dtype=state_dtype)
     tparams = {k: torch.tensor(v) for k, v in params.items()}
     tstate = topt.init(tparams)
     tactive = {"encoder.main.0.weight": flag if isinstance(flag, bool) else torch.tensor(on)}
@@ -78,12 +81,17 @@ def test_adadelta_active_flags_match_jax(flag):
         topt.step(tparams, [torch.tensor(grads[k]) for k in tparams], tstate, active=tactive)
     for k in shapes:
         np.testing.assert_allclose(tparams[k].numpy(), np.asarray(jparams[k]), rtol=1e-10)
-        np.testing.assert_allclose(tstate.square_avg[k].numpy(),
-                                   np.asarray(jstate.square_avg[k]), rtol=1e-10)
-        np.testing.assert_allclose(tstate.acc_delta[k].numpy(),
-                                   np.asarray(jstate.acc_delta[k]), rtol=1e-10)
-    frozen = tparams["encoder.main.0.weight"].numpy()
-    assert np.array_equal(frozen, params["encoder.main.0.weight"]) == (not on)
+        for mine, theirs in ((tstate.square_avg[k], jstate.square_avg[k]),
+                             (tstate.acc_delta[k], jstate.acc_delta[k])):
+            if state_dtype is None:
+                np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), rtol=1e-10)
+            else:
+                assert mine.dtype == torch.bfloat16
+                np.testing.assert_array_equal(mine.float().numpy(),
+                                              np.asarray(theirs).astype(np.float32))
+    name = "encoder.main.0.weight"
+    assert np.array_equal(tparams[name].numpy(), params[name]) == (not on)
+    assert bool(torch.all(tstate.square_avg[name] == 0)) == (not on)
 
 
 @pytest.mark.parametrize("iternum_d,iternum_g", [(1, 5), (2, 3), (1, 1), (3, 0), (0, 2)])

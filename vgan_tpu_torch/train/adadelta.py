@@ -14,17 +14,21 @@ bit in float64. The state is explicit (it can be carried over from the JAX
 package); parameters and state are updated in place.
 
 ``state_dtype='bfloat16'`` stores ``E[g^2]`` and ``E[dx^2]`` in bf16, as the
-JAX package's option does: each update upcasts them to the parameter's
+JAX package's option does: each update reads them into the parameter's
 dtype, computes the new averages and ``delta`` there (``delta`` from the
 unrounded new ``E[g^2]``), and rounds each average once, to nearest even,
-when it is stored. A float32 state keeps the in-place update above.
+when it is stored.
 
 Freezing: torch skips parameters whose ``grad`` is None (no update, no
 weight decay, no state advance). ``step(..., active=...)`` reproduces that
 per leaf. A leaf's flag may be a Python bool or a 0-dim bool tensor on the
-device; a tensor flag is applied with ``torch.where``, as the JAX package
+device; a tensor flag is read where the update runs, as the JAX package
 uses ``jnp.where``, so a flag that changes between phases of the kl fit
 costs no host sync.
+
+The update itself is ``ops/cuda/adadelta.py``'s: float32 parameters on a
+CUDA card go to one multi-tensor kernel launch a step (a frozen leaf's
+blocks return on the card), the rest to its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Union
 import torch
 
 from vgan_tpu_torch._dtypes import low_precision
+from vgan_tpu_torch.ops.cuda import adadelta as _update
 
 
 class AdadeltaState(NamedTuple):
@@ -74,28 +79,10 @@ class Adadelta:
         """One update of every parameter, in place; ``grads`` in the order
         of ``params``. ``active`` maps a parameter name to its step flag
         (missing names step)."""
-        rho, eps, lr, wd = self.rho, self.eps, self.learning_rate, self.weight_decay
+        leaves = []
         for (name, p), g in zip(params.items(), grads):
-            a = True if active is None else active.get(name, True)
-            if not isinstance(a, torch.Tensor) and not a:
-                continue
-            sq, acc = state.square_avg[name], state.acc_delta[name]
-            g = g + wd * p
-            if not isinstance(a, torch.Tensor) and sq.dtype == p.dtype:
-                sq.mul_(rho).add_((1.0 - rho) * g * g)
-                delta = g * torch.sqrt(acc + eps) / torch.sqrt(sq + eps)
-                acc.mul_(rho).add_((1.0 - rho) * delta * delta)
-                p.add_(-lr * delta)
-                continue
-            # the math in the parameter's dtype; a bf16 state rounds once, in copy_
-            sqm, accm = sq.to(p.dtype), acc.to(p.dtype)
-            new_sq = rho * sqm + (1.0 - rho) * g * g
-            delta = g * torch.sqrt(accm + eps) / torch.sqrt(new_sq + eps)
-            new_acc = rho * accm + (1.0 - rho) * delta * delta
-            upd = -lr * delta
-            if isinstance(a, torch.Tensor):
-                upd = torch.where(a, upd, torch.zeros_like(upd))
-                new_sq, new_acc = torch.where(a, new_sq, sqm), torch.where(a, new_acc, accm)
-            p.add_(upd)
-            sq.copy_(new_sq)
-            acc.copy_(new_acc)
+            flag = True if active is None else active.get(name, True)
+            if not isinstance(flag, torch.Tensor):
+                flag = bool(flag)
+            leaves.append((p, g, state.square_avg[name], state.acc_delta[name], flag))
+        _update.update(leaves, self.rho, self.eps, self.learning_rate, self.weight_decay)
