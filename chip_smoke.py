@@ -21,7 +21,8 @@ Phases (each asserts; any failure exits non-zero):
    ``GRAM_BUFFER_BYTES``) at a ragged shape with ten alphas (the stress
    width's recommended one, 1.1e9, among them) and at the
    stress width; the KNN-score kernels (K6 resident, K7 streaming) against
-   their plain version at both ensembles' shapes, both modes, with
+   their plain version at both ensembles' shapes and the RNA-Seq
+   deployment's (801 x 20,531), both modes, with
    ``exclude_self`` at the ``predict`` batches, at ragged shapes and on
    tie-heavy integer rows (equal to the bit for 'kth'), each with an
    all-zero, a one-column and an all-column mask; the fused whole-fit kernel (K8) against its
@@ -323,6 +324,9 @@ K4_REAL_PANEL = dict(n1=22528, n2=22528, d=10240, offset=0)
 PLAIN_GRAM_ARRAYS, PLAIN_MAX_BYTES = 10, 24 << 30
 BENCH_ENSEMBLE = dict(n_train=1000, n_test=500, d=100, n_masks=1024, k=10)  # bench.py:414-419
 STRESS_ENSEMBLE = dict(subspace_count=500, n_test=500, k=10)
+# the RNA-Seq deployment's score cell (benchmarks/configs/
+# vgan_no_kl.rnaseq.d20531.json, traffic score.b500): K7 at d = 20,531
+RNASEQ_ENSEMBLE = dict(n_train=801, n_test=500, d=20531, n_masks=500, k=10)
 # phase 3f: the heterogeneous ensemble with the JAX package's default members
 # (knn, lof, ecod) at the stress width and on the bench data; the bench
 # ensemble's every combination ('weighted' with HETERO_WEIGHTS), one with a
@@ -1559,7 +1563,7 @@ def drive_ensemble(ens, Xt, is_outlier, kernel: str, label: str, log) -> float:
     train_labels = ens.labels_
     sync()
     counts = KS.launch_counts()
-    want = {"knn_scores_resident": 0, "knn_scores_stream": 0, kernel: 3}
+    want = dict(dict.fromkeys(counts, 0), **{kernel: 3})
     check(counts == want, f"{label}: launches {counts}, expected {want}")
     n_tr = ens._x_train.shape[0]
     check(scores.shape == (len(Xt),) and np.all(np.isfinite(scores)), f"{label}: scores not finite")
@@ -1925,7 +1929,7 @@ def counted(label: str, fn, want: dict):
     sync()
     sec = time.perf_counter() - t0
     counts = KS.launch_counts()
-    full = {"knn_scores_resident": 0, "knn_scores_stream": 0, **want}
+    full = dict(dict.fromkeys(counts, 0), **want)
     check(counts == full, f"{label}: launches {counts}, expected {full}")
     return out, counts, sec
 
@@ -4249,7 +4253,7 @@ def main(argv=None) -> int:
         (GOF_ROWS, 1300, 1300, d, 100, GOF_ALPHAS, 768),
     ], log)
     errs.update({("a_times_k", shape): e for shape, e in gof_errs.items()})
-    bench, se = BENCH_ENSEMBLE, STRESS_ENSEMBLE
+    bench, se, rs = BENCH_ENSEMBLE, STRESS_ENSEMBLE, RNASEQ_ENSEMBLE
     nt_b, ntr_b, d_b, nm_b, k_b = (bench["n_test"], bench["n_train"], bench["d"],
                                    bench["n_masks"], bench["k"])
     errs.update(phase_knn_kernels(device, [
@@ -4258,6 +4262,10 @@ def main(argv=None) -> int:
         ("bench predict", ntr_b + nt_b, ntr_b, d_b, nm_b, k_b, True, False),
         ("stress ensemble", se["n_test"], n, d, se["subspace_count"], se["k"], False, False),
         ("stress predict", n + se["n_test"], n, d, se["subspace_count"], se["k"], True, False),
+        ("rnaseq ensemble", rs["n_test"], rs["n_train"], rs["d"], rs["n_masks"], rs["k"],
+         False, False),
+        ("rnaseq predict", rs["n_train"] + rs["n_test"], rs["n_train"], rs["d"], rs["n_masks"],
+         rs["k"], True, False),
         ("ragged", 333, 517, 100, 37, 64, True, False),
         ("ragged", 333, 5170, 2500, 13, 10, False, False),
         ("integer ties", 300, 260, 20, 11, 5, True, True),

@@ -1,7 +1,8 @@
 """The plain version of the port's K6 / K7 kernels (``knn_scores_all_masks``
 on CPU tensors) against ``vgan_tpu.ops.pallas.knn_score`` run in Pallas
 interpret mode on the CPU, in both of the JAX package's regimes, and the
-regime rule against the JAX package's.
+port's gate against the kernels' own limits (and the JAX package's rule
+where the two still share it).
 
 On the CPU ``knn_scores_all_masks`` returns its plain version; the CUDA
 kernels themselves are held to that plain version on the card by
@@ -54,7 +55,8 @@ def _port(xte, xtr, masks, k, mode, exclude_self):
     TK.reset_launch_counts()
     got = TK.knn_scores_all_masks(torch.from_numpy(xte), torch.from_numpy(xtr), masks, k,
                                   mode=mode, exclude_self=exclude_self)
-    assert TK.launch_counts() == {"knn_scores_resident": 0, "knn_scores_stream": 0}
+    assert TK.launch_counts() == {"knn_scores_resident": 0, "knn_scores_stream": 0,
+                                  "knn_generic": 0}
     assert got.shape == (len(masks), len(xte)) and got.dtype == torch.float32
     return got.numpy()
 
@@ -120,12 +122,13 @@ def test_plain_vs_pallas_integer_ties(mode):
 
 @pytest.fixture
 def streaming_regime(monkeypatch):
-    """Lower ``MAX_NTR_D`` on both sides so 300 train rows stream in two
-    256-row blocks, clear the JAX program cache (``MAX_NTR_D`` is read when
-    ``_knn_scores_call`` traces, so a cached resident program would come
-    back), and count the JAX streaming kernel's calls."""
+    """Lower ``MAX_NTR_D`` so 300 train rows stream in two 256-row blocks on
+    the JAX side, and the port's crossover (``RESIDENT_MAX_NTR_D``) so K7
+    scores them on the card; clear the JAX program cache (``MAX_NTR_D`` is
+    read when ``_knn_scores_call`` traces, so a cached resident program
+    would come back), and count the JAX streaming kernel's calls."""
     monkeypatch.setattr(JK, "MAX_NTR_D", 128 * 128 * 2)
-    monkeypatch.setattr(TK, "MAX_NTR_D", 128 * 128 * 2)
+    monkeypatch.setattr(TK, "RESIDENT_MAX_NTR_D", 128 * 128 * 2)
     JK._knn_scores_call.clear_cache()
     calls = []
     stream_call = JK._knn_stream_call
@@ -150,7 +153,7 @@ def _stream_data(integer, seed):
 def test_plain_vs_pallas_streaming(streaming_regime, mode, exclude_self):
     xte, xtr, masks = _stream_data(False, seed=2)
     assert not JK._resident_supported(300, 6) and not TK._resident_supported(300, 6)
-    assert JK._stream_trb(128) == TK._stream_trb(128) == 256
+    assert JK._stream_trb(128) == 256
     got = _port(xte, xtr, masks, 5, mode, exclude_self)
     want = _jax(xte, xtr, masks, 5, mode, exclude_self)
     assert streaming_regime, "the JAX side did not run its streaming kernel"
@@ -181,22 +184,63 @@ GRID = [
     (100, 50000, 300, 10), (100, 3000, 15000, 10), (100, 3000, 16000, 10),
     (100, 3000, 30000, 10),
 ]
+# Past the JAX package's width gate (padded d above 15,616): the RNA-Seq
+# deployment (801 x 20,531) and two more widths.
+WIDE = [(500, 801, 20531, 10), (1301, 801, 20531, 10), (100, 2000, 16000, 10),
+        (100, 3000, 20531, 64), (100, 3000, 30000, 10), (500, 801, 20531, 65)]
+
+
+def _kernel_limits(nt, ntr, d, k) -> bool:
+    """What ``csrc/knn_score.cu``'s entries accept at shapes far inside
+    their grid and int limits: 1 <= k <= its MAX_K and k <= ntr."""
+    return 1 <= k <= _csrc_constant("MAX_K") and k <= ntr
 
 
 @pytest.mark.parametrize("max_ntr_d", [None, 128 * 128 * 2])
 def test_regime_rule_matches_jax(monkeypatch, max_ntr_d):
+    """The port's gate is the kernels' own limits at every width; the JAX
+    package's rule refuses what the port refuses (k) and, past its VMEM
+    layout, widths the port scores. The crossover K6 / K7 is the JAX
+    resident rule's area, here and under a lowered constant."""
     if max_ntr_d is not None:
         monkeypatch.setattr(JK, "MAX_NTR_D", max_ntr_d)
-        monkeypatch.setattr(TK, "MAX_NTR_D", max_ntr_d)
-    for nt, ntr, d, k in GRID:
+        monkeypatch.setattr(TK, "RESIDENT_MAX_NTR_D", max_ntr_d)
+    for nt, ntr, d, k in GRID + WIDE:
+        want = _kernel_limits(nt, ntr, d, k)
+        assert TK.knn_kernel_supported(nt, ntr, d, k, 500) == want, (nt, ntr, d, k)
         assert TK._resident_supported(ntr, d) == JK._resident_supported(ntr, d), (ntr, d)
-        assert TK._stream_trb(d) == JK._stream_trb(d), d
-        assert TK._stream_fits(d) == JK._stream_fits(d), d
-        assert TK.knn_kernel_supported(nt, ntr, d, k) == JK.knn_kernel_supported(nt, ntr, d, k)
-    assert TK.knn_kernel_supported(500, 2000, 10240, 10)
-    assert not TK._resident_supported(2000, 10240)
+        if JK.knn_kernel_supported(nt, ntr, d, k):
+            assert want, (nt, ntr, d, k)
+        elif want:
+            assert not JK._stream_fits(d), (nt, ntr, d, k)
+    for nt, ntr, d, k in WIDE:
+        assert not JK.knn_kernel_supported(nt, ntr, d, k), (nt, ntr, d, k)
+    assert TK.knn_kernel_supported(500, 2000, 10240, 10, 500)
+    assert TK.knn_kernel_supported(500, 801, 20531, 10, 500)
+    assert not TK._resident_supported(2000, 10240) and not TK._resident_supported(801, 20531)
     assert TK._resident_supported(1000, 100) == (max_ntr_d is None)
-    assert not TK.knn_kernel_supported(500, 1000, 100, 65)
+    assert not TK.knn_kernel_supported(500, 1000, 100, 65, 500)
+
+
+def test_gate_launch_limits():
+    """The grid's y extent (cdiv(nt, 128) <= 65535) and the ints the C
+    entries take: nt and ntr padded to whole tiles, d (cdiv forms d + 31),
+    the mask count and ``vgan_knn_prep``'s block count."""
+    big = TK.INT_MAX
+    assert TK.knn_kernel_supported(65535 * 128, 801, 64, 10, 500)
+    assert not TK.knn_kernel_supported(65535 * 128 + 1, 801, 64, 10, 500)
+    assert TK.knn_kernel_supported(100, big - 127, 1, 10, 1)
+    assert not TK.knn_kernel_supported(100, big - 126, 1, 10, 1)
+    assert TK.knn_kernel_supported(100, 801, 1024, 10, big)
+    assert not TK.knn_kernel_supported(100, 801, 1024, 10, big + 1)
+    assert not TK.knn_kernel_supported(100, 801, big - 30, 10, 1)
+    # vgan_knn_prep's blocks at nt = 100, ntr = 801: (128 + 896) / 32 row
+    # tiles for each 32 columns, and one block for each 8 masks
+    blocks = lambda d, nm: 32 * -(-d // 32) + -(-nm // 8)  # noqa: E731
+    d_max = (big - 1) // 32 * 32
+    assert blocks(d_max, 8) <= big < blocks(d_max + 32, 8)
+    assert TK.knn_kernel_supported(100, 801, d_max, 10, 8)
+    assert not TK.knn_kernel_supported(100, 801, d_max + 32, 10, 8)
 
 
 def test_rejects_unsupported_calls():

@@ -34,6 +34,7 @@ the same arguments and gets the same scores.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import warnings
@@ -45,7 +46,11 @@ import torch
 from vgan_tpu_torch._device import resolve_device
 from vgan_tpu_torch.ensemble.chi2 import chi2_cdf, chi2_ppf
 from vgan_tpu_torch.ensemble.iforest import DEFAULT_PSI, draw_iforest, iforest_scores_masked
-from vgan_tpu_torch.ops.cuda.knn_score import knn_kernel_supported, knn_scores_all_masks
+from vgan_tpu_torch.ops.cuda.knn_score import (
+    _count_generic,
+    knn_kernel_supported,
+    knn_scores_all_masks,
+)
 from vgan_tpu_torch.parallel.mesh import check_mesh_device
 from vgan_tpu_torch.utils.profiling import annotate, span
 
@@ -2694,9 +2699,15 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         ``reduce=True``: the shard's (nt,) partial aggregate, which the
         shards' sum ('average') or max ('max') combines into the whole
         call's; ``reduce=False``: its raw (rows, nt) scores, padding rows
-        included, in mask order."""
+        included, in mask order. A knn base's shard off the kernel route is
+        counted (``knn_score.launch_counts()['knn_generic']``) and spanned
+        (``vgan::knn.generic``)."""
         if not self._knn_kernel_route(x_test, exclude_self):
-            out = self._native_shard(x_test, exclude_self, reduce, shard, n_shards)
+            knn = self.base in ("knn", "knn_mean")
+            if knn:
+                _count_generic()
+            with span("vgan::knn.generic") if knn else contextlib.nullcontext():
+                out = self._native_shard(x_test, exclude_self, reduce, shard, n_shards)
             return out if reduce else out.reshape(-1, x_test.shape[0])
         masks, weights = self._device_pool()
         per = -(-masks.shape[0] // n_shards)
@@ -2746,7 +2757,8 @@ class SubspaceEnsemble(PyodSurfaceMixin):
             return False
         nt, d = x_test.shape
         ntr = self._x_train.shape[0]
-        return knn_kernel_supported(nt, ntr, d, self.k) and not (exclude_self and self.k >= ntr)
+        return (knn_kernel_supported(nt, ntr, d, self.k, len(self.subspaces))
+                and not (exclude_self and self.k >= ntr))
 
     def predict(self, x_test: np.ndarray) -> np.ndarray:
         """0/1 outlier labels (pyod convention): threshold at the

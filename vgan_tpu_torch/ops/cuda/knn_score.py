@@ -13,13 +13,13 @@ lists (:func:`selected_columns`) and column-major copies of the rows. K6
 and buffers only the candidates below each row's k-th value; K7 (many)
 selects from a distance tile in shared memory.
 
-Which kernel runs is the JAX package's regime rule on the same constants:
-the resident kernel (K6, :func:`knn_scores_resident`) where
-:func:`_resident_supported` holds, the streaming kernel (K7,
-:func:`knn_scores_stream`) past it, and neither where
-:func:`knn_kernel_supported` fails (the caller then takes the generic
-path). The constants are module attributes, read at call time, so a test can
-lower ``MAX_NTR_D`` here and in ``vgan_tpu`` alike.
+Which shapes the kernels take is the H100's own rule
+(:func:`knn_kernel_supported`): the kernels' shared memory does not depend
+on d, so every shape whose launch arguments the C entries accept is scored
+on the card, at any width; the rest (k above ``MAX_K`` or above the train
+rows) take the caller's generic path. K6 runs where the padded train block
+is within ``RESIDENT_MAX_NTR_D`` elements (:func:`_resident_supported`), K7
+past it.
 
 :func:`knn_scores_all_masks` given CPU tensors returns its plain version
 (:func:`knn_scores_all_masks_reference`); given CUDA tensors it launches a
@@ -35,60 +35,65 @@ import torch
 
 from vgan_tpu_torch.ops.cuda.mmd_gram import _check, _column_major, _launch, _ptr
 
-# The JAX package's tiling and VMEM constants (vgan_tpu/ops/pallas/
-# knn_score.py), kept because they decide the regime; the CUDA kernel uses
-# its own 128-row tiles (KERNEL_TILE).
-TILE_NT = 256
-MASK_G = 8
-MAX_K = 64
-MAX_NTR_D = 1024 * 1024
-MAX_NTR = 8192
-_KPAD = 128
+MAX_K = 64  # csrc/knn_score.cu MAX_K: the k-lists a test row keeps in shared memory
+# The kernels' test and train tiles (BT = BR in csrc/knn_score.cu): the
+# column-major copies are padded to whole tiles.
+KERNEL_TILE = 128
+# The grid's y extent, cdiv(nt, KERNEL_TILE) (csrc/knn_score.cu launch_knn).
+MAX_TEST_TILES = 65535
+# The C entries take every count and leading dimension as an int.
+INT_MAX = 2**31 - 1
+_PREP_TILE = 32  # knn_prep_kernel's transpose tile (dist_tile::TT)
+_PREP_MASKS = 8  # masks a knn_prep_kernel block lists
+# K6 where the padded train block, rows x columns, is within this many
+# elements, K7 past it. Timed on an H100 (PERF.md, the kernel table), K6
+# scored 7-12% faster than K7 at every shape from d = 1024 to 30000 and
+# 801 to 8192 train rows, to the same bits, at nt = 500, k = 10 and without
+# exclude_self; K6 is not yet timed at k up to MAX_K, at large nt or with
+# exclude_self, so the crossover stays until it is (ROADMAP Queue 4 item 3).
+RESIDENT_MAX_NTR_D = 1024 * 1024
 # The plain version scores this many masks at a time at most, so that its
 # (masks, nt, d) masked rows and (masks, nt, ntr) distances stay within this
 # many elements.
 REFERENCE_CHUNK_ELEMS = 1 << 27
 _BIG = 3.0e38
 _MODES = ("kth", "mean")
-# The kernel's test and train tiles (BT = BR in csrc/knn_score.cu): the
-# column-major copies are padded to whole tiles.
-KERNEL_TILE = 128
 
 
 def _round_up(a: int, b: int) -> int:
     return -(-a // b) * b
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 def _resident_supported(ntr: int, d: int) -> bool:
-    """The JAX resident kernel's rule: the padded (NTR, D) train block
-    within ``MAX_NTR`` rows and ``MAX_NTR_D`` elements."""
-    NTR = _round_up(ntr, 128)
-    D = max(128, _round_up(d, 128))
-    return NTR <= MAX_NTR and NTR * D <= MAX_NTR_D
+    """Does K6 (``knn_resident_kernel``) score these shapes rather than K7?
+    Where the padded (ntr, d) train block is within
+    ``RESIDENT_MAX_NTR_D`` elements."""
+    block = _round_up(ntr, KERNEL_TILE) * max(KERNEL_TILE, _round_up(d, KERNEL_TILE))
+    return block <= RESIDENT_MAX_NTR_D
 
 
-def knn_kernel_supported(nt: int, ntr: int, d: int, k: int) -> bool:
-    """Can a kernel score these shapes? k within ``MAX_K`` and the train
-    rows, and either regime's layout fits (the JAX package's rule)."""
-    return k <= MAX_K and k <= ntr and (_resident_supported(ntr, d) or _stream_fits(d))
+def knn_kernel_supported(nt: int, ntr: int, d: int, k: int, nm: int) -> bool:
+    """Can the kernels score ``nm`` masks over these shapes? The limits
+    that ``csrc/knn_score.cu``'s entries check, whose shared memory does not
+    depend on d (``smem_floats(k)``, ``resident_smem_floats(k)``):
 
-
-def _stream_trb(d: int) -> int:
-    """Train rows per streamed block of the JAX streaming kernel."""
-    D = max(128, _round_up(d, 128))
-    return max(128, min(2048, (MAX_NTR_D // D) // 128 * 128))
-
-
-def _stream_fits(d: int) -> bool:
-    """The JAX streaming kernel's per-step VMEM residents within 48 MB."""
-    D = max(128, _round_up(d, 128))
-    trb = _stream_trb(D)
-    elems = (
-        (MASK_G + 2 * TILE_NT + 2 * trb) * D
-        + MASK_G * TILE_NT * _KPAD
-        + 3 * TILE_NT * (_KPAD + trb)
-    )
-    return elems * 4 <= 48 * 1024 * 1024
+    - ``1 <= k <= MAX_K`` and ``k <= ntr`` (``launch_knn``);
+    - ``cdiv(nt, 128) <= 65535``, the grid's y extent (``launch_knn``);
+    - every count and leading dimension that an entry takes as an ``int``
+      within range: nt and ntr padded to whole tiles, d, nm, and
+      ``vgan_knn_prep``'s block count; ``cdiv`` forms ``d + 31`` in an int.
+      Column x leading dimension, mask x row length and mask x nt offsets
+      are formed in ``size_t`` and bound nothing.
+    """
+    ld_te, ld_tr = _round_up(nt, KERNEL_TILE), _round_up(ntr, KERNEL_TILE)
+    prep_blocks = ((ld_te + ld_tr) // _PREP_TILE * _cdiv(d, _PREP_TILE)
+                   + _cdiv(nm, _PREP_MASKS))
+    return (1 <= k <= MAX_K and k <= ntr and ld_te // KERNEL_TILE <= MAX_TEST_TILES
+            and max(ld_te, ld_tr, d + _PREP_TILE - 1, nm, prep_blocks) <= INT_MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -201,8 +206,8 @@ def _launch_scores(fn_name, x_test, x_train, masks, k, mode, exclude_self,
 
 def knn_scores_resident(x_test, x_train, masks, k: int, mode: str = "kth",
                         exclude_self: bool = False) -> torch.Tensor:
-    """K6: the JAX resident regime; one mask x 128 test rows per block,
-    the selection filtered in registers."""
+    """K6: one mask x 128 test rows per block, the selection filtered in
+    registers (small train blocks, :func:`_resident_supported`)."""
     out = _launch_scores("vgan_knn_resident", x_test, x_train, masks, k, mode, exclude_self)
     knn_scores_resident.launches += 1
     return out
@@ -210,23 +215,35 @@ def knn_scores_resident(x_test, x_train, masks, k: int, mode: str = "kth",
 
 def knn_scores_stream(x_test, x_train, masks, k: int, mode: str = "kth",
                       exclude_self: bool = False) -> torch.Tensor:
-    """K7: the JAX streaming regime; one mask x 128 test rows per block,
-    over the mask's selected columns."""
+    """K7: one mask x 128 test rows per block, the selection from a
+    distance tile in shared memory (past :func:`_resident_supported`)."""
     out = _launch_scores("vgan_knn_stream", x_test, x_train, masks, k, mode, exclude_self)
     knn_scores_stream.launches += 1
     return out
 
 
 KERNELS = (knn_scores_resident, knn_scores_stream)
+_generic_shards = 0
+
+
+def _count_generic() -> None:
+    """Counts one mask shard of a ``knn`` / ``knn_mean`` ensemble scored on
+    the generic route (``ensemble/od.py``), where no kernel runs."""
+    global _generic_shards
+    _generic_shards += 1
 
 
 def reset_launch_counts() -> None:
+    global _generic_shards
     for fn in KERNELS:
         fn.launches = 0
+    _generic_shards = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    """K6's and K7's launches and the generic route's mask shards
+    (``knn_generic``)."""
+    return {**{fn.__name__: fn.launches for fn in KERNELS}, "knn_generic": _generic_shards}
 
 
 reset_launch_counts()
@@ -250,10 +267,10 @@ def knn_scores_all_masks(x_test: torch.Tensor, x_train: torch.Tensor, masks, k: 
     nt, d = x_test.shape
     ntr = x_train.shape[0]
     k = int(k)
-    if k < 1 or not knn_kernel_supported(nt, ntr, d, k):
+    if not knn_kernel_supported(nt, ntr, d, k, len(masks)):
         raise ValueError(
-            f"k={k} with {ntr} train rows of width {d}: the kernels take 1 <= k <= "
-            f"min({MAX_K}, n_train) and a width whose streamed layout fits"
+            f"k={k} with {nt} test and {ntr} train rows of width {d}: the kernels take "
+            f"1 <= k <= min({MAX_K}, n_train) and shapes within their launch limits"
         )
     if exclude_self and k >= ntr:
         raise ValueError("exclude_self requires k < n_train (self-pairs are dropped)")

@@ -29,8 +29,11 @@ The program's spans, each with the children its self time leaves out:
 - ``vgan::mmd.backward``: the MMD kernels' backward (the dense and chunked
   implementations' backward runs in autograd's own nodes, unspanned);
 - ``vgan::decision_function``: a subspace ensemble's scoring call
-  (``vgan::knn``);
-- ``vgan::knn``: the KNN kernel route's scores over every mask.
+  (``vgan::knn``, ``vgan::knn.generic``);
+- ``vgan::knn``: the KNN kernel route's scores over every mask (K6 or K7);
+- ``vgan::knn.generic``: a ``knn`` / ``knn_mean`` ensemble's scores of a
+  mask shard on the generic route, past the kernels' limits, each counted
+  by ``ops.cuda.knn_score.launch_counts()['knn_generic']``.
 
 :func:`annotate` is :func:`span` as a decorator. :func:`trace_context`
 captures a whole run into a Chrome / Perfetto trace file (open it at
