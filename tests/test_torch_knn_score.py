@@ -383,14 +383,27 @@ def _model_resident_selection(d2_tiles, k: int, cap: int) -> np.ndarray:
     return np.sort(np.concatenate([lists[0], lists[1]], axis=1), axis=1)[:, :k]
 
 
-@pytest.mark.parametrize("k", [1, 5, 10, 16, 17, 64])
-@pytest.mark.parametrize("integer", [False, True])
-def test_resident_selection_model_keeps_the_k_smallest(k, integer):
-    """The register filter, the lane-minimum threshold, the capped rounds and the two lists keep each row's k smallest distances as
-    a multiset, ties included (small-integer rows), with exclude_self's
-    positional pair and a ragged last train tile masked to +3e38."""
+# K7 (knn_kernel) selects as K6 does with STREAM_CAP candidates per (half,
+# row) and round; its last train tile of at most 64 rows leaves columns 64 ..
+# 127 unmultiplied, which lie past ntr and so are +3e38 as in a ragged tile:
+# 300 train rows end in a 44-row tile, 320 in one of exactly 64.
+# K6's cases keep their ids, [integer-k].
+SELECTIONS = [
+    pytest.param(k, integer, cap_name, ntr,
+                 id=f"{integer}-{k}" if cap_name == "CAP" else f"{cap_name}-{ntr}-{integer}-{k}")
+    for cap_name, ntr in (("CAP", 300), ("STREAM_CAP", 300), ("STREAM_CAP", 320))
+    for integer in (False, True) for k in (1, 5, 10, 16, 17, 64)
+]
+
+
+@pytest.mark.parametrize("k,integer,cap_name,ntr", SELECTIONS)
+def test_resident_selection_model_keeps_the_k_smallest(k, integer, cap_name, ntr):
+    """The register filter, the lane-minimum threshold, the capped rounds
+    and the two lists keep each row's k smallest distances as a multiset,
+    ties included (small-integer rows), with exclude_self's positional pair
+    and a ragged last train tile (a half tile in K7) masked to +3e38; at K6's
+    buffer (CAP) and K7's (STREAM_CAP)."""
     rng = np.random.default_rng(k)
-    ntr = 300  # three tiles, the last one 44 rows
     if integer:
         d2 = rng.integers(0, 6, size=(_T, ntr)).astype(np.float32)
     else:
@@ -401,25 +414,61 @@ def test_resident_selection_model_keeps_the_k_smallest(k, integer):
         tile = np.full((_T, _T), _BIG, dtype=np.float32)
         tile[:, :min(_T, ntr - j0)] = d2[:, j0:j0 + _T]
         tiles.append(tile)
-    got = _model_resident_selection(tiles, k, _csrc_constant("CAP"))
+    got = _model_resident_selection(tiles, k, _csrc_constant(cap_name))
     want = np.sort(d2, axis=1)[:, :k]
     np.testing.assert_array_equal(got, want)
+
+
+_SM_SMEM, _BLOCK_MAX = 233472, 232448  # an SM's shared memory for blocks; a block's most
+
+
+def _stream_smem(k: int, bk: int) -> int:
+    """K7's shared memory in bytes with chunks of bk columns: the ring, the
+    norms, the candidate buffers and their counts, two k-lists per row."""
+    t = TK.KERNEL_TILE
+    return 4 * (_csrc_constant("STREAM_STAGES") * bk * 2 * t + 2 * t
+                + 2 * _csrc_constant("STREAM_CAP") * t + 2 * t + 2 * k * t)
+
+
+def _stream_bk(k: int) -> int:
+    """K7's chunk at k (csrc/knn_score.cu stream_bk): WIDE_BK columns where
+    two blocks fit an SM, else NARROW_BK."""
+    wide = _csrc_constant("WIDE_BK")
+    two = 2 * (_stream_smem(k, wide) + _csrc_constant("BLOCK_RESERVED")) <= _SM_SMEM
+    return wide if two else _csrc_constant("NARROW_BK")
+
+
+def test_stream_kernel_shared_memory_budget():
+    """K7's shared memory from csrc/knn_score.cu's constants: within a
+    block's 232,448 B and two blocks an SM (the 128 registers a thread its
+    launch bounds give) at every k up to MAX_K; 32-column chunks at the
+    score cells' k = 10 and up to k = 39, 16 past it; the constants the
+    Python side shares with the source."""
+    reserved = _csrc_constant("BLOCK_RESERVED")
+    assert _csrc_constant("SM_SMEM") == _SM_SMEM and _csrc_constant("MAX_K") == TK.MAX_K
+    for k in range(1, TK.MAX_K + 1):
+        bk = _stream_bk(k)
+        assert _stream_smem(k, bk) <= _BLOCK_MAX, k
+        assert 2 * (_stream_smem(k, bk) + reserved) <= _SM_SMEM, k
+        assert bk == (32 if k <= 39 else 16), k
+    assert _stream_bk(10) == 32
 
 
 def test_resident_kernel_shared_memory_budget():
     """K6's shared memory (the product pipeline, the norms, the candidate
     buffers and counts, two k-lists per row): within a block's 227 KB for
     every k up to MAX_K, two blocks an SM at the bench ensemble's k = 10,
-    and below the d2-tile kernel's (K7's) at every k."""
+    and, beside its two-stage pipeline, more than K7 keeps beside its ring
+    at every k (K7's smaller candidate buffers leave the room to its ring)."""
     cap, tile = _csrc_constant("CAP"), TK.KERNEL_TILE
     pipeline = 2 * 16 * (tile + tile)
 
     def resident(k):
         return 4 * (pipeline + 2 * tile + 2 * cap * tile + 2 * tile + 2 * k * tile)
 
-    def d2_tile(k):
-        return 4 * (pipeline + tile * (tile + 1) + 2 * tile + 2 * k * tile)
-
     for k in range(1, TK.MAX_K + 1):
-        assert resident(k) <= 232448 and resident(k) < d2_tile(k), k
-    assert 2 * (resident(10) + 1024) <= 233472  # the SM's 228 KB, 1 KB reserved a block
+        bk = _stream_bk(k)
+        ring = 4 * _csrc_constant("STREAM_STAGES") * bk * 2 * tile
+        assert resident(k) <= _BLOCK_MAX, k
+        assert resident(k) - 4 * pipeline > _stream_smem(k, bk) - ring, k
+    assert 2 * (resident(10) + 1024) <= _SM_SMEM  # the SM's 228 KB, 1 KB reserved a block

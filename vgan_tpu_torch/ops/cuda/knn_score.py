@@ -8,10 +8,12 @@ the expansion ``max((an + bn) - 2 (xte .* m) @ xtr^T, 0)``; the score of
 or the mean of the k smallest ('mean'), exact under ties. The (nt, ntr)
 distances never reach device memory (``csrc/knn_score.cu``). The kernels
 walk only each mask's selected columns: the wrapper hands them the column
-lists (:func:`selected_columns`) and column-major copies of the rows. K6
-(few selected columns) filters each train tile's distances in registers
-and buffers only the candidates below each row's k-th value; K7 (many)
-selects from a distance tile in shared memory.
+lists (:func:`selected_columns`) and column-major copies of the rows.
+Both filter each train tile's distances in registers and buffer only the
+candidates below each row's k-th value, and keep one double-buffered feed
+running across the train tiles; K7 (many selected columns) copies 32
+columns a chunk where two blocks an SM fit them (k <= 39) and skips the
+empty half of a last train tile of at most 64 rows.
 
 Which shapes the kernels take is the H100's own rule
 (:func:`knn_kernel_supported`): the kernels' shared memory does not depend
@@ -46,10 +48,11 @@ INT_MAX = 2**31 - 1
 _PREP_TILE = 32  # knn_prep_kernel's transpose tile (dist_tile::TT)
 _PREP_MASKS = 8  # masks a knn_prep_kernel block lists
 # K6 where the padded train block, rows x columns, is within this many
-# elements, K7 past it. Timed on an H100 (PERF.md, the kernel table), K6
-# scored 7-12% faster than K7 at every shape from d = 1024 to 30000 and
-# 801 to 8192 train rows, to the same bits, at nt = 500, k = 10 and without
-# exclude_self; K6 is not yet timed at k up to MAX_K, at large nt or with
+# elements, K7 past it: the JAX package's VMEM rule. Timed on an H100
+# (PERF.md, K6 against K7), K7 scores 6-23% faster than K6 at every shape
+# from d = 1024 to 30000 and 801 to 8192 train rows, to the same bits, at
+# nt = 500, k = 10 and without exclude_self; K7 is not yet timed at the
+# bench ensemble's d = 100, at k up to MAX_K, at large nt or with
 # exclude_self, so the crossover stays until it is (ROADMAP Queue 4 item 3).
 RESIDENT_MAX_NTR_D = 1024 * 1024
 # The plain version scores this many masks at a time at most, so that its
@@ -79,7 +82,7 @@ def _resident_supported(ntr: int, d: int) -> bool:
 def knn_kernel_supported(nt: int, ntr: int, d: int, k: int, nm: int) -> bool:
     """Can the kernels score ``nm`` masks over these shapes? The limits
     that ``csrc/knn_score.cu``'s entries check, whose shared memory does not
-    depend on d (``smem_floats(k)``, ``resident_smem_floats(k)``):
+    depend on d (``stream_smem_floats``, ``resident_smem_floats``):
 
     - ``1 <= k <= MAX_K`` and ``k <= ntr`` (``launch_knn``);
     - ``cdiv(nt, 128) <= 65535``, the grid's y extent (``launch_knn``);
@@ -215,8 +218,8 @@ def knn_scores_resident(x_test, x_train, masks, k: int, mode: str = "kth",
 
 def knn_scores_stream(x_test, x_train, masks, k: int, mode: str = "kth",
                       exclude_self: bool = False) -> torch.Tensor:
-    """K7: one mask x 128 test rows per block, the selection from a
-    distance tile in shared memory (past :func:`_resident_supported`)."""
+    """K7: one mask x 128 test rows per block, wide chunks across the train
+    tiles, the selection in registers (past :func:`_resident_supported`)."""
     out = _launch_scores("vgan_knn_stream", x_test, x_train, masks, k, mode, exclude_self)
     knn_scores_stream.launches += 1
     return out
