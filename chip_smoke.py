@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (vgan_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent-csrc DIR]
+    python3 chip_smoke.py
 
 Phases (each asserts; any failure exits non-zero):
 
@@ -147,16 +147,7 @@ Phases (each asserts; any failure exits non-zero):
    the stress fits' steps/s with the bf16 options beside them, for
    information.
    K8's phase timer gives each phase's microseconds a step at both fused
-   shapes. With ``--parent-csrc DIR`` (an earlier commit's
-   ``vgan_tpu_torch/ops/cuda/csrc/``), it also builds that commit's kernels
-   and times its eight kernels against this tree's on the same inputs, in
-   turns (K6 and K7 also held to the parent's scores bit for bit in both
-   modes, K1-K4 in f32 held to the parent's outputs bit for bit), the bf16
-   forward (K1 and K2 bf16) against the parent's, the bf16 backward (K3 and
-   K4 bf16, launched as the parent's wrappers launched them) against the
-   parent's with both held to the plain version, and the kl stress and
-   flash fits' steps/s with the parent's K3 and with this tree's. Phase
-   3e's times are repeated there.
+   shapes. Phase 3e's times are repeated there.
 
 Prints a JSON line of the kernels, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -166,7 +157,6 @@ CUDA device. Imports nothing of JAX or ``vgan_tpu``.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import functools
 import gc
 import io
@@ -996,6 +986,7 @@ def phase_fused_kernel(device, shapes, log):
     fill, to the bit. ``shapes``: (label, n, d, bs, epochs). Returns the
     largest error (losses, bandwidth and every state leaf, absolute) per
     (n, d, bs)."""
+    from vgan_tpu_torch.ops.cuda import _build
     from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
 
     errs = {}
@@ -1004,7 +995,7 @@ def phase_fused_kernel(device, shapes, log):
             (n, d), dtype=np.float32)
         x3, starts, packed, kw = fused_inputs(X, bs, epochs, seed=7, device=device,
                                               lr=FUSED_CHECK_LR)
-        bsp = FN._round_up(bs, 64)
+        bsp = _build.round_up(bs, 64)
         T = int(starts.shape[0])
         noise = torch.from_numpy(np.random.default_rng(8).standard_normal(
             (T, bsp, FN.LP), dtype=np.float32)).to(device)
@@ -1053,7 +1044,7 @@ def phase_fused_kernel(device, shapes, log):
     T = int(starts.shape[0])
     rng_mode = FN.fused_no_kl_fit_cuda(x3, starts, *packed, None, 4242, n=n, **kw)
     fed = FN.fused_no_kl_fit_cuda(x3, starts, *packed,
-                                  FN.philox_normal(4242, T, FN._round_up(bs, 64), FN.LP, device),
+                                  FN.philox_normal(4242, T, _build.round_up(bs, 64), FN.LP, device),
                                   4242, n=n, **kw)
     sync()
     for a, b in zip(rng_mode, fed):
@@ -1206,8 +1197,8 @@ def phase_knn_kernels(device, shapes, log):
     identical bits. ``shapes``: (label, nt, ntr, d, n_masks, k,
     exclude_self, integer). Returns the largest |score error| per
     (kernel, (nt, ntr, d))."""
+    from vgan_tpu_torch.ops.cuda import _build
     from vgan_tpu_torch.ops.cuda import knn_score as KS
-    from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     errs = {}
     for label, nt, ntr, d, nm, k, excl, integer in shapes:
@@ -1216,7 +1207,7 @@ def phase_knn_kernels(device, shapes, log):
         # the operands' launch against its plain version: the copies equal,
         # each mask's selected columns (the first count entries) equal
         got = KS.kernel_operands(xte, xtr, masks)
-        want = (G._column_major(xte, KS.KERNEL_TILE), G._column_major(xtr, KS.KERNEL_TILE),
+        want = (_build.column_major(xte, KS.KERNEL_TILE), _build.column_major(xtr, KS.KERNEL_TILE),
                 *KS.selected_columns(masks))
         sync()
         counts = want[3].tolist()
@@ -3089,11 +3080,11 @@ def flash_readings(z, norms, bw, n1: int, n2: int, mults, sources: dict, log) ->
     return readings
 
 
-def phase_times(device, shapes, errs, launches, log, parent_k3=None):
+def phase_times(device, shapes, errs, launches, log):
     """One row per kernel at the shape its main path gives it, with the
-    times at its other shapes under ``at_other_shapes``. ``parent_k3``: the
-    parent's K3 (``parent_flash``), read beside this tree's at m=40960."""
+    times at its other shapes under ``at_other_shapes``."""
     from vgan_tpu_torch.ops import mmd as M
+    from vgan_tpu_torch.ops.cuda import _build
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
@@ -3157,7 +3148,7 @@ def phase_times(device, shapes, errs, launches, log, parent_k3=None):
         s_k = G.gram_quadrant_sums(z, norms, bw, n1, mults)
         sync()
         peak = torch.cuda.max_memory_allocated()
-        limit = 4 * (d * G._round_up(m, G.STASH_TILE) + G.STASH_BLOCKS_PER_SM * sms * G.STASH_TILE ** 2
+        limit = 4 * (d * _build.round_up(m, G.STASH_TILE) + G.STASH_BLOCKS_PER_SM * sms * G.STASH_TILE ** 2
                      + 12 * G.tile_pairs(m) + 4)
         check(peak - base <= limit, f"K1 at m={m} d={d} allocated {peak - base} bytes, more than "
                                     f"z's copy, one wave of tiles and the partials ({limit})")
@@ -3196,17 +3187,13 @@ def phase_times(device, shapes, errs, launches, log, parent_k3=None):
         limit = scratch + 4 * (m * d + m) + 4096
         check(peak - base <= limit, f"K3 at m={m} d={d} allocated {peak - base} bytes, more than "
                                     f"its scratch and outputs ({limit})")
-        sources = {"this tree": lambda: (sz, rs)}
-        if parent_k3 is not None:
-            sources["parent"] = lambda: parent_k3(z, norms, bw, n1, n2, mults)
-        sources["TF32 control"] = lambda: blockwise_flash_tf32(z, norms, bw, n1, n2, mults)
+        sources = {"this tree": lambda: (sz, rs),
+                   "TF32 control": lambda: blockwise_flash_tf32(z, norms, bw, n1, n2, mults)}
         readings = flash_readings(z, norms, bw, n1, n2, mults, sources, log)
-        for who in ("this tree", "parent"):
-            if who in readings:
-                check(readings[who][1] <= TERM_FRAC,
-                      f"gram_backward_flash m={m} d={d} ({who}): an entry off the plain version "
-                      f"in row blocks by {readings[who][1]:.3e} of the sum of its terms' "
-                      f"magnitudes, more than {TERM_FRAC}")
+        check(readings["this tree"][1] <= TERM_FRAC,
+              f"gram_backward_flash m={m} d={d} (this tree): an entry off the plain version "
+              f"in row blocks by {readings['this tree'][1]:.3e} of the sum of its terms' "
+              f"magnitudes, more than {TERM_FRAC}")
         check(readings["TF32 control"][1] > TERM_FRAC,
               f"K3's check at m={m} d={d} passes the TF32 control "
               f"({readings['TF32 control'][1]:.3e} <= {TERM_FRAC})")
@@ -3276,14 +3263,14 @@ def phase_times(device, shapes, errs, launches, log, parent_k3=None):
         # pass 1 alone (the symmetric d2 of the full-Gram regime): the split
         # of the time between the distances and the A @ K pass
         check(GG.regime(m) == "full", f"K5 at m={m} is not in the full-Gram regime")
-        z_t = G._column_major(z, GG.KERNEL_TILE)
+        z_t = _build.column_major(z, GG.KERNEL_TILE)
         M = z_t.shape[1]
         norms_p = torch.zeros(M, dtype=torch.float32, device=device)
         norms_p[:m] = norms
         d2 = torch.empty((M, M), dtype=torch.float32, device=device)
-        t["pass1_ms"] = cuda_ms(lambda: G._launch(
-            "vgan_gof_gram_d2", device, z_t.data_ptr(), norms_p.data_ptr(), M, d, 1, 0,
-            M // GG.KERNEL_TILE, d2.data_ptr(), lib=GG._lib()), 3, 1)
+        t["pass1_ms"] = cuda_ms(lambda: _build.launch(
+            GG._lib(), "vgan_gof_gram_d2", device, z_t.data_ptr(), norms_p.data_ptr(), M, d, 1, 0,
+            M // GG.KERNEL_TILE, d2.data_ptr()), 3, 1)
         log(f"  a_times_k {t['shape']}: pass 1 (d2, each pair once) alone {t['pass1_ms']:.4f} ms, "
             f"{2 * sym_pairs(m) * d / t['pass1_ms'] / 1e9:.1f} TFLOP/s of distances")
         return t
@@ -3390,508 +3377,42 @@ def knn_times(runs, errs, launches, hetero_launches, log):
     return rows
 
 
-PARENT_SOURCES = ("knn_score", "gof_gram", "mmd_gram", "fused_no_kl")
-# The parent's bf16 backward entries (the column-major product_bf16 passes)
-# and the f32 entries whose arguments they take.
-PARENT_BF16_BACKWARD = {"vgan_gram_backward_flash_bf16": "vgan_gram_backward_flash",
-                        "vgan_kprime_panel_bf16": "vgan_kprime_panel",
-                        "vgan_transpose_pad_bf16": "vgan_transpose_pad"}
-
-
-def build_parent(src_dir: Path, log) -> dict:
-    """The parent commit's kernel sources from ``src_dir`` (its
-    ``vgan_tpu_torch/ops/cuda/csrc/``: the four ``.cu`` files and the headers
-    they include), built with the package's flags into
-    ``build/parent_kernels/`` (one ``nvcc`` each, started together) and bound
-    with this tree's signatures, but for the bf16 backward's entries, which
-    take the parent's own (``PARENT_BF16_BACKWARD``). The parent's csrc must
-    have ``wgmma_tile.cuh`` (the TMA-fed bf16 forward): its K1 bf16 and K2
-    bf16 take this tree's arguments (:func:`parent_quadrant_sums_bf16`), its
-    K3 bf16 and K4 bf16 the column-major ``product_bf16`` passes'
-    (:func:`parent_backward_bf16`)."""
-    from vgan_tpu_torch.ops.cuda import _build
-    from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
-    from vgan_tpu_torch.ops.cuda import gof_gram as GG
-    from vgan_tpu_torch.ops.cuda import knn_score as KS
-    from vgan_tpu_torch.ops.cuda import mmd_gram as G
-
-    out_dir = Path(__file__).resolve().parent / "build" / "parent_kernels"
-    out_dir.mkdir(parents=True, exist_ok=True)
-
-    def build(name):
-        lib = out_dir / f"lib{name}_parent.so"
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src_dir / f"{name}.cu")],
-                       check=True, capture_output=True, text=True, timeout=900)
-        return ctypes.CDLL(str(lib))
-
-    if not (src_dir / "wgmma_tile.cuh").is_file():
-        raise ValueError(f"{src_dir}: a parent without the TMA-fed bf16 forward (wgmma_tile.cuh) "
-                         "is not supported")
-    with ThreadPoolExecutor(len(PARENT_SOURCES)) as pool:
-        libs = dict(zip(PARENT_SOURCES, pool.map(build, PARENT_SOURCES)))
-    for name, module in (("gof_gram", GG), ("knn_score", KS), ("fused_no_kl", FN),
-                         ("mmd_gram", G)):
-        signatures = dict(module._SIGNATURES)
-        if name == "mmd_gram":
-            signatures.update({fn: G._SIGNATURES[f32] for fn, f32 in PARENT_BF16_BACKWARD.items()})
-        for fn, argtypes in signatures.items():
-            if hasattr(libs[name], fn):  # an entry added since is not the parent's
-                getattr(libs[name], fn).argtypes = argtypes
-                getattr(libs[name], fn).restype = ctypes.c_int
-    log(f"  parent kernels built from {src_dir}")
-    return libs
-
-
-@contextlib.contextmanager
-def using_lib(module, lib):
-    """Run ``module``'s kernel wrappers on ``lib`` (same C interface) inside
-    the ``with`` block."""
-    saved = module._lib
-    module._lib = lambda: lib
-    try:
-        yield
-    finally:
-        module._lib = saved
-
-
-def parent_gram_kernels(lib):
-    """The parent commit's K1 and K4 (the C interface of this tree) as
-    drop-in functions for ``mmd_gram.gram_quadrant_sums`` and
-    ``kprime_panel``: this tree's wrappers on the parent's library."""
-    from vgan_tpu_torch.ops.cuda import mmd_gram as G
-
-    sums_fn, panel_fn = G.gram_quadrant_sums, G.kprime_panel
-
-    def sums(*args, **kw):
-        with using_lib(G, lib):
-            return sums_fn(*args, **kw)
-
-    def panel(*args, **kw):
-        with using_lib(G, lib):
-            return panel_fn(*args, **kw)
-
-    return sums, panel
-
-
-def parent_quadrant_sums_bf16(lib):
-    """The parent commit's bf16 K1 and K2 (``vgan_gram_quadrant_sums_bf16``,
-    ``vgan_gram_quadrant_sums_stash_bf16``, the cluster kernel's arguments,
-    as this tree's) as drop-ins for ``gram_quadrant_sums_bf16`` and
-    ``gram_quadrant_sums_stash_bf16``: this tree's wrappers on the parent's
-    library."""
-    from vgan_tpu_torch.ops.cuda import mmd_gram as G
-
-    def wrapped(stash, z, norms, bw, n1, mults):
-        with using_lib(G, lib):
-            fn = G.gram_quadrant_sums_stash_bf16 if stash else G.gram_quadrant_sums_bf16
-            return fn(z, norms, bw, n1, mults)
-    return (functools.partial(wrapped, False), functools.partial(wrapped, True))
-
-
-def parent_backward_bf16(lib, device):
-    """The parent commit's K4 bf16 and K3 bf16 launched as the parent's
-    wrappers launched them: ``(panel, flash, operand)``, drop-ins for
-    ``kprime_panel_bf16``, ``gram_backward_flash_bf16`` and
-    ``panel_operand(x, bf16=True)``. Its K4 bf16 reads the column-major bf16
-    copy of ``vgan_transpose_pad_bf16`` (one tile taller than the rows
-    rounded up to 128; an ordered panel's rows get their own, rounded up to
-    128), with :func:`mmd_gram.tile_schedule`'s d slice and
-    :func:`mmd_gram.panel_scratch_floats`'s scratch; its K3 bf16
-    :func:`mmd_gram.flash_schedule`'s slice and splits and the f32 K3's
-    scratch with the column-major z at 2 bytes a value. Their launches are
-    not counted."""
-    from vgan_tpu_torch.ops.cuda import mmd_gram as G
-
-    sms = G._sms(device)
-
-    def transposed(x, ld):
-        n, d = x.shape
-        out = torch.empty((d, ld), dtype=torch.bfloat16, device=device)
-        G._launch("vgan_transpose_pad_bf16", device, G._ptr(x), n, d, ld, G._ptr(out), lib=lib)
-        return out
-
-    def operand(x):
-        return transposed(x, G._round_up(x.shape[0], G.STASH_TILE) + G.STASH_TILE)
-
-    def panel(z_rows, z_cols, n_rows, n_cols, bw, mults, offset=None, cols_t=None):
-        R, C, d, dev = G._check_panel_inputs(z_rows, z_cols, n_rows, n_cols, bw, offset)
-        cols_t = operand(z_cols) if cols_t is None else cols_t
-        if offset is None:
-            rows_t, row0, diag = transposed(z_rows, G._round_up(R, G.STASH_TILE)), 0, -1
-        else:
-            rows_t, row0, diag = cols_t, offset, offset
-        blocks = G.panel_blocks(R, C, offset)
-        _, slice_, _ = G.tile_schedule(blocks, d, sms)
-        scratch = torch.empty(max(1, G.panel_scratch_floats(blocks, d, slice_)),
-                              dtype=torch.float32, device=dev)
-        kp = torch.empty((R, C), dtype=torch.float32, device=dev)
-        G._launch("vgan_kprime_panel_bf16", dev, G._ptr(rows_t), rows_t.shape[1], row0,
-                  G._ptr(cols_t), cols_t.shape[1], G._ptr(n_rows), G._ptr(n_cols),
-                  G._ptr(bw.reshape(1)), R, C, d, diag, ctypes.byref(G._ladder(tuple(mults))),
-                  slice_, G._ptr(scratch), G._ptr(kp), lib=lib)
-        return kp
-
-    def flash(z, norms, bw, n1, n2, mults):
-        m, d, sz, rs = G._flash_outputs(z, norms, bw, n1, n2)
-        _, slice_, nsplit = G.flash_schedule(m, d, sms)
-        size = (G.flash_scratch_floats(m, d, slice_, nsplit)
-                - G._zt_floats(d, G._round_up(m, G.STASH_TILE)) // 2)
-        scratch = torch.empty(size, dtype=torch.float32, device=z.device)
-        cxx, cyy, cxy = G._coefficients(n1, n2)
-        G._launch("vgan_gram_backward_flash_bf16", z.device, G._ptr(z), G._ptr(norms),
-                  G._ptr(bw.reshape(1)), m, d, n1, cxx, cyy, cxy,
-                  ctypes.byref(G._ladder(tuple(mults))), slice_, nsplit, G._ptr(scratch),
-                  G._ptr(sz), G._ptr(rs), lib=lib)
-        return sz, rs
-
-    return panel, flash, operand
-
-
-def parent_flash(lib):
-    """The parent commit's K3 as a drop-in for ``mmd_gram.gram_backward_flash``:
-    this tree's launch on the parent's library, its launches not counted."""
-    from vgan_tpu_torch.ops.cuda import mmd_gram as G
-
-    def flash(z, norms, bw, n1, n2, mults):
-        with using_lib(G, lib):
-            return G._flash_launch(z, norms, bw, n1, n2, mults)
-
-    return flash
-
-
-def panel_fit_rates(device, libs, log) -> dict:
+def panel_fit_rates(device, log) -> float:
     """The panel fit's steps/s: the no-kl stress shape with the K' stash off
-    (K1 and K4 each step), host clock over 4 epochs; with the parent's
-    kernels (``libs``), in turns: parent, this tree, this tree, parent, the
-    parent's library (its K1 and K4) in its turns."""
+    (K1 and K4 each step), host clock over 4 epochs."""
     from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     n, d, batch = STRESS["n"], STRESS["d"], STRESS["batch"]
-    turns = ["parent", "this tree", "this tree", "parent"] if libs else ["this tree"]
     saved = G._KP_STASH_BYTES
-    rates = {}
     try:
         G._KP_STASH_BYTES = 0
-        for who in turns:
-            with using_lib(G, libs["mmd_gram"]) if who == "parent" else contextlib.nullcontext():
-                rates.setdefault(who, []).append(fit_steps_per_s(device, n, d, batch, epochs=4))
+        rate = fit_steps_per_s(device, n, d, batch, epochs=4)
     finally:
         G._KP_STASH_BYTES = saved
-    log(f"  panel fit (n={n}, d={d}, batch {batch}, K' stash off): " + "; ".join(
-        f"{who} " + ", ".join(f"{r:.2f}" for r in v) for who, v in rates.items()) + " steps/s")
-    return rates
+    log(f"  panel fit (n={n}, d={d}, batch {batch}, K' stash off): {rate:.2f} steps/s")
+    return rate
 
 
-def flash_fit_rates(device, libs, log) -> dict:
+def flash_fit_rates(device, log) -> dict:
     """The steps/s of the two fits that run K3: the kl stress fit (one
     AlternationSchedule(1, 5) cycle: K3 on the detector's m=1000, L=640
     encodings) and the flash fit (n=2000, d=1024, batch 500,
     FLASH_FIT_EPOCHS epochs: K1 and K3 each step), host clock, after a
-    warm-up of each; with the parent's kernels (``libs``), in turns:
-    parent, this tree, this tree, parent, twice, the parent's K3 in its
-    turns. Then the flash fit's device time a step
-    with each K3 (``torch.profiler``, 4 epochs): the fit is host-bound, so
-    K3's share of its steps shows there and not in its steps/s."""
-    from vgan_tpu_torch.ops.cuda import mmd_gram as G
-
+    warm-up of each. Then the flash fit's device time a step
+    (``torch.profiler``, 4 epochs): the fit is host-bound, so K3's share of
+    its steps shows there and not in its steps/s."""
     n, d, batch = STRESS["n"], STRESS["d"], STRESS["batch"]
-    turns = ["parent", "this tree", "this tree", "parent"] * 2 if libs else ["this tree"]
-    k3 = G.gram_backward_flash
-    parent_k3 = parent_flash(libs["mmd_gram"]) if libs else None
     kl_fit_steps_per_s(device, n, d, batch)
     fit_steps_per_s(device, n, 1024, batch)
-    rates = {"kl stress fit": {}, "flash fit": {}, "flash fit device us/step": {}}
-    try:
-        for who in turns:
-            G.gram_backward_flash = parent_k3 if who == "parent" else k3
-            rates["kl stress fit"].setdefault(who, []).append(kl_fit_steps_per_s(device, n, d, batch))
-            rates["flash fit"].setdefault(who, []).append(
-                fit_steps_per_s(device, n, 1024, batch, epochs=FLASH_FIT_EPOCHS))
-        for who in dict.fromkeys(turns):
-            G.gram_backward_flash = parent_k3 if who == "parent" else k3
-            rates["flash fit device us/step"][who] = [device_busy_us(
-                lambda: fit_steps_per_s(device, n, 1024, batch, epochs=4)) / (4 * (n // batch))]
-    finally:
-        G.gram_backward_flash = k3
-    for fit, by in rates.items():
-        log(f"  {fit} with K3 of: " + "; ".join(
-            f"{who} " + ", ".join(f"{r:.2f}" for r in v) for who, v in by.items())
-            + ("" if fit.endswith("us/step") else " steps/s"))
+    rates = {
+        "kl stress fit": kl_fit_steps_per_s(device, n, d, batch),
+        "flash fit": fit_steps_per_s(device, n, 1024, batch, epochs=FLASH_FIT_EPOCHS),
+        "flash fit device us/step": device_busy_us(
+            lambda: fit_steps_per_s(device, n, 1024, batch, epochs=4)) / (4 * (n // batch)),
+    }
+    for fit, rate in rates.items():
+        log(f"  {fit}: {rate:.2f}" + ("" if fit.endswith("us/step") else " steps/s"))
     return rates
-
-
-def parent_comparison(libs, device, runs, gof_shapes, log) -> dict:
-    """The parent's K1 (at the kl, flash and panel fits' Grams and at
-    m=40960), K3 (at the kl and flash fits' Grams and at m=40960), K4 (the panel fit's square panel and one real panel),
-    K2 (at the no-kl stress fit's Gram), K8 (the 2000-epoch notebook fit and the
-    20-epoch corner, rng mode), K5 (at both GoF shapes), K6 and K7 (at the
-    ensembles' decision_function shapes), the bf16 forward (K1 bf16 at phase
-    2's four shapes, K2 bf16 at the stress Gram: ``parent_quadrant_sums_bf16``)
-    and the bf16 backward (K3 bf16 at phase 2's three shapes, K4 bf16 at its
-    three timed panels: ``parent_backward_bf16``) against
-    this tree's, on the same inputs, in turns: parent, this tree, this tree,
-    parent. Each case makes its inputs when it runs and frees them after.
-    Returns, per (kernel, shape), the four times and the largest difference
-    of the outputs relative to the parent's largest entry; for K6 and K7
-    also whether the scores equal the parent's to the bit in each mode; for
-    the m = 1000 cases of K1-K4 in f32, whose code this tree keeps, that
-    they do (checked); and for the bf16 backward, whose kernels differ, each
-    tree's largest error against the plain version on the rounded operands
-    (checked, within phase 2's limits)."""
-    from vgan_tpu_torch.ops import mmd as M
-    from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
-    from vgan_tpu_torch.ops.cuda import gof_gram as GG
-    from vgan_tpu_torch.ops.cuda import knn_score as KS
-    from vgan_tpu_torch.ops.cuda import mmd_gram as G
-
-    gram_lib = libs["mmd_gram"]
-    parent_sums, parent_panel = parent_gram_kernels(gram_lib)
-    parent_sums_bf16, parent_stash_bf16 = parent_quadrant_sums_bf16(gram_lib)
-    parent_panel_bf16, parent_flash_bf16, parent_operand_bf16 = parent_backward_bf16(gram_lib, device)
-    mults = M.bandwidth_multipliers()
-
-    def same_bits(label, old, new):
-        """The check that ``new`` gives ``old``'s bits (a kernel whose code
-        this tree keeps), as an extra of a case."""
-        def extra():
-            a, b_ = old(), new()
-            a, b_ = (x if isinstance(x, tuple) else (x,) for x in (a, b_))
-            equal = all(torch.equal(u, v) for u, v in zip(a, b_))
-            check(equal, f"{label}: this tree's outputs differ from the parent's")
-            return {"equal_bits": equal}
-        return extra
-
-    def with_bits(label, make):
-        def made():
-            old, new = make()
-            return old, new, same_bits(label, old, new)
-        return made
-
-    def inputs(n1, n2, d, seed, large):
-        if large:
-            return large_gram_inputs(n1 + n2, d, seed, device)
-        return gram_inputs(n1, n2, d, seed, device)[2:]
-
-    def sums_case(shape, large=False):
-        def make():
-            n1, n2, d = shape
-            z, norms, bw = inputs(n1, n2, d, 21, large)
-            return (lambda: parent_sums(z, norms, bw, n1, mults),
-                    lambda: G.gram_quadrant_sums(z, norms, bw, n1, mults))
-        return make
-
-    def panel_case(n1, n2, d, R, offset, large):
-        """At the small shape each call makes z's column-major copy itself,
-        as the panel backward does once for its one panel at m <= R; at the
-        large one the copy is made once outside, as for a backward's many
-        panels."""
-        def make():
-            z, norms, bw = inputs(n1, n2, d, 25, large)
-            zr, nr = z[offset:offset + R], norms[offset:offset + R]
-            cols_t = G.panel_operand(z) if large else None
-            return (lambda: parent_panel(zr, z, nr, norms, bw, mults, offset=offset,
-                                         cols_t=cols_t),
-                    lambda: G.kprime_panel(zr, z, nr, norms, bw, mults, offset=offset,
-                                           cols_t=cols_t))
-        return make
-
-    parent_k3 = parent_flash(gram_lib)
-
-    def flash_case(shape, large=False):
-        def make():
-            n1, n2, d = shape
-            z, norms, bw = inputs(n1, n2, d, 21, large)
-            return (lambda: parent_k3(z, norms, bw, n1, n2, mults),
-                    lambda: G.gram_backward_flash(z, norms, bw, n1, n2, mults))
-        return make
-
-    def stash_case():
-        n1, d = STRESS["batch"], STRESS["d"]
-        _, _, z, norms, bw = gram_inputs(n1, n1, d, seed=21, device=device)
-
-        def old():
-            with using_lib(G, gram_lib):
-                return G.gram_quadrant_sums_stash(z, norms, bw, n1, mults)
-
-        return old, lambda: G.gram_quadrant_sums_stash(z, norms, bw, n1, mults)
-
-    def bf16_forward_case(shape, stash):
-        """The bf16 forward: the parent's (``parent_quadrant_sums_bf16``)
-        against this tree's cluster kernel."""
-        def make():
-            n1, n2, d = shape
-            z, norms, bw = inputs(n1, n2, d, 21, False)
-            old, new = ((parent_stash_bf16, G.gram_quadrant_sums_stash_bf16) if stash
-                        else (parent_sums_bf16, G.gram_quadrant_sums_bf16))
-            return (lambda: old(z, norms, bw, n1, mults), lambda: new(z, norms, bw, n1, mults))
-        return make
-
-    def bf16_backward_case(shape, R=None):
-        """K3 bf16 (``R`` None) or K4 bf16 on the (R, m) panel at offset 0,
-        its column operand made once outside the calls (each tree's own), as
-        the panel backward makes it: the parent's and this tree's, each held
-        to the plain version on the rounded operands (phase 2's limits)."""
-        def make():
-            n1, n2, d = shape
-            m = n1 + n2
-            z, norms, bw = inputs(n1, n2, d, 21, m > 4096)
-            if R is None:
-                def run(flash):
-                    return lambda: flash(z, norms, bw, n1, n2, mults)
-                old, new = run(parent_flash_bf16), run(G.gram_backward_flash_bf16)
-            else:
-                def run(panel, cols_t):
-                    return lambda: panel(z[:R], z, norms[:R], norms, bw, mults, offset=0,
-                                         cols_t=cols_t)
-                old = run(parent_panel_bf16, parent_operand_bf16(z))
-                new = run(G.kprime_panel_bf16, G.panel_operand(z, bf16=True))
-
-            def against_plain():
-                zr = G.rounded(z)
-                errs = {}
-                if R is None:
-                    sz_p, rs_p = G.gram_backward_flash_reference(zr, norms, bw, n1, n2, mults)
-                    for who, fn in (("parent", old), ("this tree", new)):
-                        sz_k, rs_k = fn()
-                        errs[who] = max(assert_frac(f"gram_backward_flash_bf16 sz ({who})", sz_k,
-                                                    sz_p, GRAD_FRAC),
-                                        assert_frac(f"gram_backward_flash_bf16 rs ({who})", rs_k,
-                                                    rs_p, GRAD_FRAC))
-                else:
-                    want = G.kprime_panel_reference(zr[:R], zr, norms[:R], norms, bw, mults)
-                    for who, fn in (("parent", old), ("this tree", new)):
-                        errs[who] = assert_close(f"kprime_panel_bf16 ({who})", fn(), want, RTOL_KP,
-                                                 ATOL_KP)
-                return {"max_abs_err_vs_plain": errs}
-            return old, new, against_plain
-        return make
-
-    def fused_case(Xf, bs, epochs, seed, kseed):
-        def make():
-            x3, starts, packed, kw = fused_inputs(Xf, bs, epochs, seed=seed, device=device)
-
-            def new():
-                return FN.fused_no_kl_fit_cuda(x3, starts, *packed, None, kseed, n=len(Xf), **kw)[7]
-
-            def old():
-                with using_lib(FN, libs["fused_no_kl"]):
-                    return new()
-
-            return old, new
-        return make
-
-    def gof_case(shape):
-        def make():
-            n_rows, n1, n2, d, n_perms, alphas, _ = shape
-            X = np.random.default_rng(35).standard_normal((n_rows, d), dtype=np.float32)
-            x, _ = gof_samples(X, n1, seed=36)
-            _, y = gof_samples(X, n2, seed=37)
-            z, norms, a = gof_kernel_inputs(x, y, n_perms, 38, device)
-
-            def old():
-                with using_lib(GG, libs["gof_gram"]):
-                    return GG.a_times_k(z, norms, a, alphas)
-
-            return old, lambda: GG.a_times_k(z, norms, a, alphas)
-        return make
-
-    def knn_case(key):
-        def make():
-            ens, Xt = runs[key]
-            x, xtr = ens._as_device(Xt), ens._x_train
-            masks, _ = ens._device_pool()
-
-            entry = ("vgan_knn_resident" if KS._resident_supported(xtr.shape[0], x.shape[1])
-                     else "vgan_knn_stream")
-            m32 = masks.to(torch.float32).contiguous()
-
-            def old(mode="kth"):  # the parent's entry (same C interface), this tree's operands
-                return KS._launch_scores(entry, x, xtr, m32, ens.k, mode, False,
-                                         lib=libs["knn_score"])
-
-            def new(mode="kth"):
-                return KS.knn_scores_all_masks(x, xtr, masks, ens.k, mode)
-
-            def equal_bits():
-                return {f"equal_bits_{mode}": torch.equal(old(mode), new(mode))
-                        for mode in ("kth", "mean")}
-
-            return old, new, equal_bits
-        return make
-
-    b, d = STRESS["batch"], STRESS["d"]
-    rp = K4_REAL_PANEL
-    m_rp = rp["n1"] + rp["n2"]
-    R_rp = G._panel_rows(m_rp)
-    cases = [(f"gram_quadrant_sums m={2 * b} d={dk}", 20,
-              with_bits("gram_quadrant_sums", sums_case((b, b, dk)))) for dk in (d // 16, 1024, d)]
-    cases += [(f"gram_backward_flash m={2 * b} d={dk}", 20,
-               with_bits("gram_backward_flash", flash_case((b, b, dk)))) for dk in (d // 16, 1024)]
-    cases += [
-        (f"gram_backward_flash m={sum(K1_LARGE[:2])} d={K1_LARGE[2]}", 3,
-         flash_case(K1_LARGE, large=True)),
-        (f"gram_quadrant_sums m={sum(K1_LARGE[:2])} d={K1_LARGE[2]}", 3,
-         sums_case(K1_LARGE, large=True)),
-        (f"kprime_panel R={2 * b} C={2 * b} d={d} offset 0 (with the column-major copy)", 20,
-         with_bits("kprime_panel", panel_case(b, b, d, 2 * b, 0, False))),
-        (f"kprime_panel R={R_rp} C={m_rp} d={rp['d']} offset {rp['offset']}", 3,
-         panel_case(rp["n1"], rp["n2"], rp["d"], R_rp, rp["offset"], True)),
-        (f"gram_quadrant_sums_stash m={2 * b} d={d}", 20,
-         with_bits("gram_quadrant_sums_stash", stash_case)),
-        (f"fused_no_kl_fit_cuda n=2000 d=10 bs=500, {FUSED_TIMED_EPOCHS} epochs", 3,
-         fused_case(notebook_data(), 500, FUSED_TIMED_EPOCHS, 11, 99)),
-    ]
-    cases += [(f"gram_quadrant_sums_bf16 m={n1 + n2} d={dk}", 20,
-               bf16_forward_case((n1, n2, dk), False))
-              for n1, n2, dk in ((b, b, d // 16), (b, b, 1024), (1100, 1013, 700), (b, b, d))]
-    cases += [
-        (f"gram_quadrant_sums_stash_bf16 m={2 * b} d={d}", 20, bf16_forward_case((b, b, d), True)),
-        (f"gram_backward_flash_bf16 m={2 * b} d={d // 16}", 20, bf16_backward_case((b, b, d // 16))),
-        ("gram_backward_flash_bf16 m=8192 d=1024", 3, bf16_backward_case((4096, 4096, 1024))),
-        ("gram_backward_flash_bf16 m=850 d=2000", 20, bf16_backward_case((333, 517, 2000))),
-        (f"kprime_panel_bf16 R={2 * b} C={2 * b} d={d} offset 0", 20,
-         bf16_backward_case((b, b, d), 2 * b)),
-        ("kprime_panel_bf16 R=640 C=4096 d=2100 offset 0", 20,
-         bf16_backward_case((2048, 2048, 2100), 640)),
-        (f"kprime_panel_bf16 R={R_rp} C={m_rp} d={rp['d']} offset 0", 3,
-         bf16_backward_case((rp["n1"], rp["n2"], rp["d"]), R_rp)),
-    ]
-    Xc = np.random.default_rng(13).standard_normal((FUSED_CORNER["n"], FUSED_CORNER["d"]),
-                                                   dtype=np.float32)
-    cases.append((f"fused_no_kl_fit_cuda n={FUSED_CORNER['n']} d={FUSED_CORNER['d']} "
-                  f"bs={FUSED_CORNER['bs']}, {FUSED_CORNER['epochs']} epochs", 3,
-                  fused_case(Xc, FUSED_CORNER["bs"], FUSED_CORNER["epochs"], 12, 98)))
-    for shape in gof_shapes:
-        cases.append((f"a_times_k m={shape[1] + shape[2]} d={shape[3]} P={shape[4] + 2} "
-                      f"alphas={len(shape[5])}", 3, gof_case(shape)))
-    for name, key, iters in (("knn_scores_resident", ("bench", "knn"), 20),
-                             ("knn_scores_stream", ("stress", "knn"), 3)):
-        ens, Xt = runs[key]
-        cases.append((f"{name} {len(ens.subspaces)} masks, {len(Xt)} x {ens._x_train.shape[0]}, "
-                      f"d={Xt.shape[1]}, k={ens.k}", iters, knn_case(key)))
-    results = {}
-    for label, iters, make in cases:
-        torch.cuda.empty_cache()
-        old, new, *extra = make()
-        t = [cuda_ms(f, iters, 1) for f in (old, new, new, old)]
-        a, b_ = old(), new()
-        a = a if isinstance(a, tuple) else (a,)
-        b_ = b_ if isinstance(b_, tuple) else (b_,)
-        diff = max(max_abs(u, v) / max(float(torch.max(torch.abs(u))), 1e-30) for u, v in zip(a, b_))
-        results[label] = {"parent_ms": [t[0], t[3]], "ms": [t[1], t[2]], "max_rel_diff": diff}
-        for more in extra:
-            results[label].update(more())
-        bits = "".join(f"; {k.replace('_', ' ')}: {v}" for k, v in results[label].items()
-                       if k.startswith("equal_bits"))
-        bits += "".join(f"; max abs err against the plain version, {who}: {e:.3e}" for who, e in
-                        results[label].get("max_abs_err_vs_plain", {}).items())
-        log(f"  {label}: parent {t[0]:.4f}, {t[3]:.4f} ms; this tree {t[1]:.4f}, {t[2]:.4f} ms "
-            f"({(t[0] + t[3]) / (t[1] + t[2]):.2f}x); outputs differ by at most {diff:.3e} of the "
-            f"parent's largest{bits}")
-        del old, new, a, b_
-    log(f"  device memory: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB at most")
-    return results
 
 
 def fused_ops_bytes(n: int, d: int, bs: int, latent: int, steps: int):
@@ -4109,6 +3630,25 @@ def profile_stress_epoch(device, n, d, batch, log, kl: bool = False, top: int = 
             f"  x{e.count:<4d} {e.key[:90]}")
 
 
+def variant_dirs(name: str, csrc: Path, texts: dict, root: Path) -> dict:
+    """``{label: directory}``: each text of ``texts`` (label -> a variant of
+    ``<csrc>/<name>.cu``) written as ``<name>.cu`` into a directory of its
+    own under ``root``, beside ``csrc``'s headers, and all of them built
+    together through ``_build.load``, for ``_build.built_from``."""
+    from vgan_tpu_torch.ops.cuda import _build
+
+    dirs = {}
+    for i, (label, text) in enumerate(texts.items()):
+        dirs[label] = root / f"{name}_{i}"
+        dirs[label].mkdir(parents=True)
+        for header in Path(csrc).glob("*.cuh"):
+            (dirs[label] / header.name).write_bytes(header.read_bytes())
+        (dirs[label] / f"{name}.cu").write_text(text)
+    with ThreadPoolExecutor(max(1, len(dirs))) as pool:
+        list(pool.map(lambda d: _build.load(name, d), dirs.values()))
+    return dirs
+
+
 def sass_sizes() -> dict:
     """SASS instructions of each kernel of the loaded libraries
     (``cuobjdump`` beside ``nvcc``): a kernel far past the instruction cache
@@ -4155,17 +3695,13 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--parent-csrc", type=Path, default=None,
-                        help="an earlier commit's vgan_tpu_torch/ops/cuda/csrc/ (mmd_gram.cu, "
-                             "gof_gram.cu, knn_score.cu, fused_no_kl.cu and their headers): "
-                             "phase 5 also builds the eight kernels from it and times them beside "
-                             "this tree's")
-    args = parser.parse_args(argv)
+    parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     import vgan_tpu_torch
     from vgan_tpu_torch.ops.cuda import _build
+    from vgan_tpu_torch.ops.cuda import adadelta as A
     from vgan_tpu_torch.ops.cuda import fused_no_kl as FN
     from vgan_tpu_torch.ops.cuda import gof_gram as GG
     from vgan_tpu_torch.ops.cuda import knn_score as KS
@@ -4187,11 +3723,8 @@ def main(argv=None) -> int:
     check(torch.get_float32_matmul_precision() == "highest", "float32 matmul precision is not 'highest'")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(5) as pool:  # one nvcc per source, started together
-        builds = [pool.submit(lib) for lib in (G._lib, GG._lib, KS._lib, FN._lib)]
-        parent = pool.submit(build_parent, args.parent_csrc, log) if args.parent_csrc else None
-        for build in builds:
+        for build in [pool.submit(lib) for lib in (G._lib, GG._lib, KS._lib, FN._lib, A._lib)]:
             build.result()
-        parent_libs = parent.result() if parent else None
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s ("
         + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in _build.build_info.items()) + ")")
     for name, info in _build.build_info.items():
@@ -4324,8 +3857,7 @@ def main(argv=None) -> int:
     log("phase 5: times")
     rows = phase_times(device, {"kl": kl_shape, "flash": flash_shape, "stress": stress_shape,
                                 "k1_large": K1_LARGE, "k4_real_panel": K4_REAL_PANEL,
-                                "gof": [gof_f64, gof_f32]}, errs, launches, log,
-                       parent_flash(parent_libs["mmd_gram"]) if parent_libs else None)
+                                "gof": [gof_f64, gof_f32]}, errs, launches, log)
     rows += knn_times(ensembles, errs, knn_launches, hetero["launches"], log)
     for row in rows:
         if row["name"] in cli_launches:  # phase 3g's CLI: fit (K2) and score (K7)
@@ -4351,16 +3883,9 @@ def main(argv=None) -> int:
         if name in mesh_launches:  # phase 3h's dp no-kl fit with the options (K2 bf16)
             row["launches_mesh"] = mesh_launches[name]
         rows.append(row)
-    if parent_libs:
-        log("  against the parent commit's K1-K8 (same inputs, in turns)")
-        compared = parent_comparison(parent_libs, device, ensembles, [gof_f64, gof_f32], log)
-        for row in rows:
-            mine = {k: v for k, v in compared.items() if k.split(" ")[0] == row["name"]}
-            if mine:
-                row["parent_comparison"] = mine
-    rates = panel_fit_rates(device, parent_libs, log)
+    rates = panel_fit_rates(device, log)
     next(row for row in rows if row["name"] == "kprime_panel")["panel_fit_steps_per_s"] = rates
-    rates = flash_fit_rates(device, parent_libs, log)
+    rates = flash_fit_rates(device, log)
     next(row for row in rows if row["name"] == "gram_backward_flash")["fit_steps_per_s"] = rates
     ensemble_rates(ensembles, log)
     for base, r in base_rates.items():

@@ -21,9 +21,9 @@ d=1024) the probe reads, for one call:
   that of its column operand;
 
 for this tree and, with ``--parent-csrc DIR`` (an earlier commit's
-``vgan_tpu_torch/ops/cuda/csrc/``), for the parent's kernels launched as
-the parent's wrappers launched them (``chip_smoke.parent_backward_bf16``),
-in turns: parent, this tree, this tree, parent. ``--quick`` reads the two
+``vgan_tpu_torch/ops/cuda/csrc/`` with this tree's C interface), for this
+tree's wrappers on the parent's kernels (``_build.built_from``), in turns:
+parent, this tree, this tree, parent. ``--quick`` reads the two
 small shapes only. ``--cuts`` also reads the device time of builds of this
 tree's ``mmd_gram.cu`` with one part cut out (the outputs are wrong and not
 read; a cut whose marker is no longer in the source raises): K4 bf16's
@@ -39,13 +39,10 @@ card's name and power limit first. Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -102,31 +99,6 @@ def cuts(src: str) -> dict:
     }
 
 
-def build_cuts(G, _build):
-    """``name -> library`` of the cut variants, built together."""
-    tmp = Path(tempfile.mkdtemp(prefix="bf16_backward_cuts_"))
-
-    def build(item):
-        name, text = item
-        out = tmp / name
-        out.mkdir()
-        for h in _build.CSRC.glob("*.cuh"):
-            (out / h.name).write_text(h.read_text())
-        (out / "mmd_gram.cu").write_text(text)
-        lib = out / "libmmd_gram.so"
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(out / "mmd_gram.cu")],
-                       check=True, capture_output=True, text=True, timeout=900)
-        cdll = ctypes.CDLL(str(lib))
-        for fn, argtypes in G._SIGNATURES.items():
-            getattr(cdll, fn).argtypes = argtypes
-            getattr(cdll, fn).restype = ctypes.c_int
-        return cdll
-
-    sources = cuts((_build.CSRC / "mmd_gram.cu").read_text())
-    with ThreadPoolExecutor(len(sources)) as pool:
-        return dict(zip(sources, pool.map(build, sources.items())))
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent-csrc", type=Path, default=None)
@@ -145,29 +117,43 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     mults = M.bandwidth_multipliers()
     G._lib()
-    # who -> (K4 bf16, K3 bf16, K4 bf16's column operand of z)
-    fns = {"this tree": (G.kprime_panel_bf16, G.gram_backward_flash_bf16,
-                         lambda z: G.panel_operand(z, bf16=True))}
+    # who -> the directory of the mmd_gram.cu its calls run
+    dirs = {"this tree": _build.CSRC}
     if args.parent_csrc:
-        parent_lib = S.build_parent(args.parent_csrc, print)["mmd_gram"]
-        fns["parent"] = S.parent_backward_bf16(parent_lib, device)
+        dirs["parent"] = args.parent_csrc
+        with _build.built_from("mmd_gram", args.parent_csrc):
+            G._lib()
     turns = ["parent", "this tree", "this tree", "parent"] if args.parent_csrc else ["this tree"]
-    cut_libs = build_cuts(G, _build) if args.cuts else {}
+    cut_dirs = {}
+    if args.cuts:
+        cut_dirs = S.variant_dirs("mmd_gram", _build.CSRC,
+                                  cuts((_build.CSRC / "mmd_gram.cu").read_text()),
+                                  Path(tempfile.mkdtemp(prefix="bf16_backward_cuts_")))
+
+    def under(csrc, fn):
+        """``fn`` run on the mmd_gram.cu of ``csrc``."""
+        def call():
+            with _build.built_from("mmd_gram", csrc):
+                return fn()
+        return call
+
     for kernel, m, d, R, large in SHAPES:
         if large and args.quick:
             continue
         z, norms, bw = S.large_gram_inputs(m, d, 61, device)
-        calls = {}
-        for who, (panel, flash, operand) in fns.items():
+        raw, calls, operands = {}, {}, {}
+        for who, csrc in dirs.items():
             if kernel == "K4 bf16":
-                cols_t = operand(z)
-                calls[who] = (lambda panel=panel, cols_t=cols_t: panel(
+                operands[who] = under(csrc, lambda: G.panel_operand(z, bf16=True))
+                cols_t = operands[who]()
+                raw[who] = (lambda cols_t=cols_t: G.kprime_panel_bf16(
                     z[:R], z, norms[:R], norms, bw, mults, offset=0, cols_t=cols_t))
             else:
                 n1 = m // 2
-                calls[who] = (lambda flash=flash: flash(z, norms, bw, n1, m - n1, mults))
+                raw[who] = lambda: G.gram_backward_flash_bf16(z, norms, bw, n1, m - n1, mults)
+            calls[who] = under(csrc, raw[who])
         iters = 3 if large else 20
-        event = {who: [] for who in fns}
+        event = {who: [] for who in dirs}
         for who in turns:
             event[who].append(S.cuda_ms(calls[who], iters, 1))
         for who, call in calls.items():
@@ -175,7 +161,7 @@ def main(argv=None) -> int:
             host = statistics.median(host_us(call, 5 if large else 50) for _ in range(3))
             label = f"R={R} C={m}" if kernel == "K4 bf16" else f"m={m}"
             if kernel == "K4 bf16":  # the column operand, made once a backward
-                op = S.device_split(lambda: fns[who][2](z), calls=3)
+                op = S.device_split(operands[who], calls=3)
                 label += (f" (column operand: device {sum(op.values()):.2f} us: "
                           + "; ".join(f"{k} {v:.2f}" for k, v in op.items()) + ")")
             print(f"  {kernel} {label} d={d} {who}: event "
@@ -183,16 +169,14 @@ def main(argv=None) -> int:
                   f"device {sum(passes.values()):.2f} us a call: "
                   + "; ".join(f"{k} {v:.2f}" for k, v in
                               sorted(passes.items(), key=lambda kv: -kv[1])), flush=True)
-        this = calls["this tree"]
-        variants = {name: (S.using_lib(G, lib), this) for name, lib in cut_libs.items()
-                    if name.startswith("k3_") == (kernel == "K3 bf16")}
-        for name, (ctx, call) in variants.items():
-            with ctx:
-                passes = S.device_split(call, calls=3 if large else 20)
+        for name, csrc in cut_dirs.items():
+            if name.startswith("k3_") != (kernel == "K3 bf16"):
+                continue
+            passes = S.device_split(under(csrc, raw["this tree"]), calls=3 if large else 20)
             print(f"    cut {name}: device {sum(passes.values()):.2f} us a call: "
                   + "; ".join(f"{k} {v:.2f}" for k, v in
                               sorted(passes.items(), key=lambda kv: -kv[1])), flush=True)
-        del z, norms, calls, this, variants
+        del z, norms, raw, calls, operands
         torch.cuda.empty_cache()
     return 0
 

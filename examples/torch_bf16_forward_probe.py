@@ -24,24 +24,20 @@ loaded or multiplied, the partial tiles zero) and ``no_cluster_launch``
 (the cluster kernel not launched, which reads the host time of its
 launch). The cuts' outputs are wrong and not read; a cut whose marker is
 no longer in the source raises. With ``--parent-csrc DIR`` (an earlier
-commit's ``vgan_tpu_torch/ops/cuda/csrc/``) the parent's kernels
-(``chip_smoke.build_parent``) are read the same way through
-``chip_smoke.parent_quadrant_sums_bf16``. The checks against the plain
-versions and the event times in turns against the parent are
-``chip_smoke.py``'s (phase 2; ``--parent-csrc``, phase 5). Prints the
-card's name and power limit first. Exits non-zero without a CUDA device.
+commit's ``vgan_tpu_torch/ops/cuda/csrc/`` with this tree's C interface)
+the parent's kernels are read the same way, this tree's wrappers on them
+(``_build.built_from``). The checks against the plain versions are
+``chip_smoke.py``'s (phase 2). Prints the card's name and power limit
+first. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -104,39 +100,20 @@ def main(argv=None) -> int:
     G._lib()
     fns = {"this tree": (G.gram_quadrant_sums_bf16, G.gram_quadrant_sums_stash_bf16)}
     with tempfile.TemporaryDirectory() as tmp:
-        def build(item):
-            name, text = item
-            out = Path(tmp) / name
-            out.mkdir()
-            for h in _build.CSRC.glob("*.cuh"):
-                (out / h.name).write_text(h.read_text())
-            (out / "mmd_gram.cu").write_text(text)
-            lib = out / "libmmd_gram.so"
-            subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                            str(out / "mmd_gram.cu")], check=True, capture_output=True, text=True,
-                           timeout=900)
-            cdll = ctypes.CDLL(str(lib))
-            for fn, argtypes in G._SIGNATURES.items():
-                getattr(cdll, fn).argtypes = argtypes
-                getattr(cdll, fn).restype = ctypes.c_int
-            return cdll
+        dirs = S.variant_dirs("mmd_gram", _build.CSRC,
+                              cuts((_build.CSRC / "mmd_gram.cu").read_text()), Path(tmp))
+        if args.parent_csrc:
+            dirs["parent"] = args.parent_csrc
 
-        sources = cuts((_build.CSRC / "mmd_gram.cu").read_text())
-        with ThreadPoolExecutor(len(sources) + 1) as pool:
-            parent = (pool.submit(S.build_parent, args.parent_csrc, print)
-                      if args.parent_csrc else None)
-            libs = dict(zip(sources, pool.map(build, sources.items())))
-            if parent:
-                fns["parent"] = S.parent_quadrant_sums_bf16(parent.result()["mmd_gram"])
-
-        def on(fn, lib):
+        def on(fn, csrc):
             def call(*a):
-                with S.using_lib(G, lib):
+                with _build.built_from("mmd_gram", csrc):
                     return fn(*a)
             return call
 
-        for name, lib in libs.items():
-            fns[name] = (on(G.gram_quadrant_sums_bf16, lib), on(G.gram_quadrant_sums_stash_bf16, lib))
+        for name, csrc in dirs.items():
+            fns[name] = (on(G.gram_quadrant_sums_bf16, csrc),
+                         on(G.gram_quadrant_sums_stash_bf16, csrc))
         for kernel, n1, n2, d in SHAPES:
             stash = kernel == "K2 bf16"
             _, _, z, norms, bw = S.gram_inputs(n1, n2, d, 61, device)
@@ -144,12 +121,12 @@ def main(argv=None) -> int:
                 call = lambda: pair[stash](z, norms, bw, n1, mults)  # noqa: E731
                 passes = S.device_split(call, calls=20)
                 host = statistics.median(host_us(call) for _ in range(3))
-                saved = G._launch  # the wrapper's Python alone: the C entry not called
-                G._launch = lambda *a, **k: None
+                saved = G.launch  # the wrapper's Python alone: the C entry not called
+                G.launch = lambda *a: None
                 try:
                     python = statistics.median(host_us(call) for _ in range(3))
                 finally:
-                    G._launch = saved
+                    G.launch = saved
                 print(f"  {kernel} m={n1 + n2} d={d} {who}: host {host:.1f} us a call ({python:.1f} "
                       f"of it the wrapper's Python); device {sum(passes.values()):.2f} us a call: "
                       + "; ".join(f"{k} {v:.2f}" for k, v in

@@ -20,11 +20,11 @@ the flash fit's (m = 1000, d = 1024) the probe splits one call into:
 
 Each variant is the source with a part cut out by text substitution,
 built with ``nvcc`` (one each, started together), and timed in turns
-through the package's wrapper (CUDA events, median of 20 calls). With
-``--parent-csrc DIR`` (an earlier commit's ``vgan_tpu_torch/ops/cuda/csrc/``)
-the parent's kernel (the pipelined design, whose entry takes this tree's
-arguments) is split the same way in the same call, through this tree's
-launch (``chip_smoke.parent_flash``).
+through the package's wrapper (``_build.built_from``; CUDA events, median
+of 20 calls). With ``--parent-csrc DIR`` (an earlier commit's
+``vgan_tpu_torch/ops/cuda/csrc/`` with this tree's C interface) the
+parent's kernel is split the same way in the same call, through this
+tree's wrapper.
 ``--large`` also times the whole kernel at m = 40960, d = 1024 (3 calls)
 with its bytes allocated beyond the inputs. Prints the card's name and
 power limit first. Exits non-zero without a CUDA device.
@@ -33,11 +33,8 @@ power limit first. Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import subprocess
 import sys
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -72,29 +69,6 @@ def variants(src: str) -> dict:
             "no_sz_stub": no_sz.replace(_LADDER, "k = 0.f, kp = d2 * 1e-6f;")}
 
 
-def build_all(dirs: dict, out: Path, flags, nvcc) -> dict:
-    jobs = {}
-    for who, d in dirs.items():
-        w = out / who.replace(" ", "_")
-        w.mkdir()
-        for h in d.glob("*.cuh"):
-            (w / h.name).write_text(h.read_text())
-        for name, text in variants((d / "mmd_gram.cu").read_text()).items():
-            (w / f"mmd_{name}.cu").write_text(text)
-            jobs[who, name] = w / f"mmd_{name}.cu"
-
-    def build(src):
-        lib = src.with_suffix(".so")
-        proc = subprocess.run([nvcc, *flags, "-o", str(lib), str(src)], capture_output=True,
-                              text=True, timeout=900)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-        return ctypes.CDLL(str(lib))
-
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        return dict(zip(jobs, pool.map(build, jobs.values())))
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent-csrc", type=Path, default=None)
@@ -115,24 +89,21 @@ def main(argv=None) -> int:
     if args.parent_csrc:
         dirs["parent"] = args.parent_csrc
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_all(dirs, Path(tmp), _build.NVCC_FLAGS, _build._nvcc())
+        builds = {}
+        for who, csrc in dirs.items():
+            texts = variants((csrc / "mmd_gram.cu").read_text())
+            root = Path(tmp) / who.replace(" ", "_")
+            for name, built in S.variant_dirs("mmd_gram", csrc, texts, root).items():
+                builds[who, name] = built
 
-        def bind(key):
-            """K3 of the library ``key``, a drop-in for gram_backward_flash."""
-            lib = libs[key]
-            for name, argtypes in G._SIGNATURES.items():
-                if hasattr(lib, name):  # an entry added since is not the parent's
-                    getattr(lib, name).argtypes = argtypes
-                    getattr(lib, name).restype = ctypes.c_int
-            if key[0] == "parent":
-                return S.parent_flash(lib)
-
+        def bind(built):
+            """K3 of the build in ``built``, a drop-in for gram_backward_flash."""
             def flash(*call):
-                with S.using_lib(G, lib):
+                with _build.built_from("mmd_gram", built):
                     return G.gram_backward_flash(*call)
             return flash
 
-        fns = {key: bind(key) for key in libs}
+        fns = {key: bind(built) for key, built in builds.items()}
         b = 500
         for d in (640, 1024):
             _, _, z, norms, bw = S.gram_inputs(b, b, d, 21, device)

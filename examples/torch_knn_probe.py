@@ -30,11 +30,8 @@ Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import subprocess
 import sys
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -131,35 +128,6 @@ def variants(src: str) -> dict:
     return _tile_design(src)
 
 
-def build_all(dirs: dict, out: Path, NVCC_FLAGS, nvcc, signatures) -> dict:
-    """{(who, variant): CDLL} from each directory's knn_score.cu."""
-    jobs = {}
-    for who, d in dirs.items():
-        w = out / who
-        w.mkdir()
-        for h in d.glob("*.cuh"):
-            (w / h.name).write_text(h.read_text())
-        for name, text in variants((d / "knn_score.cu").read_text()).items():
-            (w / f"knn_{name}.cu").write_text(text)
-            jobs[who, name] = w / f"knn_{name}.cu"
-
-    def build(src):
-        lib = src.with_suffix(".so")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(lib), str(src)], capture_output=True,
-                              text=True, timeout=900)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-        cdll = ctypes.CDLL(str(lib))
-        for fn, argtypes in signatures.items():
-            if hasattr(cdll, fn):
-                getattr(cdll, fn).argtypes = argtypes
-                getattr(cdll, fn).restype = ctypes.c_int
-        return cdll
-
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        return dict(zip(jobs, pool.map(build, jobs.values())))
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent-csrc", type=Path, default=None)
@@ -170,7 +138,6 @@ def main(argv=None) -> int:
     import chip_smoke as S
     from vgan_tpu_torch.ops.cuda import _build
     from vgan_tpu_torch.ops.cuda import knn_score as KS
-    from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     print(S.card_identity(), flush=True)
     device = torch.device("cuda")
@@ -195,12 +162,17 @@ def main(argv=None) -> int:
     if args.parent_csrc:
         dirs["parent"] = args.parent_csrc
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_all(dirs, Path(tmp), _build.NVCC_FLAGS, _build._nvcc(), KS._SIGNATURES)
+        libs = {}
+        for who, csrc in dirs.items():
+            texts = variants((csrc / "knn_score.cu").read_text())
+            for name, built in S.variant_dirs("knn_score", csrc, texts, Path(tmp) / who).items():
+                with _build.built_from("knn_score", built):
+                    libs[who, name] = KS._lib()
 
         def launch(lib):
-            G._launch("vgan_knn_resident", device, xte_t.data_ptr(), xte_t.shape[1],
-                      xtr_t.data_ptr(), xtr_t.shape[1], cols.data_ptr(), counts.data_ptr(),
-                      b["nm"], b["nt"], b["ntr"], b["d"], k, 0, 0, out.data_ptr(), lib=lib)
+            _build.launch(lib, "vgan_knn_resident", device, xte_t.data_ptr(), xte_t.shape[1],
+                          xtr_t.data_ptr(), xtr_t.shape[1], cols.data_ptr(), counts.data_ptr(),
+                          b["nm"], b["nt"], b["ntr"], b["d"], k, 0, 0, out.data_ptr())
 
         want = KS.knn_scores_all_masks(xte, xtr, masks, k)
         for who in dirs:

@@ -21,8 +21,9 @@ device.
 ``no_kl.score`` and ``rnaseq.score`` shapes), K6, K7 and builds of
 ``csrc/knn_score.cu`` with one part of K7 changed or cut out by text
 substitution (:data:`VARIANTS`; with ``--parent-csrc DIR``, an earlier
-commit's ``vgan_tpu_torch/ops/cuda/csrc/``, its K7 too), each built with
-``nvcc`` (all started together; ``ptxas``' registers and spills printed),
+commit's ``vgan_tpu_torch/ops/cuda/csrc/`` with this tree's C interface, its
+K7 too), each built with ``nvcc`` through the package's loader (the
+variants started together; ``ptxas``' registers and spills printed),
 launched on the same prepared operands and timed in turns (CUDA events,
 median of three launches a turn, two turns in opposite orders). A variant
 that still computes the scores must equal K6 to the bit; the cut ones time
@@ -35,7 +36,6 @@ and power are sampled meanwhile. ``--sass DIR`` keeps each build's SASS.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import gzip
 import json
 import re
@@ -44,7 +44,6 @@ import subprocess
 import sys
 import tempfile
 import threading
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
@@ -124,39 +123,6 @@ def substitute(src: str, subs) -> str:
     return src
 
 
-def build(sources: dict, work: Path, headers: Path, sass: Path = None) -> dict:
-    """{name: (CDLL, ptxas lines of the KNN kernels)} from {name: source};
-    with ``sass``, each library's SASS (``cuobjdump -sass``) into that
-    directory, gzipped."""
-    from vgan_tpu_torch.ops.cuda import _build
-    from vgan_tpu_torch.ops.cuda import knn_score as KS
-
-    for h in headers.glob("*.cuh"):
-        (work / h.name).write_text(h.read_text())
-
-    def one(item):
-        i, (name, text) = item
-        src = work / f"knn_{i}.cu"
-        src.write_text(text)
-        lib = src.with_suffix(".so")
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-                              capture_output=True, text=True, timeout=900)
-        log = proc.stdout + proc.stderr
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
-        if sass is not None:
-            dump_sass(lib, sass / f"{re.sub(r'[^A-Za-z0-9]+', '_', name)}.sass.gz")
-        cdll = ctypes.CDLL(str(lib))
-        for fn, argtypes in KS._SIGNATURES.items():
-            if hasattr(cdll, fn):
-                getattr(cdll, fn).argtypes = argtypes
-                getattr(cdll, fn).restype = ctypes.c_int
-        return name, (cdll, ptxas_lines(log))
-
-    with ThreadPoolExecutor(len(sources)) as pool:
-        return dict(pool.map(one, enumerate(sources.items())))
-
-
 def ptxas_lines(log: str) -> list:
     """One line for each KNN scoring kernel: ptxas' registers and spills."""
     found, name = {}, None
@@ -231,7 +197,6 @@ def variants(args, card: str) -> int:
     import chip_smoke as S
     from vgan_tpu_torch.ops.cuda import _build
     from vgan_tpu_torch.ops.cuda import knn_score as KS
-    from vgan_tpu_torch.ops.cuda import mmd_gram as G
 
     src = (_build.CSRC / "knn_score.cu").read_text()
     sources = {name: substitute(src, subs) for name, (subs, _) in VARIANTS.items()}
@@ -239,23 +204,25 @@ def variants(args, card: str) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         if args.sass is not None:
             args.sass.mkdir(parents=True, exist_ok=True)
-        built = build(sources, Path(tmp), _build.CSRC, args.sass)
+        dirs = {"this tree": _build.CSRC,
+                **S.variant_dirs("knn_score", _build.CSRC, sources, Path(tmp))}
         if args.parent_csrc:
-            parent = Path(tmp) / "parent"
-            parent.mkdir()
-            built.update(build({"parent K7": (args.parent_csrc / "knn_score.cu").read_text()},
-                               parent, args.parent_csrc, args.sass))
+            dirs["parent K7"] = args.parent_csrc
             keeps["parent K7"] = True
-        tree = _build.load("knn_score")
-        if args.sass is not None:
-            dump_sass(Path(tree._name), args.sass / "this_tree.sass.gz")
-        for line in ptxas_lines(_build.build_info["knn_score"]["log"]):
-            print(f"  this tree: {line}", flush=True)
-        for name, (_, lines) in built.items():
-            for line in lines:
+        libs = {}
+        for name, csrc in dirs.items():
+            with _build.built_from("knn_score", csrc):
+                libs[name] = KS._lib()
+            if args.sass is not None:
+                dump_sass(Path(libs[name]._name),
+                          args.sass / f"{re.sub(r'[^A-Za-z0-9]+', '_', name)}.sass.gz")
+            info = _build.build_info.get("knn_score" if csrc == _build.CSRC
+                                         else str(Path(csrc).resolve() / "knn_score.cu"))
+            for line in ptxas_lines(info["log"] if info else ""):
                 print(f"  {name}: {line}", flush=True)
+        tree = libs.pop("this tree")
         runs = {"K6": ("vgan_knn_resident", tree), "K7": ("vgan_knn_stream", tree),
-                **{name: ("vgan_knn_stream", lib) for name, (lib, _) in built.items()}}
+                **{name: ("vgan_knn_stream", lib) for name, lib in libs.items()}}
         dev = torch.device("cuda")
         rows = []
         for ntr, d in CELL_SHAPES:
@@ -271,9 +238,9 @@ def variants(args, card: str) -> int:
 
             def launch(name):
                 fn, lib = runs[name]
-                G._launch(fn, dev, xte_t.data_ptr(), xte_t.shape[1], xtr_t.data_ptr(),
-                          xtr_t.shape[1], cols.data_ptr(), counts.data_ptr(), N_MASKS, N_TEST,
-                          ntr, d, K, 0, 0, outs[name].data_ptr(), lib=lib)
+                _build.launch(lib, fn, dev, xte_t.data_ptr(), xte_t.shape[1], xtr_t.data_ptr(),
+                              xtr_t.shape[1], cols.data_ptr(), counts.data_ptr(), N_MASKS,
+                              N_TEST, ntr, d, K, 0, 0, outs[name].data_ptr())
 
             for name in runs:
                 launch(name)

@@ -23,11 +23,8 @@ name and power limit first. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
-import ctypes
-import subprocess
 import sys
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -65,28 +62,12 @@ def main() -> int:
     mults = M.bandwidth_multipliers()
     sources = variants((_build.CSRC / "mmd_gram.cu").read_text())
     with tempfile.TemporaryDirectory() as tmp:
-        out = Path(tmp)
-        for h in _build.CSRC.glob("*.cuh"):  # the headers mmd_gram.cu includes
-            (out / h.name).write_text(h.read_text())
-
-        def build(name):
-            src, lib = out / f"mmd_gram_{name}.cu", out / f"libmmd_gram_{name}.so"
-            src.write_text(sources[name])
-            subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-                           check=True, capture_output=True, text=True, timeout=900)
-            cdll = ctypes.CDLL(str(lib))
-            for fn, argtypes in G._SIGNATURES.items():
-                getattr(cdll, fn).argtypes = argtypes
-                getattr(cdll, fn).restype = ctypes.c_int
-            return cdll
-
-        with ThreadPoolExecutor(len(sources)) as pool:
-            libs = dict(zip(sources, pool.map(build, sources)))
+        dirs = S.variant_dirs("mmd_gram", _build.CSRC, sources, Path(tmp))
 
         def run(label, fn, iters):
             times, outs = {}, {}
             for name in ("chain", "int_pow", "stub", "stub", "int_pow", "chain"):
-                with S.using_lib(G, libs[name]):
+                with _build.built_from("mmd_gram", dirs[name]):
                     times.setdefault(name, []).append(S.cuda_ms(fn, iters, 1))
                     outs[name] = fn()
             S.check(torch.equal(outs["chain"], outs["int_pow"]),

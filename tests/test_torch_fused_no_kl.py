@@ -34,7 +34,7 @@ def _inputs(n, d, bs, epochs, seed):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n, d)).astype(np.float32)
     x[:, 0] *= 3.0
-    nb, bsp = n // bs, TF._round_up(bs, 64)
+    nb, bsp = n // bs, TF.round_up(bs, 64)
     noise = rng.normal(size=(epochs * nb, bsp, TF.LP)).astype(np.float32)
     offsets = rng.integers(0, n, size=(epochs,)).astype(np.int32)
     return x, noise, offsets
@@ -188,7 +188,7 @@ def test_schedule_matches_jax_layout(n, d, bs):
     x, _, offsets = _inputs(n, d, bs, 2, seed=8)
     perm = np.random.default_rng(9).permutation(n)
     x3, starts, perm_out, offs = TF.schedule(torch.from_numpy(x), bs, 2, perm, offsets, None, None)
-    bsp = TF._round_up(bs, 64)
+    bsp = TF.round_up(bs, 64)
     want = np.zeros((n + bsp, TF.DP), np.float32)
     want[:n, :d] = x[perm]
     want[n:, :d] = np.resize(x[perm], (bsp, d))

@@ -178,16 +178,6 @@ def test_regime_agrees_with_jax(monkeypatch, stash_bytes):
             assert TG.regime(m, d) == want, (m, d)
 
 
-def test_wrapper_checks_reject_bad_operands():
-    z = torch.zeros(4, 3)
-    with pytest.raises(TypeError):
-        TG._check("z", z.double(), (4, 3), z.device)
-    with pytest.raises(ValueError):
-        TG._check("z", z, (3, 4), z.device)
-    with pytest.raises(ValueError):
-        TG._check("z", z.T, (3, 4), z.device)
-
-
 def test_cuda_supported_rule():
     big_d = torch.zeros(3, 512)
     assert not TG.cuda_supported(big_d, big_d), "CPU tensors never take the kernels"
@@ -454,7 +444,7 @@ SCHEDULE_SHAPES = [(1000, 640), (1000, 1024), (1000, 10240), (850, 2500), (2113,
 def _k1_blocks_and_scratch(m, d, slice_):
     """K1's tile pairs, the column-major copy of z in its scratch, and the
     rest of its scratch (partial tiles and sums)."""
-    copy = d * TG._round_up(m, TG.STASH_TILE)
+    copy = d * TG.round_up(m, TG.STASH_TILE)
     return TG.tile_pairs(m), copy, TG.quadrant_sums_scratch_floats(m, d, slice_) - copy
 
 
@@ -462,7 +452,7 @@ def _k4_blocks_and_scratch(m, d, slice_):
     """The panel backward's first panel, the column-major copy of z that
     every panel shares (one tile taller than K1's), and its partial tiles."""
     blocks = TG.panel_blocks(TG._panel_rows(m), m, 0)
-    copy = d * (TG._round_up(m, TG.STASH_TILE) + TG.STASH_TILE)
+    copy = d * (TG.round_up(m, TG.STASH_TILE) + TG.STASH_TILE)
     return blocks, copy, TG.panel_scratch_floats(blocks, d, slice_)
 
 
@@ -622,7 +612,7 @@ def test_flash_bf16_scratch_holds_no_m2_term(m, d):
     S tile); at m = 40960 less than an eighth of an (m, m) f32 buffer."""
     _, _, nsplit = TG.flash_cluster_schedule(m, d, 132)
     scratch = TG.flash_bf16_scratch_floats(m, d, nsplit)
-    assert scratch == m * TG._round_up(d, 8) // 2 + (nsplit - 1) * m * (d + 1)
-    assert scratch <= m * (TG._round_up(d, 8) // 2 + (nsplit - 1) * (d + 1))
+    assert scratch == m * TG.round_up(d, 8) // 2 + (nsplit - 1) * m * (d + 1)
+    assert scratch <= m * (TG.round_up(d, 8) // 2 + (nsplit - 1) * (d + 1))
     if m == 40960:
         assert scratch < m * m // 8

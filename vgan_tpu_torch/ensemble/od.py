@@ -47,7 +47,7 @@ from vgan_tpu_torch._device import resolve_device
 from vgan_tpu_torch.ensemble.chi2 import chi2_cdf, chi2_ppf
 from vgan_tpu_torch.ensemble.iforest import DEFAULT_PSI, draw_iforest, iforest_scores_masked
 from vgan_tpu_torch.ops.cuda.knn_score import (
-    _count_generic,
+    count_generic,
     knn_kernel_supported,
     knn_scores_all_masks,
 )
@@ -2705,7 +2705,7 @@ class SubspaceEnsemble(PyodSurfaceMixin):
         if not self._knn_kernel_route(x_test, exclude_self):
             knn = self.base in ("knn", "knn_mean")
             if knn:
-                _count_generic()
+                count_generic()
             with span("vgan::knn.generic") if knn else contextlib.nullcontext():
                 out = self._native_shard(x_test, exclude_self, reduce, shard, n_shards)
             return out if reduce else out.reshape(-1, x_test.shape[0])

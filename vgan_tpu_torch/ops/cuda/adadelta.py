@@ -35,7 +35,8 @@ from typing import List, Sequence, Tuple, Union
 
 import torch
 
-from vgan_tpu_torch.ops.cuda.mmd_gram import _launch
+from vgan_tpu_torch.ops.cuda import _build
+from vgan_tpu_torch.ops.cuda._build import cdiv, launch
 
 Flag = Union[bool, torch.Tensor]
 Leaf = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, Flag]
@@ -47,11 +48,7 @@ CHUNK = 16384
 STATE_DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches, and plain-path calls on CUDA tensors
-_counts = {"adadelta_multi": 0, "plain_update": 0}
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+_COUNTED = ("adadelta_multi", "plain_update")
 
 
 # ---------------------------------------------------------------------------
@@ -67,7 +64,7 @@ def plain_update(p, g, sq, acc, flag: Flag, rho: float, eps: float, lr: float,
     selects with ``torch.where`` (no host sync): false leaves p and the
     state as they were."""
     if p.is_cuda:
-        _counts["plain_update"] += 1
+        _build.count("plain_update")
     g = g + wd * p
     sqm, accm = sq.to(p.dtype), acc.to(p.dtype)
     new_sq = rho * sqm + (1.0 - rho) * g * g
@@ -179,15 +176,13 @@ _SIGNATURES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    from vgan_tpu_torch.ops.cuda import _build
+def _lib():
+    return _layout_checked(_build.bound("adadelta", _SIGNATURES))
 
-    lib = _build.load("adadelta")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+
+@functools.lru_cache(maxsize=None)
+def _layout_checked(lib):
+    """``lib``, once its entry has confirmed the wrapper's struct layout."""
     max_leaves, leaf_bytes, batch_bytes = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     chunk = ctypes.c_longlong()
     lib.vgan_adadelta_layout(ctypes.byref(max_leaves), ctypes.byref(chunk),
@@ -211,14 +206,14 @@ def _launch_batch(leaves: Sequence[Leaf], rho: float, eps: float, lr: float, wd:
         slot.n = p.numel()
         slot.vec = int(vector_aligned(leaf))
         slot.chunk0 = chunks
-        chunks += _cdiv(p.numel(), CHUNK)
+        chunks += cdiv(p.numel(), CHUNK)
     batch.count, batch.chunks = len(leaves), chunks
     batch.rho, batch.one_minus_rho, batch.eps = rho, 1.0 - rho, eps
     batch.neg_lr, batch.wd = -lr, wd
     state_bf16 = int(leaves[0][2].dtype == torch.bfloat16)
-    _launch("vgan_adadelta_multi", leaves[0][0].device, ctypes.byref(batch), state_bf16,
-            lib=_lib())
-    _counts["adadelta_multi"] += 1
+    launch(_lib(), "vgan_adadelta_multi", leaves[0][0].device, ctypes.byref(batch),
+           state_bf16)
+    _build.count("adadelta_multi")
 
 
 def update(leaves: Sequence[Leaf], rho: float, eps: float, lr: float, wd: float) -> None:
@@ -232,8 +227,8 @@ def update(leaves: Sequence[Leaf], rho: float, eps: float, lr: float, wd: float)
 
 
 def reset_launch_counts() -> None:
-    _counts.update(dict.fromkeys(_counts, 0))
+    _build.reset(_COUNTED)
 
 
 def launch_counts() -> dict:
-    return dict(_counts)
+    return _build.counts(_COUNTED)

@@ -30,13 +30,14 @@ outside it the estimator raises ``ValueError``.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vgan_tpu_torch.ops import mmd as _mmd
+from vgan_tpu_torch.ops.cuda import _build
+from vgan_tpu_torch.ops.cuda._build import check, launch, round_up
 
 # The JAX package's constants (vgan_tpu/ops/pallas/fused_no_kl.py), kept
 # because they define the supported regime.
@@ -53,13 +54,9 @@ _MAX_LADDER = 8
 PHASES = ("rows", "bandwidth", "gram", "backward", "update")
 
 
-def _round_up(a: int, b: int) -> int:
-    return -(-a // b) * b
-
-
 def fused_supported(n: int, d: int, bs: int, latent: int) -> bool:
     """The JAX package's gate of the fused path."""
-    bsp = _round_up(bs, 64)
+    bsp = round_up(bs, 64)
     return (
         d <= DP
         and latent <= 16
@@ -130,7 +127,7 @@ def schedule(x: torch.Tensor, bs: int, epochs: int, perm, offsets, g_perm, g_off
     arrays."""
     n, d = x.shape
     nb = n // bs
-    bsp = _round_up(bs, 64)
+    bsp = round_up(bs, 64)
     if perm is None:
         perm = torch.randperm(n, generator=g_perm).numpy()
     perm = np.asarray(perm, dtype=np.int64).reshape(n)
@@ -161,7 +158,7 @@ def fused_no_kl_fit_reference(x3, starts, w, b, sqw, sqb, accw, accb, noise, *, 
     base, lad = ladder(_mmd.bandwidth_multipliers())
     w, b, sqw, sqb, accw, accb = (t.clone() for t in (w, b, sqw, sqb, accw, accb))
     dev, dt = x3.device, x3.dtype
-    bsp = _round_up(bs, 64)
+    bsp = round_up(bs, 64)
     mp = 2 * bsp
     lane = torch.arange(DP, device=dev)
     rowmask = (torch.arange(bsp, device=dev) < bs).to(dt)[:, None]
@@ -274,16 +271,8 @@ _SIGNATURES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    from vgan_tpu_torch.ops.cuda import _build
-
-    lib = _build.load("fused_no_kl")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+def _lib():
+    return _build.bound("fused_no_kl", _SIGNATURES)
 
 
 def _grid(device) -> Tuple[int, int]:
@@ -333,8 +322,6 @@ def fused_no_kl_fit_cuda(x3, starts, w, b, sqw, sqb, accw, accb, noise, seed: in
     on the card, turns on the kernel's phase timer: it receives the
     nanoseconds of each phase over the fit (the fit's arithmetic is the
     same either way)."""
-    from vgan_tpu_torch.ops.cuda.mmd_gram import _check, _launch, _ptr
-
     dev = x3.device
     if phase_ns is not None and (not phase_ns.is_cuda or phase_ns.device != dev
                                  or phase_ns.dtype != torch.int64
@@ -344,17 +331,17 @@ def fused_no_kl_fit_cuda(x3, starts, w, b, sqw, sqb, accw, accb, noise, seed: in
                          f"{tuple(phase_ns.shape)} on {phase_ns.device}")
     if dev.type != "cuda":
         raise ValueError(f"fused_no_kl_fit_cuda runs on the card, got tensors on {dev}")
-    bsp = _round_up(bs, 64)
+    bsp = round_up(bs, 64)
     total_steps = int(starts.shape[0])
-    _check("x3", x3, (n + bsp, DP), dev)
+    check("x3", x3, (n + bsp, DP), dev)
     if starts.dtype != torch.int32 or not starts.is_contiguous() or starts.device != dev:
         raise ValueError("starts: expected a contiguous int32 tensor on the card")
     for name, t, shape in (("w", w, (4, WP, WP)), ("b", b, (8, WP)), ("sqw", sqw, (4, WP, WP)),
                            ("sqb", sqb, (8, WP)), ("accw", accw, (4, WP, WP)),
                            ("accb", accb, (8, WP))):
-        _check(name, t, shape, dev)
+        check(name, t, shape, dev)
     if noise is not None:
-        _check("noise", noise, (total_steps, bsp, LP), dev)
+        check("noise", noise, (total_steps, bsp, LP), dev)
     if not fused_supported(n, d, bs, latent):
         raise ValueError(f"fused path unsupported at n={n}, d={d}, bs={bs}, latent={latent}")
     lib = _lib()
@@ -364,11 +351,12 @@ def fused_no_kl_fit_cuda(x3, starts, w, b, sqw, sqb, accw, accb, noise, seed: in
     losses = torch.empty(total_steps, dtype=torch.float32, device=dev)
     bw = torch.zeros(2, dtype=torch.float32, device=dev)
     hyper = _hyper(d, bs, latent, total_steps, seed, lr, weight_decay, penalty_weight)
-    _launch("vgan_fused_no_kl", dev, _ptr(x3), _ptr(starts),
-            _ptr(noise) if noise is not None else None, *[_ptr(t) for t in out],
-            _ptr(losses), _ptr(bw), _ptr(work), ctypes.byref(hyper), ctypes.byref(_ladder_struct()),
-            grid, _ptr(phase_ns) if phase_ns is not None else None, lib=lib)
-    fused_no_kl_fit_cuda.launches += 1
+    launch(lib, "vgan_fused_no_kl", dev, x3.data_ptr(), starts.data_ptr(),
+           noise.data_ptr() if noise is not None else None, *[t.data_ptr() for t in out],
+           losses.data_ptr(), bw.data_ptr(), work.data_ptr(), ctypes.byref(hyper),
+           ctypes.byref(_ladder_struct()), grid,
+           phase_ns.data_ptr() if phase_ns is not None else None)
+    _build.count("fused_no_kl_fit_cuda")
     return (*out, bw, losses)
 
 
@@ -377,27 +365,17 @@ def philox_normal(seed: int, steps: int, rows: int, lanes: int, device):
     mode for step s, batch row r and latent lane l (Box-Muller
     on two 24-bit uniforms of Philox4x32-10 keyed by (seed, step), counter
     (row, lane)), written by the kernel source's own generator."""
-    from vgan_tpu_torch.ops.cuda.mmd_gram import _launch, _ptr
-
     out = torch.empty((steps, rows, lanes), dtype=torch.float32, device=device)
-    _launch("vgan_philox_normal", out.device, _ptr(out), int(seed), steps, rows, lanes,
-            lib=_lib())
+    launch(_lib(), "vgan_philox_normal", out.device, out.data_ptr(), int(seed), steps, rows, lanes)
     return out
 
 
-KERNELS = (fused_no_kl_fit_cuda,)
-
-
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
+    _build.reset(["fused_no_kl_fit_cuda"])
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
-
-
-reset_launch_counts()
+    return _build.counts(["fused_no_kl_fit_cuda"])
 
 
 # ---------------------------------------------------------------------------
@@ -427,7 +405,7 @@ def fused_no_kl_fit(x, generator, opt_state, config, epochs: int, seed: int,
         raise ValueError(f"fused path unsupported at n={n}, d={d}, bs={bs}, latent={latent}")
     nb = n // bs
     total_steps = epochs * nb
-    bsp = _round_up(bs, 64)
+    bsp = round_up(bs, 64)
     dt = torch.float32 if dev.type == "cuda" else x.dtype
     if not dt.is_floating_point:
         dt = torch.float32

@@ -31,12 +31,12 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 
-from vgan_tpu_torch.ops.cuda.mmd_gram import _check, _column_major, _launch, _ptr, _round_up
+from vgan_tpu_torch.ops.cuda import _build
+from vgan_tpu_torch.ops.cuda._build import check, column_major, launch, round_up
 from vgan_tpu_torch.ops.mmd_test import _indicators, _pooled
 
 # Alphas per launch of pass 2 (the size of the kernel's alpha table); longer
@@ -91,7 +91,7 @@ def panels(m: int) -> list:
     ``row0`` a multiple of ``KERNEL_TILE``. One panel ``(0, m)`` where the
     whole padded (M, M) buffer fits ``GRAM_BUFFER_BYTES``: the full-Gram
     regime, in which every unordered pair is formed once."""
-    M = _round_up(m, KERNEL_TILE)
+    M = round_up(m, KERNEL_TILE)
     rows = max(KERNEL_TILE, GRAM_BUFFER_BYTES // (4 * M) // KERNEL_TILE * KERNEL_TILE)
     return [(r0, min(rows, m - r0)) for r0 in range(0, m, rows)]
 
@@ -101,16 +101,8 @@ def regime(m: int) -> str:
     return "full" if len(panels(m)) == 1 else "panels"
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    from vgan_tpu_torch.ops.cuda import _build
-
-    lib = _build.load("gof_gram")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+def _lib():
+    return _build.bound("gof_gram", _SIGNATURES)
 
 
 def _alpha_table(alphas) -> _Alphas:
@@ -127,22 +119,23 @@ def _launch_passes(z, norms, a, alphas) -> torch.Tensor:
     first adding into C."""
     m, d = z.shape
     P, dev = a.shape[0], z.device
-    z_t = _column_major(z, KERNEL_TILE)
+    z_t = column_major(z, KERNEL_TILE)
     M = z_t.shape[1]
     norms_p = torch.zeros(M, dtype=torch.float32, device=dev)
     norms_p[:m] = norms
-    a_t = _column_major(a, KERNEL_TILE)  # (m, P padded): A[p, j] at a_t[j, p]
+    a_t = column_major(a, KERNEL_TILE)  # (m, P padded): A[p, j] at a_t[j, p]
     c = torch.empty((len(alphas), P, m), dtype=torch.float32, device=dev)
     plan = panels(m)
-    d2 = torch.empty((_round_up(plan[0][1], KERNEL_TILE), M), dtype=torch.float32, device=dev)
+    d2 = torch.empty((round_up(plan[0][1], KERNEL_TILE), M), dtype=torch.float32, device=dev)
     tables = [(i, _alpha_table(alphas[i:i + MAX_ALPHAS_PER_PASS]))
               for i in range(0, len(alphas), MAX_ALPHAS_PER_PASS)]
     for n, (row0, rows) in enumerate(plan):
-        _launch("vgan_gof_gram_d2", dev, _ptr(z_t), _ptr(norms_p), M, d, int(len(plan) == 1),
-                row0 // KERNEL_TILE, -(-rows // KERNEL_TILE), _ptr(d2), lib=_lib())
+        launch(_lib(), "vgan_gof_gram_d2", dev, z_t.data_ptr(), norms_p.data_ptr(), M, d,
+               int(len(plan) == 1), row0 // KERNEL_TILE, -(-rows // KERNEL_TILE), d2.data_ptr())
         for i, table in tables:
-            _launch("vgan_gof_a_times_k", dev, _ptr(a_t), a_t.shape[1], _ptr(d2), M, m, P, row0,
-                    rows, ctypes.byref(table), int(n > 0), _ptr(c[i:i + table.n]), lib=_lib())
+            launch(_lib(), "vgan_gof_a_times_k", dev, a_t.data_ptr(), a_t.shape[1], d2.data_ptr(),
+                   M, m, P, row0, rows, ctypes.byref(table), int(n > 0),
+                   c[i:i + table.n].data_ptr())
     return c
 
 
@@ -155,25 +148,22 @@ def a_times_k(z, norms, a, alphas: Sequence[float]) -> torch.Tensor:
     if not z.is_cuda:
         return a_times_k_reference(z, norms, a, alphas)
     m, d = z.shape
-    _check("z", z, (m, d), z.device)
-    _check("norms", norms, (m,), z.device)
-    _check("a", a, (a.shape[0], m), z.device)
+    check("z", z, (m, d), z.device)
+    check("norms", norms, (m,), z.device)
+    check("a", a, (a.shape[0], m), z.device)
     if not alphas:
         raise ValueError("a_times_k needs at least one alpha")
     c = _launch_passes(z, norms, a, alphas)
-    a_times_k.launches += 1
+    _build.count("a_times_k")
     return c
 
 
 def reset_launch_counts() -> None:
-    a_times_k.launches = 0
+    _build.reset(["a_times_k"])
 
 
 def launch_counts() -> dict:
-    return {"a_times_k": a_times_k.launches}
-
-
-reset_launch_counts()
+    return _build.counts(["a_times_k"])
 
 
 # ---------------------------------------------------------------------------

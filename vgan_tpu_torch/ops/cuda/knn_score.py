@@ -31,11 +31,11 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from vgan_tpu_torch.ops.cuda.mmd_gram import _check, _column_major, _launch, _ptr
+from vgan_tpu_torch.ops.cuda import _build
+from vgan_tpu_torch.ops.cuda._build import cdiv, check, column_major, launch, round_up
 
 MAX_K = 64  # csrc/knn_score.cu MAX_K: the k-lists a test row keeps in shared memory
 # The kernels' test and train tiles (BT = BR in csrc/knn_score.cu): the
@@ -63,19 +63,11 @@ _BIG = 3.0e38
 _MODES = ("kth", "mean")
 
 
-def _round_up(a: int, b: int) -> int:
-    return -(-a // b) * b
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
 def _resident_supported(ntr: int, d: int) -> bool:
     """Does K6 (``knn_resident_kernel``) score these shapes rather than K7?
     Where the padded (ntr, d) train block is within
     ``RESIDENT_MAX_NTR_D`` elements."""
-    block = _round_up(ntr, KERNEL_TILE) * max(KERNEL_TILE, _round_up(d, KERNEL_TILE))
+    block = round_up(ntr, KERNEL_TILE) * max(KERNEL_TILE, round_up(d, KERNEL_TILE))
     return block <= RESIDENT_MAX_NTR_D
 
 
@@ -92,9 +84,9 @@ def knn_kernel_supported(nt: int, ntr: int, d: int, k: int, nm: int) -> bool:
       Column x leading dimension, mask x row length and mask x nt offsets
       are formed in ``size_t`` and bound nothing.
     """
-    ld_te, ld_tr = _round_up(nt, KERNEL_TILE), _round_up(ntr, KERNEL_TILE)
-    prep_blocks = ((ld_te + ld_tr) // _PREP_TILE * _cdiv(d, _PREP_TILE)
-                   + _cdiv(nm, _PREP_MASKS))
+    ld_te, ld_tr = round_up(nt, KERNEL_TILE), round_up(ntr, KERNEL_TILE)
+    prep_blocks = ((ld_te + ld_tr) // _PREP_TILE * cdiv(d, _PREP_TILE)
+                   + cdiv(nm, _PREP_MASKS))
     return (1 <= k <= MAX_K and k <= ntr and ld_te // KERNEL_TILE <= MAX_TEST_TILES
             and max(ld_te, ld_tr, d + _PREP_TILE - 1, nm, prep_blocks) <= INT_MAX)
 
@@ -153,16 +145,8 @@ _SIGNATURES = {
 _SIGNATURES["vgan_knn_prep"] = [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P]
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    from vgan_tpu_torch.ops.cuda import _build
-
-    lib = _build.load("knn_score")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+def _lib():
+    return _build.bound("knn_score", _SIGNATURES)
 
 
 def kernel_operands(x_test, x_train, masks):
@@ -171,39 +155,38 @@ def kernel_operands(x_test, x_train, masks):
     columns first, ascending, with their counts. On the card one launch
     (``knn_prep_kernel``), whose ``cols`` holds only the selected columns
     of each row (the rest is never read); on the CPU its plain version
-    (:func:`selected_columns`, ``_column_major``)."""
+    (:func:`selected_columns`, ``column_major``)."""
     if not x_test.is_cuda:
-        return (_column_major(x_test, KERNEL_TILE), _column_major(x_train, KERNEL_TILE),
+        return (column_major(x_test, KERNEL_TILE), column_major(x_train, KERNEL_TILE),
                 *selected_columns(masks))
     nt, d = x_test.shape
     ntr, nm = x_train.shape[0], masks.shape[0]
     dev = x_test.device
-    _check("x_test", x_test, (nt, d), dev)
-    _check("x_train", x_train, (ntr, d), dev)
-    _check("masks", masks, (nm, d), dev)
-    ld_te, ld_tr = _round_up(nt, KERNEL_TILE), _round_up(ntr, KERNEL_TILE)
+    check("x_test", x_test, (nt, d), dev)
+    check("x_train", x_train, (ntr, d), dev)
+    check("masks", masks, (nm, d), dev)
+    ld_te, ld_tr = round_up(nt, KERNEL_TILE), round_up(ntr, KERNEL_TILE)
     buf = torch.empty(d * (ld_te + ld_tr) + nm * (d + 1), dtype=torch.float32, device=dev)
     xte_t = buf[:d * ld_te].view(d, ld_te)
     xtr_t = buf[d * ld_te:d * (ld_te + ld_tr)].view(d, ld_tr)
     ints = buf[d * (ld_te + ld_tr):].view(torch.int32)
     cols, counts = ints[:nm * d].view(nm, d), ints[nm * d:]
-    _launch("vgan_knn_prep", dev, _ptr(x_test), nt, ld_te, _ptr(x_train), ntr, ld_tr,
-            _ptr(masks), nm, d, _ptr(xte_t), _ptr(xtr_t), _ptr(cols), _ptr(counts), lib=_lib())
+    launch(_lib(), "vgan_knn_prep", dev, x_test.data_ptr(), nt, ld_te, x_train.data_ptr(), ntr,
+           ld_tr, masks.data_ptr(), nm, d, xte_t.data_ptr(), xtr_t.data_ptr(), cols.data_ptr(),
+           counts.data_ptr())
     return xte_t, xtr_t, cols, counts
 
 
-def _launch_scores(fn_name, x_test, x_train, masks, k, mode, exclude_self,
-                   lib=None) -> torch.Tensor:
-    """Launch ``fn_name`` of ``lib`` (default: this module's library) on the
-    operands of :func:`kernel_operands`."""
+def _launch_scores(entry, x_test, x_train, masks, k, mode, exclude_self) -> torch.Tensor:
+    """Launch ``entry`` on the operands of :func:`kernel_operands`."""
     nt, d = x_test.shape
     ntr, nm = x_train.shape[0], masks.shape[0]
     dev = x_test.device
     xte_t, xtr_t, cols, counts = kernel_operands(x_test, x_train, masks)
     out = torch.empty((nm, nt), dtype=torch.float32, device=dev)
-    _launch(fn_name, dev, _ptr(xte_t), xte_t.shape[1], _ptr(xtr_t), xtr_t.shape[1], _ptr(cols),
-            _ptr(counts), nm, nt, ntr, d, int(k), int(mode == "mean"), int(bool(exclude_self)),
-            _ptr(out), lib=lib if lib is not None else _lib())
+    launch(_lib(), entry, dev, xte_t.data_ptr(), xte_t.shape[1], xtr_t.data_ptr(),
+           xtr_t.shape[1], cols.data_ptr(), counts.data_ptr(), nm, nt, ntr, d, int(k),
+           int(mode == "mean"), int(bool(exclude_self)), out.data_ptr())
     return out
 
 
@@ -212,7 +195,7 @@ def knn_scores_resident(x_test, x_train, masks, k: int, mode: str = "kth",
     """K6: one mask x 128 test rows per block, the selection filtered in
     registers (small train blocks, :func:`_resident_supported`)."""
     out = _launch_scores("vgan_knn_resident", x_test, x_train, masks, k, mode, exclude_self)
-    knn_scores_resident.launches += 1
+    _build.count("knn_scores_resident")
     return out
 
 
@@ -221,35 +204,27 @@ def knn_scores_stream(x_test, x_train, masks, k: int, mode: str = "kth",
     """K7: one mask x 128 test rows per block, wide chunks across the train
     tiles, the selection in registers (past :func:`_resident_supported`)."""
     out = _launch_scores("vgan_knn_stream", x_test, x_train, masks, k, mode, exclude_self)
-    knn_scores_stream.launches += 1
+    _build.count("knn_scores_stream")
     return out
 
 
-KERNELS = (knn_scores_resident, knn_scores_stream)
-_generic_shards = 0
+_COUNTED = ("knn_scores_resident", "knn_scores_stream", "knn_generic")
 
 
-def _count_generic() -> None:
+def count_generic() -> None:
     """Counts one mask shard of a ``knn`` / ``knn_mean`` ensemble scored on
     the generic route (``ensemble/od.py``), where no kernel runs."""
-    global _generic_shards
-    _generic_shards += 1
+    _build.count("knn_generic")
 
 
 def reset_launch_counts() -> None:
-    global _generic_shards
-    for fn in KERNELS:
-        fn.launches = 0
-    _generic_shards = 0
+    _build.reset(_COUNTED)
 
 
 def launch_counts() -> dict:
     """K6's and K7's launches and the generic route's mask shards
     (``knn_generic``)."""
-    return {**{fn.__name__: fn.launches for fn in KERNELS}, "knn_generic": _generic_shards}
-
-
-reset_launch_counts()
+    return _build.counts(_COUNTED)
 
 
 def knn_scores_all_masks(x_test: torch.Tensor, x_train: torch.Tensor, masks, k: int,

@@ -62,6 +62,8 @@ import torch
 
 from vgan_tpu_torch._dtypes import low_precision
 from vgan_tpu_torch.ops import mmd as _mmd
+from vgan_tpu_torch.ops.cuda import _build
+from vgan_tpu_torch.ops.cuda._build import cdiv, check, launch, round_up
 from vgan_tpu_torch.utils.profiling import span
 
 # The JAX package's tiling constants, kept because they decide the regime
@@ -97,21 +99,13 @@ CLUSTER_MAX = 8
 FLASH_GROUP_CHUNKS = 16
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _round_up(a: int, b: int) -> int:
-    return _cdiv(a, b) * b
-
-
 def _pad_layout(m: int, d: int) -> Tuple[int, int, int]:
     """Padded (M, D, tile_d) of the JAX package's kernels."""
-    M = _round_up(m, TILE_M)
+    M = round_up(m, TILE_M)
     if d <= TILE_D:
-        D = max(128, _round_up(d, 128))
+        D = max(128, round_up(d, 128))
         return M, D, D
-    D = _round_up(d, TILE_D)
+    D = round_up(d, TILE_D)
     return M, D, TILE_D
 
 
@@ -289,41 +283,8 @@ _SIGNATURES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    from vgan_tpu_torch.ops.cuda import _build
-
-    lib = _build.load("mmd_gram")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.float32) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.device != device:
-        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
-
-
-def _ptr(t: torch.Tensor) -> int:
-    return t.data_ptr()
-
-
-def _column_major(x: torch.Tensor, rows_multiple: int) -> torch.Tensor:
-    """(d, N) float32 copy of the (n, d) rows ``x``, column-major, zero-padded
-    to N = n rounded up to ``rows_multiple``: the operand layout of
-    ``csrc/dist_tile.cuh``, where a column is one contiguous run of rows."""
-    n, d = x.shape
-    out = torch.zeros((d, _round_up(n, rows_multiple)), dtype=torch.float32, device=x.device)
-    out[:, :n] = x.T
-    return out
+def _lib():
+    return _build.bound("mmd_gram", _SIGNATURES)
 
 
 def _transposed(x: torch.Tensor, ld: int) -> torch.Tensor:
@@ -334,9 +295,9 @@ def _transposed(x: torch.Tensor, ld: int) -> torch.Tensor:
         out = torch.zeros((d, ld), dtype=torch.float32)
         out[:, :n] = x.T
         return out
-    _check("x", x, (n, d), x.device)
+    check("x", x, (n, d), x.device)
     out = torch.empty((d, ld), dtype=torch.float32, device=x.device)
-    _launch("vgan_transpose_pad", x.device, _ptr(x), n, d, ld, _ptr(out))
+    launch(_lib(), "vgan_transpose_pad", x.device, x.data_ptr(), n, d, ld, out.data_ptr())
     return out
 
 
@@ -345,14 +306,14 @@ def _rounded_rows(x: torch.Tensor) -> torch.Tensor:
     bf16, ld = d rounded up to 8 (a 16-byte row, as TMA wants), columns d ..
     ld zero: ``round_rows_kernel`` on the card, torch on the CPU."""
     n, d = x.shape
-    ld = _round_up(d, 8)
+    ld = round_up(d, 8)
     if not x.is_cuda:
         out = torch.zeros((n, ld), dtype=torch.bfloat16)
         out[:, :d] = x
         return out
-    _check("x", x, (n, d), x.device)
+    check("x", x, (n, d), x.device)
     out = torch.empty((n, ld), dtype=torch.bfloat16, device=x.device)
-    _launch("vgan_round_rows_bf16", x.device, _ptr(x), n, d, ld, _ptr(out))
+    launch(_lib(), "vgan_round_rows_bf16", x.device, x.data_ptr(), n, d, ld, out.data_ptr())
     return out
 
 
@@ -365,36 +326,25 @@ def panel_operand(x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     as zeros)."""
     if bf16:
         return _rounded_rows(x)
-    return _transposed(x, _round_up(x.shape[0], STASH_TILE) + STASH_TILE)
+    return _transposed(x, round_up(x.shape[0], STASH_TILE) + STASH_TILE)
 
 
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch(fn_name: str, device, *args, lib=None) -> None:
-    """Call ``fn_name`` of ``lib`` (default: this module's library) on the
-    current stream of ``device``; raise on a launch error."""
-    lib = lib if lib is not None else _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")
-
-
 def _check_gram_inputs(z, norms, bw):
     m, d = z.shape
-    _check("z", z, (m, d), z.device)
-    _check("norms", norms, (m,), z.device)
-    _check("bw", bw.reshape(1), (1,), z.device)
+    check("z", z, (m, d), z.device)
+    check("norms", norms, (m,), z.device)
+    check("bw", bw.reshape(1), (1,), z.device)
     return m, d
 
 
 def tile_pairs(m: int) -> int:
     """Tile pairs J <= I of the symmetric (m, m) square in 128 x 128 tiles:
     the tiles K1 and K2 form."""
-    tiles = _cdiv(m, STASH_TILE)
+    tiles = cdiv(m, STASH_TILE)
     return tiles * (tiles + 1) // 2
 
 
@@ -407,10 +357,10 @@ def tile_schedule(blocks: int, d: int, sms: int) -> Tuple[str, int, int]:
     half a wave): each block runs its epilogue on its own accumulators.
     Mode 'b': the partial dot tiles, at most one wave of them, go to
     scratch and a second pass adds them in slice order."""
-    chunks = _cdiv(d, STASH_BK)
+    chunks = cdiv(d, STASH_BK)
     want = max(1, min(STASH_BLOCKS_PER_SM * sms // blocks, chunks))
-    slice_ = _cdiv(chunks, want) * STASH_BK
-    count = _cdiv(d, slice_)
+    slice_ = cdiv(chunks, want) * STASH_BK
+    count = cdiv(d, slice_)
     return ("a" if count == 1 else "b"), slice_, count
 
 
@@ -427,7 +377,7 @@ def cluster_schedule(blocks: int, d: int, sms: int) -> Tuple[int, int]:
     ``sms``; at most ``CLUSTER_MAX`` and at most n. Past a wave of tile
     pairs a cluster is one CTA over all of d. ``clusters``: the clusters of
     one wave."""
-    slices = max(1, min(CLUSTER_MAX, sms // blocks, _cdiv(d, BF16_CHUNK)))
+    slices = max(1, min(CLUSTER_MAX, sms // blocks, cdiv(d, BF16_CHUNK)))
     return slices, sms // slices
 
 
@@ -435,7 +385,7 @@ def bf16_forward_scratch_floats(m: int, d: int, slices: int) -> int:
     """K1 bf16's and K2 bf16's scratch: z rounded to bf16, row-major (m x d
     rounded up to 8, two values a float), and three sums a CTA. No partial
     dot tile: a cluster adds its slices' tiles in shared memory."""
-    return m * _round_up(d, 8) // 2 + 3 * tile_pairs(m) * slices
+    return m * round_up(d, 8) // 2 + 3 * tile_pairs(m) * slices
 
 
 def _zt_floats(d: int, M: int) -> int:
@@ -448,8 +398,8 @@ def stash_scratch_floats(m: int, d: int, slice_: int) -> int:
     partial dot tile of every (tile pair, slice), and three sums per quarter
     of a tile pair."""
     pairs = tile_pairs(m)
-    return (_zt_floats(d, _round_up(m, STASH_TILE))
-            + _cdiv(d, slice_) * pairs * STASH_TILE ** 2 + 12 * pairs)
+    return (_zt_floats(d, round_up(m, STASH_TILE))
+            + cdiv(d, slice_) * pairs * STASH_TILE ** 2 + 12 * pairs)
 
 
 def quadrant_sums_scratch_floats(m: int, d: int, slice_: int) -> int:
@@ -457,8 +407,8 @@ def quadrant_sums_scratch_floats(m: int, d: int, slice_: int) -> int:
     three sums per tile pair; in mode (b) the partial dot tile of every
     (tile pair, slice), at most one wave of them, and three sums per
     sixteenth of a tile pair (its epilogue's blocks). Never m^2."""
-    pairs, count = tile_pairs(m), _cdiv(d, slice_)
-    zt = _zt_floats(d, _round_up(m, STASH_TILE))
+    pairs, count = tile_pairs(m), cdiv(d, slice_)
+    zt = _zt_floats(d, round_up(m, STASH_TILE))
     if count == 1:
         return zt + 3 * pairs
     return zt + count * pairs * STASH_TILE ** 2 + 48 * pairs
@@ -478,11 +428,10 @@ def _quadrant_sums_launch(bf16: bool, stash: bool, z, norms, bw, n1: int, mults)
     scratch = torch.empty(size, dtype=torch.float32, device=z.device)
     sums = torch.empty(4, dtype=torch.float32, device=z.device)
     kp = torch.empty((m, m), dtype=torch.float32, device=z.device) if stash else None
-    _launch("vgan_gram_quadrant_sums" + ("_stash" if stash else "") + ("_bf16" if bf16 else ""),
-            z.device,
-            _ptr(z), _ptr(norms), _ptr(bw.reshape(1)), m, d, n1,
-            ctypes.byref(_ladder(tuple(mults))), split, _ptr(scratch), _ptr(sums),
-            *([_ptr(kp)] if stash else []))
+    entry = "vgan_gram_quadrant_sums" + ("_stash" if stash else "") + ("_bf16" if bf16 else "")
+    launch(_lib(), entry, z.device, z.data_ptr(), norms.data_ptr(), bw.reshape(1).data_ptr(),
+           m, d, n1, ctypes.byref(_ladder(tuple(mults))), split, scratch.data_ptr(),
+           sums.data_ptr(), *([kp.data_ptr()] if stash else []))
     return sums.reshape(1, 4), kp
 
 
@@ -491,7 +440,7 @@ def gram_quadrant_sums(z, norms, bw, n1: int, mults) -> torch.Tensor:
     if not z.is_cuda:
         return gram_quadrant_sums_reference(z, norms, bw, n1, mults)
     sums, _ = _quadrant_sums_launch(False, False, z, norms, bw, n1, mults)
-    gram_quadrant_sums.launches += 1
+    _build.count("gram_quadrant_sums")
     return sums
 
 
@@ -500,7 +449,7 @@ def gram_quadrant_sums_bf16(z, norms, bw, n1: int, mults) -> torch.Tensor:
     if not z.is_cuda:
         return gram_quadrant_sums_reference(rounded(z), norms, bw, n1, mults)
     sums, _ = _quadrant_sums_launch(True, False, z, norms, bw, n1, mults)
-    gram_quadrant_sums_bf16.launches += 1
+    _build.count("gram_quadrant_sums_bf16")
     return sums
 
 
@@ -510,7 +459,7 @@ def gram_quadrant_sums_stash(z, norms, bw, n1: int, mults):
     if not z.is_cuda:
         return gram_quadrant_sums_stash_reference(z, norms, bw, n1, mults)
     out = _quadrant_sums_launch(False, True, z, norms, bw, n1, mults)
-    gram_quadrant_sums_stash.launches += 1
+    _build.count("gram_quadrant_sums_stash")
     return out
 
 
@@ -519,7 +468,7 @@ def gram_quadrant_sums_stash_bf16(z, norms, bw, n1: int, mults):
     if not z.is_cuda:
         return gram_quadrant_sums_stash_reference(rounded(z), norms, bw, n1, mults)
     out = _quadrant_sums_launch(True, True, z, norms, bw, n1, mults)
-    gram_quadrant_sums_stash_bf16.launches += 1
+    _build.count("gram_quadrant_sums_stash_bf16")
     return out
 
 
@@ -536,17 +485,17 @@ def flash_schedule(m: int, d: int, sms: int) -> Tuple[str, int, int]:
     ``STASH_BLOCKS_PER_SM * sms`` blocks (a block's time taken as its run
     length), the longer run on a tie, with the partials of runs 1 ..
     nsplit - 1 within ``FLASH_SPLIT_BYTES``."""
-    tiles = _cdiv(m, STASH_TILE)
+    tiles = cdiv(m, STASH_TILE)
     mode, slice_, _ = tile_schedule(tile_pairs(m), d, sms)
     per_split = tiles * (flash_chunks(d) if mode == "b" else 1)  # blocks of one split
     wave = STASH_BLOCKS_PER_SM * sms
     slot = 4 * tiles * STASH_TILE * flash_chunks(d) * STASH_TILE
     best = None
     for per in range(tiles, 0, -1):
-        nsplit = _cdiv(tiles, per)
+        nsplit = cdiv(tiles, per)
         if nsplit > 1 and (nsplit - 1) * slot > FLASH_SPLIT_BYTES:
             break
-        cost = per * _cdiv(nsplit * per_split, wave)
+        cost = per * cdiv(nsplit * per_split, wave)
         if best is None or cost < best[0]:
             best = (cost, nsplit)
     return mode, slice_, best[1]
@@ -555,7 +504,7 @@ def flash_schedule(m: int, d: int, sms: int) -> Tuple[str, int, int]:
 def flash_chunks(d: int) -> int:
     """128-column chunks of ``[z | 1]`` (d + 1 columns, the ones column
     giving rowsum(S)), zero-padded."""
-    return _cdiv(d + 1, STASH_TILE)
+    return cdiv(d + 1, STASH_TILE)
 
 
 def flash_scratch_floats(m: int, d: int, slice_: int, nsplit: int) -> int:
@@ -564,9 +513,9 @@ def flash_scratch_floats(m: int, d: int, slice_: int, nsplit: int) -> int:
     slice) and the S tiles of every ordered tile (mode (b) runs only while
     the tile pairs fall short of half a wave: at most about two waves of
     tiles), and the partial sums of splits 1 .. nsplit - 1."""
-    tiles = _cdiv(m, STASH_TILE)
+    tiles = cdiv(m, STASH_TILE)
     M, D1 = tiles * STASH_TILE, flash_chunks(d) * STASH_TILE
-    count = _cdiv(d, slice_)
+    count = cdiv(d, slice_)
     mode_b = (count * tile_pairs(m) + tiles * tiles) * STASH_TILE ** 2 if count > 1 else 0
     return _zt_floats(d, M) + M * D1 + mode_b + (nsplit - 1) * M * D1
 
@@ -576,7 +525,7 @@ def gram_backward_flash(z, norms, bw, n1: int, n2: int, mults):
     if not z.is_cuda:
         return gram_backward_flash_reference(z, norms, bw, n1, n2, mults)
     out = _flash_launch(z, norms, bw, n1, n2, mults)
-    gram_backward_flash.launches += 1
+    _build.count("gram_backward_flash")
     return out
 
 
@@ -586,7 +535,7 @@ def gram_backward_flash_bf16(z, norms, bw, n1: int, n2: int, mults):
     if not z.is_cuda:
         return gram_backward_flash_reference(rounded(z), norms, bw, n1, n2, mults)
     out = _flash_launch_bf16(z, norms, bw, n1, n2, mults)
-    gram_backward_flash_bf16.launches += 1
+    _build.count("gram_backward_flash_bf16")
     return out
 
 
@@ -604,10 +553,10 @@ def _flash_launch(z, norms, bw, n1: int, n2: int, mults):
     scratch = torch.empty(flash_scratch_floats(m, d, slice_, nsplit), dtype=torch.float32,
                           device=z.device)
     cxx, cyy, cxy = _coefficients(n1, n2)
-    _launch("vgan_gram_backward_flash", z.device, _ptr(z), _ptr(norms),
-            _ptr(bw.reshape(1)), m, d, n1, cxx, cyy, cxy,
-            ctypes.byref(_ladder(tuple(mults))), slice_, nsplit, _ptr(scratch), _ptr(sz),
-            _ptr(rs))
+    launch(_lib(), "vgan_gram_backward_flash", z.device, z.data_ptr(), norms.data_ptr(),
+           bw.reshape(1).data_ptr(), m, d, n1, cxx, cyy, cxy,
+           ctypes.byref(_ladder(tuple(mults))), slice_, nsplit, scratch.data_ptr(),
+           sz.data_ptr(), rs.data_ptr())
     return sz, rs
 
 
@@ -624,17 +573,17 @@ def flash_cluster_schedule(m: int, d: int, sms: int) -> Tuple[int, int, int]:
     finishes soonest in waves of ``sms // cluster`` clusters, the longer run
     on a tie, the partials of runs 1 .. nsplit - 1 (m x (d + 1) floats each)
     within ``FLASH_SPLIT_BYTES``."""
-    chunks = _cdiv(d, BF16_CHUNK)
-    groups = _cdiv(chunks, FLASH_GROUP_CHUNKS)
-    cluster = _cdiv(chunks, 2) if groups == 1 else CLUSTER_MAX
-    tiles = _cdiv(m, STASH_TILE)
+    chunks = cdiv(d, BF16_CHUNK)
+    groups = cdiv(chunks, FLASH_GROUP_CHUNKS)
+    cluster = cdiv(chunks, 2) if groups == 1 else CLUSTER_MAX
+    tiles = cdiv(m, STASH_TILE)
     wave = max(1, sms // cluster)
     best = None
     for per in range(tiles, 0, -1):
-        nsplit = _cdiv(tiles, per)
+        nsplit = cdiv(tiles, per)
         if nsplit > 1 and (nsplit - 1) * 4 * m * (d + 1) > FLASH_SPLIT_BYTES:
             break
-        cost = per * _cdiv(nsplit * tiles * groups, wave)
+        cost = per * cdiv(nsplit * tiles * groups, wave)
         if best is None or cost < best[0]:
             best = (cost, nsplit)
     return cluster, groups, best[1]
@@ -645,7 +594,7 @@ def flash_bf16_scratch_floats(m: int, d: int, nsplit: int) -> int:
     8, two values a float), and the partial outputs of splits 1 .. nsplit -
     1 (m x (d + 1) each, rowsum(S) in the last column). No dot tile and no S
     tile: nothing grows with m^2."""
-    return m * _round_up(d, 8) // 2 + (nsplit - 1) * m * (d + 1)
+    return m * round_up(d, 8) // 2 + (nsplit - 1) * m * (d + 1)
 
 
 def _flash_launch_bf16(z, norms, bw, n1: int, n2: int, mults):
@@ -654,10 +603,10 @@ def _flash_launch_bf16(z, norms, bw, n1: int, n2: int, mults):
     scratch = torch.empty(flash_bf16_scratch_floats(m, d, nsplit), dtype=torch.float32,
                           device=z.device)
     cxx, cyy, cxy = _coefficients(n1, n2)
-    _launch("vgan_gram_backward_flash_bf16", z.device, _ptr(z), _ptr(norms),
-            _ptr(bw.reshape(1)), m, d, n1, cxx, cyy, cxy,
-            ctypes.byref(_ladder(tuple(mults))), cluster, nsplit, _ptr(scratch), _ptr(sz),
-            _ptr(rs))
+    launch(_lib(), "vgan_gram_backward_flash_bf16", z.device, z.data_ptr(), norms.data_ptr(),
+           bw.reshape(1).data_ptr(), m, d, n1, cxx, cyy, cxy,
+           ctypes.byref(_ladder(tuple(mults))), cluster, nsplit, scratch.data_ptr(),
+           sz.data_ptr(), rs.data_ptr())
     return sz, rs
 
 
@@ -665,10 +614,10 @@ def panel_blocks(R: int, C: int, offset=None) -> int:
     """The blocks (128 x 128 tiles) of a K4 launch over an (R, C) panel:
     with ``offset``, the tile pairs of its diagonal block and the ordered
     tiles left and right of it; without, every tile ordered."""
-    rows = _cdiv(R, STASH_TILE)
+    rows = cdiv(R, STASH_TILE)
     if offset is None:
-        return rows * _cdiv(C, STASH_TILE)
-    side = _cdiv(offset, STASH_TILE) + _cdiv(C - offset - R, STASH_TILE)
+        return rows * cdiv(C, STASH_TILE)
+    side = cdiv(offset, STASH_TILE) + cdiv(C - offset - R, STASH_TILE)
     return rows * (rows + 1) // 2 + rows * side
 
 
@@ -682,7 +631,7 @@ def panel_bf16_schedule(blocks: int, d: int, sms: int) -> int:
 def panel_scratch_floats(blocks: int, d: int, slice_: int) -> int:
     """K4's scratch: in mode (b) the partial dot tile of every (tile, slice),
     at most one wave of them; none in mode (a)."""
-    count = _cdiv(d, slice_)
+    count = cdiv(d, slice_)
     return count * blocks * STASH_TILE ** 2 if count > 1 else 0
 
 
@@ -699,7 +648,7 @@ def kprime_panel(z_rows, z_cols, n_rows, n_cols, bw, mults, offset=None,
     if not z_rows.is_cuda:
         return kprime_panel_reference(z_rows, z_cols, n_rows, n_cols, bw, mults)
     kp = _panel_launch(z_rows, z_cols, n_rows, n_cols, bw, mults, offset, cols_t)
-    kprime_panel.launches += 1
+    _build.count("kprime_panel")
     return kp
 
 
@@ -711,7 +660,7 @@ def kprime_panel_bf16(z_rows, z_cols, n_rows, n_cols, bw, mults, offset=None,
         return kprime_panel_reference(rounded(z_rows), rounded(z_cols), n_rows, n_cols, bw,
                                       mults)
     kp = _panel_launch_bf16(z_rows, z_cols, n_rows, n_cols, bw, mults, offset, cols_t)
-    kprime_panel_bf16.launches += 1
+    _build.count("kprime_panel_bf16")
     return kp
 
 
@@ -722,11 +671,11 @@ def _check_panel_inputs(z_rows, z_cols, n_rows, n_cols, bw, offset):
     R, d = z_rows.shape
     C = z_cols.shape[0]
     dev = z_rows.device
-    _check("z_rows", z_rows, (R, d), dev)
-    _check("z_cols", z_cols, (C, d), dev)
-    _check("n_rows", n_rows, (R,), dev)
-    _check("n_cols", n_cols, (C,), dev)
-    _check("bw", bw.reshape(1), (1,), dev)
+    check("z_rows", z_rows, (R, d), dev)
+    check("z_cols", z_cols, (C, d), dev)
+    check("n_rows", n_rows, (R,), dev)
+    check("n_cols", n_cols, (C,), dev)
+    check("bw", bw.reshape(1), (1,), dev)
     if offset is not None:
         if not (0 <= offset and offset + R <= C and offset % 4 == 0
                 and (offset + R == C or R % 4 == 0)):
@@ -741,9 +690,9 @@ def _panel_launch(z_rows, z_cols, n_rows, n_cols, bw, mults, offset, cols_t):
     R, C, d, dev = _check_panel_inputs(z_rows, z_cols, n_rows, n_cols, bw, offset)
     if cols_t is None:
         cols_t = panel_operand(z_cols)
-    _check("cols_t", cols_t, (d, _round_up(C, STASH_TILE) + STASH_TILE), dev)
+    check("cols_t", cols_t, (d, round_up(C, STASH_TILE) + STASH_TILE), dev)
     if offset is None:
-        rows_t, row0, diag = _transposed(z_rows, _round_up(R, STASH_TILE)), 0, -1
+        rows_t, row0, diag = _transposed(z_rows, round_up(R, STASH_TILE)), 0, -1
     else:
         rows_t, row0, diag = cols_t, offset, offset
     blocks = panel_blocks(R, C, offset)
@@ -751,9 +700,10 @@ def _panel_launch(z_rows, z_cols, n_rows, n_cols, bw, mults, offset, cols_t):
     scratch = torch.empty(max(1, panel_scratch_floats(blocks, d, slice_)), dtype=torch.float32,
                           device=dev)
     kp = torch.empty((R, C), dtype=torch.float32, device=dev)
-    _launch("vgan_kprime_panel", dev, _ptr(rows_t), rows_t.shape[1],
-            row0, _ptr(cols_t), cols_t.shape[1], _ptr(n_rows), _ptr(n_cols), _ptr(bw.reshape(1)),
-            R, C, d, diag, ctypes.byref(_ladder(tuple(mults))), slice_, _ptr(scratch), _ptr(kp))
+    launch(_lib(), "vgan_kprime_panel", dev, rows_t.data_ptr(), rows_t.shape[1], row0,
+           cols_t.data_ptr(), cols_t.shape[1], n_rows.data_ptr(), n_cols.data_ptr(),
+           bw.reshape(1).data_ptr(), R, C, d, diag, ctypes.byref(_ladder(tuple(mults))), slice_,
+           scratch.data_ptr(), kp.data_ptr())
     return kp
 
 
@@ -761,16 +711,16 @@ def _panel_launch_bf16(z_rows, z_cols, n_rows, n_cols, bw, mults, offset, cols_t
     R, C, d, dev = _check_panel_inputs(z_rows, z_cols, n_rows, n_cols, bw, offset)
     if cols_t is None:
         cols_t = panel_operand(z_cols, bf16=True)
-    _check("cols_t", cols_t, (C, _round_up(d, 8)), dev, torch.bfloat16)
+    check("cols_t", cols_t, (C, round_up(d, 8)), dev, torch.bfloat16)
     if offset is None:
         rows_b, row0, diag = _rounded_rows(z_rows), 0, -1
     else:
         rows_b, row0, diag = cols_t, offset, offset
     slices = panel_bf16_schedule(panel_blocks(R, C, offset), d, _sms(dev))
     kp = torch.empty((R, C), dtype=torch.float32, device=dev)
-    _launch("vgan_kprime_panel_bf16", dev, _ptr(rows_b), row0, _ptr(cols_t), cols_t.shape[1],
-            _ptr(n_rows), _ptr(n_cols), _ptr(bw.reshape(1)), R, C, d, diag,
-            ctypes.byref(_ladder(tuple(mults))), slices, _ptr(kp))
+    launch(_lib(), "vgan_kprime_panel_bf16", dev, rows_b.data_ptr(), row0, cols_t.data_ptr(),
+           cols_t.shape[1], n_rows.data_ptr(), n_cols.data_ptr(), bw.reshape(1).data_ptr(), R, C,
+           d, diag, ctypes.byref(_ladder(tuple(mults))), slices, kp.data_ptr())
     return kp
 
 
@@ -779,16 +729,15 @@ BF16_KERNELS = (gram_quadrant_sums_bf16, gram_quadrant_sums_stash_bf16, gram_bac
                 kprime_panel_bf16)
 
 
+_COUNTED = tuple(fn.__name__ for fn in KERNELS + BF16_KERNELS)
+
+
 def reset_launch_counts() -> None:
-    for fn in KERNELS + BF16_KERNELS:
-        fn.launches = 0
+    _build.reset(_COUNTED)
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS + BF16_KERNELS}
-
-
-reset_launch_counts()
+    return _build.counts(_COUNTED)
 
 
 # ---------------------------------------------------------------------------
